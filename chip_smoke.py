@@ -1,0 +1,584 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failed check exits non-zero; no phase is skipped):
+
+1. build   — compile every CUDA kernel of the serving path from
+             ``src/repro_torch/kernels/csrc`` with nvcc.
+2. kernels — each kernel against its plain PyTorch version on the card, at
+             the serving path's LLaMA-3.1-8B shapes in bfloat16 (plus a
+             float32 case each); median time with CUDA events, the bound
+             from the card's data-sheet rates, the plain version's time and
+             one library call's time.
+3. serve   — ``Engine.from_config`` at full LLaMA-3.1-8B width (32 layers,
+             random weights from a seed, bfloat16) under the paper's
+             policy with the kernels on: 8 staggered requests, 32 new tokens
+             each; every kernel must have launched, ``nm_prune_matmul``
+             exactly 86 times per sparse prefill chunk.  Then one prefill
+             chunk and one decode step under ``torch.profiler``: device time
+             by kernel family and the device's idle share of the step.
+4. parity  — full width, depth 2, float32: the same requests through the
+             kernel path and the plain path must emit the same greedy
+             tokens, and the last-chunk logits must agree.
+
+The last lines are the per-kernel JSON record, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.  Exits non-zero without a
+CUDA device, and when run outside the repository (it needs ``src/``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+SEED = 0
+# data-sheet rates (dense): bytes/s, bf16 FLOP/s, fp32 (non-tensor) FLOP/s
+RATES = {
+    "PCIe": (2.0e12, 756e12, 51e12),
+    "NVL": (3.9e12, 835e12, 60e12),
+    "SXM": (3.35e12, 989e12, 67e12),
+}
+
+
+def card_rates(name: str):
+    for key in ("PCIe", "NVL"):
+        if key in name:
+            return RATES[key]
+    return RATES["SXM"]
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+class Timer:
+    """Median device time over ``reps`` launches with CUDA events.  The L2
+    is flushed before each launch (the serving path meets its weights and
+    KV cold), and a GPU sleep is queued ahead of the start event so the
+    host's launch overhead overlaps it instead of being timed as idle
+    device time."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
+
+    def ms(self, fn, reps: int = 10) -> float:
+        torch = self.torch
+        fn()
+        fn()
+        times = []
+        for _ in range(reps):
+            self.flush.zero_()
+            torch.cuda._sleep(2_000_000)       # ~1 ms of device clock cycles
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        return statistics.median(times)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def check_close(name, got, want, tol_rel: float):
+    """max|got - want| <= tol_rel * max|want|; both must be finite."""
+    got, want = got.float(), want.float()
+    if not bool(got.isfinite().all()):
+        fail(f"{name}: kernel output is not finite")
+    err = float((got - want).abs().max())
+    lim = tol_rel * float(want.abs().max())
+    print(f"  {name}: max_abs_err={err:.3e} (limit {lim:.3e})")
+    if not err <= lim:
+        fail(f"{name}: max_abs_err {err} > {lim}")
+    return err
+
+
+# bfloat16 outputs: kernel and plain version both round a float32 sum to
+# bf16, and their sums differ only in order (~1e-6 relative), so they differ
+# by at most one bf16 ulp of an element: 2**-7 of the largest magnitude.
+BF16_TOL = 2.0**-7
+# float32 outputs: summation order alone (K up to 14336 terms).
+F32_TOL = 1e-4
+
+
+def phase_kernels(torch, timer, rates):
+    from repro_torch.core import nm, scoring
+    from repro_torch.kernels import nm_prune_matmul as knm
+    from repro_torch.kernels import paged_attention as kpa
+
+    bw, bf16_peak, f32_peak = rates
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    dev = "cuda"
+    records = {}
+
+    # ---------------------------------------------------- nm_prune_matmul
+    print("phase 2a: nm_prune_matmul (LLaMA-3.1-8B q/gate/down, N:M 8:16)")
+    errs = []
+    n, m = 8, 16
+    for proj, d, n_out in (("q", 4096, 4096), ("gate", 4096, 14336), ("down", 14336, 4096)):
+        w = (torch.randn(d, n_out, generator=g, device=dev) * d**-0.5).bfloat16()
+        scale = torch.rand(d, generator=g, device=dev) + 0.5
+        bias = (torch.randn(n_out, generator=g, device=dev) * 0.1).bfloat16()
+        for t in (256, 137):
+            x = torch.randn(t, d, generator=g, device=dev).bfloat16()
+            for b in (None, bias):
+                got = knm.nm_prune_matmul(x, w, scale, n, m, bias=b)
+                want = knm.nm_prune_matmul_plain(x, w, scale, n, m, bias=b)
+                errs.append(check_close(f"{proj} T={t} bias={b is not None}", got, want,
+                                        BF16_TOL))
+            if t == 256:
+                xp = nm.apply_nm(x, scoring.score_activations(x, scale), n, m)
+                ms = timer.ms(lambda: knm.nm_prune_matmul(x, w, scale, n, m))
+                plain_ms = timer.ms(lambda: knm.nm_prune_matmul_plain(x, w, scale, n, m), 5)
+                lib_ms = timer.ms(lambda: torch.matmul(xp, w))
+                nbytes = (x.numel() + w.numel() + t * n_out) * 2 + d * 4
+                ops = 2 * int((xp != 0).sum()) * n_out
+                bound = max(nbytes / bw, ops / bf16_peak) * 1e3
+                print(f"  {proj} T=256: kernel {ms:.4f} ms, bound {bound:.4f} ms "
+                      f"({'bytes' if nbytes / bw >= ops / bf16_peak else 'operations'}), "
+                      f"plain {plain_ms:.4f} ms, torch.matmul(x_pruned) {lib_ms:.4f} ms")
+                if proj == "gate":
+                    records["nm_prune_matmul"] = dict(
+                        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                        bound_by="bytes" if nbytes / bw >= ops / bf16_peak else "operations")
+    xf = torch.randn(137, 4096, generator=g, device=dev)
+    wf = torch.randn(4096, 4096, generator=g, device=dev) * 4096**-0.5
+    sf = torch.rand(4096, generator=g, device=dev) + 0.5
+    bf = torch.randn(4096, generator=g, device=dev)
+    errs.append(check_close("float32 q T=137 bias", knm.nm_prune_matmul(xf, wf, sf, n, m, bf),
+                            knm.nm_prune_matmul_plain(xf, wf, sf, n, m, bf), F32_TOL))
+    records["nm_prune_matmul"]["max_abs_err"] = max(errs)
+
+    # --------------------------------------------------- paged pools
+    hkv, hd, hq, bs, mb = 8, 128, 32, 16, 46
+    nb = 4 * mb
+    rows = nb + 1                     # + the trailing sentinel row
+
+    def pools(dtype):
+        kp = torch.randn(rows, bs, hkv, hd, generator=g, device=dev).to(dtype)
+        vp = torch.randn(rows, bs, hkv, hd, generator=g, device=dev).to(dtype)
+        return kp, vp
+
+    perm = torch.randperm(nb, generator=g, device=dev).to(torch.int32)
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    # ------------------------------------------------------- scatter
+    print("phase 2b: paged_kv_scatter (bit-exact)")
+    kp, vp = pools(torch.bfloat16)
+    tab1 = perm[:mb].reshape(1, mb).contiguous()
+    kn = torch.randn(1, 256, hkv, hd, generator=g, device=dev).bfloat16()
+    vn = torch.randn(1, 256, hkv, hd, generator=g, device=dev).bfloat16()
+    pos1, cl1 = torch.tensor([37], **i32), torch.tensor([200], **i32)
+    tab4 = perm.reshape(4, mb).clone()
+    tab4[1] = -1                      # an empty slot: every write dropped
+    posd = torch.tensor([700, 513, 64, 31], **i32)
+    tab4[2, 64 // bs] = -1            # this slot's current block unallocated
+    kd = torch.randn(4, 1, hkv, hd, generator=g, device=dev).bfloat16()
+    vd = torch.randn(4, 1, hkv, hd, generator=g, device=dev).bfloat16()
+    ones = torch.ones(4, **i32)
+    for case, args in (("prefill chunk pos=37 len=200", (kn, vn, tab1, pos1, cl1)),
+                       ("decode B=4 with -1 rows", (kd, vd, tab4, posd, ones))):
+        k_a, v_a, k_b, v_b = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+        kpa.paged_kv_scatter(args[0], args[1], k_a, v_a, *args[2:])
+        kpa.paged_kv_scatter_plain(args[0], args[1], k_b, v_b, *args[2:])
+        torch.cuda.synchronize()
+        same = torch.equal(k_a, k_b) and torch.equal(v_a, v_b)
+        print(f"  {case}: bit-exact={same}")
+        if not same:
+            fail(f"paged_kv_scatter {case}: kernel and plain version differ")
+    # timing: the prefill chunk's 200 kept rows
+    kflat, vflat = kp.view(rows * bs, hkv, hd), vp.view(rows * bs, hkv, hd)
+    wpos = 37 + torch.arange(200, device=dev)
+    dst = tab1[0].long()[wpos // bs] * bs + wpos % bs
+    ksrc, vsrc = kn[0, :200], vn[0, :200]
+    ms = timer.ms(lambda: kpa.paged_kv_scatter(kn, vn, kp, vp, tab1, pos1, cl1))
+    plain_ms = timer.ms(lambda: kpa.paged_kv_scatter_plain(kn, vn, kp, vp, tab1, pos1, cl1))
+
+    def index_put():
+        kflat.index_put_((dst,), ksrc)
+        vflat.index_put_((dst,), vsrc)
+
+    lib_ms = timer.ms(index_put)
+    nbytes = 2 * 200 * hkv * hd * 2 * 2 + (mb + 2) * 4
+    bound = nbytes / bw * 1e3
+    print(f"  prefill chunk: kernel {ms:.4f} ms, bound {bound:.4f} ms (bytes), plain "
+          f"{plain_ms:.4f} ms, index_put_ K+V {lib_ms:.4f} ms")
+    records["paged_kv_scatter"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                       bound_ms=bound, bound_by="bytes", max_abs_err=0.0)
+
+    # ----------------------------------------------------- attention
+    print("phase 2c: paged_attention")
+    errs = []
+    kp, vp = pools(torch.bfloat16)
+
+    def poisoned(tab, kvl):
+        """Pools where every row no table row may read is NaN: blocks no
+        row owns, and rows at or past each row's kv_len."""
+        kpn, vpn = kp.clone(), vp.clone()
+        live = torch.zeros(rows, bs, dtype=torch.bool)
+        tab_h, kvl_h = tab.cpu(), kvl.cpu()
+        for r in range(tab_h.shape[0]):
+            for i in range(int(kvl_h[r])):
+                pb = int(tab_h[r, i // bs])
+                if pb >= 0:
+                    live[pb, i % bs] = True
+        live = live.to(dev)
+        kpn[~live], vpn[~live] = float("nan"), float("nan")
+        return kpn, vpn
+
+    q1 = torch.randn(1, 256, hq, hd, generator=g, device=dev).bfloat16()
+    qoff1, kvl1 = torch.tensor([300], **i32), torch.tensor([500], **i32)
+    kp1, vp1 = poisoned(tab1, kvl1)
+    got = kpa.paged_attention(q1, kp1, vp1, tab1, qoff1, kvl1, causal=True)
+    want = kpa.paged_attention_plain(q1, kp1, vp1, tab1, qoff1, kvl1, causal=True)
+    errs.append(check_close("prefill chunk q_offset=300 kv_len=500 NaN-poisoned", got, want,
+                            BF16_TOL))
+    # decode: some rows own few blocks, the rest of each table row is -1
+    posv = torch.tensor([700, 513, 64, 0], **i32)
+    kvld = posv + 1
+    tabd = torch.full((4, mb), -1, **i32)
+    for r in range(4):
+        need = int(kvld[r] + bs - 1) // bs
+        tabd[r, :need] = perm[r * mb:r * mb + need]
+    kpn, vpn = poisoned(tabd, kvld)
+    qd = torch.randn(4, 1, hq, hd, generator=g, device=dev).bfloat16()
+    got = kpa.paged_attention(qd, kpn, vpn, tabd, posv, kvld, causal=False)
+    want = kpa.paged_attention_plain(qd, kpn, vpn, tabd, posv, kvld, causal=False)
+    errs.append(check_close("decode B=4 NaN-poisoned", got, want, BF16_TOL))
+    q32 = qd.float()
+    errs.append(check_close(
+        "float32 decode NaN-poisoned",
+        kpa.paged_attention(q32, kpn.float(), vpn.float(), tabd, posv, kvld, causal=False),
+        kpa.paged_attention_plain(q32, kpn.float(), vpn.float(), tabd, posv, kvld,
+                                  causal=False), F32_TOL))
+    # timing at both serving shapes; the record keeps the prefill chunk
+    for case, q, tab, qo, kvl, causal in (
+            ("prefill chunk", q1, tab1, qoff1, kvl1, True),
+            ("decode B=4", qd, tabd, posv, kvld, False)):
+        b, tq = q.shape[:2]
+        ms = timer.ms(lambda: kpa.paged_attention(q, kp, vp, tab, qo, kvl, causal=causal))
+        plain_ms = timer.ms(
+            lambda: kpa.paged_attention_plain(q, kp, vp, tab, qo, kvl, causal=causal), 5)
+        s_len = mb * bs
+        kpos = torch.arange(s_len, device=dev)
+        qpos = qo.long()[:, None] + torch.arange(tq, device=dev)[None, :]
+        mask = kpos[None, None, :] < kvl.long()[:, None, None]
+        if causal:
+            mask = mask & (kpos[None, None, :] <= qpos[:, :, None])
+        kg = kp[tab.long().clamp(0, rows - 1)].reshape(b, s_len, hkv, hd)
+        vg = vp[tab.long().clamp(0, rows - 1)].reshape(b, s_len, hkv, hd)
+        # KV heads repeated to the query heads outside the timed call
+        qt = q.transpose(1, 2)
+        kt = kg.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+        vt = vg.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+        am = mask[:, None]
+        lib_ms = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=am))
+        pairs = int(mask.sum()) * hq
+        nbytes = (2 * q.numel() + 2 * int(kvl.sum()) * hkv * hd) * 2
+        ops = 4 * hd * pairs
+        bound = max(nbytes / bw, ops / bf16_peak) * 1e3
+        by = "bytes" if nbytes / bw >= ops / bf16_peak else "operations"
+        print(f"  {case}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), plain "
+              f"{plain_ms:.4f} ms, SDPA on the gathered view {lib_ms:.4f} ms")
+        if case == "prefill chunk":
+            records["paged_attention"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                              bound_ms=bound, bound_by=by)
+    records["paged_attention"]["max_abs_err"] = max(errs)
+    return records
+
+
+def make_requests(rng, n, lo, hi, vocab):
+    lens = rng.integers(lo, hi + 1, size=n)
+    return [rng.integers(0, vocab, size=int(l)).astype(np.int32) for l in lens]
+
+
+def phase_serve(torch):
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.core.pruner import precompute_scales
+    from repro_torch.models import build_model
+    from repro_torch.serve import ContinuousConfig, Engine, EngineConfig
+
+    cfg = get_config("llama31_8b")
+    print(f"phase 3: serve {cfg.name} at full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype})")
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    policy = paper_policy(8, 16, cfg.qgate_skip_layers).with_(use_kernels=True)
+    precompute_scales(params, policy)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n_w = sum(p.numel() for p in params.parameters())
+    print(f"  random weights: {n_w / 1e9:.3f}B parameters in {t1 - t0:.1f} s; "
+          f"Amber scales in {t2 - t1:.1f} s")
+    per_chunk = sum(policy.should_prune(mod, i) for i in range(cfg.n_layers)
+                    for mod in ("q_proj", "gate_proj", "down_proj"))
+    if per_chunk != 86:
+        fail(f"paper policy prunes {per_chunk} projections per chunk, expected 86")
+
+    rng = np.random.default_rng(SEED)
+    prompts = make_requests(rng, 8, 64, 700, cfg.vocab_size)
+    arrivals = [0, 0, 1, 2, 4, 6, 9, 12]
+    new = 32
+    bsz = 16
+    max_seq = -(-(max(len(p) for p in prompts) + new) // bsz) * bsz
+    scfg = ContinuousConfig(num_slots=4, chunk_size=256, block_size=bsz, max_seq=max_seq)
+    eng = Engine.from_config(model, EngineConfig(serving=scfg), policy=policy)
+    # warm-up request (library handles, allocator), then the measured stream
+    eng.submit(rng.integers(0, cfg.vocab_size, size=40), max_new_tokens=4)
+    eng.run(params)
+    eng.clear()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rids = [eng.submit(p, max_new_tokens=new, arrival=a) for p, a in zip(prompts, arrivals)]
+    res = eng.run(params)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    met = res["metrics"]
+    states = {r["rid"]: r["state"] for r in met["requests"]}
+    for rid in rids:
+        out = res["outputs"][rid]
+        if states[rid] != "done" or len(out) != new:
+            fail(f"request {rid}: state {states[rid]}, {len(out)} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in out):
+            fail(f"request {rid}: token outside the vocabulary")
+    bk = met["buckets"]
+
+    def agg(names, key):
+        return sum(bk[n][key] for n in names if n in bk)
+
+    sparse_chunks = agg(("step_prefill", "step_prefill_decode"), "calls")
+    prefill_halves = agg(("step_prefill", "step_prefill_decode", "step_replay",
+                          "step_replay_decode"), "calls")
+    decode_halves = agg(("step_decode", "step_prefill_decode", "step_replay_decode"), "calls")
+    print(f"  prompts {[len(p) for p in prompts]}, arrivals {arrivals}, {new} new tokens each")
+    print(f"  buckets {json.dumps(bk)}")
+    print(f"  launches {launches}; sparse prefill chunks {sparse_chunks}, "
+          f"prefill halves {prefill_halves}, decode halves {decode_halves}")
+    for name, cnt in launches.items():
+        if cnt <= 0:
+            fail(f"kernel {name} was never launched on the serving path")
+    if launches["nm_prune_matmul"] != per_chunk * sparse_chunks:
+        fail(f"nm_prune_matmul launched {launches['nm_prune_matmul']} times, expected "
+             f"{per_chunk} x {sparse_chunks}")
+    per_step = cfg.n_layers * (prefill_halves + decode_halves)
+    for name in ("paged_kv_scatter", "paged_attention"):
+        if launches[name] != per_step:
+            fail(f"{name} launched {launches[name]} times, expected {per_step}")
+    pf_tok = agg(("step_prefill", "step_prefill_decode"), "prefill_tokens")
+    pf_s = agg(("step_prefill", "step_prefill_decode"), "seconds")
+    dec_tok = agg(("step_decode",), "decode_tokens")
+    dec_s = agg(("step_decode",), "seconds")
+    print(f"  wall {met['wall_s']:.3f} s, {met['generated_tokens']} tokens generated, "
+          f"{met['iterations']} iterations, dispatches/iteration "
+          f"{met['dispatches_per_iteration']:.2f}")
+    print(f"  prefill {pf_tok} tokens in {pf_s:.3f} s of prefill steps = "
+          f"{pf_tok / pf_s:.1f} tok/s; decode-only steps {dec_tok} tokens in {dec_s:.3f} s "
+          f"= {dec_tok / dec_s:.1f} tok/s")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del eng
+    profile_steps(torch, model, params, policy)
+    del params, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_steps(torch, model, params, policy):
+    """One sparse 256-token prefill chunk (at offset 256) and
+    one dense 4-slot decode step at full width, each timed on the host
+    (median of 5, synchronised) and traced once with ``torch.profiler``:
+    device busy time by kernel family, kernel count, and the device's idle
+    share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.policy import DENSE
+
+    cfg = model.cfg
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    pcache = model.init_cache(1, 1024)
+    pcache["pos"] = torch.tensor(256, dtype=torch.int32, device="cuda")
+    ptoks = torch.randint(0, cfg.vocab_size, (1, 256), generator=g, device="cuda")
+    dcache = model.init_cache(4, 1024)
+    dcache["pos"] = torch.tensor([700, 500, 300, 100], dtype=torch.int32, device="cuda")
+    dtoks = torch.randint(0, cfg.vocab_size, (4, 1), generator=g, device="cuda")
+    dense = DENSE.with_(use_kernels=True)
+    cases = {
+        "prefill chunk (256 tokens, paper policy)":
+            lambda: model.prefill_chunk(params, {"tokens": ptoks}, pcache, policy=policy),
+        "decode step (4 slots, dense)":
+            lambda: model.decode_step(params, dtoks, dcache, policy=dense),
+    }
+    families = (("nm_prune_matmul", ("nm_select", "nm_matmul")),
+                ("paged_attention", ("paged_attention", "paged_flash")),
+                ("paged_kv_scatter", ("paged_kv_scatter",)),
+                ("cuBLAS GEMM", ("gemm", "nvjet", "cutlass", "xmma", "gemv")))
+    print("profile: one step of each kind, full width, bf16")
+    for case, fn in cases.items():
+        walls = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall_ms = statistics.median(walls[1:]) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+        by_family = {name: 0.0 for name, _ in families}
+        by_family["other (elementwise, norms, copies)"] = 0.0
+        for e in kern:
+            low = e.key.lower()
+            fam = next((name for name, keys in families if any(k in low for k in keys)),
+                       "other (elementwise, norms, copies)")
+            by_family[fam] += e.self_device_time_total / 1e3
+        if not kern:
+            print(f"  {case}: wall {wall_ms:.3f} ms (median of 5); device time not "
+                  "measured (the profiler recorded no device kernels)")
+            continue
+        print(f"  {case}: wall {wall_ms:.3f} ms (median of 5), device busy {busy_ms:.3f} ms "
+              f"over {sum(e.count for e in kern)} kernels, device idle share "
+              f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
+        for name, ms in by_family.items():
+            print(f"    {name}: {ms:.3f} ms")
+        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
+            print(f"    top: {e.key[:90]} x{e.count}: {e.self_device_time_total / 1e3:.3f} ms")
+
+
+def phase_parity(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.core.pruner import precompute_scales
+    from repro_torch.models import build_model
+    from repro_torch.serve import ContinuousConfig, Engine, EngineConfig
+
+    cfg = dataclasses.replace(get_config("llama31_8b"), n_layers=2, dtype="float32")
+    print("phase 4: kernel path vs plain path, full width, depth 2, float32")
+    model = build_model(cfg)
+    params = model.init(SEED + 1)
+    policy = paper_policy(8, 16, cfg.qgate_skip_layers)
+    precompute_scales(params, policy)
+    rng = np.random.default_rng(SEED + 1)
+    prompts = make_requests(rng, 3, 64, 600, cfg.vocab_size)
+    arrivals, new, bsz = [0, 1, 3], 8, 16
+    max_seq = -(-(max(len(p) for p in prompts) + new) // bsz) * bsz
+    scfg = ContinuousConfig(num_slots=2, chunk_size=256, block_size=bsz, max_seq=max_seq)
+    outs = {}
+    for uk in (True, False):
+        eng = Engine.from_config(model, EngineConfig(serving=scfg),
+                                 policy=policy.with_(use_kernels=uk))
+        for p, a in zip(prompts, arrivals):
+            eng.submit(p, max_new_tokens=new, arrival=a)
+        outs[uk] = eng.run(params)["outputs"]
+    print(f"  prompts {[len(p) for p in prompts]}: kernel path {outs[True]}")
+    if outs[True] != outs[False]:
+        fail(f"greedy tokens differ: kernel {outs[True]} vs plain {outs[False]}")
+    print("  greedy tokens identical")
+    # last-chunk logits of the longest prompt, chunk by chunk on fresh caches
+    prompt = max(prompts, key=len)
+    logits = {}
+    for uk in (True, False):
+        cache = model.init_cache(1, max_seq, block_size=bsz)
+        for s in range(0, len(prompt), 256):
+            chunk = torch.from_numpy(prompt[s:s + 256][None, :]).cuda()
+            logits[uk], cache = model.prefill_chunk(
+                params, {"tokens": chunk}, cache, policy=policy.with_(use_kernels=uk))
+    # Tolerance: the kernel sums in another order than cuBLAS (~1e-6
+    # relative in float32), and such a rounding-level difference in an
+    # earlier layer's output can flip an N:M selection between two nearly
+    # equal scores, swapping one of ~2048 kept channels of one token's
+    # projection; 2% of the largest logit covers that and nothing larger.
+    check_close("last-chunk logits", logits[True], logits[False], 2e-2)
+    del params, model
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found; run it from the repository",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    card = nvidia_smi_line()
+    name = torch.cuda.get_device_name(0)
+    rates = card_rates(name)
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; allow_tf32 "
+          f"matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}; bf16 reduced-precision reduction="
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+    print(f"rates used for bounds: {rates[0] / 1e12:.2f} TB/s, {rates[1] / 1e12:.0f} "
+          f"TFLOP/s bf16, {rates[2] / 1e12:.0f} TFLOP/s fp32")
+
+    t = time.perf_counter()
+    info = _build.build()
+    print(f"phase 1: kernels built in {info['seconds']:.1f} s into {info['dir']}")
+    for src, log in info["logs"].items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {src}: {line.strip()}")
+    timer = Timer(torch)
+    t1 = time.perf_counter()
+    records = phase_kernels(torch, timer, rates)
+    del timer
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    launches = phase_serve(torch)
+    t3 = time.perf_counter()
+    phase_parity(torch)
+    t4 = time.perf_counter()
+    print(f"phase seconds: build {t1 - t:.1f}, kernels {t2 - t1:.1f}, serve {t3 - t2:.1f}, "
+          f"parity {t4 - t3:.1f}")
+
+    from repro_torch.kernels import nm_prune_matmul as knm
+    from repro_torch.kernels import paged_attention as kpa
+    meta = {
+        "nm_prune_matmul": (knm.SOURCE, knm.REPLACES),
+        "paged_kv_scatter": (kpa.SOURCE, kpa.SCATTER_REPLACES),
+        "paged_attention": (kpa.SOURCE, kpa.ATTENTION_REPLACES),
+    }
+    line = {"kernels": [dict(name=k, route="cuda", source=meta[k][0], replaces=meta[k][1],
+                             launches=launches[k], **records[k]) for k in meta]}
+    print(json.dumps(line))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,219 @@
+"""Paged KV scatter and paged attention: the CUDA kernels' wrappers and their
+plain PyTorch versions.
+
+``paged_kv_scatter`` replaces ``repro/kernels/paged_attention.py:
+paged_kv_scatter_pallas``: write chunk rows ``[pos, pos + chunk_len)`` of
+``k_new``/``v_new (B, T, Hkv, hd)`` into the pools ``(rows, block_size,
+Hkv, hd)`` through the block table.  Rows whose logical block is ``-1`` or
+past the table width are dropped.  It updates the pools **in place** (the
+TPU kernel aliases them input→output), is bit-exact, and is bound by bytes.
+
+``paged_attention`` replaces ``repro/kernels/paged_attention.py:
+paged_attention_pallas``: attention of ``q (B, Tq, Hq, hd)`` over the paged
+pools.  It walks the table, skips ``-1`` blocks, masks by absolute
+position (``q_offset[b] + row`` against the key position, and
+``k_pos < kv_len[b]``), zeroes V rows past ``kv_len`` so unwritten pool
+memory cannot reach the output, maps query head ``h`` to KV head
+``h // (Hq // Hkv)``, and gives zeros for a fully masked row.  Any ``Tq``
+is served, decode's ``Tq = 1`` included; there is no tiling rule and no
+fallback.  ``csrc/paged_attention.cu`` says what bounds each kernel on the
+H100 and how the design answers it.
+
+Each wrapper runs its plain version only for tensors on the CPU; for CUDA
+tensors it launches its kernel or raises.  ``paged_kv_scatter.launches`` and
+``paged_attention.launches`` count kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["paged_kv_scatter", "paged_kv_scatter_plain", "paged_attention",
+           "paged_attention_plain"]
+
+SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+SCATTER_REPLACES = "src/repro/kernels/paged_attention.py:263"
+ATTENTION_REPLACES = "src/repro/kernels/paged_attention.py:130"
+_NEG = -1e30
+_MAX_HD = 256
+_TILE_ROWS = 16        # flattened (query, GQA head) rows of one CUDA-core tile
+_ATTN_SYMBOLS = {torch.bfloat16: "paged_attention_bf16",
+                 torch.float32: "paged_attention_f32"}
+
+
+def _lib():
+    lib = _build.load("paged_attention.cu")
+    lib.paged_kv_scatter.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                                     + [ctypes.c_longlong, ctypes.c_void_p])
+    lib.paged_kv_scatter.restype = ctypes.c_int
+    for sym in _ATTN_SYMBOLS.values():
+        fn = getattr(lib, sym)
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_cuda(device: torch.device, what: str, **tensors) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {device}")
+    for name, a in tensors.items():
+        if a.device != device or not a.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous on {device}")
+
+
+def _check_index(what: str, b: int, table, **vecs) -> None:
+    if table.dtype != torch.int32 or table.dim() != 2 or table.shape[0] != b:
+        raise ValueError(f"{what}: block_table must be int32 (B, max_blocks)")
+    for name, v in vecs.items():
+        if v.dtype != torch.int32 or v.shape != (b,):
+            raise ValueError(f"{what}: {name} must be int32 of shape (B,)")
+
+
+# ------------------------------------------------------------------ scatter
+
+def paged_kv_scatter_plain(k_new, v_new, k_pool, v_pool, block_table, pos,
+                           chunk_len) -> None:
+    """Plain version: select the kept (b, t) rows, then one indexed copy
+    per pool.  Updates the pools in place."""
+    b, t = k_new.shape[:2]
+    nb, bs = k_pool.shape[:2]
+    mb = block_table.shape[1]
+    i = torch.arange(t, device=k_new.device)
+    wpos = pos.long()[:, None] + i[None, :]
+    lb = torch.div(wpos, bs, rounding_mode="floor")
+    pb = block_table.long().gather(1, lb.clamp(0, mb - 1))
+    keep = ((i[None, :] < chunk_len.long()[:, None]) & (wpos >= 0) & (lb < mb)
+            & (pb >= 0) & (pb < nb))
+    bi, ti = keep.nonzero(as_tuple=True)
+    rows = pb[bi, ti] * bs + wpos[bi, ti] % bs
+    k_pool.view(nb * bs, *k_pool.shape[2:])[rows] = k_new[bi, ti]
+    v_pool.view(nb * bs, *v_pool.shape[2:])[rows] = v_new[bi, ti]
+
+
+def paged_kv_scatter(k_new, v_new, k_pool, v_pool, block_table, pos,
+                     chunk_len) -> None:
+    """Write ``k_new``/``v_new (B, T, Hkv, hd)`` rows into the pools in
+    place.  ``pos``/``chunk_len``: ``(B,)`` int32 absolute position of row 0
+    and number of valid rows; ``block_table``: ``(B, max_blocks)`` int32."""
+    if k_new.device.type == "cpu":
+        return paged_kv_scatter_plain(k_new, v_new, k_pool, v_pool,
+                                      block_table, pos, chunk_len)
+    what = "paged_kv_scatter"
+    _check_cuda(k_new.device, what, k_new=k_new, v_new=v_new, k_pool=k_pool,
+                v_pool=v_pool, block_table=block_table, pos=pos,
+                chunk_len=chunk_len)
+    if (k_new.dim() != 4 or v_new.shape != k_new.shape
+            or k_pool.dim() != 4 or v_pool.shape != k_pool.shape
+            or k_new.shape[2:] != k_pool.shape[2:]
+            or not (k_new.dtype == v_new.dtype == k_pool.dtype == v_pool.dtype)):
+        raise ValueError(f"{what}: chunk {tuple(k_new.shape)} {k_new.dtype} does not "
+                         f"fit pool {tuple(k_pool.shape)} {k_pool.dtype}")
+    b, t = k_new.shape[:2]
+    _check_index(what, b, block_table, pos=pos, chunk_len=chunk_len)
+    if b == 0 or t == 0:
+        return
+    nb, bs = k_pool.shape[:2]
+    row_bytes = k_pool[0, 0].numel() * k_pool.element_size()
+    with torch.cuda.device(k_new.device):
+        rc = _lib().paged_kv_scatter(
+            k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
+            v_pool.data_ptr(), block_table.data_ptr(), pos.data_ptr(),
+            chunk_len.data_ptr(), b, t, block_table.shape[1], bs, nb, row_bytes,
+            torch.cuda.current_stream(k_new.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_kv_scatter kernel launch failed (CUDA error {rc})")
+    paged_kv_scatter.launches += 1
+
+
+paged_kv_scatter.launches = 0
+
+
+# ---------------------------------------------------------------- attention
+
+def paged_attention_plain(q, k_pool, v_pool, block_table, q_offset, kv_len,
+                          causal: bool = True) -> torch.Tensor:
+    """Plain version: gather every table row's logical view, mask, and run
+    one float32 softmax over all keys (-1e30 sentinel, guarded weights,
+    ``l`` clamped at 1e-20 — the kernel's fully-masked-row semantics)."""
+    b, tq, hq, hd = q.shape
+    nb, bs, hkv = k_pool.shape[:3]
+    mb = block_table.shape[1]
+    g = hq // hkv
+    tab = block_table.long()
+    allocated = (tab >= 0) & (tab < nb)
+    idx = tab.clamp(0, nb - 1)
+    s_len = mb * bs
+    k = k_pool[idx].reshape(b, s_len, hkv, hd).float()
+    v = v_pool[idx].reshape(b, s_len, hkv, hd).float()
+    kpos = torch.arange(s_len, device=q.device)
+    live = allocated.repeat_interleave(bs, dim=1) & (kpos[None, :] < kv_len.long()[:, None])
+    v = torch.where(live[:, :, None, None], v, torch.zeros((), device=q.device))
+    qpos = q_offset.long()[:, None] + torch.arange(tq, device=q.device)[None, :]
+    valid = live[:, None, :]                                   # (B, 1|Tq, S)
+    if causal:
+        valid = valid & (kpos[None, None, :] <= qpos[:, :, None])
+    qg = q.float().reshape(b, tq, hkv, g, hd) * hd**-0.5
+    s = torch.einsum("bthgd,bshd->bhgts", qg, k)
+    s = torch.where(valid[:, None, None], s, torch.full((), _NEG, device=q.device))
+    mx = s.amax(dim=-1, keepdim=True)
+    p = torch.where(s > _NEG / 2, torch.exp(s - mx), torch.zeros((), device=q.device))
+    l_sum = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgts,bshd->bhgtd", p, v) / l_sum.clamp_min(1e-20)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, tq, hq, hd).to(q.dtype)
+
+
+def paged_attention(q, k_pool, v_pool, block_table, q_offset, kv_len,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention of ``q (B, Tq, Hq, hd)`` over the paged pools.
+
+    ``q_offset``: ``(B,)`` int32 absolute position of ``q[:, 0]``;
+    ``kv_len``: ``(B,)`` int32 number of valid KV positions per row.
+    Returns ``(B, Tq, Hq, hd)`` in q's dtype.
+    """
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pool, v_pool, block_table, q_offset,
+                                     kv_len, causal)
+    what = "paged_attention"
+    _check_cuda(q.device, what, q=q, k_pool=k_pool, v_pool=v_pool,
+                block_table=block_table, q_offset=q_offset, kv_len=kv_len)
+    b, tq, hq, hd = q.shape
+    if (k_pool.dim() != 4 or v_pool.shape != k_pool.shape
+            or k_pool.shape[3] != hd or hq % k_pool.shape[2] != 0):
+        raise ValueError(f"{what}: q {tuple(q.shape)} does not fit pool "
+                         f"{tuple(k_pool.shape)}")
+    if not (q.dtype == k_pool.dtype == v_pool.dtype) or q.dtype not in _ATTN_SYMBOLS:
+        raise TypeError(f"{what}: dtypes {q.dtype}/{k_pool.dtype}; the kernel takes "
+                        "bfloat16 or float32 throughout")
+    if hd > _MAX_HD:
+        raise ValueError(f"{what}: head_dim {hd} > {_MAX_HD}")
+    _check_index(what, b, block_table, q_offset=q_offset, kv_len=kv_len)
+    out = torch.empty_like(q)
+    if b == 0 or tq == 0:
+        return out
+    nb, bs, hkv = k_pool.shape[:3]
+    mb = block_table.shape[1]
+    # decode (all of a row's queries in one tile): split the table walk over
+    # up to 32 blocks of ~4 logical blocks, merged by a combine kernel
+    n_split, part = 1, None
+    if tq * (hq // hkv) <= _TILE_ROWS and mb >= 8:
+        n_split = min(32, -(-mb // 4))
+        part = torch.empty(b * hkv * n_split * _TILE_ROWS * (2 + hd),
+                           dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = getattr(_lib(), _ATTN_SYMBOLS[q.dtype])(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_table.data_ptr(), q_offset.data_ptr(), kv_len.data_ptr(),
+            out.data_ptr(), b, tq, hq, hkv, hd, bs, mb, nb, int(causal), hd**-0.5,
+            n_split, None if part is None else part.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed (CUDA error {rc})")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

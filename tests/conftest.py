@@ -19,3 +19,5 @@ def rng():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel on an NVIDIA GPU; skips without one")

@@ -1,0 +1,200 @@
+"""The port's serving slice against the JAX package's, plus the port's guards.
+
+Greedy token identity: the port's ``Engine`` and the JAX package's engine
+(``use_pallas_kernels=False``) serve the same requests on the same weights
+(LLaMA-3.1 smoke config, float32) with the same config — staggered
+arrivals, 2 slots, chunk 8, block size 8, a shared prompt prefix and a
+half-size block pool that forces preemption — and must emit the same
+tokens, on the port's plain path and through its kernel wrappers.
+"""
+import ast
+import dataclasses
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import get_smoke_config
+from repro.core import policy as jpolicy
+from repro.core.pruner import precompute_scales as jprecompute
+from repro.models import build_model as jbuild
+from repro.serve.api import Engine as JEngine
+from repro.serve.api import EngineConfig as JEngineConfig
+from repro.serve.continuous import ContinuousConfig as JConfig
+from repro_torch.configs import get_smoke_config as tget
+from repro_torch.core import policy as tpolicy
+from repro_torch.models import build_model
+from repro_torch.serve import ContinuousConfig, Engine, EngineConfig
+from repro_torch.weights import from_jax_params
+
+ROOT = Path(__file__).resolve().parents[1]
+MAX_SEQ = 64
+SLOTS, BS = 2, 8
+HALF_POOL = SLOTS * MAX_SEQ // (2 * BS)
+SERVE = dict(max_seq=MAX_SEQ, num_slots=SLOTS, chunk_size=8, block_size=BS,
+             num_blocks=HALF_POOL)
+POLICIES = {
+    "dense": (jpolicy.DENSE, tpolicy.DENSE),
+    "paper_8_16": (jpolicy.paper_policy(8, 16, (3,)), tpolicy.paper_policy(8, 16, (3,))),
+}
+
+
+def _traffic():
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, 256, size=16)               # two full blocks
+    prompts = [rng.integers(0, 256, size=n) for n in (5, 21, 13)]
+    prompts += [np.concatenate([shared, rng.integers(0, 256, size=n)]) for n in (7, 11, 3)]
+    arrivals = [0, 0, 2, 4, 7, 30]
+    max_new = [8, 30, 6, 20, 24, 5]
+    return prompts, arrivals, max_new
+
+
+@pytest.fixture(scope="module")
+def served():
+    """JAX engine outputs per policy, computed once, with the weights."""
+    cfg = dataclasses.replace(get_smoke_config("llama31_8b"), dtype="float32")
+    jm = jbuild(cfg)
+    params = jm.init(jax.random.PRNGKey(0))
+    prompts, arrivals, max_new = _traffic()
+    out = {}
+    for name, (jpol, _) in POLICIES.items():
+        jp = jprecompute(params, jpol)
+        eng = JEngine.from_config(jm, JEngineConfig(serving=JConfig(**SERVE)), policy=jpol)
+        for p, a, n in zip(prompts, arrivals, max_new):
+            eng.submit(p, n, a)
+        res = eng.run(jp)
+        out[name] = (jax.tree_util.tree_map(np.asarray, jp), res)
+    return out
+
+
+@pytest.mark.parametrize("use_kernels", [False, True], ids=["plain", "kernels"])
+@pytest.mark.parametrize("name", sorted(POLICIES))
+def test_engine_greedy_tokens_match_reference(served, name, use_kernels):
+    params_np, jres = served[name]
+    tcfg = dataclasses.replace(tget("llama31_8b"), dtype="float32")
+    model = build_model(tcfg, device="cpu")
+    params = from_jax_params(tcfg, params_np)
+    eng = Engine.from_config(model, EngineConfig(serving=ContinuousConfig(
+        validate_pool=True, **SERVE)), policy=POLICIES[name][1].with_(
+            use_kernels=use_kernels), device="cpu")
+    prompts, arrivals, max_new = _traffic()
+    for p, a, n in zip(prompts, arrivals, max_new):
+        eng.submit(p, n, a)
+    res = eng.run(params)
+    assert res["outputs"] == jres["outputs"]
+    jpg, pg = jres["metrics"]["paged"], res["metrics"]["paged"]
+    assert pg["preemptions"] > 0 and pg["prefix_hits"] > 0, pg
+    for key in ("preemptions", "prefix_hits", "tokens_skipped", "peak_blocks_in_use"):
+        assert pg[key] == jpg[key], key
+    assert eng.replica.pool.in_use == 0
+    assert res["metrics"]["dispatches_per_iteration"] == 1.0
+    assert set(res["metrics"]["buckets"]) == set(jres["metrics"]["trace_counts"])
+
+
+def test_engine_generate_and_dp_tp_guard():
+    tcfg = dataclasses.replace(tget("llama31_8b"), dtype="float32")
+    model = build_model(tcfg, device="cpu")
+    params = model.init(0)
+    eng = Engine.from_config(model, EngineConfig(serving=ContinuousConfig(
+        max_seq=32, num_slots=2, chunk_size=8)), device="cpu")
+    outs = eng.generate(params, [np.arange(5), np.arange(9)], max_new_tokens=3)
+    assert [len(o) for o in outs] == [3, 3]
+    for dp, tp in ((2, 1), (1, 2)):
+        with pytest.raises(NotImplementedError):
+            Engine.from_config(model, EngineConfig(dp=dp, tp=tp), device="cpu")
+
+
+def test_engine_cancel_and_temperature_sampling():
+    """A cancelled request ends ``cancelled`` and frees its blocks; sampling
+    at temperature > 0 is reproducible from the config's seed and stays in
+    the vocabulary."""
+    tcfg = dataclasses.replace(tget("llama31_8b"), dtype="float32")
+    model = build_model(tcfg, device="cpu")
+    params = model.init(0)
+    prompts = [np.arange(7), np.arange(3, 15)]
+    outs = []
+    for _ in range(2):
+        eng = Engine.from_config(model, EngineConfig(serving=ContinuousConfig(
+            max_seq=32, num_slots=2, chunk_size=8, temperature=0.8, seed=3)),
+            device="cpu")
+        rids = [eng.submit(p, 6) for p in prompts]
+        doomed = eng.submit(np.arange(9), 6, arrival=2)
+        assert eng.cancel(doomed)
+        res = eng.run(params)
+        states = {r["rid"]: r["state"] for r in res["metrics"]["requests"]}
+        assert states[doomed] == "cancelled" and res["outputs"][doomed] == []
+        assert eng.replica.pool.in_use == 0
+        outs.append([res["outputs"][r] for r in rids])
+    assert outs[0] == outs[1]
+    assert all(len(o) == 6 and all(0 <= t < tcfg.vocab_size for t in o) for o in outs[0])
+
+
+# --------------------------------------------------------------- guards
+
+def _port_files():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_port_never_imports_jax_or_the_jax_package():
+    """AST scan: no module of the port, and not chip_smoke.py, imports
+    ``jax`` or anything of ``repro`` — at top level or inside a function."""
+    for path in _port_files():
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = sorted(
+        "repro_torch." + ".".join(p.relative_to(ROOT / "src" / "repro_torch")
+                                  .with_suffix("").parts).replace(".__init__", "")
+        for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m.rstrip('.'))\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tcfg = tget("llama31_8b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(tcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(tcfg, device="cuda")
+    model = build_model(tcfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine.from_config(model)
+    Engine.from_config(model, device="cpu")
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["in-repo", "alone"])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    """Without a CUDA device — and in a directory holding nothing of the
+    repository but the script — chip_smoke.py exits non-zero and prints no
+    result line."""
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, str(script)], cwd=script.parent, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
