@@ -5,23 +5,34 @@
 
 Phases (any failed check exits non-zero; no phase is skipped):
 
-1. build   — compile every CUDA kernel of the serving path from
-             ``src/repro_torch/kernels/csrc`` with nvcc.
+1. build   — compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
+             with nvcc (one process per source, in parallel).
 2. kernels — each kernel against its plain PyTorch version on the card, at
              the serving path's LLaMA-3.1-8B shapes in bfloat16 (plus a
              float32 case each); median time with CUDA events, the bound
              from the card's data-sheet rates, the plain version's time and
-             one library call's time.
+             one library call's time.  The int8 kernels (``osparse_matmul``,
+             ``w8a8_matmul``) and ``nm_prune`` must be bit-exact: int8
+             codes, scales and outputs.
 3. serve   — ``Engine.from_config`` at full LLaMA-3.1-8B width (32 layers,
              random weights from a seed, bfloat16) under the paper's
              policy with the kernels on: 8 staggered requests, 32 new tokens
-             each; every kernel must have launched, ``nm_prune_matmul``
-             exactly 86 times per sparse prefill chunk.  Then one prefill
-             chunk and one decode step under ``torch.profiler``: device time
-             by kernel family and the device's idle share of the step.
+             each; each kernel of the path must have launched,
+             ``nm_prune_matmul`` exactly 86 times per sparse prefill chunk.
+             Then one prefill chunk and one decode step under
+             ``torch.profiler``: device time by kernel family and the
+             device's idle share of the step.
+3b. serve, Outstanding-sparse — the same weights rewritten to W8A8 on
+             q/k/v/o/gate/up of every layer (``QuantConfig()``: alpha 0.10,
+             ŝ = 1/s, static per-tensor activation scale, down_proj left
+             bf16) from a seeded calibration absmax, served the same way:
+             ``osparse_matmul`` 192 times per prefill half and per decode
+             half (54 per sparse chunk pruned), ``nm_prune_matmul`` 32 times
+             per sparse chunk; the same profile.
 4. parity  — full width, depth 2, float32: the same requests through the
              kernel path and the plain path must emit the same greedy
-             tokens, and the last-chunk logits must agree.
+             tokens, and the last-chunk logits must agree; 4b does the same
+             for the Outstanding-sparse model.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -40,12 +51,14 @@ from pathlib import Path
 import numpy as np
 
 SEED = 0
-# data-sheet rates (dense): bytes/s, bf16 FLOP/s, fp32 (non-tensor) FLOP/s
+# data-sheet rates (dense): bytes/s, bf16 FLOP/s, fp32 (non-tensor) FLOP/s,
+# int8 tensor-core OP/s
 RATES = {
-    "PCIe": (2.0e12, 756e12, 51e12),
-    "NVL": (3.9e12, 835e12, 60e12),
-    "SXM": (3.35e12, 989e12, 67e12),
+    "PCIe": (2.0e12, 756e12, 51e12, 1513e12),
+    "NVL": (3.9e12, 835e12, 60e12, 1670e12),
+    "SXM": (3.35e12, 989e12, 67e12, 1979e12),
 }
+QPROJS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj")
 
 
 def card_rates(name: str):
@@ -121,7 +134,7 @@ def phase_kernels(torch, timer, rates):
     from repro_torch.kernels import nm_prune_matmul as knm
     from repro_torch.kernels import paged_attention as kpa
 
-    bw, bf16_peak, f32_peak = rates
+    bw, bf16_peak, f32_peak, _ = rates
     g = torch.Generator(device="cuda").manual_seed(SEED)
     dev = "cuda"
     records = {}
@@ -303,18 +316,230 @@ def phase_kernels(torch, timer, rates):
     return records
 
 
+def calib_absmax(rng, d: int) -> np.ndarray:
+    """A calibration absmax over 64 seeded tokens with four outlier
+    channels, as ``examples/deploy_outstanding_sparse.py`` makes them."""
+    x = rng.standard_normal((64, d), dtype=np.float32)
+    x *= np.where(np.arange(d) < 4, 11, 1).astype(np.float32)
+    return np.abs(x).max(axis=0)
+
+
+def int_mm_ms(torch, timer, xq, wq, scale, w_scale):
+    """The library yardstick of the int8 GEMM: ``torch._int_mm`` (cuBLASLt)
+    plus the dequant, timed where its shape rules allow (more than 16 rows,
+    K and N multiples of 8); else None."""
+    t, d = xq.shape
+    if t <= 16 or d % 8 or wq.shape[1] % 8:
+        return None
+    try:
+        return timer.ms(lambda: torch._int_mm(xq, wq).float() * scale * w_scale)
+    except RuntimeError as e:          # a yardstick only: report, do not fail
+        print(f"  torch._int_mm refused {tuple(xq.shape)} @ {tuple(wq.shape)}: {e}")
+        return None
+
+
+def phase_int8_kernels(torch, timer, rates):
+    """osparse_matmul, w8a8_matmul and nm_prune, bit-exact against their
+    plain versions (int8 codes, scales and outputs)."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import nm_prune as knp
+    from repro_torch.kernels import osparse_matmul as kos
+    from repro_torch.kernels import w8a8_matmul as kw8
+
+    bw, _, _, int8_peak = rates
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rng = np.random.default_rng(SEED + 2)
+    dev = "cuda"
+    n, m = 8, 16
+    records = {}
+
+    def exact(name, a, b):
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        if not same:
+            fail(f"{name}: kernel and plain version differ")
+        return same
+
+    # ----------------------------------------------------- osparse_matmul
+    print("phase 2d: osparse_matmul (LLaMA-3.1-8B q/k/gate, W8A8, 8:16 where pruned; "
+          "bit-exact codes, scales, outputs)")
+    for proj, d, n_out in (("q", 4096, 4096), ("k", 4096, 1024), ("gate", 4096, 14336)):
+        w = (torch.randn(d, n_out, generator=g, device=dev) * d**-0.5).bfloat16()
+        am = torch.from_numpy(calib_absmax(rng, d)).to(dev)
+        ql = quant.make_quantized_linear(w, am, quant.QuantConfig())
+        amber = torch.rand(d, generator=g, device=dev) + 0.5
+        for t in (256, 4):
+            x = torch.randn(t, d, generator=g, device=dev).bfloat16()
+            cases = [(pt, pr) for pt in (False, True) for pr in (True, False)]
+            for per_token, prune in cases:
+                args = (x, ql.wq, ql.smooth, amber, ql.w_scale, n, m)
+                kw = dict(act_scale=ql.act_scale, prune=prune, per_token=per_token)
+                got = (kos.osparse_matmul(*args, **kw),
+                       *kos.osparse_quantize(x, ql.smooth, amber, n, m, ql.act_scale, prune,
+                                             per_token))
+                want = (kos.osparse_matmul_plain(*args, **kw),
+                        *kos.osparse_quantize_plain(x, ql.smooth, amber, n, m, ql.act_scale,
+                                                    prune, per_token))
+                torch.cuda.synchronize()
+                same = exact(f"osparse_matmul {proj} T={t} per_token={per_token} "
+                             f"prune={prune}", got, want)
+                print(f"  {proj} T={t} per_token={per_token} prune={prune}: bit-exact={same}")
+            # timing at the main path's setting: q/gate pruned in prefill, else dense
+            prune = t == 256 and proj != "k"
+            args = (x, ql.wq, ql.smooth, amber, ql.w_scale, n, m)
+            kw = dict(act_scale=ql.act_scale, prune=prune)
+            xq, _ = kos.osparse_quantize_plain(x, ql.smooth, amber, n, m, ql.act_scale, prune)
+            ms = timer.ms(lambda: kos.osparse_matmul(*args, **kw))
+            plain_ms = timer.ms(lambda: kos.osparse_matmul_plain(*args, **kw), 5)
+            lib_ms = int_mm_ms(torch, timer, xq, ql.wq, ql.act_scale, ql.w_scale)
+            nbytes = x.numel() * 2 + ql.wq.numel() + 2 * d * 4 + n_out * 4 + 4 + t * n_out * 4
+            ops = 2 * int((xq != 0).sum()) * n_out
+            bound = max(nbytes / bw, ops / int8_peak) * 1e3
+            by = "bytes" if nbytes / bw >= ops / int8_peak else "operations"
+            lib = "n/a (T <= 16)" if lib_ms is None else f"{lib_ms:.4f} ms"
+            print(f"  {proj} T={t} prune={prune}: kernel {ms:.4f} ms, bound {bound:.4f} ms "
+                  f"({by}), plain {plain_ms:.4f} ms, torch._int_mm + dequant {lib}")
+            if proj == "gate" and t == 256:
+                records["osparse_matmul"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                                 bound_ms=bound, bound_by=by, max_abs_err=0.0)
+    # float32 activations, a ragged T, per token and pruned
+    xf = torch.randn(137, 4096, generator=g, device=dev)
+    for per_token in (False, True):
+        args = (xf, ql.wq, ql.smooth, amber, ql.w_scale, n, m)
+        kw = dict(act_scale=ql.act_scale, per_token=per_token)
+        same = exact("osparse_matmul float32", (kos.osparse_matmul(*args, **kw),),
+                     (kos.osparse_matmul_plain(*args, **kw),))
+        print(f"  float32 gate T=137 per_token={per_token}: bit-exact={same}")
+
+    # -------------------------------------------------------- w8a8_matmul
+    print("phase 2e: w8a8_matmul (bit-exact)")
+    for t, d, n_out in ((256, 4096, 14336), (4, 4096, 1024), (37, 200, 130)):
+        xq = torch.randint(-127, 128, (t, d), generator=g, device=dev).to(torch.int8)
+        wq = torch.randint(-127, 128, (d, n_out), generator=g, device=dev).to(torch.int8)
+        ws = torch.rand(n_out, generator=g, device=dev) * 1e-3
+        xs = torch.tensor(0.013, device=dev)
+        same = exact(f"w8a8_matmul {t}x{d}x{n_out}", (kw8.w8a8_matmul(xq, wq, xs, ws),),
+                     (kw8.w8a8_matmul_plain(xq, wq, xs, ws),))
+        print(f"  T={t} D={d} N={n_out}: bit-exact={same}")
+        if t == 256:
+            ms = timer.ms(lambda: kw8.w8a8_matmul(xq, wq, xs, ws))
+            plain_ms = timer.ms(lambda: kw8.w8a8_matmul_plain(xq, wq, xs, ws), 5)
+            lib_ms = int_mm_ms(torch, timer, xq, wq, xs, ws)
+            nbytes = xq.numel() + wq.numel() + n_out * 4 + 4 + t * n_out * 4
+            ops = 2 * t * d * n_out
+            bound = max(nbytes / bw, ops / int8_peak) * 1e3
+            by = "bytes" if nbytes / bw >= ops / int8_peak else "operations"
+            print(f"  gate T=256: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), plain "
+                  f"{plain_ms:.4f} ms, torch._int_mm + dequant {lib_ms:.4f} ms")
+            records["w8a8_matmul"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                          bound_ms=bound, bound_by=by, max_abs_err=0.0)
+
+    # ----------------------------------------------------------- nm_prune
+    print("phase 2f: nm_prune (bit-exact)")
+    for d in (4096, 14336):
+        scale = torch.rand(d, generator=g, device=dev) + 0.5
+        for dtype, t in ((torch.bfloat16, 256), (torch.bfloat16, 137), (torch.float32, 37)):
+            x = torch.randn(t, d, generator=g, device=dev).to(dtype)
+            for sc in (scale, None):
+                same = exact("nm_prune", (knp.nm_prune(x, sc, n, m),),
+                             (knp.nm_prune_plain(x, sc, n, m),))
+            print(f"  D={d} T={t} {dtype}: bit-exact={same}")
+        x = torch.randn(256, d, generator=g, device=dev).bfloat16()
+        ms = timer.ms(lambda: knp.nm_prune(x, scale, n, m))
+        plain_ms = timer.ms(lambda: knp.nm_prune_plain(x, scale, n, m), 5)
+        bound = (2 * x.numel() * 2 + d * 4) / bw * 1e3
+        print(f"  D={d} T=256: kernel {ms:.4f} ms, bound {bound:.4f} ms (bytes), plain "
+              f"{plain_ms:.4f} ms, no single library call")
+        if d == 14336:
+            records["nm_prune"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                       bound_ms=bound, bound_by="bytes", max_abs_err=0.0)
+    return records
+
+
 def make_requests(rng, n, lo, hi, vocab):
     lens = rng.integers(lo, hi + 1, size=n)
     return [rng.integers(0, vocab, size=int(l)).astype(np.int32) for l in lens]
 
 
-def phase_serve(torch):
+def serve_requests(torch, model, params, policy, label):
+    """8 staggered requests (64-700 prompt tokens, 32 new tokens each) through
+    ``Engine.from_config`` after one warm-up request, with the launch counts
+    set to 0 just before and read just after.  Every request must end
+    ``done`` with its tokens.  Returns (launches, per-path step counts)."""
     from repro_torch import kernels
+    from repro_torch.kernels import osparse_matmul as kos
+    from repro_torch.serve import ContinuousConfig, Engine, EngineConfig
+
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED)
+    prompts = make_requests(rng, 8, 64, 700, cfg.vocab_size)
+    arrivals = [0, 0, 1, 2, 4, 6, 9, 12]
+    new = 32
+    bsz = 16
+    max_seq = -(-(max(len(p) for p in prompts) + new) // bsz) * bsz
+    scfg = ContinuousConfig(num_slots=4, chunk_size=256, block_size=bsz, max_seq=max_seq)
+    eng = Engine.from_config(model, EngineConfig(serving=scfg), policy=policy)
+    # warm-up request (library handles, allocator), then the measured stream
+    eng.submit(rng.integers(0, cfg.vocab_size, size=40), max_new_tokens=4)
+    eng.run(params)
+    eng.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    rids = [eng.submit(p, max_new_tokens=new, arrival=a) for p, a in zip(prompts, arrivals)]
+    res = eng.run(params)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    launches["osparse_matmul (prune=True)"] = kos.osparse_matmul.pruned_launches
+    met = res["metrics"]
+    states = {r["rid"]: r["state"] for r in met["requests"]}
+    for rid in rids:
+        out = res["outputs"][rid]
+        if states[rid] != "done" or len(out) != new:
+            fail(f"{label}: request {rid}: state {states[rid]}, {len(out)} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in out):
+            fail(f"{label}: request {rid}: token outside the vocabulary")
+    bk = met["buckets"]
+
+    def agg(names, key):
+        return sum(bk[n][key] for n in names if n in bk)
+
+    steps = dict(
+        sparse_chunks=agg(("step_prefill", "step_prefill_decode"), "calls"),
+        prefill_halves=agg(("step_prefill", "step_prefill_decode", "step_replay",
+                            "step_replay_decode"), "calls"),
+        decode_halves=agg(("step_decode", "step_prefill_decode", "step_replay_decode"),
+                          "calls"))
+    print(f"  prompts {[len(p) for p in prompts]}, arrivals {arrivals}, {new} new tokens each")
+    print(f"  buckets {json.dumps(bk)}")
+    print(f"  launches {launches}; {steps}")
+    pf_tok = agg(("step_prefill", "step_prefill_decode"), "prefill_tokens")
+    pf_s = agg(("step_prefill", "step_prefill_decode"), "seconds")
+    dec_tok = agg(("step_decode",), "decode_tokens")
+    dec_s = agg(("step_decode",), "seconds")
+    print(f"  wall {met['wall_s']:.3f} s, {met['generated_tokens']} tokens generated, "
+          f"{met['iterations']} iterations, dispatches/iteration "
+          f"{met['dispatches_per_iteration']:.2f}")
+    print(f"  prefill {pf_tok} tokens in {pf_s:.3f} s of prefill steps = "
+          f"{pf_tok / pf_s:.1f} tok/s; decode-only steps {dec_tok} tokens in {dec_s:.3f} s "
+          f"= {dec_tok / dec_s:.1f} tok/s")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches, steps
+
+
+def check_launches(label, launches, want):
+    """Each kernel of the path launched, and exactly as often as expected."""
+    for name, count in want.items():
+        if launches[name] <= 0:
+            fail(f"{label}: kernel {name} was never launched on the serving path")
+        if launches[name] != count:
+            fail(f"{label}: {name} launched {launches[name]} times, expected {count}")
+
+
+def phase_serve(torch):
     from repro_torch.configs import get_config
     from repro_torch.core.policy import paper_policy
     from repro_torch.core.pruner import precompute_scales
     from repro_torch.models import build_model
-    from repro_torch.serve import ContinuousConfig, Engine, EngineConfig
 
     cfg = get_config("llama31_8b")
     print(f"phase 3: serve {cfg.name} at full width ({cfg.n_layers} layers, d_model "
@@ -335,71 +560,50 @@ def phase_serve(torch):
                     for mod in ("q_proj", "gate_proj", "down_proj"))
     if per_chunk != 86:
         fail(f"paper policy prunes {per_chunk} projections per chunk, expected 86")
-
-    rng = np.random.default_rng(SEED)
-    prompts = make_requests(rng, 8, 64, 700, cfg.vocab_size)
-    arrivals = [0, 0, 1, 2, 4, 6, 9, 12]
-    new = 32
-    bsz = 16
-    max_seq = -(-(max(len(p) for p in prompts) + new) // bsz) * bsz
-    scfg = ContinuousConfig(num_slots=4, chunk_size=256, block_size=bsz, max_seq=max_seq)
-    eng = Engine.from_config(model, EngineConfig(serving=scfg), policy=policy)
-    # warm-up request (library handles, allocator), then the measured stream
-    eng.submit(rng.integers(0, cfg.vocab_size, size=40), max_new_tokens=4)
-    eng.run(params)
-    eng.clear()
-    kernels.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    rids = [eng.submit(p, max_new_tokens=new, arrival=a) for p, a in zip(prompts, arrivals)]
-    res = eng.run(params)
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    met = res["metrics"]
-    states = {r["rid"]: r["state"] for r in met["requests"]}
-    for rid in rids:
-        out = res["outputs"][rid]
-        if states[rid] != "done" or len(out) != new:
-            fail(f"request {rid}: state {states[rid]}, {len(out)} tokens")
-        if not all(0 <= t < cfg.vocab_size for t in out):
-            fail(f"request {rid}: token outside the vocabulary")
-    bk = met["buckets"]
-
-    def agg(names, key):
-        return sum(bk[n][key] for n in names if n in bk)
-
-    sparse_chunks = agg(("step_prefill", "step_prefill_decode"), "calls")
-    prefill_halves = agg(("step_prefill", "step_prefill_decode", "step_replay",
-                          "step_replay_decode"), "calls")
-    decode_halves = agg(("step_decode", "step_prefill_decode", "step_replay_decode"), "calls")
-    print(f"  prompts {[len(p) for p in prompts]}, arrivals {arrivals}, {new} new tokens each")
-    print(f"  buckets {json.dumps(bk)}")
-    print(f"  launches {launches}; sparse prefill chunks {sparse_chunks}, "
-          f"prefill halves {prefill_halves}, decode halves {decode_halves}")
-    for name, cnt in launches.items():
-        if cnt <= 0:
-            fail(f"kernel {name} was never launched on the serving path")
-    if launches["nm_prune_matmul"] != per_chunk * sparse_chunks:
-        fail(f"nm_prune_matmul launched {launches['nm_prune_matmul']} times, expected "
-             f"{per_chunk} x {sparse_chunks}")
-    per_step = cfg.n_layers * (prefill_halves + decode_halves)
-    for name in ("paged_kv_scatter", "paged_attention"):
-        if launches[name] != per_step:
-            fail(f"{name} launched {launches[name]} times, expected {per_step}")
-    pf_tok = agg(("step_prefill", "step_prefill_decode"), "prefill_tokens")
-    pf_s = agg(("step_prefill", "step_prefill_decode"), "seconds")
-    dec_tok = agg(("step_decode",), "decode_tokens")
-    dec_s = agg(("step_decode",), "seconds")
-    print(f"  wall {met['wall_s']:.3f} s, {met['generated_tokens']} tokens generated, "
-          f"{met['iterations']} iterations, dispatches/iteration "
-          f"{met['dispatches_per_iteration']:.2f}")
-    print(f"  prefill {pf_tok} tokens in {pf_s:.3f} s of prefill steps = "
-          f"{pf_tok / pf_s:.1f} tok/s; decode-only steps {dec_tok} tokens in {dec_s:.3f} s "
-          f"= {dec_tok / dec_s:.1f} tok/s")
-    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del eng
+    launches, st = serve_requests(torch, model, params, policy, "phase 3")
+    per_step = cfg.n_layers * (st["prefill_halves"] + st["decode_halves"])
+    check_launches("phase 3", launches, {
+        "nm_prune_matmul": per_chunk * st["sparse_chunks"],
+        "paged_kv_scatter": per_step, "paged_attention": per_step})
     profile_steps(torch, model, params, policy)
-    del params, model
+    return launches, model, params, policy
+
+
+def phase_serve_osparse(torch, model, params, policy):
+    """Phase 3's weights and Amber scales, rewritten to W8A8 on
+    q/k/v/o/gate/up of every layer, served the same way."""
+    from repro_torch.core import quant
+    from repro_torch.weights import quantize_linears
+
+    cfg = model.cfg
+    qcfg = quant.QuantConfig()
+    print(f"phase 3b: serve {cfg.name} Outstanding-sparse at full width (W8A8 "
+          f"alpha={qcfg.alpha} outstanding={qcfg.outstanding} per_token="
+          f"{qcfg.per_token_act} skip_modules={qcfg.skip_modules} skip_layers="
+          f"{qcfg.skip_layers}; Amber 8:16 under the paper policy)")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 3)
+    absmax = {(i, name): calib_absmax(rng, cfg.d_model)
+              for i in range(cfg.n_layers) for name in QPROJS}
+    quantize_linears(params, absmax, qcfg)
+    torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    n_q = sum(b.numel() for n_, b in params.named_buffers() if n_.endswith(".wq"))
+    print(f"  rewrite in {time.perf_counter() - t0:.1f} s: {n_q / 1e9:.3f}B int8 weights; "
+          f"device memory held {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    pruned = sum(policy.should_prune(mod, i) for i in range(cfg.n_layers)
+                 for mod in ("q_proj", "gate_proj"))
+    if pruned != 54:
+        fail(f"paper policy prunes {pruned} quantized projections per chunk, expected 54")
+    launches, st = serve_requests(torch, model, params, policy, "phase 3b")
+    halves = st["prefill_halves"] + st["decode_halves"]
+    per_step = cfg.n_layers * halves
+    check_launches("phase 3b", launches, {
+        "osparse_matmul": len(QPROJS) * cfg.n_layers * halves,
+        "osparse_matmul (prune=True)": pruned * st["sparse_chunks"],
+        "nm_prune_matmul": cfg.n_layers * st["sparse_chunks"],
+        "paged_kv_scatter": per_step, "paged_attention": per_step})
+    profile_steps(torch, model, params, policy)
     return launches
 
 
@@ -428,7 +632,8 @@ def profile_steps(torch, model, params, policy):
         "decode step (4 slots, dense)":
             lambda: model.decode_step(params, dtoks, dcache, policy=dense),
     }
-    families = (("nm_prune_matmul", ("nm_select", "nm_matmul")),
+    families = (("osparse_matmul", ("osparse_quant", "w8a8_gemm", "dequant_kernel")),
+                ("nm_prune_matmul", ("nm_select", "nm_matmul")),
                 ("paged_attention", ("paged_attention", "paged_flash")),
                 ("paged_kv_scatter", ("paged_kv_scatter",)),
                 ("cuBLAS GEMM", ("gemm", "nvjet", "cutlass", "xmma", "gemv")))
@@ -468,50 +673,103 @@ def profile_steps(torch, model, params, policy):
             print(f"    top: {e.key[:90]} x{e.count}: {e.self_device_time_total / 1e3:.3f} ms")
 
 
-def phase_parity(torch):
+def phase_parity(torch, quantized: bool):
+    """Full width, depth 2, float32: the same staggered requests through two
+    paths that must emit the same greedy tokens, and each prompt's
+    last-chunk logits (chunk by chunk on fresh caches).
+
+    Phase 4 (bf16 weights' float32 twin): the kernel path against the plain
+    path; the logits agree within 2% of the largest.  Phase 4b
+    (Outstanding-sparse): the kernel path against the same path with
+    ``osparse_matmul``'s plain version in place of its kernel; the logits
+    are bit-identical.  Against the fully plain path the W8A8 model cannot
+    be held to token identity: the float kernels' summation order (~1e-5 in
+    a ``down_proj`` output) moves int8 codes and N:M selections a step in
+    the next layer, which these random weights and seeded scales amplify to
+    ~0.5 in the logits, above the top-2 margin of some tokens; that
+    comparison is printed, not checked."""
     from repro_torch.configs import get_config
+    from repro_torch.core import quant
     from repro_torch.core.policy import paper_policy
     from repro_torch.core.pruner import precompute_scales
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import osparse_matmul as kos
     from repro_torch.models import build_model
     from repro_torch.serve import ContinuousConfig, Engine, EngineConfig
+    from repro_torch.weights import quantize_linears
 
     cfg = dataclasses.replace(get_config("llama31_8b"), n_layers=2, dtype="float32")
-    print("phase 4: kernel path vs plain path, full width, depth 2, float32")
     model = build_model(cfg)
     params = model.init(SEED + 1)
     policy = paper_policy(8, 16, cfg.qgate_skip_layers)
     precompute_scales(params, policy)
+    if quantized:
+        print("phase 4b: Outstanding-sparse kernel path vs the same path with "
+              "osparse_matmul's plain version, full width, depth 2, float32")
+        rng = np.random.default_rng(SEED + 4)
+        quantize_linears(params, {(i, name): calib_absmax(rng, cfg.d_model)
+                                  for i in range(cfg.n_layers) for name in QPROJS},
+                         quant.QuantConfig())
+    else:
+        print("phase 4: kernel path vs plain path, full width, depth 2, float32")
     rng = np.random.default_rng(SEED + 1)
     prompts = make_requests(rng, 3, 64, 600, cfg.vocab_size)
     arrivals, new, bsz = [0, 1, 3], 8, 16
     max_seq = -(-(max(len(p) for p in prompts) + new) // bsz) * bsz
     scfg = ContinuousConfig(num_slots=2, chunk_size=256, block_size=bsz, max_seq=max_seq)
-    outs = {}
-    for uk in (True, False):
-        eng = Engine.from_config(model, EngineConfig(serving=scfg),
-                                 policy=policy.with_(use_kernels=uk))
-        for p, a in zip(prompts, arrivals):
-            eng.submit(p, max_new_tokens=new, arrival=a)
-        outs[uk] = eng.run(params)["outputs"]
-    print(f"  prompts {[len(p) for p in prompts]}: kernel path {outs[True]}")
-    if outs[True] != outs[False]:
-        fail(f"greedy tokens differ: kernel {outs[True]} vs plain {outs[False]}")
+    kernel_osparse = ops.osparse_matmul
+
+    def run(path):
+        """(greedy tokens, per-prompt last-chunk logits) on one path."""
+        uk = path != "plain"
+        if path == "plain osparse":
+            ops.osparse_matmul = kos.osparse_matmul_plain
+        try:
+            pol = policy.with_(use_kernels=uk)
+            eng = Engine.from_config(model, EngineConfig(serving=scfg), policy=pol)
+            for p, a in zip(prompts, arrivals):
+                eng.submit(p, max_new_tokens=new, arrival=a)
+            outs = eng.run(params)["outputs"]
+            logits = []
+            for prompt in prompts:
+                cache = model.init_cache(1, max_seq, block_size=bsz)
+                for s in range(0, len(prompt), 256):
+                    chunk = torch.from_numpy(prompt[s:s + 256][None, :]).cuda()
+                    lg, cache = model.prefill_chunk(params, {"tokens": chunk}, cache,
+                                                    policy=pol)
+                logits.append(lg)
+            return outs, logits
+        finally:
+            ops.osparse_matmul = kernel_osparse
+
+    got, got_logits = run("kernel")
+    print(f"  prompts {[len(p) for p in prompts]}: kernel path {got}")
+    want, want_logits = run("plain osparse" if quantized else "plain")
+    for i, (a, b) in enumerate(zip(got_logits, want_logits)):
+        top2 = torch.topk(b[0], 2).values
+        print(f"  prompt {i}: top-2 logit margin {float(top2[0] - top2[1]):.3e}")
+        if quantized:
+            same = torch.equal(a, b)
+            print(f"  prompt {i} last-chunk logits: bit-identical={same}")
+            if not same:
+                fail(f"prompt {i}: osparse_matmul kernel and plain version part in serving")
+        else:
+            # Tolerance: the kernel sums in another order than cuBLAS (~1e-6
+            # relative in float32), and such a rounding-level difference in
+            # an earlier layer's output can flip an N:M selection between two
+            # nearly equal scores, swapping one of ~2048 kept channels of one
+            # token's projection; 2% of the largest logit covers that and
+            # nothing larger.
+            check_close(f"prompt {i} last-chunk logits", a, b, 2e-2)
+    if got != want:
+        fail(f"greedy tokens differ: kernel {got} vs plain {want}")
     print("  greedy tokens identical")
-    # last-chunk logits of the longest prompt, chunk by chunk on fresh caches
-    prompt = max(prompts, key=len)
-    logits = {}
-    for uk in (True, False):
-        cache = model.init_cache(1, max_seq, block_size=bsz)
-        for s in range(0, len(prompt), 256):
-            chunk = torch.from_numpy(prompt[s:s + 256][None, :]).cuda()
-            logits[uk], cache = model.prefill_chunk(
-                params, {"tokens": chunk}, cache, policy=policy.with_(use_kernels=uk))
-    # Tolerance: the kernel sums in another order than cuBLAS (~1e-6
-    # relative in float32), and such a rounding-level difference in an
-    # earlier layer's output can flip an N:M selection between two nearly
-    # equal scores, swapping one of ~2048 kept channels of one token's
-    # projection; 2% of the largest logit covers that and nothing larger.
-    check_close("last-chunk logits", logits[True], logits[False], 2e-2)
+    if quantized:
+        plain, plain_logits = run("plain")
+        errs = [float((a - b).abs().max()) for a, b in zip(got_logits, plain_logits)]
+        agree = [sum(x == y for x, y in zip(got[r], plain[r])) for r in got]
+        print(f"  fully plain path (reported, not checked): last-chunk logits max_abs_err "
+              f"{['%.3e' % e for e in errs]}, greedy tokens agreeing {agree} of {new}")
     del params, model
     torch.cuda.empty_cache()
 
@@ -542,7 +800,7 @@ def main() -> int:
           f"cudnn={torch.backends.cudnn.allow_tf32}; bf16 reduced-precision reduction="
           f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     print(f"rates used for bounds: {rates[0] / 1e12:.2f} TB/s, {rates[1] / 1e12:.0f} "
-          f"TFLOP/s bf16, {rates[2] / 1e12:.0f} TFLOP/s fp32")
+          f"TFLOP/s bf16, {rates[2] / 1e12:.0f} TFLOP/s fp32, {rates[3] / 1e12:.0f} TOP/s int8")
 
     t = time.perf_counter()
     info = _build.build()
@@ -554,25 +812,41 @@ def main() -> int:
     timer = Timer(torch)
     t1 = time.perf_counter()
     records = phase_kernels(torch, timer, rates)
+    records.update(phase_int8_kernels(torch, timer, rates))
     del timer
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
-    launches = phase_serve(torch)
+    launches, model, params, policy = phase_serve(torch)
     t3 = time.perf_counter()
-    phase_parity(torch)
+    q_launches = phase_serve_osparse(torch, model, params, policy)
+    del model, params
+    torch.cuda.empty_cache()
     t4 = time.perf_counter()
+    phase_parity(torch, quantized=False)
+    phase_parity(torch, quantized=True)
+    t5 = time.perf_counter()
     print(f"phase seconds: build {t1 - t:.1f}, kernels {t2 - t1:.1f}, serve {t3 - t2:.1f}, "
-          f"parity {t4 - t3:.1f}")
+          f"serve osparse {t4 - t3:.1f}, parity {t5 - t4:.1f}")
 
+    from repro_torch.kernels import nm_prune as knp
     from repro_torch.kernels import nm_prune_matmul as knm
+    from repro_torch.kernels import osparse_matmul as kos
     from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.kernels import w8a8_matmul as kw8
+    # launches: each kernel's count in the serving run of its path (phase 3,
+    # and 3b for osparse_matmul); w8a8_matmul and nm_prune are entry points
+    # that no serving path calls
     meta = {
-        "nm_prune_matmul": (knm.SOURCE, knm.REPLACES),
-        "paged_kv_scatter": (kpa.SOURCE, kpa.SCATTER_REPLACES),
-        "paged_attention": (kpa.SOURCE, kpa.ATTENTION_REPLACES),
+        "nm_prune_matmul": (knm.SOURCE, knm.REPLACES, launches),
+        "paged_kv_scatter": (kpa.SOURCE, kpa.SCATTER_REPLACES, launches),
+        "paged_attention": (kpa.SOURCE, kpa.ATTENTION_REPLACES, launches),
+        "osparse_matmul": (kos.SOURCE, kos.REPLACES, q_launches),
+        "w8a8_matmul": (kw8.SOURCE, kw8.REPLACES, q_launches),
+        "nm_prune": (knp.SOURCE, knp.REPLACES, q_launches),
     }
-    line = {"kernels": [dict(name=k, route="cuda", source=meta[k][0], replaces=meta[k][1],
-                             launches=launches[k], **records[k]) for k in meta]}
+    line = {"kernels": [dict(name=k, route="cuda", source=src, replaces=rep,
+                             launches=counts[k], **records[k])
+                        for k, (src, rep, counts) in meta.items()]}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -49,8 +49,10 @@ def precompute_scales(params: nn.Module, policy: SparsityPolicy) -> nn.Module:
     Walks the module tree; every projection ``Linear`` whose attribute name
     is prunable under the policy (layer-independent, as the JAX walk over
     the stacked pytree is) gets an ``amber_scale`` tensor.  The LM head is
-    not a projection and never reads a scale, so it gets none.  Updates
-    ``params`` in place and returns it.
+    not a projection and never reads a scale, so it gets none.  Only float
+    ``Linear``s are visited (the JAX walk visits dicts with ``w``): a
+    ``QuantLinear`` keeps the scale computed from its float weight before
+    the rewrite.  Updates ``params`` in place and returns it.
     """
     from repro_torch.core.policy import ALL_PROJS
     from repro_torch.layers.linear import Linear

@@ -287,3 +287,18 @@ extern "C" int nm_prune_matmul_f32(const void* x, const void* w, const float* sc
                                                   (float*)out, T, D, N);
   return (int)cudaGetLastError();
 }
+
+// The selection pass alone (replaces the TPU kernel repro/kernels/nm_prune.py:
+// nm_prune_pallas): out (T, D), in x's dtype, is x with all but the top n of
+// every group of m channels by |x| * scale zeroed.  It is bound by reading x
+// and writing out once (4 bytes per bf16 element); one thread per (token,
+// group) keeps the group's scores in registers.
+extern "C" int nm_prune_bf16(const void* x, const float* scale, void* out, int T, int D, int n,
+                             int m, void* stream) {
+  return launch_select<bf16>(x, scale, out, T, D, n, m, (cudaStream_t)stream);
+}
+
+extern "C" int nm_prune_f32(const void* x, const float* scale, void* out, int T, int D, int n,
+                            int m, void* stream) {
+  return launch_select<float>(x, scale, out, T, D, n, m, (cudaStream_t)stream);
+}

@@ -5,11 +5,16 @@
 which is what the kernels take, so nothing is transposed.  Layers are a
 Python loop in the port, so ``sparse_linear`` always knows the static layer
 index and consults the policy's skip list directly; there is no traced
-``layer_flag``.  A pruned projection goes through ``core.pruner.
+``layer_flag``.
+
+Dispatch, as in the JAX package: a quantized projection (``QuantLinear``,
+which holds ``wq`` and no float weight) takes the Outstanding-sparse / W8A8
+rung in both phases, pruned where the policy prunes — one
+``osparse_matmul`` launch under ``use_kernels``, else the ``core.quant``
+chain; a pruned float projection goes through ``core.pruner.
 sparse_matmul`` (one ``nm_prune_matmul`` launch under ``use_kernels``);
 every other projection is ``x @ w (+ b)`` through ``torch.matmul``, as the
-JAX package leaves it to XLA.  Quantized (W8A8 / Outstanding-sparse)
-weights are not ported yet.
+JAX package leaves it to XLA.
 """
 from __future__ import annotations
 
@@ -18,10 +23,10 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.core import pruner
+from repro_torch.core import pruner, quant
 from repro_torch.core.policy import SparsityPolicy
 
-__all__ = ["Linear", "init_linear", "dense_linear", "sparse_linear"]
+__all__ = ["Linear", "QuantLinear", "init_linear", "dense_linear", "sparse_linear"]
 
 
 class Linear(nn.Module):
@@ -36,6 +41,26 @@ class Linear(nn.Module):
         self.b = (nn.Parameter(torch.zeros(d_out, dtype=dtype, device=device),
                                requires_grad=False) if bias else None)
         self.register_buffer("amber_scale", None)
+
+
+class QuantLinear(nn.Module):
+    """A projection after the offline SmoothQuant / Outstanding rewrite: int8
+    ``wq (d_in, d_out)``, float32 ``w_scale (d_out,)``, ``smooth (d_in,)``
+    and the 0-d static ``act_scale``, the optional ``amber_scale (d_in,)``
+    (computed from the float weight before the rewrite) and bias ``b`` in
+    the model dtype; ``per_token`` selects dynamic per-token activation
+    scales."""
+
+    def __init__(self, ql: quant.QuantizedLinear, amber_scale: Optional[torch.Tensor] = None,
+                 bias: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.register_buffer("wq", ql.wq)
+        self.register_buffer("w_scale", ql.w_scale)
+        self.register_buffer("smooth", ql.smooth)
+        self.register_buffer("act_scale", ql.act_scale)
+        self.register_buffer("amber_scale", amber_scale)
+        self.register_buffer("b", bias)
+        self.per_token = bool(ql.per_token)
 
 
 def init_linear(d_in: int, d_out: int, *, bias: bool = False,
@@ -56,10 +81,32 @@ def dense_linear(x: torch.Tensor, p: Linear) -> torch.Tensor:
     return y
 
 
-def sparse_linear(x: torch.Tensor, p: Linear, module: str,
+def _quantized(x: torch.Tensor, p: QuantLinear, prune: bool,
+               policy: SparsityPolicy) -> torch.Tensor:
+    """Outstanding-sparse rung: smooth → (prune) → int8 matmul, cast to x's
+    dtype.  The kernel adds the bias in its float32 epilogue; the plain
+    chain adds it after the cast, as the JAX package's two forms do."""
+    from repro_torch.kernels import ops, osparse_matmul
+
+    act_scale = None if p.per_token else p.act_scale
+    if policy.use_kernels:
+        y = ops.osparse_matmul(x, p.wq, p.smooth, p.amber_scale, p.w_scale,
+                               policy.n, policy.m, act_scale=act_scale, bias=p.b,
+                               prune=prune, per_token=p.per_token)
+        return y.to(x.dtype)
+    y = osparse_matmul.osparse_matmul_plain(
+        x, p.wq, p.smooth, p.amber_scale, p.w_scale, policy.n, policy.m,
+        act_scale=act_scale, prune=prune, per_token=p.per_token).to(x.dtype)
+    return y if p.b is None else y + p.b
+
+
+def sparse_linear(x: torch.Tensor, p, module: str,
                   policy: SparsityPolicy, phase: str,
                   layer_idx: Optional[int] = None) -> torch.Tensor:
     """Projection ``module`` of layer ``layer_idx`` under the policy."""
-    if not (policy.active(phase) and policy.should_prune(module, layer_idx)):
+    prune = policy.active(phase) and policy.should_prune(module, layer_idx)
+    if isinstance(p, QuantLinear):
+        return _quantized(x, p, prune, policy)
+    if not prune:
         return dense_linear(x, p)
     return pruner.sparse_matmul(x, p.w, p.amber_scale, policy, bias=p.b)

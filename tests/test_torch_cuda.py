@@ -8,8 +8,12 @@ runs where JAX is not installed::
 import pytest
 import torch
 
+from repro_torch.core import quant
+from repro_torch.kernels import nm_prune as knp
 from repro_torch.kernels import nm_prune_matmul as knm
+from repro_torch.kernels import osparse_matmul as kos
 from repro_torch.kernels import paged_attention as kpa
+from repro_torch.kernels import w8a8_matmul as kw8
 
 pytestmark = pytest.mark.cuda
 # bf16 outputs: one bf16 ulp of the largest output; float32: summation order
@@ -92,3 +96,54 @@ def test_paged_kv_scatter_bit_exact(gen):
     kpa.paged_kv_scatter(kn, kn, k_a, v_a, tab, pos, clen)
     kpa.paged_kv_scatter_plain(kn, kn, k_b, v_b, tab, pos, clen)
     assert torch.equal(k_a, k_b) and torch.equal(v_a, v_b)
+
+
+# The int8 paths are exact: kernel and plain version agree bit for bit.
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_token", [False, True], ids=["tensor", "token"])
+@pytest.mark.parametrize("prune", [False, True], ids=["dense", "prune"])
+@pytest.mark.parametrize("t,d,n_out,n,m", [
+    (37, 128, 72, 8, 16),        # ragged T, one column tile
+    (4, 2048, 1024, 8, 16),      # decode: split-k with int32 atomics
+    (70, 200, 200, 2, 4),        # D and N not multiples of 16: byte staging
+])
+def test_osparse_matmul_bit_exact(gen, dtype, per_token, prune, t, d, n_out, n, m):
+    x = torch.randn(t, d, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(d, n_out, generator=gen, device="cuda") * d**-0.5
+    absmax = torch.rand(d, generator=gen, device="cuda") * 3 + 0.5
+    absmax[:4] *= 11
+    ql = quant.make_quantized_linear(w, absmax, quant.QuantConfig())
+    amber = torch.rand(d, generator=gen, device="cuda") + 0.5
+    bias = torch.randn(n_out, generator=gen, device="cuda").to(dtype)
+    args = (ql.wq, ql.smooth, amber, ql.w_scale, n, m)
+    kw = dict(act_scale=ql.act_scale, bias=bias, prune=prune, per_token=per_token)
+    got = kos.osparse_matmul(x, *args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kos.osparse_matmul_plain(x, *args, **kw))
+    q, s = kos.osparse_quantize(x, ql.smooth, amber, n, m, ql.act_scale, prune, per_token)
+    q0, s0 = kos.osparse_quantize_plain(x, ql.smooth, amber, n, m, ql.act_scale, prune,
+                                        per_token)
+    assert torch.equal(q, q0) and torch.equal(s, s0)
+
+
+@pytest.mark.parametrize("t,d,n_out", [(256, 512, 384), (3, 4096, 512), (33, 80, 130)])
+def test_w8a8_matmul_bit_exact(gen, t, d, n_out):
+    xq = torch.randint(-127, 128, (t, d), generator=gen, device="cuda").to(torch.int8)
+    wq = torch.randint(-127, 128, (d, n_out), generator=gen, device="cuda").to(torch.int8)
+    ws = torch.rand(n_out, generator=gen, device="cuda") * 0.01
+    xs = torch.tensor(0.013, device="cuda")
+    got = kw8.w8a8_matmul(xq, wq, xs, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kw8.w8a8_matmul_plain(xq, wq, xs, ws))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,n,m", [(37, 128, 8, 16), (256, 192, 2, 4)])
+def test_nm_prune_bit_exact(gen, dtype, t, d, n, m):
+    x = torch.randn(t, d, generator=gen, device="cuda").to(dtype)
+    sc = torch.rand(d, generator=gen, device="cuda") + 0.5
+    for scale in (sc, None):
+        got = knp.nm_prune(x, scale, n, m)
+        torch.cuda.synchronize()
+        assert torch.equal(got, knp.nm_prune_plain(x, scale, n, m))
