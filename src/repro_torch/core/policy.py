@@ -38,8 +38,8 @@ class SparsityPolicy:
       skip_layers:    mapping module -> layer indices additionally skipped.
       phases:         phases in which sparsity is active.
       moe_plain_score: plain |X| scoring inside routed experts.
-      tile_consensus: one shared N:M pattern per token tile (not ported yet:
-                      the projections raise NotImplementedError under it).
+      tile_consensus: one shared N:M pattern per token tile (the ``nm_spmm``
+                      kernel under ``use_kernels``).
       tile_size:      consensus tile size in tokens.
       use_kernels:    route pruned projections and paged KV traffic through
                       the Hopper kernels.

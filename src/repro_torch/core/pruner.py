@@ -1,11 +1,14 @@
 """Amber Pruner: the functional pruning path + offline scale precomputation
 (port of ``repro/core/pruner.py``).
 
-``sparse_matmul`` is what every pruned projection calls.  Per-token mode
-only: under ``policy.use_kernels`` it is one ``nm_prune_matmul`` kernel
-launch (score, N:M select, mask and GEMM fused); otherwise the plain path
-masks the input and multiplies.  Tile-consensus mode (``nm_spmm``) is not
-ported yet and raises.
+``sparse_matmul`` is what every pruned projection calls.  Per-token mode:
+under ``policy.use_kernels`` it is one ``nm_prune_matmul`` kernel launch
+(score, N:M select, mask and GEMM fused); otherwise the plain path masks
+the input and multiplies.  Tile-consensus mode: under ``policy.use_kernels``
+one ``nm_spmm`` launch; otherwise the plain compaction path
+(``kernels.nm_spmm.nm_spmm_plain``).  Either way all leading axes form one
+token axis cut into tiles of ``min(policy.tile_size, tokens)``, so a tile
+may span batch rows, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -30,10 +33,20 @@ def prune_input(x: torch.Tensor, scale: torch.Tensor | None,
 def sparse_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None,
                   policy: SparsityPolicy,
                   bias: torch.Tensor | None = None) -> torch.Tensor:
-    """N:M-sparsified ``x @ w`` (+ ``bias``) under the policy's mode."""
+    """N:M-sparsified ``x @ w`` (+ ``bias``) under the policy's mode.
+
+    In tile-consensus mode the bias is added after the product, in x's
+    dtype, as the JAX package does (``repro/core/pruner.py:90-93``)."""
     if policy.tile_consensus:
-        raise NotImplementedError(
-            "tile-consensus N:M (the nm_spmm kernel) is not ported yet")
+        from repro_torch.kernels import nm_spmm, ops
+
+        if policy.use_kernels:
+            y = ops.nm_spmm(x, w, scale, policy.n, policy.m, tile=policy.tile_size)
+        else:
+            y = nm_spmm.nm_spmm_plain(x.reshape(-1, x.shape[-1]), w, scale, policy.n,
+                                      policy.m, policy.tile_size)
+            y = y.reshape(*x.shape[:-1], w.shape[-1])
+        return y if bias is None else y + bias
     if policy.use_kernels:
         from repro_torch.kernels import ops
 

@@ -24,7 +24,8 @@ __all__ = ["build", "load", "SOURCES"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("nm_prune_matmul.cu", "osparse_matmul.cu", "paged_attention.cu")
+SOURCES = ("flash_attention.cu", "nm_prune_matmul.cu", "nm_spmm.cu",
+           "osparse_matmul.cu", "paged_attention.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 

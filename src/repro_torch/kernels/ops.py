@@ -3,8 +3,7 @@
 
 Flattens the leading axes of an input into the kernel's token axis and
 keeps the JAX package's signatures.  The CUDA kernels mask their own ragged
-edges, so no ``_block_and_pad`` padding is needed.  ``nm_spmm`` is not
-ported yet.
+edges, so no ``_block_and_pad`` padding is needed.
 """
 from __future__ import annotations
 
@@ -12,10 +11,11 @@ import torch
 
 from repro_torch.kernels import nm_prune as _np
 from repro_torch.kernels import nm_prune_matmul as _npm
+from repro_torch.kernels import nm_spmm as _nms
 from repro_torch.kernels import osparse_matmul as _osp
 from repro_torch.kernels import w8a8_matmul as _w8
 
-__all__ = ["nm_prune", "nm_prune_matmul", "osparse_matmul", "w8a8_matmul"]
+__all__ = ["nm_prune", "nm_prune_matmul", "nm_spmm", "osparse_matmul", "w8a8_matmul"]
 
 
 def _flat(x: torch.Tensor) -> torch.Tensor:
@@ -32,6 +32,16 @@ def nm_prune_matmul(x: torch.Tensor, w: torch.Tensor,
                     bias: torch.Tensor | None = None) -> torch.Tensor:
     """Fused per-token prune + GEMM over any ``(..., D)`` input."""
     y = _npm.nm_prune_matmul(_flat(x), w, scale, n, m, bias=bias)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def nm_spmm(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None,
+            n: int, m: int, tile: int = 256) -> torch.Tensor:
+    """Tile-consensus compacted matmul over any ``(..., D)`` input, in x's
+    dtype.  All leading axes form one token axis, so a consensus tile may
+    span batch rows; the tile is ``min(tile, tokens)`` and is part of the
+    function (it decides which tokens vote in each pool)."""
+    y = _nms.nm_spmm(_flat(x), w, scale, n, m, tile)
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 

@@ -12,9 +12,11 @@ which holds ``wq`` and no float weight) takes the Outstanding-sparse / W8A8
 rung in both phases, pruned where the policy prunes — one
 ``osparse_matmul`` launch under ``use_kernels``, else the ``core.quant``
 chain; a pruned float projection goes through ``core.pruner.
-sparse_matmul`` (one ``nm_prune_matmul`` launch under ``use_kernels``);
-every other projection is ``x @ w (+ b)`` through ``torch.matmul``, as the
-JAX package leaves it to XLA.
+sparse_matmul`` (under ``use_kernels`` one ``nm_prune_matmul`` launch, or
+in tile-consensus mode one ``nm_spmm`` launch — the static layer index
+replaces the JAX scan's ``jnp.where(layer_flag, y, dense)``, which
+computes the same function); every other projection is ``x @ w (+ b)``
+through ``torch.matmul``, as the JAX package leaves it to XLA.
 """
 from __future__ import annotations
 

@@ -1,9 +1,14 @@
 """Attention for the dense family (port of ``repro/models/attention.py``).
 
-* :func:`attention` — the plain grouped-query online-softmax attention of
-  ``repro/models/attention.py:163`` (full/causal; sliding windows are not
-  ported yet): a Python loop over KV chunks carrying float32 (max, denom,
-  acc), GQA in the grouped ``(B, T, Hkv, G, hd)`` layout.
+* :func:`attention` — grouped-query attention of
+  ``repro/models/attention.py:163``.  ``impl="flash"`` sends whole-sequence
+  self-attention (``T == S > 1`` from position 0, no ``kv_len``, full or
+  causally banded) to the ``flash_attention`` kernel, for every ``T`` (the
+  JAX package's ``T % 128`` gate is not carried over: the kernel masks its
+  own ragged edge).  Everything else takes the plain online softmax: a
+  Python loop over KV chunks carrying float32 (max, denom, acc), GQA in the
+  grouped ``(B, T, Hkv, G, hd)`` layout, without sliding windows (the ring
+  caches they need are not ported yet).
 * :func:`gather_kv_blocks` — the contiguous logical view of a pooled cache,
   with unallocated (``-1``) blocks zeroed.
 * :func:`paged_kv_update` / :func:`paged_attention` — the paged KV write and
@@ -66,14 +71,25 @@ def _kv_chunk_attention(q, k, v, q_pos, causal, kv_len, chunk):
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               q_offset: IntOrTensor = 0, kv_len: Optional[IntOrTensor] = None,
-              chunk: int = 1024) -> torch.Tensor:
-    """Grouped-query online-softmax attention.  q (B, T, Hq, hd), k/v
-    (B, S, Hkv, hd) → (B, T, Hq, hd).  ``q_offset`` / ``kv_len`` may be
-    scalars or per-row ``(B,)`` vectors."""
-    if window is not None:
-        raise NotImplementedError("sliding-window attention is not ported yet")
+              chunk: int = 1024, impl: str = "chunked") -> torch.Tensor:
+    """Grouped-query attention.  q (B, T, Hq, hd), k/v (B, S, Hkv, hd) →
+    (B, T, Hq, hd).  ``q_offset`` / ``kv_len`` may be scalars or per-row
+    ``(B,)`` vectors.  ``impl="flash"`` takes the ``flash_attention`` kernel
+    where the JAX package takes its Pallas kernel (the self-attention
+    prefill case), and the online-softmax loop otherwise."""
     B, T, Hq, hd = q.shape
-    Hkv = k.shape[2]
+    S, Hkv = k.shape[1], k.shape[2]
+    from_zero = isinstance(q_offset, int) and q_offset == 0
+    if (impl == "flash" and T == S and T > 1 and kv_len is None and from_zero
+            and (window is None or causal)):
+        from repro_torch.kernels import flash_attention as kfa
+
+        return kfa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   causal=causal,
+                                   window=0 if window is None else min(window, S))
+    if window is not None:
+        raise NotImplementedError("sliding-window attention outside the flash "
+                                  "kernel's case is not ported yet")
     qg = (q * hd**-0.5).reshape(B, T, Hkv, Hq // Hkv, hd)
     qo = torch.as_tensor(q_offset, device=q.device).long()
     ar = torch.arange(T, device=q.device)

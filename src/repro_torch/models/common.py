@@ -6,7 +6,21 @@ import torch
 from torch import nn
 
 __all__ = ["RMSNorm", "Embedding", "rms_norm", "init_norm", "init_embedding",
-           "embed", "rope_freqs", "apply_rope", "dtype_of"]
+           "embed", "rope_freqs", "apply_rope", "dtype_of", "resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the GPU: raise when there is none, never fall back to
+    the CPU.  The CPU is used only when the caller names it."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the port runs on the GPU unless "
+                               "the caller passes device='cpu'")
+        return torch.device("cuda")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    return dev
 
 
 def dtype_of(cfg) -> torch.dtype:

@@ -3,6 +3,7 @@
     model = build_model(cfg)                 # cuda; device="cpu" for tests
     params = model.init(seed)                # a Transformer nn.Module
     logits = model.forward(params, batch, policy=...)
+    logits, cache = model.prefill(params, batch, cache, policy=...)
     logits, cache = model.prefill_chunk(params, batch, cache, policy=...)
     logits, cache = model.decode_step(params, tokens, cache, policy=...)
 """
@@ -15,22 +16,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import DENSE, SparsityPolicy
 from repro_torch.models import transformer
+from repro_torch.models.common import resolve_device
 
 __all__ = ["Model", "build_model", "resolve_device"]
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the GPU: raise when there is none, never fall back to
-    the CPU.  The CPU is used only when the caller names it."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: the port runs on the GPU unless "
-                               "the caller passes device='cpu'")
-        return torch.device("cuda")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not available")
-    return dev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +40,9 @@ class Model:
 
     def paged_kv_spec(self):
         return transformer.paged_kv_spec(self.cfg)
+
+    def prefill(self, params, batch, cache, *, policy: SparsityPolicy = DENSE):
+        return transformer.prefill(self.cfg, params, batch, cache, policy=policy)
 
     def prefill_chunk(self, params, batch, cache, *, policy: SparsityPolicy = DENSE):
         return transformer.prefill_chunk(self.cfg, params, batch, cache, policy=policy)

@@ -14,6 +14,12 @@ with per-layer pools ``(rows, block_size, Hkv, hd)`` written in place.
 :func:`init_cache` gives each batch row its own contiguous run of blocks
 (a dense per-row slab expressed as a block table); serving builds a shared
 pool with ``serve.paged.init_paged_cache``.
+
+Attention without a cache (:func:`forward`) and the one-shot
+:func:`prefill` attend over the fresh K/V with ``cfg.attn_impl``
+(``"flash"``: the ``flash_attention`` kernel); :func:`prefill` then writes
+all B rows into the cache at position 0.  Chunked prefill and decode read
+the paged pools.
 """
 from __future__ import annotations
 
@@ -30,19 +36,20 @@ from repro_torch.models.attention import attention, paged_attention, paged_kv_up
 from repro_torch.models.mlp import init_mlp, mlp
 
 __all__ = ["Transformer", "AttnBlock", "check_supported", "init_params",
-           "init_cache", "paged_kv_spec", "forward", "prefill_chunk",
+           "init_cache", "paged_kv_spec", "forward", "prefill", "prefill_chunk",
            "decode_step"]
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port's slice covers the dense full-attention RMSNorm/RoPE family."""
-    unsupported = {
-        "family": (cfg.family, "dense"), "attn_type": (cfg.attn_type, "full"),
-        "rope_variant": (cfg.rope_variant, "default"), "norm": (cfg.norm, "rmsnorm"),
-        "attn_impl": (cfg.attn_impl, "chunked"), "block_pattern": (cfg.block_pattern, ("attn",)),
+    supported = {
+        "family": (cfg.family, ("dense",)), "attn_type": (cfg.attn_type, ("full",)),
+        "rope_variant": (cfg.rope_variant, ("default",)), "norm": (cfg.norm, ("rmsnorm",)),
+        "attn_impl": (cfg.attn_impl, ("chunked", "flash")),
+        "block_pattern": (cfg.block_pattern, (("attn",),)),
     }
-    for field, (have, want) in unsupported.items():
-        if have != want:
+    for field, (have, want) in supported.items():
+        if have not in want:
             raise NotImplementedError(
                 f"{cfg.name}: {field}={have!r} is not ported yet (only {want!r})")
     if cfg.n_experts or cfg.is_encdec or cfg.vision_stub:
@@ -82,8 +89,10 @@ class Transformer(nn.Module):
 
 
 @torch.no_grad()
-def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> Transformer:
-    """Random weights made on ``device`` from a seeded ``torch.Generator``."""
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
+    """Random weights made on ``device`` (default: the GPU, raising if there
+    is none) from a seeded ``torch.Generator``."""
+    device = common.resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     return Transformer(cfg, device=device, generator=gen)
 
@@ -98,12 +107,14 @@ def paged_kv_spec(cfg: ModelConfig) -> Dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
-               device="cpu", block_size: int = 16) -> Dict:
-    """Per-row cache of ``max_seq`` positions in the paged layout: row ``b``
-    owns blocks ``b*mb .. b*mb + mb - 1`` (plus the pool's trailing
-    sentinel row, as ``serve.paged.device_pool_rows`` sizes it)."""
+               device=None, block_size: int = 16) -> Dict:
+    """Per-row cache of ``max_seq`` positions in the paged layout on
+    ``device`` (default: the GPU, raising if there is none): row ``b`` owns
+    blocks ``b*mb .. b*mb + mb - 1`` (plus the pool's trailing sentinel row,
+    as ``serve.paged.device_pool_rows`` sizes it)."""
     from repro_torch.serve.paged import init_paged_cache, max_blocks_per_slot
 
+    device = common.resolve_device(device)
     mb = max_blocks_per_slot(max_seq, block_size)
     cache = init_paged_cache(cfg, batch, max_seq, block_size, batch * mb,
                              dtype=dtype, device=device)
@@ -130,8 +141,14 @@ def _attn_block_apply(cfg: ModelConfig, h: torch.Tensor, p: AttnBlock,
                           cfg.rope_theta)
     v = v.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
 
-    if cache is None:
-        o = attention(q, k, v, causal=True, q_offset=0, chunk=cfg.attn_chunk)
+    if cache is None or pos is None:
+        # no cache, or the one-shot prefill (a cache and no offset): attend
+        # over the fresh K/V, then write all B rows at position 0
+        o = attention(q, k, v, causal=True, q_offset=0, chunk=cfg.attn_chunk,
+                      impl=cfg.attn_impl)
+        if cache is not None:
+            paged_kv_update(cache["k"], cache["v"], k, v, block_table, 0,
+                            use_kernel=policy.use_kernels)
     else:
         # paged cache: logical row p of a batch row lives at physical row
         # (table[p // bs], p % bs).  The write goes first (in place), then
@@ -189,6 +206,27 @@ def forward(cfg: ModelConfig, params: Transformer, batch: Dict, *,
     h = common.embed(tokens, params.embed)
     h = _run_blocks(cfg, params, h, policy, phase, None, None, positions)
     return _lm_logits(cfg, params, h)
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params: Transformer, batch: Dict, cache: Dict, *,
+            policy: SparsityPolicy) -> Tuple[torch.Tensor, Dict]:
+    """One-shot prompt ingestion of ``batch["tokens"] (B, T)`` into a cache
+    from :func:`init_cache`: attention over the fresh K/V with
+    ``cfg.attn_impl``, and every row's K/V written at position 0 (through
+    ``paged_kv_scatter`` under ``policy.use_kernels``).  Returns (last-token
+    logits (B, V), cache with ``pos + T``); the pools are updated in
+    place."""
+    tokens = batch["tokens"]
+    b, t = tokens.shape
+    bs, mb = cache["layers"][0]["k"].shape[1], cache["block_table"].shape[1]
+    if t > mb * bs:
+        raise ValueError(f"prefill: {t} tokens do not fit a cache of {mb * bs} positions")
+    positions = torch.arange(t, device=tokens.device).expand(b, t)
+    h = common.embed(tokens, params.embed)
+    h = _run_blocks(cfg, params, h, policy, "prefill", cache, None, positions)
+    logits = _lm_logits(cfg, params, h[:, -1:])[:, 0]
+    return logits, {**cache, "pos": cache["pos"] + t}
 
 
 @torch.no_grad()

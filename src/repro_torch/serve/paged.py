@@ -347,15 +347,17 @@ class BlockPool:
 
 def init_paged_cache(cfg, num_slots: int, max_seq: int, block_size: int,
                      num_blocks: int, dtype: Optional[torch.dtype] = None,
-                     device="cpu") -> Dict:
+                     device=None) -> Dict:
     """Slot cache with pooled attention K/V: per layer, ``k``/``v`` pools of
     ``(device_pool_rows(num_blocks), block_size, n_kv_heads, head_dim)``
     (the allocatable blocks plus the trailing sentinel row, never referenced
     by any block table), the per-slot ``pos`` vector and the ``-1``-filled
     ``(num_slots, max_blocks)`` int32 ``block_table``.  The pools are updated
-    in place by the prefill and decode steps."""
-    from repro_torch.models.common import dtype_of
+    in place by the prefill and decode steps.  ``device`` defaults to the
+    GPU and raises if there is none."""
+    from repro_torch.models.common import dtype_of, resolve_device
 
+    device = resolve_device(device)
     dtype = dtype or dtype_of(cfg)
     shape = (device_pool_rows(num_blocks), block_size, cfg.n_kv_heads, cfg.head_dim)
     mb = max_blocks_per_slot(max_seq, block_size)

@@ -74,9 +74,11 @@ def _layer_params(params_np: Dict, i: int) -> Dict:
 
 
 @torch.no_grad()
-def from_jax_params(cfg: ModelConfig, params_np: Dict, device="cpu"
+def from_jax_params(cfg: ModelConfig, params_np: Dict, device=None
                     ) -> transformer.Transformer:
-    """The port's model holding the JAX parameters ``params_np``."""
+    """The port's model holding the JAX parameters ``params_np``, on
+    ``device`` (default: the GPU, raising if there is none)."""
+    device = common.resolve_device(device)
     dtype = common.dtype_of(cfg)
     model = transformer.init_params(cfg, 0, device=device)
     model.embed.w.copy_(_t(params_np["embed"]["w"], dtype, device))

@@ -109,9 +109,16 @@ def test_sparse_matmul_plain_matches_reference():
                                             jpolicy.paper_policy(8, 16),
                                             bias=jnp.asarray(b)))
     np.testing.assert_allclose(got, want, **F32)
-    with pytest.raises(NotImplementedError):
-        pruner.sparse_matmul(torch.from_numpy(x), torch.from_numpy(w), None,
-                             policy.paper_policy(8, 16, tile_consensus=True))
+    # tile consensus: one shared channel set for the 15 tokens of (3, 5)
+    for sc_ in (sc, None):
+        got = pruner.sparse_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                                   None if sc_ is None else torch.from_numpy(sc_),
+                                   policy.paper_policy(8, 16, tile_consensus=True),
+                                   bias=torch.from_numpy(b)).numpy()
+        want = np.asarray(jpruner.sparse_matmul(
+            jnp.asarray(x), jnp.asarray(w), None if sc_ is None else jnp.asarray(sc_),
+            jpolicy.paper_policy(8, 16, tile_consensus=True), bias=jnp.asarray(b)))
+        np.testing.assert_allclose(got, want, **F32)
 
 
 def test_precompute_scales_walk_matches_reference():
@@ -125,7 +132,8 @@ def test_precompute_scales_walk_matches_reference():
     params = jbuild(cfg).init(jax.random.PRNGKey(0))
     jpol = jpolicy.paper_policy(8, 16, (3,))
     jscaled = jax.tree_util.tree_map(np.asarray, jpruner.precompute_scales(params, jpol))
-    model = from_jax_params(tcfg, jax.tree_util.tree_map(np.asarray, params))
+    model = from_jax_params(tcfg, jax.tree_util.tree_map(np.asarray, params),
+                            device="cpu")
     pruner.precompute_scales(model, policy.paper_policy(8, 16, (3,)))
     for i, blk in enumerate(model.blocks):
         per = jscaled["periods"]["b0"]

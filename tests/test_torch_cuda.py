@@ -9,8 +9,10 @@ import pytest
 import torch
 
 from repro_torch.core import quant
+from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import nm_prune as knp
 from repro_torch.kernels import nm_prune_matmul as knm
+from repro_torch.kernels import nm_spmm as kns
 from repro_torch.kernels import osparse_matmul as kos
 from repro_torch.kernels import paged_attention as kpa
 from repro_torch.kernels import w8a8_matmul as kw8
@@ -147,3 +149,43 @@ def test_nm_prune_bit_exact(gen, dtype, t, d, n, m):
         got = knp.nm_prune(x, scale, n, m)
         torch.cuda.synchronize()
         assert torch.equal(got, knp.nm_prune_plain(x, scale, n, m))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["causal", "ragged", "window", "noncausal", "head_dim_32"])
+def test_flash_attention(gen, dtype, case):
+    """GQA 7:1 as in Qwen2-7B; a ragged T the 64-row tiles do not divide; a
+    causal window band (key blocks below it skipped); non-causal; a head
+    size the tensor-core path does not take."""
+    b, hq, hkv, t, hd = 2, 14, 2, 200, 64
+    causal, window = case != "noncausal", 48 if case == "window" else 0
+    if case == "ragged":
+        t = 77
+    if case == "head_dim_32":
+        hd = 32
+    q = torch.randn(b, t, hq, hd, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, t, hkv, hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, t, hkv, hd, generator=gen, device="cuda").to(dtype)
+    _close(kfa.flash_attention(q, k, v, causal=causal, window=window),
+           kfa.flash_attention_plain(q, k, v, causal=causal, window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,n_out,n,m,tile", [
+    (600, 256, 200, 8, 16, 256),      # ragged last tile, N not a multiple of 128
+    (37, 96, 72, 2, 4, 256),          # one tile shorter than 64 rows
+    (130, 120, 48, 3, 8, 40),         # a tile that is not a multiple of 64 rows
+])
+def test_nm_spmm(gen, dtype, t, d, n_out, n, m, tile):
+    """The consensus selection bit-exact against the plain version's (kept
+    channel ids and compacted x), the product within rounding."""
+    x = torch.randn(t, d, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(d, n_out, generator=gen, device="cuda") * d**-0.5).to(dtype)
+    sc = torch.rand(d, generator=gen, device="cuda") + 0.5
+    for scale in (sc, None):
+        idx, xc = kns.consensus_select(x, scale, n, m, tile)
+        idx0, xc0 = kns.consensus_select_plain(x, scale, n, m, tile)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, idx0) and torch.equal(xc, xc0)
+        _close(kns.nm_spmm(x, w, scale, n, m, tile),
+               kns.nm_spmm_plain(x, w, scale, n, m, tile), dtype)

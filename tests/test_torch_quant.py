@@ -419,7 +419,7 @@ def _close(got, want):
 
 def test_from_jax_params_carries_quantized_dicts(qsmoke):
     _, tcfg, _, _, pn = qsmoke[:5]
-    tp = from_jax_params(tcfg, pn)
+    tp = from_jax_params(tcfg, pn, device="cpu")
     src = pn["periods"]["b0"]
     for i, blk in enumerate(tp.blocks):
         for name in QUANT:
@@ -438,8 +438,8 @@ def test_quantize_linears_matches_the_reference_rewrite(qsmoke):
     ``quantize_linears``) against the reference's per-layer
     ``make_quantized_linear``, up to the ulps of the rewrite."""
     _, tcfg, _, _, pn, float_np = qsmoke
-    want = from_jax_params(tcfg, pn)
-    got = from_jax_params(tcfg, float_np)
+    want = from_jax_params(tcfg, pn, device="cpu")
+    got = from_jax_params(tcfg, float_np, device="cpu")
     absmax = {(i, name): _absmax(100 * i + len(name), tcfg.d_model if name != "o_proj"
                                  else tcfg.q_dim)
               for i in range(tcfg.n_layers) for name in QUANT}
@@ -467,7 +467,7 @@ def test_quantized_model_logits_and_tokens_match(qsmoke, qreference, use_kernels
     greedy decode steps: logits close, greedy tokens identical."""
     _, tcfg, _, _, pn = qsmoke[:5]
     fwd, chunks, steps = qreference
-    tm, tp = build_model(tcfg, device="cpu"), from_jax_params(tcfg, pn)
+    tm, tp = build_model(tcfg, device="cpu"), from_jax_params(tcfg, pn, device="cpu")
     tpol = QPOL[1].with_(use_kernels=use_kernels)
     _close(tm.forward(tp, {"tokens": torch.from_numpy(TOKS)}, policy=tpol).numpy(), fwd)
     assert (tm.forward(tp, {"tokens": torch.from_numpy(TOKS)}, policy=tpol)
@@ -515,6 +515,6 @@ def test_quantized_engine_greedy_tokens_match_reference(qsmoke, qserved, use_ker
                              policy=QPOL[1].with_(use_kernels=use_kernels), device="cpu")
     for p, a, n in zip(*_traffic()):
         eng.submit(p, n, a)
-    res = eng.run(from_jax_params(tcfg, pn))
+    res = eng.run(from_jax_params(tcfg, pn, device="cpu"))
     assert res["outputs"] == qserved["outputs"]
     assert all(len(o) == n for o, n in zip(res["outputs"].values(), _traffic()[2]))

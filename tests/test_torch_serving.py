@@ -2,6 +2,7 @@
 
 Greedy token identity: the port's ``Engine`` and the JAX package's engine
 (``use_pallas_kernels=False``) serve the same requests on the same weights
+under DENSE, the paper's policy and its tile-consensus mode
 (LLaMA-3.1 smoke config, float32) with the same config — staggered
 arrivals, 2 slots, chunk 8, block size 8, a shared prompt prefix and a
 half-size block pool that forces preemption — and must emit the same
@@ -9,7 +10,9 @@ tokens, on the port's plain path and through its kernel wrappers.
 """
 import ast
 import dataclasses
+import importlib.util
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -42,6 +45,11 @@ SERVE = dict(max_seq=MAX_SEQ, num_slots=SLOTS, chunk_size=8, block_size=BS,
 POLICIES = {
     "dense": (jpolicy.DENSE, tpolicy.DENSE),
     "paper_8_16": (jpolicy.paper_policy(8, 16, (3,)), tpolicy.paper_policy(8, 16, (3,))),
+    # the continuous engine under tile consensus (each prefill chunk is one
+    # consensus tile); JAX documents that this mode is not token-identical
+    # to one-shot prefill, so it is held to the JAX continuous engine
+    "tile_consensus": (jpolicy.paper_policy(8, 16, (3,), tile_consensus=True),
+                       tpolicy.paper_policy(8, 16, (3,), tile_consensus=True)),
 }
 
 
@@ -79,7 +87,7 @@ def test_engine_greedy_tokens_match_reference(served, name, use_kernels):
     params_np, jres = served[name]
     tcfg = dataclasses.replace(tget("llama31_8b"), dtype="float32")
     model = build_model(tcfg, device="cpu")
-    params = from_jax_params(tcfg, params_np)
+    params = from_jax_params(tcfg, params_np, device="cpu")
     eng = Engine.from_config(model, EngineConfig(serving=ContinuousConfig(
         validate_pool=True, **SERVE)), policy=POLICIES[name][1].with_(
             use_kernels=use_kernels), device="cpu")
@@ -198,3 +206,51 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+# ------------------------------------------------- chip_smoke profile families
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _cuda_kernels():
+    """(source stem, kernel name) of every ``__global__`` function."""
+    out = []
+    for src in sorted((ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob("*.cu")):
+        for name in re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
+                               src.read_text()):
+            out.append((src.stem, name))
+    return out
+
+
+# the profile family of each kernel source; the scatter of the paged file is
+# a family of its own
+_FAMILY_OF_SOURCE = {"flash_attention": "flash_attention", "nm_spmm": "nm_spmm",
+                     "nm_prune_matmul": "nm_prune_matmul", "osparse_matmul": "osparse_matmul",
+                     "paged_attention": "paged_attention"}
+
+
+@pytest.mark.parametrize("stem,name", _cuda_kernels(), ids=lambda v: v)
+def test_profile_family_of_every_cuda_kernel(stem, name):
+    """chip_smoke.py's profiles put every kernel of the port under its own
+    family, whatever the profiler's decoration of the name (template
+    arguments, signature), and whatever other kernel's name holds it
+    (``paged_flash_bf16_kernel`` holds ``flash_bf16_kernel``)."""
+    cs = _chip_smoke()
+    want = "paged_kv_scatter" if name == "paged_kv_scatter_kernel" else _FAMILY_OF_SOURCE[stem]
+    for key in (name, f"void {name}<128>(int, float)",
+                f"void (anonymous namespace)::{name}<__nv_bfloat16>(__nv_bfloat16 const*)"):
+        assert cs.kernel_family(key) == want, key
+
+
+def test_profile_family_of_library_and_other_kernels():
+    cs = _chip_smoke()
+    assert len(_cuda_kernels()) >= 15
+    assert cs.kernel_family("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64") \
+        == "cuBLAS GEMM"
+    assert cs.kernel_family("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NNT") == "cuBLAS GEMM"
+    assert cs.kernel_family("void at::native::vectorized_elementwise_kernel<4>(int)") == cs.OTHER
