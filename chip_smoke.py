@@ -6,7 +6,10 @@
 Phases (any failed check exits non-zero; no phase is skipped):
 
 1. build   — compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
-             with nvcc (one process per source, in parallel).
+             with nvcc (one process per source, in parallel), and count the
+             HGMMA (wgmma) instructions in each library's SASS: the
+             ``flash_attention`` and ``nm_prune_matmul`` libraries must have
+             some.
 2. kernels — each kernel against its plain PyTorch version on the card, at
              the serving path's LLaMA-3.1-8B shapes in bfloat16 (plus a
              float32 case each); median time with CUDA events, the bound
@@ -34,8 +37,10 @@ Phases (any failed check exits non-zero; no phase is skipped):
              per sparse chunk; the same profile.
 4. parity  — full width, depth 2, float32: the same requests through the
              kernel path and the plain path must emit the same greedy
-             tokens, and the last-chunk logits must agree; 4b does the same
-             for the Outstanding-sparse model.
+             tokens, and the last-chunk logits must agree; then in bf16
+             (``nm_prune_matmul``'s wgmma GEMM), the logits held within
+             twice bf16 rounding's own effect on the plain path; 4b does the
+             float32 check for the Outstanding-sparse model.
 5. one-shot — ``ServingEngine.generate`` at full Qwen2-7B width (28 layers,
              q/k/v biases, ``attn_impl="flash"``, random weights from a
              seed, bfloat16) under the paper's policy in tile-consensus
@@ -46,7 +51,8 @@ Phases (any failed check exits non-zero; no phase is skipped):
              step, no ``nm_prune_matmul``; then the prefill and one decode
              step under ``torch.profiler``.  5b: full width, depth 2,
              float32: kernel path against plain path, identical greedy
-             tokens and close last-token logits.
+             tokens and close last-token logits; then in bf16
+             (``flash_attention``'s wgmma kernel), as phase 4's bf16 case.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -54,9 +60,11 @@ CUDA device, and when run outside the repository (it needs ``src/``).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -119,6 +127,23 @@ class Timer:
         return statistics.median(times)
 
 
+# the libraries whose kernels are written for the tensor cores' wgmma
+WGMMA_LIBRARIES = ("flash_attention.so", "nm_prune_matmul.so")
+
+
+def check_hgmma(build_dir: str) -> None:
+    """The count of HGMMA (wgmma) instructions in each built library's SASS;
+    the redesigned kernels' libraries must hold some."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for lib in sorted(Path(build_dir).glob("*.so")):
+        sass = subprocess.run([cuobjdump, "--dump-sass", str(lib)], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        count = len(re.findall(r"\bHGMMA\b", sass))
+        print(f"  {lib.name}: {count} HGMMA instructions in the SASS")
+        if lib.name in WGMMA_LIBRARIES and count == 0:
+            fail(f"{lib.name} holds no HGMMA instruction: its kernels do not use wgmma")
+
+
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
@@ -164,11 +189,13 @@ def phase_kernels(torch, timer, rates):
         bias = (torch.randn(n_out, generator=g, device=dev) * 0.1).bfloat16()
         for t in (256, 137):
             x = torch.randn(t, d, generator=g, device=dev).bfloat16()
+            plan = knm.gemm_plan(w, t)
+            route = f"wgmma, {plan} k slice{'s' if plan > 1 else ''}" if plan else "WMMA"
             for b in (None, bias):
                 got = knm.nm_prune_matmul(x, w, scale, n, m, bias=b)
                 want = knm.nm_prune_matmul_plain(x, w, scale, n, m, bias=b)
-                errs.append(check_close(f"{proj} T={t} bias={b is not None}", got, want,
-                                        BF16_TOL))
+                errs.append(check_close(f"{proj} T={t} bias={b is not None} ({route})", got,
+                                        want, BF16_TOL))
             if t == 256:
                 xp = nm.apply_nm(x, scoring.score_activations(x, scale), n, m)
                 ms = timer.ms(lambda: knm.nm_prune_matmul(x, w, scale, n, m))
@@ -179,11 +206,25 @@ def phase_kernels(torch, timer, rates):
                 bound = max(nbytes / bw, ops / bf16_peak) * 1e3
                 print(f"  {proj} T=256: kernel {ms:.4f} ms, bound {bound:.4f} ms "
                       f"({'bytes' if nbytes / bw >= ops / bf16_peak else 'operations'}), "
-                      f"plain {plain_ms:.4f} ms, torch.matmul(x_pruned) {lib_ms:.4f} ms")
+                      f"plain {plain_ms:.4f} ms, torch.matmul(x_pruned) {lib_ms:.4f} ms; "
+                      f"kernel/library {ms / lib_ms:.2f}, bound/kernel {bound / ms:.3f}")
                 if proj == "gate":
                     records["nm_prune_matmul"] = dict(
                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                         bound_by="bytes" if nbytes / bw >= ops / bf16_peak else "operations")
+        del w
+    # the WMMA route: a w the TMA cannot take (storage 2 bytes off a 16-byte
+    # boundary), and an N_out that is not a multiple of 8
+    for case, t, d, n_out, offset in (("w misaligned", 137, 4096, 4096, 1),
+                                      ("N_out=4100", 137, 4096, 4100, 0)):
+        flat = torch.randn(d * n_out + offset, generator=g, device=dev) * d**-0.5
+        w = flat.bfloat16()[offset:].view(d, n_out)
+        x = torch.randn(t, d, generator=g, device=dev).bfloat16()
+        scale = torch.rand(d, generator=g, device=dev) + 0.5
+        if knm.gemm_plan(w, t) != 0:
+            fail(f"nm_prune_matmul {case}: expected the WMMA route")
+        errs.append(check_close(f"{case} T={t} (WMMA)", knm.nm_prune_matmul(x, w, scale, n, m),
+                                knm.nm_prune_matmul_plain(x, w, scale, n, m), BF16_TOL))
     xf = torch.randn(137, 4096, generator=g, device=dev)
     wf = torch.randn(4096, 4096, generator=g, device=dev) * 4096**-0.5
     sf = torch.rand(4096, generator=g, device=dev) + 0.5
@@ -450,6 +491,14 @@ def phase_int8_kernels(torch, timer, rates):
 
     # ----------------------------------------------------------- nm_prune
     print("phase 2f: nm_prune (bit-exact)")
+    # the group widths of the vectorised selection, and one (6) it leaves to
+    # the one-thread-per-group kernel
+    for nn, mm, d in ((2, 4, 4096), (4, 8, 4096), (16, 32, 4096), (3, 6, 4092)):
+        x = torch.randn(256, d, generator=g, device=dev).bfloat16()
+        scale = torch.rand(d, generator=g, device=dev) + 0.5
+        same = exact("nm_prune", (knp.nm_prune(x, scale, nn, mm),),
+                     (knp.nm_prune_plain(x, scale, nn, mm),))
+        print(f"  D={d} T=256 {nn}:{mm}: bit-exact={same}")
     for d in (4096, 14336):
         scale = torch.rand(d, generator=g, device=dev) + 0.5
         for dtype, t in ((torch.bfloat16, 256), (torch.bfloat16, 137), (torch.float32, 37)):
@@ -461,9 +510,11 @@ def phase_int8_kernels(torch, timer, rates):
         x = torch.randn(256, d, generator=g, device=dev).bfloat16()
         ms = timer.ms(lambda: knp.nm_prune(x, scale, n, m))
         plain_ms = timer.ms(lambda: knp.nm_prune_plain(x, scale, n, m), 5)
+        copy_ms = timer.ms(x.clone)
         bound = (2 * x.numel() * 2 + d * 4) / bw * 1e3
         print(f"  D={d} T=256: kernel {ms:.4f} ms, bound {bound:.4f} ms (bytes), plain "
-              f"{plain_ms:.4f} ms, no single library call")
+              f"{plain_ms:.4f} ms, no single library call (x.clone(), the same bytes "
+              f"moved, {copy_ms:.4f} ms)")
         if d == 14336:
             records["nm_prune"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                                        bound_ms=bound, bound_by="bytes", max_abs_err=0.0)
@@ -494,15 +545,17 @@ def phase_oneshot_kernels(torch, timer, rates):
     print("phase 2g: flash_attention (Qwen2-7B prefill: B=4, Hq=28, Hkv=4, hd=128)")
     b, hq, hkv, hd = 4, 28, 4, 128
     errs = []
-    cases = (("T=512 causal", 512, True, 0, torch.bfloat16),
-             ("ragged T=300 causal", 300, True, 0, torch.bfloat16),
-             ("T=512 causal window=128", 512, True, 128, torch.bfloat16),
-             ("T=512 non-causal", 512, False, 0, torch.bfloat16),
-             ("float32 T=300 causal", 300, True, 0, torch.float32))
-    for case, t, causal, window, dtype in cases:
-        q = torch.randn(b, t, hq, hd, generator=g, device=dev).to(dtype)
-        k = torch.randn(b, t, hkv, hd, generator=g, device=dev).to(dtype)
-        v = torch.randn(b, t, hkv, hd, generator=g, device=dev).to(dtype)
+    cases = (("T=512 causal", 512, True, 0, torch.bfloat16, hd),
+             ("ragged T=300 causal", 300, True, 0, torch.bfloat16, hd),
+             ("T=512 causal window=128", 512, True, 128, torch.bfloat16, hd),
+             ("T=512 non-causal", 512, False, 0, torch.bfloat16, hd),
+             ("head_dim 64 T=512 causal", 512, True, 0, torch.bfloat16, 64),
+             ("head_dim 64 ragged T=300 non-causal", 300, False, 0, torch.bfloat16, 64),
+             ("float32 T=300 causal", 300, True, 0, torch.float32, hd))
+    for case, t, causal, window, dtype, hd_ in cases:
+        q = torch.randn(b, t, hq, hd_, generator=g, device=dev).to(dtype)
+        k = torch.randn(b, t, hkv, hd_, generator=g, device=dev).to(dtype)
+        v = torch.randn(b, t, hkv, hd_, generator=g, device=dev).to(dtype)
         got = kfa.flash_attention(q, k, v, causal=causal, window=window)
         want = kfa.flash_attention_plain(q, k, v, causal=causal, window=window)
         errs.append(check_close(case, got, want,
@@ -517,7 +570,8 @@ def phase_oneshot_kernels(torch, timer, rates):
             bound = max(nbytes / bw, ops / bf16_peak) * 1e3
             by = "bytes" if nbytes / bw >= ops / bf16_peak else "operations"
             print(f"  T=512 causal: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), plain "
-                  f"{plain_ms:.4f} ms, SDPA (is_causal, GQA) {lib_ms:.4f} ms")
+                  f"{plain_ms:.4f} ms, SDPA (is_causal, GQA) {lib_ms:.4f} ms; kernel/library "
+                  f"{ms / lib_ms:.2f}, bound/kernel {bound / ms:.3f}")
             records["flash_attention"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                               bound_ms=bound, bound_by=by)
     records["flash_attention"]["max_abs_err"] = max(errs)
@@ -757,8 +811,10 @@ def profile_steps(torch, model, params, policy):
 # taken for ``flash_bf16_kernel``; library kernels go by a fragment of their
 # names.
 FAMILIES = (("osparse_matmul", ("osparse_quant_kernel", "w8a8_gemm_kernel", "dequant_kernel")),
-            ("nm_prune_matmul", ("nm_select_kernel", "nm_matmul_bf16_kernel",
-                                 "nm_matmul_f32_kernel")),
+            ("nm_prune_matmul", ("nm_select_kernel", "nm_select_vec_kernel",
+                                 "nm_matmul_wgmma_kernel", "nm_splitk_reduce_kernel",
+                                 "nm_matmul_bf16_kernel", "nm_matmul_f32_kernel",
+                                 "wgmma_probe_kernel")),
             ("nm_spmm", ("consensus_select_kernel", "spmm_bf16_kernel", "spmm_f32_kernel")),
             ("flash_attention", ("flash_bf16_kernel", "attention_rows_kernel")),
             ("paged_attention", ("paged_attention_kernel", "paged_attention_combine_kernel",
@@ -778,11 +834,25 @@ def kernel_family(key: str) -> str:
     return LIBRARY_GEMM[0] if any(k in low for k in LIBRARY_GEMM[1]) else OTHER
 
 
+def busy_time(spans) -> float:
+    """Length of the union of ``(start, end)`` intervals: device time during
+    which at least one kernel ran.  Kernels overlap where one is launched as
+    a programmatic dependent of another (it starts early and waits), so the
+    sum of kernel durations overstates it."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
 def profile_cases(torch, cases):
     """Each case timed on the host (median of 5 synchronised runs after a
-    warm-up) and traced once with ``torch.profiler``: device busy time by
-    kernel family, kernel count, and the device's idle share of the wall
-    time."""
+    warm-up) and traced once with ``torch.profiler``: device busy time (the
+    union of the kernels' intervals), kernel time by family (summed
+    durations, which count a kernel's wait on the one it depends on), kernel
+    count, and the device's idle share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     print("profile: one step of each kind, full width, bf16")
@@ -800,7 +870,9 @@ def profile_cases(torch, cases):
             torch.cuda.synchronize()
         kern = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-        busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+        busy_ms = busy_time((e.time_range.start, e.time_range.end) for e in prof.events()
+                            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        summed_ms = sum(e.self_device_time_total for e in kern) / 1e3
         by_family = {name: 0.0 for name, _ in FAMILIES + (LIBRARY_GEMM,)}
         by_family[OTHER] = 0.0
         for e in kern:
@@ -810,21 +882,65 @@ def profile_cases(torch, cases):
                   "measured (the profiler recorded no device kernels)")
             continue
         print(f"  {case}: wall {wall_ms:.3f} ms (median of 5), device busy {busy_ms:.3f} ms "
-              f"over {sum(e.count for e in kern)} kernels, device idle share "
-              f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
+              f"over {sum(e.count for e in kern)} kernels (their durations sum to "
+              f"{summed_ms:.3f} ms), device idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
         for name, ms in by_family.items():
             print(f"    {name}: {ms:.3f} ms")
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
             print(f"    top: {e.key[:90]} x{e.count}: {e.self_device_time_total / 1e3:.3f} ms")
 
 
-def phase_parity(torch, quantized: bool):
-    """Full width, depth 2, float32: the same staggered requests through two
-    paths that must emit the same greedy tokens, and each prompt's
-    last-chunk logits (chunk by chunk on fresh caches).
+# bfloat16 end to end (phases 4 and 5b, depth 2).  bf16 keeps 8 significant
+# bits, and its rounding alone moves the plain path's last-token logits away
+# from the float32 plain path on the same (bf16) weights: by e_ref, measured
+# in the same run (a one-ulp change of an activation flips an N:M choice
+# between two nearly equal scores, so the random-weight models amplify it
+# well past one ulp of a logit).  The kernel path rounds in other places
+# (its products and attention weights against cuBLAS and the plain loops),
+# so it carries a noise of the same size, and the two bf16 paths may then
+# differ by up to about twice e_ref; a wrong tile, row or head moves the
+# logits by their own size.  Greedy tokens are reported, not checked: a
+# near-tie picks either token, and the continuations then part.
+BF16_E2E_FACTOR = 2.0
+
+
+def check_bf16_logits(got, want, ref):
+    """Kernel-path and plain-path bf16 logits (lists of tensors) against the
+    float32 plain path's ``ref``: max |got - want| over all rows must be at
+    most BF16_E2E_FACTOR times max |want - ref|, bf16 rounding's own effect."""
+    e_ref = max(float((w.float() - r.float()).abs().max()) for w, r in zip(want, ref))
+    e_kr = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    if not all(bool(g.float().isfinite().all()) for g in got):
+        fail("bf16 logits: kernel path output is not finite")
+    lim = BF16_E2E_FACTOR * e_ref
+    print(f"  last-token logits: kernel vs plain max_abs_err={err:.3e} (limit {lim:.3e} = "
+          f"{BF16_E2E_FACTOR} x the plain path's bf16 rounding effect {e_ref:.3e}; kernel path "
+          f"vs float32 {e_kr:.3e}; largest |logit| "
+          f"{max(float(r.float().abs().max()) for r in ref):.3e})")
+    if not err <= lim:
+        fail(f"bf16 logits: kernel vs plain {err} > {lim}")
+    return err
+
+
+def report_bf16_agreement(got, want, margins):
+    """Greedy-token agreement of two bf16 paths and the smallest top-2 logit
+    margin of the reference path (printed, not checked)."""
+    pairs = [(a, b) for r in range(len(got)) for a, b in zip(got[r], want[r])]
+    agree = sum(a == b for a, b in pairs)
+    print(f"  greedy-token agreement {agree}/{len(pairs)} = {agree / len(pairs):.3f}; "
+          f"smallest top-2 logit margin {min(margins):.3e}")
+
+
+def phase_parity(torch, quantized: bool, dtype: str = "float32"):
+    """Full width, depth 2: the same staggered requests through two paths,
+    and each prompt's last-chunk logits (chunk by chunk on fresh caches).
 
     Phase 4 (bf16 weights' float32 twin): the kernel path against the plain
-    path; the logits agree within 2% of the largest.  Phase 4b
+    path must emit the same greedy tokens; the logits agree within 2% of the
+    largest.  Phase 4 bf16: the same in bfloat16, where the kernel path runs
+    nm_prune_matmul's wgmma GEMM; logits held by :func:`check_bf16_logits`,
+    greedy agreement printed.  Phase 4b
     (Outstanding-sparse): the kernel path against the same path with
     ``osparse_matmul``'s plain version in place of its kernel; the logits
     are bit-identical.  Against the fully plain path the W8A8 model cannot
@@ -843,12 +959,15 @@ def phase_parity(torch, quantized: bool):
     from repro_torch.serve import ContinuousConfig, Engine, EngineConfig
     from repro_torch.weights import quantize_linears
 
-    cfg = dataclasses.replace(get_config("llama31_8b"), n_layers=2, dtype="float32")
+    cfg = dataclasses.replace(get_config("llama31_8b"), n_layers=2, dtype=dtype)
+    bf16 = dtype == "bfloat16"
     model = build_model(cfg)
     params = model.init(SEED + 1)
     policy = paper_policy(8, 16, cfg.qgate_skip_layers)
     precompute_scales(params, policy)
-    if quantized:
+    if bf16:
+        print("phase 4 bf16: kernel path vs plain path, full width, depth 2, bfloat16")
+    elif quantized:
         print("phase 4b: Outstanding-sparse kernel path vs the same path with "
               "osparse_matmul's plain version, full width, depth 2, float32")
         rng = np.random.default_rng(SEED + 4)
@@ -864,24 +983,23 @@ def phase_parity(torch, quantized: bool):
     scfg = ContinuousConfig(num_slots=2, chunk_size=256, block_size=bsz, max_seq=max_seq)
     kernel_osparse = ops.osparse_matmul
 
-    def run(path):
+    def run(path, mdl=model, prm=params):
         """(greedy tokens, per-prompt last-chunk logits) on one path."""
         uk = path != "plain"
         if path == "plain osparse":
             ops.osparse_matmul = kos.osparse_matmul_plain
         try:
             pol = policy.with_(use_kernels=uk)
-            eng = Engine.from_config(model, EngineConfig(serving=scfg), policy=pol)
+            eng = Engine.from_config(mdl, EngineConfig(serving=scfg), policy=pol)
             for p, a in zip(prompts, arrivals):
                 eng.submit(p, max_new_tokens=new, arrival=a)
-            outs = eng.run(params)["outputs"]
+            outs = eng.run(prm)["outputs"]
             logits = []
             for prompt in prompts:
-                cache = model.init_cache(1, max_seq, block_size=bsz)
+                cache = mdl.init_cache(1, max_seq, block_size=bsz)
                 for s in range(0, len(prompt), 256):
                     chunk = torch.from_numpy(prompt[s:s + 256][None, :]).cuda()
-                    lg, cache = model.prefill_chunk(params, {"tokens": chunk}, cache,
-                                                    policy=pol)
+                    lg, cache = mdl.prefill_chunk(prm, {"tokens": chunk}, cache, policy=pol)
                 logits.append(lg)
             return outs, logits
         finally:
@@ -890,9 +1008,13 @@ def phase_parity(torch, quantized: bool):
     got, got_logits = run("kernel")
     print(f"  prompts {[len(p) for p in prompts]}: kernel path {got}")
     want, want_logits = run("plain osparse" if quantized else "plain")
+    margins = []
     for i, (a, b) in enumerate(zip(got_logits, want_logits)):
-        top2 = torch.topk(b[0], 2).values
-        print(f"  prompt {i}: top-2 logit margin {float(top2[0] - top2[1]):.3e}")
+        top2 = torch.topk(b[0].float(), 2).values
+        margins.append(float(top2[0] - top2[1]))
+        print(f"  prompt {i}: top-2 logit margin {margins[-1]:.3e}")
+        if bf16:
+            continue
         if quantized:
             same = torch.equal(a, b)
             print(f"  prompt {i} last-chunk logits: bit-identical={same}")
@@ -906,9 +1028,17 @@ def phase_parity(torch, quantized: bool):
             # token's projection; 2% of the largest logit covers that and
             # nothing larger.
             check_close(f"prompt {i} last-chunk logits", a, b, 2e-2)
-    if got != want:
+    if bf16:
+        # the float32 plain path on the same bf16 weights, the reference
+        model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+        _, ref_logits = run("plain", model32, copy.deepcopy(params).float())
+        check_bf16_logits(got_logits, want_logits, ref_logits)
+        report_bf16_agreement([got[r] for r in sorted(got)], [want[r] for r in sorted(want)],
+                              margins)
+    elif got != want:
         fail(f"greedy tokens differ: kernel {got} vs plain {want}")
-    print("  greedy tokens identical")
+    else:
+        print("  greedy tokens identical")
     if quantized:
         plain, plain_logits = run("plain")
         errs = [float((a - b).abs().max()) for a, b in zip(got_logits, plain_logits)]
@@ -1042,18 +1172,21 @@ def phase_serve_oneshot(torch):
     return launches
 
 
-def phase_parity_oneshot(torch):
-    """Phase 5b: Qwen2-7B at full width, depth 2, float32, one shot: the
-    kernel path (flash_attention, nm_spmm, paged kernels in decode) against
-    the plain path (the chunked attention, nm_spmm's plain version, the
-    paged oracles): identical greedy tokens, and last-token prefill logits
-    within 2% of the largest."""
+def phase_parity_oneshot(torch, dtype: str = "float32"):
+    """Phase 5b: Qwen2-7B at full width, depth 2, one shot: the kernel path
+    (flash_attention, nm_spmm, paged kernels in decode) against the plain
+    path (the chunked attention, nm_spmm's plain version, the paged
+    oracles).  In float32: identical greedy tokens, and last-token prefill
+    logits within 2% of the largest.  In bfloat16 (flash_attention's wgmma
+    kernel): logits held by :func:`check_bf16_logits`, greedy agreement
+    printed."""
     from repro_torch.models import build_model
     from repro_torch.serve import ServeConfig, ServingEngine
 
+    bf16 = dtype == "bfloat16"
     print("phase 5b: one-shot kernel path vs plain path, Qwen2-7B full width, depth 2, "
-          "float32")
-    cfg, model, params, policy, prompts = qwen_oneshot(torch, n_layers=2, dtype="float32")
+          f"{dtype}")
+    cfg, model, params, policy, prompts = qwen_oneshot(torch, n_layers=2, dtype=dtype)
     plain_model = build_model(dataclasses.replace(cfg, attn_impl="chunked"))
     b, t = prompts.shape
     new = 16
@@ -1066,9 +1199,22 @@ def phase_parity_oneshot(torch):
                                 policy=pol)
         res[path] = (toks.tolist(), logits)
     got, want = res["kernel"], res["plain"]
+    margins = []
     for i in range(b):
-        top2 = torch.topk(want[1][i], 2).values
-        print(f"  row {i}: top-2 logit margin {float(top2[0] - top2[1]):.3e}")
+        top2 = torch.topk(want[1][i].float(), 2).values
+        margins.append(float(top2[0] - top2[1]))
+        print(f"  row {i}: top-2 logit margin {margins[-1]:.3e}")
+    if bf16:
+        # the float32 plain path on the same bf16 weights, the reference
+        model32 = build_model(dataclasses.replace(cfg, attn_impl="chunked", dtype="float32"))
+        ref, _ = model32.prefill(copy.deepcopy(params).float(), {"tokens": prompts},
+                                 model32.init_cache(b, t + new),
+                                 policy=policy.with_(use_kernels=False))
+        check_bf16_logits(list(got[1]), list(want[1]), list(ref))
+        report_bf16_agreement(got[0], want[0], margins)
+        del params, model, plain_model, model32
+        torch.cuda.empty_cache()
+        return
     # Tolerance: the kernels sum in another order than the plain path
     # (~1e-6 relative in float32), and such a difference can move a tile's
     # L2-pooled score across a near-tie and swap one kept channel of a group
@@ -1117,6 +1263,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
+    check_hgmma(info["dir"])
     timer = Timer(torch)
     t1 = time.perf_counter()
     records = phase_kernels(torch, timer, rates)
@@ -1132,11 +1279,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     t4 = time.perf_counter()
     phase_parity(torch, quantized=False)
+    phase_parity(torch, quantized=False, dtype="bfloat16")
     phase_parity(torch, quantized=True)
     t5 = time.perf_counter()
     o_launches = phase_serve_oneshot(torch)
     t6 = time.perf_counter()
     phase_parity_oneshot(torch)
+    phase_parity_oneshot(torch, dtype="bfloat16")
     t7 = time.perf_counter()
     print(f"phase seconds: build {t1 - t:.1f}, kernels {t2 - t1:.1f}, serve {t3 - t2:.1f}, "
           f"serve osparse {t4 - t3:.1f}, parity {t5 - t4:.1f}, one-shot serve {t6 - t5:.1f}, "

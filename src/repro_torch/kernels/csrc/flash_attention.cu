@@ -7,33 +7,48 @@
 // (B, T, Hkv, hd) of the same length T — the port's layout, read in place,
 // no head-repeated KV: query head h reads KV head h / (Hq / Hkv).  Key p is
 // visible to query t when p < T, (causal) p <= t, and (window > 0)
-// p > t - window.  Masked scores are -1e30 and their weights exactly 0 (the
+// p > t - window.  A masked key's weight is exactly 0 (bf16 path: its score
+// is -inf and the running max starts at -1e30; rows path: score -1e30 and the
 // s > -1e30/2 guard); the float32 online softmax divides by max(l, 1e-20),
 // so a row that sees no key gives 0.  Key blocks wholly outside a query
 // tile's band are skipped, as the TPU kernel's block visibility check does.
 //
 // What bounds it on the H100: at the one-shot prefill's shape (B = 4,
 // Hq = 28, Hkv = 4, T = 512, hd = 128, causal) the kernel moves ~34 MB and
-// does ~7.5 GFLOP of visible products: a few microseconds each at the
-// card's rates, so a first design is bound by how well it keeps the tensor
-// cores fed inside a block.  Two paths:
-//  * bf16, head_dim 64 or 128: a flash kernel on the tensor cores.  One
-//    block per (64-query tile, query head, batch row); each 64-key tile of
-//    K and V streams into shared memory with 16-byte cp.async copies (rows
-//    past T zero-filled), S = Q K^T and O += P V run as WMMA bf16 products
-//    with float32 accumulation (P rounded to bf16), and the float32 online
-//    softmax runs two lanes per query row.
-//  * everything else (float32, other head sizes): one block per (16-row
-//    tile, KV head, batch row) on the CUDA cores; the tile flattens (query
-//    position, head in the GQA group), so the G = Hq / Hkv heads that share
-//    a KV head read each staged 16-key sub-tile once; one warp per row, each
-//    lane holding hd / 32 of the query, the accumulator and the value dims.
-//    Products are float32 FMAs (no TF32).
+// does ~7.5 GFLOP of visible products: 0.010 ms of memory and 0.008 ms of
+// tensor-core time at the data-sheet rates, so it is bound by how well the
+// tensor cores are kept fed.  Two paths:
+//  * bf16, head_dim 64 or 128, 16-byte-aligned tensors: flash_bf16_kernel, on
+//    the wgmma tensor-core path.  One block per (NWG x 64 query rows, query
+//    head, batch row), the last (heaviest causal) query tiles launched
+//    first; NWG consumer warpgroups (2 at hd 128, 3 at hd 64) take 64 rows
+//    each and share every K/V tile, which one producer warp streams through
+//    a 3-stage ring with TMA (4-d tensor maps over the (B, T, H, hd)
+//    layout, 128-byte swizzle; rows past T arrive as zeros) under full and
+//    empty mbarriers.  S = Q K^T is a wgmma from shared memory (both
+//    K-major); the online softmax runs on the accumulator fragments in the
+//    log2 domain (row max and sum across the 4 lanes of a row by shuffles;
+//    the visibility test only on tiles that straddle the diagonal, the band
+//    edge or T); P is rounded to bf16 in registers and is the A operand of
+//    O += P V, with V the MN-major B operand as stored.  S and P never touch
+//    shared memory; O stays in registers until the epilogue rounds it into
+//    the warpgroup's (then free) Q tile, which leaves by TMA store in whole
+//    128-byte lines.  What bounds it now (chip_smoke.py phase 2g on an H100:
+//    0.039 ms against 0.008 ms of tensor-core work) is not the tensor cores
+//    but the softmax between a warpgroup's two products and each block's
+//    first loads, which nothing else on the SM overlaps.
+//  * everything else (float32, other head sizes, unaligned tensors): one
+//    block per (16-row tile, KV head, batch row) on the CUDA cores; the tile
+//    flattens (query position, head in the GQA group), so the G = Hq / Hkv
+//    heads that share a KV head read each staged 16-key sub-tile once; one
+//    warp per row, each lane holding hd / 32 of the query, the accumulator
+//    and the value dims.  Products are float32 FMAs (no TF32).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -46,14 +61,6 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -199,167 +206,262 @@ int launch_rows(const void* q, const void* k, const void* v, void* out, int B, i
 }
 
 // ------------------------------------------------------ bf16 flash path
-constexpr int FQ = 64;            // query rows per block (4 warps x 16)
+// One block per (NWG x 64 query rows, query head, batch row), the last query
+// tiles (the heaviest under a causal mask) launched first: NWG consumer
+// warpgroups of 64 rows each share every staged K/V tile, and one producer
+// warp's lane 0 fetches Q and keeps the K/V ring full with TMA loads.
+constexpr int FQ = 64;            // query rows per warpgroup
 constexpr int FK = 64;            // keys per staged tile
-constexpr int FWARPS = 4;
+constexpr int FSTAGES = 3;        // K/V ring depth
 
-template <int HD>
+// 2^x by the MUFU unit (flushes results below 2^-126 to 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int HD, int NWG>
 struct FlashSmem {
-  static constexpr int LD = HD + 8;                          // bf16 row stride
-  static constexpr int SLD = (HD > FK ? HD : FK) + 4;        // f32 scratch stride
-  static constexpr int PLD = FK + 8;                         // bf16 P stride
-  static constexpr size_t Q = (size_t)FQ * LD * 2;
-  static constexpr size_t KV = (size_t)FK * LD * 2;
-  static constexpr size_t SCR = (size_t)FWARPS * 16 * SLD * 4;
-  static constexpr size_t P = (size_t)FWARPS * 16 * PLD * 2;
-  static constexpr size_t BYTES = Q + 2 * KV + SCR + P;
+  static constexpr int CHUNK_Q = FQ * 128;                // one 64-column chunk of a Q tile
+  static constexpr int CHUNK_KV = FK * 128;               // ... of a K or V tile
+  static constexpr int Q = NWG * FQ * HD * 2;
+  static constexpr int TILE = FK * HD * 2;                // K or V tile bytes
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int BYTES = Q + FSTAGES * STAGE + 1024;  // + alignment slack
 };
 
-template <int HD>
-__global__ void __launch_bounds__(FWARPS * 32)
-flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ out, int T_, int Hq, int Hkv,
-                  int causal, int window, float scale) {
-  using namespace nvcuda;
-  using L = FlashSmem<HD>;
-  extern __shared__ __align__(128) unsigned char fsmem[];
-  bf16* qs = reinterpret_cast<bf16*>(fsmem);
-  bf16* ks = reinterpret_cast<bf16*>(fsmem + L::Q);
-  bf16* vs = reinterpret_cast<bf16*>(fsmem + L::Q + L::KV);
-  float* scr = reinterpret_cast<float*>(fsmem + L::Q + 2 * L::KV);
-  bf16* ps = reinterpret_cast<bf16*>(fsmem + L::Q + 2 * L::KV + L::SCR);
+template <int HD, int NWG>
+__global__ void __launch_bounds__(NWG * 128 + 32, 1)
+flash_bf16_kernel(__grid_constant__ const CUtensorMap qmap,
+                  __grid_constant__ const CUtensorMap kmap,
+                  __grid_constant__ const CUtensorMap vmap,
+                  __grid_constant__ const CUtensorMap omap, int T_, int Hq, int Hkv,
+                  int causal, int window, float scale_log2) {
+  using L = FlashSmem<HD, NWG>;
+  using namespace hopper;
+  constexpr int CH = HD / 64;                 // 64-column chunks per row
+  extern __shared__ unsigned char fsmem_raw[];
+  unsigned char* fsmem = align1024(fsmem_raw);
+  __shared__ __align__(8) uint64_t full[FSTAGES], empty[FSTAGES], qfull;
+  unsigned char* qs = fsmem;
+  unsigned char* kvs = fsmem + L::Q;
 
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (Hq / Hkv);
-  const int t0 = blockIdx.x * FQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q_hi = min(T_ - 1, t0 + FQ - 1);          // last query of the tile
-  constexpr int VPR = HD / 8;                         // 16-byte vectors per row
-  const size_t kv_row = (size_t)Hkv * HD;             // elements between key rows
+  const int h = blockIdx.x, b = blockIdx.y, kvh = h / (Hq / Hkv);
+  const int t0 = (gridDim.z - 1 - blockIdx.z) * (NWG * FQ);   // heaviest tiles first
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  // the block's key tiles
+  const int k_begin = band_start(t0, window, FK);
+  const int k_end = causal ? min(T_ - 1, t0 + NWG * FQ - 1) + 1 : T_;
+  const int n_tiles = (k_end - k_begin + FK - 1) / FK;
 
-  for (int i = threadIdx.x; i < FQ * VPR; i += blockDim.x) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t0 + r < T_)
-      val = *reinterpret_cast<const uint4*>(q + (((size_t)b * T_ + t0 + r) * Hq + h) * HD + c);
-    *reinterpret_cast<uint4*>(qs + r * L::LD + c) = val;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < FSTAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG * 4);          // lane 0 of every consumer warp
+    }
+    mbar_init(&qfull, 1);
+    fence_barrier_init();
   }
   __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[HD / 16];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    wmma::load_matrix_sync(qa[kk], qs + warp * 16 * L::LD + kk * 16, L::LD);
 
-  // two lanes per query row: lanes 2r and 2r+1 split the tile's keys and the
-  // row's output dims in halves
-  const int r = lane >> 1, half = lane & 1;
-  const int qpos = t0 + warp * 16 + r;
-  float* sw = scr + warp * 16 * L::SLD;
-  bf16* pw = ps + warp * 16 * L::PLD;
-  float m_r = NEG, l_r = 0.f;
+  if (wg == NWG) {                            // the producer warp
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&qfull, L::Q);
+      for (int w = 0; w < NWG; ++w)
+#pragma unroll
+        for (int c = 0; c < CH; ++c)
+          tma_load_4d(qs + (w * CH + c) * L::CHUNK_Q, &qmap, &qfull, c * 64, h, t0 + w * FQ, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % FSTAGES, k0 = k_begin + i * FK;
+        if (i >= FSTAGES) mbar_wait(&empty[s], (i / FSTAGES - 1) & 1);
+        unsigned char* ks = kvs + s * L::STAGE;
+        mbar_arrive_expect_tx(&full[s], L::STAGE);
+#pragma unroll
+        for (int c = 0; c < CH; ++c) {
+          tma_load_4d(ks + c * L::CHUNK_KV, &kmap, &full[s], c * 64, kvh, k0, b);
+          tma_load_4d(ks + L::TILE + c * L::CHUNK_KV, &vmap, &full[s], c * 64, kvh, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // this warpgroup's rows and the key tiles they see
+  const int w_lo = t0 + wg * FQ, w_hi = w_lo + FQ - 1;
+  const bool live = w_lo < T_;
+  const int w_begin = band_start(w_lo, window, FK);
+  const int w_end = live ? (causal ? min(T_ - 1, w_hi) + 1 : T_) : 0;
+  // this thread's two rows of the tile: r and r + 8
+  const int warp = (threadIdx.x % 128) / 32;
+  const int row0 = w_lo + warp * 16 + lane / 4;
+  const int qd = 2 * (lane % 4);              // first column of a pair in an 8-wide block
+  const unsigned char* q_wg = qs + wg * CH * L::CHUNK_Q;
   float o[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
-
-  const int k_end = causal ? q_hi + 1 : T_;
-  for (int k0 = band_start(t0, window, FK); k0 < k_end; k0 += FK) {
-    __syncthreads();                              // previous tile consumed
-    for (int i = threadIdx.x; i < FK * VPR; i += blockDim.x) {
-      const int j = i / VPR, c = (i % VPR) * 8, p = k0 + j;
-      bf16* kd = ks + j * L::LD + c;
-      bf16* vd = vs + j * L::LD + c;
-      if (p < T_) {
-        const size_t off = ((size_t)b * T_ + p) * kv_row + (size_t)kvh * HD + c;
-        cp_async16(kd, k + off);
-        cp_async16(vd, v + off);
-      } else {                                    // past T: zero K and V
-        *reinterpret_cast<uint4*>(kd) = make_uint4(0u, 0u, 0u, 0u);
-        *reinterpret_cast<uint4*>(vd) = make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();
-
+  float sc[32];
 #pragma unroll
-    for (int kb = 0; kb < FK / 16; ++kb) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-      wmma::fill_fragment(sf, 0.f);
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+  float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};
+
+  mbar_wait(&qfull, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % FSTAGES, k0 = k_begin + i * FK;
+    const unsigned char* ks = kvs + s * L::STAGE;
+    const unsigned char* vs = ks + L::TILE;
+    mbar_wait(&full[s], (i / FSTAGES) & 1);
+    if (k0 >= w_begin && k0 < w_end) {
+      // S = Q K^T: Q and K both K-major (head dims along the 128-byte rows)
+      wgmma_fence();
+      fence_regs(sc);
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kfr;
-        wmma::load_matrix_sync(kfr, ks + kb * 16 * L::LD + kk * 16, L::LD);
-        wmma::mma_sync(sf, qa[kk], kfr, sf);
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_m64n64k16_ss<0>(
+            sc, desc_k_major(q_wg + (kk / 4) * L::CHUNK_Q + (kk % 4) * 32),
+            desc_k_major(ks + (kk / 4) * L::CHUNK_KV + (kk % 4) * 32), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // online softmax on the fragments, in the log2 domain: p = 2^(s c -
+      // m c) with c = scale * log2(e) as one FFMA; the visibility test
+      // only on tiles that straddle the diagonal, the band edge or T, where
+      // a hidden key's score becomes -inf and its weight exactly 0.  The
+      // running max starts at -1e30, so it is never -inf.
+      const bool edge = k0 + FK > T_ || (causal && k0 + FK - 1 > w_lo) ||
+                        (window > 0 && k0 <= w_hi - window);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int qpos = row0 + 8 * hr;
+        if (edge) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (!visible(k0 + 8 * j + qd + e, qpos, T_, causal, window))
+                sc[4 * j + 2 * hr + e] = -INFINITY;
+        }
+        float mx[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx[j] = fmaxf(sc[4 * j + 2 * hr], sc[4 * j + 2 * hr + 1]);
+#pragma unroll
+        for (int w = 4; w > 0; w /= 2)      // pairwise: short dependence chains
+#pragma unroll
+          for (int j = 0; j < w; ++j) mx[j] = fmaxf(mx[j], mx[j + w]);
+        float m = fmaxf(mx[0], __shfl_xor_sync(0xffffffffu, mx[0], 1));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        const float m_new = fmaxf(m_r[hr], m);
+        const float alpha = fast_exp2((m_r[hr] - m_new) * scale_log2);
+        const float mc = m_new * scale_log2;
+        float ps[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = sc[4 * j + 2 * hr + e];
+            x = fast_exp2(fmaf(x, scale_log2, -mc));
+          }
+          ps[j] = sc[4 * j + 2 * hr] + sc[4 * j + 2 * hr + 1];
+        }
+#pragma unroll
+        for (int w = 4; w > 0; w /= 2)
+#pragma unroll
+          for (int j = 0; j < w; ++j) ps[j] += ps[j + w];
+        l_r[hr] = l_r[hr] * alpha + ps[0];  // this thread's share of the row sum
+        m_r[hr] = m_new;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          o[4 * j + 2 * hr] *= alpha;
+          o[4 * j + 2 * hr + 1] *= alpha;
+        }
       }
-      wmma::store_matrix_sync(sw + kb * 16, sf, L::SLD, wmma::mem_row_major);
+      // P (rounded to bf16) as the register A operand: k16 step kk covers
+      // the S blocks 2kk and 2kk + 1
+      uint32_t pa[16];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pa[4 * kk + 0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[4 * kk + 1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[4 * kk + 2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[4 * kk + 3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+
+      // O += P V: V is the MN-major B operand (head dims along the rows)
+      wgmma_fence();
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
+        const uint64_t dv = desc_mn_major(vs + kk * 16 * 128, L::CHUNK_KV);
+        if constexpr (HD == 128)
+          wgmma_m64n128k16_rs<1>(o, a, dv, 1);
+        else
+          wgmma_m64n64k16_rs<1>(o, a, dv, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
     }
     __syncwarp();
-
-    float sv[FK / 2];
-    float mx = NEG;
-#pragma unroll
-    for (int jj = 0; jj < FK / 2; ++jj) {
-      const int j = half * (FK / 2) + jj;
-      sv[jj] = visible(k0 + j, qpos, T_, causal, window) ? sw[r * L::SLD + j] * scale : NEG;
-      mx = fmaxf(mx, sv[jj]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_r, mx);
-    const float alpha = expf(m_r - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < FK / 2; ++jj) {
-      const float pv = sv[jj] > NEG / 2 ? expf(sv[jj] - m_new) : 0.f;
-      psum += pv;
-      pw[r * L::PLD + half * (FK / 2) + jj] = __float2bfloat16(pv);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_r = l_r * alpha + psum;
-    m_r = m_new;
-#pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] *= alpha;
-    __syncwarp();
-
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa[FK / 16];
-#pragma unroll
-    for (int kk = 0; kk < FK / 16; ++kk)
-      wmma::load_matrix_sync(pa[kk], pw + kk * 16, L::PLD);
-#pragma unroll
-    for (int db = 0; db < HD / 16; ++db) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-      wmma::fill_fragment(of, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < FK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vfr;
-        wmma::load_matrix_sync(vfr, vs + kk * 16 * L::LD + db * 16, L::LD);
-        wmma::mma_sync(of, pa[kk], vfr, of);
-      }
-      wmma::store_matrix_sync(sw + db * 16, of, L::SLD, wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] += sw[r * L::SLD + half * (HD / 2) + i];
-    __syncwarp();                                 // scratch free for the next S
+    if (lane == 0) mbar_arrive(&empty[s]);    // this warp is done with stage s
   }
 
-  if (qpos < T_) {
-    const float inv = 1.f / fmaxf(l_r, 1e-20f);
-    bf16* dst = out + (((size_t)b * T_ + qpos) * Hq + h) * HD + half * (HD / 2);
+  if (!live) return;
+  // epilogue: O / l rounded to bf16 into this warpgroup's Q tile (free now:
+  // its last S product is done), in the same 128-byte-swizzled chunks, then
+  // one TMA store per chunk; rows past T are not written
+  unsigned char* o_wg = qs + wg * CH * L::CHUNK_Q;
+  const int r = warp * 16 + lane / 4;         // row within the warpgroup's tile
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) dst[i] = __float2bfloat16(o[i] * inv);
+  for (int hr = 0; hr < 2; ++hr) {
+    float l = l_r[hr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / fmaxf(l, 1e-20f);
+    const int rr = r + 8 * hr;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(o_wg + (j / 8) * L::CHUNK_Q + rr * 128 +
+                                   (((j % 8) ^ (rr % 8)) << 4) + qd * 2) =
+          pack_bf16(o[4 * j + 2 * hr] * inv, o[4 * j + 2 * hr + 1] * inv);
+  }
+  fence_proxy_async();
+  named_barrier(1 + wg, 128);
+  if (threadIdx.x % 128 == 0) {
+#pragma unroll
+    for (int c = 0; c < CH; ++c) tma_store_4d(&omap, o_wg + c * L::CHUNK_Q, c * 64, h, w_lo, b);
+    bulk_commit();
+    bulk_wait_read();
   }
 }
 
+// (hd, H, T, B) view of a (B, T, H, hd) tensor, boxes of 64 dims x 64 rows
 template <int HD>
+int flash_map(CUtensorMap* map, const void* p, int B, int T_, int H) {
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)H, (cuuint64_t)T_, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, (cuuint64_t)H * HD * 2,
+                                 (cuuint64_t)T_ * H * HD * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  return hopper::encode_bf16_sw128(map, p, 4, dims, strides, box);
+}
+
+template <int HD, int NWG>
 int launch_flash(const void* q, const void* k, const void* v, void* out, int B, int T_, int Hq,
                  int Hkv, int causal, int window, float scale, cudaStream_t s) {
-  using L = FlashSmem<HD>;
-  cudaError_t e = cudaFuncSetAttribute(flash_bf16_kernel<HD>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)L::BYTES);
+  using L = FlashSmem<HD, NWG>;
+  CUtensorMap qm, km, vm, om;
+  int rc = flash_map<HD>(&qm, q, B, T_, Hq);
+  if (rc == 0) rc = flash_map<HD>(&km, k, B, T_, Hkv);
+  if (rc == 0) rc = flash_map<HD>(&vm, v, B, T_, Hkv);
+  if (rc == 0) rc = flash_map<HD>(&om, out, B, T_, Hq);
+  if (rc != 0) return rc;
+  cudaError_t e = cudaFuncSetAttribute(flash_bf16_kernel<HD, NWG>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((T_ + FQ - 1) / FQ, Hq, B);
-  flash_bf16_kernel<HD><<<grid, FWARPS * 32, L::BYTES, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, T_, Hq, Hkv, causal, window,
-      scale);
+  dim3 grid(Hq, B, (T_ + NWG * FQ - 1) / (NWG * FQ));
+  flash_bf16_kernel<HD, NWG><<<grid, NWG * 128 + 32, L::BYTES, s>>>(
+      qm, km, vm, om, T_, Hq, Hkv, causal, window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -375,11 +477,12 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     int window, float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                         reinterpret_cast<uintptr_t>(v)) & 15) == 0;
-  if (aligned && hd == 128)
-    return launch_flash<128>(q, k, v, out, B, T, Hq, Hkv, causal, window, scale, s);
-  if (aligned && hd == 64)
-    return launch_flash<64>(q, k, v, out, B, T, Hq, Hkv, causal, window, scale, s);
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) &
+                        15) == 0;
+  if (aligned && hd == 128)                   // 2 consumer warpgroups: 8 warps + a producer
+    return launch_flash<128, 2>(q, k, v, out, B, T, Hq, Hkv, causal, window, scale, s);
+  if (aligned && hd == 64)                    // 3: 12 warps + a producer
+    return launch_flash<64, 3>(q, k, v, out, B, T, Hq, Hkv, causal, window, scale, s);
   return launch_rows<bf16>(q, k, v, out, B, T, Hq, Hkv, hd, causal, window, scale, s);
 }
 

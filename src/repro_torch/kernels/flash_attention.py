@@ -14,8 +14,12 @@ edge, so every ``T`` is served (the JAX package's ``attention`` takes its
 jnp scan when ``T % min(128, T) != 0``; the port has no such gate).
 
 ``csrc/flash_attention.cu`` says what bounds the kernel on the H100 and how
-its design answers it.  The wrapper runs the plain version only for tensors
-on the CPU; for CUDA tensors it launches the kernel or raises.
+its design answers it: bf16 at head_dim 64 or 128 with 16-byte-aligned
+q/k/v takes the wgmma kernel (TMA ring, S and P in registers); float32,
+other head sizes and unaligned tensors take the CUDA-core rows kernel — a
+shape route between two hand kernels, not a fallback.  The wrapper runs
+the plain version only for tensors on the CPU; for CUDA tensors it launches
+the kernel or raises.
 ``flash_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations

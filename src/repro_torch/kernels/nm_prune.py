@@ -5,10 +5,11 @@ Replaces the TPU kernel ``repro/kernels/nm_prune.py:nm_prune_pallas``: per
 token, score ``|x|·scale`` in float32, keep the top N of every contiguous
 group of M channels (first occurrence wins a tie), zero the rest, in x's
 dtype.  The kernel is ``nm_prune_matmul``'s selection pass
-(``csrc/nm_prune_matmul.cu`` ``nm_select_kernel``, one thread per token ×
-group) behind its own entry point; it is bound by one read of x and one
-write of the result, and its masks are bit-identical to the plain
-version's.
+(``csrc/nm_prune_matmul.cu``: ``nm_select_vec_kernel``, 16-byte vectors and
+a rank count per group, for group widths 1-32 that are powers of two and
+aligned pointers; else ``nm_select_kernel``, one thread per token × group)
+behind its own entry point; it is bound by one read of x and one write of
+the result, and its masks are bit-identical to the plain version's.
 
 The wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``nm_prune.launches`` counts

@@ -12,8 +12,13 @@ On the H100 the serving path's call (T = 256 prefill tokens against a
 LLaMA-3.1-8B projection) is bound by the weight read from device memory;
 ``csrc/nm_prune_matmul.cu`` says how its design answers that: a selection
 pass writes the pruned activations once into scratch the wrapper
-allocates (|x| bytes, a few percent of the weight read), and a
-double-buffered tensor-core GEMM multiplies them.
+allocates (|x| bytes, a few percent of the weight read), and a wgmma GEMM
+fed by a TMA ring multiplies them; where its output tiles would leave SMs
+idle it splits k and writes float32 partials to a workspace the wrapper
+allocates, reduced in a fixed order (:func:`gemm_plan` says which).  A bf16
+``w`` the TMA cannot take (not 16-byte aligned, or D or N_out not a
+multiple of 8) goes to a WMMA kernel instead: a shape route between two
+hand kernels, not a fallback.
 
 The wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``nm_prune_matmul.launches``
@@ -28,7 +33,7 @@ import torch
 from repro_torch.core import nm, scoring
 from repro_torch.kernels import _build
 
-__all__ = ["nm_prune_matmul", "nm_prune_matmul_plain"]
+__all__ = ["gemm_plan", "nm_prune_matmul", "nm_prune_matmul_plain"]
 
 SOURCE = "src/repro_torch/kernels/csrc/nm_prune_matmul.cu"
 REPLACES = "src/repro/kernels/nm_prune_matmul.py:67"
@@ -40,9 +45,23 @@ _SYMBOLS = {torch.bfloat16: "nm_prune_matmul_bf16",
 def _fn(dtype: torch.dtype):
     lib = _build.load("nm_prune_matmul.cu")
     fn = getattr(lib, _SYMBOLS[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    # the bf16 entry takes the split-k workspace after ``out``
+    n_ptr = 7 if dtype == torch.bfloat16 else 6
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def gemm_plan(w: torch.Tensor, t: int) -> int:
+    """The bf16 GEMM's route for ``w`` at ``t`` tokens, as the kernel takes
+    it: 0 = the WMMA kernel (``w`` not 16-byte aligned, or D or N_out not a
+    multiple of 8), else the wgmma kernel in that many k slices (> 1: a
+    float32 workspace of slices * T * N_out and the ordered reduce)."""
+    fn = _build.load("nm_prune_matmul.cu").nm_prune_matmul_bf16_plan
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(w.device):
+        return fn(w.data_ptr(), t, w.shape[0], w.shape[1])
 
 
 def nm_prune_matmul_plain(x: torch.Tensor, w: torch.Tensor,
@@ -93,13 +112,16 @@ def nm_prune_matmul(x: torch.Tensor, w: torch.Tensor,
     if t == 0:
         return out
     xp = torch.empty_like(x)                 # scratch: the pruned activations
+    ptrs = [x.data_ptr(), w.data_ptr(), None if scale is None else scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), xp.data_ptr(), out.data_ptr()]
+    if x.dtype == torch.bfloat16:
+        slices = gemm_plan(w, t)
+        part = (torch.empty((slices, t, n_out), dtype=torch.float32, device=x.device)
+                if slices > 1 else None)
+        ptrs.append(None if part is None else part.data_ptr())
     with torch.cuda.device(x.device):
-        rc = _fn(x.dtype)(
-            x.data_ptr(), w.data_ptr(),
-            None if scale is None else scale.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            xp.data_ptr(), out.data_ptr(), t, d, n_out, n, m,
-            torch.cuda.current_stream(x.device).cuda_stream)
+        rc = _fn(x.dtype)(*ptrs, t, d, n_out, n, m,
+                          torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"nm_prune_matmul kernel launch failed (CUDA error {rc})")
     nm_prune_matmul.launches += 1

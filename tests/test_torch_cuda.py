@@ -5,10 +5,13 @@ runs where JAX is not installed::
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import ctypes
+
 import pytest
 import torch
 
 from repro_torch.core import quant
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import nm_prune as knp
 from repro_torch.kernels import nm_prune_matmul as knm
@@ -44,6 +47,77 @@ def test_nm_prune_matmul(gen, dtype, t, d, n_out, n, m):
     b = torch.randn(n_out, generator=gen, device="cuda").to(dtype)
     _close(knm.nm_prune_matmul(x, w, sc, n, m, bias=b),
            knm.nm_prune_matmul_plain(x, w, sc, n, m, bias=b), dtype)
+
+
+# The wgmma building blocks (csrc/hopper.cuh) against torch.matmul, through
+# the test-only entry point of csrc/nm_prune_matmul.cu.
+
+def _probe(a, b, mode):
+    fn = _build.load("nm_prune_matmul.cu").wgmma_probe_bf16
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.full((a.shape[0], b.shape[1]), float("nan"), device="cuda")
+    rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), mode, a.shape[0], a.shape[1],
+            b.shape[1], torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    return out
+
+
+def test_wgmma_single_product(gen):
+    """One m64n128k16 wgmma: A K-major and B MN-major in the 128-byte swizzle,
+    the accumulator's fragment map.  Products of bf16 are exact in float32,
+    so only the order of a 16-term sum differs."""
+    a = torch.randn(64, 16, generator=gen, device="cuda").bfloat16()
+    b = torch.randn(16, 128, generator=gen, device="cuda").bfloat16()
+    _close(_probe(a, b, 0), a.float() @ b.float(), torch.float32)
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 64, 128), (300, 1000, 264)])
+def test_wgmma_pipelined_k_loop(gen, m, k, n):
+    """The wgmma GEMM's TMA ring and k loop in one slice: ragged M, a K that
+    is not a multiple of the 64-wide k step, an N past the last 128 tile."""
+    a = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+    b = (torch.randn(k, n, generator=gen, device="cuda") * k**-0.5).bfloat16()
+    _close(_probe(a, b, 1), a.float() @ b.float(), torch.float32)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose storage starts 2 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("case,t,d,n_out,route", [
+    ("q", 256, 4096, 4096, "split"),
+    ("gate", 256, 4096, 14336, "wgmma"),
+    ("down", 256, 14336, 4096, "split"),
+    ("q_ragged", 137, 4096, 4096, "split"),
+    ("gate_ragged", 137, 4096, 14336, "wgmma"),
+    ("n_edge", 200, 512, 200, "wgmma"),
+    ("n_edge_split", 137, 2048, 200, "split"),
+    ("w_misaligned", 137, 512, 256, "wmma"),
+    ("n_odd", 70, 256, 130, "wmma"),
+])
+def test_nm_prune_matmul_routes(gen, case, t, d, n_out, route):
+    """Every route of the bf16 dispatcher against the plain version: the
+    wgmma kernel in one slice or split along k (float32 partials, ordered
+    reduce), and the WMMA kernel for a w the TMA cannot take."""
+    n, m = 8, 16
+    x = torch.randn(t, d, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(d, n_out, generator=gen, device="cuda") * d**-0.5).bfloat16()
+    if case == "w_misaligned":
+        w = _misaligned(w)
+    sc = torch.rand(d, generator=gen, device="cuda") + 0.5
+    b = torch.randn(n_out, generator=gen, device="cuda").bfloat16()
+    plan = knm.gemm_plan(w, t)
+    assert {"wmma": plan == 0, "wgmma": plan == 1, "split": plan > 1}[route], plan
+    for bias in (None, b):
+        _close(knm.nm_prune_matmul(x, w, sc, n, m, bias=bias),
+               knm.nm_prune_matmul_plain(x, w, sc, n, m, bias=bias), torch.bfloat16)
 
 
 def _paged(gen, dtype, b, hkv, hd, bs, mb, kv_len):
@@ -149,6 +223,51 @@ def test_nm_prune_bit_exact(gen, dtype, t, d, n, m):
         got = knp.nm_prune(x, scale, n, m)
         torch.cuda.synchronize()
         assert torch.equal(got, knp.nm_prune_plain(x, scale, n, m))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m", [(2, 4), (4, 8), (8, 16), (3, 8), (5, 32), (2, 6)])
+@pytest.mark.parametrize("aligned", [True, False], ids=["vector", "offset"])
+def test_nm_prune_bit_exact_group_widths(gen, dtype, n, m, aligned):
+    """The vectorised selection at each group width it takes (and m = 6,
+    which it does not), and an x 2 bytes off a 16-byte boundary, which takes
+    the one-thread-per-group kernel: both bit-exact."""
+    x = torch.randn(64, 96 * m, generator=gen, device="cuda").to(dtype)
+    if not aligned:
+        x = _misaligned(x)
+    sc = torch.rand(96 * m, generator=gen, device="cuda") + 0.5
+    for scale in (sc, None):
+        got = knp.nm_prune(x, scale, n, m)
+        torch.cuda.synchronize()
+        assert torch.equal(got, knp.nm_prune_plain(x, scale, n, m))
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("case,t,causal,window", [
+    ("causal", 300, True, 0),
+    ("one_tile", 40, True, 0),
+    ("noncausal", 300, False, 0),
+    ("window", 300, True, 100),
+    ("noncausal_window", 200, False, 64),
+    ("long", 512, True, 0),
+])
+def test_flash_attention_wgmma(gen, hd, case, t, causal, window):
+    """The bf16 wgmma kernel at both head sizes it takes, GQA 7:1: T not a
+    multiple of the 128-row block, a T shorter than one key tile, causal,
+    non-causal and windowed bands."""
+    b, hq, hkv = 2, 14, 2
+    q = torch.randn(b, t, hq, hd, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(b, t, hkv, hd, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(b, t, hkv, hd, generator=gen, device="cuda").bfloat16()
+    _close(kfa.flash_attention(q, k, v, causal=causal, window=window),
+           kfa.flash_attention_plain(q, k, v, causal=causal, window=window), torch.bfloat16)
+
+
+def test_flash_attention_misaligned_takes_rows_path(gen):
+    q = _misaligned(torch.randn(1, 70, 14, 64, generator=gen, device="cuda").bfloat16())
+    k = torch.randn(1, 70, 2, 64, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(1, 70, 2, 64, generator=gen, device="cuda").bfloat16()
+    _close(kfa.flash_attention(q, k, v), kfa.flash_attention_plain(q, k, v), torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
