@@ -6,20 +6,28 @@
 Phases (any failed check exits non-zero; no phase is skipped):
 
 1. build   — compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
-             with nvcc (one process per source, in parallel), and count the
-             HGMMA (wgmma) instructions in each library's SASS: the
-             ``flash_attention`` and ``nm_prune_matmul`` libraries must have
-             some.
+             with nvcc (one process per source, in parallel), print ptxas's
+             warnings of serialised wgmma (C7512-C7520), and count the HGMMA
+             (wgmma) instructions in each library's SASS: the
+             ``flash_attention``, ``nm_prune_matmul``, ``nm_spmm`` and
+             ``paged_attention`` libraries must have some.
 2. kernels — each kernel against its plain PyTorch version on the card, at
              the serving path's LLaMA-3.1-8B shapes in bfloat16 (plus a
              float32 case each); median time with CUDA events, the bound
              from the card's data-sheet rates, the plain version's time and
              one library call's time.  The int8 kernels (``osparse_matmul``,
              ``w8a8_matmul``) and ``nm_prune`` must be bit-exact: int8
-             codes, scales and outputs.  2g/2h: ``flash_attention`` and
+             codes, scales and outputs.  2c: ``paged_attention`` on
+             NaN-poisoned pools: a prefill chunk, decode at LLaMA-3.1-8B's
+             heads (G = 4) and at Qwen2-7B's (28 / 4, G = 7), float32; each
+             case's route and time, and the chunk's cost per call and per
+             64-key tile from three key lengths.  2g/2h: ``flash_attention`` and
              ``nm_spmm`` at the one-shot Qwen2-7B prefill's shapes (4 x 512
              tokens), with ragged, windowed, non-causal and float32 cases;
-             ``nm_spmm``'s consensus selection must be bit-exact.
+             ``nm_spmm``'s consensus selection must be bit-exact, and is
+             timed alone beside the whole call; its GEMM's routes (k split,
+             128- or 256-row blocks) are checked and timed against each
+             other where the plan chooses them.
 3. serve   — ``Engine.from_config`` at full LLaMA-3.1-8B width (32 layers,
              random weights from a seed, bfloat16) under the paper's
              policy with the kernels on: 8 staggered requests, 32 new tokens
@@ -128,18 +136,29 @@ class Timer:
 
 
 # the libraries whose kernels are written for the tensor cores' wgmma
-WGMMA_LIBRARIES = ("flash_attention.so", "nm_prune_matmul.so")
+WGMMA_LIBRARIES = ("flash_attention.so", "nm_prune_matmul.so", "nm_spmm.so",
+                   "paged_attention.so")
+# ptxas warnings that it serialised a kernel's wgmma (C7512-C7520)
+SERIALISED_WGMMA = re.compile(r"C75(1[2-9]|20)")
 
 
-def check_hgmma(build_dir: str) -> None:
-    """The count of HGMMA (wgmma) instructions in each built library's SASS;
-    the redesigned kernels' libraries must hold some."""
+def check_hgmma(build_dir: str, logs: dict) -> None:
+    """The count of HGMMA (wgmma) instructions in each built library's SASS,
+    and ptxas's warnings that it serialised wgmma; the redesigned kernels'
+    libraries must hold some HGMMA."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for src, log in logs.items():
+        for line in log.splitlines():
+            if SERIALISED_WGMMA.search(line):
+                print(f"  {src}: {line.strip()}")
     for lib in sorted(Path(build_dir).glob("*.so")):
         sass = subprocess.run([cuobjdump, "--dump-sass", str(lib)], capture_output=True,
                               text=True, timeout=300, check=True).stdout
         count = len(re.findall(r"\bHGMMA\b", sass))
-        print(f"  {lib.name}: {count} HGMMA instructions in the SASS")
+        warned = sum(bool(SERIALISED_WGMMA.search(line))
+                     for line in logs.get(lib.stem + ".cu", "").splitlines())
+        print(f"  {lib.name}: {count} HGMMA instructions in the SASS, {warned} ptxas "
+              "warnings of serialised wgmma")
         if lib.name in WGMMA_LIBRARIES and count == 0:
             fail(f"{lib.name} holds no HGMMA instruction: its kernels do not use wgmma")
 
@@ -295,11 +314,11 @@ def phase_kernels(torch, timer, rates):
     errs = []
     kp, vp = pools(torch.bfloat16)
 
-    def poisoned(tab, kvl):
+    def poisoned(kp, vp, tab, kvl):
         """Pools where every row no table row may read is NaN: blocks no
         row owns, and rows at or past each row's kv_len."""
         kpn, vpn = kp.clone(), vp.clone()
-        live = torch.zeros(rows, bs, dtype=torch.bool)
+        live = torch.zeros(kp.shape[:2], dtype=torch.bool)
         tab_h, kvl_h = tab.cpu(), kvl.cpu()
         for r in range(tab_h.shape[0]):
             for i in range(int(kvl_h[r])):
@@ -310,64 +329,105 @@ def phase_kernels(torch, timer, rates):
         kpn[~live], vpn[~live] = float("nan"), float("nan")
         return kpn, vpn
 
+    def route(q, kp, tab):
+        b, tq, hq_, hd_ = q.shape
+        return kpa.attention_plan(q.dtype, b, tq, hq_, kp.shape[2], hd_, bs, tab.shape[1],
+                                  True)
+
+    def decode_case(hq_, qpos):
+        """Decode rows of ``hq_`` query heads at positions ``qpos``: each row
+        owns the blocks it needs, the rest of its table row is -1."""
+        b = len(qpos)
+        posv = torch.tensor(qpos, **i32)
+        kvld = posv + 1
+        tabd = torch.full((b, mb), -1, **i32)
+        for r in range(b):
+            need = int(kvld[r] + bs - 1) // bs
+            tabd[r, :need] = perm[r * mb:r * mb + need]
+        q = torch.randn(b, 1, hq_, hd, generator=g, device=dev).bfloat16()
+        return q, tabd, posv, kvld
+
     q1 = torch.randn(1, 256, hq, hd, generator=g, device=dev).bfloat16()
     qoff1, kvl1 = torch.tensor([300], **i32), torch.tensor([500], **i32)
-    kp1, vp1 = poisoned(tab1, kvl1)
+    kp1, vp1 = poisoned(kp, vp, tab1, kvl1)
     got = kpa.paged_attention(q1, kp1, vp1, tab1, qoff1, kvl1, causal=True)
     want = kpa.paged_attention_plain(q1, kp1, vp1, tab1, qoff1, kvl1, causal=True)
-    errs.append(check_close("prefill chunk q_offset=300 kv_len=500 NaN-poisoned", got, want,
-                            BF16_TOL))
-    # decode: some rows own few blocks, the rest of each table row is -1
-    posv = torch.tensor([700, 513, 64, 0], **i32)
-    kvld = posv + 1
-    tabd = torch.full((4, mb), -1, **i32)
-    for r in range(4):
-        need = int(kvld[r] + bs - 1) // bs
-        tabd[r, :need] = perm[r * mb:r * mb + need]
-    kpn, vpn = poisoned(tabd, kvld)
-    qd = torch.randn(4, 1, hq, hd, generator=g, device=dev).bfloat16()
+    errs.append(check_close(f"prefill chunk q_offset=300 kv_len=500 NaN-poisoned "
+                            f"{route(q1, kp, tab1)}", got, want, BF16_TOL))
+    # decode, LLaMA-3.1-8B heads (G = 4) and Qwen2-7B heads (28 / 4, G = 7):
+    # some rows own few blocks, the rest of each table row is -1
+    qd, tabd, posv, kvld = decode_case(hq, [700, 513, 64, 0])
+    kpn, vpn = poisoned(kp, vp, tabd, kvld)
     got = kpa.paged_attention(qd, kpn, vpn, tabd, posv, kvld, causal=False)
     want = kpa.paged_attention_plain(qd, kpn, vpn, tabd, posv, kvld, causal=False)
-    errs.append(check_close("decode B=4 NaN-poisoned", got, want, BF16_TOL))
+    errs.append(check_close(f"decode B=4 G=4 NaN-poisoned {route(qd, kp, tabd)}", got, want,
+                            BF16_TOL))
     q32 = qd.float()
     errs.append(check_close(
-        "float32 decode NaN-poisoned",
+        f"float32 decode NaN-poisoned {route(q32, kp, tabd)}",
         kpa.paged_attention(q32, kpn.float(), vpn.float(), tabd, posv, kvld, causal=False),
         kpa.paged_attention_plain(q32, kpn.float(), vpn.float(), tabd, posv, kvld,
                                   causal=False), F32_TOL))
-    # timing at both serving shapes; the record keeps the prefill chunk
-    for case, q, tab, qo, kvl, causal in (
-            ("prefill chunk", q1, tab1, qoff1, kvl1, True),
-            ("decode B=4", qd, tabd, posv, kvld, False)):
-        b, tq = q.shape[:2]
-        ms = timer.ms(lambda: kpa.paged_attention(q, kp, vp, tab, qo, kvl, causal=causal))
+    kq = torch.randn(rows, bs, 4, hd, generator=g, device=dev).bfloat16()
+    vq = torch.randn(rows, bs, 4, hd, generator=g, device=dev).bfloat16()
+    q7, tab7, pos7, kvl7 = decode_case(28, [543, 512, 300, 31])
+    kq7, vq7 = poisoned(kq, vq, tab7, kvl7)
+    errs.append(check_close(
+        f"decode B=4 G=7 (Qwen2-7B heads) NaN-poisoned {route(q7, kq, tab7)}",
+        kpa.paged_attention(q7, kq7, vq7, tab7, pos7, kvl7, causal=False),
+        kpa.paged_attention_plain(q7, kq7, vq7, tab7, pos7, kvl7, causal=False), BF16_TOL))
+    # timing at the serving shapes; the record keeps the prefill chunk's and,
+    # beside it, each decode case's
+    cases = (("prefill chunk", q1, kp, vp, tab1, qoff1, kvl1, True),
+             ("decode B=4 G=4", qd, kp, vp, tabd, posv, kvld, False),
+             ("decode B=4 G=7", q7, kq, vq, tab7, pos7, kvl7, False))
+    for case, q, kpool, vpool, tab, qo, kvl, causal in cases:
+        b, tq, hq_ = q.shape[:3]
+        hkv_ = kpool.shape[2]
+        ms = timer.ms(lambda: kpa.paged_attention(q, kpool, vpool, tab, qo, kvl, causal=causal))
         plain_ms = timer.ms(
-            lambda: kpa.paged_attention_plain(q, kp, vp, tab, qo, kvl, causal=causal), 5)
+            lambda: kpa.paged_attention_plain(q, kpool, vpool, tab, qo, kvl, causal=causal), 5)
         s_len = mb * bs
         kpos = torch.arange(s_len, device=dev)
         qpos = qo.long()[:, None] + torch.arange(tq, device=dev)[None, :]
         mask = kpos[None, None, :] < kvl.long()[:, None, None]
         if causal:
             mask = mask & (kpos[None, None, :] <= qpos[:, :, None])
-        kg = kp[tab.long().clamp(0, rows - 1)].reshape(b, s_len, hkv, hd)
-        vg = vp[tab.long().clamp(0, rows - 1)].reshape(b, s_len, hkv, hd)
+        kg = kpool[tab.long().clamp(0, rows - 1)].reshape(b, s_len, hkv_, hd)
+        vg = vpool[tab.long().clamp(0, rows - 1)].reshape(b, s_len, hkv_, hd)
         # KV heads repeated to the query heads outside the timed call
         qt = q.transpose(1, 2)
-        kt = kg.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
-        vt = vg.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+        kt = kg.transpose(1, 2).repeat_interleave(hq_ // hkv_, dim=1)
+        vt = vg.transpose(1, 2).repeat_interleave(hq_ // hkv_, dim=1)
         am = mask[:, None]
         lib_ms = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=am))
-        pairs = int(mask.sum()) * hq
-        nbytes = (2 * q.numel() + 2 * int(kvl.sum()) * hkv * hd) * 2
+        pairs = int(mask.sum()) * hq_
+        nbytes = (2 * q.numel() + 2 * int(kvl.sum()) * hkv_ * hd) * 2
         ops = 4 * hd * pairs
         bound = max(nbytes / bw, ops / bf16_peak) * 1e3
         by = "bytes" if nbytes / bw >= ops / bf16_peak else "operations"
-        print(f"  {case}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), plain "
-              f"{plain_ms:.4f} ms, SDPA on the gathered view {lib_ms:.4f} ms")
+        print(f"  {case} {route(q, kpool, tab)}: kernel {ms:.4f} ms, bound {bound:.4f} ms "
+              f"({by}), plain {plain_ms:.4f} ms, SDPA on the gathered view {lib_ms:.4f} ms; "
+              f"kernel/library {ms / lib_ms:.2f}")
         if case == "prefill chunk":
             records["paged_attention"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                               bound_ms=bound, bound_by=by)
+        else:
+            key = "decode_g4" if "G=4" in case else "decode_g7"
+            records["paged_attention"].update({f"{key}_ms": ms, f"{key}_bound_ms": bound,
+                                               f"{key}_library_ms": lib_ms})
+    # what a chunk costs per 64-key tile and per call: the same 256 queries,
+    # causal, ending at kv_len 256, 512 and 736 (the longest query tile walks
+    # 4, 8 and 12 tiles); a least-squares line through the three times
+    walks, times = [], []
+    for kvl_s in (256, 512, mb * bs):
+        qo_s, kv_s = torch.tensor([kvl_s - 256], **i32), torch.tensor([kvl_s], **i32)
+        walks.append(-(-kvl_s // 64))
+        times.append(timer.ms(lambda: kpa.paged_attention(q1, kp, vp, tab1, qo_s, kv_s)))
+    slope, icept = np.polyfit(walks, times, 1)
+    print(f"  chunk vs its walk: {[f'{w} tiles {t:.4f} ms' for w, t in zip(walks, times)]}: "
+          f"{icept * 1e3:.2f} us a call + {slope * 1e3:.2f} us a 64-key tile")
     records["paged_attention"]["max_abs_err"] = max(errs)
     return records
 
@@ -530,6 +590,76 @@ def sdpa_ms(torch, timer, q, k, v, causal: bool):
     return timer.ms(lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True))
 
 
+# the one-shot prefill's tile-consensus projections of Qwen2-7B: (name, D, N_out)
+QWEN_SPARSE_PROJS = (("q", 3584, 3584), ("gate", 3584, 18944), ("down", 18944, 3584))
+
+
+def time_nm_spmm(timer, kns, x, w, scale, n=8, m=16, tile=256):
+    """``nm_spmm``'s whole call and its selection pass alone (CUDA events,
+    L2 flushed): (call ms, selection ms)."""
+    return (timer.ms(lambda: kns.nm_spmm(x, w, scale, n, m, tile)),
+            timer.ms(lambda: kns.consensus_select(x, scale, n, m, tile)))
+
+
+def nm_spmm_selection_split(torch, timer):
+    """The split of ``nm_spmm``'s time between its selection pass and the
+    rest at the one-shot prefill's shapes (T = 2048, 8:16, tile 256), for
+    whichever ``repro_torch`` is first on ``sys.path``: a checkout of an
+    earlier commit can be timed beside this one on the same card."""
+    from repro_torch.kernels import nm_spmm as kns
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    for proj, d, n_out in QWEN_SPARSE_PROJS:
+        w = (torch.randn(d, n_out, generator=g, device="cuda") * d**-0.5).bfloat16()
+        scale = torch.rand(d, generator=g, device="cuda") + 0.5
+        x = torch.randn(2048, d, generator=g, device="cuda").bfloat16()
+        ms, sel_ms = time_nm_spmm(timer, kns, x, w, scale)
+        print(f"  nm_spmm {proj} T=2048 ({kns.__file__}): call {ms:.4f} ms, selection "
+              f"{sel_ms:.4f} ms ({sel_ms / ms:.1%}), the rest {ms - sel_ms:.4f} ms")
+
+
+# nm_spmm's GEMM routes against each other: (projection, T, tile, the other
+# route).  A short one-shot prefill (a single prompt of 256 or 512 tokens, or
+# consensus tiles of 100 or 128 tokens), where the plan splits k or takes
+# 128-row blocks, against one slice of 256-row blocks; and the T = 2048
+# prefill's 256-row blocks against 128-row ones
+_UNSPLIT_256, _BM_128 = ("wgmma", 256, 1), ("wgmma", 128, 1)
+ROUTE_SWEEP = (("q", 256, 256, _UNSPLIT_256), ("down", 256, 256, _UNSPLIT_256),
+               ("q", 512, 256, _UNSPLIT_256), ("down", 512, 256, _UNSPLIT_256),
+               ("q", 512, 100, _UNSPLIT_256), ("gate", 512, 100, _UNSPLIT_256),
+               ("down", 512, 100, _UNSPLIT_256), ("q", 512, 128, _UNSPLIT_256),
+               ("down", 512, 128, _UNSPLIT_256), ("gate", 2048, 256, _BM_128),
+               ("down", 2048, 256, _BM_128))
+
+
+def nm_spmm_route_sweep(torch, timer, kns, g):
+    """Each shape of ``ROUTE_SWEEP`` on the route ``gemm_plan`` gives it and
+    on the other route, both checked against the plain version and timed in
+    turn, plan / other / plan / other (each a median of 10 with the L2
+    flushed); a route's time is the mean of its two medians."""
+    dims = {proj: (d, n_out) for proj, d, n_out in QWEN_SPARSE_PROJS}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    errs = []
+    for proj, t, tile, other in ROUTE_SWEEP:
+        d, n_out = dims[proj]
+        w = (torch.randn(d, n_out, generator=g, device="cuda") * d**-0.5).bfloat16()
+        scale = torch.rand(d, generator=g, device="cuda") + 0.5
+        x = torch.randn(t, d, generator=g, device="cuda").bfloat16()
+        plan = kns.gemm_plan(x.dtype, t, d, n_out, 8, 16, tile, True, sms)
+        want = kns.nm_spmm_plain(x, w, scale, 8, 16, tile)
+        runs = {}
+        for route in (plan, other, plan, other):
+            fn = lambda: kns._launch(x, w, scale, 8, 16, tile, route)  # noqa: E731
+            if route not in runs:
+                errs.append(check_close(f"{proj} T={t} tile {tile} {route}", fn(), want,
+                                        BF16_TOL))
+            runs.setdefault(route, []).append(timer.ms(fn))
+        a, b = (statistics.mean(runs[r]) for r in (plan, other))
+        print(f"  route {proj} T={t} tile {tile}: plan {plan} {a:.4f} ms, {other} {b:.4f} ms "
+              f"(plan/other {a / b:.2f})")
+    return max(errs)
+
+
 def phase_oneshot_kernels(torch, timer, rates):
     """flash_attention and nm_spmm against their plain versions at the
     one-shot Qwen2-7B prefill's shapes (4 prompts of 512 tokens)."""
@@ -591,17 +721,18 @@ def phase_oneshot_kernels(torch, timer, rates):
             fail(f"nm_spmm {label}: the kernel's consensus selection differs from the plain "
                  "version's")
 
-    for proj, d, n_out in (("q", 3584, 3584), ("gate", 3584, 18944), ("down", 18944, 3584)):
+    for proj, d, n_out in QWEN_SPARSE_PROJS:
         w = (torch.randn(d, n_out, generator=g, device=dev) * d**-0.5).bfloat16()
         scale = torch.rand(d, generator=g, device=dev) + 0.5
         for t in (2048, 300):
             x = torch.randn(t, d, generator=g, device=dev).bfloat16()
             check_selection(f"{proj} T={t}", x, scale, tile)
-            errs.append(check_close(f"{proj} T={t}", kns.nm_spmm(x, w, scale, n, m, tile),
+            plan = kns.gemm_plan(x.dtype, t, d, n_out, n, m, tile, w.data_ptr() % 16 == 0)
+            errs.append(check_close(f"{proj} T={t} {plan}", kns.nm_spmm(x, w, scale, n, m, tile),
                                     kns.nm_spmm_plain(x, w, scale, n, m, tile), BF16_TOL))
             if t != 2048:
                 continue
-            ms = timer.ms(lambda: kns.nm_spmm(x, w, scale, n, m, tile))
+            ms, sel_ms = time_nm_spmm(timer, kns, x, w, scale)
             plain_ms = timer.ms(lambda: kns.nm_spmm_plain(x, w, scale, n, m, tile), 5)
             idx, xc = kns.consensus_select_plain(x, scale, n, m, tile)
             wcs = [w.index_select(0, r) for r in idx]
@@ -613,12 +744,19 @@ def phase_oneshot_kernels(torch, timer, rates):
             ops = 2 * t * kc * n_out
             bound = max(nbytes / bw, ops / bf16_peak) * 1e3
             by = "bytes" if nbytes / bw >= ops / bf16_peak else "operations"
-            print(f"  {proj} T=2048: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), plain "
-                  f"{plain_ms:.4f} ms, torch.matmul(xc, w[idx]) per tile {lib_ms:.4f} ms")
-            if proj == "gate":
-                records["nm_spmm"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                          bound_ms=bound, bound_by=by)
+            print(f"  {proj} T=2048: kernel {ms:.4f} ms = selection {sel_ms:.4f} ms + the rest "
+                  f"{ms - sel_ms:.4f} ms (selection {sel_ms / ms:.1%} of the call); bound "
+                  f"{bound:.4f} ms ({by}), plain {plain_ms:.4f} ms, torch.matmul(xc, w[idx]) "
+                  f"per tile (gather and selection untimed) {lib_ms:.4f} ms; kernel/library "
+                  f"{ms / lib_ms:.2f}, rest/library {(ms - sel_ms) / lib_ms:.2f}")
+            rec = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                       bound_by=by, select_ms=sel_ms)
+            # the record's own keys are gate's; q's and down's carry their prefix
+            records.setdefault("nm_spmm", {}).update(
+                rec if proj == "gate" else {f"{proj}_{k}": v for k, v in rec.items()
+                                            if k != "bound_by"})
             del wcs
+    errs.append(nm_spmm_route_sweep(torch, timer, kns, g))
     xf = torch.randn(300, 3584, generator=g, device=dev)
     wf = torch.randn(3584, 3584, generator=g, device=dev) * 3584**-0.5
     sf = torch.rand(3584, generator=g, device=dev) + 0.5
@@ -807,18 +945,18 @@ def profile_steps(torch, model, params, policy):
 
 # kernel families of the profiles: name → the full names of the port's CUDA
 # kernels in it.  A profiler key belongs to a family when it holds one of
-# these names as a whole identifier, so ``paged_flash_bf16_kernel`` is not
-# taken for ``flash_bf16_kernel``; library kernels go by a fragment of their
-# names.
+# these names as a whole identifier, so a kernel whose name holds another's
+# is not taken for it; library kernels go by a fragment of their names.
 FAMILIES = (("osparse_matmul", ("osparse_quant_kernel", "w8a8_gemm_kernel", "dequant_kernel")),
             ("nm_prune_matmul", ("nm_select_kernel", "nm_select_vec_kernel",
                                  "nm_matmul_wgmma_kernel", "nm_splitk_reduce_kernel",
                                  "nm_matmul_bf16_kernel", "nm_matmul_f32_kernel",
                                  "wgmma_probe_kernel")),
-            ("nm_spmm", ("consensus_select_kernel", "spmm_bf16_kernel", "spmm_f32_kernel")),
+            ("nm_spmm", ("consensus_select_kernel", "spmm_wgmma_kernel",
+                         "spmm_splitk_reduce_kernel", "spmm_bf16_kernel", "spmm_f32_kernel")),
             ("flash_attention", ("flash_bf16_kernel", "attention_rows_kernel")),
-            ("paged_attention", ("paged_attention_kernel", "paged_attention_combine_kernel",
-                                 "paged_flash_bf16_kernel")),
+            ("paged_attention", ("paged_wgmma_kernel", "paged_attention_kernel",
+                                 "paged_attention_combine_kernel")),
             ("paged_kv_scatter", ("paged_kv_scatter_kernel",)))
 LIBRARY_GEMM = ("cuBLAS GEMM", ("gemm", "nvjet", "cutlass", "xmma", "gemv"))
 OTHER = "other (elementwise, norms, copies)"
@@ -1263,7 +1401,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
-    check_hgmma(info["dir"])
+    check_hgmma(info["dir"], info["logs"])
     timer = Timer(torch)
     t1 = time.perf_counter()
     records = phase_kernels(torch, timer, rates)

@@ -214,13 +214,6 @@ constexpr int FQ = 64;            // query rows per warpgroup
 constexpr int FK = 64;            // keys per staged tile
 constexpr int FSTAGES = 3;        // K/V ring depth
 
-// 2^x by the MUFU unit (flushes results below 2^-126 to 0).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <int HD, int NWG>
 struct FlashSmem {
   static constexpr int CHUNK_Q = FQ * 128;                // one 64-column chunk of a Q tile

@@ -1,9 +1,11 @@
 // Building blocks of the port's Hopper (sm_90a) kernels, written as inline
 // PTX (no CuTe/CUTLASS headers: a source that includes this header builds in
-// seconds).  flash_attention.cu and nm_prune_matmul.cu use them:
+// seconds).  flash_attention.cu, nm_prune_matmul.cu, nm_spmm.cu and
+// paged_attention.cu use them:
 //
 //  * mbarriers: init, arrive, arrive-expect-tx and a parity wait — the
 //    full/empty handshakes of a ring of shared-memory stages;
+//  * cp.async 16-byte gathers with zero fill that arrive on an mbarrier;
 //  * TMA: 2-d and 4-d tiled loads into shared memory that complete on an
 //    mbarrier, a 4-d tiled store, and the host-side encoding of the tensor maps
 //    (cuTensorMapEncodeTiled, reached through the runtime's driver entry
@@ -13,7 +15,9 @@
 //  * wgmma: the shared-memory matrix descriptor of the 128-byte swizzle for
 //    K-major and MN-major operands, fence / commit / wait, and the bf16 ->
 //    float32 m64nNk16 products (N = 64, 128) with A from shared memory or
-//    from registers.
+//    from registers;
+//  * ex2.approx, the exponent of the attention kernels' online softmax;
+//  * the deterministic split-k reduce of the GEMMs' float32 partials.
 //
 // Layout every kernel here shares: a tile is stored as 64-element (128-byte)
 // column chunks; chunk c of a tile of R rows holds R rows of 128 bytes, the
@@ -67,10 +71,13 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                : "memory");
 }
 
-// Waits until the barrier's phase of parity `parity` has completed.
+// Waits until the barrier's phase of parity `parity` has completed.  A wait
+// of more than ~2^34 clock cycles (seconds: a phase that can never complete)
+// traps, so a broken handshake fails the launch instead of hanging the card.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   uint32_t done = 0;
+  const long long t0 = clock64();
   do {
     asm volatile(
         "{\n.reg .pred p;\n"
@@ -79,6 +86,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "=r"(done)
         : "r"(addr), "r"(parity)
         : "memory");
+    if (!done && clock64() - t0 > (1LL << 34)) __trap();
   } while (!done);
 }
 
@@ -102,6 +110,12 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Starts fetching a tensor map (a kernel parameter) into the TMA unit's
+// descriptor cache, ahead of its first load or store.
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
 // A 4-d tiled store of a shared-memory box to global memory (elements out of
 // range are not written), tracked by the bulk async-group; wait for the
 // reads of the shared memory with bulk_wait_read before reusing or leaving it.
@@ -118,6 +132,23 @@ __device__ __forceinline__ void bulk_commit() {
 }
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// ------------------------------------------------------------- cp.async
+// A 16-byte copy global -> shared that reads `src_bytes` (16 or 0) and fills
+// the rest with zeros: a gather TMA cannot make.  Its writes are generic-proxy
+// writes: a reader that feeds them to wgmma runs fence_proxy_async() after it
+// has seen them arrive.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+// One arrival on `bar` once all of this thread's earlier cp.async copies have
+// landed; it counts toward the barrier's expected arrivals (.noinc).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
 // Host: a bf16 tensor map over `rank` dims (innermost first; `strides` are
@@ -222,6 +253,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// 2^x by the MUFU unit (flushes results below 2^-126 to 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Two floats as one register of two bf16 (lo in the low half), rounded to
 // nearest even.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -303,6 +341,36 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// ------------------------------------------------------- split-k reduce
+// The body of the GEMMs' split-k reduce kernels (a programmatic dependent of
+// the GEMM: it waits for the partials first).  `part` holds `splits` k slices
+// of T x N float32 partials; out = bf16(their sum in slice order, + bias[col]
+// when bias is not null), rounded once and deterministic (no atomics).  One
+// thread per 4 consecutive outputs; N % 4 == 0.
+__device__ __forceinline__ void splitk_reduce_bf16(const float* __restrict__ part,
+                                                   const float* __restrict__ bias,
+                                                   __nv_bfloat16* __restrict__ out, int T_, int N,
+                                                   int splits) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const size_t total = (size_t)T_ * N;
+  const size_t e = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (e >= total) return;
+  float4 a = *reinterpret_cast<const float4*>(part + e);
+  for (int sp = 1; sp < splits; ++sp) {
+    const float4 b = *reinterpret_cast<const float4*>(part + sp * total + e);
+    a.x += b.x, a.y += b.y, a.z += b.z, a.w += b.w;
+  }
+  if (bias != nullptr) {
+    const float* b = bias + e % N;
+    a.x += b[0], a.y += b[1], a.z += b[2], a.w += b[3];
+  }
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a.x, a.y), hi = __floats2bfloat162_rn(a.z, a.w);
+  uint2 v;
+  v.x = *reinterpret_cast<const uint32_t*>(&lo);
+  v.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(out + e) = v;
 }
 
 // D (64 x 128, float32) = A (64 x 16, registers) * B (16 x 128, shared),

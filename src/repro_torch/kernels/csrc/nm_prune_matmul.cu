@@ -459,29 +459,11 @@ nm_matmul_wgmma_kernel(__grid_constant__ const CUtensorMap xmap,
 }
 
 // out = bf16(sum of the k slices' float32 partials, in slice order, + bias):
-// the split-k reduce, deterministic.  One thread per 4 outputs.
+// the split-k reduce, deterministic (hopper::splitk_reduce_bf16).
 __global__ void __launch_bounds__(256)
 nm_splitk_reduce_kernel(const float* __restrict__ part, const float* __restrict__ bias,
                         bf16* __restrict__ out, int T_, int N, int splits) {
-  asm volatile("griddepcontrol.wait;" ::: "memory");               // the GEMM's partials
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t total = (size_t)T_ * N;
-  const size_t e = (size_t)i * 4;
-  if (e >= total) return;
-  float4 a = *reinterpret_cast<const float4*>(part + e);
-  for (int sp = 1; sp < splits; ++sp) {
-    const float4 b = *reinterpret_cast<const float4*>(part + sp * total + e);
-    a.x += b.x, a.y += b.y, a.z += b.z, a.w += b.w;
-  }
-  if (bias != nullptr) {
-    const float* b = bias + e % N;
-    a.x += b[0], a.y += b[1], a.z += b[2], a.w += b[3];
-  }
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(a.x, a.y), hi = __floats2bfloat162_rn(a.z, a.w);
-  uint2 v;
-  v.x = *reinterpret_cast<const uint32_t*>(&lo);
-  v.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(out + e) = v;
+  hopper::splitk_reduce_bf16(part, bias, out, T_, N, splits);
 }
 
 // Test-only known answer for hopper.cuh (no model path calls it): one

@@ -19,32 +19,57 @@
 // gather does not vectorise on the TPU); on Hopper a gather is a plain
 // indexed load, so the design is two kernels:
 //
-//  1. consensus_select_kernel: one block per (256 channels, tile).  Each
-//     thread pools one channel over the tile's tokens (coalesced across the
-//     threads), one thread per group runs the n rounds of strict-'>' argmax,
-//     writes the tile's kept channel ids ascending into idx (n_tiles, G*n),
-//     and the block gathers the kept columns into xc (T, G*n).  The sum of
-//     squares is accumulated in double and rounded once to float: a float
-//     square is exact in double, and the order of the sum then changes the
-//     double only in its last bits, which the round to float almost always
-//     removes; so the selection agrees with the plain version's
-//     (core/nm.py tile_consensus_channels) on the same input, except with
-//     negligible probability.
-//  2. the GEMM: one block per 64x128 output tile, k walked in 32-wide steps
-//     with cp.async double buffering and WMMA bf16 16x16x16 products
-//     (float32 accumulate).  The B tile's row r is w[idx[tile][k0 + r], :],
-//     N-contiguous, so it streams in 16-byte cp.async copies like a dense
-//     row.  A block's 64 tokens never straddle two consensus tiles: the
-//     launch walks (tile, 64-row block inside the tile), so every row of a
-//     block shares one index list.
+//  1. consensus_select_kernel: one block per (up to 256 bytes of channels of
+//     a row, tile).  The pool reads x once with 16-byte loads, 16 rows at a
+//     time across the block (each thread sums its 8 or 4 channels over every
+//     16th row of the tile), and the 16 partial sums of a channel are added
+//     in a fixed order; one thread per channel ranks it in its group (the n
+//     rounds of first-occurrence argmax, NaN first as torch.argmax has it),
+//     writes the tile's kept channel ids ascending into idx
+//     (n_tiles, G*n), and the block gathers the kept columns into xc
+//     (T, G*n).  The sum of squares is accumulated in double and rounded
+//     once to float: a float square is exact in double, and the order of
+//     the sum then changes the double only in its last bits, which the
+//     round to float almost always removes; so the selection agrees with the
+//     plain version's (core/nm.py tile_consensus_channels) on the same
+//     input, except with negligible probability.  It is bound by bytes: x
+//     read once, xc written once.
+//  2. spmm_wgmma_kernel (bf16, a w the TMA and 16-byte copies can take): one
+//     block per (BM-row block inside a consensus tile, 128 output columns,
+//     k slice), BM = 256 (a whole 256-token consensus tile, so each gathered
+//     weight row leaves the L2 once per tile) or 128 for short tiles.  A
+//     producer warpgroup keeps a 4-stage ring full: the compacted x tile
+//     (BM x 64, K-major) by one TMA load, and the 64 gathered weight rows
+//     w[idx[tile][k0 + r], n0:n0 + 128] by 16-byte cp.async copies written
+//     straight into the 128-byte-swizzled MN-major slots that TMA would write
+//     for a dense w (16-byte unit u of row r at u ^ (r % 8)); Hopper's TMA
+//     cannot gather.  The ids of a k step's rows are loaded a step ahead (two
+//     coalesced loads a lane, handed out by shuffles): a gather that waits
+//     on its own index load starves the tensor cores, and so does a single
+//     producer warp.  The stage's full barrier counts the 128 producer
+//     threads' cp.async arrivals plus the TMA's bytes.  Two consumer
+//     warpgroups of BM/2 rows run m64n128k16 wgmmas from shared memory
+//     (after a proxy fence: cp.async writes are generic-proxy writes), one k
+//     step in flight, and the epilogue leaves through shared memory in
+//     16-byte stores.  The launch walks the consensus tiles of one column slab next
+//     to one another, so the tiles' overlapping kept rows meet in the L2.  A
+//     grid that fills under half the SMs splits k into float32 partials,
+//     reduced in slice order (spmm_splitk_reduce_kernel, no atomics).  The
+//     GEMM is a programmatic dependent launch of the selection: its barrier
+//     set-up overlaps the selection's tail; its loads wait for it.
+//  3. spmm_bf16_kernel (bf16 the TMA cannot take: w not 16-byte aligned, N or
+//     G*n not a multiple of 8): 64x128 WMMA tiles, double-buffered cp.async.
+//     spmm_f32_kernel: float32 on the CUDA cores (no TF32).
 //
-// float32 inputs take a CUDA-core FMA GEMM (no TF32) with the same
-// selection.  Not yet: wgmma, TMA, a persistent schedule.
+// The wrapper (kernels/nm_spmm.py: gemm_plan) picks the GEMM route and the
+// k split; this file launches what it is told.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -58,64 +83,118 @@ template <> __device__ __forceinline__ float from_f<float>(float v) { return v; 
 
 // ---------------------------------------------------------------- selection
 constexpr int SEL_THREADS = 256;
+constexpr int SEL_UNITS = 16;                        // 16-byte units of a block's span
+constexpr int SEL_ROWS = SEL_THREADS / SEL_UNITS;    // rows read at once
 
 template <typename T>
 __global__ void __launch_bounds__(SEL_THREADS)
 consensus_select_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                         int* __restrict__ idx, T* __restrict__ xc, int T_, int D, int n,
                         int m, int tile) {
-  __shared__ float pooled[SEL_THREADS];
-  __shared__ int kept[SEL_THREADS];              // absolute kept channel ids
-  const int gpb = SEL_THREADS / m;               // groups per block
+  constexpr int V = 16 / sizeof(T);                  // channels of a 16-byte unit
+  constexpr int SPAN = SEL_UNITS * V;                // channels a block may own
+  __shared__ double part[SEL_ROWS][SPAN];
+  __shared__ float pooled[SPAN];
+  __shared__ int kept[SPAN];                         // absolute kept channel ids
+  __shared__ int keepf[SPAN];                        // channel of the span kept?
+  // the GEMM launched after this kernel may start its set-up now
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const int gpb = SPAN / m;                          // groups per block
   const int G = D / m, kc = G * n;
   const int g0 = blockIdx.x * gpb;
-  const int ng = min(gpb, G - g0);               // groups this block owns
+  const int ng = min(gpb, G - g0);                   // groups this block owns
+  const int span = ng * m, c_lo = g0 * m;
   const int ti = blockIdx.y;
   const int r0 = ti * tile, r1 = min(T_, r0 + tile);
 
-  // 1. pool: thread i owns channel g0*m + i
-  const int i = threadIdx.x;
-  if (i < ng * m) {
-    const int c = g0 * m + i;
-    const float sc = scale != nullptr ? scale[c] : 1.f;
-    double acc = 0.0;
-    for (int r = r0; r < r1; ++r) {
-      const float s = __fmul_rn(fabsf(to_f(x[(size_t)r * D + c])), sc);
-      acc += (double)s * (double)s;              // exact square, summed in double
+  // 1. pool: thread (u, lr) sums channels c_lo + u*V .. +V over rows
+  //    r0 + lr, r0 + lr + 16, ...; a whole aligned unit is one 16-byte load
+  const int u = threadIdx.x % SEL_UNITS, lr = threadIdx.x / SEL_UNITS;
+  const int cu = u * V;                              // first channel of the unit in the span
+  const int nv = max(0, min(V, span - cu));          // its channels inside the span
+  const bool vec = nv == V && (((reinterpret_cast<uintptr_t>(x) & 15) | (D % V) | (c_lo % V)) == 0);
+  float sc[V];
+  double acc[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    sc[e] = e < nv ? (scale != nullptr ? scale[c_lo + cu + e] : 1.f) : 0.f;
+    acc[e] = 0.0;
+  }
+  if (nv > 0) {
+#pragma unroll 4
+    for (int r = r0 + lr; r < r1; r += SEL_ROWS) {
+      const T* src = x + (size_t)r * D + c_lo + cu;
+      alignas(16) T v[V];
+      if (vec) {
+        *reinterpret_cast<uint4*>(v) = __ldg(reinterpret_cast<const uint4*>(src));
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) v[e] = e < nv ? src[e] : from_f<T>(0.f);
+      }
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float s = __fmul_rn(fabsf(to_f(v[e])), sc[e]);
+        acc[e] += (double)s * (double)s;             // exact square, summed in double
+      }
     }
-    pooled[i] = __fsqrt_rn(__double2float_rn(acc));
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e) part[lr][cu + e] = acc[e];
+  __syncthreads();
+  for (int i = threadIdx.x; i < span; i += SEL_THREADS) {
+    double s = 0.0;
+#pragma unroll
+    for (int l = 0; l < SEL_ROWS; ++l) s += part[l][i];
+    pooled[i] = __fsqrt_rn(__double2float_rn(s));
   }
   __syncthreads();
 
-  // 2. select: one thread per group, n rounds of first-occurrence argmax
-  if (i < ng) {
-    const float* pg = pooled + i * m;
-    uint32_t keep = 0u;
-    for (int round = 0; round < n; ++round) {
-      int best = -1;
-      float bestv = 0.f;
-      for (int j = 0; j < m; ++j) {
-        if ((keep >> j) & 1u) continue;
-        if (best < 0 || pg[j] > bestv) { best = j; bestv = pg[j]; }
-      }
-      keep |= 1u << best;
+  // 2. select, one thread per channel: channel i is kept when fewer than n
+  //    channels of its group rank above it, in torch.argmax's order: NaN
+  //    above every number, then the larger score, a tie (NaN with NaN too)
+  //    to the lower channel.  A strict total order, so every group keeps
+  //    exactly n: the channels of the n rounds of first-occurrence argmax;
+  //    ids ascending in the group
+  for (int i = threadIdx.x; i < span; i += SEL_THREADS) {
+    const int gb = i - i % m;
+    const float p = pooled[i];
+    const bool pn = isnan(p);
+    int rank = 0;
+    for (int j = gb; j < gb + m; ++j) {
+      const float q = pooled[j];
+      rank += isnan(q) ? (!pn || j < i) : (!pn && (q > p || (q == p && j < i)));
     }
+    keepf[i] = rank < n;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < span; i += SEL_THREADS) {
+    if (!keepf[i]) continue;
+    const int gi = i / m;
     int k = 0;
-    for (int j = 0; j < m; ++j)                  // ascending channel order
-      if ((keep >> j) & 1u) {
-        const int ch = (g0 + i) * m + j;
-        kept[i * n + k] = ch;
-        idx[(size_t)ti * kc + (size_t)(g0 + i) * n + k] = ch;
-        ++k;
-      }
+    for (int j = gi * m; j < i; ++j) k += keepf[j];
+    kept[gi * n + k] = c_lo + i;
+    idx[(size_t)ti * kc + (size_t)(g0 + gi) * n + k] = c_lo + i;
   }
   __syncthreads();
 
-  // 3. compact: xc[r, g0*n + k] = x[r, kept[k]] for the tile's rows
-  const int cols = ng * n;
-  for (int e = threadIdx.x; e < (r1 - r0) * cols; e += SEL_THREADS) {
-    const int r = r0 + e / cols, k = e % cols;
-    xc[(size_t)r * kc + (size_t)g0 * n + k] = x[(size_t)r * D + kept[k]];
+  // 3. compact: xc[r, (g0+gi)*n + k] = x[r, kept[gi*n + k]], one thread per
+  //    (row, group), consecutive threads on consecutive groups; a group of
+  //    16 bytes of output (8:16 in bf16) leaves in one store.  The row's span
+  //    was just read, so the gathered reads hit the cache.
+  const bool vec_out = n == V && kc % V == 0 && (g0 * n) % V == 0 &&
+                       (reinterpret_cast<uintptr_t>(xc) & 15) == 0;
+  for (int e = threadIdx.x; e < (r1 - r0) * ng; e += SEL_THREADS) {
+    const int r = r0 + e / ng, gi = e % ng;
+    const T* xr = x + (size_t)r * D;
+    T* dst = xc + (size_t)r * kc + (size_t)(g0 + gi) * n;
+    if (vec_out) {
+      alignas(16) T v[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) v[k] = xr[kept[gi * V + k]];
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+    } else {
+      for (int k = 0; k < n; ++k) dst[k] = xr[kept[gi * n + k]];
+    }
   }
 }
 
@@ -163,7 +242,180 @@ __device__ __forceinline__ RowBlock row_block(int T_, int tile) {
   return rb;
 }
 
-// ---------------------------------------------------------------- bf16 GEMM
+// ---------------------------------------------------------- bf16 wgmma GEMM
+constexpr int GN = 128, GK = 64, GWG = 2;
+constexpr int G_WCHUNK = GK * 128;                     // 8 KB: 64 k rows x 64 columns
+constexpr int EPI_LD = GN * 2 + 16;                    // bytes per staged output row
+
+constexpr int PW = 4;                                  // producer warps: a warpgroup
+constexpr int GSTAGES = 4;
+
+template <int MT>                                      // m64 tiles per consumer warpgroup
+struct GemmSmem {
+  static constexpr int BM = GWG * 64 * MT;
+  static constexpr int THREADS = GWG * 128 + 32 * PW;
+  static constexpr int XTILE = BM * GK * 2;
+  static constexpr int STAGE = XTILE + 2 * G_WCHUNK;
+  static constexpr int BYTES = GSTAGES * STAGE + 1024;  // + alignment slack
+  static_assert(64 * MT * EPI_LD <= STAGE, "a warpgroup's output rows fit a stage");
+};
+
+template <int MT>
+__global__ void __launch_bounds__(GemmSmem<MT>::THREADS, 1)
+spmm_wgmma_kernel(__grid_constant__ const CUtensorMap xmap, const bf16* __restrict__ w,
+                  const int* __restrict__ idx, bf16* __restrict__ out, float* __restrict__ part,
+                  int T_, int kc, int N, int tile, int k_steps, int steps_per_split) {
+  using L = GemmSmem<MT>;
+  using namespace hopper;
+  extern __shared__ unsigned char gsmem_raw[];
+  unsigned char* sm = align1024(gsmem_raw);
+  __shared__ __align__(8) uint64_t full[GSTAGES], empty[GSTAGES];
+  const RowBlock rb = row_block<L::BM>(T_, tile);
+  const int n0 = blockIdx.y * GN, split = blockIdx.z;
+  const int ks0 = split * steps_per_split;
+  const int n_steps = min(k_steps, ks0 + steps_per_split) - ks0;
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(&full[s], 32 * PW + 1);                // the producer lanes' copies + the TMA
+      mbar_init(&empty[s], GWG * 4);                   // lane 0 of every consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == GWG) {                                     // the producer warps
+    // idx and xc are the selection's output (the kernel launched just before)
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+    const int* tidx = idx + (size_t)rb.tile * kc;
+    const int pt = threadIdx.x - GWG * 128, pw = pt / 32;
+    // thread: 16-byte unit u of a 256-byte row slice, of rows
+    // 2 (PW i + pw) + rp of the B tile
+    const int u = lane % 16, rp = lane / 16;
+    const int col = n0 + u * 8;
+    const bool col_ok = col < N;                       // N % 8 == 0: the whole unit
+    // the ids of rows lane and 32 + lane of a k step, loaded a step ahead
+    auto ids = [&](int k0, int& a, int& b) {
+      a = k0 + lane < kc ? __ldg(tidx + k0 + lane) : 0;
+      b = k0 + 32 + lane < kc ? __ldg(tidx + k0 + 32 + lane) : 0;
+    };
+    int id_a, id_b;
+    ids(ks0 * GK, id_a, id_b);
+    for (int j = 0; j < n_steps; ++j) {
+      const int s = j % GSTAGES, k0 = (ks0 + j) * GK;
+      const int cur_a = id_a, cur_b = id_b;
+      if (j + 1 < n_steps) ids(k0 + GK, id_a, id_b);
+      if (j >= GSTAGES) mbar_wait(&empty[s], (j / GSTAGES - 1) & 1);
+      unsigned char* st = sm + s * L::STAGE;
+      if (pt == 0) {
+        mbar_arrive_expect_tx(&full[s], L::XTILE);
+        tma_load_2d(st, &xmap, &full[s], k0, rb.r0);   // rows past T arrive as zeros
+      }
+      // row r of the B tile is w[idx[k0 + r], n0:n0 + 128] (zeros past kc or N),
+      // 16-byte unit u at chunk u / 8, swizzled slot (u % 8) ^ (r % 8)
+      unsigned char* ws = st + L::XTILE + (u / 8) * G_WCHUNK;
+#pragma unroll
+      for (int i = 0; i < 32 / PW; ++i) {
+        const int r = 2 * (PW * i + pw) + rp;
+        const int id = __shfl_sync(0xffffffffu, i < 16 / PW ? cur_a : cur_b, r & 31);
+        const bool ok = col_ok && k0 + r < kc;
+        const bf16* src = ok ? w + (size_t)id * N + col : w;
+        cp_async16_zfill(ws + r * 128 + (((u % 8) ^ (r % 8)) << 4), src, ok ? 16 : 0);
+      }
+      cp_async_mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  const int warp = (threadIdx.x % 128) / 32;
+  float acc[MT][64];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[mt][i] = 0.f;
+  for (int j = 0; j < n_steps; ++j) {
+    const int s = j % GSTAGES;
+    mbar_wait(&full[s], (j / GSTAGES) & 1);
+    fence_proxy_async();                               // the cp.async rows, for wgmma
+    // every warpgroup runs its products, rows past the block's included
+    // (never stored): a branch around wgmma would make ptxas serialise it
+    const unsigned char* xs = sm + s * L::STAGE + wg * MT * 64 * 128;
+    const unsigned char* ws = sm + s * L::STAGE + L::XTILE;
+    wgmma_fence();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
+#pragma unroll
+    for (int kk = 0; kk < GK / 16; ++kk)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        wgmma_m64n128k16_ss<1>(acc[mt], desc_k_major(xs + mt * 64 * 128 + kk * 32),
+                               desc_mn_major(ws + kk * 16 * 128, G_WCHUNK), 1);
+    wgmma_commit();
+    wgmma_wait<1>();                                   // step j - 1's products are done
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
+    __syncwarp();
+    if (j > 0 && lane == 0) mbar_arrive(&empty[(j - 1) % GSTAGES]);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
+  // the split-k reduce may launch while the blocks write their partials
+  if (threadIdx.x == 0) asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+
+  const int rl0 = wg * MT * 64 + warp * 16 + lane / 4;  // first row (in the block) of the thread
+  const int cq = 2 * (lane % 4);
+  if (part != nullptr) {                               // this k slice's float32 partial
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = rb.r0 + rl0 + mt * 64 + 8 * hr;
+        if (row >= rb.r1) continue;
+#pragma unroll
+        for (int j = 0; j < GN / 8; ++j) {
+          const int col = n0 + 8 * j + cq;
+          if (col < N)
+            *reinterpret_cast<float2*>(part + ((size_t)split * T_ + row) * N + col) =
+                make_float2(acc[mt][4 * j + 2 * hr], acc[mt][4 * j + 2 * hr + 1]);
+        }
+      }
+    return;
+  }
+  // epilogue: bf16 rows through shared memory (the ring is free once every
+  // consumer's last products are done), then whole 16-byte stores
+  named_barrier(1, GWG * 128);
+  unsigned char* stg = sm + wg * L::STAGE;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = mt * 64 + warp * 16 + lane / 4 + 8 * hr;
+#pragma unroll
+      for (int j = 0; j < GN / 8; ++j)
+        *reinterpret_cast<uint32_t*>(stg + r * EPI_LD + (8 * j + cq) * 2) =
+            pack_bf16(acc[mt][4 * j + 2 * hr], acc[mt][4 * j + 2 * hr + 1]);
+    }
+  named_barrier(2 + wg, 128);
+  for (int i = threadIdx.x % 128; i < MT * 64 * (GN / 8); i += 128) {
+    const int r = i / (GN / 8), cu = i % (GN / 8);
+    const int row = rb.r0 + wg * MT * 64 + r, col = n0 + cu * 8;
+    if (row < rb.r1 && col < N)
+      *reinterpret_cast<uint4*>(out + (size_t)row * N + col) =
+          *reinterpret_cast<const uint4*>(stg + r * EPI_LD + cu * 16);
+  }
+}
+
+// out = bf16(sum of the k slices' float32 partials, in slice order): the
+// split-k reduce, deterministic (hopper::splitk_reduce_bf16, no bias).
+__global__ void __launch_bounds__(256)
+spmm_splitk_reduce_kernel(const float* __restrict__ part, bf16* __restrict__ out, int T_, int N,
+                          int splits) {
+  hopper::splitk_reduce_bf16(part, nullptr, out, T_, N, splits);
+}
+
+// ------------------------------------------------------ bf16 WMMA GEMM
 constexpr int BM = 64, BN = 128, BK = 32, THREADS = 256;  // 8 warps, 2 x 4 of 32x32
 constexpr int LDX = BK + 8;       // bf16: 80-byte rows, 32-byte aligned fragments
 constexpr int LDW = BN + 8;       // bf16: 272-byte rows
@@ -318,7 +570,8 @@ spmm_f32_kernel(const float* __restrict__ xc, const float* __restrict__ w,
 template <typename T>
 int launch_select(const void* x, const float* scale, int* idx, void* xc, int T_, int D, int n,
                   int m, int tile, cudaStream_t s) {
-  const int gpb = SEL_THREADS / m, G = D / m;
+  constexpr int SPAN = SEL_UNITS * 16 / (int)sizeof(T);
+  const int gpb = SPAN / m, G = D / m;
   dim3 grid((G + gpb - 1) / gpb, (T_ + tile - 1) / tile);
   consensus_select_kernel<T><<<grid, SEL_THREADS, 0, s>>>((const T*)x, scale, idx, (T*)xc, T_,
                                                           D, n, m, tile);
@@ -330,25 +583,64 @@ int row_blocks(int T_, int tile, int bm) {
   return n_tiles * per_tile;
 }
 
+template <int MT>
+int launch_wgmma(const void* xc, const void* w, const int* idx, void* out, float* part, int T_,
+                 int kc, int N, int tile, int splits, cudaStream_t s) {
+  using L = GemmSmem<MT>;
+  CUtensorMap xm;
+  const cuuint64_t dims[2] = {(cuuint64_t)kc, (cuuint64_t)T_};
+  const cuuint64_t strides[1] = {(cuuint64_t)kc * 2};
+  const cuuint32_t box[2] = {GK, L::BM};
+  int rc = hopper::encode_bf16_sw128(&xm, xc, 2, dims, strides, box);
+  if (rc != 0) return rc;
+  cudaError_t e = cudaFuncSetAttribute(spmm_wgmma_kernel<MT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const int k_steps = (kc + GK - 1) / GK;
+  const int per = (k_steps + splits - 1) / splits;
+  // may start while the selection, the stream's previous kernel, runs
+  e = hopper::launch_dependent(spmm_wgmma_kernel<MT>,
+                               dim3(row_blocks(T_, tile, L::BM), (N + GN - 1) / GN, splits),
+                               dim3(L::THREADS), L::BYTES, s, xm, (const bf16*)w, idx,
+                               (bf16*)out, splits > 1 ? part : nullptr, T_, kc, N, tile, k_steps,
+                               per);
+  if (e != cudaSuccess) return (int)e;
+  if (splits == 1) return (int)cudaGetLastError();
+  const long long quads = (long long)T_ * N / 4;
+  e = hopper::launch_dependent(spmm_splitk_reduce_kernel, dim3((unsigned)((quads + 255) / 256)),
+                               dim3(256), 0, s, (const float*)part, (bf16*)out, T_, N, splits);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Pointers are device pointers;
 // scale may be null.  `idx` (n_tiles, D*n/m) int32 and `xc` (T, D*n/m) in
 // x's dtype are caller-allocated scratch that receive the kept channel ids
 // and the compacted activations.  Requires 0 < n <= m <= 32 and D % m == 0
-// (the wrapper checks).  Launches the selection and the GEMM on `stream`,
-// does not synchronise, and returns cudaGetLastError().
+// (the wrapper checks).  `bm` is the bf16 GEMM's route from the wrapper's
+// plan: 0 = the WMMA kernel, 128 or 256 = the wgmma kernel with that row
+// block in `splits` k slices (> 1: `part` is a float32 workspace of
+// splits * T * N elements).  Launches the selection and the GEMM on
+// `stream`, does not synchronise, and returns cudaGetLastError().
 extern "C" int nm_spmm_bf16(const void* x, const void* w, const float* scale, int* idx,
-                            void* xc, void* out, int T, int D, int N, int n, int m, int tile,
-                            void* stream) {
+                            void* xc, void* out, float* part, int T, int D, int N, int n, int m,
+                            int tile, int bm, int splits, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   int rc = launch_select<bf16>(x, scale, idx, xc, T, D, n, m, tile, s);
   if (rc != 0) return rc;
   const int kc = D / m * n;
-  dim3 grid(row_blocks(T, tile, BM), (N + BN - 1) / BN);
-  spmm_bf16_kernel<<<grid, THREADS, 0, s>>>((const bf16*)xc, (const bf16*)w, idx, (bf16*)out,
-                                            T, kc, N, tile);
-  return (int)cudaGetLastError();
+  if (bm == 0) {
+    dim3 grid(row_blocks(T, tile, BM), (N + BN - 1) / BN);
+    spmm_bf16_kernel<<<grid, THREADS, 0, s>>>((const bf16*)xc, (const bf16*)w, idx, (bf16*)out,
+                                              T, kc, N, tile);
+    return (int)cudaGetLastError();
+  }
+  if (splits < 1 || (splits > 1 && part == nullptr) || (bm != 128 && bm != 256))
+    return (int)cudaErrorInvalidValue;
+  return bm == 256 ? launch_wgmma<2>(xc, w, idx, out, part, T, kc, N, tile, splits, s)
+                   : launch_wgmma<1>(xc, w, idx, out, part, T, kc, N, tile, splits, s);
 }
 
 extern "C" int nm_spmm_f32(const void* x, const void* w, const float* scale, int* idx,
@@ -365,7 +657,7 @@ extern "C" int nm_spmm_f32(const void* x, const void* w, const float* scale, int
 }
 
 // The selection pass alone: idx and xc as above, for checking the chosen
-// channels against the plain version.
+// channels against the plain version and timing it.
 extern "C" int nm_spmm_select_bf16(const void* x, const float* scale, int* idx, void* xc, int T,
                                    int D, int n, int m, int tile, void* stream) {
   return launch_select<bf16>(x, scale, idx, xc, T, D, n, m, tile, (cudaStream_t)stream);

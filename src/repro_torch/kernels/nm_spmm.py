@@ -16,8 +16,12 @@ On the H100 the one-shot prefill's call (T = 2048 tokens against a
 Qwen2-7B projection) is bound by the tensor cores;
 ``csrc/nm_spmm.cu`` says how its design answers that: a selection kernel
 writes the kept channel ids per tile and the compacted activations once,
-and a double-buffered tensor-core GEMM gathers the kept weight rows through
-the tile's index list.
+and a wgmma GEMM, fed by TMA for the compacted x and by a cp.async producer
+that gathers the kept weight rows through the tile's index list, multiplies
+them.  :func:`gemm_plan` picks the GEMM's route from the shapes: the wgmma
+kernel (with its row block and k split), or, for a bf16 ``w`` the TMA and
+16-byte copies cannot take, a WMMA kernel; float32 has a CUDA-core kernel.
+Shape routes between hand kernels, not fallbacks.
 
 The wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``nm_spmm.launches`` counts
@@ -32,12 +36,14 @@ import torch
 from repro_torch.core import nm, scoring
 from repro_torch.kernels import _build
 
-__all__ = ["nm_spmm", "nm_spmm_plain", "consensus_select", "consensus_select_plain"]
+__all__ = ["gemm_plan", "nm_spmm", "nm_spmm_plain", "consensus_select",
+           "consensus_select_plain"]
 
 SOURCE = "src/repro_torch/kernels/csrc/nm_spmm.cu"
 REPLACES = "src/repro/kernels/nm_spmm.py:86"
 _MAX_M = 32       # the selection keeps a group's bits in one 32-bit word
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_H100_SMS = 132
 
 
 def _fn(name: str, dtype: torch.dtype, n_ptrs: int, n_ints: int):
@@ -45,6 +51,38 @@ def _fn(name: str, dtype: torch.dtype, n_ptrs: int, n_ints: int):
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def gemm_plan(dtype: torch.dtype, t: int, d: int, n_out: int, n: int, m: int, tile: int,
+              w_aligned: bool, sms: int = _H100_SMS) -> tuple[str, int, int]:
+    """The GEMM's route for ``x (t, d) @ w (d, n_out)`` under N:M ``n:m`` with
+    consensus tiles of ``min(tile, t)`` tokens: ``(route, row block, k
+    slices)``.
+
+    * ``("f32", 64, 1)`` for float32 (the CUDA-core kernel);
+    * ``("wmma", 64, 1)`` for a bf16 ``w`` that is not 16-byte aligned
+      (``w_aligned``), or an ``n_out`` or kept width ``d/m*n`` that is not a
+      multiple of 8: rows the TMA and 16-byte copies cannot take;
+    * else ``("wgmma", bm, slices)``: row blocks of 256 (a whole consensus
+      tile of up to 256 tokens) or 128 for tiles of at most 128 tokens; a
+      grid of blocks that fills under half of the ``sms`` SMs splits k (at
+      least 8 k steps of 64 a slice, at most 8 slices) into float32
+      partials that an ordered reduce sums.
+    """
+    if dtype == torch.float32:
+        return "f32", 64, 1
+    kc = d // m * n
+    if not w_aligned or n_out % 8 or kc % 8:
+        return "wmma", 64, 1
+    bt = max(min(tile, t), 1)
+    bm = 128 if bt <= 128 else 256
+    blocks = -(-t // bt) * -(-bt // bm) * -(-n_out // 128)
+    k_steps = -(-kc // 64)
+    if 2 * blocks > sms:
+        return "wgmma", bm, 1
+    splits = max(1, min(sms // blocks, k_steps // 8, 8))
+    per = -(-k_steps // splits)
+    return "wgmma", bm, -(-k_steps // per)          # no empty slice
 
 
 def consensus_select_plain(x: torch.Tensor, scale: torch.Tensor | None, n: int,
@@ -97,6 +135,10 @@ def _check(what: str, x: torch.Tensor, scale, n: int, m: int, tile: int) -> None
         raise ValueError(f"{what}: scale must be contiguous float32 (D,) on {x.device}")
 
 
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _scratch(x: torch.Tensor, n: int, m: int, tile: int):
     t, d = x.shape
     bt = max(min(tile, t), 1)
@@ -141,18 +183,36 @@ def nm_spmm(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None, n: int
     n_out = w.shape[1]
     if n_out >= 2**31:
         raise ValueError("nm_spmm: dimension exceeds int32")
-    out = torch.empty((t, n_out), dtype=x.dtype, device=x.device)
     if t == 0:
-        return out
+        return torch.empty((0, n_out), dtype=x.dtype, device=x.device)
+    out = _launch(x, w, scale, n, m, tile, gemm_plan(x.dtype, t, d, n_out, n, m, tile,
+                                                     w.data_ptr() % 16 == 0, _sms(x.device)))
+    nm_spmm.launches += 1
+    return out
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None, n: int, m: int,
+            tile: int, plan: tuple[str, int, int]) -> torch.Tensor:
+    """The kernels of one checked call with T > 0, the bf16 GEMM on ``plan``
+    (a :func:`gemm_plan` result; any wgmma row block and k split are valid)."""
+    t, d = x.shape
+    n_out = w.shape[1]
+    out = torch.empty((t, n_out), dtype=x.dtype, device=x.device)
     bt, idx, xc = _scratch(x, n, m, tile)
+    ptrs = [x.data_ptr(), w.data_ptr(), None if scale is None else scale.data_ptr(),
+            idx.data_ptr(), xc.data_ptr(), out.data_ptr()]
+    ints = [t, d, n_out, n, m, bt]
+    if x.dtype == torch.bfloat16:
+        route, bm, slices = plan
+        part = (torch.empty((slices, t, n_out), dtype=torch.float32, device=x.device)
+                if slices > 1 else None)
+        ptrs.append(None if part is None else part.data_ptr())
+        ints += [bm if route == "wgmma" else 0, slices]
     with torch.cuda.device(x.device):
-        rc = _fn("nm_spmm", x.dtype, 6, 6)(
-            x.data_ptr(), w.data_ptr(), None if scale is None else scale.data_ptr(),
-            idx.data_ptr(), xc.data_ptr(), out.data_ptr(), t, d, n_out, n, m, bt,
-            torch.cuda.current_stream(x.device).cuda_stream)
+        rc = _fn("nm_spmm", x.dtype, len(ptrs), len(ints))(
+            *ptrs, *ints, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"nm_spmm kernel launch failed (CUDA error {rc})")
-    nm_spmm.launches += 1
     return out
 
 

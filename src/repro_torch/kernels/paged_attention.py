@@ -15,9 +15,14 @@ position (``q_offset[b] + row`` against the key position, and
 ``k_pos < kv_len[b]``), zeroes V rows past ``kv_len`` so unwritten pool
 memory cannot reach the output, maps query head ``h`` to KV head
 ``h // (Hq // Hkv)``, and gives zeros for a fully masked row.  Any ``Tq``
-is served, decode's ``Tq = 1`` included; there is no tiling rule and no
-fallback.  ``csrc/paged_attention.cu`` says what bounds each kernel on the
-H100 and how the design answers it.
+is served, decode's ``Tq = 1`` included.  ``csrc/paged_attention.cu`` says
+what bounds each kernel on the H100 and how the design answers it;
+:func:`attention_plan` picks the kernel from the shapes: the wgmma kernel
+(GQA heads packed into its rows, K/V pages by TMA, the key walk split over
+blocks) for bf16 at head_dim 64/128 with a block size TMA can box and
+16-byte-aligned tensors, the CUDA-core kernel for everything else.  Shape
+routes between hand kernels, not fallbacks.  No sliding-window band: the
+JAX kernel's ``window`` comes with the sliding-window models.
 
 Each wrapper runs its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  ``paged_kv_scatter.launches`` and
@@ -31,8 +36,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["paged_kv_scatter", "paged_kv_scatter_plain", "paged_attention",
-           "paged_attention_plain"]
+__all__ = ["attention_plan", "paged_kv_scatter", "paged_kv_scatter_plain",
+           "paged_attention", "paged_attention_plain"]
 
 SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 SCATTER_REPLACES = "src/repro/kernels/paged_attention.py:263"
@@ -42,6 +47,16 @@ _MAX_HD = 256
 _TILE_ROWS = 16        # flattened (query, GQA head) rows of one CUDA-core tile
 _ATTN_SYMBOLS = {torch.bfloat16: "paged_attention_bf16",
                  torch.float32: "paged_attention_f32"}
+_H100_SMS = 132
+_KEY_TILE = 64         # keys of one wgmma tile
+_MAX_SPLITS = 16       # the wgmma kernel's merge holds 16 walks' weights
+# per (device, stream): int32 ticket counters of the split wgmma walk, one
+# per query tile; every launch leaves them 0 (the merging block resets its
+# own).  Launches on one stream run one after another, so they may share a
+# set; a launch on another stream gets its own.  A captured CUDA graph keeps
+# the set of its capture stream: it must not be replayed beside eager calls
+# on that stream, or beside another replay of itself.
+_TICKETS: dict = {}
 
 
 def _lib():
@@ -54,6 +69,10 @@ def _lib():
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib.paged_attention_wgmma_bf16.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+        + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.paged_attention_wgmma_bf16.restype = ctypes.c_int
     return lib
 
 
@@ -166,6 +185,52 @@ def paged_attention_plain(q, k_pool, v_pool, block_table, q_offset, kv_len,
     return o.permute(0, 3, 1, 2, 4).reshape(b, tq, hq, hd).to(q.dtype)
 
 
+def attention_plan(dtype: torch.dtype, b: int, tq: int, hq: int, hkv: int, hd: int,
+                   bs: int, mb: int, aligned: bool,
+                   sms: int = _H100_SMS) -> tuple[str, int, int, int]:
+    """The kernel for one call: ``(route, tokens per query tile, splits,
+    walk per split)``, from the shapes alone (no device values: ``kv_len``
+    stays on the card, so the split is sized by the table width ``mb`` and
+    splits past a row's ``kv_len`` end at once).
+
+    * ``("wgmma", nt, n_split, per)``: bf16, ``hd`` 64 or 128, ``bs`` a
+      multiple of 8 that divides 64 or a multiple of 64 (the TMA boxes a
+      page), ``aligned`` (q and the pools 16-byte aligned), at most 64 query
+      heads per KV head.  A query tile is ``nt`` tokens of all ``G = hq //
+      hkv`` heads of a KV head (``nt * G <= 64`` wgmma rows); a row's key
+      tiles of 64 are split into ``n_split`` walks of ``per`` tiles only
+      where the query tiles leave SMs without a block, and into at most 16
+      and 256 / rows walks: the last block merges them, at a cost that grows
+      with walks times rows.  Decode (4 or 7 rows) splits; a serving chunk
+      of 256 tokens does not.
+    * ``("rows", 0, n_split, per)``: the CUDA-core kernel; decode (all of a
+      row's query heads in one 16-row tile) over a table of at least 8
+      blocks splits its walk into up to 32 ranges of ``per`` blocks, merged
+      by a combine kernel.
+    """
+    g = hq // hkv
+    if (dtype == torch.bfloat16 and hd in (64, 128) and aligned and bs > 0 and bs % 8 == 0
+            and (_KEY_TILE % bs == 0 or bs % _KEY_TILE == 0) and g <= _KEY_TILE):
+        nt = min(_KEY_TILE // g, tq)
+        blocks = b * hkv * -(-tq // nt)
+        tiles = max(1, -(-mb * bs // _KEY_TILE))
+        n_split = min(tiles, _MAX_SPLITS, max(1, sms // blocks), max(1, 256 // (nt * g)))
+        per = -(-tiles // n_split)
+        return "wgmma", nt, -(-tiles // per), per
+    if tq * g <= _TILE_ROWS and mb >= 8:
+        n_split = min(32, -(-mb // 4))
+        return "rows", 0, n_split, -(-mb // n_split)
+    return "rows", 0, 1, mb
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    t = _TICKETS.get((device, stream))
+    if t is None or t.numel() < n:
+        t = _TICKETS[device, stream] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                                   device=device)
+    return t
+
+
 def paged_attention(q, k_pool, v_pool, block_table, q_offset, kv_len,
                     causal: bool = True) -> torch.Tensor:
     """Attention of ``q (B, Tq, Hq, hd)`` over the paged pools.
@@ -196,20 +261,33 @@ def paged_attention(q, k_pool, v_pool, block_table, q_offset, kv_len,
         return out
     nb, bs, hkv = k_pool.shape[:3]
     mb = block_table.shape[1]
-    # decode (all of a row's queries in one tile): split the table walk over
-    # up to 32 blocks of ~4 logical blocks, merged by a combine kernel
-    n_split, part = 1, None
-    if tq * (hq // hkv) <= _TILE_ROWS and mb >= 8:
-        n_split = min(32, -(-mb // 4))
-        part = torch.empty(b * hkv * n_split * _TILE_ROWS * (2 + hd),
-                           dtype=torch.float32, device=q.device)
+    aligned = all(a.data_ptr() % 16 == 0 for a in (q, k_pool, v_pool))
+    route, nt, n_split, per = attention_plan(
+        q.dtype, b, tq, hq, hkv, hd, bs, mb, aligned,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),
+            q_offset.data_ptr(), kv_len.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
-        rc = getattr(_lib(), _ATTN_SYMBOLS[q.dtype])(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_table.data_ptr(), q_offset.data_ptr(), kv_len.data_ptr(),
-            out.data_ptr(), b, tq, hq, hkv, hd, bs, mb, nb, int(causal), hd**-0.5,
-            n_split, None if part is None else part.data_ptr(),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        if route == "wgmma":
+            q_tiles = b * hkv * -(-tq // nt)
+            part = tickets = None
+            if n_split > 1:     # per split: (max, sum) and O of 64 rows, float32
+                part = torch.empty(q_tiles * n_split * 64 * (hd + 2), dtype=torch.float32,
+                                   device=q.device)
+                tickets = _tickets(q.device, stream, q_tiles)
+            rc = _lib().paged_attention_wgmma_bf16(
+                *ptrs, None if part is None else part.data_ptr(),
+                None if tickets is None else tickets.data_ptr(), b, tq, hq, hkv, hd, bs,
+                mb, nb, int(causal), hd**-0.5, nt, n_split, per, stream)
+        else:
+            part = None
+            if n_split > 1:
+                part = torch.empty(b * hkv * n_split * _TILE_ROWS * (2 + hd),
+                                   dtype=torch.float32, device=q.device)
+            rc = getattr(_lib(), _ATTN_SYMBOLS[q.dtype])(
+                *ptrs, b, tq, hq, hkv, hd, bs, mb, nb, int(causal), hd**-0.5, n_split,
+                None if part is None else part.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed (CUDA error {rc})")
     paged_attention.launches += 1

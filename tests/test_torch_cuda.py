@@ -308,3 +308,174 @@ def test_nm_spmm(gen, dtype, t, d, n_out, n, m, tile):
         assert torch.equal(idx, idx0) and torch.equal(xc, xc0)
         _close(kns.nm_spmm(x, w, scale, n, m, tile),
                kns.nm_spmm_plain(x, w, scale, n, m, tile), dtype)
+
+
+# The wgmma routes of nm_spmm and paged_attention (their plans, the kernels
+# against the plain versions).
+
+@pytest.mark.parametrize("case,t,d,n_out,n,m,tile,route", [
+    ("q_2048", 2048, 3584, 3584, 8, 16, 256, ("wgmma", 256, 1)),
+    ("q_300_split", 300, 3584, 3584, 8, 16, 256, ("wgmma", 256, 2)),
+    ("t37_short_tile", 37, 256, 200, 8, 16, 256, ("wgmma", 128, 1)),
+    ("tile100", 300, 640, 264, 8, 16, 100, ("wgmma", 128, 1)),
+    ("tile5_kc48", 37, 96, 72, 2, 4, 5, ("wgmma", 128, 1)),
+    ("down_like_long_k", 2048, 18944, 2048, 8, 16, 256, ("wgmma", 256, 1)),
+    ("down_like_split", 256, 18944, 512, 8, 16, 256, ("wgmma", 256, 8)),
+    ("kc45_wmma", 130, 120, 48, 3, 8, 40, ("wmma", 64, 1)),
+])
+def test_nm_spmm_routes(gen, case, t, d, n_out, n, m, tile, route):
+    """Each route of the bf16 GEMM as the plan gives it: the wgmma kernel
+    with 256- and 128-row blocks (tiles of 256, 100 and 5 tokens, a tile
+    shorter than its block, a kept width G*n that is not a multiple of the
+    64-wide k step, a down-like K of 9472 kept channels), split along k
+    into float32 partials, and the WMMA kernel for a kept width that is not
+    a multiple of 8.  The selection is bit-exact, the product within one
+    bf16 ulp."""
+    x = torch.randn(t, d, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(d, n_out, generator=gen, device="cuda") * (d * n / m)**-0.5).bfloat16()
+    sc = torch.rand(d, generator=gen, device="cuda") + 0.5
+    assert kns.gemm_plan(x.dtype, t, d, n_out, n, m, tile, True,
+                         torch.cuda.get_device_properties(0).multi_processor_count) == route
+    idx, xc = kns.consensus_select(x, sc, n, m, tile)
+    idx0, xc0 = kns.consensus_select_plain(x, sc, n, m, tile)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, idx0) and torch.equal(xc, xc0)
+    _close(kns.nm_spmm(x, w, sc, n, m, tile), kns.nm_spmm_plain(x, w, sc, n, m, tile),
+           torch.bfloat16)
+
+
+def test_nm_spmm_misaligned_w_takes_wmma(gen):
+    x = torch.randn(300, 512, generator=gen, device="cuda").bfloat16()
+    w = _misaligned((torch.randn(512, 256, generator=gen, device="cuda") * 0.06).bfloat16())
+    assert kns.gemm_plan(x.dtype, 300, 512, 256, 8, 16, 256, w.data_ptr() % 16 == 0)[0] == "wmma"
+    _close(kns.nm_spmm(x, w, None, 8, 16), kns.nm_spmm_plain(x, w, None, 8, 16), torch.bfloat16)
+
+
+def _paged_case(gen, b, tq, hq, hkv, hd, bs, kv_len, q_offset, holes=()):
+    """Pools, table and queries where every pool row no table row may read is
+    NaN; ``holes`` are (row, logical block) entries set to -1."""
+    mb = max(-(-max(kv_len) // bs), 1) + 1
+    kp, vp, tab = _paged(gen, torch.bfloat16, b, hkv, hd, bs, mb, kv_len)
+    tab = tab.cpu()
+    for r, i in holes:
+        tab[r, i] = -1
+    live = torch.zeros(kp.shape[:2], dtype=torch.bool)
+    for r, n in enumerate(kv_len):
+        for i in range(n):
+            if int(tab[r, i // bs]) >= 0:
+                live[int(tab[r, i // bs]), i % bs] = True
+    live = live.cuda()
+    kp[~live], vp[~live] = float("nan"), float("nan")
+    q = torch.randn(b, tq, hq, hd, generator=gen, device="cuda").bfloat16()
+    i32 = dict(dtype=torch.int32, device="cuda")
+    return (q, kp, vp, tab.cuda(), torch.tensor(q_offset, **i32),
+            torch.tensor(kv_len, **i32))
+
+
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("hq,hkv,hd", [(32, 8, 128), (28, 4, 128), (14, 2, 64)],
+                         ids=["g4", "g7", "g7_hd64"])
+@pytest.mark.parametrize("case", ["chunk", "chunk_hole", "chunk_masked_tile", "decode",
+                                  "decode_edges"])
+def test_paged_attention_wgmma(gen, case, hq, hkv, hd, bs):
+    """The wgmma route over NaN-poisoned pools at block sizes 8, 16 and 32,
+    GQA groups of 4 and 7: a prefill chunk at an offset; a -1 page in the
+    middle of a row; a query tile that sees only a -1 page (wholly masked,
+    so zeros); decode rows with kv_len on a page boundary, 0 and 1."""
+    if case == "chunk":
+        args = (1, 100, [230], [130], ())
+    elif case == "chunk_hole":
+        args = (2, 70, [200, 150], [130, 80], ((0, 1), (1, 2)))
+    elif case == "chunk_masked_tile":
+        args = (1, 40, [40], [0], ((0, 0),))
+    elif case == "decode":
+        args = (4, 1, [701, 514, 65, 2], [700, 513, 64, 1], ())
+    else:
+        args = (3, 1, [4 * bs, 0, 1], [4 * bs - 1, 0, 0], ((0, 1),))
+    b, tq, kv_len, qoff, holes = args
+    q, kp, vp, tab, qo, kvl = _paged_case(gen, b, tq, hq, hkv, hd, bs, kv_len, qoff, holes)
+    plan = kpa.attention_plan(q.dtype, b, tq, hq, hkv, hd, bs, tab.shape[1], True)
+    assert plan[0] == "wgmma", plan
+    causal = tq > 1
+    got = kpa.paged_attention(q, kp, vp, tab, qo, kvl, causal=causal)
+    want = kpa.paged_attention_plain(q, kp, vp, tab, qo, kvl, causal=causal)
+    _close(got, want, torch.bfloat16)
+    if case == "chunk_masked_tile":        # tokens 0..bs-1 see only the -1 page
+        assert bool((got[0, :bs] == 0).all())
+    if case == "decode_edges":             # kv_len = 0 gives zeros
+        assert bool((got[1] == 0).all())
+
+
+def test_paged_attention_wgmma_repeat_resets_tickets(gen):
+    """The split walk's ticket counters end each launch at 0: the same call
+    twice gives the same bits."""
+    q, kp, vp, tab, qo, kvl = _paged_case(gen, 4, 1, 32, 8, 128, 16, [701, 514, 65, 2],
+                                          [700, 513, 64, 1])
+    assert kpa.attention_plan(q.dtype, 4, 1, 32, 8, 128, 16, tab.shape[1], True)[2] > 1
+    a = kpa.paged_attention(q, kp, vp, tab, qo, kvl, causal=False)
+    b = kpa.paged_attention(q, kp, vp, tab, qo, kvl, causal=False)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_paged_attention_wgmma_two_streams(gen):
+    """Split walks in flight on two streams at once keep their own ticket
+    counters: each stream's repeated result equals the one-stream result."""
+    q, kp, vp, tab, qo, kvl = _paged_case(gen, 4, 1, 32, 8, 128, 16, [701, 514, 65, 2],
+                                          [700, 513, 64, 1])
+    assert kpa.attention_plan(q.dtype, 4, 1, 32, 8, 128, 16, tab.shape[1], True)[2] > 1
+    want = kpa.paged_attention(q, kp, vp, tab, qo, kvl, causal=False)
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    outs = ([], [])
+    for _ in range(20):
+        for s, o in zip(streams, outs):
+            with torch.cuda.stream(s):
+                o.append(kpa.paged_attention(q, kp, vp, tab, qo, kvl, causal=False))
+    torch.cuda.synchronize()
+    assert all(torch.equal(got, want) for o in outs for got in o)
+
+
+@pytest.mark.parametrize("n,m", [(8, 16), (2, 4), (4, 8)])
+def test_consensus_select_nan_keeps_n_per_group(gen, n, m):
+    """A NaN activation makes its channel's pooled score NaN.  The kernel
+    ranks it as torch.argmax does (above every number, the lower channel
+    first among NaNs), so each group still keeps exactly n channels, the
+    plain version's, and nothing is written past the tiles' id lists (the
+    last group of the last tile holds more than n NaN channels)."""
+    t, d, tile = 300, 64 * m, 256
+    kc, n_tiles = d // m * n, 2
+    x = torch.randn(t, d, generator=gen, device="cuda").bfloat16()
+    nan = float("nan")
+    x[3, 2 * m:3 * m] = nan                          # a whole group, tile 0
+    x[5, 5 * m + m - 1] = nan                        # one channel, the group's last
+    x[290, d - m:d - m + min(n + 1, m)] = nan        # n + 1 of the last group, tile 1
+    idx0, xc0 = kns.consensus_select_plain(x, None, n, m, tile)
+    guard = 4096
+    idx = torch.full((n_tiles * kc + guard,), -7, dtype=torch.int32, device="cuda")
+    xc = torch.empty((t, kc), dtype=x.dtype, device="cuda")
+    rc = kns._fn("nm_spmm_select", x.dtype, 4, 5)(
+        x.data_ptr(), None, idx.data_ptr(), xc.data_ptr(), t, d, n, m, tile,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    assert torch.equal(idx[:n_tiles * kc].view(n_tiles, kc), idx0)
+    assert bool((idx[n_tiles * kc:] == -7).all())
+    assert torch.equal(xc.view(torch.int16), xc0.view(torch.int16))
+    assert torch.equal(kns.consensus_select(x, None, n, m, tile)[0], idx0)
+
+
+@pytest.mark.parametrize("n,m", [(8, 16), (2, 4), (3, 8), (2, 6)])
+def test_consensus_select_ties_bit_exact(gen, n, m):
+    """Activations of three levels make pooled scores tie inside most
+    groups: the channel-parallel ranking must keep the plain version's
+    channels (a tie to the lower channel), including a fully tied tile."""
+    t, d, tile = 300, 96 * m, 256
+    x = torch.randint(0, 3, (t, d), generator=gen, device="cuda").bfloat16()
+    x[:tile] = 1.0                                   # the first tile: every score tied
+    idx, xc = kns.consensus_select(x, None, n, m, tile)
+    idx0, xc0 = kns.consensus_select_plain(x, None, n, m, tile)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, idx0) and torch.equal(xc, xc0)
+    first = idx[0].view(-1, n) - torch.arange(0, d, m, device="cuda")[:, None]
+    assert bool((first == torch.arange(n, device="cuda")).all())

@@ -174,3 +174,108 @@ def test_wrappers_reject_other_devices():
     x = torch.zeros(4, 16, device="meta")
     with pytest.raises(ValueError):
         knm.nm_prune_matmul(x, torch.zeros(16, 8, device="meta"), None, 2, 4)
+
+
+# ------------------------------------------------- the attention plan
+
+@pytest.mark.parametrize("case,args,route", [
+    # (dtype, B, Tq, Hq, Hkv, hd, bs, mb, aligned) -> (route, nt, n_split, per)
+    ("llama_chunk", (torch.bfloat16, 1, 256, 32, 8, 128, 16, 46, True), ("wgmma", 16, 1, 12)),
+    ("llama_decode", (torch.bfloat16, 4, 1, 32, 8, 128, 16, 46, True), ("wgmma", 1, 4, 3)),
+    ("qwen_decode", (torch.bfloat16, 4, 1, 28, 4, 128, 16, 34, True), ("wgmma", 1, 5, 2)),
+    ("qwen_chunk", (torch.bfloat16, 1, 256, 28, 4, 128, 16, 34, True), ("wgmma", 9, 1, 9)),
+    ("hd64_bs8", (torch.bfloat16, 2, 40, 8, 2, 64, 8, 12, True), ("wgmma", 16, 2, 1)),
+    ("bs32", (torch.bfloat16, 1, 1, 8, 8, 128, 32, 4, True), ("wgmma", 1, 2, 1)),
+    ("bs128", (torch.bfloat16, 1, 1, 8, 8, 128, 128, 4, True), ("wgmma", 1, 8, 1)),
+    ("mha_g1", (torch.bfloat16, 1, 100, 8, 8, 128, 16, 8, True), ("wgmma", 64, 2, 1)),
+    ("short_chunk_long_kv", (torch.bfloat16, 1, 16, 32, 8, 128, 16, 128, True),
+     ("wgmma", 16, 4, 8)),
+    ("decode_long_kv", (torch.bfloat16, 1, 1, 32, 8, 128, 16, 512, True), ("wgmma", 1, 16, 8)),
+    ("float32", (torch.float32, 4, 1, 28, 4, 128, 16, 34, True), ("rows", 0, 9, 4)),
+    ("float32_chunk", (torch.float32, 1, 256, 32, 8, 128, 16, 46, True), ("rows", 0, 1, 46)),
+    ("hd32", (torch.bfloat16, 1, 40, 8, 2, 32, 16, 12, True), ("rows", 0, 1, 12)),
+    ("hd256", (torch.bfloat16, 4, 1, 8, 2, 256, 16, 12, True), ("rows", 0, 3, 4)),
+    ("bs12", (torch.bfloat16, 1, 40, 8, 2, 128, 12, 12, True), ("rows", 0, 1, 12)),
+    ("bs48", (torch.bfloat16, 4, 1, 8, 2, 128, 48, 12, True), ("rows", 0, 3, 4)),
+    ("bs4", (torch.bfloat16, 4, 1, 8, 2, 128, 4, 12, True), ("rows", 0, 3, 4)),
+    ("misaligned", (torch.bfloat16, 1, 256, 32, 8, 128, 16, 46, False), ("rows", 0, 1, 46)),
+    ("g128", (torch.bfloat16, 1, 4, 128, 1, 64, 16, 4, True), ("rows", 0, 1, 4)),
+])
+def test_attention_plan_routes(case, args, route):
+    """Which shapes take the wgmma kernel (bf16, head_dim 64/128, a block
+    size the TMA can box, 16-byte-aligned tensors, a GQA group that fits the
+    64 rows) and how it tiles and splits them (a split only where blocks
+    are fewer than SMs, at most 16 and 256 / rows); the CUDA-core kernel
+    takes the rest, splitting a decode walk over a wide table."""
+    plan = kpa.attention_plan(*args, sms=132)
+    assert plan == route
+    kind, nt, n_split, per = plan
+    dtype, b, tq, hq, hkv, hd, bs, mb, _ = args
+    if kind == "wgmma":
+        tiles = -(-mb * bs // 64)
+        assert 1 <= nt <= tq and nt * (hq // hkv) <= 64
+        assert n_split <= 16 and n_split * nt * (hq // hkv) <= max(256, nt * (hq // hkv))
+        assert n_split * per >= tiles > (n_split - 1) * per        # no empty split
+    else:
+        assert n_split * per >= mb > (n_split - 1) * per
+
+
+# ------------------------- paged attention semantics of the wgmma route
+
+def _paged_inputs(seed, b, hq, hkv, hd, bs, mb, tables, kv_len):
+    """Pools whose rows no table row may read are NaN (unused blocks, rows at
+    or past a row's kv_len, pages of -1 entries)."""
+    nb = b * mb + 1
+    kp, vp = _np(seed, nb, bs, hkv, hd), _np(seed + 1, nb, bs, hkv, hd)
+    tab = np.asarray(tables, np.int32)
+    live = np.zeros((nb, bs), bool)
+    for r, n in enumerate(kv_len):
+        for i in range(n):
+            if tab[r, i // bs] >= 0:
+                live[tab[r, i // bs], i % bs] = True
+    kp[~live], vp[~live] = np.nan, np.nan
+    return kp, vp, tab
+
+
+WGMMA_SEMANTICS_CASES = {
+    # G = 7 (Qwen2-7B's group), bs 16, a -1 hole in the middle of row 0,
+    # row 1's kv_len on a page boundary (32), row 2 empty (kv_len 0)
+    "g7_prefill": dict(hq=7, hkv=1, t=4, causal=True, q_offset=[40, 28, 0],
+                       kv_len=[44, 32, 0],
+                       tables=[[0, -1, 2, -1], [4, 5, -1, -1], [-1, -1, -1, -1]]),
+    "g7_decode": dict(hq=7, hkv=1, t=1, causal=False, q_offset=[43, 31, 0],
+                      kv_len=[44, 32, 0],
+                      tables=[[0, -1, 2, -1], [4, 5, -1, -1], [-1, -1, -1, -1]]),
+    # G = 4 over two KV heads, a hole at the first page: the first query
+    # rows see no key at all
+    "g4_hole_first": dict(hq=8, hkv=2, t=4, causal=True, q_offset=[0, 16, 5],
+                          kv_len=[20, 48, 9],
+                          tables=[[-1, 1, -1, -1], [4, 6, 5, -1], [8, -1, -1, -1]]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WGMMA_SEMANTICS_CASES))
+def test_paged_attention_wgmma_cases_match_pallas(case):
+    """The cases the wgmma route adds to the semantics, held against the
+    Pallas kernel in interpret mode: a GQA group of 7, block size 16, a -1
+    page in the middle of a table row, kv_len on a page boundary and kv_len
+    = 0, over pools whose unreadable rows are NaN.  (The gather oracle is no
+    reference here: it reads a -1 page below kv_len as zero keys, where both
+    kernels skip it.)"""
+    c = WGMMA_SEMANTICS_CASES[case]
+    b, bs, mb, hd = 3, 16, 4, 16
+    kp, vp, tab = _paged_inputs(11, b, c["hq"], c["hkv"], hd, bs, mb, c["tables"],
+                                c["kv_len"])
+    q = _np(13, b, c["t"], c["hq"], hd)
+    qo, kvl = np.asarray(c["q_offset"], np.int32), np.asarray(c["kv_len"], np.int32)
+    got = kpa.paged_attention(_t(q), _t(kp), _t(vp), _t(tab), _t(qo), _t(kvl),
+                              causal=c["causal"]).numpy()
+    jq, jk, jv, jt = (jnp.asarray(a) for a in (q, kp, vp, tab))
+    pallas = np.asarray(paged_attention_pallas(
+        jq, jk, jv, jt, jnp.asarray(qo), jnp.asarray(kvl), causal=c["causal"],
+        block_q=c["t"], interpret=True))
+    assert np.isfinite(got).all() and np.isfinite(pallas).all()
+    np.testing.assert_allclose(got, pallas, **F32)
+    for r in range(b):      # kv_len = 0, or every visible key in a -1 page: zeros
+        if c["kv_len"][r] == 0 or (case == "g4_hole_first" and r == 0):
+            np.testing.assert_array_equal(got[r], 0.0)

@@ -163,6 +163,38 @@ def test_nm_spmm_matches_pallas_and_ref(n, m, scale, dtype):
     assert kns.nm_spmm.launches == 0
 
 
+@pytest.mark.parametrize("case,args,route", [
+    # (dtype, T, D, N_out, n, m, tile, w 16-byte aligned) -> (route, row block, k slices)
+    ("gate_2048", (torch.bfloat16, 2048, 3584, 18944, 8, 16, 256, True), ("wgmma", 256, 1)),
+    ("q_2048", (torch.bfloat16, 2048, 3584, 3584, 8, 16, 256, True), ("wgmma", 256, 1)),
+    ("down_2048", (torch.bfloat16, 2048, 18944, 3584, 8, 16, 256, True), ("wgmma", 256, 1)),
+    ("q_300", (torch.bfloat16, 300, 3584, 3584, 8, 16, 256, True), ("wgmma", 256, 2)),
+    ("down_300", (torch.bfloat16, 300, 18944, 3584, 8, 16, 256, True), ("wgmma", 256, 2)),
+    ("down_256_narrow", (torch.bfloat16, 256, 18944, 512, 8, 16, 256, True), ("wgmma", 256, 8)),
+    ("tile100", (torch.bfloat16, 300, 640, 264, 8, 16, 100, True), ("wgmma", 128, 1)),
+    ("t37", (torch.bfloat16, 37, 256, 200, 8, 16, 256, True), ("wgmma", 128, 1)),
+    ("tile5_kc48", (torch.bfloat16, 37, 96, 72, 2, 4, 5, True), ("wgmma", 128, 1)),
+    ("kc45", (torch.bfloat16, 130, 120, 48, 3, 8, 40, True), ("wmma", 64, 1)),
+    ("n_out_odd", (torch.bfloat16, 300, 512, 130, 8, 16, 256, True), ("wmma", 64, 1)),
+    ("w_misaligned", (torch.bfloat16, 2048, 3584, 3584, 8, 16, 256, False), ("wmma", 64, 1)),
+    ("float32", (torch.float32, 2048, 3584, 3584, 8, 16, 256, True), ("f32", 64, 1)),
+])
+def test_nm_spmm_gemm_plan_routes(case, args, route):
+    """Which shapes take the wgmma GEMM (bf16, a 16-byte-aligned w, N_out
+    and the kept width G*n multiples of 8), with which row block (a whole
+    consensus tile of up to 256 tokens; 128 for tiles of at most 128) and
+    how many k slices (only where the blocks fill under half of 132 SMs,
+    with at least 8 k steps a slice and no empty slice); WMMA and the
+    float32 kernel take the rest."""
+    plan = kns.gemm_plan(*args, sms=132)
+    assert plan == route
+    dtype, t, d, n_out, n, m, tile, _ = args
+    if plan[0] == "wgmma" and plan[2] > 1:
+        k_steps = -(-(d // m * n) // 64)
+        per = -(-k_steps // plan[2])
+        assert (plan[2] - 1) * per < k_steps <= plan[2] * per and per >= 8
+
+
 def test_nm_spmm_tied_scores_pick_the_lower_channels():
     """Integer activations from three levels tie inside most groups; every
     tile must keep the JAX package's channels bit for bit, and a fully tied

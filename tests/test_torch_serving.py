@@ -240,8 +240,7 @@ _FAMILY_OF_SOURCE = {"flash_attention": "flash_attention", "nm_spmm": "nm_spmm",
 def test_profile_family_of_every_cuda_kernel(stem, name):
     """chip_smoke.py's profiles put every kernel of the port under its own
     family, whatever the profiler's decoration of the name (template
-    arguments, signature), and whatever other kernel's name holds it
-    (``paged_flash_bf16_kernel`` holds ``flash_bf16_kernel``)."""
+    arguments, signature), and whatever other kernel's name holds it."""
     cs = _chip_smoke()
     # a kernel of a shared header may belong to any family, but to one
     want = "paged_kv_scatter" if name == "paged_kv_scatter_kernel" else _FAMILY_OF_SOURCE.get(stem)
