@@ -7,17 +7,23 @@ Phases (any failed check exits non-zero; no phase is skipped):
 
 1. build   — compile every CUDA kernel from ``src/repro_torch/kernels/csrc``
              with nvcc (one process per source, in parallel), print ptxas's
-             warnings of serialised wgmma (C7512-C7520), and count the HGMMA
-             (wgmma) instructions in each library's SASS: the
+             warnings of serialised wgmma (C7512-C7520), and count the wgmma
+             instructions in each library's SASS: HGMMA (bf16) in the
              ``flash_attention``, ``nm_prune_matmul``, ``nm_spmm`` and
-             ``paged_attention`` libraries must have some.
+             ``paged_attention`` libraries, IGMMA (int8) in
+             ``osparse_matmul``; each must have some.
 2. kernels — each kernel against its plain PyTorch version on the card, at
              the serving path's LLaMA-3.1-8B shapes in bfloat16 (plus a
              float32 case each); median time with CUDA events, the bound
              from the card's data-sheet rates, the plain version's time and
              one library call's time.  The int8 kernels (``osparse_matmul``,
              ``w8a8_matmul``) and ``nm_prune`` must be bit-exact: int8
-             codes, scales and outputs.  2c: ``paged_attention`` on
+             codes, scales and outputs, on every route of
+             ``w8a8_matmul.gemm_plan`` (2d prints each case's route and
+             times the quantize pass alone beside the whole call; a timed
+             main-path case must have taken its wgmma route; at T = 4 the
+             library yardstick runs on xq zero-padded to 32 rows, as
+             ``torch._int_mm`` takes no fewer than 17).  2c: ``paged_attention`` on
              NaN-poisoned pools: a prefill chunk, decode at LLaMA-3.1-8B's
              heads (G = 4) and at Qwen2-7B's (28 / 4, G = 7), float32; each
              case's route and time, and the chunk's cost per call and per
@@ -41,8 +47,11 @@ Phases (any failed check exits non-zero; no phase is skipped):
              ŝ = 1/s, static per-tensor activation scale, down_proj left
              bf16) from a seeded calibration absmax, served the same way:
              ``osparse_matmul`` 192 times per prefill half and per decode
-             half (54 per sparse chunk pruned), ``nm_prune_matmul`` 32 times
-             per sparse chunk; the same profile.
+             half (54 per sparse chunk pruned), every launch on a wgmma
+             route (``wgmma`` in prefill, the one-launch ``swap_fused`` in
+             decode), ``nm_prune_matmul`` 32 times per sparse chunk; the same
+             profile, with each step's wrapper calls by route and kernel
+             count by family.
 4. parity  — full width, depth 2, float32: the same requests through the
              kernel path and the plain path must emit the same greedy
              tokens, and the last-chunk logits must agree; then in bf16
@@ -135,17 +144,19 @@ class Timer:
         return statistics.median(times)
 
 
-# the libraries whose kernels are written for the tensor cores' wgmma
-WGMMA_LIBRARIES = ("flash_attention.so", "nm_prune_matmul.so", "nm_spmm.so",
-                   "paged_attention.so")
+# the libraries whose kernels are written for the tensor cores' wgmma, and
+# the SASS opcode their products assemble to (bf16 HGMMA, int8 IGMMA)
+WGMMA_LIBRARIES = {"flash_attention.so": "HGMMA", "nm_prune_matmul.so": "HGMMA",
+                   "nm_spmm.so": "HGMMA", "paged_attention.so": "HGMMA",
+                   "osparse_matmul.so": "IGMMA"}
 # ptxas warnings that it serialised a kernel's wgmma (C7512-C7520)
 SERIALISED_WGMMA = re.compile(r"C75(1[2-9]|20)")
 
 
 def check_hgmma(build_dir: str, logs: dict) -> None:
-    """The count of HGMMA (wgmma) instructions in each built library's SASS,
-    and ptxas's warnings that it serialised wgmma; the redesigned kernels'
-    libraries must hold some HGMMA."""
+    """The count of wgmma instructions (HGMMA, IGMMA) in each built library's
+    SASS, and ptxas's warnings that it serialised wgmma; the redesigned
+    kernels' libraries must hold some of their opcode."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for src, log in logs.items():
         for line in log.splitlines():
@@ -154,13 +165,14 @@ def check_hgmma(build_dir: str, logs: dict) -> None:
     for lib in sorted(Path(build_dir).glob("*.so")):
         sass = subprocess.run([cuobjdump, "--dump-sass", str(lib)], capture_output=True,
                               text=True, timeout=300, check=True).stdout
-        count = len(re.findall(r"\bHGMMA\b", sass))
+        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "IGMMA")}
         warned = sum(bool(SERIALISED_WGMMA.search(line))
                      for line in logs.get(lib.stem + ".cu", "").splitlines())
-        print(f"  {lib.name}: {count} HGMMA instructions in the SASS, {warned} ptxas "
-              "warnings of serialised wgmma")
-        if lib.name in WGMMA_LIBRARIES and count == 0:
-            fail(f"{lib.name} holds no HGMMA instruction: its kernels do not use wgmma")
+        print(f"  {lib.name}: {counts['HGMMA']} HGMMA and {counts['IGMMA']} IGMMA "
+              f"instructions in the SASS, {warned} ptxas warnings of serialised wgmma")
+        op = WGMMA_LIBRARIES.get(lib.name)
+        if op is not None and counts[op] == 0:
+            fail(f"{lib.name} holds no {op} instruction: its kernels do not use wgmma")
 
 
 def fail(msg: str) -> None:
@@ -442,21 +454,36 @@ def calib_absmax(rng, d: int) -> np.ndarray:
 
 def int_mm_ms(torch, timer, xq, wq, scale, w_scale):
     """The library yardstick of the int8 GEMM: ``torch._int_mm`` (cuBLASLt)
-    plus the dequant, timed where its shape rules allow (more than 16 rows,
-    K and N multiples of 8); else None."""
+    plus the dequant, and its label.  ``_int_mm`` takes more than 16 rows
+    only, so at T <= 16 ``xq`` is zero-padded to 32 rows ("padded") and the
+    pad's rows dropped after; K and N must be multiples of 8, else None."""
     t, d = xq.shape
-    if t <= 16 or d % 8 or wq.shape[1] % 8:
-        return None
+    if d % 8 or wq.shape[1] % 8:
+        return None, "n/a (K or N not a multiple of 8)"
+    label = "torch._int_mm + dequant"
+    if t <= 16:
+        pad = torch.zeros((32, d), dtype=torch.int8, device=xq.device)
+        pad[:t] = xq
+        xq, label = pad, "torch._int_mm on xq zero-padded to 32 rows (padded) + dequant"
     try:
-        return timer.ms(lambda: torch._int_mm(xq, wq).float() * scale * w_scale)
+        return timer.ms(lambda: torch._int_mm(xq, wq)[:t].float() * scale * w_scale), label
     except RuntimeError as e:          # a yardstick only: report, do not fail
         print(f"  torch._int_mm refused {tuple(xq.shape)} @ {tuple(wq.shape)}: {e}")
-        return None
+        return None, label
+
+
+def expect_routes(name, fn, want):
+    """Every launch counted on ``fn`` since its counts were reset took route
+    ``want``, and ``want`` runs on wgmma (not the simple dp4a route)."""
+    got = {r: c for r, c in fn.route_launches.items() if c}
+    if want == "simple" or set(got) != {want}:
+        fail(f"{name}: launches by route {got}, expected all on a wgmma route ({want})")
 
 
 def phase_int8_kernels(torch, timer, rates):
     """osparse_matmul, w8a8_matmul and nm_prune, bit-exact against their
-    plain versions (int8 codes, scales and outputs)."""
+    plain versions (int8 codes, scales and outputs), on every route."""
+    from repro_torch import kernels
     from repro_torch.core import quant
     from repro_torch.kernels import nm_prune as knp
     from repro_torch.kernels import osparse_matmul as kos
@@ -477,11 +504,12 @@ def phase_int8_kernels(torch, timer, rates):
 
     # ----------------------------------------------------- osparse_matmul
     print("phase 2d: osparse_matmul (LLaMA-3.1-8B q/k/gate, W8A8, 8:16 where pruned; "
-          "bit-exact codes, scales, outputs)")
+          "bit-exact codes, scales, outputs; wq K-major)")
     for proj, d, n_out in (("q", 4096, 4096), ("k", 4096, 1024), ("gate", 4096, 14336)):
         w = (torch.randn(d, n_out, generator=g, device=dev) * d**-0.5).bfloat16()
         am = torch.from_numpy(calib_absmax(rng, d)).to(dev)
         ql = quant.make_quantized_linear(w, am, quant.QuantConfig())
+        del w
         amber = torch.rand(d, generator=g, device=dev) + 0.5
         for t in (256, 4):
             x = torch.randn(t, d, generator=g, device=dev).bfloat16()
@@ -489,6 +517,7 @@ def phase_int8_kernels(torch, timer, rates):
             for per_token, prune in cases:
                 args = (x, ql.wq, ql.smooth, amber, ql.w_scale, n, m)
                 kw = dict(act_scale=ql.act_scale, prune=prune, per_token=per_token)
+                plan = kw8.gemm_plan(t, d, n_out, x.dtype, per_token, prune, m)
                 got = (kos.osparse_matmul(*args, **kw),
                        *kos.osparse_quantize(x, ql.smooth, amber, n, m, ql.act_scale, prune,
                                              per_token))
@@ -498,54 +527,78 @@ def phase_int8_kernels(torch, timer, rates):
                 torch.cuda.synchronize()
                 same = exact(f"osparse_matmul {proj} T={t} per_token={per_token} "
                              f"prune={prune}", got, want)
-                print(f"  {proj} T={t} per_token={per_token} prune={prune}: bit-exact={same}")
-            # timing at the main path's setting: q/gate pruned in prefill, else dense
+                print(f"  {proj} T={t} per_token={per_token} prune={prune}: route "
+                      f"{plan.route} split {plan.splits}, bit-exact={same}")
+            # timing at the main path's setting: q/gate pruned in prefill, else
+            # dense, static per-tensor scale; the whole call and its quantize
+            # pass alone (the swap_fused route has none: it quantizes inside)
             prune = t == 256 and proj != "k"
+            plan = kw8.gemm_plan(t, d, n_out, x.dtype, False, prune, m)
             args = (x, ql.wq, ql.smooth, amber, ql.w_scale, n, m)
             kw = dict(act_scale=ql.act_scale, prune=prune)
             xq, _ = kos.osparse_quantize_plain(x, ql.smooth, amber, n, m, ql.act_scale, prune)
+            kernels.reset_launch_counts()
             ms = timer.ms(lambda: kos.osparse_matmul(*args, **kw))
+            expect_routes(f"osparse_matmul {proj} T={t}", kos.osparse_matmul, plan.route)
+            q_ms = timer.ms(lambda: kos.osparse_quantize(x, ql.smooth, amber, n, m,
+                                                         ql.act_scale, prune))
             plain_ms = timer.ms(lambda: kos.osparse_matmul_plain(*args, **kw), 5)
-            lib_ms = int_mm_ms(torch, timer, xq, ql.wq, ql.act_scale, ql.w_scale)
+            lib_ms, lib_label = int_mm_ms(torch, timer, xq, ql.wq, ql.act_scale, ql.w_scale)
             nbytes = x.numel() * 2 + ql.wq.numel() + 2 * d * 4 + n_out * 4 + 4 + t * n_out * 4
             ops = 2 * int((xq != 0).sum()) * n_out
             bound = max(nbytes / bw, ops / int8_peak) * 1e3
             by = "bytes" if nbytes / bw >= ops / int8_peak else "operations"
-            lib = "n/a (T <= 16)" if lib_ms is None else f"{lib_ms:.4f} ms"
-            print(f"  {proj} T={t} prune={prune}: kernel {ms:.4f} ms, bound {bound:.4f} ms "
-                  f"({by}), plain {plain_ms:.4f} ms, torch._int_mm + dequant {lib}")
+            lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+            share = ("not run on this route, which quantizes inside its GEMM"
+                     if plan.route == "swap_fused" else f"{q_ms / ms:.1%} of the call")
+            print(f"  {proj} T={t} prune={prune}: route {plan.route} split {plan.splits}: "
+                  f"kernel {ms:.4f} ms, quantize pass alone {q_ms:.4f} ms ({share}), bound "
+                  f"{bound:.4f} ms ({by}), plain {plain_ms:.4f} ms, {lib_label} {lib}")
             if proj == "gate" and t == 256:
                 records["osparse_matmul"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                                  bound_ms=bound, bound_by=by, max_abs_err=0.0)
-    # float32 activations, a ragged T, per token and pruned
-    xf = torch.randn(137, 4096, generator=g, device=dev)
-    for per_token in (False, True):
-        args = (xf, ql.wq, ql.smooth, amber, ql.w_scale, n, m)
-        kw = dict(act_scale=ql.act_scale, per_token=per_token)
-        same = exact("osparse_matmul float32", (kos.osparse_matmul(*args, **kw),),
-                     (kos.osparse_matmul_plain(*args, **kw),))
-        print(f"  float32 gate T=137 per_token={per_token}: bit-exact={same}")
+        del ql
+    # float32 activations at a ragged T on both routes, per tensor and per
+    # token, pruned (k's width: the swap route's deepest split)
+    w = torch.randn(4096, 1024, generator=g, device=dev) * 4096**-0.5
+    ql = quant.make_quantized_linear(w, torch.from_numpy(calib_absmax(rng, 4096)).to(dev),
+                                     quant.QuantConfig())
+    for t in (137, 5):
+        xf = torch.randn(t, 4096, generator=g, device=dev)
+        for per_token in (False, True):
+            args = (xf, ql.wq, ql.smooth, amber, ql.w_scale, n, m)
+            kw = dict(act_scale=ql.act_scale, per_token=per_token)
+            same = exact("osparse_matmul float32", (kos.osparse_matmul(*args, **kw),),
+                         (kos.osparse_matmul_plain(*args, **kw),))
+            plan = kw8.gemm_plan(t, 4096, 1024, xf.dtype, per_token, True, m)
+            print(f"  float32 k T={t} per_token={per_token}: route {plan.route}, "
+                  f"bit-exact={same}")
 
     # -------------------------------------------------------- w8a8_matmul
-    print("phase 2e: w8a8_matmul (bit-exact)")
+    print("phase 2e: w8a8_matmul (bit-exact; wq K-major)")
     for t, d, n_out in ((256, 4096, 14336), (4, 4096, 1024), (37, 200, 130)):
         xq = torch.randint(-127, 128, (t, d), generator=g, device=dev).to(torch.int8)
-        wq = torch.randint(-127, 128, (d, n_out), generator=g, device=dev).to(torch.int8)
+        wq = torch.randint(-127, 128, (n_out, d), generator=g, device=dev).to(torch.int8).t()
         ws = torch.rand(n_out, generator=g, device=dev) * 1e-3
         xs = torch.tensor(0.013, device=dev)
+        plan = kw8.gemm_plan(t, d, n_out, torch.int8)
         same = exact(f"w8a8_matmul {t}x{d}x{n_out}", (kw8.w8a8_matmul(xq, wq, xs, ws),),
                      (kw8.w8a8_matmul_plain(xq, wq, xs, ws),))
-        print(f"  T={t} D={d} N={n_out}: bit-exact={same}")
+        print(f"  T={t} D={d} N={n_out}: route {plan.route} split {plan.splits}, "
+              f"bit-exact={same}")
         if t == 256:
+            kernels.reset_launch_counts()
             ms = timer.ms(lambda: kw8.w8a8_matmul(xq, wq, xs, ws))
+            expect_routes("w8a8_matmul gate T=256", kw8.w8a8_matmul, plan.route)
             plain_ms = timer.ms(lambda: kw8.w8a8_matmul_plain(xq, wq, xs, ws), 5)
-            lib_ms = int_mm_ms(torch, timer, xq, wq, xs, ws)
+            lib_ms, lib_label = int_mm_ms(torch, timer, xq, wq, xs, ws)
             nbytes = xq.numel() + wq.numel() + n_out * 4 + 4 + t * n_out * 4
             ops = 2 * t * d * n_out
             bound = max(nbytes / bw, ops / int8_peak) * 1e3
             by = "bytes" if nbytes / bw >= ops / int8_peak else "operations"
-            print(f"  gate T=256: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), plain "
-                  f"{plain_ms:.4f} ms, torch._int_mm + dequant {lib_ms:.4f} ms")
+            lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+            print(f"  gate T=256: route {plan.route}: kernel {ms:.4f} ms, bound {bound:.4f} ms "
+                  f"({by}), plain {plain_ms:.4f} ms, {lib_label} {lib}")
             records["w8a8_matmul"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                           bound_ms=bound, bound_by=by, max_abs_err=0.0)
 
@@ -804,6 +857,7 @@ def serve_requests(torch, model, params, policy, label):
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     launches["osparse_matmul (prune=True)"] = kos.osparse_matmul.pruned_launches
+    launches["osparse_matmul routes"] = dict(kos.osparse_matmul.route_launches)
     met = res["metrics"]
     states = {r["rid"]: r["state"] for r in met["requests"]}
     for rid in rids:
@@ -917,6 +971,13 @@ def phase_serve_osparse(torch, model, params, policy):
         "osparse_matmul (prune=True)": pruned * st["sparse_chunks"],
         "nm_prune_matmul": cfg.n_layers * st["sparse_chunks"],
         "paged_kv_scatter": per_step, "paged_attention": per_step})
+    # decode projections in one fused launch, prefill chunks on wgmma: never
+    # the per-token swap route or the simple dp4a route
+    routes = {r: c for r, c in launches["osparse_matmul routes"].items() if c}
+    print(f"  osparse_matmul launches by route {routes}")
+    if not routes or not set(routes) <= {"wgmma", "swap_fused"}:
+        fail(f"phase 3b: osparse_matmul launches by route {routes}, expected wgmma "
+             "(prefill) and swap_fused (decode) only")
     profile_steps(torch, model, params, policy)
     return launches
 
@@ -947,7 +1008,9 @@ def profile_steps(torch, model, params, policy):
 # kernels in it.  A profiler key belongs to a family when it holds one of
 # these names as a whole identifier, so a kernel whose name holds another's
 # is not taken for it; library kernels go by a fragment of their names.
-FAMILIES = (("osparse_matmul", ("osparse_quant_kernel", "w8a8_gemm_kernel", "dequant_kernel")),
+FAMILIES = (("osparse_matmul", ("osparse_quant_kernel", "osparse_quant_vec_kernel",
+                                "w8a8_wgmma_kernel", "w8a8_swap_kernel",
+                                "w8a8_simple_kernel")),
             ("nm_prune_matmul", ("nm_select_kernel", "nm_select_vec_kernel",
                                  "nm_matmul_wgmma_kernel", "nm_splitk_reduce_kernel",
                                  "nm_matmul_bf16_kernel", "nm_matmul_f32_kernel",
@@ -993,6 +1056,9 @@ def profile_cases(torch, cases):
     count, and the device's idle share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import kernels
+    from repro_torch.kernels import osparse_matmul as kos
+
     print("profile: one step of each kind, full width, bf16")
     for case, fn in cases.items():
         walls = []
@@ -1003,9 +1069,12 @@ def profile_cases(torch, cases):
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         wall_ms = statistics.median(walls[1:]) * 1e3
+        kernels.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
+        calls = {k: v for k, v in kernels.launch_counts().items() if v}
+        routes = {r: c for r, c in kos.osparse_matmul.route_launches.items() if c}
         kern = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
         busy_ms = busy_time((e.time_range.start, e.time_range.end) for e in prof.events()
@@ -1013,8 +1082,10 @@ def profile_cases(torch, cases):
         summed_ms = sum(e.self_device_time_total for e in kern) / 1e3
         by_family = {name: 0.0 for name, _ in FAMILIES + (LIBRARY_GEMM,)}
         by_family[OTHER] = 0.0
+        family_kernels = dict.fromkeys(by_family, 0)
         for e in kern:
             by_family[kernel_family(e.key)] += e.self_device_time_total / 1e3
+            family_kernels[kernel_family(e.key)] += e.count
         if not kern:
             print(f"  {case}: wall {wall_ms:.3f} ms (median of 5); device time not "
                   "measured (the profiler recorded no device kernels)")
@@ -1022,8 +1093,9 @@ def profile_cases(torch, cases):
         print(f"  {case}: wall {wall_ms:.3f} ms (median of 5), device busy {busy_ms:.3f} ms "
               f"over {sum(e.count for e in kern)} kernels (their durations sum to "
               f"{summed_ms:.3f} ms), device idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
+        print(f"    wrapper calls {calls}; osparse_matmul calls by route {routes}")
         for name, ms in by_family.items():
-            print(f"    {name}: {ms:.3f} ms")
+            print(f"    {name}: {ms:.3f} ms, {family_kernels[name]} kernels")
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
             print(f"    top: {e.key[:90]} x{e.count}: {e.self_device_time_total / 1e3:.3f} ms")
 

@@ -40,6 +40,7 @@ __all__ = [
     "quantize_act_per_token",
     "int_matmul",
     "quantized_matmul",
+    "k_major",
     "QuantizedLinear",
     "make_quantized_linear",
 ]
@@ -154,15 +155,30 @@ def quantized_matmul(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
     return int_matmul(xq, wq) * x_scale * w_scale
 
 
+def k_major(wq: torch.Tensor) -> torch.Tensor:
+    """``wq (d_in, d_out)`` stored K-major: the ``(d_in, d_out)`` transposed
+    view of one contiguous ``(d_out, d_in)`` buffer (each output channel's
+    weights contiguous), the layout the port's int8 tensor-core kernels read
+    (8-bit wgmma takes K-major operands only).  Values, shape and every
+    plain-version result are unchanged; a tensor already so stored is
+    returned as it is, anything else is copied once."""
+    return wq if wq.t().is_contiguous() else wq.t().contiguous().t()
+
+
 @dataclasses.dataclass
 class QuantizedLinear:
-    """Offline-rewritten linear: smooth + int8 weights + static act scale."""
+    """Offline-rewritten linear: smooth + int8 weights + static act scale.
+    ``wq`` is stored K-major (:func:`k_major`) whatever layout it is given
+    in."""
 
-    wq: torch.Tensor          # (d_in, d_out) int8
+    wq: torch.Tensor          # (d_in, d_out) int8, the view of a (d_out, d_in) buffer
     w_scale: torch.Tensor     # (d_out,) f32
     smooth: torch.Tensor      # (d_in,) f32 — divide X by this pre-quant
     act_scale: torch.Tensor   # 0-d f32 (static per-tensor)
     per_token: bool = False
+
+    def __post_init__(self) -> None:
+        self.wq = k_major(self.wq)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         xs = x.float() / self.smooth

@@ -45,3 +45,5 @@ def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     _osp.osparse_matmul.pruned_launches = 0
+    for fn in (_osp.osparse_matmul, _w8.w8a8_matmul):      # counts by route
+        fn.route_launches = dict.fromkeys(fn.route_launches, 0)

@@ -1,7 +1,7 @@
 // Building blocks of the port's Hopper (sm_90a) kernels, written as inline
 // PTX (no CuTe/CUTLASS headers: a source that includes this header builds in
-// seconds).  flash_attention.cu, nm_prune_matmul.cu, nm_spmm.cu and
-// paged_attention.cu use them:
+// seconds).  flash_attention.cu, nm_prune_matmul.cu, nm_spmm.cu,
+// osparse_matmul.cu and paged_attention.cu use them:
 //
 //  * mbarriers: init, arrive, arrive-expect-tx and a parity wait — the
 //    full/empty handshakes of a ring of shared-memory stages;
@@ -9,15 +9,21 @@
 //  * TMA: 2-d and 4-d tiled loads into shared memory that complete on an
 //    mbarrier, a 4-d tiled store, and the host-side encoding of the tensor maps
 //    (cuTensorMapEncodeTiled, reached through the runtime's driver entry
-//    point, so no -lcuda is needed), always bf16 with the 128-byte swizzle;
+//    point, so no -lcuda is needed), bf16 or 8-bit with the 128-byte swizzle;
 //  * programmatic dependent launch (a kernel that may start while the one
-//    before it on the stream runs, and waits for it with griddepcontrol);
+//    before it on the stream runs, and waits for it with griddepcontrol), and
+//    thread-block clusters: a launch with a cluster shape, the cluster
+//    barrier and loads from another block's shared memory (DSMEM);
 //  * wgmma: the shared-memory matrix descriptor of the 128-byte swizzle for
-//    K-major and MN-major operands, fence / commit / wait, and the bf16 ->
+//    K-major and MN-major operands, fence / commit / wait, the bf16 ->
 //    float32 m64nNk16 products (N = 64, 128) with A from shared memory or
-//    from registers;
+//    from registers, and the int8 -> int32 m64nNk32 products (N = 8, 16,
+//    128; both operands K-major from shared memory: 8-bit wgmma has no
+//    transpose);
 //  * ex2.approx, the exponent of the attention kernels' online softmax;
-//  * the deterministic split-k reduce of the GEMMs' float32 partials.
+//  * the deterministic split-k reduce of the GEMMs' float32 partials;
+//  * the N:M keep mask of one group of M scores (a sorting network), shared
+//    by the per-token selections of nm_prune_matmul.cu and osparse_matmul.cu.
 //
 // Layout every kernel here shares: a tile is stored as 64-element (128-byte)
 // column chunks; chunk c of a tile of R rows holds R rows of 128 bytes, the
@@ -27,7 +33,11 @@
 // 128-byte rows) a k16 step is a 32-byte advance of the start address and the
 // 8-row groups are 1024 bytes apart (SBO); as an MN-major operand (MN along
 // the rows, K down them) a k16 step is 16 rows (2048 bytes), SBO is again
-// 1024 bytes and LBO is the distance between 64-wide MN chunks.
+// 1024 bytes and LBO is the distance between 64-wide MN chunks.  An 8-bit
+// tile has the same byte geometry: a 128-byte row holds 128 int8 values, a
+// k32 step (two 16-byte core-matrix columns) is the same 32-byte advance as
+// bf16's k16, so desc_k_major serves both (PTX ISA, "Matrix Descriptor" and
+// the K-major 128B-swizzle canonical layout, which are given in bytes).
 //
 // The accumulator of an m64nN product lives in the 128 threads of a
 // warpgroup: thread t (warp w = t / 32, lane l) holds d[4j + i] = D[row][col]
@@ -151,18 +161,18 @@ __device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
-// Host: a bf16 tensor map over `rank` dims (innermost first; `strides` are
-// the byte strides of dims 1..rank-1) with 128-byte swizzled boxes of `box`
-// elements; out-of-range elements of a box are filled with zeros.  Returns 0
-// or a CUDA error code.
+// Host: a tensor map of `dtype` over `rank` dims (innermost first; `strides`
+// are the byte strides of dims 1..rank-1) with 128-byte swizzled boxes of
+// `box` elements; out-of-range elements of a box are filled with zeros.
+// Returns 0 or a CUDA error code.
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                    const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                    CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-inline int encode_bf16_sw128(CUtensorMap* map, const void* base, int rank,
-                             const cuuint64_t* dims, const cuuint64_t* strides,
-                             const cuuint32_t* box) {
+inline int encode_sw128(CUtensorMap* map, CUtensorMapDataType dtype, const void* base,
+                        int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                        const cuuint32_t* box) {
   static EncodeTiledFn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -175,12 +185,24 @@ inline int encode_bf16_sw128(CUtensorMap* map, const void* base, int rank,
     encode = reinterpret_cast<EncodeTiledFn>(fn);
   }
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-                            const_cast<void*>(base), dims, strides, box, unit,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const CUresult r = encode(map, dtype, (cuuint32_t)rank, const_cast<void*>(base), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+inline int encode_bf16_sw128(CUtensorMap* map, const void* base, int rank,
+                             const cuuint64_t* dims, const cuuint64_t* strides,
+                             const cuuint32_t* box) {
+  return encode_sw128(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box);
+}
+
+// The same for 8-bit elements (int8 bytes; a 128-byte box row is 128 values).
+inline int encode_u8_sw128(CUtensorMap* map, const void* base, int rank,
+                           const cuuint64_t* dims, const cuuint64_t* strides,
+                           const cuuint32_t* box) {
+  return encode_sw128(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, rank, dims, strides, box);
 }
 
 // Host: launches `kernel` as a programmatic dependent of the stream's
@@ -201,6 +223,72 @@ cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block, s
   cfg.attrs = &early;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// Host: launches `kernel` in clusters of `cluster.x` x `cluster.y` blocks
+// (each grid dimension a multiple of the cluster's), as a programmatic
+// dependent of the stream's previous kernel when `dependent` is set (see
+// launch_dependent).
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                           cudaStream_t stream, dim3 cluster, bool dependent, Args... args) {
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = cluster.x;
+  attrs[0].val.clusterDim.y = cluster.y;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[1].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attrs;
+  cfg.numAttrs = dependent ? 2 : 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// ---------------------------------------------------------------- clusters
+// The cluster barrier: a phase completes when every thread of every block of
+// the cluster has arrived; shared-memory writes before a thread's arrive are
+// visible to the cluster's DSMEM reads after its wait.  Called by whole,
+// converged warps; a warp may arrive early and wait later.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// The int32 at the same shared-memory offset as `p`, in the block of cluster
+// rank `rank` (the block's own rank reads its own shared memory).
+__device__ __forceinline__ int ld_cluster_s32(const void* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  int v;
+  asm volatile("ld.shared::cluster.s32 %0, [%1];" : "=r"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// Four consecutive int32 (16-byte aligned) of the block of cluster rank `rank`.
+__device__ __forceinline__ int4 ld_cluster_v4(const void* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  int4 v;
+  asm volatile("ld.shared::cluster.v4.s32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 // ----------------------------------------------------------------- wgmma
@@ -251,6 +339,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // 2^x by the MUFU unit (flushes results below 2^-126 to 0).
@@ -341,6 +434,106 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// ------------------------------------------------------------ int8 wgmma
+// D (64 x 8, int32) = A (64 x 32, shared, K-major) * B (32 x 8, shared,
+// K-major), plus D when scale_d != 0.  8-bit wgmma has no transpose: both
+// operands are K-major.
+__device__ __forceinline__ void wgmma_m64n8k32_s8(int (&d)[4], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+      "%0, %1, %2, %3 "
+      "}, %4, %5, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 16, int32) = A (64 x 32, shared, K-major) * B (32 x 16, shared,
+// K-major), plus D when scale_d != 0.  8-bit wgmma has no transpose: both
+// operands are K-major.
+__device__ __forceinline__ void wgmma_m64n16k32_s8(int (&d)[8], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, %8, %9, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 128, int32) = A (64 x 32, shared, K-major) * B (32 x 128, shared,
+// K-major), plus D when scale_d != 0.  8-bit wgmma has no transpose: both
+// operands are K-major.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// ------------------------------------------------------------ N:M keep mask
+// Bit j set for the n channels of one group of M scores s[0, M) that n rounds
+// of strict-'>' argmax would keep (the lowest channel wins a tie; the JAX
+// package's first-occurrence rule): those above the group's n-th largest
+// score v, and of those equal to v the lowest channels, as many as are left.
+// v comes from a bitonic sorting network (descending), so there is no serial
+// chain of n rounds; the mask is bit-identical for finite scores.
+template <int M>
+__device__ __forceinline__ uint32_t nm_keep(const float* s, int n) {
+  float t[M];
+#pragma unroll
+  for (int j = 0; j < M; ++j) t[j] = s[j];
+#pragma unroll
+  for (int k = 2; k <= M; k <<= 1)
+#pragma unroll
+    for (int h = k >> 1; h > 0; h >>= 1)
+#pragma unroll
+      for (int a = 0; a < M; ++a) {
+        const int b = a ^ h;
+        if (b > a) {
+          const float hi = fmaxf(t[a], t[b]), lo = fminf(t[a], t[b]);
+          t[a] = (a & k) == 0 ? hi : lo;
+          t[b] = (a & k) == 0 ? lo : hi;
+        }
+      }
+  float v = t[0];
+#pragma unroll
+  for (int k = 1; k < M; ++k) v = k == n - 1 ? t[k] : v;
+  uint32_t above = 0u, ties = 0u;
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    above |= (s[j] > v ? 1u : 0u) << j;
+    ties |= (s[j] == v ? 1u : 0u) << j;
+  }
+  const int room = n - __popc(above);     // >= 1: v is the n-th largest
+  while (__popc(ties) > room) ties &= ~(1u << (31 - __clz(ties)));
+  return above | ties;
 }
 
 // ------------------------------------------------------- split-k reduce

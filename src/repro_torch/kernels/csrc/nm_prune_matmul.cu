@@ -107,13 +107,10 @@ __global__ void nm_select_kernel(const T* __restrict__ x, const float* __restric
 
 // The same selection, vectorised: one thread per E = max(M, 16 / sizeof(T))
 // consecutive elements of a row (whole groups in whole 16-byte vectors).  x
-// comes in and the result goes out as uint4, the scale as float4.  The n
-// rounds of strict-'>' argmax keep exactly the elements ranked below n in
-// the order (score descending, channel ascending): those above the n-th
-// largest score v, and of those equal to v the lowest channels, as many as
-// are left.  v comes from a sorting network (no serial chain of rounds), so
-// the masks stay bit-identical for finite scores.  Bound by the 4 bytes a
-// bf16 element moves (read once, written once).
+// comes in and the result goes out as uint4, the scale as float4.  Each
+// group's mask comes from hopper::nm_keep (a sorting network in place of n
+// serial rounds of argmax; bit-identical for finite scores).  Bound by the 4
+// bytes a bf16 element moves (read once, written once).
 template <typename T>
 __device__ __forceinline__ float word_elem(const uint32_t* w, int j) {
   if constexpr (sizeof(T) == 2)
@@ -163,39 +160,7 @@ nm_select_vec_kernel(const T* __restrict__ x, const float* __restrict__ scale,
     }
     uint32_t keep = 0u;
 #pragma unroll
-    for (int g = 0; g < E / M; ++g) {
-      // v = the group's n-th largest score (a bitonic sorting network,
-      // descending); keep the scores above v and, of those equal to v, the
-      // lowest channels first
-      float t[M];
-#pragma unroll
-      for (int j = 0; j < M; ++j) t[j] = s[g * M + j];
-#pragma unroll
-      for (int k = 2; k <= M; k <<= 1)
-#pragma unroll
-        for (int h = k >> 1; h > 0; h >>= 1)
-#pragma unroll
-          for (int a = 0; a < M; ++a) {
-            const int b = a ^ h;
-            if (b > a) {
-              const float hi = fmaxf(t[a], t[b]), lo = fminf(t[a], t[b]);
-              t[a] = (a & k) == 0 ? hi : lo;
-              t[b] = (a & k) == 0 ? lo : hi;
-            }
-          }
-      float v = t[0];
-#pragma unroll
-      for (int k = 1; k < M; ++k) v = k == n - 1 ? t[k] : v;
-      uint32_t above = 0u, ties = 0u;
-#pragma unroll
-      for (int j = 0; j < M; ++j) {
-        above |= (s[g * M + j] > v ? 1u : 0u) << j;
-        ties |= (s[g * M + j] == v ? 1u : 0u) << j;
-      }
-      const int room = n - __popc(above);     // >= 1: v is the n-th largest
-      while (__popc(ties) > room) ties &= ~(1u << (31 - __clz(ties)));
-      keep |= (above | ties) << (g * M);
-    }
+    for (int g = 0; g < E / M; ++g) keep |= hopper::nm_keep<M>(s + g * M, n) << (g * M);
 #pragma unroll
     for (int k = 0; k < NW; ++k) {
       if constexpr (sizeof(T) == 2)

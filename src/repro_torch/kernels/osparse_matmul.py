@@ -11,18 +11,21 @@ integer sum; ``× scale × w_scale (+ bias)`` in float32.  The output is
 float32, as in the JAX package; callers cast it.
 
 On the H100 the serving path's call is bound by the ``wq`` read from device
-memory.  ``csrc/osparse_matmul.cu`` splits the chain in two launches of one
-call: a quantize pass writes int8 ``xq`` and the per-row scales once into
-scratch the wrapper allocates (a quarter of bf16 x's bytes), then the int8
-tensor-core GEMM (:mod:`repro_torch.kernels.w8a8_matmul`'s kernel) applies
-the dequant epilogue.  The static ``act_scale`` is passed as a device
+memory.  ``csrc/osparse_matmul.cu`` runs the chain on the route that
+:func:`repro_torch.kernels.w8a8_matmul.gemm_plan` names: a decode
+projection (T <= 16 tokens, static scale) is one launch that quantizes
+inside the swap-AB GEMM; a prefill chunk is a vectorised quantize pass,
+writing int8 ``xq`` and the per-row scales into scratch the wrapper
+allocates, and the wgmma GEMM launched as its programmatic dependent.
+``wq`` must be the ``(D, N)`` view of a K-major buffer
+(``core.quant.k_major``).  The static ``act_scale`` is passed as a device
 pointer: a launch never syncs the host.  The result is bit-identical to the
 plain version.
 
 The wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``osparse_matmul.launches``
-counts kernel launches and ``osparse_matmul.pruned_launches`` those with
-``prune=True``.
+counts calls that launched, ``osparse_matmul.pruned_launches`` those with
+``prune=True`` and ``osparse_matmul.route_launches`` them by route.
 """
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ import torch
 
 from repro_torch.core import nm, quant, scoring
 from repro_torch.kernels import _build
-from repro_torch.kernels.w8a8_matmul import _sms, check_int8_gemm, gemm_splits
+from repro_torch.kernels.w8a8_matmul import (ROUTES, _sms, check_int8_gemm, gemm_plan,
+                                              route_code)
 
 __all__ = ["osparse_matmul", "osparse_matmul_plain", "osparse_quantize",
            "osparse_quantize_plain"]
@@ -48,7 +52,7 @@ _QUANT_SYMBOLS = {torch.bfloat16: "osparse_quantize_bf16",
 def _fn(dtype: torch.dtype):
     lib = _build.load("osparse_matmul.cu")
     fn = getattr(lib, _SYMBOLS[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -81,9 +85,10 @@ def osparse_matmul_plain(x: torch.Tensor, wq: torch.Tensor, smooth: torch.Tensor
 def osparse_quantize(x: torch.Tensor, smooth: torch.Tensor, amber: torch.Tensor | None,
                      n: int, m: int, act_scale: torch.Tensor | None = None,
                      prune: bool = True, per_token: bool = False):
-    """The kernel's quantize pass alone, on a CUDA ``x (T, D)``: ``(xq, scale)``
-    as :func:`osparse_quantize_plain` gives them, so the int8 codes can be
-    held against the plain version's.  Not a launch of ``osparse_matmul``."""
+    """The quantize pass of the wgmma and swap routes alone, on a CUDA ``x (T,
+    D)``: ``(xq, scale)`` as :func:`osparse_quantize_plain` gives them, so the
+    int8 codes can be held against the plain version's.  Not a launch of
+    ``osparse_matmul``."""
     _check(x, smooth, amber, n, m, act_scale, prune, per_token)
     t, d = x.shape
     xq = torch.empty((t, d), dtype=torch.int8, device=x.device)
@@ -159,26 +164,31 @@ def osparse_matmul(x: torch.Tensor, wq: torch.Tensor, smooth: torch.Tensor,
     out = torch.empty((t, n_out), dtype=torch.float32, device=x.device)
     if t == 0:
         return out
-    xq = torch.empty((t, d), dtype=torch.int8, device=x.device)       # scratch
-    row_scale = torch.empty((t,), dtype=torch.float32, device=x.device)
-    splits = gemm_splits(t, d, n_out, _sms(x.device))
-    partial = (torch.empty((t, n_out), dtype=torch.int32, device=x.device)
-               if splits > 1 else None)
+    x_ptrs = x.data_ptr() | smooth.data_ptr() | (0 if amber is None else amber.data_ptr())
+    plan = gemm_plan(t, d, n_out, x.dtype, per_token, prune, m, aligned=wq.data_ptr() % 16 == 0,
+                     x_aligned=x_ptrs % 16 == 0, sms=_sms(x.device))
+    fused = plan.route == "swap_fused"
+    # scratch of the quantize pass (none on the fused route)
+    xq = torch.empty((0 if fused else t, d), dtype=torch.int8, device=x.device)
+    row_scale = torch.empty((t if per_token else 0,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = _fn(x.dtype)(
             x.data_ptr(), wq.data_ptr(), smooth.data_ptr(),
             None if amber is None else amber.data_ptr(), w_scale.data_ptr(),
             None if per_token else act_scale.data_ptr(),
             None if bias is None else bias.data_ptr(), xq.data_ptr(),
-            row_scale.data_ptr(), None if partial is None else partial.data_ptr(),
-            out.data_ptr(), t, d, n_out, n, m, int(prune), int(per_token), splits,
+            row_scale.data_ptr(), out.data_ptr(), t, d, n_out, n, m, int(prune),
+            int(per_token), route_code(plan), plan.splits, plan.cluster,
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"osparse_matmul kernel launch failed (CUDA error {rc})")
+        raise RuntimeError(f"osparse_matmul kernel launch failed on route {plan} "
+                           f"(CUDA error {rc})")
     osparse_matmul.launches += 1
     osparse_matmul.pruned_launches += int(prune)
+    osparse_matmul.route_launches[plan.route] += 1
     return out
 
 
 osparse_matmul.launches = 0
 osparse_matmul.pruned_launches = 0
+osparse_matmul.route_launches = dict.fromkeys(ROUTES, 0)

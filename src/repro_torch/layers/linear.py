@@ -47,7 +47,9 @@ class Linear(nn.Module):
 
 class QuantLinear(nn.Module):
     """A projection after the offline SmoothQuant / Outstanding rewrite: int8
-    ``wq (d_in, d_out)``, float32 ``w_scale (d_out,)``, ``smooth (d_in,)``
+    ``wq (d_in, d_out)`` (the transposed view of one K-major ``(d_out, d_in)``
+    buffer, ``quant.k_major``: the layout of the int8 kernels, with the JAX
+    package's shape), float32 ``w_scale (d_out,)``, ``smooth (d_in,)``
     and the 0-d static ``act_scale``, the optional ``amber_scale (d_in,)``
     (computed from the float weight before the rewrite) and bias ``b`` in
     the model dtype; ``per_token`` selects dynamic per-token activation

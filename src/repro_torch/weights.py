@@ -9,9 +9,10 @@ is unstacked into the block list, and
 of numpy as ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses, so
 every float array goes through float32 first; bf16 → f32 → bf16 is exact.
 A quantized projection's dict (``wq`` and no ``w``) becomes a
-:class:`~repro_torch.layers.linear.QuantLinear`: ``wq`` is carried as int8
-directly, ``w_scale``, ``smooth``, ``act_scale`` and ``amber_scale`` as
-float32.
+:class:`~repro_torch.layers.linear.QuantLinear`: ``wq`` is carried as int8,
+stored K-major (one ``(d_out, d_in)`` buffer behind the ``(d_in, d_out)``
+view, transposed on the host so no second copy reaches the device);
+``w_scale``, ``smooth``, ``act_scale`` and ``amber_scale`` as float32.
 
 ``quantize_linears(model, absmax, qcfg)`` applies the offline
 SmoothQuant / Outstanding rewrite (``core.quant.make_quantized_linear``) to
@@ -44,7 +45,8 @@ def _t(a, dtype: torch.dtype, device) -> torch.Tensor:
 def _quant_linear(p: Dict[str, Any], dtype, device) -> QuantLinear:
     f32 = lambda k: _t(p[k], torch.float32, device)
     ql = quant.QuantizedLinear(
-        wq=torch.from_numpy(np.asarray(p["wq"], dtype=np.int8)).to(device),
+        wq=torch.from_numpy(np.ascontiguousarray(np.asarray(p["wq"], dtype=np.int8).T)
+                            ).to(device).t(),
         w_scale=f32("w_scale"), smooth=f32("smooth"), act_scale=f32("act_scale"),
         per_token=bool(p.get("per_token", False)))
     return QuantLinear(ql, amber_scale=f32(SCALE_KEY) if SCALE_KEY in p else None,
@@ -103,7 +105,8 @@ def quantize_linears(model: transformer.Transformer,
     """Replace every projection ``qcfg.should_quantize(module, layer)`` with
     its :class:`QuantLinear` (``absmax[(layer, module)]`` is the ``(d_in,)``
     calibrated activation absmax), keeping its Amber scale and bias, and
-    free the float weight.  Amber scales are computed from the float
+    free the float weight; the int8 weights are stored K-major
+    (``quant.k_major``), one buffer each.  Amber scales are computed from the float
     weights, so run ``precompute_scales`` first.  In place; returns
     ``model``."""
     for i, blk in enumerate(model.blocks):

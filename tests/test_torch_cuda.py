@@ -175,43 +175,108 @@ def test_paged_kv_scatter_bit_exact(gen):
 
 
 # The int8 paths are exact: kernel and plain version agree bit for bit.
+# Every route of gemm_plan (swap_fused / swap at T <= 16, wgmma above, the
+# simple dp4a route where D is not a multiple of 16): T on both sides of 16
+# and past a 256-row block, LLaMA-3.1-8B's widths and one that is not a
+# multiple of the 128-column block, D = 4096 (k split 1-8 over a cluster).
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("per_token", [False, True], ids=["tensor", "token"])
-@pytest.mark.parametrize("prune", [False, True], ids=["dense", "prune"])
-@pytest.mark.parametrize("t,d,n_out,n,m", [
-    (37, 128, 72, 8, 16),        # ragged T, one column tile
-    (4, 2048, 1024, 8, 16),      # decode: split-k with int32 atomics
-    (70, 200, 200, 2, 4),        # D and N not multiples of 16: byte staging
-])
-def test_osparse_matmul_bit_exact(gen, dtype, per_token, prune, t, d, n_out, n, m):
-    x = torch.randn(t, d, generator=gen, device="cuda").to(dtype)
+_INT8_T = [1, 4, 16, 17, 37, 256, 300]
+_INT8_N = [1024, 4096, 14336, 1000]
+
+
+def _int8_linear(gen, d, n_out):
     w = torch.randn(d, n_out, generator=gen, device="cuda") * d**-0.5
     absmax = torch.rand(d, generator=gen, device="cuda") * 3 + 0.5
     absmax[:4] *= 11
-    ql = quant.make_quantized_linear(w, absmax, quant.QuantConfig())
+    return quant.make_quantized_linear(w, absmax, quant.QuantConfig())
+
+
+def _check_osparse(gen, ql, t, d, n_out, n, m):
+    """All four per_token x prune modes, bf16 and float32 x, with and
+    without bias: output, int8 codes and scales bit-identical to the plain
+    versions, on the plan's route."""
     amber = torch.rand(d, generator=gen, device="cuda") + 0.5
-    bias = torch.randn(n_out, generator=gen, device="cuda").to(dtype)
-    args = (ql.wq, ql.smooth, amber, ql.w_scale, n, m)
-    kw = dict(act_scale=ql.act_scale, bias=bias, prune=prune, per_token=per_token)
-    got = kos.osparse_matmul(x, *args, **kw)
-    torch.cuda.synchronize()
-    assert torch.equal(got, kos.osparse_matmul_plain(x, *args, **kw))
-    q, s = kos.osparse_quantize(x, ql.smooth, amber, n, m, ql.act_scale, prune, per_token)
-    q0, s0 = kos.osparse_quantize_plain(x, ql.smooth, amber, n, m, ql.act_scale, prune,
-                                        per_token)
-    assert torch.equal(q, q0) and torch.equal(s, s0)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(t, d, generator=gen, device="cuda").to(dtype)
+        bias = torch.randn(n_out, generator=gen, device="cuda").to(dtype)
+        for per_token in (False, True):
+            for prune in (False, True):
+                for b in (None, bias):
+                    args = (ql.wq, ql.smooth, amber, ql.w_scale, n, m)
+                    kw = dict(act_scale=ql.act_scale, bias=b, prune=prune,
+                              per_token=per_token)
+                    plan = kw8.gemm_plan(t, d, n_out, dtype, per_token, prune, m)
+                    before = kos.osparse_matmul.route_launches[plan.route]
+                    got = kos.osparse_matmul(x, *args, **kw)
+                    torch.cuda.synchronize()
+                    assert kos.osparse_matmul.route_launches[plan.route] == before + 1
+                    case = (dtype, per_token, prune, b is not None, plan)
+                    assert torch.equal(got, kos.osparse_matmul_plain(x, *args, **kw)), case
+                q, s = kos.osparse_quantize(x, ql.smooth, amber, n, m, ql.act_scale, prune,
+                                            per_token)
+                q0, s0 = kos.osparse_quantize_plain(x, ql.smooth, amber, n, m,
+                                                    ql.act_scale, prune, per_token)
+                assert torch.equal(q, q0) and torch.equal(s, s0), (dtype, per_token, prune)
 
 
-@pytest.mark.parametrize("t,d,n_out", [(256, 512, 384), (3, 4096, 512), (33, 80, 130)])
-def test_w8a8_matmul_bit_exact(gen, t, d, n_out):
+@pytest.mark.parametrize("n_out", _INT8_N)
+@pytest.mark.parametrize("t", _INT8_T)
+def test_osparse_matmul_bit_exact(gen, t, n_out):
+    _check_osparse(gen, _int8_linear(gen, 4096, n_out), t, 4096, n_out, 8, 16)
+
+
+@pytest.mark.parametrize("t,d,n_out,n,m,route", [
+    (70, 200, 200, 2, 4, "simple"),        # D not a multiple of 16: the dp4a route
+    (4, 200, 200, 2, 4, "simple"),
+    (37, 128, 72, 8, 16, "wgmma"),         # one k step, one ragged column block
+    (5, 4080, 512, 3, 6, "swap"),          # a group width the fused quantizer leaves
+    (4, 96, 72, 2, 4, "swap_fused"),       # D short of one 128-byte k step
+])
+def test_osparse_matmul_routes_bit_exact(gen, t, d, n_out, n, m, route):
+    assert kw8.gemm_plan(t, d, n_out, torch.bfloat16, False, True, m).route == route
+    _check_osparse(gen, _int8_linear(gen, d, n_out), t, d, n_out, n, m)
+
+
+@pytest.mark.parametrize("n_out", _INT8_N)
+@pytest.mark.parametrize("t", _INT8_T)
+def test_w8a8_matmul_bit_exact(gen, t, n_out):
+    d = 4096
     xq = torch.randint(-127, 128, (t, d), generator=gen, device="cuda").to(torch.int8)
-    wq = torch.randint(-127, 128, (d, n_out), generator=gen, device="cuda").to(torch.int8)
+    wq = torch.randint(-127, 128, (n_out, d), generator=gen, device="cuda").to(torch.int8).t()
+    ws = torch.rand(n_out, generator=gen, device="cuda") * 0.01
+    xs = torch.tensor(0.013, device="cuda")
+    plan = kw8.gemm_plan(t, d, n_out, torch.int8)
+    assert plan.route == ("swap" if t <= 16 else "wgmma")
+    got = kw8.w8a8_matmul(xq, wq, xs, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kw8.w8a8_matmul_plain(xq, wq, xs, ws))
+
+
+@pytest.mark.parametrize("t,d,n_out", [(33, 80, 130), (33, 200, 130), (3, 14336, 512),
+                                       (3, 80, 130)])
+def test_w8a8_matmul_routes_bit_exact(gen, t, d, n_out):
+    xq = torch.randint(-127, 128, (t, d), generator=gen, device="cuda").to(torch.int8)
+    wq = torch.randint(-127, 128, (n_out, d), generator=gen, device="cuda").to(torch.int8).t()
     ws = torch.rand(n_out, generator=gen, device="cuda") * 0.01
     xs = torch.tensor(0.013, device="cuda")
     got = kw8.w8a8_matmul(xq, wq, xs, ws)
     torch.cuda.synchronize()
     assert torch.equal(got, kw8.w8a8_matmul_plain(xq, wq, xs, ws))
+
+
+def test_int8_gemms_raise_on_n_major_wq(gen):
+    """wq stored N-major (the JAX package's layout) is refused on the card:
+    the wrappers never transpose the weights at each call."""
+    xq = torch.zeros((4, 256), dtype=torch.int8, device="cuda")
+    wq = torch.zeros((256, 512), dtype=torch.int8, device="cuda")
+    ws = torch.ones(512, device="cuda")
+    with pytest.raises(ValueError, match="K-major"):
+        kw8.w8a8_matmul(xq, wq, torch.tensor(1.0, device="cuda"), ws)
+    ql = _int8_linear(gen, 256, 512)
+    with pytest.raises(ValueError, match="K-major"):
+        kos.osparse_matmul(torch.randn(4, 256, device="cuda"), ql.wq.contiguous(), ql.smooth,
+                           None, ql.w_scale, 8, 16, act_scale=ql.act_scale)
+    assert quant.k_major(ql.wq) is ql.wq
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -177,13 +177,19 @@ def _per_token_codes(c, n, m, prune, xla_rule):
 @pytest.mark.parametrize("amber", [False, True], ids=["noamber", "amber"])
 @pytest.mark.parametrize("prune", [False, True], ids=["dense", "prune"])
 @pytest.mark.parametrize("per_token", [False, True], ids=["tensor", "token"])
-@pytest.mark.parametrize("t,d,n_out,n,m", [
-    (37, 64, 48, 8, 16), (16, 128, 40, 4, 8), (5, 32, 24, 2, 4)])
-def test_osparse_matmul_matches_pallas_and_ref(t, d, n_out, n, m, per_token, prune,
+@pytest.mark.parametrize("t,d,n_out,n,m,layout", [
+    (37, 64, 48, 8, 16, "n_major"), (16, 128, 40, 4, 8, "n_major"),
+    (5, 32, 24, 2, 4, "n_major"), (5, 32, 24, 2, 4, "k_major")],
+    ids=["37-64-48-8-16", "16-128-40-4-8", "5-32-24-2-4", "5-32-24-2-4-k_major"])
+def test_osparse_matmul_matches_pallas_and_ref(t, d, n_out, n, m, layout, per_token, prune,
                                                amber, bias):
     """Bit-identical to the Pallas kernel (interpret mode) and to the jnp
-    oracle, T ragged against the 8-row tile at T = 37 and 5."""
+    oracle, T ragged against the 8-row tile at T = 37 and 5; ``wq`` as the
+    JAX package stores it, and as the port does (its K-major view)."""
     c = _osparse_inputs(t, d, n_out, amber, bias)
+    if layout == "k_major":
+        c["wq"] = np.asarray(tq.k_major(_t(c["wq"])))
+        assert c["wq"].strides == (1, d)
     act = None if per_token else c["act_scale"]
     got = kos.osparse_matmul(_t(c["x"]), _t(c["wq"]), _t(c["smooth"]), _t(c["amber"]),
                              _t(c["w_scale"]), n, m, act_scale=_t(act), bias=_t(c["bias"]),
@@ -242,20 +248,27 @@ def test_osparse_ops_flattens_and_checks():
         tops.osparse_matmul(_t(x3), *args[:4], 2, 3, act_scale=_t(c["act_scale"]))
 
 
-@pytest.mark.parametrize("t,d,n_out", [(37, 80, 130), (4, 64, 16)])
-def test_w8a8_matmul_matches_pallas_and_ref(t, d, n_out):
+@pytest.mark.parametrize("t,d,n_out,layout", [
+    (37, 80, 130, "n_major"), (4, 64, 16, "n_major"), (37, 80, 130, "k_major"),
+    (4, 64, 16, "k_major")],
+    ids=["37-80-130", "4-64-16", "37-80-130-k_major", "4-64-16-k_major"])
+def test_w8a8_matmul_matches_pallas_and_ref(t, d, n_out, layout):
+    """Bit-identical to the Pallas kernel and the jnp oracle, with ``wq`` as
+    the JAX package stores it and as the port does (the K-major view)."""
     rng = np.random.default_rng(t)
     xq = rng.integers(-127, 128, (t, d)).astype(np.int8)
     wq = rng.integers(-127, 128, (d, n_out)).astype(np.int8)
     ws = (np.abs(_np(12, n_out)) * 0.01).astype(np.float32)
     xs = np.float32(0.013)
-    got = tops.w8a8_matmul(_t(xq), _t(wq), _t(xs), _t(ws))
+    twq = _t(wq) if layout == "n_major" else tq.k_major(_t(wq))
+    assert twq.t().is_contiguous() == (layout == "k_major")
+    got = tops.w8a8_matmul(_t(xq), twq, _t(xs), _t(ws))
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(jops.w8a8_matmul(_j(xq), _j(wq), _j(xs), _j(ws),
                                                  interpret=True)))
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(jref.w8a8_matmul_ref(_j(xq), _j(wq), _j(xs), _j(ws))))
-    lead = tops.w8a8_matmul(_t(xq[None]), _t(wq), _t(xs), _t(ws))
+    lead = tops.w8a8_matmul(_t(xq[None]), twq, _t(xs), _t(ws))
     np.testing.assert_array_equal(lead[0].numpy(), got.numpy())
     assert kw8.w8a8_matmul.launches == 0
 
@@ -282,16 +295,92 @@ def test_nm_prune_matches_pallas_and_ref(t, d, n, m, scale, dtype):
     assert knp.nm_prune.launches == 0
 
 
-def test_gemm_splits_fill_the_card():
-    """Split-k only where the output tiles cannot fill 132 SMs, with at
-    least four 64-deep k tiles per split."""
-    assert kw8.gemm_splits(256, 4096, 14336, 132) == 1          # 448 tiles
-    assert kw8.gemm_splits(256, 4096, 4096, 132) == 3           # 128 tiles
-    assert kw8.gemm_splits(4, 4096, 1024, 132) == 16            # 8 tiles, 64 k tiles
-    assert kw8.gemm_splits(4, 64, 16, 132) == 1                 # one k tile
-    for t, d, n_out in ((4, 4096, 14336), (256, 4096, 1024), (1, 14336, 4096)):
-        s = kw8.gemm_splits(t, d, n_out, 132)
-        assert 1 <= s <= max(1, -(-d // 64) // 4)
+# gemm_plan: (case, T, D, N, x dtype, per_token, prune, m, aligned) → (route,
+# block, splits, cluster).  LLaMA-3.1-8B's q/k/gate (D = 4096; N 4096, 1024,
+# 14336) at decode (T = 4) and at the prefill chunk (T = 256), ragged T on
+# either side of the swap route's 16 tokens, D or pointers TMA cannot take,
+# per-token scales, float32 x, int8 xq (w8a8_matmul) and a group width the
+# fused quantizer does not take.
+_BF16, _F32, _I8 = torch.bfloat16, torch.float32, torch.int8
+_PLANS = [
+    ("q_decode", 4, 4096, 4096, _BF16, False, False, 16, True, ("swap_fused", (64, 8), 2, 8)),
+    ("k_decode", 4, 4096, 1024, _BF16, False, False, 16, True, ("swap_fused", (64, 8), 8, 8)),
+    ("gate_decode", 4, 4096, 14336, _BF16, False, False, 16, True,
+     ("swap_fused", (64, 8), 1, 8)),
+    ("q_prefill", 256, 4096, 4096, _BF16, False, True, 16, True, ("wgmma", (256, 128), 2, 2)),
+    ("k_prefill", 256, 4096, 1024, _BF16, False, False, 16, True, ("wgmma", (256, 128), 8, 8)),
+    ("gate_prefill", 256, 4096, 14336, _BF16, False, True, 16, True,
+     ("wgmma", (256, 128), 1, 1)),
+    ("ragged_t1", 1, 4096, 4096, _BF16, False, True, 16, True, ("swap_fused", (64, 8), 2, 8)),
+    ("ragged_t16", 16, 4096, 4096, _BF16, False, False, 16, True,
+     ("swap_fused", (64, 16), 2, 8)),
+    ("ragged_t17", 17, 4096, 4096, _BF16, False, False, 16, True, ("wgmma", (256, 128), 2, 2)),
+    ("ragged_t300", 300, 4096, 1024, _BF16, False, True, 16, True,
+     ("wgmma", (256, 128), 4, 4)),
+    ("ragged_t37_gate", 37, 4096, 14336, _BF16, False, True, 16, True,
+     ("wgmma", (256, 128), 1, 1)),
+    ("unaligned_d", 70, 200, 200, _BF16, False, True, 4, True, ("simple", (32, 64), 1, 1)),
+    ("unaligned_d_decode", 4, 200, 200, _BF16, False, False, 4, True,
+     ("simple", (32, 64), 1, 1)),
+    ("unaligned_ptr", 4, 4096, 4096, _BF16, False, False, 16, False,
+     ("simple", (32, 64), 1, 1)),
+    ("per_token_decode", 4, 4096, 4096, _BF16, True, False, 16, True,
+     ("swap", (64, 8), 2, 8)),
+    ("per_token_prefill", 256, 4096, 14336, _BF16, True, True, 16, True,
+     ("wgmma", (256, 128), 1, 1)),
+    ("f32_decode", 4, 4096, 1024, _F32, False, False, 16, True, ("swap_fused", (64, 8), 8, 8)),
+    ("f32_prefill", 137, 4096, 14336, _F32, False, True, 16, True,
+     ("wgmma", (256, 128), 1, 1)),
+    ("int8_decode", 4, 4096, 1024, _I8, False, False, 16, True, ("swap", (64, 8), 8, 8)),
+    ("int8_prefill", 256, 4096, 14336, _I8, False, False, 16, True,
+     ("wgmma", (256, 128), 1, 1)),
+    ("int8_deep_decode", 16, 14336, 4096, _I8, False, False, 16, True,
+     ("swap", (64, 16), 4, 8)),
+    ("width_32_decode", 4, 4096, 4096, _BF16, False, True, 32, True, ("swap", (64, 8), 2, 8)),
+    ("width_6_decode", 4, 4080, 4096, _BF16, False, True, 6, True, ("swap", (64, 8), 2, 8)),
+]
+
+
+@pytest.mark.parametrize("case,t,d,n_out,dtype,per_token,prune,m,aligned,want", _PLANS,
+                         ids=[c[0] for c in _PLANS])
+def test_gemm_plan_routes(case, t, d, n_out, dtype, per_token, prune, m, aligned, want):
+    """Each case's route, block, k split and cluster size on an H100's 132
+    SMs: decode projections in one fused launch, prefill on wgmma, k split
+    over a cluster only where the blocks leave the card idle.  An unaligned
+    float x leaves the fused route for the quantize pass."""
+    plan = kw8.gemm_plan(t, d, n_out, dtype, per_token, prune, m, aligned, sms=132)
+    assert tuple(plan) == want
+    assert kw8.route_code(plan) in range(4)
+    loose = kw8.gemm_plan(t, d, n_out, dtype, per_token, prune, m, aligned, x_aligned=False,
+                          sms=132)
+    assert loose.route == ("swap" if plan.route == "swap_fused" else plan.route)
+
+
+@pytest.mark.parametrize("t", [1, 4, 8, 9, 16, 17, 100, 256, 300, 2048])
+def test_gemm_plan_fits_the_card(t):
+    """Over every projection width of LLaMA-3.1-8B (and a deep D), the plan's
+    split is a power of two of at most 8 blocks (one portable cluster) with
+    at least two 128-deep k steps each, a split keeps the blocks within half
+    the SMs on the wgmma route and within the SMs on the swap route, and a
+    swap block's token tile fits 64 KB of shared memory."""
+    for d, n_out in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (64, 16)):
+        plan = kw8.gemm_plan(t, d, n_out, torch.bfloat16, sms=132)
+        k_steps = -(-d // 128)
+        s = plan.splits
+        assert s & (s - 1) == 0 and 1 <= s <= 8 and plan.cluster % s == 0
+        assert plan.cluster == s if plan.route == "wgmma" else plan.cluster <= 8
+        assert s == 1 or k_steps >= 2 * s
+        if plan.route == "wgmma":
+            assert t > 16 and plan.block == (256, 128)
+            blocks = -(-t // 256) * -(-n_out // 128)
+            assert s == 1 or blocks * s <= 66
+        else:
+            assert plan.route == "swap_fused" and t <= 16
+            assert plan.block == (64, 8 if t <= 8 else 16)
+            tile = lambda splits: plan.block[1] * -(-k_steps // splits) * 128
+            assert tile(s) <= 64 << 10
+            # within the SMs, unless half the split's token tile would not fit
+            assert s == 1 or -(-n_out // 64) * s <= 132 or tile(s // 2) > 64 << 10
 
 
 # ----------------------------------------------------------- sparse_linear
@@ -431,6 +520,50 @@ def test_from_jax_params_carries_quantized_dicts(qsmoke):
             assert (lin.amber_scale is not None) == (name in ("q_proj", "gate_proj"))
         assert not isinstance(blk.mlp.down_proj, QuantLinear)
         assert blk.mlp.down_proj.amber_scale is not None
+
+
+def _assert_k_major(wq, d_in, d_out):
+    """One contiguous (d_out, d_in) int8 buffer behind the (d_in, d_out) view,
+    and no second copy of it."""
+    assert wq.shape == (d_in, d_out) and wq.dtype == torch.int8
+    assert wq.stride() == (1, d_in) and wq.t().is_contiguous()
+    assert wq.untyped_storage().nbytes() == d_in * d_out
+    assert tq.k_major(wq) is wq
+
+
+def test_quantized_weights_are_stored_k_major(qsmoke):
+    """``from_jax_params`` and ``quantize_linears`` store every ``wq`` K-major
+    (the int8 kernels' layout); the values are the JAX package's bit for bit
+    through ``from_jax_params``, and the rewrite's own codes through
+    ``quantize_linears``."""
+    _, tcfg, _, _, pn, float_np = qsmoke
+    src = pn["periods"]["b0"]
+    carried = from_jax_params(tcfg, pn, device="cpu")
+    rewritten = from_jax_params(tcfg, float_np, device="cpu")
+    absmax = {(i, name): _absmax(100 * i + len(name), tcfg.d_model if name != "o_proj"
+                                 else tcfg.q_dim)
+              for i in range(tcfg.n_layers) for name in QUANT}
+    floats = {(i, name): getattr(blk.mlp if name in ("gate_proj", "up_proj") else blk,
+                                 name).w.clone()
+              for i, blk in enumerate(rewritten.blocks) for name in QUANT}
+    quantize_linears(rewritten, absmax, tq.QuantConfig())
+    for i, (cb, rb) in enumerate(zip(carried.blocks, rewritten.blocks)):
+        for name in QUANT:
+            mlp = name in ("gate_proj", "up_proj")
+            want = (src["mlp"] if mlp else src)[name]["wq"][i]
+            lin = getattr(cb.mlp if mlp else cb, name)
+            _assert_k_major(lin.wq, *want.shape)
+            np.testing.assert_array_equal(lin.wq.numpy(), want)
+            lin = getattr(rb.mlp if mlp else rb, name)
+            _assert_k_major(lin.wq, *want.shape)
+            w = floats[(i, name)].float() * lin.smooth[:, None]
+            codes, _ = tq.quantize_weight_per_channel(w)
+            assert codes.is_contiguous()              # the rewrite's own (d_in, d_out) codes
+            assert torch.equal(lin.wq, codes)
+    ql = tq.QuantizedLinear(wq=torch.ones(6, 4, dtype=torch.int8), w_scale=torch.ones(4),
+                            smooth=torch.ones(6), act_scale=torch.tensor(1.0))
+    _assert_k_major(ql.wq, 6, 4)
+    assert QuantLinear(ql).wq is ql.wq
 
 
 def test_quantize_linears_matches_the_reference_rewrite(qsmoke):

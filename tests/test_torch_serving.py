@@ -30,10 +30,12 @@ from repro.models import build_model as jbuild
 from repro.serve.api import Engine as JEngine
 from repro.serve.api import EngineConfig as JEngineConfig
 from repro.serve.continuous import ContinuousConfig as JConfig
+from repro.serve.continuous import ContinuousServingEngine as JContinuous
 from repro_torch.configs import get_smoke_config as tget
 from repro_torch.core import policy as tpolicy
 from repro_torch.models import build_model
-from repro_torch.serve import ContinuousConfig, Engine, EngineConfig
+from repro_torch.serve import (ContinuousConfig, ContinuousServingEngine, Engine,
+                               EngineConfig)
 from repro_torch.weights import from_jax_params
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -103,6 +105,46 @@ def test_engine_greedy_tokens_match_reference(served, name, use_kernels):
     assert eng.replica.pool.in_use == 0
     assert res["metrics"]["dispatches_per_iteration"] == 1.0
     assert set(res["metrics"]["buckets"]) == set(jres["metrics"]["trace_counts"])
+
+
+def _extend_into_emitted(eng, params, p0):
+    """The first request, then a second whose prompt is the first's prompt
+    and emitted tokens: (first's tokens, second's tokens, second's cached
+    tokens)."""
+    eng.submit(p0, max_new_tokens=8, arrival=0)
+    first = eng.run(params)["outputs"][0]
+    eng.clear()                                   # rids restart at 0
+    eng.submit(np.concatenate([p0, np.asarray(first, np.int32)]), max_new_tokens=6,
+               arrival=0)
+    res = eng.run(params)
+    return list(first), res["outputs"][0], res["metrics"]["requests"][0]["cached_tokens"]
+
+
+def test_prefix_cache_does_not_share_across_the_emitted_boundary():
+    """A prompt that extends into another request's emitted tokens, under
+    ``paper_policy(2, 4)`` (block size 4, chunk 8): its 16 prompt tokens (4
+    blocks) hit the prefix cache, and the emitted region's blocks, whose KV
+    was written by dense decode, miss under the dense-row salt of
+    ``serve/paged.py:chain_block_hashes``.  Both engines run on
+    ``precompute_scales`` params; the port's tokens and cached count are the
+    JAX engine's."""
+    cfg = dataclasses.replace(get_smoke_config("llama31_8b"), dtype="float32")
+    jm = jbuild(cfg)
+    jpol = jpolicy.paper_policy(2, 4, cfg.qgate_skip_layers)
+    sparams = jprecompute(jm.init(jax.random.PRNGKey(0)), jpol)
+    p0 = np.random.default_rng(120).integers(0, cfg.vocab_size, size=16).astype(np.int32)
+    conf = dict(max_seq=MAX_SEQ, num_slots=2, chunk_size=8, block_size=4, validate_pool=True)
+    want = _extend_into_emitted(JContinuous(jm, jpol, JConfig(**conf)), sparams, p0)
+    assert want[2] == 16
+    tcfg = dataclasses.replace(tget("llama31_8b"), dtype="float32")
+    tpol = tpolicy.paper_policy(2, 4, tcfg.qgate_skip_layers)
+    for uk in (False, True):
+        eng = ContinuousServingEngine(build_model(tcfg, device="cpu"), tpol.with_(use_kernels=uk),
+                                      ContinuousConfig(**conf))
+        params = from_jax_params(tcfg, jax.tree_util.tree_map(np.asarray, sparams), device="cpu")
+        got = _extend_into_emitted(eng, params, p0)
+        assert got == want, uk
+        assert eng.pool.in_use == 0
 
 
 def test_engine_generate_and_dp_tp_guard():
