@@ -23,7 +23,11 @@ Phases (any failed check exits non-zero; no phase is skipped):
              times the quantize pass alone beside the whole call; a timed
              main-path case must have taken its wgmma route; at T = 4 the
              library yardstick runs on xq zero-padded to 32 rows, as
-             ``torch._int_mm`` takes no fewer than 17).  2c: ``paged_attention`` on
+             ``torch._int_mm`` takes no fewer than 17).  2b: ``paged_kv_scatter``
+             bit-exact, timed alone (a 200-row chunk, a decode step) and as the
+             graphs run it: a captured graph of 32 (producer, scatter) pairs
+             less a graph of the producers alone, over 32; the replay must be
+             bit-exact too.  2c: ``paged_attention`` on
              NaN-poisoned pools: a prefill chunk, decode at LLaMA-3.1-8B's
              heads (G = 4) and at Qwen2-7B's (28 / 4, G = 7), float32; each
              case's route and time, and the chunk's cost per call and per
@@ -37,11 +41,16 @@ Phases (any failed check exits non-zero; no phase is skipped):
 3. serve   — ``Engine.from_config`` at full LLaMA-3.1-8B width (32 layers,
              random weights from a seed, bfloat16) under the paper's
              policy with the kernels on: 8 staggered requests, 32 new tokens
-             each; each kernel of the path must have launched,
-             ``nm_prune_matmul`` exactly 86 times per sparse prefill chunk.
-             Then one prefill chunk and one decode step under
-             ``torch.profiler``: device time by kernel family and the
-             device's idle share of the step.
+             each, every step a replay of its bucket's CUDA graph after the
+             bucket's first (eager, then captured) step; every bucket used
+             must read 1 in ``trace_counts``; each kernel of the path must
+             have launched (replays counted), ``nm_prune_matmul`` exactly 86
+             times per sparse prefill chunk.  Then one prefill chunk and one
+             decode step under ``torch.profiler``, eagerly through the model
+             and as a replay of the executor's graph: wall time, device busy
+             time, kernel time by family and the device's idle share.  Then
+             the same requests with every step run through its step program
+             eagerly: the tokens must be identical.
 3b. serve, Outstanding-sparse — the same weights rewritten to W8A8 on
              q/k/v/o/gate/up of every layer (``QuantConfig()``: alpha 0.10,
              ŝ = 1/s, static per-tensor activation scale, down_proj left
@@ -50,10 +59,10 @@ Phases (any failed check exits non-zero; no phase is skipped):
              half (54 per sparse chunk pruned), every launch on a wgmma
              route (``wgmma`` in prefill, the one-launch ``swap_fused`` in
              decode), ``nm_prune_matmul`` 32 times per sparse chunk; the same
-             profile, with each step's wrapper calls by route and kernel
-             count by family.
+             graphs, profiles and token check.
 4. parity  — full width, depth 2, float32: the same requests through the
-             kernel path and the plain path must emit the same greedy
+             kernel path and the plain path (both served through the
+             executor's graphs) must emit the same greedy
              tokens, and the last-chunk logits must agree; then in bf16
              (``nm_prune_matmul``'s wgmma GEMM), the logits held within
              twice bf16 rounding's own effect on the plain path; 4b does the
@@ -62,11 +71,14 @@ Phases (any failed check exits non-zero; no phase is skipped):
              q/k/v biases, ``attn_impl="flash"``, random weights from a
              seed, bfloat16) under the paper's policy in tile-consensus
              mode with the kernels on: 4 prompts of 512 tokens, 32 new
-             tokens each; per prefill exactly 74 ``nm_spmm`` and 28
-             ``flash_attention`` launches, 28 ``paged_kv_scatter`` per
-             prefill and per decode step, 28 ``paged_attention`` per decode
-             step, no ``nm_prune_matmul``; then the prefill and one decode
-             step under ``torch.profiler``.  5b: full width, depth 2,
+             tokens each, the prefill and the decode step CUDA graphs
+             (``trace_counts`` 1 each); per prefill exactly 74 ``nm_spmm``
+             and 28 ``flash_attention`` launches, 28 ``paged_kv_scatter``
+             per prefill and per decode step, 28 ``paged_attention`` per
+             decode step, no ``nm_prune_matmul`` (replays counted); tokens
+             identical to the same generate run without graphs; then the
+             prefill and one decode step under ``torch.profiler``, eager and
+             replayed.  5b: full width, depth 2,
              float32: kernel path against plain path, identical greedy
              tokens and close last-token logits; then in bf16
              (``flash_attention``'s wgmma kernel), as phase 4's bf16 case.
@@ -318,8 +330,16 @@ def phase_kernels(torch, timer, rates):
     bound = nbytes / bw * 1e3
     print(f"  prefill chunk: kernel {ms:.4f} ms, bound {bound:.4f} ms (bytes), plain "
           f"{plain_ms:.4f} ms, index_put_ K+V {lib_ms:.4f} ms")
-    records["paged_kv_scatter"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                       bound_ms=bound, bound_by="bytes", max_abs_err=0.0)
+    dec_ms = timer.ms(lambda: kpa.paged_kv_scatter(kd, vd, kp, vp, tab4, posd, ones))
+    dec_bound = (2 * 2 * hkv * hd * 2 * 2 + 2 * 4 * 4 + 4 * 4) / bw * 1e3
+    print(f"  decode B=4 (2 kept rows): kernel {dec_ms:.4f} ms, bound {dec_bound:.5f} ms")
+    records["paged_kv_scatter"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by="bytes",
+        max_abs_err=0.0, decode_ms=dec_ms, decode_bound_ms=dec_bound,
+        in_graph_ms=scatter_in_graph(torch, timer, "prefill chunk", kn, vn, kp, vp, tab1,
+                                     pos1, cl1),
+        decode_in_graph_ms=scatter_in_graph(torch, timer, "decode B=4", kd, vd, kp, vp,
+                                            tab4, posd, ones))
 
     # ----------------------------------------------------- attention
     print("phase 2c: paged_attention")
@@ -442,6 +462,42 @@ def phase_kernels(torch, timer, rates):
           f"{icept * 1e3:.2f} us a call + {slope * 1e3:.2f} us a 64-key tile")
     records["paged_attention"]["max_abs_err"] = max(errs)
     return records
+
+
+def scatter_in_graph(torch, timer, case, kn, vn, kp, vp, tab, pos, clen, pairs=32):
+    """``paged_kv_scatter`` as the main path's graphs run it: a captured
+    graph of ``pairs`` (producer, scatter) pairs, the producer a copy that
+    writes ``k_new`` just before each scatter (as the model's RoPE does),
+    against a graph of the producers alone; the scatter's share per launch
+    is the difference over ``pairs``.  The replayed pools must equal the
+    plain version's, bit for bit (the programmatic edge of the capture)."""
+    from repro_torch.kernels import _capture
+    from repro_torch.kernels import paged_attention as kpa
+
+    src = kn.clone()
+    k_a, v_a, k_b, v_b = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+
+    def body(with_scatter, kpool, vpool):
+        for _ in range(pairs):
+            kn.copy_(src)
+            if with_scatter:
+                kpa.paged_kv_scatter(kn, vn, kpool, vpool, tab, pos, clen)
+
+    both = _capture.Graph(kp.device, None)
+    both.capture(lambda: body(True, k_a, v_a))
+    producers = _capture.Graph(kp.device, None)
+    producers.capture(lambda: body(False, k_a, v_a))
+    src.copy_(torch.randn(src.shape, device="cuda").to(src.dtype))
+    both.replay()
+    kpa.paged_kv_scatter_plain(src, vn, k_b, v_b, tab, pos, clen)
+    torch.cuda.synchronize()
+    if not (torch.equal(k_a, k_b) and torch.equal(v_a, v_b)):
+        fail(f"paged_kv_scatter {case}: the graph's replay and the plain version differ")
+    t_both, t_prod = timer.ms(both.replay), timer.ms(producers.replay)
+    share = (t_both - t_prod) / pairs
+    print(f"  {case} in a graph: {pairs} (producer, scatter) pairs {t_both:.4f} ms, the "
+          f"producers alone {t_prod:.4f} ms: {share:.5f} ms a scatter (replay bit-exact)")
+    return share
 
 
 def calib_absmax(rng, d: int) -> np.ndarray:
@@ -827,11 +883,14 @@ def make_requests(rng, n, lo, hi, vocab):
     return [rng.integers(0, vocab, size=int(l)).astype(np.int32) for l in lens]
 
 
-def serve_requests(torch, model, params, policy, label):
+def serve_requests(torch, model, params, policy, label, eager=False):
     """8 staggered requests (64-700 prompt tokens, 32 new tokens each) through
     ``Engine.from_config`` after one warm-up request, with the launch counts
     set to 0 just before and read just after.  Every request must end
-    ``done`` with its tokens.  Returns (launches, per-path step counts)."""
+    ``done`` with its tokens, and every step bucket used must have been
+    captured once (``trace_counts``).  ``eager``: every step runs its bucket's
+    step program directly (``step_program``), with no graph, for the token
+    comparison.  Returns (launches, per-path step counts, engine, outputs)."""
     from repro_torch import kernels
     from repro_torch.kernels import osparse_matmul as kos
     from repro_torch.serve import ContinuousConfig, Engine, EngineConfig
@@ -845,8 +904,13 @@ def serve_requests(torch, model, params, policy, label):
     max_seq = -(-(max(len(p) for p in prompts) + new) // bsz) * bsz
     scfg = ContinuousConfig(num_slots=4, chunk_size=256, block_size=bsz, max_seq=max_seq)
     eng = Engine.from_config(model, EngineConfig(serving=scfg), policy=policy)
-    # warm-up request (library handles, allocator), then the measured stream
+    if eager:       # the executor's step programs, each step run as it is
+        eng.replica.exec._graphs.run = lambda name, fn, params: fn()
+    # warm-up (library handles, allocator, and the graphs of the three buckets
+    # the stream uses: a 40-token request decodes while a 300-token one is
+    # prefilled), then the measured stream
     eng.submit(rng.integers(0, cfg.vocab_size, size=40), max_new_tokens=4)
+    eng.submit(rng.integers(0, cfg.vocab_size, size=300), max_new_tokens=2, arrival=1)
     eng.run(params)
     eng.clear()
     torch.cuda.synchronize()
@@ -867,6 +931,16 @@ def serve_requests(torch, model, params, policy, label):
         if not all(0 <= t < cfg.vocab_size for t in out):
             fail(f"{label}: request {rid}: token outside the vocabulary")
     bk = met["buckets"]
+    outputs = [res["outputs"][rid] for rid in rids]
+    if eager:
+        print(f"  {label}, eager step programs: the same requests, tokens[0][:8] "
+              f"{outputs[0][:8]}, wall {met['wall_s']:.3f} s")
+        return launches, None, eng, outputs
+    traces = eng.replica.trace_counts
+    print(f"  trace_counts {traces} (graph captures per step bucket)")
+    if set(bk) - set(traces) or any(n != 1 for n in traces.values()):
+        fail(f"{label}: trace_counts {traces}: every bucket used ({sorted(bk)}) must be "
+             "captured exactly once")
 
     def agg(names, key):
         return sum(bk[n][key] for n in names if n in bk)
@@ -879,7 +953,7 @@ def serve_requests(torch, model, params, policy, label):
                           "calls"))
     print(f"  prompts {[len(p) for p in prompts]}, arrivals {arrivals}, {new} new tokens each")
     print(f"  buckets {json.dumps(bk)}")
-    print(f"  launches {launches}; {steps}")
+    print(f"  launches (replays counted) {launches}; {steps}")
     pf_tok = agg(("step_prefill", "step_prefill_decode"), "prefill_tokens")
     pf_s = agg(("step_prefill", "step_prefill_decode"), "seconds")
     dec_tok = agg(("step_decode",), "decode_tokens")
@@ -890,8 +964,25 @@ def serve_requests(torch, model, params, policy, label):
     print(f"  prefill {pf_tok} tokens in {pf_s:.3f} s of prefill steps = "
           f"{pf_tok / pf_s:.1f} tok/s; decode-only steps {dec_tok} tokens in {dec_s:.3f} s "
           f"= {dec_tok / dec_s:.1f} tok/s")
-    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches, steps
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"allocated (weights, cache, live activations), "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved (with the graph "
+          f"pool's free blocks); held after the run {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB")
+    return launches, steps, eng, outputs
+
+
+def check_graphed_tokens(torch, model, params, policy, label, outputs):
+    """The graphed run's tokens against the same requests run through the
+    executor's step programs eagerly: identical."""
+    _, _, eng, eager = serve_requests(torch, model, params, policy, label, eager=True)
+    del eng
+    if eager != outputs:
+        diff = [i for i, (a, b) in enumerate(zip(outputs, eager)) if a != b]
+        fail(f"{label}: graphed tokens differ from the eager step programs' in "
+             f"requests {diff}")
+    print(f"  {label}: graphed tokens identical to the eager step programs' "
+          f"({len(outputs)} requests x {len(outputs[0])})")
 
 
 def check_launches(label, launches, want):
@@ -928,12 +1019,14 @@ def phase_serve(torch):
                     for mod in ("q_proj", "gate_proj", "down_proj"))
     if per_chunk != 86:
         fail(f"paper policy prunes {per_chunk} projections per chunk, expected 86")
-    launches, st = serve_requests(torch, model, params, policy, "phase 3")
+    launches, st, eng, outputs = serve_requests(torch, model, params, policy, "phase 3")
     per_step = cfg.n_layers * (st["prefill_halves"] + st["decode_halves"])
     check_launches("phase 3", launches, {
         "nm_prune_matmul": per_chunk * st["sparse_chunks"],
         "paged_kv_scatter": per_step, "paged_attention": per_step})
-    profile_steps(torch, model, params, policy)
+    profile_steps(torch, model, params, policy, eng)
+    del eng
+    check_graphed_tokens(torch, model, params, policy, "phase 3", outputs)
     return launches, model, params, policy
 
 
@@ -963,7 +1056,7 @@ def phase_serve_osparse(torch, model, params, policy):
                  for mod in ("q_proj", "gate_proj"))
     if pruned != 54:
         fail(f"paper policy prunes {pruned} quantized projections per chunk, expected 54")
-    launches, st = serve_requests(torch, model, params, policy, "phase 3b")
+    launches, st, eng, outputs = serve_requests(torch, model, params, policy, "phase 3b")
     halves = st["prefill_halves"] + st["decode_halves"]
     per_step = cfg.n_layers * halves
     check_launches("phase 3b", launches, {
@@ -978,14 +1071,22 @@ def phase_serve_osparse(torch, model, params, policy):
     if not routes or not set(routes) <= {"wgmma", "swap_fused"}:
         fail(f"phase 3b: osparse_matmul launches by route {routes}, expected wgmma "
              "(prefill) and swap_fused (decode) only")
-    profile_steps(torch, model, params, policy)
+    profile_steps(torch, model, params, policy, eng)
+    del eng
+    check_graphed_tokens(torch, model, params, policy, "phase 3b", outputs)
     return launches
 
 
-def profile_steps(torch, model, params, policy):
+def profile_steps(torch, model, params, policy, eng):
     """One sparse 256-token prefill chunk (at offset 256) and one dense
-    4-slot decode step at full width, through :func:`profile_cases`."""
+    4-slot decode step at full width, through :func:`profile_cases`: each
+    eagerly through the model, and as the executor of ``eng`` runs it, a
+    replay of the bucket's graph (``Executor.step``: operands in, replay,
+    sampling, one host read) on its own cache, with the same positions."""
+    from types import SimpleNamespace
+
     from repro_torch.core.policy import DENSE
+    from repro_torch.serve.scheduler import DecodeWork, PrefillWork, StepPlan
 
     cfg = model.cfg
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -993,15 +1094,36 @@ def profile_steps(torch, model, params, policy):
     pcache["pos"] = torch.tensor(256, dtype=torch.int32, device="cuda")
     ptoks = torch.randint(0, cfg.vocab_size, (1, 256), generator=g, device="cuda")
     dcache = model.init_cache(4, 1024)
-    dcache["pos"] = torch.tensor([700, 500, 300, 100], dtype=torch.int32, device="cuda")
+    dpos = torch.tensor([700, 500, 300, 100], dtype=torch.int32, device="cuda")
+    dcache["pos"] = dpos.clone()
     dtoks = torch.randint(0, cfg.vocab_size, (4, 1), generator=g, device="cuda")
     dense = DENSE.with_(use_kernels=True)
+    ex = eng.replica.exec
+    slots, mb = ex.cache["block_table"].shape
+    ex.cache["block_table"].copy_(torch.arange(slots * mb, dtype=torch.int32,
+                                               device="cuda").reshape(slots, mb))
+    ppos = torch.tensor([256] + [0] * (slots - 1), dtype=torch.int32, device="cuda")
+    prefill_plan = StepPlan(prefill=PrefillWork(
+        SimpleNamespace(slot=0), ptoks.cpu().numpy().astype(np.int32), 256, False))
+    decode_plan = StepPlan(decode=DecodeWork(
+        [], dtoks[:, 0].cpu().numpy().astype(np.int32), np.ones(slots, dtype=bool)))
+
+    def replay(plan, pos):
+        ex.cache["pos"].copy_(pos)
+        ex.step(params, plan)
+
     profile_cases(torch, {
-        "prefill chunk (256 tokens, paper policy)":
+        "prefill chunk (256 tokens, paper policy), eager":
             lambda: model.prefill_chunk(params, {"tokens": ptoks}, pcache, policy=policy),
-        "decode step (4 slots, dense)":
+        "prefill chunk, step_prefill graph replay":
+            lambda: replay(prefill_plan, ppos),
+        "decode step (4 slots, dense), eager":
             lambda: model.decode_step(params, dtoks, dcache, policy=dense),
+        "decode step, step_decode graph replay":
+            lambda: replay(decode_plan, dpos),
     })
+    if any(n != 1 for n in ex.trace_counts.values()):
+        fail(f"profile: trace_counts {ex.trace_counts}: a bucket was captured again")
 
 
 # kernel families of the profiles: name → the full names of the port's CUDA
@@ -1053,7 +1175,13 @@ def profile_cases(torch, cases):
     warm-up) and traced once with ``torch.profiler``: device busy time (the
     union of the kernels' intervals), kernel time by family (summed
     durations, which count a kernel's wait on the one it depends on), kernel
-    count, and the device's idle share of the wall time."""
+    count, the device's idle share of the wall time, and the gaps between
+    kernels (the span from the first kernel's start to the last one's end,
+    less the busy time; the rest of the idle time lies outside that span,
+    on the host).  The launch counts
+    of a graph replay are its capture's.  Where the profiler records no
+    device kernel (as it might inside a replay), the step's device time from
+    CUDA events around it stands in for its busy time, an upper bound."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels
@@ -1077,8 +1205,10 @@ def profile_cases(torch, cases):
         routes = {r: c for r, c in kos.osparse_matmul.route_launches.items() if c}
         kern = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-        busy_ms = busy_time((e.time_range.start, e.time_range.end) for e in prof.events()
-                            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = busy_time(spans) / 1e3
+        span_ms = (max(e for _, e in spans) - min(s for s, _ in spans)) / 1e3 if spans else 0.0
         summed_ms = sum(e.self_device_time_total for e in kern) / 1e3
         by_family = {name: 0.0 for name, _ in FAMILIES + (LIBRARY_GEMM,)}
         by_family[OTHER] = 0.0
@@ -1087,13 +1217,23 @@ def profile_cases(torch, cases):
             by_family[kernel_family(e.key)] += e.self_device_time_total / 1e3
             family_kernels[kernel_family(e.key)] += e.count
         if not kern:
-            print(f"  {case}: wall {wall_ms:.3f} ms (median of 5); device time not "
-                  "measured (the profiler recorded no device kernels)")
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            fn()
+            ev[1].record()
+            ev[1].synchronize()
+            ev_ms = ev[0].elapsed_time(ev[1])
+            print(f"  {case}: wall {wall_ms:.3f} ms (median of 5); the profiler recorded no "
+                  f"device kernels: CUDA events around the step {ev_ms:.3f} ms (busy at most "
+                  f"that), device idle share at least {max(0.0, 1 - ev_ms / wall_ms):.3f}; "
+                  f"launches {calls}")
             continue
         print(f"  {case}: wall {wall_ms:.3f} ms (median of 5), device busy {busy_ms:.3f} ms "
               f"over {sum(e.count for e in kern)} kernels (their durations sum to "
-              f"{summed_ms:.3f} ms), device idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
-        print(f"    wrapper calls {calls}; osparse_matmul calls by route {routes}")
+              f"{summed_ms:.3f} ms), device idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}; "
+              f"first kernel start to last kernel end {span_ms:.3f} ms: "
+              f"{span_ms - busy_ms:.3f} ms of gaps between kernels")
+        print(f"    launches {calls}; osparse_matmul launches by route {routes}")
         for name, ms in by_family.items():
             print(f"    {name}: {ms:.3f} ms, {family_kernels[name]} kernels")
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
@@ -1286,29 +1426,19 @@ def qwen_oneshot(torch, n_layers=None, dtype=None):
 
 
 def timed_generate(torch, eng, params, prompts, new):
-    """``ServingEngine.generate``'s steps (greedy), driven one by one with
-    the clock read after the prefill's sample and after the last decode
-    step: (tokens, prefill seconds, decode seconds) of one run."""
-    model = eng.model
-    b = prompts.shape[0]
-    cache = model.init_cache(b, eng.cfg.max_seq)
+    """Wall seconds of ``eng.generate`` (greedy) with 1 new token (the
+    prefill replay and its sample) and with ``new`` tokens, each ended by a
+    synchronise: (tokens, prefill seconds, decode seconds = the difference)."""
+    batch = {"tokens": prompts}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": prompts}, cache, policy=eng.policy)
-    cur = eng._sample(logits, None)
+    eng.generate(params, batch, max_new_tokens=1)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    out = [cur]
-    done = torch.zeros((b,), dtype=torch.bool, device=prompts.device)
-    for _ in range(new - 1):
-        logits, cache = model.decode_step(params, cur[:, None], cache,
-                                          policy=eng.decode_policy)
-        nxt = torch.where(done, cur, eng._sample(logits, None))
-        done |= nxt == eng.cfg.eos_token
-        out.append(nxt)
-        cur = nxt
+    toks = eng.generate(params, batch, max_new_tokens=new)["tokens"]
     torch.cuda.synchronize()
-    return torch.stack(out, dim=1), t1 - t0, time.perf_counter() - t1
+    t2 = time.perf_counter()
+    return toks, t1 - t0, (t2 - t1) - (t1 - t0)
 
 
 def phase_serve_oneshot(torch):
@@ -1343,41 +1473,67 @@ def phase_serve_oneshot(torch):
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
+    peak_reserved = torch.cuda.max_memory_reserved() / 2**30
     if out.shape != (b, new) or not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
         fail(f"phase 5: tokens {tuple(out.shape)} outside ({b}, {new}) or the vocabulary")
     steps = new - 1
     want = {"nm_spmm": per_prefill, "flash_attention": cfg.n_layers,
             "paged_kv_scatter": cfg.n_layers * (1 + steps),
             "paged_attention": cfg.n_layers * steps}
-    print(f"  launches {launches}")
+    print(f"  launches (replays counted) {launches}")
     check_launches("phase 5", launches, want)
     if launches["nm_prune_matmul"] != 0:
         fail(f"phase 5: nm_prune_matmul launched {launches['nm_prune_matmul']} times")
-    # prefill and decode timed inside one run, three runs: the engine's
-    # steps driven one by one, synchronised only where a clock is read
+    # prefill and decode timed from generate's wall time, three runs
     runs = [timed_generate(torch, eng, params, prompts, new) for _ in range(3)]
     for toks, _, _ in runs:
         if not torch.equal(toks, out):
             fail("phase 5: a timed run's greedy tokens differ from generate's")
+    traces = eng.trace_counts
+    print(f"  trace_counts {traces} (graph captures: prefill per (B, T), decode per B)")
+    if set(traces) != {f"prefill_{b}x64", f"prefill_{b}x{t}", f"decode_{b}"} or any(
+            n != 1 for n in traces.values()):
+        fail(f"phase 5: trace_counts {traces}: each graph must be captured exactly once")
     pf = statistics.median(r[1] for r in runs)
     dec = statistics.median(r[2] for r in runs)
     print(f"  generate wall {wall:.3f} s; timed runs (prefill ms, decode s): "
           f"{[(round(r[1] * 1e3, 3), round(r[2], 4)) for r in runs]}; median prefill "
           f"{pf * 1e3:.3f} ms = {b * t / pf:.1f} prefill tok/s; median decode {b * steps} "
           f"tokens in {dec:.4f} s = {b * steps / dec:.1f} tok/s; peak device memory "
-          f"{peak:.2f} GiB")
+          f"{peak:.2f} GiB allocated (weights, the engine's cache, live activations), "
+          f"{peak_reserved:.2f} GiB reserved (with the graph pool's free blocks)")
     print(f"  tokens[0][:8] {out[0, :8].tolist()}")
+    # the same generate with every program run as it is, no graph
+    eager = ServingEngine(model, policy, ServeConfig(max_seq=t + new))
+    eager._graphs.run = lambda name, fn, params: fn()
+    eager_out = eager.generate(params, {"tokens": prompts}, max_new_tokens=new)["tokens"]
+    if not torch.equal(eager_out, out):
+        fail("phase 5: graphed tokens differ from the eager programs' tokens")
+    print("  graphed tokens identical to the eager programs' tokens")
+    del eager
     cache = model.init_cache(b, t + new)
     dcache = model.init_cache(b, t + new)
     _, dcache = model.prefill(params, {"tokens": prompts}, dcache, policy=policy)
     dtoks = out[:, :1].contiguous()
+    ecache = eng._state[b]["cache"]
+
+    def decode_replay():
+        ecache["pos"].fill_(t)
+        eng._graphs.run(f"decode_{b}", None, params)
+
     profile_cases(torch, {
-        "one-shot prefill (4 x 512 tokens, tile consensus, flash)":
+        "one-shot prefill (4 x 512 tokens, tile consensus, flash), eager":
             lambda: model.prefill(params, {"tokens": prompts}, cache, policy=policy),
-        "one-shot decode step (4 rows at 512, dense)":
+        "one-shot prefill, graph replay (generate with 1 new token)":
+            lambda: eng.generate(params, {"tokens": prompts}, max_new_tokens=1),
+        "one-shot decode step (4 rows at 512, dense), eager":
             lambda: model.decode_step(params, dtoks, dcache, policy=eng.decode_policy),
+        "one-shot decode step, graph replay":
+            decode_replay,
     })
-    del params, model, eng, cache, dcache
+    if any(n != 1 for n in eng.trace_counts.values()):
+        fail(f"phase 5: trace_counts {eng.trace_counts}: a graph was captured again")
+    del params, model, eng, cache, dcache, ecache
     torch.cuda.empty_cache()
     return launches
 

@@ -76,8 +76,11 @@ def tile_consensus_channels(scores: torch.Tensor, n: int, m: int) -> torch.Tenso
     d = scores.shape[-1]
     s = scores.reshape(-1, d).float().double()
     pooled = (s * s).sum(dim=0).float().sqrt()                      # (D,)
-    keep = nm_topk_mask(pooled, n, m)
-    return keep.nonzero()[:, 0].reshape(d // m, n)                  # ascending
+    keep = nm_group_view(nm_topk_mask(pooled, n, m), m)            # (G, m)
+    # the kept channels first, in ascending order (a stable sort: no count
+    # is read back to the host, so a CUDA graph can capture it)
+    first = torch.argsort((~keep).to(torch.int8), dim=-1, stable=True)[:, :n]
+    return first + torch.arange(0, d, m, device=scores.device)[:, None]
 
 
 def compact_columns(x: torch.Tensor, channels: torch.Tensor) -> torch.Tensor:

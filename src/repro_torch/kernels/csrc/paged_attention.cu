@@ -5,12 +5,31 @@
 // body _scatter_kernel).  It writes chunk rows [pos, pos + chunk_len) of
 // k_new/v_new (B, T, Hkv, hd) into the pools (rows, block_size, Hkv, hd)
 // through the block table, in place.  A row is dropped when t >= chunk_len,
-// when its logical block is past the table width, or when the table entry
-// is -1.  Bound on the H100: bytes only (one read and one write of every
-// kept row); one block per (b, t) row copies it with 16-byte accesses.  The
+// when its position is negative, when its logical block is past the table
+// width, or when the table entry is -1 or not below the pool's rows.  The
 // copy is bit-exact for any element type.  The TPU kernel parks its
-// invisible grid steps on a sentinel pool row; this kernel simply returns
-// for a dropped row, so it never touches that row.
+// invisible grid steps on a sentinel pool row; this kernel simply skips a
+// dropped row, so it never touches that row.
+// Bound on the H100: bytes (one read and one write of every kept row: 1 MB
+// for a 256-token LLaMA chunk, 0.3 us at 3.35 TB/s).  What a call really
+// costs is latency: its launch, and the chain of dependent loads (chunk_len
+// and pos, then the table entry) before the first copy.  The design:
+//  * one warp per (b, t) row, up to 8 rows to a 256-thread block, so a
+//    chunk is 32 blocks and the one-shot prefill's 2048 rows 256; a lane
+//    loads all of its 16-byte words of K and V (4 + 4 for a bf16 row of
+//    8 x 128) before it stores any, so every load of the row is in flight
+//    at once.  A row whose size or base addresses are not 16-byte multiples
+//    takes the byte route (the same warp per row, one byte a lane a step);
+//  * it is launched as a programmatic dependent (PDL) of the kernel before
+//    it on the stream, which produced k_new / v_new: the index chain runs
+//    before griddepcontrol.wait, overlapping that kernel's tail and this
+//    launch, and only the copy waits.  chunk_len, pos and the table must
+//    therefore have been written before that kernel started (by the host,
+//    or by an earlier kernel), which the model guarantees: it builds them
+//    once per step, before the first layer.  The launch is recorded as a
+//    programmatic edge when it is captured in a CUDA graph;
+//  * it triggers its dependents (griddepcontrol.launch_dependents) once its
+//    stores are issued.
 //
 // paged_attention replaces repro/kernels/paged_attention.py:
 // paged_attention_pallas (body _kernel, visibility _block_visible, softmax
@@ -78,42 +97,68 @@ using bf16 = __nv_bfloat16;
 
 // ------------------------------------------------------------------ scatter
 
-__global__ void paged_kv_scatter_kernel(
+constexpr int SCATTER_ROWS = 8;     // rows (warps) of a 256-thread block
+constexpr int SCATTER_WORDS = 8;    // 16-byte words of K (and of V) a lane holds at once
+
+// One warp per (b, t) row; VEC: 16-byte words (row_bytes % 16 == 0 and the
+// four base pointers 16-byte aligned), else bytes.
+template <bool VEC>
+__global__ void __launch_bounds__(SCATTER_ROWS * 32) paged_kv_scatter_kernel(
     const unsigned char* __restrict__ kn, const unsigned char* __restrict__ vn,
     unsigned char* __restrict__ kp, unsigned char* __restrict__ vp,
     const int* __restrict__ table, const int* __restrict__ pos,
-    const int* __restrict__ chunk_len, int T, int mb, int bs, int n_rows,
+    const int* __restrict__ chunk_len, int B, int T, int mb, int bs, int n_rows,
     long long row_bytes) {
-  const int t = blockIdx.x, b = blockIdx.y;
-  if (t >= chunk_len[b]) return;
-  const int wpos = pos[b] + t;
-  if (wpos < 0) return;
-  const int lb = wpos / bs;
-  if (lb >= mb) return;
-  const int pb = table[(size_t)b * mb + lb];
-  if (pb < 0 || pb >= n_rows) return;
-  const size_t src = ((size_t)b * T + t) * row_bytes;
-  const size_t dst = ((size_t)pb * bs + wpos % bs) * row_bytes;
-  const bool vec = (row_bytes % 16 == 0) &&
-                   (((reinterpret_cast<uintptr_t>(kn + src) |
-                      reinterpret_cast<uintptr_t>(vn + src) |
-                      reinterpret_cast<uintptr_t>(kp + dst) |
-                      reinterpret_cast<uintptr_t>(vp + dst)) & 15) == 0);
-  if (vec) {
-    const uint4* ks = reinterpret_cast<const uint4*>(kn + src);
-    const uint4* vs = reinterpret_cast<const uint4*>(vn + src);
-    uint4* kd = reinterpret_cast<uint4*>(kp + dst);
-    uint4* vd = reinterpret_cast<uint4*>(vp + dst);
-    for (long long i = threadIdx.x; i < row_bytes / 16; i += blockDim.x) {
-      kd[i] = ks[i];
-      vd[i] = vs[i];
-    }
-  } else {
-    for (long long i = threadIdx.x; i < row_bytes; i += blockDim.x) {
-      kp[dst + i] = kn[src + i];
-      vp[dst + i] = vn[src + i];
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * SCATTER_ROWS + (threadIdx.x >> 5);
+  // the index chain, before the wait: its operands predate the producer
+  long long dst = -1;
+  if (row < (long long)B * T) {
+    const int b = (int)(row / T), t = (int)(row - (long long)b * T);
+    const int len = chunk_len[b], p0 = pos[b];          // two independent loads
+    const int wpos = p0 + t;
+    const int lb = wpos >= 0 ? wpos / bs : mb;
+    if (t < len && wpos >= 0 && lb < mb) {
+      const int pb = table[(size_t)b * mb + lb];
+      if (pb >= 0 && pb < n_rows) dst = ((long long)pb * bs + wpos % bs) * row_bytes;
     }
   }
+  asm volatile("griddepcontrol.wait;" ::: "memory");     // k_new / v_new are ready
+  if (dst >= 0) {
+    const long long src = row * row_bytes;
+    if (VEC) {
+      const uint4* ks = reinterpret_cast<const uint4*>(kn + src);
+      const uint4* vs = reinterpret_cast<const uint4*>(vn + src);
+      uint4* kd = reinterpret_cast<uint4*>(kp + dst);
+      uint4* vd = reinterpret_cast<uint4*>(vp + dst);
+      const int words = (int)(row_bytes / 16);
+      for (int w0 = 0; w0 < words; w0 += 32 * SCATTER_WORDS) {
+        uint4 kr[SCATTER_WORDS], vr[SCATTER_WORDS];
+#pragma unroll
+        for (int j = 0; j < SCATTER_WORDS; ++j) {
+          const int w = w0 + j * 32 + lane;
+          if (w < words) {
+            kr[j] = ks[w];
+            vr[j] = vs[w];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < SCATTER_WORDS; ++j) {
+          const int w = w0 + j * 32 + lane;
+          if (w < words) {
+            kd[w] = kr[j];
+            vd[w] = vr[j];
+          }
+        }
+      }
+    } else {
+      for (long long i = lane; i < row_bytes; i += 32) {
+        kp[dst + i] = kn[src + i];
+        vp[dst + i] = vn[src + i];
+      }
+    }
+  }
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
 // ---------------------------------------------------------------- attention
@@ -794,16 +839,28 @@ int launch_wgmma(const void* q, const void* kp, const void* vp, const int* table
 // Plain C interface (loaded with ctypes).  All pointers are device
 // pointers; int arrays are int32.  Each launches on `stream`, does not
 // synchronise, and returns cudaGetLastError() (0 = launched).
+// `vec`: row_bytes % 16 == 0 and the four base pointers 16-byte aligned
+// (the wrapper checks); otherwise the byte route.  Launched as a
+// programmatic dependent of the stream's previous kernel (see the note at
+// the top): table, pos and chunk_len must not be written by that kernel.
 extern "C" int paged_kv_scatter(const void* k_new, const void* v_new, void* k_pool,
                                 void* v_pool, const int* table, const int* pos,
                                 const int* chunk_len, int B, int T, int mb, int bs,
-                                int n_rows, long long row_bytes, void* stream) {
-  dim3 grid(T, B);
-  paged_kv_scatter_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-      (const unsigned char*)k_new, (const unsigned char*)v_new,
-      (unsigned char*)k_pool, (unsigned char*)v_pool, table, pos, chunk_len, T, mb,
-      bs, n_rows, row_bytes);
-  return (int)cudaGetLastError();
+                                int n_rows, long long row_bytes, int vec, void* stream) {
+  const long long rows = (long long)B * T;
+  const dim3 grid((unsigned)((rows + SCATTER_ROWS - 1) / SCATTER_ROWS));
+  const dim3 block(SCATTER_ROWS * 32);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const auto kn = (const unsigned char*)k_new, vn = (const unsigned char*)v_new;
+  const auto kp = (unsigned char*)k_pool, vp = (unsigned char*)v_pool;
+  const cudaError_t e =
+      vec ? hopper::launch_dependent(paged_kv_scatter_kernel<true>, grid, block, 0, s, kn, vn,
+                                     kp, vp, table, pos, chunk_len, B, T, mb, bs, n_rows,
+                                     row_bytes)
+          : hopper::launch_dependent(paged_kv_scatter_kernel<false>, grid, block, 0, s, kn, vn,
+                                     kp, vp, table, pos, chunk_len, B, T, mb, bs, n_rows,
+                                     row_bytes);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 // The wgmma path (the wrapper's plan says when): query tiles of `nt`

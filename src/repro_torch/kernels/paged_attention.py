@@ -7,6 +7,11 @@ paged_kv_scatter_pallas``: write chunk rows ``[pos, pos + chunk_len)`` of
 Hkv, hd)`` through the block table.  Rows whose logical block is ``-1`` or
 past the table width are dropped.  It updates the pools **in place** (the
 TPU kernel aliases them input→output), is bit-exact, and is bound by bytes.
+The kernel (one warp per row, 16-byte words, or bytes for rows that are
+not 16-byte multiples or not aligned) is launched as a programmatic
+dependent of the kernel before it, and reads ``block_table``, ``pos`` and
+``chunk_len`` before it waits for that kernel: they must have been written
+before it (the model builds them once a step, before its first layer).
 
 ``paged_attention`` replaces ``repro/kernels/paged_attention.py:
 paged_attention_pallas``: attention of ``q (B, Tq, Hq, hd)`` over the paged
@@ -34,7 +39,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _capture
 
 __all__ = ["attention_plan", "paged_kv_scatter", "paged_kv_scatter_plain",
            "paged_attention", "paged_attention_plain"]
@@ -53,16 +58,16 @@ _MAX_SPLITS = 16       # the wgmma kernel's merge holds 16 walks' weights
 # per (device, stream): int32 ticket counters of the split wgmma walk, one
 # per query tile; every launch leaves them 0 (the merging block resets its
 # own).  Launches on one stream run one after another, so they may share a
-# set; a launch on another stream gets its own.  A captured CUDA graph keeps
-# the set of its capture stream: it must not be replayed beside eager calls
-# on that stream, or beside another replay of itself.
+# set; a launch on another stream gets its own, and a launch captured in a
+# CUDA graph the set of that graph (``_capture.Graph.tickets``), so a replay
+# never shares its counters with an eager call or with another graph.
 _TICKETS: dict = {}
 
 
 def _lib():
     lib = _build.load("paged_attention.cu")
     lib.paged_kv_scatter.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                                     + [ctypes.c_longlong, ctypes.c_void_p])
+                                     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     lib.paged_kv_scatter.restype = ctypes.c_int
     for sym in _ATTN_SYMBOLS.values():
         fn = getattr(lib, sym)
@@ -137,12 +142,14 @@ def paged_kv_scatter(k_new, v_new, k_pool, v_pool, block_table, pos,
         return
     nb, bs = k_pool.shape[:2]
     row_bytes = k_pool[0, 0].numel() * k_pool.element_size()
+    vec = row_bytes % 16 == 0 and all(a.data_ptr() % 16 == 0
+                                      for a in (k_new, v_new, k_pool, v_pool))
     with torch.cuda.device(k_new.device):
         rc = _lib().paged_kv_scatter(
             k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), block_table.data_ptr(), pos.data_ptr(),
             chunk_len.data_ptr(), b, t, block_table.shape[1], bs, nb, row_bytes,
-            torch.cuda.current_stream(k_new.device).cuda_stream)
+            int(vec), torch.cuda.current_stream(k_new.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_kv_scatter kernel launch failed (CUDA error {rc})")
     paged_kv_scatter.launches += 1
@@ -224,6 +231,12 @@ def attention_plan(dtype: torch.dtype, b: int, tq: int, hq: int, hkv: int, hd: i
 
 
 def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    graph = _capture.current()
+    if graph is not None:
+        if graph.tickets.numel() < n:
+            raise ValueError(f"paged_attention: {n} query tiles need more than the "
+                             f"{graph.tickets.numel()} ticket counters of a captured graph")
+        return graph.tickets
     t = _TICKETS.get((device, stream))
     if t is None or t.numel() < n:
         t = _TICKETS[device, stream] = torch.zeros(max(n, 1024), dtype=torch.int32,

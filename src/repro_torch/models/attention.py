@@ -19,6 +19,7 @@
 """
 from __future__ import annotations
 
+import numbers
 from typing import Optional, Union
 
 import torch
@@ -30,9 +31,21 @@ IntOrTensor = Union[int, torch.Tensor]
 
 
 def _vec(v: IntOrTensor, b: int, device) -> torch.Tensor:
-    """Scalar or (B,) → contiguous (B,) int32 on ``device``."""
+    """Scalar or (B,) → contiguous (B,) int32 on ``device``.  A Python
+    number becomes a device fill, never a host-to-device copy, so the call
+    can be captured in a CUDA graph."""
+    if isinstance(v, numbers.Integral):
+        return torch.full((b,), int(v), dtype=torch.int32, device=device)
     t = torch.as_tensor(v, dtype=torch.int32, device=device).reshape(-1)
     return t.expand(b).contiguous() if t.numel() == 1 else t.contiguous()
+
+
+def _long(v: IntOrTensor, device) -> torch.Tensor:
+    """A position or length (Python number or tensor) as an int64 tensor,
+    made on the device without a host-to-device copy."""
+    if isinstance(v, numbers.Integral):
+        return torch.full((), int(v), dtype=torch.long, device=device)
+    return torch.as_tensor(v, device=device).long()
 
 
 def _kv_chunk_attention(q, k, v, q_pos, causal, kv_len, chunk):
@@ -91,10 +104,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise NotImplementedError("sliding-window attention outside the flash "
                                   "kernel's case is not ported yet")
     qg = (q * hd**-0.5).reshape(B, T, Hkv, Hq // Hkv, hd)
-    qo = torch.as_tensor(q_offset, device=q.device).long()
+    qo = _long(q_offset, q.device)
     ar = torch.arange(T, device=q.device)
     q_pos = qo[:, None] + ar[None, :] if qo.dim() == 1 else (qo + ar)[None, :]
-    kvl = None if kv_len is None else torch.as_tensor(kv_len, device=q.device).long()
+    kvl = None if kv_len is None else _long(kv_len, q.device)
     out = _kv_chunk_attention(qg, k, v, q_pos, causal, kvl, chunk)
     return out.reshape(B, T, Hq, hd).to(q.dtype)
 
@@ -142,12 +155,16 @@ def paged_kv_update(k_pool: torch.Tensor, v_pool: torch.Tensor,
     wpos = posv.long()[:, None] + i[None, :]                  # (B, T) abs pos
     lb = torch.div(wpos, bs, rounding_mode="floor")
     blk = block_table.long().gather(1, lb.clamp(0, mb - 1))
-    flat = torch.where((i[None, :] < cl.long()[:, None]) & (blk >= 0) & (lb < mb),
-                       blk * bs + wpos % bs, nb * bs)         # OOB → dropped
-    keep = (flat < nb * bs).reshape(-1)
-    rows = flat.reshape(-1)[keep]
-    k_pool.view(nb * bs, *k_pool.shape[2:])[rows] = k_new.reshape(b * t, *k_new.shape[2:])[keep]
-    v_pool.view(nb * bs, *v_pool.shape[2:])[rows] = v_new.reshape(b * t, *v_new.shape[2:])[keep]
+    flat = torch.where((i[None, :] < cl.long()[:, None]) & (blk >= 0) & (blk < nb)
+                       & (lb < mb), blk * bs + wpos % bs, nb * bs)   # OOB → dropped
+    # dropped rows land on one scratch row past the pool, which is then cut
+    # off: no row count is read back to the host, so a CUDA graph can
+    # capture the write
+    for pool, new in ((k_pool, k_new), (v_pool, v_new)):
+        rows = pool.view(nb * bs, *pool.shape[2:])
+        ext = torch.cat([rows, rows[:1]])
+        ext[flat.reshape(-1)] = new.reshape(b * t, *new.shape[2:])
+        rows.copy_(ext[:-1])
     return k_pool, v_pool
 
 

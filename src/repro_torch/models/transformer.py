@@ -17,9 +17,14 @@ pool with ``serve.paged.init_paged_cache``.
 
 Attention without a cache (:func:`forward`) and the one-shot
 :func:`prefill` attend over the fresh K/V with ``cfg.attn_impl``
-(``"flash"``: the ``flash_attention`` kernel); :func:`prefill` then writes
+(``"flash"``: the ``flash_attention`` kernel); :func:`prefill` also writes
 all B rows into the cache at position 0.  Chunked prefill and decode read
 the paged pools.
+
+Every entry point is a sequence of device operations that a CUDA graph can
+capture: positions, lengths and the per-step index vectors of the paged
+write and read are made on the device (no host-to-device copy, no host
+read), once a step, before the first layer.
 """
 from __future__ import annotations
 
@@ -126,10 +131,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 
 # -------------------------------------------------------------- block apply
 
+def _paged_index(cache: Dict, b: int, pos: torch.Tensor, chunk_len: torch.Tensor,
+                 kv_len: Optional[torch.Tensor], causal: bool) -> Dict:
+    """The int32 ``(B,)`` vectors every layer's paged KV write and read
+    take, built once a step, before the first layer: a layer then launches
+    nothing to make them, and the ``paged_kv_scatter`` kernel may read them
+    before it waits for the kernel that produced its K/V rows.  ``kv_len``
+    None: the one-shot prefill, which attends over the fresh K/V."""
+    def vec(v):
+        return v.to(torch.int32).reshape(-1).expand(b).contiguous()
+
+    return {"table": cache["block_table"], "pos": vec(pos), "chunk_len": vec(chunk_len),
+            "kv_len": None if kv_len is None else vec(kv_len), "causal": causal}
+
+
 def _attn_block_apply(cfg: ModelConfig, h: torch.Tensor, p: AttnBlock,
                       policy: SparsityPolicy, phase: str, layer_idx: int,
-                      cache: Optional[Dict], pos, positions: torch.Tensor,
-                      chunk_len=None, block_table=None) -> torch.Tensor:
+                      cache: Optional[Dict], positions: torch.Tensor,
+                      index: Optional[Dict] = None) -> torch.Tensor:
     b, t, _ = h.shape
     x = common.rms_norm(h, p.ln1)
     q = sparse_linear(x, p.q_proj, "q_proj", policy, phase, layer_idx)
@@ -141,35 +160,26 @@ def _attn_block_apply(cfg: ModelConfig, h: torch.Tensor, p: AttnBlock,
                           cfg.rope_theta)
     v = v.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
 
-    if cache is None or pos is None:
-        # no cache, or the one-shot prefill (a cache and no offset): attend
-        # over the fresh K/V, then write all B rows at position 0
+    use_kernel = policy.use_kernels
+    if cache is not None:
+        # paged cache: logical row p of a batch row lives at physical row
+        # (table[p // bs], p % bs).  The write goes first (in place); with
+        # use_kernels it is a paged_kv_scatter launch
+        paged_kv_update(cache["k"], cache["v"], k, v, index["table"], index["pos"],
+                        index["chunk_len"], use_kernel=use_kernel)
+    if index is None or index["kv_len"] is None:
+        # no cache, or the one-shot prefill (written at position 0 above):
+        # attend over the fresh K/V
         o = attention(q, k, v, causal=True, q_offset=0, chunk=cfg.attn_chunk,
                       impl=cfg.attn_impl)
-        if cache is not None:
-            paged_kv_update(cache["k"], cache["v"], k, v, block_table, 0,
-                            use_kernel=policy.use_kernels)
     else:
-        # paged cache: logical row p of a batch row lives at physical row
-        # (table[p // bs], p % bs).  The write goes first (in place), then
-        # the read; with use_kernels both are kernel launches
-        use_kernel = policy.use_kernels
-        bs, mb = cache["k"].shape[1], block_table.shape[1]
-        if chunk_len is None:       # decode: every row writes at its own depth
-            paged_kv_update(cache["k"], cache["v"], k, v, block_table, pos,
+        # chunked prefill (causal, batch 1) or decode (each row at its own
+        # depth): the read of the pools, a paged_attention launch with
+        # use_kernels
+        o = paged_attention(q, cache["k"], cache["v"], index["table"],
+                            causal=index["causal"], q_offset=index["pos"],
+                            kv_len=index["kv_len"], chunk=cfg.attn_chunk,
                             use_kernel=use_kernel)
-            o = paged_attention(q, cache["k"], cache["v"], block_table,
-                                causal=False, q_offset=pos,
-                                kv_len=torch.clamp(pos + 1, max=mb * bs),
-                                chunk=cfg.attn_chunk, use_kernel=use_kernel)
-        else:                       # chunked prefill at offset ``pos`` (batch 1)
-            if b != 1:
-                raise ValueError("paged chunked prefill is per-slot (batch 1)")
-            paged_kv_update(cache["k"], cache["v"], k, v, block_table, pos,
-                            chunk_len, use_kernel=use_kernel)
-            o = paged_attention(q, cache["k"], cache["v"], block_table,
-                                causal=True, q_offset=pos, kv_len=pos + chunk_len,
-                                chunk=cfg.attn_chunk, use_kernel=use_kernel)
     o = sparse_linear(o.reshape(b, t, cfg.q_dim), p.o_proj, "o_proj", policy,
                       phase, layer_idx)
     h = h + o
@@ -177,13 +187,12 @@ def _attn_block_apply(cfg: ModelConfig, h: torch.Tensor, p: AttnBlock,
     return h + mlp(x2, p.mlp, policy, phase, cfg.act_fn, layer_idx)
 
 
-def _run_blocks(cfg, params: Transformer, h, policy, phase, cache, pos,
-                positions, chunk_len=None):
-    btab = cache["block_table"] if cache is not None else None
+def _run_blocks(cfg, params: Transformer, h, policy, phase, cache, positions,
+                index=None):
     for i, blk in enumerate(params.blocks):
         h = _attn_block_apply(cfg, h, blk, policy, phase, i,
                               None if cache is None else cache["layers"][i],
-                              pos, positions, chunk_len, btab)
+                              positions, index)
     return h
 
 
@@ -204,7 +213,7 @@ def forward(cfg: ModelConfig, params: Transformer, batch: Dict, *,
     b, t = tokens.shape
     positions = torch.arange(t, device=tokens.device).expand(b, t)
     h = common.embed(tokens, params.embed)
-    h = _run_blocks(cfg, params, h, policy, phase, None, None, positions)
+    h = _run_blocks(cfg, params, h, policy, phase, None, positions)
     return _lm_logits(cfg, params, h)
 
 
@@ -222,9 +231,12 @@ def prefill(cfg: ModelConfig, params: Transformer, batch: Dict, cache: Dict, *,
     bs, mb = cache["layers"][0]["k"].shape[1], cache["block_table"].shape[1]
     if t > mb * bs:
         raise ValueError(f"prefill: {t} tokens do not fit a cache of {mb * bs} positions")
-    positions = torch.arange(t, device=tokens.device).expand(b, t)
+    dev = tokens.device
+    positions = torch.arange(t, device=dev).expand(b, t)
+    index = _paged_index(cache, b, torch.zeros((), dtype=torch.int32, device=dev),
+                         torch.full((), t, dtype=torch.int32, device=dev), None, True)
     h = common.embed(tokens, params.embed)
-    h = _run_blocks(cfg, params, h, policy, "prefill", cache, None, positions)
+    h = _run_blocks(cfg, params, h, policy, "prefill", cache, positions, index)
     logits = _lm_logits(cfg, params, h[:, -1:])[:, 0]
     return logits, {**cache, "pos": cache["pos"] + t}
 
@@ -244,11 +256,13 @@ def prefill_chunk(cfg: ModelConfig, params: Transformer, batch: Dict, cache: Dic
     pos = cache["pos"]
     chunk_len = batch.get("chunk_len")
     if chunk_len is None:
-        chunk_len = torch.tensor(t, dtype=torch.int32, device=dev)
+        chunk_len = torch.full((), t, dtype=torch.int32, device=dev)
+    if b != 1:
+        raise ValueError("paged chunked prefill is per-slot (batch 1)")
     positions = pos + torch.arange(t, device=dev).expand(b, t)
+    index = _paged_index(cache, b, pos, chunk_len, pos + chunk_len, True)
     h = common.embed(tokens, params.embed)
-    h = _run_blocks(cfg, params, h, policy, "prefill", cache, pos, positions,
-                    chunk_len=chunk_len)
+    h = _run_blocks(cfg, params, h, policy, "prefill", cache, positions, index)
     h_last = h.index_select(1, (chunk_len.long() - 1).reshape(1))
     logits = _lm_logits(cfg, params, h_last)[:, 0]
     return logits, {**cache, "pos": pos + chunk_len}
@@ -263,9 +277,12 @@ def decode_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
     ``pos + 1``); the pools are updated in place."""
     b, t = tokens.shape
     pos = cache["pos"]
-    posv = pos.expand(b) if pos.dim() == 0 else pos   # scalar: rows in lockstep
-    positions = posv[:, None].expand(b, t)
+    mb, bs = cache["block_table"].shape[1], cache["layers"][0]["k"].shape[1]
+    # a scalar pos moves every row in lockstep (the one-shot cache)
+    index = _paged_index(cache, b, pos, torch.ones((), dtype=torch.int32, device=pos.device),
+                         torch.clamp(pos + 1, max=mb * bs), False)
+    positions = index["pos"][:, None].expand(b, t)
     h = common.embed(tokens, params.embed)
-    h = _run_blocks(cfg, params, h, policy, "decode", cache, posv, positions)
+    h = _run_blocks(cfg, params, h, policy, "decode", cache, positions, index)
     logits = _lm_logits(cfg, params, h)[:, 0]
     return logits, {**cache, "pos": pos + 1}

@@ -6,9 +6,13 @@ Each scheduler iteration: reap cancellations and deadlines, admit waiting
 requests FCFS by block budget (reusing prefix-cached blocks), grab decode
 blocks (preempting the youngest request when the pool is dry), then run ONE
 fused step — the oldest prefilling request's next chunk and the frozen
-decode roster — through the :class:`~repro_torch.serve.executor.Executor`.
-With greedy decoding the per-request token streams are identical to the
-JAX package's engine on the same weights.
+decode roster — through the :class:`~repro_torch.serve.executor.Executor`,
+which on the GPU replays one CUDA graph per step bucket, captured at the
+bucket's first step.  ``trace_counts`` (also in ``metrics``) counts those
+captures per bucket, as the JAX package counts its step programs' traces:
+every bucket a run used reads 1.  With greedy decoding the per-request
+token streams are identical to the JAX package's engine on the same
+weights.
 
 Not ported: fault injection and the degradation ladder (a non-finite step
 raises instead), snapshot/restore, the legacy two-program split, TP, and
@@ -68,6 +72,10 @@ class ContinuousServingEngine:
     @property
     def pool(self):
         return self.sched.pool
+
+    @property
+    def trace_counts(self) -> Dict[str, int]:
+        return self.exec.trace_counts
 
     def submit(self, tokens, max_new_tokens: int = 32, arrival: int = 0,
                ttl: Optional[int] = None) -> int:
@@ -135,6 +143,7 @@ class ContinuousServingEngine:
             "wall_s": wall,
             "generated_tokens": gen,
             "tokens_per_s": gen / max(wall, 1e-9),
+            "trace_counts": dict(ex.trace_counts),
             "buckets": {k: {f: x - buckets0.get(k, {}).get(f, 0) for f, x in v.items()}
                         for k, v in ex.buckets.items()
                         if v["calls"] > buckets0.get(k, {}).get("calls", 0)},

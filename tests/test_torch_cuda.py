@@ -544,3 +544,215 @@ def test_consensus_select_ties_bit_exact(gen, n, m):
     assert torch.equal(idx, idx0) and torch.equal(xc, xc0)
     first = idx[0].view(-1, n) - torch.arange(0, d, m, device="cuda")[:, None]
     assert bool((first == torch.arange(n, device="cuda")).all())
+
+
+# ------------------------------------------------------- graphs (PR 17)
+# paged_kv_scatter is launched as a programmatic dependent (PDL) of the
+# kernel before it: eager, and replayed from a CUDA graph right after a
+# producer kernel that writes its k_new / v_new (the graph records the
+# programmatic edge).  Every case is bit-exact against the plain version.
+
+def _scatter_case(gen, case):
+    """(k_new, v_new, k_pool, v_pool, table, pos, chunk_len) of one case."""
+    i32 = dict(dtype=torch.int32, device="cuda")
+    dtype, b, t, hkv, hd, bs, mb = {
+        "chunk": (torch.bfloat16, 1, 40, 8, 128, 16, 4),
+        "decode": (torch.bfloat16, 4, 1, 8, 128, 16, 4),
+        "float32": (torch.float32, 3, 24, 2, 64, 16, 6),
+        "byte_route": (torch.bfloat16, 2, 9, 1, 7, 4, 5),
+        "misaligned": (torch.bfloat16, 2, 9, 2, 64, 8, 4),
+    }[case]
+    rows = b * mb + 1
+    off = 1 if case == "misaligned" else 0       # one element off a 16-byte boundary
+
+    def buf(*shape):
+        n = int(torch.tensor(shape).prod())
+        flat = torch.randn(n + off, generator=gen, device="cuda").to(dtype)
+        return flat[off:].view(*shape)
+
+    kn, vn = buf(b, t, hkv, hd), buf(b, t, hkv, hd)
+    kp, vp = buf(rows, bs, hkv, hd), buf(rows, bs, hkv, hd)
+    tab = torch.randperm(b * mb, generator=gen, device="cuda").to(torch.int32).reshape(b, mb)
+    if case == "chunk":        # a -1 block mid-chunk; rows 64.. past the table width
+        tab[0, 2] = -1
+        pos, clen = torch.tensor([30], **i32), torch.tensor([37], **i32)
+    elif case == "decode":     # an empty slot, an unallocated current block, a row
+        tab[1] = -1            # past the table width
+        tab[2, 1] = -1
+        pos, clen = torch.tensor([5, 40, 17, 64], **i32), torch.ones(4, **i32)
+    else:                      # chunk_len < T, a -1 entry, a negative position
+        tab[0, 1] = -1
+        pos = torch.tensor([2, -3, 9][:b], **i32)
+        clen = torch.tensor([t, t - 4, 5][:b], **i32)
+    return kn, vn, kp, vp, tab, pos, clen
+
+
+@pytest.mark.parametrize("launch", ["eager", "graph"])
+@pytest.mark.parametrize("case", ["chunk", "decode", "float32", "byte_route", "misaligned"])
+def test_paged_kv_scatter_kernel_bit_exact(gen, case, launch):
+    from repro_torch.kernels import _capture
+
+    kn, vn, kp, vp, tab, pos, clen = _scatter_case(gen, case)
+    row_bytes = kp[0, 0].numel() * kp.element_size()
+    vec = row_bytes % 16 == 0 and all(a.data_ptr() % 16 == 0 for a in (kn, vn, kp, vp))
+    assert vec == (case not in ("byte_route", "misaligned"))
+    want_k, want_v = kp.clone(), vp.clone()
+    if launch == "eager":
+        kpa.paged_kv_scatter_plain(kn, vn, want_k, want_v, tab, pos, clen)
+        kpa.paged_kv_scatter(kn, vn, kp, vp, tab, pos, clen)
+    else:
+        src_k, src_v = kn.clone(), vn.clone()
+
+        def producer_then_scatter():
+            kn.copy_(src_k)          # the kernels that write k_new / v_new
+            vn.copy_(src_v)
+            kpa.paged_kv_scatter(kn, vn, kp, vp, tab, pos, clen)
+
+        graph = _capture.Graph(kp.device, None)
+        graph.capture(producer_then_scatter)
+        for _ in range(3):           # fresh rows each replay
+            src_k.copy_(torch.randn(src_k.shape, generator=gen, device="cuda"))
+            src_v.copy_(torch.randn(src_v.shape, generator=gen, device="cuda"))
+            kpa.paged_kv_scatter_plain(src_k, src_v, want_k, want_v, tab, pos, clen)
+            graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(kp, want_k) and torch.equal(vp, want_v)
+
+
+def _graph_model(dtype):
+    """A two-layer model of the dense family at head_dim 64 (the wgmma
+    routes), the paper's policy with the kernels on, random weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.core.pruner import precompute_scales
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_smoke_config("llama31_8b"), n_layers=2, d_model=256,
+                              head_dim=64, d_ff=512, vocab_size=512, qgate_skip_layers=(1,),
+                              dtype=dtype)
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    policy = paper_policy(8, 16, cfg.qgate_skip_layers).with_(use_kernels=True)
+    precompute_scales(params, policy)
+    return model, params, policy
+
+
+def _cache_state(cache):
+    return [cache["pos"].clone()] + [t.clone() for lay in cache["layers"]
+                                      for t in (lay["k"], lay["v"])]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("bucket", ["step_prefill", "step_prefill_decode", "step_decode",
+                                    "step_replay", "step_replay_decode"])
+def test_step_graph_matches_eager_body(gen, bucket, dtype):
+    """A bucket's first step runs its program eagerly and captures it; the
+    replay of the same step from the same cache gives bit-identical logits,
+    finite flag, ``pos`` and pools, and adds to the launch counters what the
+    eager step added."""
+    from repro_torch import kernels
+    from repro_torch.serve import ContinuousConfig
+    from repro_torch.serve.executor import STEP_BUCKETS, Executor
+
+    key = {v: k for k, v in STEP_BUCKETS.items()}[bucket]
+    model, params, policy = _graph_model(dtype)
+    ex = Executor(model, policy, ContinuousConfig(max_seq=64, num_slots=3, chunk_size=16,
+                                                  block_size=16))
+    ex.init_cache(12)
+    ex.cache["block_table"].copy_(torch.arange(12, dtype=torch.int32).reshape(3, 4))
+    ex.cache["pos"].copy_(torch.tensor([20, 33, 0], dtype=torch.int32))
+    ops = torch.randint(0, 512, (2 + 16 + 6,), generator=gen, device="cuda").to(torch.int32)
+    ops[0], ops[1] = 2, 11                                   # slot 2, chunk_len 11
+    ops[-3:] = torch.tensor([1, 0, 1], dtype=torch.int32)    # slot 1 inactive
+    ex._operands.copy_(ops)
+    before = _cache_state(ex.cache)
+    prog = ex.step_program(key)
+
+    def run():
+        return ex._graphs.run(bucket, lambda: prog(params, ex.cache, *ex._views()), params)
+
+    kernels.reset_launch_counts()
+    eager = [None if x is None else x.clone() for x in run()]
+    eager_state = _cache_state(ex.cache)
+    eager_counts = kernels.counters()
+    assert ex.trace_counts == {bucket: 1}
+    ex.cache["pos"].copy_(before[0])
+    for lay, (k, v) in zip(ex.cache["layers"], zip(before[1::2], before[2::2])):
+        lay["k"].copy_(k)
+        lay["v"].copy_(v)
+    graphed = run()
+    torch.cuda.synchronize()
+    assert ex.trace_counts == {bucket: 1}
+    for a, b in zip(eager, graphed):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert bool(graphed[2])
+    for a, b in zip(eager_state, _cache_state(ex.cache)):
+        assert torch.equal(a, b)
+    assert kernels.counters() == {k: 2 * n for k, n in eager_counts.items()}
+    assert eager_counts["paged_kv_scatter"] == 2 * (key[1] + key[2])
+
+
+def test_split_walk_graphs_keep_their_own_tickets(gen):
+    """Two graphs of split paged_attention walks (ticket counters), replayed
+    at once on two streams beside eager calls of the same walk on a third:
+    each keeps its own counters, so every result is the eager one."""
+    from repro_torch.kernels import _capture
+
+    q, kp, vp, tab, qo, kvl = _paged_case(gen, 4, 1, 32, 8, 128, 16, [701, 514, 65, 2],
+                                          [700, 513, 64, 1])
+    assert kpa.attention_plan(q.dtype, 4, 1, 32, 8, 128, 16, tab.shape[1], True)[2] > 1
+    q2 = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    want = [kpa.paged_attention(x, kp, vp, tab, qo, kvl, causal=False) for x in (q, q2)]
+    pool = torch.cuda.graph_pool_handle()
+    graphs, outs = [], []
+    for x in (q, q2):
+        g = _capture.Graph(q.device, pool)
+        outs.append(g.capture(lambda x=x: kpa.paged_attention(x, kp, vp, tab, qo, kvl,
+                                                               causal=False)))
+        graphs.append(g)
+    assert graphs[0].tickets.data_ptr() != graphs[1].tickets.data_ptr()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    seen, eager = [], []
+    for _ in range(20):
+        for g, s, o in zip(graphs, streams, outs):
+            with torch.cuda.stream(s):
+                g.replay()
+                seen.append(o.clone())
+        eager.append(kpa.paged_attention(q, kp, vp, tab, qo, kvl, causal=False))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want[i % 2]) for i, o in enumerate(seen))
+    assert all(torch.equal(e, want[0]) for e in eager)
+
+
+def test_launch_counts_count_replays(gen):
+    """Three calls of a program through ``Programs`` (one eager, a capture,
+    two replays) leave the launch counters where three eager calls leave
+    them."""
+    from repro_torch import kernels
+    from repro_torch.kernels import _capture
+
+    q, kp, vp, tab, qo, kvl = _paged_case(gen, 4, 1, 32, 8, 128, 16, [701, 514, 65, 2],
+                                          [700, 513, 64, 1])
+    kn = torch.randn(4, 1, 8, 128, generator=gen, device="cuda").bfloat16()
+    ones = torch.ones(4, dtype=torch.int32, device="cuda")
+
+    def step():
+        kpa.paged_kv_scatter(kn, kn, kp, vp, tab, qo, ones)
+        return kpa.paged_attention(q, kp, vp, tab, qo, kvl, causal=False)
+
+    kernels.reset_launch_counts()
+    for _ in range(3):
+        step()
+    eager = kernels.counters()
+    assert eager["paged_kv_scatter"] == eager["paged_attention"] == 3
+    kernels.reset_launch_counts()
+    progs, params = _capture.Programs(q.device), object()
+    for _ in range(3):
+        progs.run("step", step, params)
+    torch.cuda.synchronize()
+    assert kernels.counters() == eager
+    assert progs.trace_counts == {"step": 1}

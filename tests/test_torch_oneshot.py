@@ -353,6 +353,25 @@ def test_qwen_one_shot_generate_matches_reference(qwen_reference, name, impl, us
     assert int(out["cache"]["pos"]) == TOKS.shape[1] + NEW - 1
 
 
+@pytest.mark.parametrize("name", ["dense", "tile_consensus"])
+def test_qwen_one_shot_trace_counts_over_repeated_calls(qwen_reference, name):
+    """Two ``generate`` calls of one shape on one engine: both give the JAX
+    engine's tokens, and each program (the prefill of the (B, T) shape, the
+    decode step of B) was built once; a third call at another prompt length
+    adds its own prefill program and reuses the decode step's."""
+    params_np, _, jtoks = qwen_reference[name, "flash"]
+    tm, tp, tpol = _port("flash", params_np, name, True)
+    eng = ServingEngine(tm, tpol, ServeConfig(max_seq=MAX_SEQ))
+    b, t = TOKS.shape
+    for _ in range(2):
+        out = eng.generate(tp, {"tokens": torch.from_numpy(TOKS)}, max_new_tokens=NEW)
+        np.testing.assert_array_equal(out["tokens"].numpy(), jtoks)
+        assert int(out["cache"]["pos"]) == t + NEW - 1
+    assert eng.trace_counts == {f"prefill_{b}x{t}": 1, f"decode_{b}": 1}
+    eng.generate(tp, {"tokens": torch.from_numpy(TOKS[:, :9])}, max_new_tokens=3)
+    assert eng.trace_counts == {f"prefill_{b}x{t}": 1, f"prefill_{b}x9": 1, f"decode_{b}": 1}
+
+
 def test_qwen_one_shot_eos_mask_matches_reference(qwen, qwen_reference):
     """With an EOS token that row 0 emits mid-stream, the row repeats it to
     the end, as the JAX engine's ``done`` mask does."""

@@ -107,6 +107,31 @@ def test_engine_greedy_tokens_match_reference(served, name, use_kernels):
     assert set(res["metrics"]["buckets"]) == set(jres["metrics"]["trace_counts"])
 
 
+@pytest.mark.parametrize("name", sorted(POLICIES))
+def test_trace_counts_match_reference(served, name):
+    """The port's engine builds each step program once, as the JAX engine
+    traces each once: equal ``trace_counts`` (every bucket the run used at
+    1, preemption replays included), keys among ``declared_trace_keys()``,
+    and the JAX engine's tokens."""
+    from repro_torch.serve.executor import declared_trace_keys
+
+    params_np, jres = served[name]
+    tcfg = dataclasses.replace(tget("llama31_8b"), dtype="float32")
+    eng = ContinuousServingEngine(build_model(tcfg, device="cpu"),
+                                  POLICIES[name][1].with_(use_kernels=True),
+                                  ContinuousConfig(**SERVE))
+    prompts, arrivals, max_new = _traffic()
+    for p, a, n in zip(prompts, arrivals, max_new):
+        eng.submit(p, n, a)
+    res = eng.run(from_jax_params(tcfg, params_np, device="cpu"))
+    assert res["outputs"] == jres["outputs"]
+    got = res["metrics"]["trace_counts"]
+    assert got == dict(jres["metrics"]["trace_counts"]) == eng.trace_counts
+    assert set(got.values()) == {1} and set(got) <= set(declared_trace_keys())
+    if name != "dense":                           # preemption replays a chunk
+        assert "step_replay" in got or "step_replay_decode" in got
+
+
 def _extend_into_emitted(eng, params, p0):
     """The first request, then a second whose prompt is the first's prompt
     and emitted tokens: (first's tokens, second's tokens, second's cached
