@@ -82,6 +82,30 @@ Phases (any failed check exits non-zero; no phase is skipped):
              float32: kernel path against plain path, identical greedy
              tokens and close last-token logits; then in bf16
              (``flash_attention``'s wgmma kernel), as phase 4's bf16 case.
+6. serve CLI and serving lifecycle — 6b-6e run right after phase 3, on
+             its model, weights and requests (3b rewrites the weights): 6b
+             the legacy two-program split (``fused_step=False``): tokens
+             identical to phase 3's, the ``prefill`` and ``decode`` programs
+             captured once each, more than one dispatch per work iteration,
+             launch counts exact; 6c a ``FaultInjector`` crash in a decode
+             iteration and one in a prefill iteration, each restored from
+             the last snapshot (``snapshot_every=1``) into a new engine after
+             the crashed one was dropped (and must be gone): tokens
+             identical, ``restores`` = 2, every engine's programs captured
+             once; 6d ``pool.alloc`` exhausted at the first two admissions
+             and ``admit`` transient at the third: tokens identical,
+             admission retries; 6e a ``nonfinite`` decode fault at iteration
+             10, after a warm-up that captured every bucket, must raise
+             ``FloatingPointError`` from the replay, and nothing else passes.
+             After phase 5b: 6a ``repro_torch.launch.serve.main`` in this
+             process, ``--trace`` at full LLaMA-3.1-8B width (16 Poisson
+             requests, 64-700 tokens behind a 128-token shared prefix, 32
+             new tokens, 4 slots, chunk 256): rc 0, every ``# traces:``
+             entry 1, ``1.00 per work iteration``, prefix-cache hits, all 16
+             requests done, and ``nm_prune_matmul``, ``paged_kv_scatter`` and
+             ``paged_attention`` launched (counts set to 0 just before); its
+             report lines are echoed; 6f the one-shot CLI on Qwen2-7B (4 x
+             512 tokens, 32 new): rc 0 and its agreement line.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -91,6 +115,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import re
 import shutil
@@ -223,7 +248,7 @@ def phase_kernels(torch, timer, rates):
     records = {}
 
     # ---------------------------------------------------- nm_prune_matmul
-    print("phase 2a: nm_prune_matmul (LLaMA-3.1-8B q/gate/down, N:M 8:16)")
+    print("phase 2a: nm_prune_matmul (LLaMA-3.1-8B and Qwen2-7B q/gate/down, N:M 8:16)")
     errs = []
     n, m = 8, 16
     for proj, d, n_out in (("q", 4096, 4096), ("gate", 4096, 14336), ("down", 14336, 4096)):
@@ -256,6 +281,20 @@ def phase_kernels(torch, timer, rates):
                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                         bound_by="bytes" if nbytes / bw >= ops / bf16_peak else "operations")
         del w
+    # the one-shot CLI's prefill (phase 6f): Qwen2-7B, 4 x 512 rows, q with
+    # Qwen's bias
+    for proj, d, n_out, biased in (("q", 3584, 3584, True), ("gate", 3584, 18944, False),
+                                   ("down", 18944, 3584, False)):
+        w = (torch.randn(d, n_out, generator=g, device=dev) * d**-0.5).bfloat16()
+        scale = torch.rand(d, generator=g, device=dev) + 0.5
+        b = (torch.randn(n_out, generator=g, device=dev) * 0.1).bfloat16() if biased else None
+        x = torch.randn(2048, d, generator=g, device=dev).bfloat16()
+        plan = knm.gemm_plan(w, 2048)
+        route = f"wgmma, {plan} k slice{'s' if plan > 1 else ''}" if plan else "WMMA"
+        errs.append(check_close(f"Qwen2-7B {proj} T=2048 bias={biased} ({route})",
+                                knm.nm_prune_matmul(x, w, scale, n, m, bias=b),
+                                knm.nm_prune_matmul_plain(x, w, scale, n, m, bias=b), BF16_TOL))
+        del w, x
     # the WMMA route: a w the TMA cannot take (storage 2 bytes off a 16-byte
     # boundary), and an N_out that is not a multiple of 8
     for case, t, d, n_out, offset in (("w misaligned", 137, 4096, 4096, 1),
@@ -883,36 +922,72 @@ def make_requests(rng, n, lo, hi, vocab):
     return [rng.integers(0, vocab, size=int(l)).astype(np.int32) for l in lens]
 
 
-def serve_requests(torch, model, params, policy, label, eager=False):
-    """8 staggered requests (64-700 prompt tokens, 32 new tokens each) through
-    ``Engine.from_config`` after one warm-up request, with the launch counts
-    set to 0 just before and read just after.  Every request must end
-    ``done`` with its tokens, and every step bucket used must have been
-    captured once (``trace_counts``).  ``eager``: every step runs its bucket's
-    step program directly (``step_program``), with no graph, for the token
-    comparison.  Returns (launches, per-path step counts, engine, outputs)."""
-    from repro_torch import kernels
-    from repro_torch.kernels import osparse_matmul as kos
-    from repro_torch.serve import ContinuousConfig, Engine, EngineConfig
+def serving_stream(torch, vocab, **serving):
+    """Phase 3's requests: (rng after the prompts, prompts, arrivals, new
+    tokens, ``ContinuousConfig``: 4 slots, chunk 256, blocks of 16)."""
+    from repro_torch.serve import ContinuousConfig
 
-    cfg = model.cfg
     rng = np.random.default_rng(SEED)
-    prompts = make_requests(rng, 8, 64, 700, cfg.vocab_size)
+    prompts = make_requests(rng, 8, 64, 700, vocab)
     arrivals = [0, 0, 1, 2, 4, 6, 9, 12]
     new = 32
     bsz = 16
     max_seq = -(-(max(len(p) for p in prompts) + new) // bsz) * bsz
-    scfg = ContinuousConfig(num_slots=4, chunk_size=256, block_size=bsz, max_seq=max_seq)
+    return rng, prompts, arrivals, new, ContinuousConfig(
+        num_slots=4, chunk_size=256, block_size=bsz, max_seq=max_seq, **serving)
+
+
+def warm_up(eng, params, rng, vocab):
+    """Library handles, the allocator, and the programs of the three buckets
+    phase 3's stream uses (a 40-token request decodes while a 300-token one
+    is prefilled); then the engine is cleared for the measured stream."""
+    eng.submit(rng.integers(0, vocab, size=40), max_new_tokens=4)
+    eng.submit(rng.integers(0, vocab, size=300), max_new_tokens=2, arrival=1)
+    eng.run(params)
+    eng.clear()
+
+
+def bucket_sum(bk, names, key):
+    return sum(bk[n][key] for n in names if n in bk)
+
+
+def step_counts(bk, fused: bool):
+    """From a run's per-bucket calls: the buckets of sparse prefill chunks
+    and of decode-only steps, and the calls of sparse chunks, of prefill
+    halves and of decode halves, which fix the kernels' launch counts."""
+    if fused:
+        sparse, decode_only = ("step_prefill", "step_prefill_decode"), ("step_decode",)
+        prefills = sparse + ("step_replay", "step_replay_decode")
+        decodes = ("step_decode", "step_prefill_decode", "step_replay_decode")
+    else:           # the legacy split: every decode step is decode-only
+        sparse, decode_only = ("prefill",), ("decode",)
+        prefills, decodes = ("prefill", "prefill_replay"), ("decode",)
+    steps = dict(sparse_chunks=bucket_sum(bk, sparse, "calls"),
+                 prefill_halves=bucket_sum(bk, prefills, "calls"),
+                 decode_halves=bucket_sum(bk, decodes, "calls"))
+    return sparse, decode_only, steps
+
+
+def serve_requests(torch, model, params, policy, label, eager=False, **serving):
+    """8 staggered requests (64-700 prompt tokens, 32 new tokens each) through
+    ``Engine.from_config`` after one warm-up request, with the launch counts
+    set to 0 just before and read just after.  Every request must end
+    ``done`` with its tokens, and every step program used must have been
+    captured once (``trace_counts``).  ``eager``: every step runs its
+    program directly (``step_program``), with no graph, for the token
+    comparison.  ``serving``: more ``ContinuousConfig`` fields
+    (``fused_step=False``: the legacy split's ``prefill`` and ``decode``
+    programs).  Returns (launches, per-path step counts, engine, outputs)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import osparse_matmul as kos
+    from repro_torch.serve import Engine, EngineConfig
+
+    cfg = model.cfg
+    rng, prompts, arrivals, new, scfg = serving_stream(torch, cfg.vocab_size, **serving)
     eng = Engine.from_config(model, EngineConfig(serving=scfg), policy=policy)
     if eager:       # the executor's step programs, each step run as it is
         eng.replica.exec._graphs.run = lambda name, fn, params: fn()
-    # warm-up (library handles, allocator, and the graphs of the three buckets
-    # the stream uses: a 40-token request decodes while a 300-token one is
-    # prefilled), then the measured stream
-    eng.submit(rng.integers(0, cfg.vocab_size, size=40), max_new_tokens=4)
-    eng.submit(rng.integers(0, cfg.vocab_size, size=300), max_new_tokens=2, arrival=1)
-    eng.run(params)
-    eng.clear()
+    warm_up(eng, params, rng, cfg.vocab_size)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -942,28 +1017,21 @@ def serve_requests(torch, model, params, policy, label, eager=False):
         fail(f"{label}: trace_counts {traces}: every bucket used ({sorted(bk)}) must be "
              "captured exactly once")
 
-    def agg(names, key):
-        return sum(bk[n][key] for n in names if n in bk)
-
-    steps = dict(
-        sparse_chunks=agg(("step_prefill", "step_prefill_decode"), "calls"),
-        prefill_halves=agg(("step_prefill", "step_prefill_decode", "step_replay",
-                            "step_replay_decode"), "calls"),
-        decode_halves=agg(("step_decode", "step_prefill_decode", "step_replay_decode"),
-                          "calls"))
+    sparse, decode_only, steps = step_counts(bk, scfg.fused_step)
+    agg = functools.partial(bucket_sum, bk)
     print(f"  prompts {[len(p) for p in prompts]}, arrivals {arrivals}, {new} new tokens each")
     print(f"  buckets {json.dumps(bk)}")
     print(f"  launches (replays counted) {launches}; {steps}")
-    pf_tok = agg(("step_prefill", "step_prefill_decode"), "prefill_tokens")
-    pf_s = agg(("step_prefill", "step_prefill_decode"), "seconds")
-    dec_tok = agg(("step_decode",), "decode_tokens")
-    dec_s = agg(("step_decode",), "seconds")
+    pf_tok = agg(sparse, "prefill_tokens")
+    pf_s = agg(sparse, "seconds")
+    dec_tok = agg(decode_only, "decode_tokens")
+    dec_s = agg(decode_only, "seconds")
     print(f"  wall {met['wall_s']:.3f} s, {met['generated_tokens']} tokens generated, "
           f"{met['iterations']} iterations, dispatches/iteration "
           f"{met['dispatches_per_iteration']:.2f}")
     print(f"  prefill {pf_tok} tokens in {pf_s:.3f} s of prefill steps = "
-          f"{pf_tok / pf_s:.1f} tok/s; decode-only steps {dec_tok} tokens in {dec_s:.3f} s "
-          f"= {dec_tok / dec_s:.1f} tok/s")
+          f"{pf_tok / pf_s:.1f} tok/s; {'/'.join(decode_only)} steps {dec_tok} tokens in "
+          f"{dec_s:.3f} s = {dec_tok / dec_s:.1f} tok/s")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"allocated (weights, cache, live activations), "
           f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved (with the graph "
@@ -986,9 +1054,10 @@ def check_graphed_tokens(torch, model, params, policy, label, outputs):
 
 
 def check_launches(label, launches, want):
-    """Each kernel of the path launched, and exactly as often as expected."""
+    """Each kernel of the path launched, and exactly as often as expected
+    (a count of 0: a kernel the path must not launch)."""
     for name, count in want.items():
-        if launches[name] <= 0:
+        if count and launches[name] <= 0:
             fail(f"{label}: kernel {name} was never launched on the serving path")
         if launches[name] != count:
             fail(f"{label}: {name} launched {launches[name]} times, expected {count}")
@@ -1027,7 +1096,7 @@ def phase_serve(torch):
     profile_steps(torch, model, params, policy, eng)
     del eng
     check_graphed_tokens(torch, model, params, policy, "phase 3", outputs)
-    return launches, model, params, policy
+    return launches, model, params, policy, outputs
 
 
 def phase_serve_osparse(torch, model, params, policy):
@@ -1075,6 +1144,225 @@ def phase_serve_osparse(torch, model, params, policy):
     del eng
     check_graphed_tokens(torch, model, params, policy, "phase 3b", outputs)
     return launches
+
+
+def fresh_engine(torch, model, policy, faults=None, **serving):
+    """An engine over phase 3's ``ContinuousConfig`` (plus ``serving``),
+    and phase 3's requests submitted to it, no warm-up.  Returns (engine,
+    rids)."""
+    from repro_torch.serve import Engine, EngineConfig
+
+    _, prompts, arrivals, new, scfg = serving_stream(torch, model.cfg.vocab_size, **serving)
+    eng = Engine.from_config(model, EngineConfig(serving=scfg), policy=policy, faults=faults)
+    return eng, [eng.submit(p, max_new_tokens=new, arrival=a)
+                 for p, a in zip(prompts, arrivals)]
+
+
+def check_tokens(label, outputs, want):
+    if outputs != want:
+        diff = [i for i, (a, b) in enumerate(zip(outputs, want)) if a != b]
+        fail(f"{label}: tokens differ from phase 3's in requests {diff}")
+    print(f"  {label}: tokens identical to phase 3's ({len(want)} requests x {len(want[0])})")
+
+
+def phase_lifecycle(torch, model, params, policy, want):
+    """Phases 6b-6e, on phase 3's model, weights and requests (before 3b
+    rewrites the weights); ``want`` is phase 3's tokens."""
+    import weakref
+
+    from repro_torch.serve.faults import EngineCrash, FaultInjector, FaultSpec
+
+    cfg = model.cfg
+    print("phase 6b: phase 3's requests through the legacy two-program split "
+          "(fused_step=False)")
+    launches, st, eng, outputs = serve_requests(torch, model, params, policy, "phase 6b",
+                                                fused_step=False)
+    traces, m = eng.replica.trace_counts, eng.metrics
+    if set(traces) - {"prefill", "prefill_replay"} != {"decode"} or "prefill" not in traces:
+        fail(f"phase 6b: trace_counts {traces}: expected the prefill and decode programs")
+    if not m.dispatches_per_iteration > 1.0:
+        fail(f"phase 6b: {m.dispatches_per_iteration} dispatches per work iteration, "
+             "expected more than 1 on the legacy split")
+    per_chunk = sum(policy.should_prune(mod, i) for i in range(cfg.n_layers)
+                    for mod in ("q_proj", "gate_proj", "down_proj"))
+    per_step = cfg.n_layers * (st["prefill_halves"] + st["decode_halves"])
+    check_launches("phase 6b", launches, {
+        "nm_prune_matmul": per_chunk * st["sparse_chunks"],
+        "paged_kv_scatter": per_step, "paged_attention": per_step})
+    check_tokens("phase 6b", outputs, want)
+    del eng
+
+    print("phase 6c: phase 3's requests, a crash in a decode iteration and one in a "
+          "prefill iteration, each restored from the last snapshot into a new engine")
+    inj = FaultInjector(seed=SEED, schedule=[
+        FaultSpec("decode", "crash", iters=tuple(range(5, 40)), limit=1),
+        FaultSpec("prefill", "crash", iters=tuple(range(12, 60)), limit=1)])
+    t0 = time.perf_counter()
+    eng, rids = fresh_engine(torch, model, policy, inj, snapshot_every=1)
+    crashes, freed = 0, True
+    while True:
+        try:
+            res = eng.run(params)
+            break
+        except EngineCrash:
+            crashes += 1
+        if crashes > 2:
+            fail(f"phase 6c: {crashes} crashes from a schedule of two")
+        traces = eng.replica.trace_counts
+        if any(n != 1 for n in traces.values()):
+            fail(f"phase 6c: crashed engine's trace_counts {traces}")
+        snap, dead = eng.replica.last_snapshot, weakref.ref(eng.replica.exec)
+        del eng
+        freed = freed and dead() is None
+        eng, _ = fresh_engine(torch, model, policy, inj, snapshot_every=1)
+        eng.restore(snap)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    traces = eng.replica.trace_counts
+    print(f"  fired {inj.fired}; restores {eng.replica.restores}; last engine's "
+          f"trace_counts {traces}; wall {wall:.3f} s with the captures of "
+          f"{crashes + 1} engines")
+    if crashes != 2 or eng.metrics.lifecycle.restores != crashes:
+        fail(f"phase 6c: {crashes} crashes, {eng.metrics.lifecycle.restores} restores")
+    if any(n != 1 for n in traces.values()):
+        fail(f"phase 6c: restored engine's trace_counts {traces}")
+    if not freed:
+        fail("phase 6c: a crashed engine was still alive after it was dropped")
+    check_tokens("phase 6c", [res["outputs"][r] for r in rids], want)
+    del eng
+
+    print("phase 6d: phase 3's requests under pool.alloc exhausted (the first two "
+          "admissions) and admit transient (the third admission)")
+    inj = FaultInjector(seed=SEED, schedule=[
+        FaultSpec("pool.alloc", "exhausted", calls=(0, 1)),
+        FaultSpec("admit", "transient", calls=(2,))])
+    eng, rids = fresh_engine(torch, model, policy, inj)
+    res = eng.run(params)
+    lc = eng.metrics.lifecycle
+    print(f"  fired {inj.fired}; admission_retries {lc.admission_retries}, "
+          f"preemptions {eng.metrics.paged.preemptions}")
+    if not lc.admission_retries > 0 or inj.total_fired != 3:
+        fail(f"phase 6d: admission_retries {lc.admission_retries}, {inj.total_fired} fired")
+    check_tokens("phase 6d", [res["outputs"][r] for r in rids], want)
+    del eng
+
+    print("phase 6e: a nonfinite decode fault at iteration 10 of phase 3's stream, after "
+          "a warm-up that captured every bucket: the replayed step must raise")
+    from repro_torch.serve import Engine, EngineConfig
+
+    rng, prompts, arrivals, new, scfg = serving_stream(torch, cfg.vocab_size)
+    inj = FaultInjector(seed=SEED, schedule=[FaultSpec("decode", "nonfinite", iters=(10,))])
+    eng = Engine.from_config(model, EngineConfig(serving=scfg), policy=policy, faults=inj)
+    warm_up(eng, params, rng, cfg.vocab_size)
+    captured = dict(eng.replica.trace_counts)
+    for p, a in zip(prompts, arrivals):
+        eng.submit(p, max_new_tokens=new, arrival=a)
+    try:
+        eng.run(params)
+    except FloatingPointError as e:
+        err = str(e)
+    else:
+        fail("phase 6e: the nonfinite fault did not raise")
+    name = err.split(":")[0]
+    print(f"  raised FloatingPointError: {err}; fired {inj.fired}; trace_counts before "
+          f"{captured}, after {eng.replica.trace_counts}")
+    if inj.fired_kinds() != ["nonfinite"] or captured.get(name) != 1 \
+            or eng.replica.trace_counts != captured:
+        fail(f"phase 6e: the faulted step ({name}) was not a replay of a captured graph")
+    del eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def run_cli(torch, argv, label):
+    """``repro_torch.launch.serve.main(argv)`` in this process, its output
+    kept and echoed; the launch counts set to 0 just before and read just
+    after.  Returns (output, launches, the trace run's MetricsSnapshot or
+    None)."""
+    import contextlib
+    import io
+
+    from repro_torch import kernels
+    from repro_torch.launch.serve import run as serve_run
+
+    print(f"{label}: python -m repro_torch.launch.serve {' '.join(argv)}")
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc, met = serve_run(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    out = buf.getvalue()
+    if rc != 0:
+        print(out)
+        fail(f"{label}: the CLI returned {rc}")
+    print(f"  rc 0 in {wall:.1f} s (weights included); launches {launches}")
+    torch.cuda.empty_cache()
+    return out, launches, met
+
+
+def per_prefill(arch: str) -> int:
+    """Projections the paper policy prunes in one prefill (chunk) of ``arch``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import paper_policy
+
+    cfg = get_config(arch)
+    policy = paper_policy(8, 16, cfg.qgate_skip_layers)
+    return sum(policy.should_prune(mod, i) for i in range(cfg.n_layers)
+               for mod in ("q_proj", "gate_proj", "down_proj"))
+
+
+def phase_cli(torch):
+    """Phases 6a and 6f: the CLI at full width, ``--trace`` on LLaMA-3.1-8B
+    and one-shot on Qwen2-7B, each with its launch counts exact."""
+    from repro_torch.configs import get_config
+
+    out, launches, met = run_cli(torch, [
+        "--arch", "llama31_8b", "--trace", "--num-requests", "16", "--rate", "0.5",
+        "--len-range", "64:700", "--slots", "4", "--chunk", "256", "--block-size", "16",
+        "--new-tokens", "32", "--shared-prefix", "128", "--sparsity", "8:16"], "phase 6a")
+    lines = out.splitlines()
+    for line in lines:
+        if line.startswith(("# throughput", "# latency", "# traces", "# dispatches",
+                            "# terminal", "# lifecycle", "# paged", "# prefix")):
+            print(f"  {line}")
+    traces = next(line for line in lines if line.startswith("# traces:"))
+    counts = re.findall(r"(\w+)=(\d+)", traces.split("(")[0])
+    if not counts or any(n != "1" for _, n in counts):
+        fail(f"phase 6a: {traces}: every program must be captured once")
+    if "1.00 per work iteration" not in out:
+        fail("phase 6a: the fused path did not run one program per work iteration")
+    hits = int(re.search(r"# prefix cache: hits=(\d+)", out).group(1))
+    if hits < 1:
+        fail("phase 6a: the prefix cache never hit on a 128-token shared prefix")
+    if "ERROR" in out or "done=16 " not in out:
+        fail("phase 6a: a request leaked or did not finish")
+    _, _, st = step_counts(met.buckets, fused=True)
+    per_step = get_config("llama31_8b").n_layers * (st["prefill_halves"] + st["decode_halves"])
+    print(f"  {st}")
+    check_launches("phase 6a", launches, {
+        "nm_prune_matmul": per_prefill("llama31_8b") * st["sparse_chunks"],
+        "paged_kv_scatter": per_step, "paged_attention": per_step,
+        "nm_spmm": 0, "flash_attention": 0, "osparse_matmul": 0})
+
+    out, launches, _ = run_cli(torch, ["--arch", "qwen2_7b", "--batch", "4", "--prompt-len",
+                                       "512", "--new-tokens", "32"], "phase 6f")
+    for line in out.splitlines():
+        print(f"  {line}")
+    if "greedy-decode agreement dense vs sparse-prefill:" not in out:
+        fail("phase 6f: no agreement line")
+    # the dense and the Amber engine each prefill once (only Amber's prunes)
+    # and take 31 decode steps: a scatter per layer in every step, a paged
+    # read per layer in every decode step (the prefill attends with
+    # attn_impl="chunked")
+    layers = get_config("qwen2_7b").n_layers
+    check_launches("phase 6f", launches, {
+        "nm_prune_matmul": per_prefill("qwen2_7b"),
+        "paged_kv_scatter": 2 * layers * 32, "paged_attention": 2 * layers * 31,
+        "nm_spmm": 0, "flash_attention": 0, "osparse_matmul": 0})
 
 
 def profile_steps(torch, model, params, policy, eng):
@@ -1638,8 +1926,10 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
-    launches, model, params, policy = phase_serve(torch)
+    launches, model, params, policy, outputs = phase_serve(torch)
     t3 = time.perf_counter()
+    phase_lifecycle(torch, model, params, policy, outputs)
+    t3b = time.perf_counter()
     q_launches = phase_serve_osparse(torch, model, params, policy)
     del model, params
     torch.cuda.empty_cache()
@@ -1653,9 +1943,12 @@ def main() -> int:
     phase_parity_oneshot(torch)
     phase_parity_oneshot(torch, dtype="bfloat16")
     t7 = time.perf_counter()
+    phase_cli(torch)
+    t8 = time.perf_counter()
     print(f"phase seconds: build {t1 - t:.1f}, kernels {t2 - t1:.1f}, serve {t3 - t2:.1f}, "
-          f"serve osparse {t4 - t3:.1f}, parity {t5 - t4:.1f}, one-shot serve {t6 - t5:.1f}, "
-          f"one-shot parity {t7 - t6:.1f}")
+          f"serve osparse {t4 - t3b:.1f}, parity {t5 - t4:.1f}, one-shot serve {t6 - t5:.1f}, "
+          f"one-shot parity {t7 - t6:.1f}, serve CLI and serving lifecycle "
+          f"{t8 - t7 + t3b - t3:.1f} (6b-6e {t3b - t3:.1f}, 6a and 6f {t8 - t7:.1f})")
 
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import nm_prune as knp
@@ -1665,8 +1958,9 @@ def main() -> int:
     from repro_torch.kernels import paged_attention as kpa
     from repro_torch.kernels import w8a8_matmul as kw8
     # launches: each kernel's count in the serving run of its path (phase 3,
-    # 3b for osparse_matmul, 5 for flash_attention and nm_spmm); w8a8_matmul
-    # and nm_prune are entry points that no serving path calls
+    # 3b for osparse_matmul, 5 for flash_attention and nm_spmm; phase 6a's
+    # CLI run drives phase 3's kernels again and prints its own counts);
+    # w8a8_matmul and nm_prune are entry points that no serving path calls
     meta = {
         "nm_prune_matmul": (knm.SOURCE, knm.REPLACES, launches),
         "paged_kv_scatter": (kpa.SOURCE, kpa.SCATTER_REPLACES, launches),

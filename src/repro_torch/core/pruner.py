@@ -36,7 +36,13 @@ def sparse_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None,
     """N:M-sparsified ``x @ w`` (+ ``bias``) under the policy's mode.
 
     In tile-consensus mode the bias is added after the product, in x's
-    dtype, as the JAX package does (``repro/core/pruner.py:90-93``)."""
+    dtype, as the JAX package does (``repro/core/pruner.py:90-93``).
+    Under ``use_kernels`` the fault site ``kernel.projection`` is consulted
+    first (``kernels/_faults.py``)."""
+    if policy.use_kernels:
+        from repro_torch.kernels._faults import kernel_site
+
+        kernel_site("kernel.projection")
     if policy.tile_consensus:
         from repro_torch.kernels import nm_spmm, ops
 

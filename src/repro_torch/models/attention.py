@@ -15,7 +15,9 @@
   read.  ``use_kernel`` sends them to the Hopper kernels, which on CUDA
   tensors launch or raise; otherwise they run the flat-index scatter oracle
   and the gather oracle below.  There is no coverage rule: the kernel
-  serves every query count.
+  serves every query count.  Under ``use_kernel`` each first consults its
+  fault site (``kernel.paged_scatter``, ``kernel.paged_attention``;
+  ``kernels/_faults.py``).
 """
 from __future__ import annotations
 
@@ -145,7 +147,9 @@ def paged_kv_update(k_pool: torch.Tensor, v_pool: torch.Tensor,
     cl = _vec(t if chunk_len is None else chunk_len, b, k_new.device)
     if use_kernel:
         from repro_torch.kernels import paged_attention as kpa
+        from repro_torch.kernels._faults import kernel_site
 
+        kernel_site("kernel.paged_scatter")
         kpa.paged_kv_scatter(k_new.contiguous(), v_new.contiguous(), k_pool,
                              v_pool, block_table, posv, cl)
         return k_pool, v_pool
@@ -182,7 +186,9 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
             raise NotImplementedError(
                 "the paged_attention kernel takes full attention with kv_len")
         from repro_torch.kernels import paged_attention as kpa
+        from repro_torch.kernels._faults import kernel_site
 
+        kernel_site("kernel.paged_attention")
         b = q.shape[0]
         return kpa.paged_attention(q.contiguous(), k_pool, v_pool, block_table,
                                    _vec(q_offset, b, q.device),

@@ -5,6 +5,7 @@
     eng = Engine.from_config(model, EngineConfig(serving=...), policy=...)
     rid = eng.submit(prompt_tokens, max_new_tokens=32)
     res = eng.run(params)                # res["outputs"][rid]
+    print(eng.metrics.to_json(indent=2))
 
 One replica on one device: ``dp == tp == 1``; the router and tensor
 parallelism are not ported yet and raise ``NotImplementedError``.  The
@@ -14,11 +15,13 @@ is named.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 from repro_torch.core.policy import DENSE, SparsityPolicy
 from repro_torch.models.model import resolve_device
 from repro_torch.serve.continuous import ContinuousConfig, ContinuousServingEngine
+from repro_torch.serve.faults import FaultInjector
+from repro_torch.serve.metrics import MetricsSnapshot
 
 __all__ = ["EngineConfig", "Engine"]
 
@@ -37,16 +40,20 @@ class Engine:
 
     @classmethod
     def from_config(cls, model, cfg: EngineConfig = EngineConfig(), *,
-                    policy: SparsityPolicy = DENSE, device=None) -> "Engine":
+                    policy: SparsityPolicy = DENSE,
+                    faults: Optional[FaultInjector] = None,
+                    device=None) -> "Engine":
         """Build the serving stack for ``model`` on ``device`` (default: the
-        GPU, raising if there is none); the model must live there."""
+        GPU, raising if there is none); the model must live there.
+        ``faults`` is consulted at the fault sites (``serve/faults.py``)."""
         if cfg.dp != 1 or cfg.tp != 1:
             raise NotImplementedError("dp/tp > 1 (router, tensor parallelism) "
                                       "is not ported yet")
         dev = resolve_device(device)
         if model.device.type != dev.type:
             raise ValueError(f"model is on {model.device}, engine asked for {dev}")
-        return cls(ContinuousServingEngine(model, policy, cfg.serving), cfg)
+        return cls(ContinuousServingEngine(model, policy, cfg.serving, faults=faults),
+                   cfg)
 
     def submit(self, tokens, max_new_tokens: int = 32, arrival: int = 0,
                ttl: Optional[int] = None) -> int:
@@ -70,8 +77,18 @@ class Engine:
         return [res["outputs"][r] for r in rids]
 
     @property
-    def metrics(self) -> Dict:
-        return self._replica.metrics
+    def metrics(self) -> Optional[MetricsSnapshot]:
+        """The last ``run()``'s metrics (None before one)."""
+        return self._replica.metrics_snapshot
+
+    def request_state(self, rid: int) -> str:
+        return self._replica.requests[rid].state
+
+    def snapshot(self) -> Dict[str, Any]:
+        return self._replica.snapshot()
+
+    def restore(self, snap: Dict[str, Any]) -> None:
+        self._replica.restore(snap)
 
     @property
     def replica(self) -> ContinuousServingEngine:

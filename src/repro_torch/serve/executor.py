@@ -6,11 +6,21 @@ The :class:`Executor` owns the paged cache and one step program per
 package's fused step: the active request's prefill chunk first, then the
 slot-batched decode, on the same in-place pools — the decode half reads the
 KV the prefill half just wrote.  Its operands are fixed-shape device
-buffers, written from the host before each step in one copy: the slot (a
-0-d index, :mod:`~repro_torch.serve.slots`), the chunk tokens padded to
-``chunk_size``, ``chunk_len``, the decode tokens and the ``active`` mask.
-It returns the logits and one all-finite flag (inactive decode rows
-masked).
+buffers: the slot (a 0-d index, :mod:`~repro_torch.serve.slots`), the chunk
+tokens padded to ``chunk_size``, ``chunk_len``, the decode tokens and the
+``active`` mask and the fault operand, written from the host before each
+step in one copy.  The fault operand is a 0-d float32 view of the buffer's
+last 4 bytes that the program adds to its logits (0 on a clean step, NaN
+when the engine injects a ``"nonfinite"`` fault; a device operand, so a
+replayed graph sees it, where a Python number would be baked in at
+capture).  It returns the logits and one all-finite flag (inactive
+decode rows masked).
+
+The legacy two-program split (``ContinuousConfig.fused_step=False``) runs
+the prefill-only and decode-only programs of the same table through
+:meth:`Executor.prefill` and :meth:`Executor.decode`, as programs of their
+own under the JAX package's names: ``prefill`` (``prefill_replay`` for a
+replay chunk) and ``decode``.
 
 On the GPU each program is a CUDA graph, the counterpart of the JAX
 package's jit: the first step of a bucket runs the program eagerly (the
@@ -20,9 +30,9 @@ replays the graph.  All graphs of an executor share one memory pool (they
 never run at once) and read the cache and the parameters they were
 captured with: a call with another ``params`` object captures again.  A
 capture that fails raises; nothing reruns eagerly.  ``trace_counts[name]``
-counts the captures of each bucket (1 for every bucket a run used), as the
-JAX package counts traces; on the CPU, where there are no graphs and the
-program runs as it is, it counts each bucket's first use.  The launch
+counts the captures of each program (1 for every program a run used), as
+the JAX package counts traces; on the CPU, where there are no graphs and
+the program runs as it is, it counts each program's first use.  The launch
 counters of the kernels count replays (``kernels/_capture.py``).
 
 Sampling runs after the program, on its logits, with the explicit
@@ -60,12 +70,14 @@ STEP_BUCKETS: Dict[Tuple[bool, bool, bool], str] = {
     (True, True, True): "step_replay_decode",
 }
 
+# legacy two-program split (``prefill()``/``decode()``)
+_LEGACY_TRACE_KEYS = ("prefill", "prefill_replay", "decode")
+
 
 def declared_trace_keys() -> Tuple[str, ...]:
     """Every ``trace_counts`` key an :class:`Executor` may record: the fused
-    buckets (the port has no legacy two-program split and no oracle
-    twins)."""
-    return tuple(STEP_BUCKETS.values())
+    buckets and the legacy split (the port has no ``_oracle`` twins)."""
+    return tuple(STEP_BUCKETS.values()) + _LEGACY_TRACE_KEYS
 
 
 @dataclasses.dataclass
@@ -102,12 +114,12 @@ class Executor:
                       has_prefill: bool, has_decode: bool) -> Callable:
         model = self.model      # not self: the executor must not hold itself in a cycle
 
-        def step_fn(params, cache, slot, tokens, chunk_len, toks, active):
+        def step_fn(params, cache, slot, tokens, chunk_len, toks, active, fault):
             """One fused step on the cache, updated in place.  ``slot``: 0-d
             int; ``tokens (1, C)``; ``chunk_len``: 0-d int32; ``toks``,
-            ``active``: ``(num_slots,)``.  Returns (prefill logits ``(V,)``
-            or None, decode logits ``(num_slots, V)`` or None, all-finite
-            0-d bool)."""
+            ``active``: ``(num_slots,)``; ``fault``: 0-d float32 added to
+            the logits.  Returns (prefill logits ``(V,)`` or None, decode
+            logits ``(num_slots, V)`` or None, all-finite 0-d bool)."""
             finite = torch.ones((), dtype=torch.bool, device=cache["pos"].device)
             p_logits = d_logits = None
             if has_prefill:
@@ -116,12 +128,13 @@ class Executor:
                     params, {"tokens": tokens, "chunk_len": chunk_len}, sub,
                     policy=pf_policy)
                 slot_ops.write_slot(cache, slot, sub)
-                p_logits = p_logits[0]
+                p_logits = p_logits[0] + fault
                 finite = finite & torch.isfinite(p_logits).all()
             if has_decode:
                 d_logits, new = model.decode_step(params, toks[:, None], cache,
                                                   policy=dec_policy)
                 slot_ops.where_active(active, new, cache)
+                d_logits = d_logits + fault
                 # inactive slots may hold junk logits; only active rows count
                 finite = finite & (torch.isfinite(d_logits).all(dim=-1) | ~active).all()
             return p_logits, d_logits, finite
@@ -129,12 +142,12 @@ class Executor:
 
     @property
     def trace_counts(self) -> Dict[str, int]:
-        """Captures of each bucket's graph (on the CPU: first uses)."""
+        """Captures of each program's graph (on the CPU: first uses)."""
         return self._graphs.trace_counts
 
     def step_program(self, bucket: Tuple[bool, bool, bool]) -> Callable:
         """The raw step program of a phase-presence bucket: ``prog(params,
-        cache, slot, tokens, chunk_len, toks, active)``, eager on any
+        cache, slot, tokens, chunk_len, toks, active, fault)``, eager on any
         device (what a bucket's graph captures)."""
         return self._programs[bucket]
 
@@ -152,14 +165,27 @@ class Executor:
         probs = torch.softmax(logits.float() / self.cfg.temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=self._gen)[..., 0].to(torch.int32)
 
+    def sampler_state(self) -> Optional[torch.Tensor]:
+        """The sampling generator's state (None before its first draw)."""
+        return None if self._gen is None else self._gen.get_state()
+
+    def set_sampler_state(self, state: Optional[torch.Tensor]) -> None:
+        """Resume sampling from :meth:`sampler_state`'s value; None restarts
+        from ``cfg.seed``."""
+        self._gen = None
+        if state is not None:
+            self._gen = torch.Generator(device=self.device)
+            self._gen.set_state(state)
+
     # ----------------------------------------------------------- the cache
     def init_cache(self, num_blocks: int) -> None:
         if self.cache is None:
             cfg = self.cfg
             self.cache = init_paged_cache(self.model.cfg, cfg.num_slots, cfg.max_seq,
                                           cfg.block_size, num_blocks, device=self.device)
-            # [slot, chunk_len, chunk tokens (C), decode tokens (S), active (S)]
-            self._operands = torch.zeros(2 + cfg.chunk_size + 2 * cfg.num_slots,
+            # [slot, chunk_len, chunk tokens (C), decode tokens (S), active (S),
+            #  fault (float32 bits)]
+            self._operands = torch.zeros(3 + cfg.chunk_size + 2 * cfg.num_slots,
                                          dtype=torch.int32, device=self.device)
 
     def apply_effects(self, plan: StepPlan) -> None:
@@ -171,35 +197,55 @@ class Executor:
             self.cache["block_table"].copy_(torch.from_numpy(plan.table))
 
     def _views(self):
-        """The step programs' operands: views of the operand buffer, and
+        """The step programs' operands: views of the operand buffer,
         ``active`` as a mask (made inside the program, so a graph makes it
-        at replay)."""
+        at replay), and the fault operand, the last slot read as float32."""
         c, s = self.cfg.chunk_size, self.cfg.num_slots
         buf = self._operands
         return (buf[0], buf[2:2 + c].reshape(1, c), buf[1], buf[2 + c:2 + c + s],
-                buf[2 + c + s:] != 0)
+                buf[2 + c + s:2 + c + 2 * s] != 0, buf[-1:].view(torch.float32)[0])
 
-    def _write_operands(self, plan: StepPlan) -> None:
+    def _write_operands(self, plan: StepPlan, fault: float) -> None:
         c, s = self.cfg.chunk_size, self.cfg.num_slots
-        host = np.zeros(2 + c + 2 * s, np.int32)
+        host = np.zeros(3 + c + 2 * s, np.int32)
         if plan.prefill is not None:
             pw = plan.prefill
             host[0], host[1] = pw.req.slot, pw.chunk_len
             host[2:2 + c] = pw.tokens.reshape(-1)
         if plan.decode is not None:
             host[2 + c:2 + c + s] = plan.decode.toks
-            host[2 + c + s:] = plan.decode.active
+            host[2 + c + s:2 + c + 2 * s] = plan.decode.active
+        host[-1:] = np.float32(fault).reshape(1).view(np.int32)
         self._operands.copy_(torch.from_numpy(host))
 
     # ------------------------------------------------------------ dispatch
+    def step(self, params, plan: StepPlan, fault: float = 0.0) -> StepResult:
+        """Run a fused plan through its bucket's program.  ``fault`` is the
+        value of the fault operand (0.0 clean, NaN injected)."""
+        return self._run(params, plan, STEP_BUCKETS[plan.bucket], fault)
+
+    def prefill(self, params, plan: StepPlan, fault: float = 0.0) -> int:
+        """Legacy two-program split, phase 1: the chunk of a prefill-only
+        plan through the ``prefill`` program (``prefill_replay`` for a
+        replay chunk); returns the token sampled from its last position,
+        which the engine keeps only when the chunk completed the
+        sequence."""
+        name = "prefill_replay" if plan.prefill.replay else "prefill"
+        return self._run(params, plan, name, fault).prefill_token
+
+    def decode(self, params, plan: StepPlan, fault: float = 0.0) -> np.ndarray:
+        """Legacy two-program split, phase 2: one slot-batched decode step
+        of a decode-only plan through the ``decode`` program; returns the
+        ``(num_slots,)`` next tokens."""
+        return self._run(params, plan, "decode", fault).decode_tokens
+
     @torch.no_grad()
-    def step(self, params, plan: StepPlan) -> StepResult:
-        """Run one plan: operands in, the bucket's program, sampling, one
-        host sync."""
-        name = STEP_BUCKETS[plan.bucket]
+    def _run(self, params, plan: StepPlan, name: str, fault: float) -> StepResult:
+        """Run one plan through program ``name`` (the plan's bucket's body):
+        operands in, the program, sampling, one host sync."""
         t0 = time.perf_counter()
         pw, dw = plan.prefill, plan.decode
-        self._write_operands(plan)
+        self._write_operands(plan, fault)
         prog = self._programs[plan.bucket]
         p_logits, d_logits, finite = self._graphs.run(
             name, lambda: prog(params, self.cache, *self._views()), params)

@@ -3,8 +3,9 @@
 
 The host half — :class:`BlockPool`, :func:`chain_block_hashes`,
 :func:`chain_block_keys`, :func:`max_blocks_per_slot` and
-:func:`device_pool_rows` — is a copy of the JAX package's, without its
-fault-injection hook (faults are not ported).  The device half,
+:func:`device_pool_rows` — is a copy of the JAX package's, with its
+``pool.alloc`` fault site (:mod:`repro_torch.serve.faults`) and its
+snapshot/restore.  The device half,
 :func:`init_paged_cache`, builds per-layer torch pools.
 
 Each attention layer's K and V live in a pooled ``(rows, block_size,
@@ -17,10 +18,12 @@ later requests whose token prefix reproduces the chain.
 from __future__ import annotations
 
 from collections import Counter, OrderedDict, deque
-from typing import Deque, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.serve.faults import fire as _fire_fault
 
 __all__ = ["BlockPool", "chain_block_hashes", "chain_block_keys",
            "device_pool_rows", "init_paged_cache", "max_blocks_per_slot"]
@@ -206,7 +209,19 @@ class BlockPool:
         even eviction cannot cover the request — callers check
         :attr:`available` and preempt first.  All validation happens
         before any state is mutated.
+
+        Fault site ``pool.alloc`` (:mod:`repro_torch.serve.faults`):
+        ``"exhausted"`` raises the real exhaustion error, so the callers'
+        recovery paths (admission retry with backoff, decode-growth
+        preemption) run; ``"evict_storm"`` flushes the zero-ref LRU first.
         """
+        kind = _fire_fault("pool.alloc")
+        if kind == "exhausted":
+            raise RuntimeError(
+                f"block pool exhausted (injected fault): want {n}, have "
+                f"{self.available}")
+        if kind == "evict_storm":
+            self.flush_cached()
         if n > self.available:
             raise RuntimeError(
                 f"block pool exhausted: want {n}, have {self.available} "
@@ -269,6 +284,21 @@ class BlockPool:
                     self._hash_of.pop(i, None)
                     self._key_of.pop(i, None)
                     self._free.append(i)
+
+    def flush_cached(self) -> int:
+        """Evict EVERY zero-ref cached block (index entries dropped, blocks
+        freed).  Returns the number evicted.  Used by the ``evict_storm``
+        fault."""
+        n = len(self._cached)
+        for b, h in self._cached.items():
+            if self._index.get(h) == b:
+                del self._index[h]
+            self._hash_of.pop(b, None)
+            self._key_of.pop(b, None)
+            self._free.append(b)
+            self.evictions += 1
+        self._cached.clear()
+        return n
 
     # ------------------------------------------------------- prefix index
     def register(self, block_id: int, chain_hash: int,
@@ -343,6 +373,47 @@ class BlockPool:
             assert b in cached or b in ref, f"indexed block {b} is free"
         for b, h in self._cached.items():
             assert self._index.get(h) == b, f"cached block {b} unreachable"
+
+    # ------------------------------------------------------ snapshot/restore
+    def snapshot(self) -> Dict[str, Any]:
+        """Copy of the full host-side pool state (free list order, refcounts,
+        prefix index, zero-ref LRU order, counters).  Process-local: chain
+        hashes use Python's per-process salted ``hash``."""
+        return {
+            "num_blocks": self.num_blocks,
+            "block_size": self.block_size,
+            "prefix_cache": self.prefix_cache,
+            "free": list(self._free),
+            "ref": dict(self._ref),
+            "cached": list(self._cached.items()),
+            "index": dict(self._index),
+            "hash_of": dict(self._hash_of),
+            "key_of": dict(self._key_of),
+            "peak_in_use": self.peak_in_use,
+            "total_allocs": self.total_allocs,
+            "evictions": self.evictions,
+            "hash_collisions": self.hash_collisions,
+        }
+
+    def restore(self, snap: Dict[str, Any]) -> None:
+        """Rebuild the pool exactly as snapshotted (same process, and only
+        meaningful when the device-side KV the blocks point at is intact —
+        the engine's crash-recovery path resets a FRESH pool instead)."""
+        assert snap["num_blocks"] == self.num_blocks \
+            and snap["block_size"] == self.block_size, \
+            "snapshot geometry mismatch"
+        self.prefix_cache = snap["prefix_cache"]
+        self._free = deque(snap["free"])
+        self._ref = dict(snap["ref"])
+        self._cached = OrderedDict(snap["cached"])
+        self._index = dict(snap["index"])
+        self._hash_of = dict(snap["hash_of"])
+        self._key_of = dict(snap["key_of"])
+        self.peak_in_use = snap["peak_in_use"]
+        self.total_allocs = snap["total_allocs"]
+        self.evictions = snap["evictions"]
+        self.hash_collisions = snap["hash_collisions"]
+        self.check_invariants()
 
 
 def init_paged_cache(cfg, num_slots: int, max_seq: int, block_size: int,

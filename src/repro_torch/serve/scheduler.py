@@ -1,16 +1,20 @@
 """Pure-host scheduling layer of the serving engine (port of
 ``repro/serve/scheduler.py``).
 
-A copy of the JAX package's :class:`Scheduler`, numpy only, without its
-fault-injection hooks (faults are not ported) and without the legacy
-two-program plans and host snapshot/restore, which nothing in the port
-calls.  The :class:`Scheduler` owns every piece of host state — the
+A copy of the JAX package's :class:`Scheduler`, numpy only, for the paged
+cache of the dense family (no dense-slab branch, no modality extras, no
+exact dyadic chunks): the same stream makes the same decisions, faults
+included (the ``admit`` site, retries with backoff, the ``pool.alloc``
+recovery paths).  The :class:`Scheduler` owns every piece of host state — the
 :class:`Request` lifecycle machine, slot assignment, the paged
 :class:`~repro_torch.serve.paged.BlockPool`, the prefix index bookkeeping,
 the watchdog, and the scheduling counters — and never touches device
-tensors.  Each iteration it emits a :class:`StepPlan`: a plain-numpy
+tensors.  Each iteration it emits a :class:`StepPlan` (or, for the legacy
+two-program split, a prefill plan and a decode plan): a plain-numpy
 description of the device work; the executor runs it and the ``commit_*``
 methods fold the sampled tokens back into request state.
+:meth:`Scheduler.host_snapshot` / :meth:`Scheduler.host_restore` are its
+share of the engine's crash recovery.
 """
 from __future__ import annotations
 
@@ -30,9 +34,10 @@ __all__ = ["Scheduler", "Request", "StepPlan", "PrefillWork", "DecodeWork",
 
 WAITING, PREFILL, DECODE, DONE = "waiting", "prefill", "decode", "done"
 # terminal without ever running: admission proved the request can NEVER
-# fit the block pool (its replay sequence outgrew capacity), or the
-# no-progress watchdog evicted it — rejecting keeps strict-FCFS admission
-# from waiting on it forever and starving the queue behind it
+# fit the block pool (its replay sequence outgrew capacity), its transient-
+# failure retry budget ran out, or the no-progress watchdog evicted it —
+# rejecting keeps strict-FCFS admission from waiting on it forever and
+# starving the queue behind it
 REJECTED = "rejected"
 # deadline (submit ttl / cfg.ttl_default) passed before completion
 TIMED_OUT = "timed_out"
@@ -71,6 +76,8 @@ class Request:
     # --- lifecycle ---
     deadline: Optional[int] = None     # absolute iteration bound (TIMED_OUT)
     cancel_requested: bool = False     # processed at the next iteration start
+    retries: int = 0                   # transient admission failures absorbed
+    next_retry_iter: int = 0           # backoff window after a transient fail
 
 
 # --------------------------------------------------------------- the plan
@@ -125,12 +132,15 @@ class Scheduler:
     state and the block pool; emits :class:`StepPlan`s and commits their
     results.  Never touches device tensors or sampling generators."""
 
-    def __init__(self, cfg, *, policy_enabled: bool, prefix_cache: bool):
+    def __init__(self, cfg, *, policy_enabled: bool, prefix_cache: bool,
+                 faults=None):
         self.cfg = cfg
+        self.faults = faults
         self._policy_enabled = policy_enabled
         self.prefix_cache = prefix_cache
         self.preemptions = 0
         self.rejections = 0
+        self.admission_retries = 0   # transient admission failures absorbed
         self.preempt_log: List[tuple] = []   # (rid, state-when-preempted)
         self.watchdog_trips = 0      # forced evictions by the watchdog
         self.timeouts = 0
@@ -183,6 +193,9 @@ class Scheduler:
     def live(self) -> bool:
         return any(r.state not in TERMINAL for r in self.requests)
 
+    def _fire(self, site: str) -> Optional[str]:
+        return self.faults.fire(site) if self.faults is not None else None
+
     # ---------------------------------------------------- lifecycle plumbing
     def evict_request(self, req: Request, state: str, it: int) -> None:
         """Move ``req`` to terminal ``state`` from ANY lifecycle phase,
@@ -229,6 +242,20 @@ class Scheduler:
                 self.timeouts += 1
                 n += 1
         return n
+
+    def _retry(self, req: Request, it: int) -> None:
+        """Absorb a transient admission failure: exponential backoff, then
+        the REJECTED backstop once the per-request retry budget is spent
+        (an unbounded retry of a persistent fault would livelock strict-
+        FCFS admission)."""
+        req.retries += 1
+        self.admission_retries += 1
+        if req.retries > self.cfg.admission_retries:
+            self.evict_request(req, REJECTED, it)
+            self.rejections += 1
+        else:
+            req.next_retry_iter = it + min(
+                self.cfg.retry_backoff ** req.retries, 64)
 
     def stamp_arrivals(self, it: int, now: float) -> None:
         """Anchor wall-clock latency at arrival.  Stamped unconditionally
@@ -288,6 +315,8 @@ class Scheduler:
         for req in sorted(self.requests, key=lambda r: (r.arrival, r.rid)):
             if req.state != WAITING or req.arrival > it:
                 continue
+            if req.next_retry_iter > it:
+                continue               # backing off a transient failure
             seq = self._seq(req)
             need = self.pool.blocks_for(len(seq))
             if need > min(self.pool.num_blocks, self._max_blocks):
@@ -307,6 +336,11 @@ class Scheduler:
                 continue
             if not self._free_slots:
                 break
+            if self._fire("admit") == "transient":
+                # injected transient admission failure (e.g. a control-
+                # plane hiccup): backoff-and-retry before the backstop
+                self._retry(req, it)
+                continue
             shared = self.match_prefix(req, seq)
             # full feasibility BEFORE taking anything: reviving a
             # zero-ref cached hit consumes availability (sharing a
@@ -319,9 +353,20 @@ class Scheduler:
                 # skipping ahead would starve long prompts under
                 # sustained short-prompt traffic
                 break
-            for b in shared:
-                self.pool.acquire_cached(b)
-            fresh = self.pool.alloc(need - len(shared))
+            acquired: List[int] = []
+            try:
+                for b in shared:
+                    self.pool.acquire_cached(b)
+                    acquired.append(b)
+                fresh = self.pool.alloc(need - len(shared))
+            except RuntimeError:
+                # allocation failed mid-admission (injected pool fault, or
+                # capacity raced away): roll back the prefix refs just
+                # acquired — the pool is left exactly as found — and retry
+                # with backoff
+                self.pool.release(acquired[::-1])
+                self._retry(req, it)
+                continue
             req.blocks = shared + fresh
             req.shared = req.registered = len(shared)
             skip = len(shared) * self.pool.block_size
@@ -409,7 +454,12 @@ class Scheduler:
                 need = self.pool.blocks_for(r.kv_len + 1)
                 if len(r.blocks) >= need:
                     break
-                blk = self.pool.alloc(1) if self.pool.available else None
+                blk = None
+                if self.pool.available:
+                    try:
+                        blk = self.pool.alloc(1)
+                    except RuntimeError:
+                        blk = None   # injected exhaustion → preempt path
                 if blk is not None:
                     self._host_table[r.slot, len(r.blocks)] = blk[0]
                     r.blocks.extend(blk)
@@ -507,6 +557,22 @@ class Scheduler:
             self._drain_effects(plan)
         return plan
 
+    def plan_prefill(self) -> StepPlan:
+        """Legacy two-program split, phase 1: just the prefill chunk."""
+        plan = StepPlan(prefill=self._prefill_work())
+        if plan.has_work:
+            self._drain_effects(plan)
+        return plan
+
+    def plan_decode(self) -> StepPlan:
+        """Legacy two-program split, phase 2: the decode roster computed
+        AFTER prefill (a request finishing prefill this iteration joins
+        decode the same iteration — the legacy scheduling difference)."""
+        plan = StepPlan(decode=self._decode_work())
+        if plan.has_work:
+            self._drain_effects(plan)
+        return plan
+
     # ------------------------------------------------------------- commits
     def commit_chunk(self, req: Request, chunk_len: int) -> None:
         """Fold a completed prefill chunk back into request state and
@@ -589,3 +655,58 @@ class Scheduler:
                     f"writable block {b} of r{r.rid} is published"
         assert expect == dict(pool._ref), \
             f"refcount skew: requests hold {expect}, pool says {pool._ref}"
+
+    # ------------------------------------------------------ crash recovery
+    def host_snapshot(self) -> Dict[str, Any]:
+        """Host-state copy at an iteration boundary (the scheduler's share
+        of the engine snapshot — see ContinuousServingEngine.snapshot)."""
+        return {
+            "it": self.it,
+            "requests": copy.deepcopy(self.requests),
+            "slot_rids": [None if r is None else r.rid
+                          for r in self._slot_req],
+            "free_slots": list(self._free_slots),
+            "pool": self.pool.snapshot(),
+            "host_table": self._host_table.copy(),
+            "counters": {
+                "preemptions": self.preemptions,
+                "rejections": self.rejections,
+                "admission_retries": self.admission_retries,
+                "watchdog_trips": self.watchdog_trips,
+                "timeouts": self.timeouts,
+                "cancellations": self.cancellations,
+                "prefix_hits": self.prefix_hits,
+                "blocks_reused": self.blocks_reused,
+                "tokens_skipped": self.tokens_skipped,
+                "prefill_demand": self.prefill_demand,
+            },
+        }
+
+    def host_restore(self, snap: Dict[str, Any]) -> None:
+        """Rebuild scheduler state from a :meth:`host_snapshot`.  Device
+        KV is treated as LOST — in-flight requests are demoted to WAITING
+        with a fresh block pool and empty prefix index, and replay through
+        prefill on re-admission (the same recompute path preemption uses,
+        so resumed greedy outputs are token-identical)."""
+        cfg = self.cfg
+        self.it = snap["it"]
+        self._last_progress = self.it    # fresh watchdog grace period
+        self.requests = copy.deepcopy(snap["requests"])
+        self._free_slots = list(range(cfg.num_slots))
+        self._slot_req = [None] * cfg.num_slots
+        self._pending_resets = []
+        for r in self.requests:
+            if r.state in (PREFILL, DECODE):
+                r.state = WAITING
+                r.slot = -1
+                r.blocks = []
+                r.shared = r.registered = 0
+                r.filled = 0
+                r.kv_len = 0
+        self.pool = BlockPool(snap["pool"]["num_blocks"], cfg.block_size,
+                              prefix_cache=self.prefix_cache)
+        self._host_table = np.full((cfg.num_slots, self._max_blocks), -1,
+                                   np.int32)
+        self._table_dirty = True
+        for name, val in snap["counters"].items():
+            setattr(self, name, val)

@@ -666,7 +666,7 @@ def test_step_graph_matches_eager_body(gen, bucket, dtype):
     ops = torch.randint(0, 512, (2 + 16 + 6,), generator=gen, device="cuda").to(torch.int32)
     ops[0], ops[1] = 2, 11                                   # slot 2, chunk_len 11
     ops[-3:] = torch.tensor([1, 0, 1], dtype=torch.int32)    # slot 1 inactive
-    ex._operands.copy_(ops)
+    ex._operands[:-1].copy_(ops)                             # the last slot: fault 0.0
     before = _cache_state(ex.cache)
     prog = ex.step_program(key)
 
@@ -756,3 +756,98 @@ def test_launch_counts_count_replays(gen):
     torch.cuda.synchronize()
     assert kernels.counters() == eager
     assert progs.trace_counts == {"step": 1}
+
+
+# The serving lifecycle under graphs: fault operands in replays, the legacy
+# split's graphs, and crashed engines freed.
+
+def _lifecycle_engine(model, policy, **kw):
+    from repro_torch.serve import ContinuousConfig, ContinuousServingEngine
+
+    faults = kw.pop("faults", None)
+    return ContinuousServingEngine(model, policy, ContinuousConfig(
+        max_seq=96, num_slots=3, chunk_size=16, block_size=16, **kw), faults=faults)
+
+
+def _lifecycle_requests(eng):
+    g = torch.Generator().manual_seed(5)
+    for n, a in zip((21, 40, 9, 33), (0, 0, 2, 4)):
+        eng.submit(torch.randint(0, 512, (n,), generator=g).numpy(), max_new_tokens=12,
+                   arrival=a)
+
+
+def test_nonfinite_fault_poisons_a_replayed_step(gen):
+    """A ``nonfinite`` decode fault aimed at an iteration whose bucket was
+    captured earlier reaches the replay through the fault operand, and the
+    step raises ``FloatingPointError``."""
+    from repro_torch.serve.faults import FaultInjector, FaultSpec
+
+    model, params, policy = _graph_model("bfloat16")
+    inj = FaultInjector(seed=0, schedule=[FaultSpec("decode", "nonfinite", iters=(9,))])
+    eng = _lifecycle_engine(model, policy, faults=inj)
+    _lifecycle_requests(eng)
+    seen = {}
+    eng.iteration_hook = lambda e, it: seen.__setitem__(it, dict(e.trace_counts))
+    with pytest.raises(FloatingPointError, match="non-finite") as err:
+        eng.run(params)
+    name = str(err.value).split(":")[0]
+    assert inj.fired_kinds("decode") == ["nonfinite"] and inj.fired[0]["it"] == 9
+    assert seen[9].get(name) == 1 == eng.trace_counts[name], (name, seen[9])
+
+
+def test_legacy_graphs_replay_token_identical(gen):
+    """``fused_step=False`` on the card: the ``prefill`` and ``decode``
+    programs are captured once each and their replays emit the tokens of
+    the same steps run eagerly, which are the fused path's."""
+    model, params, policy = _graph_model("bfloat16")
+    outs = {}
+    for mode in ("legacy", "legacy-eager", "fused"):
+        eng = _lifecycle_engine(model, policy, fused_step=mode == "fused")
+        if mode == "legacy-eager":
+            eng.exec._graphs.run = lambda name, fn, params: fn()
+        _lifecycle_requests(eng)
+        outs[mode] = eng.run(params)["outputs"]
+        if mode == "legacy":
+            assert eng.trace_counts == {"prefill": 1, "decode": 1}
+            assert eng.metrics["dispatches_per_iteration"] > 1.0
+    assert outs["legacy"] == outs["legacy-eager"] == outs["fused"]
+
+
+def test_crashed_and_restored_engines_are_freed(gen):
+    """A crash mid-decode restored into a new engine: the crashed engine and,
+    once it has finished and is dropped, its successor are freed at once
+    (no reference cycle), their caches and graph pools with them."""
+    import gc
+    import weakref
+
+    from repro_torch.serve.faults import EngineCrash, FaultInjector, FaultSpec
+
+    model, params, policy = _graph_model("bfloat16")
+    warm = _lifecycle_engine(model, policy)     # library workspaces, kernel scratch
+    _lifecycle_requests(warm)
+    warm.run(params)
+    del warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    inj = FaultInjector(seed=0, schedule=[FaultSpec("decode", "crash", iters=(7,))])
+    gc.disable()
+    try:
+        eng = _lifecycle_engine(model, policy, faults=inj, snapshot_every=1)
+        _lifecycle_requests(eng)
+        with pytest.raises(EngineCrash):
+            eng.run(params)
+        snap, crashed = eng.last_snapshot, weakref.ref(eng.exec)
+        del eng
+        assert crashed() is None
+        eng = _lifecycle_engine(model, policy, faults=inj, snapshot_every=1)
+        eng.restore(snap)
+        res = eng.run(params)
+        assert eng.restores == 1 and set(eng.trace_counts.values()) == {1}
+        assert all(len(o) == 12 for o in res["outputs"].values())
+        restored = weakref.ref(eng.exec)
+        del eng
+        assert restored() is None
+    finally:
+        gc.enable()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == base

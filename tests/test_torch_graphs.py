@@ -83,7 +83,7 @@ def test_step_program_runs_every_bucket(bucket):
     active = torch.tensor([True, False, True])
     ref = copy.deepcopy(ex.cache)
     p_logits, d_logits, finite = ex.step_program(bucket)(
-        params, ex.cache, slot, tokens, chunk_len, toks, active)
+        params, ex.cache, slot, tokens, chunk_len, toks, active, torch.zeros(()))
     replay, has_prefill, has_decode = bucket
     dense = tpolicy.DENSE.with_(use_kernels=True)
     if has_prefill:
@@ -135,8 +135,8 @@ def test_prefill_into_slot_2_while_slots_0_and_1_decode():
     seen = []
     step = ex.step
 
-    def recording_step(params, plan):
-        out = step(params, plan)
+    def recording_step(params, plan, fault=0.0):
+        out = step(params, plan, fault)
         if plan.prefill is not None:        # the slot the plan named, and the operand's
             seen.append((plan.prefill.req.slot, plan.decode is not None,
                          int(ex._operands[0])))

@@ -1,0 +1,110 @@
+"""The port's serving CLI (``python -m repro_torch.launch.serve``) against the
+JAX package's (``python -m repro.launch.serve``), at the LLaMA-3.1 smoke
+config on the CPU (``--device cpu``).
+
+Both CLIs draw arrival gaps and prompt lengths from
+``numpy.random.default_rng(--seed)`` in the same order; the prompt tokens
+and the random weights differ (the port takes its prompts from the same
+numpy generator, the JAX CLI from ``jax.random``).  With no EOS the
+scheduling does not depend on token values, so every counter of the
+``--trace`` report — per-request iterations, terminal states, lifecycle,
+``# traces:``, dispatches, the paged pool and the prefix cache — must be
+the JAX CLI's exactly.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro.launch.serve import main as jax_main
+from repro_torch.launch.serve import main
+
+ROOT = Path(__file__).resolve().parents[1]
+TRACE = ["--smoke", "--arch", "llama31_8b", "--trace", "--num-requests", "4", "--rate",
+         "0.7", "--len-range", "6:20", "--slots", "2", "--chunk", "8", "--new-tokens", "5"]
+
+
+def _report(out: str):
+    """The counters of a ``--trace`` report: per-request rows without the
+    wall-clock column, and the counts of each ``#`` line, keyed by its
+    label (throughput: tokens and iterations; the paged line: before its
+    backend's name; the JAX CLI's router line is left out)."""
+    rows, lines = [], {}
+    for line in out.splitlines():
+        if line and line[0].isdigit():
+            f = line.split(",")
+            rows.append(f[:7] + f[8:])
+        elif line.startswith("# ") and ":" in line:
+            label, rest = line[2:].split(":", 1)
+            if label == "throughput":
+                rest = re.search(r"\d+ tokens", rest).group() + re.search(
+                    r"over \d+ iterations", rest).group()
+            if label != "replicas":
+                lines[label] = re.findall(r"[a-z_]+=\d+|\d+", rest.split("attention=")[0])
+    return rows, lines
+
+
+@pytest.mark.parametrize("extra", [[], ["--no-fused-step"], ["--shared-prefix", "16"],
+                                   ["--num-blocks", "3"]],
+                         ids=["fused", "legacy", "shared-prefix", "small-pool"])
+def test_trace_report_matches_jax_cli(capsys, extra):
+    """``--trace`` returns 0, reports no negative latency, the fused path
+    one program per work iteration, and the JAX CLI's counters: the
+    same ``# traces:`` keys (each 1), dispatches, terminal states, paged
+    pool and prefix-cache lines, and per-request rows."""
+    assert jax_main(TRACE + extra) == 0
+    want = capsys.readouterr().out
+    assert main(TRACE + extra + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    rows, lines = _report(got)
+    assert rows and all(float(line.split(",")[7]) >= 0.0 for line in got.splitlines()
+                        if line and line[0].isdigit())
+    assert rows == _report(want)[0]
+    jlines = _report(want)[1]
+    for label in ("throughput", "terminal states", "lifecycle", "traces", "dispatches",
+                  "paged KV", "prefix cache"):
+        assert lines[label] == jlines[label], label
+    assert set(re.findall(r"(\w+)=1\b", got.split("# traces:")[1].split("(")[0])) \
+        == set(re.findall(r"(\w+)=\d+", want.split("# traces:")[1].split("(")[0]))
+    if not extra:
+        assert "1.00 per work iteration" in got
+    if extra == ["--no-fused-step"]:
+        assert "prefill=1" in got and "decode=1" in got and "legacy two-program split" in got
+    if extra == ["--shared-prefix", "16"]:
+        assert int(re.search(r"hits=(\d+)", got).group(1)) > 0
+    if extra == ["--num-blocks", "3"]:
+        assert int(re.search(r"preemptions=(\d+)", got).group(1)) > 0
+    assert "attention=plain PyTorch gather" in got
+
+
+def test_one_shot_mode_runs_as_a_module():
+    """``python -m repro_torch.launch.serve --device cpu --smoke`` (one-shot
+    mode) exits 0 and prints both engines' lines and the agreement line."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+                        "--smoke", "--batch", "2", "--prompt-len", "16", "--new-tokens", "4"],
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "[     dense] generated (2, 4)" in r.stdout
+    assert "[amber 8:16] generated (2, 4)" in r.stdout
+    agree = float(re.search(r"agreement dense vs sparse-prefill: ([\d.]+)", r.stdout).group(1))
+    assert 0.0 <= agree <= 1.0
+
+
+@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"], ["--no-paged"]],
+                         ids=["dp", "tp", "no-paged"])
+def test_unported_layouts_raise(flags):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main(TRACE + ["--device", "cpu"] + flags)
+
+
+def test_cuda_without_a_card_raises(monkeypatch):
+    """The default ``--device cuda`` without a GPU raises; the CLI never
+    goes on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(TRACE)
