@@ -29,9 +29,17 @@ Phases (any failed check exits non-zero; no phase is skipped):
              less a graph of the producers alone, over 32; the replay must be
              bit-exact too.  2c: ``paged_attention`` on
              NaN-poisoned pools: a prefill chunk, decode at LLaMA-3.1-8B's
-             heads (G = 4) and at Qwen2-7B's (28 / 4, G = 7), float32; each
-             case's route and time, and the chunk's cost per call and per
-             64-key tile from three key lengths.  2g/2h: ``flash_attention`` and
+             heads (G = 4), at Qwen2-7B's (28 / 4, G = 7) and at
+             Qwen3-30B-A3B's (32 / 4, G = 8: decode and a chunk), float32;
+             each case's route and time, and the chunk's cost per call and
+             per 64-key tile from three key lengths.  2f: ``nm_prune``
+             bit-exact, also at the MoE path's expert inputs (T = 256 x
+             D = 2048, T = 2048 x D = 768, and T = 2048 x D = 2048, no
+             scale).  2i: the grouped product of the MoE layers (one
+             ``torch._grouped_mm`` call, a library call) against its
+             per-expert loop at Qwen3-30B-A3B's widths, with empty groups,
+             timed beside its bound; its profiler kernels must fall in the
+             profiles' "grouped product" family.  2g/2h: ``flash_attention`` and
              ``nm_spmm`` at the one-shot Qwen2-7B prefill's shapes (4 x 512
              tokens), with ragged, windowed, non-causal and float32 cases;
              ``nm_spmm``'s consensus selection must be bit-exact, and is
@@ -106,6 +114,27 @@ Phases (any failed check exits non-zero; no phase is skipped):
              ``paged_attention`` launched (counts set to 0 just before); its
              report lines are echoed; 6f the one-shot CLI on Qwen2-7B (4 x
              512 tokens, 32 new): rc 0 and its agreement line.
+
+7. MoE    — Qwen3-30B-A3B, the paper's MoE model, after phases 3-6 freed
+             their models.  7a: ``Engine`` at full width and depth (48
+             layers, 128 experts top-8, random weights from a seed made on
+             the card, ~57 GiB of bf16) under ``paper_policy(8, 16, (41,
+             46, 47))`` with the kernels, phase 3's stream and warm-up:
+             every bucket captured once, launches exact (per sparse chunk
+             45 ``nm_prune_matmul`` (q in 48 - 3 layers) and 96 ``nm_prune``
+             (the routed experts' gate and down inputs in all 48 layers:
+             the skip list does not reach them); 48 ``paged_kv_scatter`` and
+             48 ``paged_attention`` per prefill or decode half), graphed
+             tokens equal to the eager programs'.  7b: the profiles of
+             phase 3 with the grouped product as a family of its own, its
+             device time beside its bound for each case's own routing.  7c:
+             full width, depth 4, bf16, q/gate skipped in layer 3: kernel
+             path against plain path (``nm_prune_plain``, the per-expert
+             loop, the plain attention) and float32: logits within twice
+             the plain path's own bf16 effect; each layer alone on the
+             plain path's inputs routes identically on both paths and is
+             held to the same gate.  7d: the ``--trace`` CLI at full width
+             with phase 6a's flags, its launches exact.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -447,11 +476,27 @@ def phase_kernels(torch, timer, rates):
         f"decode B=4 G=7 (Qwen2-7B heads) NaN-poisoned {route(q7, kq, tab7)}",
         kpa.paged_attention(q7, kq7, vq7, tab7, pos7, kvl7, causal=False),
         kpa.paged_attention_plain(q7, kq7, vq7, tab7, pos7, kvl7, causal=False), BF16_TOL))
+    # Qwen3-30B-A3B's heads (32 / 4, G = 8; phase 7): decode, and a prefill
+    # chunk, whose wgmma route packs 8 query tokens a tile
+    q8, tab8, pos8, kvl8 = decode_case(32, [700, 401, 129, 5])
+    kq8, vq8 = poisoned(kq, vq, tab8, kvl8)
+    errs.append(check_close(
+        f"decode B=4 G=8 (Qwen3-30B-A3B heads) NaN-poisoned {route(q8, kq, tab8)}",
+        kpa.paged_attention(q8, kq8, vq8, tab8, pos8, kvl8, causal=False),
+        kpa.paged_attention_plain(q8, kq8, vq8, tab8, pos8, kvl8, causal=False), BF16_TOL))
+    qc8 = torch.randn(1, 256, 32, hd, generator=g, device=dev).bfloat16()
+    kqc8, vqc8 = poisoned(kq, vq, tab1, kvl1)
+    errs.append(check_close(
+        f"prefill chunk G=8 q_offset=300 kv_len=500 NaN-poisoned {route(qc8, kq, tab1)}",
+        kpa.paged_attention(qc8, kqc8, vqc8, tab1, qoff1, kvl1, causal=True),
+        kpa.paged_attention_plain(qc8, kqc8, vqc8, tab1, qoff1, kvl1, causal=True), BF16_TOL))
     # timing at the serving shapes; the record keeps the prefill chunk's and,
-    # beside it, each decode case's
+    # beside it, each other case's
     cases = (("prefill chunk", q1, kp, vp, tab1, qoff1, kvl1, True),
              ("decode B=4 G=4", qd, kp, vp, tabd, posv, kvld, False),
-             ("decode B=4 G=7", q7, kq, vq, tab7, pos7, kvl7, False))
+             ("decode B=4 G=7", q7, kq, vq, tab7, pos7, kvl7, False),
+             ("decode B=4 G=8", q8, kq, vq, tab8, pos8, kvl8, False),
+             ("prefill chunk G=8", qc8, kq, vq, tab1, qoff1, kvl1, True))
     for case, q, kpool, vpool, tab, qo, kvl, causal in cases:
         b, tq, hq_ = q.shape[:3]
         hkv_ = kpool.shape[2]
@@ -485,7 +530,8 @@ def phase_kernels(torch, timer, rates):
             records["paged_attention"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                               bound_ms=bound, bound_by=by)
         else:
-            key = "decode_g4" if "G=4" in case else "decode_g7"
+            key = ("chunk_g8" if case.startswith("prefill") else
+                   "decode_g" + case.split("G=")[1])
             records["paged_attention"].update({f"{key}_ms": ms, f"{key}_bound_ms": bound,
                                                f"{key}_library_ms": lib_ms})
     # what a chunk costs per 64-key tile and per call: the same 256 queries,
@@ -723,9 +769,29 @@ def phase_int8_kernels(torch, timer, rates):
         print(f"  D={d} T=256: kernel {ms:.4f} ms, bound {bound:.4f} ms (bytes), plain "
               f"{plain_ms:.4f} ms, no single library call (x.clone(), the same bytes "
               f"moved, {copy_ms:.4f} ms)")
-        if d == 14336:
-            records["nm_prune"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+        records["nm_prune"] = {f"d{d}_ms": ms, f"d{d}_bound_ms": bound,
+                               **records.get("nm_prune", {})}
+    # the MoE path's prunes (phase 7), plain |X| scores (no scale): a prefill
+    # chunk's expert gate input (256 tokens x d_model 2048, pruned before the
+    # rows are gathered) and its down input h (256 x 8 routed rows x
+    # moe_d_ff 768), and 2048 rows at D = 2048.  The record keeps the down
+    # input's time, the larger of the two a chunk launches
+    for name, t, d in (("expert gate input", 256, 2048), ("expert down input", 2048, 768),
+                       ("T=2048 D=2048", 2048, 2048)):
+        x = torch.randn(t, d, generator=g, device=dev).bfloat16()
+        same = exact("nm_prune", (knp.nm_prune(x, None, n, m),),
+                     (knp.nm_prune_plain(x, None, n, m),))
+        ms = timer.ms(lambda: knp.nm_prune(x, None, n, m))
+        plain_ms = timer.ms(lambda: knp.nm_prune_plain(x, None, n, m), 5)
+        copy_ms = timer.ms(x.clone)
+        bound = 2 * x.numel() * 2 / bw * 1e3
+        print(f"  {name} T={t} D={d} (no scale): bit-exact={same}; kernel {ms:.4f} ms, bound "
+              f"{bound:.4f} ms (bytes), plain {plain_ms:.4f} ms, x.clone() {copy_ms:.4f} ms")
+        if name == "expert down input":
+            records["nm_prune"].update(ms=ms, plain_ms=plain_ms, library_ms=None,
                                        bound_ms=bound, bound_by="bytes", max_abs_err=0.0)
+        elif name == "expert gate input":
+            records["nm_prune"].update(gate_ms=ms, gate_bound_ms=bound)
     return records
 
 
@@ -1304,49 +1370,27 @@ def run_cli(torch, argv, label):
     return out, launches, met
 
 
-def per_prefill(arch: str) -> int:
-    """Projections the paper policy prunes in one prefill (chunk) of ``arch``."""
-    from repro_torch.configs import get_config
-    from repro_torch.core.policy import paper_policy
+def prune_launches(cfg, policy):
+    """Launches per sparse prefill chunk under ``policy``: ``nm_prune_matmul``
+    once per pruned float projection (the attention projections, and those
+    of a dense MLP or a shared expert, as the skip list says), and
+    ``nm_prune`` once per pruned input of the routed experts in every layer
+    (layer None: the skip list does not reach them)."""
+    from repro_torch.core.policy import ATTN_PROJS, MLP_PROJS
 
-    cfg = get_config(arch)
-    policy = paper_policy(8, 16, cfg.qgate_skip_layers)
-    return sum(policy.should_prune(mod, i) for i in range(cfg.n_layers)
-               for mod in ("q_proj", "gate_proj", "down_proj"))
+    mods = ATTN_PROJS + (MLP_PROJS if not cfg.n_experts or cfg.shared_expert else ())
+    fused = sum(policy.should_prune(mod, i) for i in range(cfg.n_layers) for mod in mods)
+    routed = cfg.n_layers * sum(policy.should_prune(mod, None) for mod in MLP_PROJS)
+    return fused, routed if cfg.n_experts else 0
 
 
 def phase_cli(torch):
     """Phases 6a and 6f: the CLI at full width, ``--trace`` on LLaMA-3.1-8B
     and one-shot on Qwen2-7B, each with its launch counts exact."""
     from repro_torch.configs import get_config
+    from repro_torch.core.policy import paper_policy
 
-    out, launches, met = run_cli(torch, [
-        "--arch", "llama31_8b", "--trace", "--num-requests", "16", "--rate", "0.5",
-        "--len-range", "64:700", "--slots", "4", "--chunk", "256", "--block-size", "16",
-        "--new-tokens", "32", "--shared-prefix", "128", "--sparsity", "8:16"], "phase 6a")
-    lines = out.splitlines()
-    for line in lines:
-        if line.startswith(("# throughput", "# latency", "# traces", "# dispatches",
-                            "# terminal", "# lifecycle", "# paged", "# prefix")):
-            print(f"  {line}")
-    traces = next(line for line in lines if line.startswith("# traces:"))
-    counts = re.findall(r"(\w+)=(\d+)", traces.split("(")[0])
-    if not counts or any(n != "1" for _, n in counts):
-        fail(f"phase 6a: {traces}: every program must be captured once")
-    if "1.00 per work iteration" not in out:
-        fail("phase 6a: the fused path did not run one program per work iteration")
-    hits = int(re.search(r"# prefix cache: hits=(\d+)", out).group(1))
-    if hits < 1:
-        fail("phase 6a: the prefix cache never hit on a 128-token shared prefix")
-    if "ERROR" in out or "done=16 " not in out:
-        fail("phase 6a: a request leaked or did not finish")
-    _, _, st = step_counts(met.buckets, fused=True)
-    per_step = get_config("llama31_8b").n_layers * (st["prefill_halves"] + st["decode_halves"])
-    print(f"  {st}")
-    check_launches("phase 6a", launches, {
-        "nm_prune_matmul": per_prefill("llama31_8b") * st["sparse_chunks"],
-        "paged_kv_scatter": per_step, "paged_attention": per_step,
-        "nm_spmm": 0, "flash_attention": 0, "osparse_matmul": 0})
+    check_trace_cli(torch, "llama31_8b", "phase 6a")
 
     out, launches, _ = run_cli(torch, ["--arch", "qwen2_7b", "--batch", "4", "--prompt-len",
                                        "512", "--new-tokens", "32"], "phase 6f")
@@ -1358,10 +1402,53 @@ def phase_cli(torch):
     # and take 31 decode steps: a scatter per layer in every step, a paged
     # read per layer in every decode step (the prefill attends with
     # attn_impl="chunked")
-    layers = get_config("qwen2_7b").n_layers
+    cfg = get_config("qwen2_7b")
+    layers = cfg.n_layers
     check_launches("phase 6f", launches, {
-        "nm_prune_matmul": per_prefill("qwen2_7b"),
+        "nm_prune_matmul": prune_launches(cfg, paper_policy(8, 16, cfg.qgate_skip_layers))[0],
         "paged_kv_scatter": 2 * layers * 32, "paged_attention": 2 * layers * 31,
+        "nm_spmm": 0, "flash_attention": 0, "osparse_matmul": 0})
+
+
+TRACE_FLAGS = ["--trace", "--num-requests", "16", "--rate", "0.5", "--len-range", "64:700",
+               "--slots", "4", "--chunk", "256", "--block-size", "16", "--new-tokens", "32",
+               "--shared-prefix", "128", "--sparsity", "8:16"]
+
+
+def check_trace_cli(torch, arch: str, label: str):
+    """The ``--trace`` CLI at ``arch``'s full width with phase 6a's flags: rc
+    0, its report lines echoed, every ``# traces:`` entry 1, one program per
+    work iteration, prefix-cache hits, all 16 requests done, and the launch
+    counts exact (from the snapshot's buckets)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import paper_policy
+
+    out, launches, met = run_cli(torch, ["--arch", arch] + TRACE_FLAGS, label)
+    lines = out.splitlines()
+    for line in lines:
+        if line.startswith(("# throughput", "# latency", "# traces", "# dispatches",
+                            "# terminal", "# lifecycle", "# paged", "# prefix")):
+            print(f"  {line}")
+    traces = next(line for line in lines if line.startswith("# traces:"))
+    counts = re.findall(r"(\w+)=(\d+)", traces.split("(")[0])
+    if not counts or any(n != "1" for _, n in counts):
+        fail(f"{label}: {traces}: every program must be captured once")
+    if "1.00 per work iteration" not in out:
+        fail(f"{label}: the fused path did not run one program per work iteration")
+    hits = int(re.search(r"# prefix cache: hits=(\d+)", out).group(1))
+    if hits < 1:
+        fail(f"{label}: the prefix cache never hit on a 128-token shared prefix")
+    if "ERROR" in out or "done=16 " not in out:
+        fail(f"{label}: a request leaked or did not finish")
+    _, _, st = step_counts(met.buckets, fused=True)
+    cfg = get_config(arch)
+    fused, routed = prune_launches(cfg, paper_policy(8, 16, cfg.qgate_skip_layers))
+    per_step = cfg.n_layers * (st["prefill_halves"] + st["decode_halves"])
+    print(f"  {st}")
+    check_launches(label, launches, {
+        "nm_prune_matmul": fused * st["sparse_chunks"],
+        "nm_prune": routed * st["sparse_chunks"],
+        "paged_kv_scatter": per_step, "paged_attention": per_step,
         "nm_spmm": 0, "flash_attention": 0, "osparse_matmul": 0})
 
 
@@ -1370,7 +1457,10 @@ def profile_steps(torch, model, params, policy, eng):
     4-slot decode step at full width, through :func:`profile_cases`: each
     eagerly through the model, and as the executor of ``eng`` runs it, a
     replay of the bucket's graph (``Executor.step``: operands in, replay,
-    sampling, one host read) on its own cache, with the same positions."""
+    sampling, one host read) on its own cache, with the same positions.
+    Returns (:func:`profile_cases`' results, per case a function that runs
+    its computation eagerly: a replay's program body on the same operands
+    and cache)."""
     from types import SimpleNamespace
 
     from repro_torch.core.policy import DENSE
@@ -1400,18 +1490,29 @@ def profile_steps(torch, model, params, policy, eng):
         ex.cache["pos"].copy_(pos)
         ex.step(params, plan)
 
-    profile_cases(torch, {
+    def body(plan, pos):
+        """The replayed step's program run eagerly on the same cache and
+        operands: the same computation (it rewrites the same K/V rows)."""
+        ex.cache["pos"].copy_(pos)
+        ex._write_operands(plan, 0.0)
+        return ex._programs[plan.bucket](params, ex.cache, *ex._views())
+
+    cases = {
         "prefill chunk (256 tokens, paper policy), eager":
-            lambda: model.prefill_chunk(params, {"tokens": ptoks}, pcache, policy=policy),
+            (lambda: model.prefill_chunk(params, {"tokens": ptoks}, pcache, policy=policy),
+             None),
         "prefill chunk, step_prefill graph replay":
-            lambda: replay(prefill_plan, ppos),
+            (lambda: replay(prefill_plan, ppos), lambda: body(prefill_plan, ppos)),
         "decode step (4 slots, dense), eager":
-            lambda: model.decode_step(params, dtoks, dcache, policy=dense),
+            (lambda: model.decode_step(params, dtoks, dcache, policy=dense), None),
         "decode step, step_decode graph replay":
-            lambda: replay(decode_plan, dpos),
-    })
+            (lambda: replay(decode_plan, dpos), lambda: body(decode_plan, dpos)),
+    }
+    results = profile_cases(torch, {case: fn for case, (fn, _) in cases.items()})
     if any(n != 1 for n in ex.trace_counts.values()):
         fail(f"profile: trace_counts {ex.trace_counts}: a bucket was captured again")
+    # each case's computation run eagerly (a replay's through its program)
+    return results, {case: eager or fn for case, (fn, eager) in cases.items()}
 
 
 # kernel families of the profiles: name → the full names of the port's CUDA
@@ -1431,6 +1532,9 @@ FAMILIES = (("osparse_matmul", ("osparse_quant_kernel", "osparse_quant_vec_kerne
             ("paged_attention", ("paged_wgmma_kernel", "paged_attention_kernel",
                                  "paged_attention_combine_kernel")),
             ("paged_kv_scatter", ("paged_kv_scatter_kernel",)))
+# the MoE layers' grouped product (torch._grouped_mm: CUTLASS's grouped GEMM
+# over a GroupProblemShape, and the pass that lays out its problem sizes)
+GROUPED_GEMM = ("grouped product", ("group",))
 LIBRARY_GEMM = ("cuBLAS GEMM", ("gemm", "nvjet", "cutlass", "xmma", "gemv"))
 OTHER = "other (elementwise, norms, copies)"
 
@@ -1442,7 +1546,10 @@ def kernel_family(key: str) -> str:
         if names.intersection(kernels):
             return name
     low = key.lower()
-    return LIBRARY_GEMM[0] if any(k in low for k in LIBRARY_GEMM[1]) else OTHER
+    for name, fragments in (GROUPED_GEMM, LIBRARY_GEMM):
+        if any(k in low for k in fragments):
+            return name
+    return OTHER
 
 
 def busy_time(spans) -> float:
@@ -1476,6 +1583,7 @@ def profile_cases(torch, cases):
     from repro_torch.kernels import osparse_matmul as kos
 
     print("profile: one step of each kind, full width, bf16")
+    results = {}
     for case, fn in cases.items():
         walls = []
         for _ in range(6):
@@ -1498,7 +1606,7 @@ def profile_cases(torch, cases):
         busy_ms = busy_time(spans) / 1e3
         span_ms = (max(e for _, e in spans) - min(s for s, _ in spans)) / 1e3 if spans else 0.0
         summed_ms = sum(e.self_device_time_total for e in kern) / 1e3
-        by_family = {name: 0.0 for name, _ in FAMILIES + (LIBRARY_GEMM,)}
+        by_family = {name: 0.0 for name, _ in FAMILIES + (GROUPED_GEMM, LIBRARY_GEMM)}
         by_family[OTHER] = 0.0
         family_kernels = dict.fromkeys(by_family, 0)
         for e in kern:
@@ -1515,6 +1623,7 @@ def profile_cases(torch, cases):
                   f"device kernels: CUDA events around the step {ev_ms:.3f} ms (busy at most "
                   f"that), device idle share at least {max(0.0, 1 - ev_ms / wall_ms):.3f}; "
                   f"launches {calls}")
+            results[case] = dict(wall_ms=wall_ms, busy_ms=None, by_family=None)
             continue
         print(f"  {case}: wall {wall_ms:.3f} ms (median of 5), device busy {busy_ms:.3f} ms "
               f"over {sum(e.count for e in kern)} kernels (their durations sum to "
@@ -1526,6 +1635,8 @@ def profile_cases(torch, cases):
             print(f"    {name}: {ms:.3f} ms, {family_kernels[name]} kernels")
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
             print(f"    top: {e.key[:90]} x{e.count}: {e.self_device_time_total / 1e3:.3f} ms")
+        results[case] = dict(wall_ms=wall_ms, busy_ms=busy_ms, by_family=by_family)
+    return results
 
 
 # bfloat16 end to end (phases 4 and 5b, depth 2).  bf16 keeps 8 significant
@@ -1882,6 +1993,301 @@ def phase_parity_oneshot(torch, dtype: str = "float32"):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------- the MoE family
+
+def grouped_bound(ids_per_layer, d: int, f: int, rates):
+    """Least time of one step's grouped products (gate, up, down in every
+    layer) for the routing it got: each hit expert's three weight matrices
+    read once, the gathered inputs and h read once, the outputs written
+    once; against 2·R·D·F multiply-adds per product.  → (ms, bound_by,
+    distinct experts summed over the layers)."""
+    bw, bf16_peak = rates[0], rates[1]
+    nbytes = ops = hit = 0
+    for ids in ids_per_layer:
+        r = ids.numel()
+        n_hit = int(ids.unique().numel())
+        hit += n_hit
+        nbytes += (n_hit * 3 * d * f + 2 * r * d + r * f + 2 * r * f + r * d) * 2
+        ops += 3 * 2 * r * d * f
+    by = "bytes" if nbytes / bw >= ops / bf16_peak else "operations"
+    return max(nbytes / bw, ops / bf16_peak) * 1e3, by, hit
+
+
+def phase_grouped_product(torch, timer, rates):
+    """2i: the grouped product (``models.moe.grouped_matmul``, one
+    ``torch._grouped_mm`` call; a library call, not a kernel of the port)
+    against its plain per-expert loop at Qwen3-30B-A3B's widths: a prefill
+    chunk's 256 x 8 routed rows and a 4-slot decode step's 32, seeded
+    routing with empty groups; its profiler kernel names."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import moe as moe_lib
+
+    print("phase 2i: grouped product (torch._grouped_mm) vs the per-expert loop")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    e, d, f = 128, 2048, 768
+    wg = (torch.randn(e, d, f, generator=g, device="cuda") * d**-0.5).bfloat16()
+    wd = (torch.randn(e, f, d, generator=g, device="cuda") * f**-0.5).bfloat16()
+    for label, tokens in (("prefill chunk", 256), ("decode step", 4)):
+        logits = torch.randn(tokens, e, generator=g, device="cuda")
+        logits[:, 5:9] = -1e9                     # experts 5-8 never routed: empty groups
+        ids = torch.sort(logits, dim=-1, descending=True, stable=True).indices[:, :8]
+        flat = ids.reshape(-1)
+        counts = torch.zeros(e, dtype=torch.int32, device="cuda").index_add_(
+            0, flat, torch.ones_like(flat, dtype=torch.int32))
+        offs = torch.cumsum(counts, 0, dtype=torch.int32)
+        r = flat.numel()
+        x = torch.randn(r, d, generator=g, device="cuda").bfloat16()
+        h = torch.randn(r, f, generator=g, device="cuda").bfloat16()
+        for name, a, w in (("gate", x, wg), ("down", h, wd)):
+            got = moe_lib.grouped_matmul(a, w, offs)
+            check_close(f"{label} {name} R={r}", got, moe_lib.grouped_matmul_plain(a, w, offs),
+                        BF16_TOL)
+            ms = timer.ms(lambda: moe_lib.grouped_matmul(a, w, offs))
+            plain_ms = timer.ms(lambda: moe_lib.grouped_matmul_plain(a, w, offs), 3)
+            n_hit = int(flat.unique().numel())
+            nbytes = (n_hit * w.shape[1] * w.shape[2] + a.numel() + r * w.shape[2]) * 2
+            ops = 2 * r * w.shape[1] * w.shape[2]
+            bound = max(nbytes / rates[0], ops / rates[1]) * 1e3
+            by = "bytes" if nbytes / rates[0] >= ops / rates[1] else "operations"
+            print(f"  {label} {name} ({r} rows, {n_hit} of {e} experts hit): "
+                  f"torch._grouped_mm {ms:.4f} ms, bound {bound:.4f} ms ({by}), per-expert "
+                  f"loop {plain_ms:.4f} ms")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        moe_lib.grouped_matmul(x, wg, offs)
+        torch.cuda.synchronize()
+    keys = [ev.key for ev in prof.key_averages() if ev.self_device_time_total > 0]
+    for key in keys:
+        print(f"  profiler kernel: {key[:140]} -> family {kernel_family(key)!r}")
+    if not any(kernel_family(k) == GROUPED_GEMM[0] for k in keys):
+        fail(f"phase 2i: no profiler kernel of torch._grouped_mm falls in the "
+             f"{GROUPED_GEMM[0]!r} family: {keys}")
+
+
+def free_device(torch, label: str):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {label}: device memory held {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+
+def qwen3_moe(torch, n_layers=None, seed=SEED, skip=None, dtype=None):
+    """Qwen3-30B-A3B (depth, q/gate skip list and dtype optionally changed),
+    random weights from ``seed`` made on the card, the paper's policy with
+    the kernels on and the Amber scales (q_proj's: the routed experts get
+    none)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.core.pruner import precompute_scales
+    from repro_torch.models import build_model
+
+    cfg = get_config("qwen3_30b_a3b")
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
+                              dtype=dtype or cfg.dtype)
+    model = build_model(cfg)
+    params = model.init(seed)
+    policy = paper_policy(8, 16, cfg.qgate_skip_layers if skip is None else skip
+                          ).with_(use_kernels=True)
+    precompute_scales(params, policy)
+    return cfg, model, params, policy
+
+
+def phase_moe_serve(torch, rates):
+    """7a and 7b: Qwen3-30B-A3B at full width and depth served as phase 3
+    serves LLaMA-3.1-8B, launches exact, the replayed steps profiled with the
+    grouped product's time beside its bound, graphed tokens against eager."""
+    from repro_torch.models import moe as moe_lib
+
+    t0 = time.perf_counter()
+    cfg, model, params, policy = qwen3_moe(torch)
+    torch.cuda.synchronize()
+    n_w = sum(p.numel() for p in params.parameters())
+    print(f"phase 7a: serve {cfg.name} at full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.n_experts} experts "
+          f"top-{cfg.top_k}, moe_d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}), "
+          f"paper_policy(8, 16, {cfg.qgate_skip_layers}) with the kernels")
+    print(f"  random weights: {n_w / 1e9:.3f}B parameters (n_params {cfg.n_params() / 1e9:.3f}B,"
+          f" active {cfg.n_active_params() / 1e9:.3f}B) in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
+    fused, routed = prune_launches(cfg, policy)
+    if (fused, routed) != (45, 96):
+        fail(f"phase 7a: the paper policy prunes {fused} projections and {routed} expert "
+             "inputs per chunk, expected 45 (q in 48 - 3 layers) and 96 (expert gate and "
+             "down inputs in 48 layers)")
+    launches, st, eng, outputs = serve_requests(torch, model, params, policy, "phase 7a")
+    per_step = cfg.n_layers * (st["prefill_halves"] + st["decode_halves"])
+    check_launches("phase 7a", launches, {
+        "nm_prune_matmul": fused * st["sparse_chunks"], "nm_prune": routed * st["sparse_chunks"],
+        "paged_kv_scatter": per_step, "paged_attention": per_step,
+        "nm_spmm": 0, "flash_attention": 0, "osparse_matmul": 0})
+    print(f"  launches held: per sparse chunk nm_prune_matmul {fused} (q_proj, 48 - 3 layers),"
+          f" nm_prune {routed} (expert gate and down inputs, 2 x 48); paged_kv_scatter and "
+          f"paged_attention {cfg.n_layers} per prefill or decode half")
+
+    print("phase 7b: profile one prefill chunk and one decode step of Qwen3-30B-A3B")
+    results, eager = profile_steps(torch, model, params, policy, eng)
+    # each case's routing, recorded in one more eager run of its computation:
+    # the eager chunk attends over a zeroed cache, the replayed one over the
+    # engine's K/V of earlier requests (which routes the random-weight
+    # model's tokens to fewer experts), so each case has its own bound
+    seen, real = [], moe_lib.route
+
+    def spy(xt, w, k):
+        out = real(xt, w, k)
+        seen.append(out[1])
+        return out
+
+    moe_lib.route = spy
+    try:
+        bounds = {}
+        for case, fn in eager.items():
+            seen.clear()
+            fn()
+            torch.cuda.synchronize()
+            bounds[case] = grouped_bound(seen, cfg.d_model, cfg.moe_d_ff, rates)
+    finally:
+        moe_lib.route = real
+    for case, res in results.items():
+        bound, by, hit = bounds[case]
+        fam = res["by_family"] or {}
+        gms = fam.get(GROUPED_GEMM[0])
+        gtxt = "not recorded" if gms is None else f"{gms:.3f} ms"
+        print(f"  {case}: grouped product {gtxt} of the step's busy "
+              f"{res['busy_ms'] if res['busy_ms'] is None else round(res['busy_ms'], 3)} ms "
+              f"(wall {res['wall_ms']:.3f}); its bound {bound:.3f} ms ({by}; {hit} experts "
+              f"hit over {cfg.n_layers} layers, of {cfg.n_layers * cfg.n_experts})")
+    del eng
+    check_graphed_tokens(torch, model, params, policy, "phase 7a", outputs)
+    return launches
+
+
+def phase_moe_parity(torch):
+    """7c: full width, depth 4, bf16, q/gate skipped in layer 3 (as the full
+    model skips 41, 46 and 47: its experts are still pruned).  Three prompts
+    prefilled in 256-token chunks, then 8 decode steps on seeded tokens,
+    through the kernel path, the plain path (``nm_prune_plain``, the
+    per-expert loop, the plain attention; eager: the loop reads its offsets
+    on the host) and the plain path in float32 on the same weights.  The
+    kernel path's logits must be within BF16_E2E_FACTOR times the plain
+    path's own bf16 effect (:func:`check_bf16_logits`).  Expert ids: the
+    two bf16 paths route each layer on their own hidden states, which
+    differ by rounding, so a near-tie between the 8th and 9th logit may
+    part them: the share of equal routes is printed.  Each layer is then
+    held alone on the plain path's own inputs (the chunk's): both paths
+    route identically (the router is float32 on both), and the kernel path's
+    output is within the same factor of the plain path's bf16 effect."""
+    from repro_torch import kernels
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_lib
+
+    print("phase 7c: Qwen3-30B-A3B kernel path vs plain path, full width, depth 4, bf16")
+    cfg, model, params, policy = qwen3_moe(torch, n_layers=4, seed=SEED + 1, skip=(3,))
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    params32 = copy.deepcopy(params).float()
+    plain = policy.with_(use_kernels=False)
+    rng = np.random.default_rng(SEED + 7)
+    prompts = make_requests(rng, 3, 64, 600, cfg.vocab_size)
+    new, bsz = 8, 16
+    dec = rng.integers(0, cfg.vocab_size, size=(len(prompts), new))
+    max_seq = -(-(max(len(p) for p in prompts) + new) // bsz) * bsz
+    routes, inputs = [], []
+    real_route, real_moe = moe_lib.route, moe_lib.moe
+
+    def spy_route(xt, w, k):
+        out = real_route(xt, w, k)
+        routes.append(out[1])
+        return out
+
+    def spy_moe(x, p, pol, phase, *args, **kw):
+        inputs.append(x.clone())
+        return real_moe(x, p, pol, phase, *args, **kw)
+
+    def run(mdl, prm, pol, record=False):
+        """Per prompt: the last chunk's logits, then each decode step's."""
+        routes.clear()
+        moe_lib.route = spy_route
+        moe_lib.moe = spy_moe if record else real_moe
+        try:
+            logits = []
+            for i, prompt in enumerate(prompts):
+                cache = mdl.init_cache(1, max_seq, block_size=bsz)
+                for s in range(0, len(prompt), 256):
+                    chunk = torch.from_numpy(prompt[s:s + 256][None, :]).cuda()
+                    lg, cache = mdl.prefill_chunk(prm, {"tokens": chunk}, cache, policy=pol)
+                logits.append(lg)
+                for j in range(new):
+                    tok = torch.from_numpy(dec[i, j:j + 1][None, :].astype(np.int32)).cuda()
+                    lg, cache = mdl.decode_step(prm, tok, cache, policy=pol)
+                    logits.append(lg)
+            torch.cuda.synchronize()
+            return logits, list(routes)
+        finally:
+            moe_lib.route, moe_lib.moe = real_route, real_moe
+
+    kernels.reset_launch_counts()
+    got, got_routes = run(model, params, policy)
+    launches = kernels.launch_counts()
+    chunks = sum(-(-len(p) // 256) for p in prompts)
+    fused, routed = prune_launches(cfg, policy)
+    print(f"  prompts {[len(p) for p in prompts]} ({chunks} chunks), {new} decode steps "
+          f"each; kernel-path launches {launches}")
+    check_launches("phase 7c", launches, {
+        "nm_prune_matmul": fused * chunks, "nm_prune": routed * chunks,
+        "paged_kv_scatter": cfg.n_layers * (chunks + len(prompts) * new),
+        "paged_attention": cfg.n_layers * (chunks + len(prompts) * new)})
+    inputs.clear()
+    want, want_routes = run(model, params, plain, record=True)
+    chunk_inputs = inputs[:cfg.n_layers]          # prompt 0's first chunk, layer by layer
+    ref, _ = run(model32, params32, plain)
+    check_bf16_logits(got, want, ref)
+    rows = [bool((a == b).all(-1).all()) for a, b in zip(got_routes, want_routes)]
+    tok_equal = sum(int((a == b).all(-1).sum()) for a, b in zip(got_routes, want_routes))
+    tok_all = sum(a.shape[0] for a in got_routes)
+    print(f"  whole-model routing (each path on its own hidden states): {tok_equal} of "
+          f"{tok_all} (token, layer) routes equal ({tok_equal / tok_all:.4f}); "
+          f"{sum(rows)} of {len(rows)} MoE calls routed identically")
+    for layer, x in enumerate(chunk_inputs):
+        blk, blk32 = params.blocks[layer].moe, params32.blocks[layer].moe
+        outs = []
+        for p, pol, xin in ((blk, policy, x), (blk, plain, x), (blk32, plain, x.float())):
+            routes.clear()
+            moe_lib.route = spy_route
+            try:
+                outs.append(real_moe(xin, p, pol, "prefill", cfg.top_k, cfg.act_fn,
+                                     cfg.moe_impl, layer))
+            finally:
+                moe_lib.route = real_route
+            outs.append(routes[0])
+        yk, ik, yp, ip, yr, ir = outs
+        if not (torch.equal(ik, ip) and torch.equal(ik, ir)):
+            fail(f"phase 7c: layer {layer}: the kernel and plain paths route one input "
+                 "differently")
+        e_ref = float((yp.float() - yr).abs().max())
+        err = float((yk.float() - yp.float()).abs().max())
+        if not bool(yk.isfinite().all()) or not err <= BF16_E2E_FACTOR * e_ref:
+            fail(f"phase 7c: layer {layer} MoE: kernel vs plain {err} > "
+                 f"{BF16_E2E_FACTOR} x {e_ref}")
+        print(f"  layer {layer} MoE alone on the plain path's input ({x.shape[1]} tokens): "
+              f"expert ids identical; kernel vs plain max_abs_err {err:.3e} (limit "
+              f"{BF16_E2E_FACTOR * e_ref:.3e} = {BF16_E2E_FACTOR} x the plain path's bf16 "
+              f"effect {e_ref:.3e}; largest |y| {float(yr.abs().max()):.3e})")
+    del params, params32, model, model32
+
+
+def phase_moe(torch, rates):
+    """Phase 7: the MoE family at full width on the card.  Returns 7a's
+    launch counts."""
+    free_device(torch, "before phase 7 (phases 3-6 freed)")
+    launches = phase_moe_serve(torch, rates)
+    free_device(torch, "after 7a/7b")
+    phase_moe_parity(torch)
+    free_device(torch, "after 7c")
+    check_trace_cli(torch, "qwen3_30b_a3b", "phase 7d")
+    free_device(torch, "after 7d")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1923,6 +2329,7 @@ def main() -> int:
     records = phase_kernels(torch, timer, rates)
     records.update(phase_int8_kernels(torch, timer, rates))
     records.update(phase_oneshot_kernels(torch, timer, rates))
+    phase_grouped_product(torch, timer, rates)
     del timer
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
@@ -1945,10 +2352,13 @@ def main() -> int:
     t7 = time.perf_counter()
     phase_cli(torch)
     t8 = time.perf_counter()
+    m_launches = phase_moe(torch, rates)
+    t9 = time.perf_counter()
     print(f"phase seconds: build {t1 - t:.1f}, kernels {t2 - t1:.1f}, serve {t3 - t2:.1f}, "
           f"serve osparse {t4 - t3b:.1f}, parity {t5 - t4:.1f}, one-shot serve {t6 - t5:.1f}, "
           f"one-shot parity {t7 - t6:.1f}, serve CLI and serving lifecycle "
-          f"{t8 - t7 + t3b - t3:.1f} (6b-6e {t3b - t3:.1f}, 6a and 6f {t8 - t7:.1f})")
+          f"{t8 - t7 + t3b - t3:.1f} (6b-6e {t3b - t3:.1f}, 6a and 6f {t8 - t7:.1f}), "
+          f"MoE {t9 - t8:.1f}")
 
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import nm_prune as knp
@@ -1958,16 +2368,17 @@ def main() -> int:
     from repro_torch.kernels import paged_attention as kpa
     from repro_torch.kernels import w8a8_matmul as kw8
     # launches: each kernel's count in the serving run of its path (phase 3,
-    # 3b for osparse_matmul, 5 for flash_attention and nm_spmm; phase 6a's
-    # CLI run drives phase 3's kernels again and prints its own counts);
-    # w8a8_matmul and nm_prune are entry points that no serving path calls
+    # 3b for osparse_matmul, 5 for flash_attention and nm_spmm, 7a for
+    # nm_prune; phases 6a and 7d's CLI runs drive phase 3's and 7a's kernels
+    # again and print their own counts); w8a8_matmul is an entry point that
+    # no serving path calls
     meta = {
         "nm_prune_matmul": (knm.SOURCE, knm.REPLACES, launches),
         "paged_kv_scatter": (kpa.SOURCE, kpa.SCATTER_REPLACES, launches),
         "paged_attention": (kpa.SOURCE, kpa.ATTENTION_REPLACES, launches),
         "osparse_matmul": (kos.SOURCE, kos.REPLACES, q_launches),
         "w8a8_matmul": (kw8.SOURCE, kw8.REPLACES, q_launches),
-        "nm_prune": (knp.SOURCE, knp.REPLACES, q_launches),
+        "nm_prune": (knp.SOURCE, knp.REPLACES, m_launches),
         "flash_attention": (kfa.SOURCE, kfa.REPLACES, o_launches),
         "nm_spmm": (kns.SOURCE, kns.REPLACES, o_launches),
     }

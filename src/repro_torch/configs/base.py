@@ -83,6 +83,39 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
 
+    def n_params(self) -> int:
+        """Approximate parameter count (embeddings + blocks)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        per_attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.n_experts:
+            per_ff = self.n_experts * 3 * d * self.moe_d_ff + d * self.n_experts
+            if self.shared_expert:
+                per_ff += 3 * d * self.moe_d_ff
+        else:
+            per_ff = 3 * d * f
+        kinds = [self.block_pattern[i % len(self.block_pattern)] for i in range(self.n_layers)]
+        n_attn = sum(k == "attn" for k in kinds)
+        n_rwkv = sum(k == "rwkv6" for k in kinds)
+        n_rglru = sum(k == "rglru" for k in kinds)
+        rnn_w = self.rnn_width or d
+        per_rwkv = 5 * d * d + 3 * d * f  # r,k,v,g,o + channel-mix
+        per_rglru = 2 * d * rnn_w + rnn_w * d + 2 * rnn_w * rnn_w // 64
+        total = v * d * (1 if self.tie_embeddings else 2)
+        total += n_attn * (per_attn + per_ff) + n_rwkv * per_rwkv + n_rglru * (per_rglru + per_ff)
+        if self.is_encdec:
+            total += self.n_encoder_layers * (2 * per_attn + per_ff)  # self+cross approx
+        return int(total)
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: only routed experts count)."""
+        if not self.n_experts:
+            return self.n_params()
+        d = self.d_model
+        dense_ff_total = self.n_params() - self.n_layers * (
+            self.n_experts * 3 * d * self.moe_d_ff)
+        active_ff = self.n_layers * (self.top_k * 3 * d * self.moe_d_ff)
+        return int(dense_ff_total + active_ff)
+
 
 def get_config(arch: str) -> ModelConfig:
     """Load ``repro_torch/configs/<arch>.py`` and return its CONFIG."""

@@ -72,6 +72,15 @@ def precompute_scales(params: nn.Module, policy: SparsityPolicy) -> nn.Module:
     ``Linear``s are visited (the JAX walk visits dicts with ``w``): a
     ``QuantLinear`` keeps the scale computed from its float weight before
     the rewrite.  Updates ``params`` in place and returns it.
+
+    MoE (``repro/core/pruner.py:146-163``): the routed experts are
+    ``models.moe.Experts`` parameters, not ``Linear``s, so they get no scale;
+    they are pruned on plain |X| (``moe_plain_score``).  Where the JAX walk
+    computes per-expert scales (``moe_plain_score=False``), nothing reads
+    them (``_maybe_prune`` passes None), so the port does not carry them.
+    The shared expert's ``gate_proj``/``down_proj`` are ``Linear``s and do
+    get one, as in JAX.  The router is not a projection name, so it gets
+    none; JAX gives it one that nothing reads.
     """
     from repro_torch.core.policy import ALL_PROJS
     from repro_torch.layers.linear import Linear

@@ -26,8 +26,10 @@ differences:
 * No ``--pallas-kernels``.
 * ``--dp``/``--tp`` above 1 (the router and tensor parallelism) and
   ``--no-paged`` (the dense per-slot slab) raise ``NotImplementedError``.
-* ``--arch`` takes the dense family the port models (``llama31_8b``,
-  ``qwen2_7b``); other architectures raise in ``check_supported``.
+* ``--arch`` takes the families the port models: dense (``llama31_8b``,
+  ``qwen2_7b``) and MoE (``qwen3_30b_a3b``; ``llama4_scout_17b_a16e``, whose
+  full width does not fit one card: ``--smoke``); other architectures
+  raise in ``check_supported``.
 * The weights are random from seed 0 (``model.init(0)``), and the prompts
   come from a seeded numpy generator, not from ``jax.random``: in trace
   mode the arrival gaps and prompt lengths are drawn from

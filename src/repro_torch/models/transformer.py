@@ -1,7 +1,10 @@
-"""Decoder-only LM, dense family (port of ``repro/models/transformer.py``).
+"""Decoder-only LM, dense and MoE families (port of
+``repro/models/transformer.py``).
 
 A :class:`Transformer` holds the embedding, an ``nn.ModuleList`` of
-attention blocks, the final norm and the LM head.  Layers run as a Python
+attention blocks, the final norm and the LM head.  A block's feed-forward
+is a gated MLP, or with ``cfg.n_experts`` the routed experts of
+``models/moe.py`` (``family="moe"``).  Layers run as a Python
 loop with a static layer index, so each projection consults the policy's
 skip list directly (the JAX package scans the stacked layers and passes a
 traced per-layer flag instead).  Under ``paper_policy`` this routes q_proj
@@ -37,6 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import SparsityPolicy
 from repro_torch.layers.linear import dense_linear, init_linear, sparse_linear
 from repro_torch.models import common
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import attention, paged_attention, paged_kv_update
 from repro_torch.models.mlp import init_mlp, mlp
 
@@ -46,9 +50,10 @@ __all__ = ["Transformer", "AttnBlock", "check_supported", "init_params",
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port's slice covers the dense full-attention RMSNorm/RoPE family."""
+    """The port covers the dense and MoE full-attention RMSNorm/RoPE
+    families."""
     supported = {
-        "family": (cfg.family, ("dense",)), "attn_type": (cfg.attn_type, ("full",)),
+        "family": (cfg.family, ("dense", "moe")), "attn_type": (cfg.attn_type, ("full",)),
         "rope_variant": (cfg.rope_variant, ("default",)), "norm": (cfg.norm, ("rmsnorm",)),
         "attn_impl": (cfg.attn_impl, ("chunked", "flash")),
         "block_pattern": (cfg.block_pattern, (("attn",),)),
@@ -57,8 +62,8 @@ def check_supported(cfg: ModelConfig) -> None:
         if have not in want:
             raise NotImplementedError(
                 f"{cfg.name}: {field}={have!r} is not ported yet (only {want!r})")
-    if cfg.n_experts or cfg.is_encdec or cfg.vision_stub:
-        raise NotImplementedError(f"{cfg.name}: MoE/encdec/VLM are not ported yet")
+    if cfg.is_encdec or cfg.vision_stub:
+        raise NotImplementedError(f"{cfg.name}: encdec/VLM are not ported yet")
 
 
 class AttnBlock(nn.Module):
@@ -72,7 +77,11 @@ class AttnBlock(nn.Module):
         self.v_proj = init_linear(d, cfg.kv_dim, bias=cfg.qkv_bias, **kw)
         self.o_proj = init_linear(cfg.q_dim, d, **kw)
         self.ln2 = common.init_norm(d, cfg.norm, dtype=dtype, device=device)
-        self.mlp = init_mlp(d, cfg.d_ff, **kw)
+        if cfg.n_experts:
+            self.moe = moe_lib.init_moe(d, cfg.moe_d_ff, cfg.n_experts,
+                                        cfg.shared_expert, **kw)
+        else:
+            self.mlp = init_mlp(d, cfg.d_ff, **kw)
 
 
 class Transformer(nn.Module):
@@ -106,7 +115,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
 
 def paged_kv_spec(cfg: ModelConfig) -> Dict:
     """Which cache leaves live in the block pool: every attention K/V leaf
-    of the dense full-attention family."""
+    (every layer is a full-attention block, MoE layers included)."""
     check_supported(cfg)
     return {"layers": [{"k": True, "v": True} for _ in range(cfg.n_layers)]}
 
@@ -184,7 +193,12 @@ def _attn_block_apply(cfg: ModelConfig, h: torch.Tensor, p: AttnBlock,
                       phase, layer_idx)
     h = h + o
     x2 = common.rms_norm(h, p.ln2)
-    return h + mlp(x2, p.mlp, policy, phase, cfg.act_fn, layer_idx)
+    if cfg.n_experts:
+        ff = moe_lib.moe(x2, p.moe, policy, phase, cfg.top_k, cfg.act_fn,
+                         cfg.moe_impl, layer_idx)
+    else:
+        ff = mlp(x2, p.mlp, policy, phase, cfg.act_fn, layer_idx)
+    return h + ff
 
 
 def _run_blocks(cfg, params: Transformer, h, policy, phase, cache, positions,

@@ -13,6 +13,11 @@ A quantized projection's dict (``wq`` and no ``w``) becomes a
 stored K-major (one ``(d_out, d_in)`` buffer behind the ``(d_in, d_out)``
 view, transposed on the host so no second copy reaches the device);
 ``w_scale``, ``smooth``, ``act_scale`` and ``amber_scale`` as float32.
+An MoE block's ``moe`` dict becomes its :class:`~repro_torch.models.moe.MoE`:
+``router/w`` in float32 (its Amber scale, which the JAX walk attaches and
+nothing reads, is not carried), ``experts/{gate,up,down}_proj/w``
+(layer ``i`` of the ``(L, E, D, F)`` stack) as they are, and ``shared`` as
+an MLP with its Amber scales.
 
 ``quantize_linears(model, absmax, qcfg)`` applies the offline
 SmoothQuant / Outstanding rewrite (``core.quant.make_quantized_linear``) to
@@ -93,9 +98,21 @@ def from_jax_params(cfg: ModelConfig, params_np: Dict, device=None
         blk.ln2.w.copy_(_t(lp["ln2"]["w"], dtype, device))
         for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
             _load_linear(blk, name, lp[name], dtype, device)
+        if "moe" in lp:
+            _load_moe(blk.moe, lp["moe"], dtype, device)
+            continue
         for name in ("gate_proj", "up_proj", "down_proj"):
             _load_linear(blk.mlp, name, lp["mlp"][name], dtype, device)
     return model
+
+
+def _load_moe(p, lp: Dict, dtype, device) -> None:
+    p.router.w.copy_(_t(lp["router"]["w"], torch.float32, device))
+    for name in ("gate_proj", "up_proj", "down_proj"):
+        getattr(p.experts, name).copy_(_t(lp["experts"][name]["w"], dtype, device))
+    if p.shared is not None:
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            _load_linear(p.shared, name, lp["shared"][name], dtype, device)
 
 
 @torch.no_grad()
@@ -108,7 +125,10 @@ def quantize_linears(model: transformer.Transformer,
     free the float weight; the int8 weights are stored K-major
     (``quant.k_major``), one buffer each.  Amber scales are computed from the float
     weights, so run ``precompute_scales`` first.  In place; returns
-    ``model``."""
+    ``model``.  W8A8 on an MoE model is not ported (it raises)."""
+    if model.cfg.n_experts:
+        raise NotImplementedError(f"{model.cfg.name}: W8A8 on the MoE family is not "
+                                  "ported yet (ROADMAP A6)")
     for i, blk in enumerate(model.blocks):
         for name in ALL_PROJS:
             owner = blk.mlp if name in MLP_PROJS else blk

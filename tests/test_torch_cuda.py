@@ -851,3 +851,78 @@ def test_crashed_and_restored_engines_are_freed(gen):
         gc.enable()
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated() == base
+
+
+# The MoE layer (models/moe.py) at Qwen3-30B-A3B's widths: its grouped
+# product is one torch._grouped_mm call, its expert prunes nm_prune launches.
+
+def _moe_layer(gen, dtype=torch.bfloat16):
+    from repro_torch.models import moe as moe_lib
+
+    layer = moe_lib.init_moe(2048, 768, 128, False, dtype=dtype, device="cuda",
+                             generator=gen)
+    x = torch.randn(1, 256, 2048, generator=gen, device="cuda").to(dtype)
+    return moe_lib, layer, x
+
+
+def test_moe_layer_kernel_path_matches_plain(gen):
+    """One layer, a 256-token chunk, bf16, the paper's policy: the kernel
+    path (nm_prune, torch._grouped_mm) routes as the plain path (nm_prune_plain,
+    the per-expert loop) does, launches nm_prune for the expert gate and
+    down inputs, and differs from it by at most twice the plain path's own
+    bf16 effect (against the plain path in float32 on the same weights)."""
+    import copy
+
+    from repro_torch import kernels
+    from repro_torch.core.policy import paper_policy
+
+    moe_lib, layer, x = _moe_layer(gen)
+    pol = paper_policy(8, 16)
+    ids = [moe_lib.route(x.reshape(-1, 2048), layer.router.w, 8)[1] for _ in range(2)]
+    kernels.reset_launch_counts()
+    got = moe_lib.moe(x, layer, pol.with_(use_kernels=True), "prefill", 8)
+    assert kernels.launch_counts()["nm_prune"] == 2
+    want = moe_lib.moe(x, layer, pol, "prefill", 8)
+    ref = moe_lib.moe(x.float(), copy.deepcopy(layer).float(), pol, "prefill", 8)
+    assert torch.equal(ids[0], ids[1])
+    assert bool(got.isfinite().all())
+    e_ref = float((want.float() - ref).abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= 2.0 * e_ref
+
+
+def test_moe_graph_replay_on_new_routing(gen):
+    """The layer captured once in a CUDA graph (sort, group counts and
+    offsets on the device, the grouped product reading them there), then
+    replayed on new inputs that route elsewhere: each replay gives the eager
+    layer's output bit for bit."""
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.kernels import _capture
+
+    moe_lib, layer, x = _moe_layer(gen)
+    pol = paper_policy(8, 16).with_(use_kernels=True)
+    buf = x.clone()
+    moe_lib.moe(buf, layer, pol, "prefill", 8)            # eager first, as the engines do
+    graph = _capture.Graph(buf.device, None)
+    out = graph.capture(lambda: moe_lib.moe(buf, layer, pol, "prefill", 8))
+    for scale in (1.0, 3.0, 0.1):
+        new = torch.randn(x.shape, generator=gen, device="cuda").bfloat16() * scale
+        buf.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, moe_lib.moe(new, layer, pol, "prefill", 8))
+
+
+@pytest.mark.parametrize("rows", [32, 2048])
+def test_grouped_matmul_matches_plain_with_empty_groups(gen, rows):
+    from repro_torch.models import moe as moe_lib
+
+    e, d, f = 16, 256, 128
+    sizes = torch.randint(0, 2 * rows // e, (e,), generator=gen, device="cuda")
+    sizes[[1, 5, 6]] = 0                                  # empty groups
+    sizes[-1] += rows - sizes.sum()                       # the rows end at the last group
+    sizes[-1] = sizes[-1].clamp(min=0)
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    x = torch.randn(int(offs[-1]), d, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(e, d, f, generator=gen, device="cuda") * d**-0.5).bfloat16()
+    got = moe_lib.grouped_matmul(x, w, offs)
+    _close(got, moe_lib.grouped_matmul_plain(x, w, offs), torch.bfloat16)

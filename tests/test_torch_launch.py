@@ -49,8 +49,8 @@ def _report(out: str):
 
 
 @pytest.mark.parametrize("extra", [[], ["--no-fused-step"], ["--shared-prefix", "16"],
-                                   ["--num-blocks", "3"]],
-                         ids=["fused", "legacy", "shared-prefix", "small-pool"])
+                                   ["--num-blocks", "3"], ["--arch", "qwen3_30b_a3b"]],
+                         ids=["fused", "legacy", "shared-prefix", "small-pool", "moe"])
 def test_trace_report_matches_jax_cli(capsys, extra):
     """``--trace`` returns 0, reports no negative latency, the fused path
     one program per work iteration, and the JAX CLI's counters: the
@@ -93,6 +93,16 @@ def test_one_shot_mode_runs_as_a_module():
     assert "[amber 8:16] generated (2, 4)" in r.stdout
     agree = float(re.search(r"agreement dense vs sparse-prefill: ([\d.]+)", r.stdout).group(1))
     assert 0.0 <= agree <= 1.0
+
+
+def test_one_shot_mode_moe(capsys):
+    """One-shot mode on the Qwen3-30B-A3B smoke config: rc 0, both engines'
+    lines and the agreement line."""
+    assert main(["--arch", "qwen3_30b_a3b", "--device", "cpu", "--smoke", "--batch", "2",
+                 "--prompt-len", "16", "--new-tokens", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "[     dense] generated (2, 4)" in out and "[amber 8:16] generated (2, 4)" in out
+    assert re.search(r"agreement dense vs sparse-prefill: [\d.]+", out)
 
 
 @pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"], ["--no-paged"]],
