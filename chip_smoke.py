@@ -45,7 +45,14 @@ Phases (any failed check exits non-zero; no phase is skipped):
              ``nm_spmm``'s consensus selection must be bit-exact, and is
              timed alone beside the whole call; its GEMM's routes (k split,
              128- or 256-row blocks) are checked and timed against each
-             other where the plan chooses them.
+             other where the plan chooses them.  2j: the dense variants'
+             shapes: ``paged_attention`` chunk and decode at G = 5, 16 and
+             48 (wgmma) and at head_dim 80 (the CUDA-core rows kernel) over
+             NaN-poisoned pools, ``paged_kv_scatter`` at 80 x 32 KV heads
+             and at one KV head, ``flash_attention`` at head_dim 80 and
+             G = 16, ``nm_prune_matmul`` at their q/gate/down widths,
+             ``osparse_matmul`` at Qwen2.5-32B q and k with their biases
+             (bit-exact), each timed beside its bound and library call.
 3. serve   — ``Engine.from_config`` at full LLaMA-3.1-8B width (32 layers,
              random weights from a seed, bfloat16) under the paper's
              policy with the kernels on: 8 staggered requests, 32 new tokens
@@ -135,6 +142,26 @@ Phases (any failed check exits non-zero; no phase is skipped):
              plain path's inputs routes identically on both paths and is
              held to the same gate.  7d: the ``--trace`` CLI at full width
              with phase 6a's flags, its launches exact.
+8. dense variants — after phase 7 freed its model (less than 1 GiB may
+             still be allocated), each bf16 from a seed with seeded
+             nonzero LayerNorm and q/k/v biases, under ``paper_policy(8,
+             16, ())`` with the kernels (q, gate and down pruned in every
+             layer), served as phase 3 serves LLaMA-3.1-8B (its stream and
+             warm-up, every bucket captured once, launches exact, a chunk
+             and a decode step profiled, graphed tokens equal to the eager
+             programs', peak memory printed), with ``attention_plan``'s
+             route of its chunk and decode step: 8a Qwen2.5-32B at full
+             width and depth (64 layers, 40/8 heads, q/k/v biases; 192
+             ``nm_prune_matmul`` a chunk); 8b the same weights rewritten
+             Outstanding-sparse as in 3b, every ``osparse_matmul`` launch on
+             its wgmma or swap_fused route with the q/k/v biases in the
+             epilogue; 8c ChatGLM3-6B (28 layers, 2-D RoPE, G = 16); 8d
+             StableLM-3B (32 layers, LayerNorm, head_dim 80: the CUDA-core
+             rows kernel); 8e Granite-34B at full width and depth 16 (MQA,
+             G = 48: its 88 layers take 88 GiB of bf16, which no one
+             80 GB card holds).  8f: phases 4 and 4 bf16 for each of the
+             four at full width and depth 2.  Each subphase's seconds are
+             printed.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -382,20 +409,8 @@ def phase_kernels(torch, timer, rates):
         if not same:
             fail(f"paged_kv_scatter {case}: kernel and plain version differ")
     # timing: the prefill chunk's 200 kept rows
-    kflat, vflat = kp.view(rows * bs, hkv, hd), vp.view(rows * bs, hkv, hd)
-    wpos = 37 + torch.arange(200, device=dev)
-    dst = tab1[0].long()[wpos // bs] * bs + wpos % bs
-    ksrc, vsrc = kn[0, :200], vn[0, :200]
-    ms = timer.ms(lambda: kpa.paged_kv_scatter(kn, vn, kp, vp, tab1, pos1, cl1))
-    plain_ms = timer.ms(lambda: kpa.paged_kv_scatter_plain(kn, vn, kp, vp, tab1, pos1, cl1))
-
-    def index_put():
-        kflat.index_put_((dst,), ksrc)
-        vflat.index_put_((dst,), vsrc)
-
-    lib_ms = timer.ms(index_put)
-    nbytes = 2 * 200 * hkv * hd * 2 * 2 + (mb + 2) * 4
-    bound = nbytes / bw * 1e3
+    t = scatter_times(torch, timer, bw, kn, vn, kp, vp, tab1, pos1, cl1)
+    ms, plain_ms, lib_ms, bound = (t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms"))
     print(f"  prefill chunk: kernel {ms:.4f} ms, bound {bound:.4f} ms (bytes), plain "
           f"{plain_ms:.4f} ms, index_put_ K+V {lib_ms:.4f} ms")
     dec_ms = timer.ms(lambda: kpa.paged_kv_scatter(kd, vd, kp, vp, tab4, posd, ones))
@@ -415,24 +430,9 @@ def phase_kernels(torch, timer, rates):
     kp, vp = pools(torch.bfloat16)
 
     def poisoned(kp, vp, tab, kvl):
-        """Pools where every row no table row may read is NaN: blocks no
-        row owns, and rows at or past each row's kv_len."""
-        kpn, vpn = kp.clone(), vp.clone()
-        live = torch.zeros(kp.shape[:2], dtype=torch.bool)
-        tab_h, kvl_h = tab.cpu(), kvl.cpu()
-        for r in range(tab_h.shape[0]):
-            for i in range(int(kvl_h[r])):
-                pb = int(tab_h[r, i // bs])
-                if pb >= 0:
-                    live[pb, i % bs] = True
-        live = live.to(dev)
-        kpn[~live], vpn[~live] = float("nan"), float("nan")
-        return kpn, vpn
+        return poisoned_pools(torch, kp, vp, tab, kvl)
 
-    def route(q, kp, tab):
-        b, tq, hq_, hd_ = q.shape
-        return kpa.attention_plan(q.dtype, b, tq, hq_, kp.shape[2], hd_, bs, tab.shape[1],
-                                  True)
+    route = attention_route
 
     def decode_case(hq_, qpos):
         """Decode rows of ``hq_`` query heads at positions ``qpos``: each row
@@ -498,31 +498,9 @@ def phase_kernels(torch, timer, rates):
              ("decode B=4 G=8", q8, kq, vq, tab8, pos8, kvl8, False),
              ("prefill chunk G=8", qc8, kq, vq, tab1, qoff1, kvl1, True))
     for case, q, kpool, vpool, tab, qo, kvl, causal in cases:
-        b, tq, hq_ = q.shape[:3]
-        hkv_ = kpool.shape[2]
-        ms = timer.ms(lambda: kpa.paged_attention(q, kpool, vpool, tab, qo, kvl, causal=causal))
-        plain_ms = timer.ms(
-            lambda: kpa.paged_attention_plain(q, kpool, vpool, tab, qo, kvl, causal=causal), 5)
-        s_len = mb * bs
-        kpos = torch.arange(s_len, device=dev)
-        qpos = qo.long()[:, None] + torch.arange(tq, device=dev)[None, :]
-        mask = kpos[None, None, :] < kvl.long()[:, None, None]
-        if causal:
-            mask = mask & (kpos[None, None, :] <= qpos[:, :, None])
-        kg = kpool[tab.long().clamp(0, rows - 1)].reshape(b, s_len, hkv_, hd)
-        vg = vpool[tab.long().clamp(0, rows - 1)].reshape(b, s_len, hkv_, hd)
-        # KV heads repeated to the query heads outside the timed call
-        qt = q.transpose(1, 2)
-        kt = kg.transpose(1, 2).repeat_interleave(hq_ // hkv_, dim=1)
-        vt = vg.transpose(1, 2).repeat_interleave(hq_ // hkv_, dim=1)
-        am = mask[:, None]
-        lib_ms = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=am))
-        pairs = int(mask.sum()) * hq_
-        nbytes = (2 * q.numel() + 2 * int(kvl.sum()) * hkv_ * hd) * 2
-        ops = 4 * hd * pairs
-        bound = max(nbytes / bw, ops / bf16_peak) * 1e3
-        by = "bytes" if nbytes / bw >= ops / bf16_peak else "operations"
+        r = paged_attention_times(torch, timer, rates, q, kpool, vpool, tab, qo, kvl, causal)
+        ms, plain_ms, lib_ms, bound, by = (r[k] for k in ("ms", "plain_ms", "library_ms",
+                                                          "bound_ms", "bound_by"))
         print(f"  {case} {route(q, kpool, tab)}: kernel {ms:.4f} ms, bound {bound:.4f} ms "
               f"({by}), plain {plain_ms:.4f} ms, SDPA on the gathered view {lib_ms:.4f} ms; "
               f"kernel/library {ms / lib_ms:.2f}")
@@ -547,6 +525,103 @@ def phase_kernels(torch, timer, rates):
           f"{icept * 1e3:.2f} us a call + {slope * 1e3:.2f} us a 64-key tile")
     records["paged_attention"]["max_abs_err"] = max(errs)
     return records
+
+
+def attention_route(q, kp, tab):
+    """``attention_plan``'s route for ``q`` over the pool ``kp`` through
+    ``tab`` (16-byte-aligned tensors)."""
+    from repro_torch.kernels import paged_attention as kpa
+
+    b, tq, hq, hd = q.shape
+    return kpa.attention_plan(q.dtype, b, tq, hq, kp.shape[2], hd, kp.shape[1], tab.shape[1],
+                              True)
+
+
+def poisoned_pools(torch, kp, vp, tab, kvl):
+    """Copies of the pools where every row no table row may read is NaN:
+    blocks no row owns, and rows at or past each row's kv_len."""
+    bs = kp.shape[1]
+    kpn, vpn = kp.clone(), vp.clone()
+    live = torch.zeros(kp.shape[:2], dtype=torch.bool)
+    tab_h, kvl_h = tab.cpu(), kvl.cpu()
+    for r in range(tab_h.shape[0]):
+        for i in range(int(kvl_h[r])):
+            pb = int(tab_h[r, i // bs])
+            if pb >= 0:
+                live[pb, i % bs] = True
+    live = live.to(kp.device)
+    kpn[~live], vpn[~live] = float("nan"), float("nan")
+    return kpn, vpn
+
+
+def paged_attention_times(torch, timer, rates, q, kpool, vpool, tab, qo, kvl, causal):
+    """One ``paged_attention`` case timed: the kernel, the plain version,
+    SDPA on the gathered view (KV heads repeated to the query heads outside
+    the timed call) and the bound (each visible K/V row read once, q read
+    and the output written once; 4 hd operations a visible (query head,
+    key) pair)."""
+    from repro_torch.kernels import paged_attention as kpa
+
+    bw, bf16_peak = rates[0], rates[1]
+    dev = q.device
+    b, tq, hq, hd = q.shape
+    rows, bs, hkv = kpool.shape[:3]
+    mb = tab.shape[1]
+    ms = timer.ms(lambda: kpa.paged_attention(q, kpool, vpool, tab, qo, kvl, causal=causal))
+    plain_ms = timer.ms(
+        lambda: kpa.paged_attention_plain(q, kpool, vpool, tab, qo, kvl, causal=causal), 5)
+    s_len = mb * bs
+    kpos = torch.arange(s_len, device=dev)
+    qpos = qo.long()[:, None] + torch.arange(tq, device=dev)[None, :]
+    mask = kpos[None, None, :] < kvl.long()[:, None, None]
+    if causal:
+        mask = mask & (kpos[None, None, :] <= qpos[:, :, None])
+    kg = kpool[tab.long().clamp(0, rows - 1)].reshape(b, s_len, hkv, hd)
+    vg = vpool[tab.long().clamp(0, rows - 1)].reshape(b, s_len, hkv, hd)
+    qt = q.transpose(1, 2)
+    kt = kg.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+    vt = vg.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+    am = mask[:, None]
+    lib_ms = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=am))
+    pairs = int(mask.sum()) * hq
+    nbytes = (2 * q.numel() + 2 * int(kvl.sum()) * hkv * hd) * 2
+    ops = 4 * hd * pairs
+    bound = max(nbytes / bw, ops / bf16_peak) * 1e3
+    by = "bytes" if nbytes / bw >= ops / bf16_peak else "operations"
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+
+
+def scatter_times(torch, timer, bw, kn, vn, kp, vp, tab, pos, clen):
+    """One ``paged_kv_scatter`` case timed: the kernel, the plain version,
+    ``index_put_`` of the kept rows into the flattened pools (the rows the
+    plain version keeps) and the bound (each kept K and V row read and
+    written once, the table and the two index vectors read)."""
+    from repro_torch.kernels import paged_attention as kpa
+
+    b, t = kn.shape[:2]
+    rows, bs = kp.shape[:2]
+    mb = tab.shape[1]
+    ms = timer.ms(lambda: kpa.paged_kv_scatter(kn, vn, kp, vp, tab, pos, clen))
+    plain_ms = timer.ms(lambda: kpa.paged_kv_scatter_plain(kn, vn, kp, vp, tab, pos, clen))
+    i = torch.arange(t, device=kn.device)
+    wpos = pos.long()[:, None] + i[None, :]
+    pb = tab.long().gather(1, (wpos // bs).clamp(0, mb - 1))
+    kept = (i[None, :] < clen.long()[:, None]) & (pb >= 0) & (wpos // bs < mb)
+    bi, ti = kept.nonzero(as_tuple=True)
+    dst = pb[bi, ti] * bs + wpos[bi, ti] % bs
+    kflat, vflat = kp.view(rows * bs, *kp.shape[2:]), vp.view(rows * bs, *vp.shape[2:])
+    ksrc, vsrc = kn[bi, ti], vn[bi, ti]
+
+    def index_put():
+        kflat.index_put_((dst,), ksrc)
+        vflat.index_put_((dst,), vsrc)
+
+    lib_ms = timer.ms(index_put)
+    n_kept = int(kept.sum())
+    row_bytes = kn[0, 0].numel() * kn.element_size()
+    bound = (2 * 2 * n_kept * row_bytes + (tab.numel() + 2 * b) * 4) / bw * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, rows=n_kept)
 
 
 def scatter_in_graph(torch, timer, case, kn, vn, kp, vp, tab, pos, clen, pairs=32):
@@ -1129,59 +1204,29 @@ def check_launches(label, launches, want):
             fail(f"{label}: {name} launched {launches[name]} times, expected {count}")
 
 
-def phase_serve(torch):
-    from repro_torch.configs import get_config
-    from repro_torch.core.policy import paper_policy
-    from repro_torch.core.pruner import precompute_scales
-    from repro_torch.models import build_model
-
-    cfg = get_config("llama31_8b")
-    print(f"phase 3: serve {cfg.name} at full width ({cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype})")
-    t0 = time.perf_counter()
-    model = build_model(cfg)
-    params = model.init(SEED)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    policy = paper_policy(8, 16, cfg.qgate_skip_layers).with_(use_kernels=True)
-    precompute_scales(params, policy)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    n_w = sum(p.numel() for p in params.parameters())
-    print(f"  random weights: {n_w / 1e9:.3f}B parameters in {t1 - t0:.1f} s; "
-          f"Amber scales in {t2 - t1:.1f} s")
-    per_chunk = sum(policy.should_prune(mod, i) for i in range(cfg.n_layers)
-                    for mod in ("q_proj", "gate_proj", "down_proj"))
-    if per_chunk != 86:
-        fail(f"paper policy prunes {per_chunk} projections per chunk, expected 86")
-    launches, st, eng, outputs = serve_requests(torch, model, params, policy, "phase 3")
-    per_step = cfg.n_layers * (st["prefill_halves"] + st["decode_halves"])
-    check_launches("phase 3", launches, {
-        "nm_prune_matmul": per_chunk * st["sparse_chunks"],
-        "paged_kv_scatter": per_step, "paged_attention": per_step})
-    profile_steps(torch, model, params, policy, eng)
-    del eng
-    check_graphed_tokens(torch, model, params, policy, "phase 3", outputs)
-    return launches, model, params, policy, outputs
-
-
-def phase_serve_osparse(torch, model, params, policy):
-    """Phase 3's weights and Amber scales, rewritten to W8A8 on
-    q/k/v/o/gate/up of every layer, served the same way."""
+def phase_serve_osparse(torch, model, params, policy, label="3b"):
+    """Phase 3's (or 8a's) weights and Amber scales, rewritten to W8A8 on
+    q/k/v/o/gate/up of every layer, served the same way; the q/k/v biases
+    of a model that has them go into the int8 epilogue."""
     from repro_torch.core import quant
+    from repro_torch.layers.linear import QuantLinear
     from repro_torch.weights import quantize_linears
 
     cfg = model.cfg
     qcfg = quant.QuantConfig()
-    print(f"phase 3b: serve {cfg.name} Outstanding-sparse at full width (W8A8 "
+    print(f"phase {label}: serve {cfg.name} Outstanding-sparse at full width (W8A8 "
           f"alpha={qcfg.alpha} outstanding={qcfg.outstanding} per_token="
           f"{qcfg.per_token_act} skip_modules={qcfg.skip_modules} skip_layers="
           f"{qcfg.skip_layers}; Amber 8:16 under the paper policy)")
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED + 3)
-    absmax = {(i, name): calib_absmax(rng, cfg.d_model)
+    absmax = {(i, name): calib_absmax(rng, cfg.q_dim if name == "o_proj" else cfg.d_model)
               for i in range(cfg.n_layers) for name in QPROJS}
     quantize_linears(params, absmax, qcfg)
+    if cfg.qkv_bias and not all(isinstance(lin, QuantLinear) and lin.b is not None
+                                for blk in params.blocks
+                                for lin in (blk.q_proj, blk.k_proj, blk.v_proj)):
+        fail(f"phase {label}: a quantized q/k/v projection lost its bias")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     n_q = sum(b.numel() for n_, b in params.named_buffers() if n_.endswith(".wq"))
@@ -1189,12 +1234,13 @@ def phase_serve_osparse(torch, model, params, policy):
           f"device memory held {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     pruned = sum(policy.should_prune(mod, i) for i in range(cfg.n_layers)
                  for mod in ("q_proj", "gate_proj"))
-    if pruned != 54:
-        fail(f"paper policy prunes {pruned} quantized projections per chunk, expected 54")
-    launches, st, eng, outputs = serve_requests(torch, model, params, policy, "phase 3b")
+    want = 2 * cfg.n_layers - 2 * len(cfg.qgate_skip_layers)
+    if pruned != want:
+        fail(f"paper policy prunes {pruned} quantized projections per chunk, expected {want}")
+    launches, st, eng, outputs = serve_requests(torch, model, params, policy, f"phase {label}")
     halves = st["prefill_halves"] + st["decode_halves"]
     per_step = cfg.n_layers * halves
-    check_launches("phase 3b", launches, {
+    check_launches(f"phase {label}", launches, {
         "osparse_matmul": len(QPROJS) * cfg.n_layers * halves,
         "osparse_matmul (prune=True)": pruned * st["sparse_chunks"],
         "nm_prune_matmul": cfg.n_layers * st["sparse_chunks"],
@@ -1204,11 +1250,11 @@ def phase_serve_osparse(torch, model, params, policy):
     routes = {r: c for r, c in launches["osparse_matmul routes"].items() if c}
     print(f"  osparse_matmul launches by route {routes}")
     if not routes or not set(routes) <= {"wgmma", "swap_fused"}:
-        fail(f"phase 3b: osparse_matmul launches by route {routes}, expected wgmma "
+        fail(f"phase {label}: osparse_matmul launches by route {routes}, expected wgmma "
              "(prefill) and swap_fused (decode) only")
     profile_steps(torch, model, params, policy, eng)
     del eng
-    check_graphed_tokens(torch, model, params, policy, "phase 3b", outputs)
+    check_graphed_tokens(torch, model, params, policy, f"phase {label}", outputs)
     return launches
 
 
@@ -1681,9 +1727,12 @@ def report_bf16_agreement(got, want, margins):
           f"smallest top-2 logit margin {min(margins):.3e}")
 
 
-def phase_parity(torch, quantized: bool, dtype: str = "float32"):
+def phase_parity(torch, quantized: bool, dtype: str = "float32", arch: str = "llama31_8b",
+                 label: str = "phase 4"):
     """Full width, depth 2: the same staggered requests through two paths,
     and each prompt's last-chunk logits (chunk by chunk on fresh caches).
+    Phase 8f runs phases 4 and 4 bf16 on the dense variants (``arch``), with
+    seeded LayerNorm and q/k/v biases.
 
     Phase 4 (bf16 weights' float32 twin): the kernel path against the plain
     path must emit the same greedy tokens; the logits agree within 2% of the
@@ -1708,23 +1757,26 @@ def phase_parity(torch, quantized: bool, dtype: str = "float32"):
     from repro_torch.serve import ContinuousConfig, Engine, EngineConfig
     from repro_torch.weights import quantize_linears
 
-    cfg = dataclasses.replace(get_config("llama31_8b"), n_layers=2, dtype=dtype)
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype=dtype)
     bf16 = dtype == "bfloat16"
     model = build_model(cfg)
     params = model.init(SEED + 1)
+    seed_biases(torch, params, SEED + 101)
     policy = paper_policy(8, 16, cfg.qgate_skip_layers)
     precompute_scales(params, policy)
+    what = (f"{cfg.name} (norm {cfg.norm}, rope {cfg.rope_variant}, G = "
+            f"{cfg.n_heads // cfg.n_kv_heads}, head_dim {cfg.head_dim})")
     if bf16:
-        print("phase 4 bf16: kernel path vs plain path, full width, depth 2, bfloat16")
+        print(f"{label} bf16: {what} kernel path vs plain path, full width, depth 2, bfloat16")
     elif quantized:
-        print("phase 4b: Outstanding-sparse kernel path vs the same path with "
+        print(f"{label}b: Outstanding-sparse kernel path vs the same path with "
               "osparse_matmul's plain version, full width, depth 2, float32")
         rng = np.random.default_rng(SEED + 4)
         quantize_linears(params, {(i, name): calib_absmax(rng, cfg.d_model)
                                   for i in range(cfg.n_layers) for name in QPROJS},
                          quant.QuantConfig())
     else:
-        print("phase 4: kernel path vs plain path, full width, depth 2, float32")
+        print(f"{label}: {what} kernel path vs plain path, full width, depth 2, float32")
     rng = np.random.default_rng(SEED + 1)
     prompts = make_requests(rng, 3, 64, 600, cfg.vocab_size)
     arrivals, new, bsz = [0, 1, 3], 8, 16
@@ -2288,6 +2340,315 @@ def phase_moe(torch, rates):
     return launches
 
 
+# ------------------------------------------------ the dense-family variants
+
+# (label, Hq, Hkv, head_dim): Qwen2.5-32B, ChatGLM3-6B, Granite-34B (MQA)
+# and StableLM-3B (MHA at head_dim 80, the CUDA-core rows kernel)
+VARIANT_HEADS = (("Qwen2.5-32B G=5", 40, 8, 128), ("ChatGLM3-6B G=16", 32, 2, 128),
+                 ("Granite-34B G=48", 48, 1, 128), ("StableLM-3B hd=80 G=1", 32, 32, 80))
+# nm_prune_matmul's projections on the variants' paths: (label, K, N_out,
+# bias), q carrying the model's q bias where it has one
+VARIANT_PRUNED = (("StableLM-3B q", 2560, 2560, False), ("StableLM-3B gate", 2560, 6912, False),
+                  ("StableLM-3B down", 6912, 2560, False), ("ChatGLM3-6B q", 4096, 4096, True),
+                  ("ChatGLM3-6B gate", 4096, 13696, False),
+                  ("ChatGLM3-6B down", 13696, 4096, False),
+                  ("Qwen2.5-32B q", 5120, 5120, True), ("Qwen2.5-32B gate", 5120, 27648, False),
+                  ("Qwen2.5-32B down", 27648, 5120, False), ("Granite-34B q", 6144, 6144, False),
+                  ("Granite-34B gate", 6144, 24576, False),
+                  ("Granite-34B down", 24576, 6144, False))
+
+
+def phase_variant_kernels(torch, timer, rates, records):
+    """2j: the kernels at the dense variants' shapes, each held against its
+    plain version and timed beside its bound and its library yardstick; the
+    cases are added to ``records[kernel]["variants"]``."""
+    from repro_torch import kernels
+    from repro_torch.core import nm, quant, scoring
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import nm_prune_matmul as knm
+    from repro_torch.kernels import osparse_matmul as kos
+    from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.kernels import w8a8_matmul as kw8
+
+    bw, bf16_peak, _, int8_peak = rates
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rng = np.random.default_rng(SEED + 11)
+    dev = "cuda"
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def keep(kernel, case, err, **times):
+        records[kernel].setdefault("variants", {})[case] = times
+        records[kernel]["max_abs_err"] = max(records[kernel]["max_abs_err"], err)
+
+    print("phase 2j: paged_attention at the dense variants' heads (chunk Tq=256 at offset "
+          "300, kv_len 500; decode B=4), NaN-poisoned pools")
+    bs, mb = 16, 46
+    rows = 4 * mb + 1
+    perm = torch.randperm(4 * mb, generator=g, device=dev).to(torch.int32)
+    tab1 = perm[:mb].reshape(1, mb).contiguous()
+    qoff1, kvl1 = torch.tensor([300], **i32), torch.tensor([500], **i32)
+    posd = torch.tensor([700, 513, 64, 0], **i32)
+    kvld = posd + 1
+    tabd = torch.full((4, mb), -1, **i32)
+    for r in range(4):
+        need = -(-int(kvld[r]) // bs)
+        tabd[r, :need] = perm[r * mb:r * mb + need]
+    for label, hq, hkv, hd in VARIANT_HEADS:
+        kp = torch.randn(rows, bs, hkv, hd, generator=g, device=dev).bfloat16()
+        vp = torch.randn(rows, bs, hkv, hd, generator=g, device=dev).bfloat16()
+        for case, b, tq, tab, qo, kvl, causal in (("chunk", 1, 256, tab1, qoff1, kvl1, True),
+                                                  ("decode", 4, 1, tabd, posd, kvld, False)):
+            q = torch.randn(b, tq, hq, hd, generator=g, device=dev).bfloat16()
+            kpn, vpn = poisoned_pools(torch, kp, vp, tab, kvl)
+            route = attention_route(q, kp, tab)
+            err = check_close(f"{label} {case} {route}",
+                              kpa.paged_attention(q, kpn, vpn, tab, qo, kvl, causal=causal),
+                              kpa.paged_attention_plain(q, kpn, vpn, tab, qo, kvl,
+                                                        causal=causal), BF16_TOL)
+            t = paged_attention_times(torch, timer, rates, q, kp, vp, tab, qo, kvl, causal)
+            print(f"  {label} {case} {route}: kernel {t['ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain {t['plain_ms']:.4f} ms, "
+                  f"SDPA on the gathered view {t['library_ms']:.4f} ms; kernel/library "
+                  f"{t['ms'] / t['library_ms']:.2f}")
+            keep("paged_attention", f"{label} {case}", err, route=list(route), **t)
+
+    print("phase 2j: paged_kv_scatter at head_dim 80 x 32 KV heads and at one KV head "
+          "(bit-exact)")
+    for label, hkv, hd in (("StableLM-3B hd=80 Hkv=32", 32, 80), ("Granite-34B Hkv=1", 1, 128)):
+        kp = torch.randn(rows, bs, hkv, hd, generator=g, device=dev).bfloat16()
+        vp = torch.randn(rows, bs, hkv, hd, generator=g, device=dev).bfloat16()
+        pos1, cl1 = torch.tensor([37], **i32), torch.tensor([200], **i32)
+        tab4 = perm.reshape(4, mb).clone()
+        tab4[1] = -1
+        tab4[2, 64 // bs] = -1
+        posw = torch.tensor([700, 513, 64, 31], **i32)
+        ones = torch.ones(4, **i32)
+        for case, t, tab, pos, clen in (("chunk pos=37 len=200", 256, tab1, pos1, cl1),
+                                        ("decode B=4 with -1 rows", 1, tab4, posw, ones)):
+            b = tab.shape[0]
+            kn = torch.randn(b, t, hkv, hd, generator=g, device=dev).bfloat16()
+            vn = torch.randn(b, t, hkv, hd, generator=g, device=dev).bfloat16()
+            k_a, v_a, k_b, v_b = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+            kpa.paged_kv_scatter(kn, vn, k_a, v_a, tab, pos, clen)
+            kpa.paged_kv_scatter_plain(kn, vn, k_b, v_b, tab, pos, clen)
+            torch.cuda.synchronize()
+            if not (torch.equal(k_a, k_b) and torch.equal(v_a, v_b)):
+                fail(f"paged_kv_scatter {label} {case}: kernel and plain version differ")
+            r = scatter_times(torch, timer, bw, kn, vn, kp, vp, tab, pos, clen)
+            print(f"  {label} {case} ({r.pop('rows')} rows of {hkv * hd * 2} bytes): "
+                  f"bit-exact; kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.5f} ms (bytes), "
+                  f"plain {r['plain_ms']:.4f} ms, index_put_ K+V {r['library_ms']:.4f} ms")
+            keep("paged_kv_scatter", f"{label} {case}", 0.0, bound_by="bytes", **r)
+
+    print("phase 2j: flash_attention B=4 T=512 causal at head_dim 80 (G=1) and G=16")
+    for label, hq, hkv, hd in (("StableLM-3B hd=80 G=1", 32, 32, 80),
+                               ("ChatGLM3-6B G=16", 32, 2, 128)):
+        b, t = 4, 512
+        q = torch.randn(b, t, hq, hd, generator=g, device=dev).bfloat16()
+        k = torch.randn(b, t, hkv, hd, generator=g, device=dev).bfloat16()
+        v = torch.randn(b, t, hkv, hd, generator=g, device=dev).bfloat16()
+        err = check_close(label, kfa.flash_attention(q, k, v), kfa.flash_attention_plain(q, k, v),
+                          BF16_TOL)
+        ms = timer.ms(lambda: kfa.flash_attention(q, k, v))
+        plain_ms = timer.ms(lambda: kfa.flash_attention_plain(q, k, v), 5)
+        lib_ms = sdpa_ms(torch, timer, q, k, v, True)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+        ops = 4 * hd * b * hq * t * (t + 1) // 2
+        bound = max(nbytes / bw, ops / bf16_peak) * 1e3
+        by = "bytes" if nbytes / bw >= ops / bf16_peak else "operations"
+        print(f"  {label}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), plain "
+              f"{plain_ms:.4f} ms, SDPA (is_causal, GQA) {lib_ms:.4f} ms; kernel/library "
+              f"{ms / lib_ms:.2f}")
+        keep("flash_attention", label, err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+             bound_ms=bound, bound_by=by)
+
+    print("phase 2j: nm_prune_matmul at the variants' widths (T=256, 8:16)")
+    n, m = 8, 16
+    for label, d, n_out, biased in VARIANT_PRUNED:
+        w = (torch.randn(d, n_out, generator=g, device=dev) * d**-0.5).bfloat16()
+        scale = torch.rand(d, generator=g, device=dev) + 0.5
+        bias = (torch.randn(n_out, generator=g, device=dev) * 0.1).bfloat16() if biased else None
+        x = torch.randn(256, d, generator=g, device=dev).bfloat16()
+        plan = knm.gemm_plan(w, 256)
+        route = f"wgmma, {plan} k slice{'s' if plan > 1 else ''}" if plan else "WMMA"
+        err = check_close(f"{label} {d}x{n_out} bias={biased} ({route})",
+                          knm.nm_prune_matmul(x, w, scale, n, m, bias=bias),
+                          knm.nm_prune_matmul_plain(x, w, scale, n, m, bias=bias), BF16_TOL)
+        if not plan:
+            fail(f"nm_prune_matmul {label}: expected the wgmma route")
+        xp = nm.apply_nm(x, scoring.score_activations(x, scale), n, m)
+        ms = timer.ms(lambda: knm.nm_prune_matmul(x, w, scale, n, m, bias=bias))
+        plain_ms = timer.ms(lambda: knm.nm_prune_matmul_plain(x, w, scale, n, m, bias=bias), 3)
+        lib_ms = timer.ms(lambda: torch.matmul(xp, w))
+        nbytes = (x.numel() + w.numel() + 256 * n_out + (n_out if biased else 0)) * 2 + d * 4
+        ops = 2 * int((xp != 0).sum()) * n_out
+        bound = max(nbytes / bw, ops / bf16_peak) * 1e3
+        by = "bytes" if nbytes / bw >= ops / bf16_peak else "operations"
+        print(f"  {label} {d}x{n_out}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), plain "
+              f"{plain_ms:.4f} ms, torch.matmul(x_pruned) {lib_ms:.4f} ms; kernel/library "
+              f"{ms / lib_ms:.2f}, bound/kernel {bound / ms:.3f}")
+        keep("nm_prune_matmul", label, err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+             bound_ms=bound, bound_by=by)
+        del w, x, xp
+
+    print("phase 2j: osparse_matmul at Qwen2.5-32B q and k with their biases (bit-exact)")
+    for proj, n_out in (("q", 5120), ("k", 1024)):
+        d = 5120
+        w = (torch.randn(d, n_out, generator=g, device=dev) * d**-0.5).bfloat16()
+        ql = quant.make_quantized_linear(w, torch.from_numpy(calib_absmax(rng, d)).to(dev),
+                                         quant.QuantConfig())
+        del w
+        amber = torch.rand(d, generator=g, device=dev) + 0.5
+        bias = (torch.randn(n_out, generator=g, device=dev) * 0.1).bfloat16()
+        for t in (256, 4):
+            prune = t == 256 and proj == "q"
+            x = torch.randn(t, d, generator=g, device=dev).bfloat16()
+            args = (x, ql.wq, ql.smooth, amber, ql.w_scale, n, m)
+            kw = dict(act_scale=ql.act_scale, bias=bias, prune=prune)
+            plan = kw8.gemm_plan(t, d, n_out, x.dtype, False, prune, m)
+            kernels.reset_launch_counts()
+            got = kos.osparse_matmul(*args, **kw)
+            want = kos.osparse_matmul_plain(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"osparse_matmul Qwen2.5-32B {proj} T={t}: kernel and plain differ")
+            expect_routes(f"osparse_matmul Qwen2.5-32B {proj} T={t}", kos.osparse_matmul,
+                          plan.route)
+            xq, _ = kos.osparse_quantize_plain(x, ql.smooth, amber, n, m, ql.act_scale, prune)
+            ms = timer.ms(lambda: kos.osparse_matmul(*args, **kw))
+            plain_ms = timer.ms(lambda: kos.osparse_matmul_plain(*args, **kw), 5)
+            lib_ms, lib_label = int_mm_ms(torch, timer, xq, ql.wq, ql.act_scale, ql.w_scale)
+            nbytes = (x.numel() * 2 + ql.wq.numel() + 2 * d * 4 + n_out * 4 + 4
+                      + n_out * 2 + t * n_out * 2)
+            ops = 2 * int((xq != 0).sum()) * n_out
+            bound = max(nbytes / bw, ops / int8_peak) * 1e3
+            by = "bytes" if nbytes / bw >= ops / int8_peak else "operations"
+            lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+            print(f"  {proj} (d_out {n_out}, bias) T={t} prune={prune}: route {plan.route} "
+                  f"split {plan.splits}, bit-exact; kernel {ms:.4f} ms, bound {bound:.4f} ms "
+                  f"({by}), plain {plain_ms:.4f} ms, {lib_label} {lib}")
+            keep("osparse_matmul", f"Qwen2.5-32B {proj} T={t}", 0.0, ms=ms, plain_ms=plain_ms,
+                 library_ms=lib_ms, bound_ms=bound, bound_by=by, route=plan.route)
+        del ql
+
+
+def seed_biases(torch, params, seed: int) -> None:
+    """Seeded nonzero LayerNorm biases and q/k/v biases (the init leaves
+    them zero, which would not exercise the bias adds)."""
+    from repro_torch.models.common import LayerNorm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    biases = [mod.b for mod in params.modules() if isinstance(mod, LayerNorm)]
+    biases += [lin.b for blk in params.blocks for lin in (blk.q_proj, blk.k_proj, blk.v_proj)
+               if lin.b is not None]
+    for b in biases:
+        b.copy_((torch.randn(b.shape, generator=g, device="cuda") * 0.1).to(b.dtype))
+
+
+def dense_model(torch, arch, n_layers=None):
+    """``arch`` (depth optionally cut), random weights from ``SEED`` made on
+    the card plus seeded LayerNorm and q/k/v biases (LLaMA-3.1-8B has
+    none), the paper's policy with the kernels on and the Amber scales."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.core.pruner import precompute_scales
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
+    model = build_model(cfg)
+    params = model.init(SEED)
+    seed_biases(torch, params, SEED + 100)
+    policy = paper_policy(8, 16, cfg.qgate_skip_layers).with_(use_kernels=True)
+    precompute_scales(params, policy)
+    return cfg, model, params, policy
+
+
+# phase 8's models: (subphase, arch, depth on one card (None: all its
+# layers), why it is cut)
+VARIANT_SERVING = (
+    ("8a", "qwen2_5_32b", None, None),
+    ("8c", "chatglm3_6b", None, None),
+    ("8d", "stablelm_3b", None, None),
+    ("8e", "granite_34b", 16, "its 88 layers take 88.0 GiB in bf16, which no 80 GB card "
+                              "holds: full width, depth 16"),
+)
+
+
+def serve_dense(torch, label, arch, n_layers=None, cut=None):
+    """Phase 3 (LLaMA-3.1-8B) and 8a/8c-8e (the dense variants): ``arch``
+    served with phase 3's stream and warm-up, every bucket captured once,
+    the launches exact, the attention routes of its chunk and decode step
+    printed, a chunk and a decode step profiled, the graphed tokens equal
+    to the eager step programs'.  Returns (launches, model, params, policy,
+    outputs)."""
+    from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.models.common import dtype_of
+
+    t0 = time.perf_counter()
+    cfg, model, params, policy = dense_model(torch, arch, n_layers)
+    torch.cuda.synchronize()
+    n_w = sum(p.numel() for p in params.parameters())
+    print(f"phase {label}: serve {cfg.name} at full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, norm {cfg.norm}, rope {cfg.rope_variant}, "
+          f"qkv_bias {cfg.qkv_bias}, {cfg.dtype}), paper_policy(8, 16, "
+          f"{cfg.qgate_skip_layers}) with the kernels" + (f"; {cut}" if cut else ""))
+    print(f"  random weights: {n_w / 1e9:.3f}B parameters in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
+    fused, routed = prune_launches(cfg, policy)
+    want = 3 * cfg.n_layers - 2 * len(cfg.qgate_skip_layers)
+    if (fused, routed) != (want, 0):
+        fail(f"phase {label}: the paper policy prunes {fused} projections per chunk, "
+             f"expected {want} (q and gate outside the skip list, down in every layer)")
+    scfg = serving_stream(torch, cfg.vocab_size)[4]
+    mb = scfg.max_seq // scfg.block_size
+    for case, b, tq in (("chunk", 1, scfg.chunk_size), ("decode", scfg.num_slots, 1)):
+        plan = kpa.attention_plan(dtype_of(cfg), b, tq, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.head_dim, scfg.block_size, mb, True)
+        print(f"  attention_plan of a {case} step (B={b}, Tq={tq}, G="
+              f"{cfg.n_heads // cfg.n_kv_heads}, hd {cfg.head_dim}): {plan}")
+    launches, st, eng, outputs = serve_requests(torch, model, params, policy, f"phase {label}")
+    per_step = cfg.n_layers * (st["prefill_halves"] + st["decode_halves"])
+    check_launches(f"phase {label}", launches, {
+        "nm_prune_matmul": fused * st["sparse_chunks"], "paged_kv_scatter": per_step,
+        "paged_attention": per_step, "nm_prune": 0, "nm_spmm": 0, "flash_attention": 0,
+        "osparse_matmul": 0})
+    print(f"  launches held: per sparse chunk nm_prune_matmul {fused}; paged_kv_scatter "
+          f"and paged_attention {cfg.n_layers} per prefill or decode half")
+    profile_steps(torch, model, params, policy, eng)
+    del eng
+    check_graphed_tokens(torch, model, params, policy, f"phase {label}", outputs)
+    return launches, model, params, policy, outputs
+
+
+def phase_variants(torch):
+    """Phase 8: the dense-family variants at full width on the card, after
+    phase 7 freed its model; each subphase's seconds printed."""
+    free_device(torch, "before phase 8 (phase 7 freed)")
+    held = torch.cuda.memory_allocated() / 2**30
+    if not held < 1.0:
+        fail(f"phase 8: {held:.2f} GiB still allocated before Qwen2.5-32B, expected < 1 GiB")
+    seconds = {}
+    for label, arch, depth, cut in VARIANT_SERVING:
+        t0 = time.perf_counter()
+        _, model, params, policy, _ = serve_dense(torch, label, arch, depth, cut)
+        if label == "8a":          # 8b: the same weights rewritten Outstanding-sparse
+            seconds["8a"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            phase_serve_osparse(torch, model, params, policy, "8b")
+            label = "8b"
+        del model, params
+        free_device(torch, f"after {label}")
+        seconds[label] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for arch in ("qwen2_5_32b", "chatglm3_6b", "stablelm_3b", "granite_34b"):
+        phase_parity(torch, quantized=False, arch=arch, label="phase 8f")
+        phase_parity(torch, quantized=False, dtype="bfloat16", arch=arch, label="phase 8f")
+    seconds["8f"] = time.perf_counter() - t0
+    print(f"phase 8 seconds: {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}")
+
+
 def main() -> int:
     import torch
 
@@ -2330,10 +2691,11 @@ def main() -> int:
     records.update(phase_int8_kernels(torch, timer, rates))
     records.update(phase_oneshot_kernels(torch, timer, rates))
     phase_grouped_product(torch, timer, rates)
+    phase_variant_kernels(torch, timer, rates, records)
     del timer
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
-    launches, model, params, policy, outputs = phase_serve(torch)
+    launches, model, params, policy, outputs = serve_dense(torch, "3", "llama31_8b")
     t3 = time.perf_counter()
     phase_lifecycle(torch, model, params, policy, outputs)
     t3b = time.perf_counter()
@@ -2354,11 +2716,13 @@ def main() -> int:
     t8 = time.perf_counter()
     m_launches = phase_moe(torch, rates)
     t9 = time.perf_counter()
+    phase_variants(torch)
+    t10 = time.perf_counter()
     print(f"phase seconds: build {t1 - t:.1f}, kernels {t2 - t1:.1f}, serve {t3 - t2:.1f}, "
           f"serve osparse {t4 - t3b:.1f}, parity {t5 - t4:.1f}, one-shot serve {t6 - t5:.1f}, "
           f"one-shot parity {t7 - t6:.1f}, serve CLI and serving lifecycle "
           f"{t8 - t7 + t3b - t3:.1f} (6b-6e {t3b - t3:.1f}, 6a and 6f {t8 - t7:.1f}), "
-          f"MoE {t9 - t8:.1f}")
+          f"MoE {t9 - t8:.1f}, dense variants {t10 - t9:.1f}")
 
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import nm_prune as knp

@@ -4,7 +4,9 @@
 derived properties as the JAX package's, so a config round-trips between
 the two packages field by field (the parity tests rely on it).  One module
 per architecture lives in this package and exports ``CONFIG`` plus a
-``smoke()`` reduced config of the same family for CPU tests.
+``smoke()`` reduced config of the same family for CPU tests.  ``ShapeCell``,
+``SHAPE_CELLS``, ``ARCH_IDS`` and ``PAPER_ARCH_IDS`` are copied field for
+field too.
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ import dataclasses
 import importlib
 from typing import Tuple
 
-__all__ = ["ModelConfig", "get_config", "get_smoke_config"]
+__all__ = ["ModelConfig", "ShapeCell", "SHAPE_CELLS", "ARCH_IDS", "PAPER_ARCH_IDS",
+           "get_config", "get_smoke_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +118,38 @@ class ModelConfig:
             self.n_experts * 3 * d * self.moe_d_ff)
         active_ff = self.n_layers * (self.top_k * 3 * d * self.moe_d_ff)
         return int(dense_ff_total + active_ff)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPE_CELLS = (
+    ShapeCell("train_4k", 4096, 256, "train"),
+    ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    ShapeCell("decode_32k", 32768, 128, "decode"),
+    ShapeCell("long_500k", 524288, 1, "decode"),
+)
+
+ARCH_IDS = (
+    "mixtral_8x7b",
+    "llama4_scout_17b_a16e",
+    "qwen2_vl_2b",
+    "rwkv6_7b",
+    "whisper_medium",
+    "recurrentgemma_2b",
+    "qwen2_5_32b",
+    "stablelm_3b",
+    "granite_34b",
+    "chatglm3_6b",
+)
+
+# the paper's own evaluation models (small-scale stand-ins live in smoke())
+PAPER_ARCH_IDS = ("llama31_8b", "qwen2_7b", "qwen3_30b_a3b")
 
 
 def get_config(arch: str) -> ModelConfig:

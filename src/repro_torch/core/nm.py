@@ -12,8 +12,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["nm_group_view", "nm_topk_mask", "apply_nm", "validate_nm",
-           "tile_consensus_channels", "compact_columns"]
+__all__ = ["nm_group_view", "nm_topk_mask", "apply_nm", "sparsity_fraction",
+           "validate_nm", "tile_consensus_channels", "compact_columns"]
 
 
 def nm_group_view(x: torch.Tensor, m: int) -> torch.Tensor:
@@ -49,6 +49,11 @@ def apply_nm(x: torch.Tensor, scores: torch.Tensor, n: int, m: int) -> torch.Ten
     """Zero out everything but the per-group top-N scored entries of ``x``."""
     mask = nm_topk_mask(scores, n, m)
     return torch.where(mask, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def sparsity_fraction(x: torch.Tensor) -> torch.Tensor:
+    """Fraction of exactly-zero entries (diagnostic): a float32 scalar."""
+    return (x == 0).to(torch.float32).mean()
 
 
 def validate_nm(mask: torch.Tensor, n: int, m: int) -> torch.Tensor:

@@ -27,9 +27,12 @@ differences:
 * ``--dp``/``--tp`` above 1 (the router and tensor parallelism) and
   ``--no-paged`` (the dense per-slot slab) raise ``NotImplementedError``.
 * ``--arch`` takes the families the port models: dense (``llama31_8b``,
-  ``qwen2_7b``) and MoE (``qwen3_30b_a3b``; ``llama4_scout_17b_a16e``, whose
-  full width does not fit one card: ``--smoke``); other architectures
-  raise in ``check_supported``.
+  ``qwen2_7b``, ``qwen2_5_32b``, ``chatglm3_6b`` with its 2-D RoPE,
+  ``stablelm_3b`` with LayerNorm and head_dim 80, and ``granite_34b``,
+  whose 88 layers (88 GiB of bf16 weights) do not fit one 80 GB card:
+  ``--smoke``) and MoE (``qwen3_30b_a3b``; ``llama4_scout_17b_a16e``, whose
+  full width does not fit one card either: ``--smoke``); other
+  architectures raise in ``check_supported``.
 * The weights are random from seed 0 (``model.init(0)``), and the prompts
   come from a seeded numpy generator, not from ``jax.random``: in trace
   mode the arrival gaps and prompt lengths are drawn from
@@ -55,7 +58,10 @@ def run(argv=None):
     """Parse ``argv``, serve and print the report: ``(exit code, the
     ``--trace`` run's MetricsSnapshot, or None in one-shot mode)``."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2_7b")
+    ap.add_argument("--arch", default="qwen2_7b",
+                    help="llama31_8b, qwen2_7b, qwen2_5_32b, chatglm3_6b, stablelm_3b, "
+                         "granite_34b (--smoke on one card), qwen3_30b_a3b, "
+                         "llama4_scout_17b_a16e (--smoke on one card)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")

@@ -1,12 +1,14 @@
 """Shared model pieces: norms, embeddings, RoPE (port of
-``repro/models/common.py``, the parts the dense family uses)."""
+``repro/models/common.py``, the parts the dense family uses: RMSNorm and
+LayerNorm, the default and the 2-D RoPE)."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-__all__ = ["RMSNorm", "Embedding", "rms_norm", "init_norm", "init_embedding",
-           "embed", "rope_freqs", "apply_rope", "dtype_of", "resolve_device"]
+__all__ = ["RMSNorm", "LayerNorm", "Embedding", "rms_norm", "layer_norm", "norm_apply",
+           "init_norm", "init_embedding", "embed", "rope_freqs", "apply_rope",
+           "apply_rope_2d", "dtype_of", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -34,6 +36,17 @@ class RMSNorm(nn.Module):
                               requires_grad=False)
 
 
+class LayerNorm(nn.Module):
+    """``w`` (ones) and ``b`` (zeros), as the JAX ``init_norm`` makes them."""
+
+    def __init__(self, d: int, *, dtype: torch.dtype, device):
+        super().__init__()
+        self.w = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
+                              requires_grad=False)
+        self.b = nn.Parameter(torch.zeros(d, dtype=dtype, device=device),
+                              requires_grad=False)
+
+
 class Embedding(nn.Module):
     def __init__(self, vocab: int, d: int, *, dtype: torch.dtype, device):
         super().__init__()
@@ -41,7 +54,9 @@ class Embedding(nn.Module):
                               requires_grad=False)
 
 
-def init_norm(d: int, kind: str, *, dtype: torch.dtype, device) -> RMSNorm:
+def init_norm(d: int, kind: str, *, dtype: torch.dtype, device) -> RMSNorm | LayerNorm:
+    if kind == "layernorm":
+        return LayerNorm(d, dtype=dtype, device=device)
     if kind != "rmsnorm":
         raise NotImplementedError(f"norm {kind!r} is not ported yet")
     return RMSNorm(d, dtype=dtype, device=device)
@@ -53,6 +68,24 @@ def rms_norm(x: torch.Tensor, p: RMSNorm, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p.w.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
+    """float32 LayerNorm over the population variance (``jnp.var``'s), plus
+    ``p.b`` where the norm has one, cast back to x's dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p.w.float()
+    b = getattr(p, "b", None)
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype)
+
+
+def norm_apply(x: torch.Tensor, p, kind: str) -> torch.Tensor:
+    return layer_norm(x, p) if kind == "layernorm" else rms_norm(x, p)
 
 
 def init_embedding(vocab: int, d: int, *, dtype: torch.dtype, device,
@@ -67,20 +100,40 @@ def embed(tokens: torch.Tensor, p: Embedding) -> torch.Tensor:
     return p.w[tokens.long()]
 
 
-def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                         device=device) / head_dim))
+def rope_freqs(head_dim: int, theta: float, rotary_dim: int | None = None,
+               device=None) -> torch.Tensor:
+    rd = rotary_dim or head_dim
+    return 1.0 / (theta ** (torch.arange(0, rd, 2, dtype=torch.float32, device=device)
+                            / rd))
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate pairs laid out as [x0..x_{d/2-1} | x_{d/2}..] (neox style)."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def _cos_sin(positions: torch.Tensor, inv: torch.Tensor, dtype: torch.dtype):
+    """cos and sin of ``positions (B, T)`` times ``inv``, ``(B, T, 1, F)``,
+    cast to x's dtype before the rotation, as in the JAX package."""
+    ang = positions.float()[..., None] * inv
+    return (torch.cos(ang)[:, :, None, :].to(dtype),
+            torch.sin(ang)[:, :, None, :].to(dtype))
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Standard (neox half-split) RoPE.  x: (B, T, H, hd); positions: (B, T)
-    absolute.  cos/sin are cast to x's dtype before the rotation, as in the
-    JAX package."""
+    absolute."""
+    inv = rope_freqs(x.shape[-1], theta, device=x.device)      # (hd/2,)
+    return _rotate(x, *_cos_sin(positions, inv, x.dtype))
+
+
+def apply_rope_2d(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """ChatGLM-style: rotary on the first half of head_dim only, with
+    frequencies over that half (``rotary_dim = hd // 2``)."""
     hd = x.shape[-1]
-    inv = rope_freqs(hd, theta, device=x.device)
-    ang = positions.float()[..., None] * inv                   # (B, T, hd/2)
-    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
-    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
-    d2 = hd // 2
-    x1, x2 = x[..., :d2], x[..., d2:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    rd = hd // 2
+    inv = rope_freqs(hd, theta, rotary_dim=rd, device=x.device)  # (rd/2,)
+    return torch.cat([_rotate(x[..., :rd], *_cos_sin(positions, inv, x.dtype)),
+                      x[..., rd:]], dim=-1)

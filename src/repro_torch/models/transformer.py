@@ -50,11 +50,12 @@ __all__ = ["Transformer", "AttnBlock", "check_supported", "init_params",
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port covers the dense and MoE full-attention RMSNorm/RoPE
-    families."""
+    """The port covers the dense and MoE full-attention families, with
+    RMSNorm or LayerNorm and the default or the 2-D (ChatGLM) RoPE."""
     supported = {
         "family": (cfg.family, ("dense", "moe")), "attn_type": (cfg.attn_type, ("full",)),
-        "rope_variant": (cfg.rope_variant, ("default",)), "norm": (cfg.norm, ("rmsnorm",)),
+        "rope_variant": (cfg.rope_variant, ("default", "2d")),
+        "norm": (cfg.norm, ("rmsnorm", "layernorm")),
         "attn_impl": (cfg.attn_impl, ("chunked", "flash")),
         "block_pattern": (cfg.block_pattern, (("attn",),)),
     }
@@ -64,6 +65,15 @@ def check_supported(cfg: ModelConfig) -> None:
                 f"{cfg.name}: {field}={have!r} is not ported yet (only {want!r})")
     if cfg.is_encdec or cfg.vision_stub:
         raise NotImplementedError(f"{cfg.name}: encdec/VLM are not ported yet")
+
+
+def _apply_rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    if cfg.rope_variant == "default":
+        return common.apply_rope(x, positions, cfg.rope_theta)
+    if cfg.rope_variant == "2d":
+        return common.apply_rope_2d(x, positions, cfg.rope_theta)
+    raise NotImplementedError(f"{cfg.name}: rope_variant={cfg.rope_variant!r} is not "
+                              "ported yet")
 
 
 class AttnBlock(nn.Module):
@@ -159,14 +169,12 @@ def _attn_block_apply(cfg: ModelConfig, h: torch.Tensor, p: AttnBlock,
                       cache: Optional[Dict], positions: torch.Tensor,
                       index: Optional[Dict] = None) -> torch.Tensor:
     b, t, _ = h.shape
-    x = common.rms_norm(h, p.ln1)
+    x = common.norm_apply(h, p.ln1, cfg.norm)
     q = sparse_linear(x, p.q_proj, "q_proj", policy, phase, layer_idx)
     k = sparse_linear(x, p.k_proj, "k_proj", policy, phase, layer_idx)
     v = sparse_linear(x, p.v_proj, "v_proj", policy, phase, layer_idx)
-    q = common.apply_rope(q.reshape(b, t, cfg.n_heads, cfg.head_dim), positions,
-                          cfg.rope_theta)
-    k = common.apply_rope(k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim), positions,
-                          cfg.rope_theta)
+    q = _apply_rope(cfg, q.reshape(b, t, cfg.n_heads, cfg.head_dim), positions)
+    k = _apply_rope(cfg, k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim), positions)
     v = v.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
 
     use_kernel = policy.use_kernels
@@ -192,7 +200,7 @@ def _attn_block_apply(cfg: ModelConfig, h: torch.Tensor, p: AttnBlock,
     o = sparse_linear(o.reshape(b, t, cfg.q_dim), p.o_proj, "o_proj", policy,
                       phase, layer_idx)
     h = h + o
-    x2 = common.rms_norm(h, p.ln2)
+    x2 = common.norm_apply(h, p.ln2, cfg.norm)
     if cfg.n_experts:
         ff = moe_lib.moe(x2, p.moe, policy, phase, cfg.top_k, cfg.act_fn,
                          cfg.moe_impl, layer_idx)
@@ -211,7 +219,7 @@ def _run_blocks(cfg, params: Transformer, h, policy, phase, cache, positions,
 
 
 def _lm_logits(cfg: ModelConfig, params: Transformer, h: torch.Tensor) -> torch.Tensor:
-    h = common.rms_norm(h, params.final_norm)
+    h = common.norm_apply(h, params.final_norm, cfg.norm)
     if cfg.tie_embeddings:
         return h @ params.embed.w.T
     return dense_linear(h, params.lm_head)

@@ -4,10 +4,11 @@
 nested dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray,
 params)``) and returns the port's :class:`~repro_torch.models.transformer.
 Transformer` with the same weights: the scan-stacked ``periods`` layer axis
-is unstacked into the block list, and
-``amber_scale`` entries are carried as float32.  bfloat16 arrays come out
-of numpy as ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses, so
-every float array goes through float32 first; bf16 → f32 → bf16 is exact.
+is unstacked into the block list, a LayerNorm's bias ``b`` is carried
+beside its ``w``, and ``amber_scale`` entries are carried as float32.
+bfloat16 arrays come out of numpy as ``ml_dtypes.bfloat16``, which
+``torch.from_numpy`` refuses, so every float array goes through float32
+first; bf16 → f32 → bf16 is exact.
 A quantized projection's dict (``wq`` and no ``w``) becomes a
 :class:`~repro_torch.layers.linear.QuantLinear`: ``wq`` is carried as int8,
 stored K-major (one ``(d_out, d_in)`` buffer behind the ``(d_in, d_out)``
@@ -70,6 +71,12 @@ def _load_linear(owner, name: str, p: Dict[str, Any], dtype, device) -> None:
         lin.amber_scale = _t(p[SCALE_KEY], torch.float32, device)
 
 
+def _load_norm(norm, p: Dict[str, Any], dtype, device) -> None:
+    norm.w.copy_(_t(p["w"], dtype, device))
+    if "b" in p:                              # LayerNorm
+        norm.b.copy_(_t(p["b"], dtype, device))
+
+
 def _layer_params(params_np: Dict, i: int) -> Dict:
     """Layer ``i`` of the scan-stacked ``periods`` pytree (the dense family's
     block pattern is one attention block, so period i is layer i)."""
@@ -89,13 +96,13 @@ def from_jax_params(cfg: ModelConfig, params_np: Dict, device=None
     dtype = common.dtype_of(cfg)
     model = transformer.init_params(cfg, 0, device=device)
     model.embed.w.copy_(_t(params_np["embed"]["w"], dtype, device))
-    model.final_norm.w.copy_(_t(params_np["final_norm"]["w"], dtype, device))
+    _load_norm(model.final_norm, params_np["final_norm"], dtype, device)
     if model.lm_head is not None:
         _load_linear(model, "lm_head", params_np["lm_head"], dtype, device)
     for i, blk in enumerate(model.blocks):
         lp = _layer_params(params_np, i)
-        blk.ln1.w.copy_(_t(lp["ln1"]["w"], dtype, device))
-        blk.ln2.w.copy_(_t(lp["ln2"]["w"], dtype, device))
+        _load_norm(blk.ln1, lp["ln1"], dtype, device)
+        _load_norm(blk.ln2, lp["ln2"], dtype, device)
         for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
             _load_linear(blk, name, lp[name], dtype, device)
         if "moe" in lp:

@@ -49,6 +49,26 @@ def test_nm_prune_matmul(gen, dtype, t, d, n_out, n, m):
            knm.nm_prune_matmul_plain(x, w, sc, n, m, bias=b), dtype)
 
 
+# The dense variants' projection widths (K, N_out): StableLM-3B, ChatGLM3-6B,
+# Qwen2.5-32B and Granite-34B q, gate and down, at a 256-token chunk and a
+# ragged 137 rows, with a bias where the model has one.
+_VARIANT_WIDTHS = [(2560, 2560), (2560, 6912), (6912, 2560), (4096, 4096), (4096, 13696),
+                   (13696, 4096), (5120, 5120), (5120, 27648), (27648, 5120), (6144, 24576),
+                   (24576, 6144)]
+
+
+@pytest.mark.parametrize("t", [256, 137])
+@pytest.mark.parametrize("d,n_out", _VARIANT_WIDTHS, ids=[f"{d}x{n}" for d, n in _VARIANT_WIDTHS])
+def test_nm_prune_matmul_variant_widths(gen, d, n_out, t):
+    x = torch.randn(t, d, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(d, n_out, generator=gen, device="cuda") * d**-0.5).bfloat16()
+    sc = torch.rand(d, generator=gen, device="cuda") + 0.5
+    b = (torch.randn(n_out, generator=gen, device="cuda") * 0.1).bfloat16() if d == n_out else None
+    assert knm.gemm_plan(w, t) >= 1                  # the wgmma route
+    _close(knm.nm_prune_matmul(x, w, sc, 8, 16, bias=b),
+           knm.nm_prune_matmul_plain(x, w, sc, 8, 16, bias=b), torch.bfloat16)
+
+
 # The wgmma building blocks (csrc/hopper.cuh) against torch.matmul, through
 # the test-only entry point of csrc/nm_prune_matmul.cu.
 
@@ -237,6 +257,19 @@ def test_osparse_matmul_routes_bit_exact(gen, t, d, n_out, n, m, route):
     _check_osparse(gen, _int8_linear(gen, d, n_out), t, d, n_out, n, m)
 
 
+# Qwen2.5-32B's q/k/o (5120 -> 5120, 1024) and gate (5120 -> 27648), down's
+# K of 27648, ChatGLM3-6B's k/v (4096 -> 256) and Granite-34B's (6144 -> 128):
+# every mode, with and without the q/k/v bias, at a chunk and a decode step.
+_INT8_VARIANTS = [(5120, 5120), (5120, 1024), (5120, 27648), (27648, 5120), (4096, 256),
+                  (6144, 128)]
+
+
+@pytest.mark.parametrize("t", [4, 256])
+@pytest.mark.parametrize("d,n_out", _INT8_VARIANTS, ids=[f"{d}x{n}" for d, n in _INT8_VARIANTS])
+def test_osparse_matmul_variant_widths_bit_exact(gen, d, n_out, t):
+    _check_osparse(gen, _int8_linear(gen, d, n_out), t, d, n_out, 8, 16)
+
+
 @pytest.mark.parametrize("n_out", _INT8_N)
 @pytest.mark.parametrize("t", _INT8_T)
 def test_w8a8_matmul_bit_exact(gen, t, n_out):
@@ -326,6 +359,20 @@ def test_flash_attention_wgmma(gen, hd, case, t, causal, window):
     v = torch.randn(b, t, hkv, hd, generator=gen, device="cuda").bfloat16()
     _close(kfa.flash_attention(q, k, v, causal=causal, window=window),
            kfa.flash_attention_plain(q, k, v, causal=causal, window=window), torch.bfloat16)
+
+
+@pytest.mark.parametrize("hq,hkv,hd", [(8, 8, 80), (16, 1, 128)], ids=["hd80_g1", "g16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
+def test_flash_attention_variant_heads(gen, hq, hkv, hd, causal):
+    """StableLM-3B's head_dim 80 (the CUDA-core rows kernel) and a GQA
+    group of 16 at head_dim 128 (the wgmma kernel), T ragged against the
+    tiles."""
+    b, t = 2, 300
+    q = torch.randn(b, t, hq, hd, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(b, t, hkv, hd, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(b, t, hkv, hd, generator=gen, device="cuda").bfloat16()
+    _close(kfa.flash_attention(q, k, v, causal=causal),
+           kfa.flash_attention_plain(q, k, v, causal=causal), torch.bfloat16)
 
 
 def test_flash_attention_misaligned_takes_rows_path(gen):
@@ -437,16 +484,14 @@ def _paged_case(gen, b, tq, hq, hkv, hd, bs, kv_len, q_offset, holes=()):
             torch.tensor(kv_len, **i32))
 
 
-@pytest.mark.parametrize("bs", [8, 16, 32])
-@pytest.mark.parametrize("hq,hkv,hd", [(32, 8, 128), (28, 4, 128), (14, 2, 64)],
-                         ids=["g4", "g7", "g7_hd64"])
-@pytest.mark.parametrize("case", ["chunk", "chunk_hole", "chunk_masked_tile", "decode",
-                                  "decode_edges"])
-def test_paged_attention_wgmma(gen, case, hq, hkv, hd, bs):
-    """The wgmma route over NaN-poisoned pools at block sizes 8, 16 and 32,
-    GQA groups of 4 and 7: a prefill chunk at an offset; a -1 page in the
-    middle of a row; a query tile that sees only a -1 page (wholly masked,
-    so zeros); decode rows with kv_len on a page boundary, 0 and 1."""
+_PAGED_CASES = ["chunk", "chunk_hole", "chunk_masked_tile", "decode", "decode_edges"]
+
+
+def _check_paged_case(gen, case, hq, hkv, hd, bs, route):
+    """One case of the NaN-poisoned pools on ``route`` against the plain
+    version: a prefill chunk at an offset; a -1 page in the middle of a row;
+    a query tile that sees only a -1 page (wholly masked, so zeros); decode
+    rows with kv_len on a page boundary, 0 and 1."""
     if case == "chunk":
         args = (1, 100, [230], [130], ())
     elif case == "chunk_hole":
@@ -460,7 +505,7 @@ def test_paged_attention_wgmma(gen, case, hq, hkv, hd, bs):
     b, tq, kv_len, qoff, holes = args
     q, kp, vp, tab, qo, kvl = _paged_case(gen, b, tq, hq, hkv, hd, bs, kv_len, qoff, holes)
     plan = kpa.attention_plan(q.dtype, b, tq, hq, hkv, hd, bs, tab.shape[1], True)
-    assert plan[0] == "wgmma", plan
+    assert plan[0] == route, plan
     causal = tq > 1
     got = kpa.paged_attention(q, kp, vp, tab, qo, kvl, causal=causal)
     want = kpa.paged_attention_plain(q, kp, vp, tab, qo, kvl, causal=causal)
@@ -469,6 +514,27 @@ def test_paged_attention_wgmma(gen, case, hq, hkv, hd, bs):
         assert bool((got[0, :bs] == 0).all())
     if case == "decode_edges":             # kv_len = 0 gives zeros
         assert bool((got[1] == 0).all())
+
+
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("hq,hkv,hd", [(32, 8, 128), (28, 4, 128), (14, 2, 64), (40, 8, 128),
+                                       (32, 2, 128), (48, 1, 128)],
+                         ids=["g4", "g7", "g7_hd64", "g5", "g16", "g48"])
+@pytest.mark.parametrize("case", _PAGED_CASES)
+def test_paged_attention_wgmma(gen, case, hq, hkv, hd, bs):
+    """The wgmma route at block sizes 8, 16 and 32, GQA groups of 4, 7 and 8
+    (LLaMA-3.1, Qwen2), 5 (Qwen2.5-32B: 12 tokens fill 60 of the 64 rows,
+    4 pad rows a tile), 16 (ChatGLM3-6B) and 48 (Granite-34B's MQA: one
+    token a tile, 48 rows, one KV head in the pool)."""
+    _check_paged_case(gen, case, hq, hkv, hd, bs, "wgmma")
+
+
+@pytest.mark.parametrize("bs", [16, 32])
+@pytest.mark.parametrize("case", _PAGED_CASES)
+def test_paged_attention_rows_hd80(gen, case, bs):
+    """StableLM-3B's heads (32 / 32, head_dim 80) take the CUDA-core rows
+    kernel: chunks walk one row at a time, decode splits the walk."""
+    _check_paged_case(gen, case, 32, 32, 80, bs, "rows")
 
 
 def test_paged_attention_wgmma_repeat_resets_tickets(gen):
@@ -561,6 +627,8 @@ def _scatter_case(gen, case):
         "float32": (torch.float32, 3, 24, 2, 64, 16, 6),
         "byte_route": (torch.bfloat16, 2, 9, 1, 7, 4, 5),
         "misaligned": (torch.bfloat16, 2, 9, 2, 64, 8, 4),
+        "hd80": (torch.bfloat16, 2, 24, 32, 80, 16, 4),      # StableLM-3B: 5120-byte rows
+        "one_kv_head": (torch.bfloat16, 3, 24, 1, 128, 16, 6),   # Granite-34B's MQA
     }[case]
     rows = b * mb + 1
     off = 1 if case == "misaligned" else 0       # one element off a 16-byte boundary
@@ -588,7 +656,8 @@ def _scatter_case(gen, case):
 
 
 @pytest.mark.parametrize("launch", ["eager", "graph"])
-@pytest.mark.parametrize("case", ["chunk", "decode", "float32", "byte_route", "misaligned"])
+@pytest.mark.parametrize("case", ["chunk", "decode", "float32", "byte_route", "misaligned",
+                                  "hd80", "one_kv_head"])
 def test_paged_kv_scatter_kernel_bit_exact(gen, case, launch):
     from repro_torch.kernels import _capture
 

@@ -1,6 +1,7 @@
 """The port's serving CLI (``python -m repro_torch.launch.serve``) against the
 JAX package's (``python -m repro.launch.serve``), at the LLaMA-3.1 smoke
-config on the CPU (``--device cpu``).
+config on the CPU (``--device cpu``), and at the MoE and dense-variant
+architectures' smoke configs.
 
 Both CLIs draw arrival gaps and prompt lengths from
 ``numpy.random.default_rng(--seed)`` in the same order; the prompt tokens
@@ -48,9 +49,14 @@ def _report(out: str):
     return rows, lines
 
 
+VARIANTS = ("qwen2_5_32b", "chatglm3_6b", "stablelm_3b", "granite_34b")
+
+
 @pytest.mark.parametrize("extra", [[], ["--no-fused-step"], ["--shared-prefix", "16"],
-                                   ["--num-blocks", "3"], ["--arch", "qwen3_30b_a3b"]],
-                         ids=["fused", "legacy", "shared-prefix", "small-pool", "moe"])
+                                   ["--num-blocks", "3"], ["--arch", "qwen3_30b_a3b"]]
+                         + [["--arch", arch] for arch in VARIANTS],
+                         ids=["fused", "legacy", "shared-prefix", "small-pool", "moe",
+                              *VARIANTS])
 def test_trace_report_matches_jax_cli(capsys, extra):
     """``--trace`` returns 0, reports no negative latency, the fused path
     one program per work iteration, and the JAX CLI's counters: the
@@ -99,6 +105,16 @@ def test_one_shot_mode_moe(capsys):
     """One-shot mode on the Qwen3-30B-A3B smoke config: rc 0, both engines'
     lines and the agreement line."""
     assert main(["--arch", "qwen3_30b_a3b", "--device", "cpu", "--smoke", "--batch", "2",
+                 "--prompt-len", "16", "--new-tokens", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "[     dense] generated (2, 4)" in out and "[amber 8:16] generated (2, 4)" in out
+    assert re.search(r"agreement dense vs sparse-prefill: [\d.]+", out)
+
+
+def test_one_shot_mode_chatglm3(capsys):
+    """One-shot mode on the ChatGLM3-6B smoke config (2-D RoPE, q/k/v
+    biases): rc 0, both engines' lines and the agreement line."""
+    assert main(["--arch", "chatglm3_6b", "--device", "cpu", "--smoke", "--batch", "2",
                  "--prompt-len", "16", "--new-tokens", "4"]) == 0
     out = capsys.readouterr().out
     assert "[     dense] generated (2, 4)" in out and "[amber 8:16] generated (2, 4)" in out
