@@ -53,6 +53,12 @@ Phases (any failed check exits non-zero; no phase is skipped):
              G = 16, ``nm_prune_matmul`` at their q/gate/down widths,
              ``osparse_matmul`` at Qwen2.5-32B q and k with their biases
              (bit-exact), each timed beside its bound and library call.
+             2k: ``nm_prune_matmul`` at the widths of all seven of
+             LLaMA-3.1-8B's projections and the scan's 512 rows, 8:16 with
+             an Amber scale (9a's probes) and 2:4 with none (9c's Naive
+             run), and ``osparse_matmul`` at
+             Qwen3-30B-A3B's attention (q/k/v/o at a chunk and a decode
+             step, q per-token; bit-exact), timed the same way.
 3. serve   — ``Engine.from_config`` at full LLaMA-3.1-8B width (32 layers,
              random weights from a seed, bfloat16) under the paper's
              policy with the kernels on: 8 staggered requests, 32 new tokens
@@ -140,8 +146,22 @@ Phases (any failed check exits non-zero; no phase is skipped):
              loop, the plain attention) and float32: logits within twice
              the plain path's own bf16 effect; each layer alone on the
              plain path's inputs routes identically on both paths and is
-             held to the same gate.  7d: the ``--trace`` CLI at full width
-             with phase 6a's flags, its launches exact.
+             held to the same gate.  7e: 7a's weights with q/k/v/o
+             rewritten Outstanding-sparse in place (``QuantConfig()``, the
+             static per-tensor scale, 3b's seeded calibration; the routed
+             experts stay bf16, as the reference's), served with phase 3's
+             stream: launches exact (``osparse_matmul`` 4 a layer per prefill
+             or decode half, 45 of them pruned a sparse chunk; 96
+             ``nm_prune``; no ``nm_prune_matmul``), every ``osparse_matmul``
+             launch on its wgmma or swap_fused route, the peak allocated
+             memory at most 7a's, the int8 bytes printed, a chunk and a
+             decode step profiled, graphed tokens equal to the eager
+             programs'.  7e': 7c's depth-4 model in W8A8,
+             static and per-token activation scales: kernel path against
+             plain path, logits within 7c's bf16 gate, and each quantized
+             projection's int8 codes and scales bit-exact on the plain
+             path's inputs.  7d: the ``--trace`` CLI at full width with
+             phase 6a's flags, its launches exact.
 8. dense variants — after phase 7 freed its model (less than 1 GiB may
              still be allocated), each bf16 from a seed with seeded
              nonzero LayerNorm and q/k/v biases, under ``paper_policy(8,
@@ -161,14 +181,44 @@ Phases (any failed check exits non-zero; no phase is skipped):
              G = 48: its 88 layers take 88 GiB of bf16, which no one
              80 GB card holds).  8f: phases 4 and 4 bf16 for each of the
              four at full width and depth 2.  Each subphase's seconds are
-             printed.
+             printed.  Phases 4 and 8f (float32) count the N:M flips
+             between the kernel and plain paths on prompt 0, per projection
+             and layer.
+9. layer skipping — the paper's tooling (``core.sensitivity``,
+             ``core.weight_sparsity``, ``data.pipeline``) on LLaMA-3.1-8B at
+             full width, bf16, random weights from a seed with
+             ``benchmarks/common.py``'s outlier channels (8 embedding
+             channels x 12), every projection's Amber scale, after phase 8
+             freed its models.  9a: ``sensitivity_scan`` over all 7
+             projections of the 32 layers on 2 x 256 tokens of ``lm_batch``
+             with the kernels: exactly one ``nm_prune_matmul`` launch per
+             probe (224) and none in the dense pass; the ``sensitivity/*``
+             rows, ``select_qgate_skips`` at a 0.55 target (its coverage
+             must reach 0.55) and ``coverage/*`` of the paper's three
+             models; then the q_proj and gate_proj probes (all that the
+             selection reads) on the plain path, its skips printed beside.
+             9b: phase 3's stream served under
+             ``paper_policy(8, 16, <9a's skips>)``: tokens valid, launches
+             exact, graphed tokens equal to the eager programs', tok/s beside
+             phase 3's.  9c: ``magnitude_nm``, ``wanda_nm`` and
+             ``sparsegpt_nm`` at 2:4 on every projection (statistics from one
+             ``calibration_stream`` batch), every mask a valid 2:4 pattern
+             along d_in, and the ``appendix_a/*`` perturbations beside
+             ``naive_policy(2, 4)``'s (224 ``nm_prune_matmul``).  9a': depth
+             2, float32, kernel path against plain path: e within
+             ``SCAN_RTOL``, identical skips, N:M flips per probe.
 
 The last lines are the per-kernel JSON record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.  Exits non-zero without a
+limit, and ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is
+its count in the run of the path that first served it (phase 3, 3b, 5 or
+7a); ``launches_by_run`` holds its count in each main-path run that
+launched it (3, 3b, 5, 7a, 7e, 9a, 9b and 9c's Naive run), each counted
+from 0.  Exits non-zero without a
 CUDA device, and when run outside the repository (it needs ``src/``).
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -1118,7 +1168,8 @@ def serve_requests(torch, model, params, policy, label, eager=False, **serving):
     program directly (``step_program``), with no graph, for the token
     comparison.  ``serving``: more ``ContinuousConfig`` fields
     (``fused_step=False``: the legacy split's ``prefill`` and ``decode``
-    programs).  Returns (launches, per-path step counts, engine, outputs)."""
+    programs).  Returns (launches, per-path step counts with the stream's
+    prefill and decode tok/s and peak memory, engine, outputs)."""
     from repro_torch import kernels
     from repro_torch.kernels import osparse_matmul as kos
     from repro_torch.serve import Engine, EngineConfig
@@ -1173,9 +1224,12 @@ def serve_requests(torch, model, params, policy, label, eager=False, **serving):
     print(f"  prefill {pf_tok} tokens in {pf_s:.3f} s of prefill steps = "
           f"{pf_tok / pf_s:.1f} tok/s; {'/'.join(decode_only)} steps {dec_tok} tokens in "
           f"{dec_s:.3f} s = {dec_tok / dec_s:.1f} tok/s")
-    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+    steps.update(prefill_tok_s=pf_tok / pf_s, decode_tok_s=dec_tok / dec_s,
+                 peak_alloc_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30)
+    print(f"  peak device memory {steps['peak_alloc_gib']:.2f} GiB "
           f"allocated (weights, cache, live activations), "
-          f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved (with the graph "
+          f"{steps['peak_reserved_gib']:.2f} GiB reserved (with the graph "
           f"pool's free blocks); held after the run {torch.cuda.memory_allocated() / 2**30:.2f}"
           f" GiB")
     return launches, steps, eng, outputs
@@ -1699,6 +1753,75 @@ def profile_cases(torch, cases):
 BF16_E2E_FACTOR = 2.0
 
 
+@contextlib.contextmanager
+def spy_projections(hook):
+    """Every projection call of the port's model passes its input to
+    ``hook(x, p, module, policy, phase, layer_idx)`` first.  The port's
+    projections are functions over ``Linear`` modules (``sparse_linear``,
+    which ``models/transformer.py`` and ``models/mlp.py`` call by name), so
+    ``nn.Module`` forward hooks never fire: this is their counterpart."""
+    from repro_torch.models import mlp as mlp_lib
+    from repro_torch.models import transformer
+
+    real = transformer.sparse_linear
+
+    def spy(x, p, module, policy, phase, layer_idx=None):
+        hook(x, p, module, policy, phase, layer_idx)
+        return real(x, p, module, policy, phase, layer_idx)
+
+    transformer.sparse_linear = mlp_lib.sparse_linear = spy
+    try:
+        yield
+    finally:
+        transformer.sparse_linear = mlp_lib.sparse_linear = real
+
+
+def nm_flips(torch, run):
+    """N:M flips between the kernel path and the plain path.  ``run(use_kernels)``
+    drives one computation on one path; every pruned float projection's
+    input gets its per-token keep mask (``core.nm.nm_topk_mask`` of
+    |x|·scale: the selection both paths make, bit-exact on equal inputs),
+    the calls of the two runs are paired in order, and the groups of M
+    channels whose kept set differs are counted.  Returns {(module, layer):
+    [flipped groups, groups]}."""
+    from repro_torch.core import nm, scoring
+    from repro_torch.layers.linear import Linear
+
+    masks = {True: [], False: []}
+
+    def recorder(use_kernels):
+        def hook(x, p, module, policy, phase, layer):
+            if (isinstance(p, Linear) and policy.active(phase)
+                    and policy.should_prune(module, layer)):
+                keep = nm.nm_topk_mask(scoring.score_activations(x, p.amber_scale),
+                                       policy.n, policy.m)
+                masks[use_kernels].append(((module, layer), keep.reshape(-1, policy.m)))
+        return hook
+
+    for use_kernels in (True, False):
+        with spy_projections(recorder(use_kernels)):
+            run(use_kernels)
+    if [k for k, _ in masks[True]] != [k for k, _ in masks[False]]:
+        fail("nm_flips: the two paths pruned different projections")
+    table = {}
+    for (key, a), (_, b) in zip(masks[True], masks[False]):
+        row = table.setdefault(key, [0, 0])
+        row[0] += int((a != b).any(-1).sum())
+        row[1] += a.shape[0]
+    return table
+
+
+def print_flips(label, table):
+    for (module, layer), (flipped, groups) in sorted(table.items(),
+                                                     key=lambda kv: (kv[0][1], kv[0][0])):
+        print(f"  {label} N:M flips, layer {layer} {module}: {flipped} of {groups} groups "
+              f"({flipped / groups:.3e})")
+    flipped = sum(r[0] for r in table.values())
+    groups = sum(r[1] for r in table.values())
+    print(f"  {label} N:M flips in all: {flipped} of {groups} groups ({flipped / groups:.3e}) "
+          f"over {len(table)} (projection, layer) pairs")
+
+
 def check_bf16_logits(got, want, ref):
     """Kernel-path and plain-path bf16 logits (lists of tensors) against the
     float32 plain path's ``ref``: max |got - want| over all rows must be at
@@ -1746,7 +1869,9 @@ def phase_parity(torch, quantized: bool, dtype: str = "float32", arch: str = "ll
     a ``down_proj`` output) moves int8 codes and N:M selections a step in
     the next layer, which these random weights and seeded scales amplify to
     ~0.5 in the logits, above the top-2 margin of some tokens; that
-    comparison is printed, not checked."""
+    comparison is printed, not checked.  In float32 without W8A8, the N:M
+    flips between the paths on prompt 0 are counted per projection and
+    layer (:func:`nm_flips`)."""
     from repro_torch.configs import get_config
     from repro_torch.core import quant
     from repro_torch.core.policy import paper_policy
@@ -1840,6 +1965,17 @@ def phase_parity(torch, quantized: bool, dtype: str = "float32", arch: str = "ll
         fail(f"greedy tokens differ: kernel {got} vs plain {want}")
     else:
         print("  greedy tokens identical")
+    if not (bf16 or quantized):
+        # the cause of the logits' distance: N:M selections that part
+        # between the paths on prompt 0's chunks
+        def prompt0(use_kernels):
+            pol = policy.with_(use_kernels=use_kernels)
+            cache = model.init_cache(1, max_seq, block_size=bsz)
+            for s in range(0, len(prompts[0]), 256):
+                chunk = torch.from_numpy(prompts[0][s:s + 256][None, :]).cuda()
+                _, cache = model.prefill_chunk(params, {"tokens": chunk}, cache, policy=pol)
+
+        print_flips(f"{label} {cfg.name} prompt 0", nm_flips(torch, prompt0))
     if quantized:
         plain, plain_logits = run("plain")
         errs = [float((a - b).abs().max()) for a, b in zip(got_logits, plain_logits)]
@@ -2148,7 +2284,8 @@ def qwen3_moe(torch, n_layers=None, seed=SEED, skip=None, dtype=None):
 def phase_moe_serve(torch, rates):
     """7a and 7b: Qwen3-30B-A3B at full width and depth served as phase 3
     serves LLaMA-3.1-8B, launches exact, the replayed steps profiled with the
-    grouped product's time beside its bound, graphed tokens against eager."""
+    grouped product's time beside its bound, graphed tokens against eager.
+    Returns (launches, step counts and rates, model, params, policy)."""
     from repro_torch.models import moe as moe_lib
 
     t0 = time.perf_counter()
@@ -2211,7 +2348,41 @@ def phase_moe_serve(torch, rates):
               f"hit over {cfg.n_layers} layers, of {cfg.n_layers * cfg.n_experts})")
     del eng
     check_graphed_tokens(torch, model, params, policy, "phase 7a", outputs)
-    return launches
+    return launches, st, model, params, policy
+
+
+def moe_parity_stream(cfg):
+    """7c's and 7e''s inputs: 3 seeded prompts of 64-600 tokens, 8 seeded
+    decode tokens each, and a cache length of blocks of 16 that holds
+    them."""
+    rng = np.random.default_rng(SEED + 7)
+    prompts = make_requests(rng, 3, 64, 600, cfg.vocab_size)
+    dec = rng.integers(0, cfg.vocab_size, size=(len(prompts), 8))
+    max_seq = -(-(max(len(p) for p in prompts) + dec.shape[1]) // 16) * 16
+    return prompts, dec, max_seq
+
+
+def chunked_logits(torch, mdl, prm, pol, prompts, dec, max_seq, mark=lambda first: None):
+    """Per prompt, on a fresh cache: its 256-token chunks, the last chunk's
+    logits, then one decode step per token of its row of ``dec`` and each
+    step's logits.  ``mark(first)`` runs before every step, ``first`` true
+    for prompt 0's first chunk and first decode step."""
+    logits = []
+    for i, prompt in enumerate(prompts):
+        cache = mdl.init_cache(1, max_seq, block_size=16)
+        for s in range(0, len(prompt), 256):
+            mark(i == 0 and s == 0)
+            chunk = torch.from_numpy(prompt[s:s + 256][None, :]).cuda()
+            lg, cache = mdl.prefill_chunk(prm, {"tokens": chunk}, cache, policy=pol)
+        logits.append(lg)
+        for j in range(dec.shape[1]):
+            mark(i == 0 and j == 0)
+            tok = torch.from_numpy(dec[i, j:j + 1][None, :].astype(np.int32)).cuda()
+            lg, cache = mdl.decode_step(prm, tok, cache, policy=pol)
+            logits.append(lg)
+    mark(False)
+    torch.cuda.synchronize()
+    return logits
 
 
 def phase_moe_parity(torch):
@@ -2238,11 +2409,8 @@ def phase_moe_parity(torch):
     model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
     params32 = copy.deepcopy(params).float()
     plain = policy.with_(use_kernels=False)
-    rng = np.random.default_rng(SEED + 7)
-    prompts = make_requests(rng, 3, 64, 600, cfg.vocab_size)
-    new, bsz = 8, 16
-    dec = rng.integers(0, cfg.vocab_size, size=(len(prompts), new))
-    max_seq = -(-(max(len(p) for p in prompts) + new) // bsz) * bsz
+    prompts, dec, max_seq = moe_parity_stream(cfg)
+    new = dec.shape[1]
     routes, inputs = [], []
     real_route, real_moe = moe_lib.route, moe_lib.moe
 
@@ -2261,19 +2429,7 @@ def phase_moe_parity(torch):
         moe_lib.route = spy_route
         moe_lib.moe = spy_moe if record else real_moe
         try:
-            logits = []
-            for i, prompt in enumerate(prompts):
-                cache = mdl.init_cache(1, max_seq, block_size=bsz)
-                for s in range(0, len(prompt), 256):
-                    chunk = torch.from_numpy(prompt[s:s + 256][None, :]).cuda()
-                    lg, cache = mdl.prefill_chunk(prm, {"tokens": chunk}, cache, policy=pol)
-                logits.append(lg)
-                for j in range(new):
-                    tok = torch.from_numpy(dec[i, j:j + 1][None, :].astype(np.int32)).cuda()
-                    lg, cache = mdl.decode_step(prm, tok, cache, policy=pol)
-                    logits.append(lg)
-            torch.cuda.synchronize()
-            return logits, list(routes)
+            return chunked_logits(torch, mdl, prm, pol, prompts, dec, max_seq), list(routes)
         finally:
             moe_lib.route, moe_lib.moe = real_route, real_moe
 
@@ -2327,17 +2483,166 @@ def phase_moe_parity(torch):
     del params, params32, model, model32
 
 
+def phase_moe_osparse(torch, model, params, policy, st7a):
+    """7e: 7a's weights with the attention rewritten Outstanding-sparse in
+    place (``QuantConfig()``: q/k/v/o to int8 with the static per-tensor
+    activation scale from a seeded calibration absmax, as 3b; the routed
+    experts stay bf16, as the reference's do), served with phase 3's stream:
+    launches exact, every ``osparse_matmul`` launch on its wgmma or
+    swap_fused route, the stream's peak allocated memory at most 7a's, a
+    chunk and a decode step profiled, graphed tokens equal to the eager
+    step programs'.  Returns its launches."""
+    from repro_torch.core import quant
+    from repro_torch.core.policy import ATTN_PROJS
+    from repro_torch.layers.linear import QuantLinear
+    from repro_torch.models.common import dtype_of
+    from repro_torch.weights import quantize_linears
+
+    cfg = model.cfg
+    qcfg = quant.QuantConfig()
+    print(f"phase 7e: serve {cfg.name} Outstanding-sparse at full width and depth (W8A8 on "
+          f"q/k/v/o: alpha={qcfg.alpha} outstanding={qcfg.outstanding} per_token="
+          f"{qcfg.per_token_act}; the routed experts stay {cfg.dtype}; paper_policy(8, 16, "
+          f"{cfg.qgate_skip_layers}))")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 3)
+    absmax = {(i, name): calib_absmax(rng, cfg.q_dim if name == "o_proj" else cfg.d_model)
+              for i in range(cfg.n_layers) for name in ATTN_PROJS}
+    torch.cuda.reset_peak_memory_stats()
+    quantize_linears(params, absmax, qcfg)
+    torch.cuda.synchronize()
+    rewrite_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    for blk in params.blocks:
+        if not all(isinstance(getattr(blk, n), QuantLinear) for n in ATTN_PROJS):
+            fail("phase 7e: an attention projection was not quantized")
+        if blk.moe.experts.gate_proj.dtype != dtype_of(cfg):
+            fail("phase 7e: the routed experts left the model dtype")
+    n_q = sum(b.numel() for n_, b in params.named_buffers() if n_.endswith(".wq"))
+    print(f"  rewrite in {time.perf_counter() - t0:.1f} s (peak {rewrite_peak:.2f} GiB "
+          f"allocated): {n_q} int8 weight bytes ({n_q / 2**30:.3f} GiB) held; device memory "
+          f"held {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    pruned = sum(policy.should_prune("q_proj", i) for i in range(cfg.n_layers))
+    routed = prune_launches(cfg, policy)[1]
+    launches, st, eng, outputs = serve_requests(torch, model, params, policy, "phase 7e")
+    halves = st["prefill_halves"] + st["decode_halves"]
+    per_step = cfg.n_layers * halves
+    check_launches("phase 7e", launches, {
+        "osparse_matmul": len(ATTN_PROJS) * per_step,
+        "osparse_matmul (prune=True)": pruned * st["sparse_chunks"],
+        "nm_prune_matmul": 0, "nm_prune": routed * st["sparse_chunks"],
+        "paged_kv_scatter": per_step, "paged_attention": per_step,
+        "nm_spmm": 0, "flash_attention": 0})
+    routes = {r: c for r, c in launches["osparse_matmul routes"].items() if c}
+    print(f"  launches held: osparse_matmul {len(ATTN_PROJS)} a layer per prefill or decode "
+          f"half ({pruned} pruned a sparse chunk: q outside the skip list), nm_prune "
+          f"{routed} a sparse chunk, no nm_prune_matmul; osparse_matmul by route {routes}")
+    if not routes or not set(routes) <= {"wgmma", "swap_fused"}:
+        fail(f"phase 7e: osparse_matmul launches by route {routes}, expected wgmma "
+             "(prefill) and swap_fused (decode) only")
+    print(f"  7e vs 7a: prefill {st['prefill_tok_s']:.1f} / decode {st['decode_tok_s']:.1f} "
+          f"tok/s against {st7a['prefill_tok_s']:.1f} / {st7a['decode_tok_s']:.1f}; peak "
+          f"{st['peak_alloc_gib']:.2f} / {st['peak_reserved_gib']:.2f} GiB allocated / "
+          f"reserved against {st7a['peak_alloc_gib']:.2f} / {st7a['peak_reserved_gib']:.2f}")
+    if not st["peak_alloc_gib"] <= st7a["peak_alloc_gib"]:
+        fail(f"phase 7e: peak {st['peak_alloc_gib']:.2f} GiB allocated exceeds 7a's "
+             f"{st7a['peak_alloc_gib']:.2f}")
+    profile_steps(torch, model, params, policy, eng)
+    del eng
+    check_graphed_tokens(torch, model, params, policy, "phase 7e", outputs)
+    return launches
+
+
+def phase_moe_osparse_parity(torch, per_token: bool):
+    """7e': 7c's model (full width, depth 4, bf16, q/gate skipped in layer 3)
+    with q/k/v/o rewritten Outstanding-sparse (static per-tensor or, with
+    ``per_token``, dynamic per-token activation scales), through the kernel
+    path, the plain path and the plain path in float32 on the same weights
+    (7c's prompts, chunks and decode steps).  The logits are held by
+    :func:`check_bf16_logits`; on the plain path's own inputs of prompt 0's
+    first chunk and first decode step, every quantized projection's int8
+    codes and scales from the kernel's quantize pass equal its plain
+    version's, bit for bit."""
+    from repro_torch import kernels
+    from repro_torch.core import quant
+    from repro_torch.core.policy import ATTN_PROJS
+    from repro_torch.kernels import osparse_matmul as kos
+    from repro_torch.layers.linear import QuantLinear
+    from repro_torch.models import build_model
+    from repro_torch.weights import quantize_linears
+
+    mode = "per-token" if per_token else "static per-tensor"
+    print(f"phase 7e': Qwen3-30B-A3B W8A8 ({mode} activation scales) kernel path vs plain "
+          "path, full width, depth 4, bf16")
+    cfg, model, params, policy = qwen3_moe(torch, n_layers=4, seed=SEED + 1, skip=(3,))
+    rng = np.random.default_rng(SEED + 4)
+    quantize_linears(params, {(i, name): calib_absmax(rng, cfg.q_dim if name == "o_proj"
+                                                      else cfg.d_model)
+                              for i in range(cfg.n_layers) for name in ATTN_PROJS},
+                     quant.QuantConfig(per_token_act=per_token))
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    params32 = copy.deepcopy(params).float()
+    plain = policy.with_(use_kernels=False)
+    prompts, dec, max_seq = moe_parity_stream(cfg)
+    inputs, recording = [], [False]
+
+    def hook(x, p, module, pol, phase, layer):
+        if recording[0] and isinstance(p, QuantLinear):
+            prune = pol.active(phase) and pol.should_prune(module, layer)
+            inputs.append((module, layer, phase, x.reshape(-1, x.shape[-1]).contiguous(),
+                           p, prune))
+
+    def run(mdl, prm, pol, record=False):
+        def mark(first):
+            recording[0] = record and first
+
+        with spy_projections(hook):
+            return chunked_logits(torch, mdl, prm, pol, prompts, dec, max_seq, mark)
+
+    kernels.reset_launch_counts()
+    got = run(model, params, policy)
+    launches = kernels.launch_counts()
+    print(f"  prompts {[len(p) for p in prompts]}, {dec.shape[1]} decode steps each; "
+          f"kernel-path launches {launches}")
+    if launches["osparse_matmul"] <= 0 or launches["nm_prune_matmul"] != 0:
+        fail(f"phase 7e': kernel-path launches {launches}: every attention projection must "
+             "go through osparse_matmul")
+    want = run(model, params, plain, record=True)
+    ref = run(model32, params32, plain)
+    check_bf16_logits(got, want, ref)
+    for module, layer, phase, x, p, prune in inputs:
+        args = (x, p.smooth, p.amber_scale, policy.n, policy.m,
+                None if p.per_token else p.act_scale, prune, p.per_token)
+        q, sc = kos.osparse_quantize(*args)
+        q0, sc0 = kos.osparse_quantize_plain(*args)
+        if not (torch.equal(q, q0) and torch.equal(sc, sc0)):
+            fail(f"phase 7e': {module} layer {layer} ({phase}, prune={prune}): the kernel's "
+                 "int8 codes or scales differ from the plain version's")
+    n_pre = sum(1 for c in inputs if c[2] == "prefill")
+    if not (n_pre and len(inputs) > n_pre):
+        fail(f"phase 7e': {len(inputs)} quantized projection calls recorded")
+    print(f"  int8 codes and scales bit-exact on the plain path's inputs: {n_pre} quantized "
+          f"projection calls of prompt 0's first chunk ({sum(c[5] for c in inputs)} pruned) "
+          f"and {len(inputs) - n_pre} of its first decode step")
+    del params, params32, model, model32
+
+
 def phase_moe(torch, rates):
-    """Phase 7: the MoE family at full width on the card.  Returns 7a's
-    launch counts."""
+    """Phase 7: the MoE family at full width on the card.  Returns 7a's and
+    7e's launch counts."""
     free_device(torch, "before phase 7 (phases 3-6 freed)")
-    launches = phase_moe_serve(torch, rates)
-    free_device(torch, "after 7a/7b")
+    launches, st, model, params, policy = phase_moe_serve(torch, rates)
+    q_launches = phase_moe_osparse(torch, model, params, policy, st)
+    del model, params
+    free_device(torch, "after 7a/7b/7e")
     phase_moe_parity(torch)
     free_device(torch, "after 7c")
+    for per_token in (False, True):
+        phase_moe_osparse_parity(torch, per_token)
+    free_device(torch, "after 7e'")
     check_trace_cli(torch, "qwen3_30b_a3b", "phase 7d")
     free_device(torch, "after 7d")
-    return launches
+    return launches, q_launches
 
 
 # ------------------------------------------------ the dense-family variants
@@ -2362,23 +2667,15 @@ def phase_variant_kernels(torch, timer, rates, records):
     """2j: the kernels at the dense variants' shapes, each held against its
     plain version and timed beside its bound and its library yardstick; the
     cases are added to ``records[kernel]["variants"]``."""
-    from repro_torch import kernels
-    from repro_torch.core import nm, quant, scoring
     from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import nm_prune_matmul as knm
-    from repro_torch.kernels import osparse_matmul as kos
     from repro_torch.kernels import paged_attention as kpa
-    from repro_torch.kernels import w8a8_matmul as kw8
 
-    bw, bf16_peak, _, int8_peak = rates
+    bw, bf16_peak = rates[0], rates[1]
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
     rng = np.random.default_rng(SEED + 11)
     dev = "cuda"
     i32 = dict(dtype=torch.int32, device=dev)
-
-    def keep(kernel, case, err, **times):
-        records[kernel].setdefault("variants", {})[case] = times
-        records[kernel]["max_abs_err"] = max(records[kernel]["max_abs_err"], err)
+    keep = functools.partial(keep_case, records)
 
     print("phase 2j: paged_attention at the dense variants' heads (chunk Tq=256 at offset "
           "300, kv_len 500; decode B=4), NaN-poisoned pools")
@@ -2463,73 +2760,151 @@ def phase_variant_kernels(torch, timer, rates, records):
              bound_ms=bound, bound_by=by)
 
     print("phase 2j: nm_prune_matmul at the variants' widths (T=256, 8:16)")
-    n, m = 8, 16
     for label, d, n_out, biased in VARIANT_PRUNED:
-        w = (torch.randn(d, n_out, generator=g, device=dev) * d**-0.5).bfloat16()
-        scale = torch.rand(d, generator=g, device=dev) + 0.5
-        bias = (torch.randn(n_out, generator=g, device=dev) * 0.1).bfloat16() if biased else None
-        x = torch.randn(256, d, generator=g, device=dev).bfloat16()
-        plan = knm.gemm_plan(w, 256)
-        route = f"wgmma, {plan} k slice{'s' if plan > 1 else ''}" if plan else "WMMA"
-        err = check_close(f"{label} {d}x{n_out} bias={biased} ({route})",
-                          knm.nm_prune_matmul(x, w, scale, n, m, bias=bias),
-                          knm.nm_prune_matmul_plain(x, w, scale, n, m, bias=bias), BF16_TOL)
-        if not plan:
-            fail(f"nm_prune_matmul {label}: expected the wgmma route")
-        xp = nm.apply_nm(x, scoring.score_activations(x, scale), n, m)
-        ms = timer.ms(lambda: knm.nm_prune_matmul(x, w, scale, n, m, bias=bias))
-        plain_ms = timer.ms(lambda: knm.nm_prune_matmul_plain(x, w, scale, n, m, bias=bias), 3)
-        lib_ms = timer.ms(lambda: torch.matmul(xp, w))
-        nbytes = (x.numel() + w.numel() + 256 * n_out + (n_out if biased else 0)) * 2 + d * 4
-        ops = 2 * int((xp != 0).sum()) * n_out
-        bound = max(nbytes / bw, ops / bf16_peak) * 1e3
-        by = "bytes" if nbytes / bw >= ops / bf16_peak else "operations"
-        print(f"  {label} {d}x{n_out}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), plain "
-              f"{plain_ms:.4f} ms, torch.matmul(x_pruned) {lib_ms:.4f} ms; kernel/library "
-              f"{ms / lib_ms:.2f}, bound/kernel {bound / ms:.3f}")
-        keep("nm_prune_matmul", label, err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-             bound_ms=bound, bound_by=by)
-        del w, x, xp
+        time_nm_prune_matmul(torch, timer, rates, g, keep, label, d, n_out, 256, biased)
 
     print("phase 2j: osparse_matmul at Qwen2.5-32B q and k with their biases (bit-exact)")
     for proj, n_out in (("q", 5120), ("k", 1024)):
-        d = 5120
-        w = (torch.randn(d, n_out, generator=g, device=dev) * d**-0.5).bfloat16()
-        ql = quant.make_quantized_linear(w, torch.from_numpy(calib_absmax(rng, d)).to(dev),
-                                         quant.QuantConfig())
-        del w
-        amber = torch.rand(d, generator=g, device=dev) + 0.5
-        bias = (torch.randn(n_out, generator=g, device=dev) * 0.1).bfloat16()
         for t in (256, 4):
-            prune = t == 256 and proj == "q"
-            x = torch.randn(t, d, generator=g, device=dev).bfloat16()
-            args = (x, ql.wq, ql.smooth, amber, ql.w_scale, n, m)
-            kw = dict(act_scale=ql.act_scale, bias=bias, prune=prune)
-            plan = kw8.gemm_plan(t, d, n_out, x.dtype, False, prune, m)
-            kernels.reset_launch_counts()
-            got = kos.osparse_matmul(*args, **kw)
-            want = kos.osparse_matmul_plain(*args, **kw)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                fail(f"osparse_matmul Qwen2.5-32B {proj} T={t}: kernel and plain differ")
-            expect_routes(f"osparse_matmul Qwen2.5-32B {proj} T={t}", kos.osparse_matmul,
-                          plan.route)
-            xq, _ = kos.osparse_quantize_plain(x, ql.smooth, amber, n, m, ql.act_scale, prune)
-            ms = timer.ms(lambda: kos.osparse_matmul(*args, **kw))
-            plain_ms = timer.ms(lambda: kos.osparse_matmul_plain(*args, **kw), 5)
-            lib_ms, lib_label = int_mm_ms(torch, timer, xq, ql.wq, ql.act_scale, ql.w_scale)
-            nbytes = (x.numel() * 2 + ql.wq.numel() + 2 * d * 4 + n_out * 4 + 4
-                      + n_out * 2 + t * n_out * 2)
-            ops = 2 * int((xq != 0).sum()) * n_out
-            bound = max(nbytes / bw, ops / int8_peak) * 1e3
-            by = "bytes" if nbytes / bw >= ops / int8_peak else "operations"
-            lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
-            print(f"  {proj} (d_out {n_out}, bias) T={t} prune={prune}: route {plan.route} "
-                  f"split {plan.splits}, bit-exact; kernel {ms:.4f} ms, bound {bound:.4f} ms "
-                  f"({by}), plain {plain_ms:.4f} ms, {lib_label} {lib}")
-            keep("osparse_matmul", f"Qwen2.5-32B {proj} T={t}", 0.0, ms=ms, plain_ms=plain_ms,
-                 library_ms=lib_ms, bound_ms=bound, bound_by=by, route=plan.route)
-        del ql
+            time_osparse_matmul(torch, timer, rates, g, rng, keep, f"Qwen2.5-32B {proj}",
+                                5120, n_out, t, prune=t == 256 and proj == "q", biased=True)
+
+
+def keep_case(records, kernel, case, err, **times):
+    """A later slice's case of ``kernel`` under ``records[kernel]["variants"]``;
+    the kernel's ``max_abs_err`` is the largest over all its cases."""
+    records[kernel].setdefault("variants", {})[case] = times
+    records[kernel]["max_abs_err"] = max(records[kernel]["max_abs_err"], err)
+
+
+def time_nm_prune_matmul(torch, timer, rates, g, keep, label, d, n_out, t, biased,
+                         n=8, m=16, scaled=True):
+    """``nm_prune_matmul`` at ``n:m`` on seeded bf16 ``x (t, d)`` and
+    ``w (d, n_out)`` with an Amber scale (none, the naive |x| score, unless
+    ``scaled``) and a bias if ``biased``: held to its plain version within
+    ``BF16_TOL`` on its wgmma route, timed beside its bound, its plain
+    version and ``torch.matmul`` of the pruned x; kept under ``label`` (and
+    its N:M and "no scale" where they are not 8:16 with a scale)."""
+    from repro_torch.core import nm, scoring
+    from repro_torch.kernels import nm_prune_matmul as knm
+
+    bw, bf16_peak = rates[0], rates[1]
+    dev = "cuda"
+    w = (torch.randn(d, n_out, generator=g, device=dev) * d**-0.5).bfloat16()
+    scale = torch.rand(d, generator=g, device=dev) + 0.5 if scaled else None
+    bias = (torch.randn(n_out, generator=g, device=dev) * 0.1).bfloat16() if biased else None
+    x = torch.randn(t, d, generator=g, device=dev).bfloat16()
+    plan = knm.gemm_plan(w, t)
+    route = f"wgmma, {plan} k slice{'s' if plan > 1 else ''}" if plan else "WMMA"
+    err = check_close(f"{label} {d}x{n_out} T={t} {n}:{m} scale={scaled} bias={biased} "
+                      f"({route})",
+                      knm.nm_prune_matmul(x, w, scale, n, m, bias=bias),
+                      knm.nm_prune_matmul_plain(x, w, scale, n, m, bias=bias), BF16_TOL)
+    if not plan:
+        fail(f"nm_prune_matmul {label}: expected the wgmma route")
+    xp = nm.apply_nm(x, scoring.score_activations(x, scale), n, m)
+    ms = timer.ms(lambda: knm.nm_prune_matmul(x, w, scale, n, m, bias=bias))
+    plain_ms = timer.ms(lambda: knm.nm_prune_matmul_plain(x, w, scale, n, m, bias=bias), 3)
+    lib_ms = timer.ms(lambda: torch.matmul(xp, w))
+    nbytes = ((x.numel() + w.numel() + t * n_out + (n_out if biased else 0)) * 2
+              + (d * 4 if scaled else 0))
+    ops = 2 * int((xp != 0).sum()) * n_out
+    bound = max(nbytes / bw, ops / bf16_peak) * 1e3
+    by = "bytes" if nbytes / bw >= ops / bf16_peak else "operations"
+    print(f"  {label} {d}x{n_out} T={t} {n}:{m}: kernel {ms:.4f} ms, bound {bound:.4f} ms "
+          f"({by}), plain {plain_ms:.4f} ms, torch.matmul(x_pruned) {lib_ms:.4f} ms; "
+          f"kernel/library {ms / lib_ms:.2f}, bound/kernel {bound / ms:.3f}")
+    if (n, m, scaled) != (8, 16, True):
+        label = f"{label} {n}:{m}{'' if scaled else ' no scale'}"
+    keep("nm_prune_matmul", label, err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+         bound_ms=bound, bound_by=by)
+
+
+def time_osparse_matmul(torch, timer, rates, g, rng, keep, label, d, n_out, t, prune,
+                        biased, per_token=False, n=8, m=16):
+    """``osparse_matmul`` on a seeded W8A8 rewrite (``QuantConfig()``, a seeded
+    calibration absmax) of ``w (d, n_out)`` and bf16 ``x (t, d)``: bit-exact
+    against its plain version on its plan's route, timed beside its bound,
+    its plain version and ``torch._int_mm`` with the dequant; kept under
+    ``label T=t``."""
+    from repro_torch import kernels
+    from repro_torch.core import quant
+    from repro_torch.kernels import osparse_matmul as kos
+    from repro_torch.kernels import w8a8_matmul as kw8
+
+    bw, int8_peak = rates[0], rates[3]
+    dev = "cuda"
+    w = (torch.randn(d, n_out, generator=g, device=dev) * d**-0.5).bfloat16()
+    ql = quant.make_quantized_linear(w, torch.from_numpy(calib_absmax(rng, d)).to(dev),
+                                     quant.QuantConfig(per_token_act=per_token))
+    del w
+    amber = torch.rand(d, generator=g, device=dev) + 0.5
+    bias = (torch.randn(n_out, generator=g, device=dev) * 0.1).bfloat16() if biased else None
+    x = torch.randn(t, d, generator=g, device=dev).bfloat16()
+    act_scale = None if per_token else ql.act_scale
+    args = (x, ql.wq, ql.smooth, amber, ql.w_scale, n, m)
+    kw = dict(act_scale=act_scale, bias=bias, prune=prune, per_token=per_token)
+    plan = kw8.gemm_plan(t, d, n_out, x.dtype, per_token, prune, m)
+    kernels.reset_launch_counts()
+    got = kos.osparse_matmul(*args, **kw)
+    want = kos.osparse_matmul_plain(*args, **kw)
+    torch.cuda.synchronize()
+    case = f"{label} T={t}"
+    if not torch.equal(got, want):
+        fail(f"osparse_matmul {case}: kernel and plain differ")
+    expect_routes(f"osparse_matmul {case}", kos.osparse_matmul, plan.route)
+    xq, xs = kos.osparse_quantize_plain(x, ql.smooth, amber, n, m, act_scale, prune, per_token)
+    ms = timer.ms(lambda: kos.osparse_matmul(*args, **kw))
+    plain_ms = timer.ms(lambda: kos.osparse_matmul_plain(*args, **kw), 5)
+    lib_ms, lib_label = int_mm_ms(torch, timer, xq, ql.wq, xs, ql.w_scale)
+    nbytes = (x.numel() * 2 + ql.wq.numel() + 2 * d * 4 + n_out * 4 + 4
+              + (n_out * 2 if biased else 0) + t * n_out * 4)
+    ops = 2 * int((xq != 0).sum()) * n_out
+    bound = max(nbytes / bw, ops / int8_peak) * 1e3
+    by = "bytes" if nbytes / bw >= ops / int8_peak else "operations"
+    lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+    print(f"  {case} ({d}x{n_out}, bias={biased}, prune={prune}, per_token={per_token}): "
+          f"route {plan.route} split {plan.splits}, bit-exact; kernel {ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}), plain {plain_ms:.4f} ms, {lib_label} {lib}")
+    keep("osparse_matmul", case, 0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+         bound_ms=bound, bound_by=by, route=plan.route)
+
+
+# 2k: the widths this slice's paths reach: LLaMA-3.1-8B's seven projections
+# (four shapes) at the scan's 512 rows, as 9a's probes (8:16, an Amber scale)
+# and 9c's Naive 2:4 run (no scale) launch them, and Qwen3-30B-A3B's
+# attention under W8A8 (7e: q 2048 -> 4096, k/v 2048 -> 512, o 4096 -> 2048)
+SCAN_PRUNED = (("q/o", 4096, 4096), ("k/v", 4096, 1024), ("gate/up", 4096, 14336),
+               ("down", 14336, 4096))
+MOE_QUANT = (("q", 2048, 4096), ("k/v", 2048, 512), ("o", 4096, 2048))
+
+
+def phase_skipping_kernels(torch, timer, rates, records):
+    """2k: ``nm_prune_matmul`` at LLaMA-3.1-8B's seven projections and 512
+    rows, 8:16 with an Amber scale (9a) and 2:4 without (9c), and
+    ``osparse_matmul`` at Qwen3-30B-A3B's attention (static: a pruned q
+    chunk, the other chunks and every decode step dense; per-token: q's
+    chunk), each held to its plain version and timed; the cases are added
+    to ``records[kernel]["variants"]``."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    rng = np.random.default_rng(SEED + 12)
+    keep = functools.partial(keep_case, records)
+
+    rows = SCAN_BATCH * SCAN_TOKENS
+    print(f"phase 2k: nm_prune_matmul at LLaMA-3.1-8B's projections (T={rows}): 8:16 with an "
+          "Amber scale (9a's probes), 2:4 with none (9c's Naive run)")
+    for label, d, n_out in SCAN_PRUNED:
+        time_nm_prune_matmul(torch, timer, rates, g, keep, f"LLaMA-3.1-8B {label}", d, n_out,
+                             rows, False)
+        time_nm_prune_matmul(torch, timer, rates, g, keep, f"LLaMA-3.1-8B {label}", d, n_out,
+                             rows, False, n=2, m=4, scaled=False)
+    print("phase 2k: osparse_matmul at Qwen3-30B-A3B's attention (bit-exact)")
+    for proj, d, n_out in MOE_QUANT:
+        for t in (256, 4):
+            time_osparse_matmul(torch, timer, rates, g, rng, keep, f"Qwen3-30B-A3B {proj}", d,
+                                n_out, t, prune=t == 256 and proj == "q", biased=False)
+    time_osparse_matmul(torch, timer, rates, g, rng, keep, "Qwen3-30B-A3B q per-token", 2048,
+                        4096, 256, prune=True, biased=False, per_token=True)
 
 
 def seed_biases(torch, params, seed: int) -> None:
@@ -2581,7 +2956,7 @@ def serve_dense(torch, label, arch, n_layers=None, cut=None):
     the launches exact, the attention routes of its chunk and decode step
     printed, a chunk and a decode step profiled, the graphed tokens equal
     to the eager step programs'.  Returns (launches, model, params, policy,
-    outputs)."""
+    outputs, step counts and rates)."""
     from repro_torch.kernels import paged_attention as kpa
     from repro_torch.models.common import dtype_of
 
@@ -2619,7 +2994,7 @@ def serve_dense(torch, label, arch, n_layers=None, cut=None):
     profile_steps(torch, model, params, policy, eng)
     del eng
     check_graphed_tokens(torch, model, params, policy, f"phase {label}", outputs)
-    return launches, model, params, policy, outputs
+    return launches, model, params, policy, outputs, st
 
 
 def phase_variants(torch):
@@ -2632,7 +3007,7 @@ def phase_variants(torch):
     seconds = {}
     for label, arch, depth, cut in VARIANT_SERVING:
         t0 = time.perf_counter()
-        _, model, params, policy, _ = serve_dense(torch, label, arch, depth, cut)
+        _, model, params, policy, _, _ = serve_dense(torch, label, arch, depth, cut)
         if label == "8a":          # 8b: the same weights rewritten Outstanding-sparse
             seconds["8a"] = time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -2647,6 +3022,378 @@ def phase_variants(torch):
         phase_parity(torch, quantized=False, dtype="bfloat16", arch=arch, label="phase 8f")
     seconds["8f"] = time.perf_counter() - t0
     print(f"phase 8 seconds: {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}")
+
+
+# ------------------------------------------- the paper's layer-skipping tooling
+
+# benchmarks/common.py:build_eval_model's outlier channels (its lines 36-47):
+# 8 embedding channels at stride d_model / 8, scaled by 12, so a few
+# channels carry 10-30x the magnitude through the residual stream (the
+# paper's Fig. 2 statistics, which make the scoring matter)
+OUTLIER_CHANNELS, OUTLIER_GAIN = 8, 12.0
+SCAN_BATCH, SCAN_TOKENS = 2, 256
+# benchmarks/coverage.py's published coverages of the paper's skip lists
+PUBLISHED_COVERAGE = {"llama31_8b": 0.561, "qwen2_7b": 0.576, "qwen3_30b_a3b": 0.569}
+# e of one probe, kernel path vs plain path, float32 (9a').  Both paths
+# hand the probed projection the same input (dense upstream: cuBLAS and the
+# plain attention on both; 9a' counts its N:M flips, expected 0), so the two
+# e differ only by the float32 summation order of that one projection's GEMM
+# (~1e-6 of its output) carried to the logits, over e (~1e-2): 1e-4
+# relative covers it with a margin and lies far below the gaps between the
+# layers the selection ranks.
+SCAN_RTOL = 1e-4
+
+
+def coverage_dims(cfg):
+    """{module: (d_in, d_out)} (a copy of ``benchmarks/coverage.py:_dims``,
+    its lines 13-24): the MoE FFN counts its top_k routed experts."""
+    d = {
+        "q_proj": (cfg.d_model, cfg.q_dim),
+        "k_proj": (cfg.d_model, cfg.kv_dim),
+        "v_proj": (cfg.d_model, cfg.kv_dim),
+        "o_proj": (cfg.q_dim, cfg.d_model),
+    }
+    ff = cfg.moe_d_ff * cfg.top_k if cfg.n_experts else cfg.d_ff
+    d["gate_proj"] = (cfg.d_model, ff)
+    d["up_proj"] = (cfg.d_model, ff)
+    d["down_proj"] = (ff, cfg.d_model)
+    return d
+
+
+def llama_eval_model(torch, n_layers=None, dtype=None):
+    """LLaMA-3.1-8B (depth and dtype optionally cut), random weights from
+    ``SEED`` made on the card, with the outlier channels injected into the
+    embedding, and every projection's Amber scale (Robust-Norm), so that a
+    probe of any of the seven prunes as Amber-P would."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.core.pruner import precompute_scales
+    from repro_torch.models import build_model
+
+    cfg = get_config("llama31_8b")
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers, dtype=dtype or cfg.dtype)
+    model = build_model(cfg)
+    params = model.init(SEED)
+    idx = torch.arange(OUTLIER_CHANNELS, device="cuda") * (cfg.d_model // OUTLIER_CHANNELS)
+    params.embed.w[:, idx] *= OUTLIER_GAIN
+    precompute_scales(params, paper_policy(8, 16).with_(skip_modules=()))
+    return cfg, model, params
+
+
+def scan_batch(cfg, step: int = 0):
+    """``SCAN_BATCH`` x ``SCAN_TOKENS`` tokens of the port's synthetic stream."""
+    from repro_torch.data import DataConfig, lm_batch
+
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=SCAN_TOKENS,
+                      global_batch=SCAN_BATCH, seed=SEED)
+    return {"tokens": lm_batch(data, step)["tokens"][:, :SCAN_TOKENS]}
+
+
+def run_scan(torch, model, params, batch, base, modules=None):
+    """``sensitivity_scan`` over ``modules`` (the seven projections unless
+    given) of every layer, with the launch counts set to 0 just before and
+    read just after, and each forward's own launches.  Returns (e per probe,
+    seconds, per-forward launches (the dense pass first), launches)."""
+    from repro_torch import kernels
+    from repro_torch.core.policy import ALL_PROJS
+    from repro_torch.core.sensitivity import sensitivity_scan
+
+    per_forward = []
+
+    def forward(prm, b, policy, phase):
+        before = kernels.launch_counts()
+        y = model.forward(prm, b, policy=policy, phase=phase)
+        after = kernels.launch_counts()
+        per_forward.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+        return y
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sens = sensitivity_scan(forward, params, batch, modules or ALL_PROJS, model.cfg.n_layers,
+                            base)
+    torch.cuda.synchronize()
+    return sens, time.perf_counter() - t0, per_forward, kernels.launch_counts()
+
+
+def derive_skips(cfg, sens, target: float = 0.55):
+    """``select_qgate_skips`` under the config's linear FLOPs, and the
+    coverage of ``paper_policy`` with the skips it selects."""
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.core.sensitivity import coverage, linear_flops, select_qgate_skips
+
+    flops = linear_flops(coverage_dims(cfg))
+    skips = select_qgate_skips(sens, flops, cfg.n_layers, paper_policy(8, 16), target)
+    return skips, coverage(flops, paper_policy(8, 16, skips), cfg.n_layers)
+
+
+def print_scan_rows(cfg, sens):
+    """``benchmarks/sensitivity_scan.py``'s rows: each module's mean e, the
+    ranking, and the check that down_proj ranks among the 3 least
+    sensitive (printed, not checked: the weights are random)."""
+    from repro_torch.core.policy import ALL_PROJS
+
+    avg = {m: statistics.fmean(sens[(m, i)] for i in range(cfg.n_layers)) for m in ALL_PROJS}
+    for m in ALL_PROJS:
+        print(f"  sensitivity/{m},0.0,e_avg={avg[m]:.5f}")
+    ranking = sorted(avg, key=avg.get, reverse=True)
+    print(f"  sensitivity/ranking,0.0,{'>'.join(ranking)}")
+    rank = sorted(avg, key=avg.get).index("down_proj")
+    print(f"  sensitivity/check/down_proj_low,0.0,{'PASS' if rank <= 2 else 'FAIL'} (rank "
+          f"{rank} of {len(avg)} from the least sensitive)")
+
+
+def phase_scan(torch, model, params, cfg):
+    """9a: the scan at full width on the kernels, each probe one
+    ``nm_prune_matmul`` launch; the selected skips at a 0.55 coverage
+    target; the coverage of each paper model's published list.  Then the
+    q_proj and gate_proj probes, all that the selection reads, on the plain
+    path, reported beside it.  Returns (9a's skips, its launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import PAPER_ARCH_IDS
+    from repro_torch.core.policy import ALL_PROJS, paper_policy
+    from repro_torch.core.sensitivity import coverage, linear_flops, targeted_policy
+
+    batch = scan_batch(cfg)
+    probes = len(ALL_PROJS) * cfg.n_layers
+    print(f"phase 9a: sensitivity scan of {cfg.name} at full width ({cfg.n_layers} layers, "
+          f"{cfg.dtype}, seed {SEED}, {OUTLIER_CHANNELS} embedding channels x {OUTLIER_GAIN}), "
+          f"{SCAN_BATCH} x {SCAN_TOKENS} tokens of lm_batch, base paper_policy(8, 16) with the "
+          f"kernels: {probes} probes and one dense pass")
+    base = paper_policy(8, 16, use_kernels=True)
+    sens, secs, per_forward, launches = run_scan(torch, model, params, batch, base)
+    if per_forward[0] or any(f != {"nm_prune_matmul": 1} for f in per_forward[1:]) \
+            or len(per_forward) != probes + 1:
+        fail(f"phase 9a: launches per forward {per_forward[:3]}...: the dense pass must "
+             "launch nothing and each probe one nm_prune_matmul")
+    check_launches("phase 9a", launches, {
+        "nm_prune_matmul": probes, "paged_kv_scatter": 0, "paged_attention": 0,
+        "nm_prune": 0, "nm_spmm": 0, "flash_attention": 0, "osparse_matmul": 0})
+    print(f"  launches held: nm_prune_matmul once per probe ({probes}, all seven projections "
+          f"of every layer), nothing else; {secs:.2f} s, {secs / (probes + 1) * 1e3:.1f} ms "
+          "per forward")
+    profile_cases(torch, {"9a probe forward (q_proj of layer 0 pruned), eager": lambda: (
+        model.forward(params, batch, policy=targeted_policy("q_proj", 0, cfg.n_layers, base)))})
+    print_scan_rows(cfg, sens)
+    skips, cov = derive_skips(cfg, sens)
+    print(f"  select_qgate_skips at a 0.55 target: {skips} ({len(skips)} layers), coverage "
+          f"{cov:.4f}; the config's published list {cfg.qgate_skip_layers}")
+    if not cov >= 0.55:
+        fail(f"phase 9a: the selected skips cover {cov} < 0.55 of the linear FLOPs")
+    for arch in PAPER_ARCH_IDS:
+        pcfg = get_config(arch)
+        c = coverage(linear_flops(coverage_dims(pcfg)),
+                     paper_policy(8, 16, pcfg.qgate_skip_layers), pcfg.n_layers)
+        print(f"  coverage/{arch},0.0,ours={c:.3f};published={PUBLISHED_COVERAGE[arch]:.3f};"
+              f"{'PASS' if abs(c - PUBLISHED_COVERAGE[arch]) < 0.02 and c > 0.55 else 'FAIL'}")
+
+    # select_qgate_skips reads only the q_proj and gate_proj probes
+    print("phase 9a': the full-width bf16 scan's q_proj and gate_proj probes on the plain "
+          "path (reported beside 9a)")
+    qgate = ("q_proj", "gate_proj")
+    sens_p, secs_p, _, launches_p = run_scan(torch, model, params, batch,
+                                             base.with_(use_kernels=False), qgate)
+    if any(launches_p.values()):
+        fail(f"phase 9a': the plain scan launched {launches_p}")
+    skips_p, cov_p = derive_skips(cfg, sens_p)
+    rel = [abs(sens[k] - sens_p[k]) / sens_p[k] for k in sens_p]
+    qg = lambda e: sorted(range(cfg.n_layers), reverse=True,
+                          key=lambda i: (e[("q_proj", i)] + e[("gate_proj", i)], i))
+    forwards_p = len(qgate) * cfg.n_layers + 1
+    print(f"  plain scan {secs_p:.2f} s ({secs_p / forwards_p * 1e3:.1f} ms per forward); "
+          f"selected skips: kernels {skips} (coverage {cov:.4f}), plain {skips_p} (coverage "
+          f"{cov_p:.4f}); e of the {len(rel)} probes, kernel vs plain: max relative "
+          f"difference {max(rel):.3e}, median "
+          f"{statistics.median(rel):.3e}; q+gate layer order, kernels {qg(sens)[:8]}, plain "
+          f"{qg(sens_p)[:8]} (first 8)")
+    return skips, launches
+
+
+def phase_serve_derived(torch, model, params, skips, phase3):
+    """9b: 9a's weights served with phase 3's stream under
+    ``paper_policy(8, 16, <9a's skips>)`` after ``precompute_scales``: every
+    request ends with its tokens, launches exact, graphed tokens equal to
+    the eager step programs'.  Returns its launches."""
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.core.pruner import precompute_scales
+
+    cfg = model.cfg
+    policy = paper_policy(8, 16, skips).with_(use_kernels=True)
+    precompute_scales(params, policy)
+    fused, _ = prune_launches(cfg, policy)
+    print(f"phase 9b: serve {cfg.name} (9a's weights) under paper_policy(8, 16, {skips}), "
+          "9a's skips, with the kernels; phase 3's stream")
+    launches, st, eng, outputs = serve_requests(torch, model, params, policy, "phase 9b")
+    per_step = cfg.n_layers * (st["prefill_halves"] + st["decode_halves"])
+    check_launches("phase 9b", launches, {
+        "nm_prune_matmul": fused * st["sparse_chunks"], "paged_kv_scatter": per_step,
+        "paged_attention": per_step, "nm_prune": 0, "nm_spmm": 0, "flash_attention": 0,
+        "osparse_matmul": 0})
+    print(f"  launches held: nm_prune_matmul {fused} a sparse chunk; prefill "
+          f"{st['prefill_tok_s']:.1f} / decode {st['decode_tok_s']:.1f} tok/s against phase "
+          f"3's {phase3['prefill_tok_s']:.1f} / {phase3['decode_tok_s']:.1f} (the published "
+          f"skips: {3 * cfg.n_layers - 2 * len(cfg.qgate_skip_layers)} a chunk)")
+    del eng
+    check_graphed_tokens(torch, model, params, policy, "phase 9b", outputs)
+    return launches
+
+
+def phase_weight_sparsity(torch, model, params):
+    """9c: Appendix A at full width.  ``act_norm`` (‖X_:,j‖₂) and
+    ``hessian_diag`` (Σ X²) of every projection's input from one
+    ``calibration_stream`` batch; ``magnitude_nm``, ``wanda_nm`` and
+    ``sparsegpt_nm`` at 2:4 on every projection of a copy of the weights,
+    each mask a valid 2:4 pattern along d_in for every output column; the
+    output perturbation of each weight-pruned model and of Naïve 2:4
+    activation sparsity (``naive_policy(2, 4)`` on the kernels) against the
+    dense model on 9a's batch.  Returns the launches of the activation
+    run."""
+    from repro_torch import kernels
+    from repro_torch.core import weight_sparsity as ws
+    from repro_torch.core.policy import ALL_PROJS, DENSE, MLP_PROJS, naive_policy
+    from repro_torch.core.sensitivity import relative_perturbation
+    from repro_torch.data import DataConfig, calibration_stream
+
+    cfg = model.cfg
+    n, m = 2, 4
+    print(f"phase 9c: weight vs activation N:M sparsity at {n}:{m}, {cfg.name} at full width "
+          "(9a's weights)")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=SCAN_TOKENS, global_batch=SCAN_BATCH,
+                      seed=SEED)
+    calib = next(calibration_stream(data, 1))
+    sumsq = {}
+
+    def hook(x, p, module, policy, phase, layer):
+        xf = x.reshape(-1, x.shape[-1]).float()
+        sumsq[(layer, module)] = (xf * xf).sum(0)
+
+    with spy_projections(hook):
+        model.forward(params, {"tokens": calib["tokens"][:, :SCAN_TOKENS]}, policy=DENSE)
+    if len(sumsq) != len(ALL_PROJS) * cfg.n_layers:
+        fail(f"phase 9c: {len(sumsq)} projection inputs recorded")
+    batch = scan_batch(cfg)
+    y0 = model.forward(params, batch, policy=DENSE)
+    kernels.reset_launch_counts()
+    y = model.forward(params, batch, policy=naive_policy(n, m).with_(use_kernels=True))
+    launches = kernels.launch_counts()
+    check_launches("phase 9c", launches, {
+        "nm_prune_matmul": len(ALL_PROJS) * cfg.n_layers, "paged_kv_scatter": 0,
+        "paged_attention": 0, "nm_prune": 0, "nm_spmm": 0, "flash_attention": 0,
+        "osparse_matmul": 0})
+    pert = {"activation_naive": float(relative_perturbation(y0, y))}
+    del y
+    pruned = copy.deepcopy(params)
+    methods = {"magnitude": lambda w, h: ws.magnitude_nm(w, n, m),
+               "wanda": lambda w, h: ws.wanda_nm(w, h.sqrt(), n, m),
+               "sparsegpt": lambda w, h: ws.sparsegpt_nm(w, h, n, m)}
+    for method, prune in methods.items():
+        t0 = time.perf_counter()
+        short = groups = 0
+        for i, (src, dst) in enumerate(zip(params.blocks, pruned.blocks)):
+            for name in ALL_PROJS:
+                lin = getattr(src.mlp if name in MLP_PROJS else src, name)
+                wp = prune(lin.w, sumsq[(i, name)])
+                kept = (wp != 0).t().reshape(wp.shape[1], -1, m).sum(-1)
+                if not bool((kept <= n).all()):
+                    fail(f"phase 9c: {method} layer {i} {name}: a group of {m} along d_in "
+                         f"keeps more than {n}")
+                short += int((kept < n).sum())
+                groups += kept.numel()
+                getattr(dst.mlp if name in MLP_PROJS else dst, name).w.copy_(wp)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        pert[method] = float(relative_perturbation(y0, model.forward(pruned, batch,
+                                                                     policy=DENSE)))
+        print(f"  {method}_nm: {len(ALL_PROJS) * cfg.n_layers} weights pruned in {secs:.2f} s;"
+              f" every one of {groups} groups of {m} along d_in keeps at most {n} ({short} "
+              f"keep fewer: an exact zero)")
+    del pruned
+    print(f"  appendix_a/activation_naive_{n}:{m},0.0,pert={pert['activation_naive']:.4f}")
+    for method in methods:
+        print(f"  appendix_a/weight_{method}_{n}:{m},0.0,pert={pert[method]:.4f}")
+    ok = all(pert["activation_naive"] < pert[mt] for mt in methods)
+    print(f"  appendix_a/check/activation_dominates,0.0,{'PASS' if ok else 'FAIL'} (printed, "
+          "not checked: the weights are random)")
+    return launches
+
+
+def phase_scan_parity(torch):
+    """9a': the scan at full width and depth 2 in float32 on the kernel
+    path and on the plain path: each probe's e within ``SCAN_RTOL``, the
+    same skips at coverage targets 0.55 and 0.3 (at depth 2 one skip takes
+    the coverage from 0.615 to 0.308), and each probe's N:M flips between
+    the paths (:func:`nm_flips`)."""
+    from repro_torch.core.policy import ALL_PROJS, paper_policy
+    from repro_torch.core.sensitivity import targeted_policy
+
+    cfg, model, params = llama_eval_model(torch, n_layers=2, dtype="float32")
+    print(f"phase 9a': {cfg.name} scan, kernel path vs plain path, full width, depth 2, "
+          "float32")
+    batch = scan_batch(cfg)
+    base = paper_policy(8, 16)
+    sens, launches = {}, {}
+    for uk in (True, False):
+        sens[uk], _, _, launches[uk] = run_scan(torch, model, params, batch,
+                                                base.with_(use_kernels=uk))
+    probes = len(ALL_PROJS) * cfg.n_layers
+    if launches[True]["nm_prune_matmul"] != probes or any(launches[False].values()):
+        fail(f"phase 9a': launches {launches}: the kernel scan must launch nm_prune_matmul "
+             f"{probes} times, the plain scan nothing")
+    for key in sorted(sens[False], key=lambda k: (k[1], k[0])):
+        print(f"  e {key[0]} layer {key[1]}: kernels {sens[True][key]:.6e}, plain "
+              f"{sens[False][key]:.6e}")
+    worst = max(abs(sens[True][k] - sens[False][k]) / sens[False][k] for k in sens[False])
+    print(f"  largest relative difference of e {worst:.3e} (limit {SCAN_RTOL:.0e})")
+    if not worst <= SCAN_RTOL:
+        fail(f"phase 9a': e kernel vs plain differ by {worst} relative > {SCAN_RTOL}")
+    for target in (0.55, 0.3):
+        got, cov = derive_skips(cfg, sens[True], target)
+        want, _ = derive_skips(cfg, sens[False], target)
+        print(f"  select_qgate_skips at {target}: kernels {got}, plain {want} (coverage "
+              f"{cov:.4f})")
+        if got != want:
+            fail(f"phase 9a': the kernel and plain scans select {got} and {want}")
+    table = {}
+    for module in ALL_PROJS:
+        for layer in range(cfg.n_layers):
+            def probe(use_kernels, module=module, layer=layer):
+                pol = targeted_policy(module, layer, cfg.n_layers,
+                                      base.with_(use_kernels=use_kernels))
+                model.forward(params, batch, policy=pol)
+            table.update(nm_flips(torch, probe))
+    print_flips("9a'", table)
+    del params, model
+
+
+def phase_skipping(torch, phase3):
+    """Phase 9: the paper's layer-skipping tooling at full width, after
+    phase 8 freed its models.  Returns the launches of 9a, 9b and 9c's
+    Naive run, each counted from 0, by run."""
+    free_device(torch, "before phase 9 (phase 8 freed)")
+    seconds = {}
+    t0 = time.perf_counter()
+    cfg, model, params = llama_eval_model(torch)
+    torch.cuda.synchronize()
+    print(f"phase 9: {cfg.name} random weights from seed {SEED} with outlier channels in "
+          f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          "held")
+    skips, launches = phase_scan(torch, model, params, cfg)
+    seconds["9a (both scans)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served = phase_serve_derived(torch, model, params, skips, phase3)
+    free_device(torch, "after 9b")
+    seconds["9b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    act = phase_weight_sparsity(torch, model, params)
+    del model, params
+    free_device(torch, "after 9c")
+    seconds["9c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_scan_parity(torch)
+    free_device(torch, "after 9a'")
+    seconds["9a' depth 2"] = time.perf_counter() - t0
+    print(f"phase 9 seconds: {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}")
+    return {"9a": launches, "9b": served, "9c": act}
 
 
 def main() -> int:
@@ -2692,10 +3439,11 @@ def main() -> int:
     records.update(phase_oneshot_kernels(torch, timer, rates))
     phase_grouped_product(torch, timer, rates)
     phase_variant_kernels(torch, timer, rates, records)
+    phase_skipping_kernels(torch, timer, rates, records)
     del timer
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
-    launches, model, params, policy, outputs = serve_dense(torch, "3", "llama31_8b")
+    launches, model, params, policy, outputs, phase3 = serve_dense(torch, "3", "llama31_8b")
     t3 = time.perf_counter()
     phase_lifecycle(torch, model, params, policy, outputs)
     t3b = time.perf_counter()
@@ -2714,15 +3462,17 @@ def main() -> int:
     t7 = time.perf_counter()
     phase_cli(torch)
     t8 = time.perf_counter()
-    m_launches = phase_moe(torch, rates)
+    m_launches, mq_launches = phase_moe(torch, rates)
     t9 = time.perf_counter()
     phase_variants(torch)
     t10 = time.perf_counter()
+    s_launches = phase_skipping(torch, phase3)
+    t11 = time.perf_counter()
     print(f"phase seconds: build {t1 - t:.1f}, kernels {t2 - t1:.1f}, serve {t3 - t2:.1f}, "
           f"serve osparse {t4 - t3b:.1f}, parity {t5 - t4:.1f}, one-shot serve {t6 - t5:.1f}, "
           f"one-shot parity {t7 - t6:.1f}, serve CLI and serving lifecycle "
           f"{t8 - t7 + t3b - t3:.1f} (6b-6e {t3b - t3:.1f}, 6a and 6f {t8 - t7:.1f}), "
-          f"MoE {t9 - t8:.1f}, dense variants {t10 - t9:.1f}")
+          f"MoE {t9 - t8:.1f}, dense variants {t10 - t9:.1f}, layer skipping {t11 - t10:.1f}")
 
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import nm_prune as knp
@@ -2731,24 +3481,28 @@ def main() -> int:
     from repro_torch.kernels import osparse_matmul as kos
     from repro_torch.kernels import paged_attention as kpa
     from repro_torch.kernels import w8a8_matmul as kw8
-    # launches: each kernel's count in the serving run of its path (phase 3,
-    # 3b for osparse_matmul, 5 for flash_attention and nm_spmm, 7a for
-    # nm_prune; phases 6a and 7d's CLI runs drive phase 3's and 7a's kernels
-    # again and print their own counts); w8a8_matmul is an entry point that
-    # no serving path calls
+    # launches: each kernel's count in the run of the path that first served
+    # it (phase 3, 3b, 5 or 7a); launches_by_run: its count in each main-path
+    # run, each counted from 0, that launched it; phases 6a and 7d's CLI runs
+    # drive phase 3's and 7a's kernels again and print their own counts;
+    # w8a8_matmul is an entry point that no serving path calls
+    runs = {"3": launches, "3b": q_launches, "5": o_launches, "7a": m_launches,
+            "7e": mq_launches, **s_launches}
     meta = {
-        "nm_prune_matmul": (knm.SOURCE, knm.REPLACES, launches),
-        "paged_kv_scatter": (kpa.SOURCE, kpa.SCATTER_REPLACES, launches),
-        "paged_attention": (kpa.SOURCE, kpa.ATTENTION_REPLACES, launches),
-        "osparse_matmul": (kos.SOURCE, kos.REPLACES, q_launches),
-        "w8a8_matmul": (kw8.SOURCE, kw8.REPLACES, q_launches),
-        "nm_prune": (knp.SOURCE, knp.REPLACES, m_launches),
-        "flash_attention": (kfa.SOURCE, kfa.REPLACES, o_launches),
-        "nm_spmm": (kns.SOURCE, kns.REPLACES, o_launches),
+        "nm_prune_matmul": (knm.SOURCE, knm.REPLACES, "3"),
+        "paged_kv_scatter": (kpa.SOURCE, kpa.SCATTER_REPLACES, "3"),
+        "paged_attention": (kpa.SOURCE, kpa.ATTENTION_REPLACES, "3"),
+        "osparse_matmul": (kos.SOURCE, kos.REPLACES, "3b"),
+        "w8a8_matmul": (kw8.SOURCE, kw8.REPLACES, "3b"),
+        "nm_prune": (knp.SOURCE, knp.REPLACES, "7a"),
+        "flash_attention": (kfa.SOURCE, kfa.REPLACES, "5"),
+        "nm_spmm": (kns.SOURCE, kns.REPLACES, "5"),
     }
     line = {"kernels": [dict(name=k, route="cuda", source=src, replaces=rep,
-                             launches=counts[k], **records[k])
-                        for k, (src, rep, counts) in meta.items()]}
+                             launches=runs[first][k],
+                             launches_by_run={r: c[k] for r, c in runs.items() if c[k]},
+                             **records[k])
+                        for k, (src, rep, first) in meta.items()]}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

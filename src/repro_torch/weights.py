@@ -18,11 +18,13 @@ An MoE block's ``moe`` dict becomes its :class:`~repro_torch.models.moe.MoE`:
 ``router/w`` in float32 (its Amber scale, which the JAX walk attaches and
 nothing reads, is not carried), ``experts/{gate,up,down}_proj/w``
 (layer ``i`` of the ``(L, E, D, F)`` stack) as they are, and ``shared`` as
-an MLP with its Amber scales.
+an MLP with its Amber scales; a quantized dict there (or in an MoE block's
+attention) becomes a ``QuantLinear`` as anywhere else.
 
 ``quantize_linears(model, absmax, qcfg)`` applies the offline
 SmoothQuant / Outstanding rewrite (``core.quant.make_quantized_linear``) to
-the projections ``qcfg`` quantizes and frees their float weights.
+the projections ``qcfg`` quantizes and frees their float weights (in an
+MoE block: the attention projections and the shared expert's).
 
 This module imports nothing of JAX: it sees only numpy arrays.
 """
@@ -79,9 +81,11 @@ def _load_norm(norm, p: Dict[str, Any], dtype, device) -> None:
 
 def _layer_params(params_np: Dict, i: int) -> Dict:
     """Layer ``i`` of the scan-stacked ``periods`` pytree (the dense family's
-    block pattern is one attention block, so period i is layer i)."""
+    block pattern is one attention block, so period i is layer i).  A leaf
+    without a layer axis (a quantized dict's ``per_token`` flag) is the
+    same in every layer and is carried as it is."""
     def take(d):
-        return {k: take(v) if isinstance(v, dict) else np.asarray(v)[i]
+        return {k: take(v) if isinstance(v, dict) else np.asarray(v)[i] if np.ndim(v) else v
                 for k, v in d.items()}
 
     return take(params_np["periods"]["b0"])
@@ -122,6 +126,17 @@ def _load_moe(p, lp: Dict, dtype, device) -> None:
             _load_linear(p.shared, name, lp["shared"][name], dtype, device)
 
 
+def _projections(blk):
+    """(owner, name) of every ``Linear`` projection of a block: q/k/v/o, then
+    the MLP's gate/up/down, or an MoE block's shared expert's (the routed
+    experts are ``moe.Experts`` parameters, not projections)."""
+    ffn = blk.moe.shared if hasattr(blk, "moe") else blk.mlp
+    for name in ALL_PROJS:
+        owner = blk if name not in MLP_PROJS else ffn
+        if owner is not None:
+            yield owner, name
+
+
 @torch.no_grad()
 def quantize_linears(model: transformer.Transformer,
                      absmax: Dict[Tuple[int, str], torch.Tensor],
@@ -132,13 +147,12 @@ def quantize_linears(model: transformer.Transformer,
     free the float weight; the int8 weights are stored K-major
     (``quant.k_major``), one buffer each.  Amber scales are computed from the float
     weights, so run ``precompute_scales`` first.  In place; returns
-    ``model``.  W8A8 on an MoE model is not ported (it raises)."""
-    if model.cfg.n_experts:
-        raise NotImplementedError(f"{model.cfg.name}: W8A8 on the MoE family is not "
-                                  "ported yet (ROADMAP A6)")
+    ``model``.  In an MoE block the attention projections and the shared
+    expert's are quantized; the routed experts stay in the model dtype, as
+    the reference's do (``repro/models/moe.py`` has no quantized grouped
+    product)."""
     for i, blk in enumerate(model.blocks):
-        for name in ALL_PROJS:
-            owner = blk.mlp if name in MLP_PROJS else blk
+        for owner, name in _projections(blk):
             lin = getattr(owner, name)
             if not isinstance(lin, Linear) or not qcfg.should_quantize(name, i):
                 continue

@@ -69,6 +69,47 @@ def test_nm_prune_matmul_variant_widths(gen, d, n_out, t):
            knm.nm_prune_matmul_plain(x, w, sc, 8, 16, bias=b), torch.bfloat16)
 
 
+# LLaMA-3.1-8B's projections at the sensitivity scan's 512 rows and a
+# ragged 137: k/v (4096 -> 1024, split k), q/o (4096 -> 4096), gate/up
+# (4096 -> 14336) and down (14336 -> 4096), at 8:16 (the scan's probes) and
+# 2:4 (the Naive run of the weight-sparsity comparison), each with an Amber
+# scale and with none.
+_SCAN_WIDTHS = [(4096, 1024), (4096, 4096), (4096, 14336), (14336, 4096)]
+
+
+@pytest.mark.parametrize("n,m", [(8, 16), (2, 4)])
+@pytest.mark.parametrize("t", [512, 137])
+@pytest.mark.parametrize("d,n_out", _SCAN_WIDTHS, ids=[f"{d}x{n}" for d, n in _SCAN_WIDTHS])
+def test_nm_prune_matmul_scan_widths(gen, d, n_out, t, n, m):
+    x = torch.randn(t, d, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(d, n_out, generator=gen, device="cuda") * d**-0.5).bfloat16()
+    sc = torch.rand(d, generator=gen, device="cuda") + 0.5
+    assert knm.gemm_plan(w, t) >= 1                  # the wgmma route
+    for scale in (sc, None):
+        _close(knm.nm_prune_matmul(x, w, scale, n, m),
+               knm.nm_prune_matmul_plain(x, w, scale, n, m), torch.bfloat16)
+
+
+@pytest.mark.parametrize("layout", ["heads_transposed", "column_slice"])
+def test_nm_prune_matmul_non_contiguous_o_proj_input(gen, layout):
+    """o_proj's input as attention may hand it over: heads moved after the
+    tokens (a copy on reshape), or a column slice of a wider buffer (a
+    strided view that survives the reshape); ``ops`` makes it contiguous."""
+    from repro_torch.kernels import ops
+
+    if layout == "heads_transposed":
+        x = torch.randn(2, 32, 256, 128, generator=gen, device="cuda").bfloat16().transpose(1, 2)
+    else:
+        x = torch.randn(2, 256, 8192, generator=gen, device="cuda").bfloat16()[..., 1024:5120]
+    assert not x.is_contiguous()
+    w = (torch.randn(4096, 4096, generator=gen, device="cuda") * 4096**-0.5).bfloat16()
+    sc = torch.rand(4096, generator=gen, device="cuda") + 0.5
+    got = ops.nm_prune_matmul(x.reshape(2, 256, 4096), w, sc, 8, 16)
+    want = knm.nm_prune_matmul_plain(x.reshape(512, 4096).contiguous(), w, sc, 8, 16)
+    assert got.shape == (2, 256, 4096)
+    _close(got.reshape(512, 4096), want, torch.bfloat16)
+
+
 # The wgmma building blocks (csrc/hopper.cuh) against torch.matmul, through
 # the test-only entry point of csrc/nm_prune_matmul.cu.
 
@@ -269,6 +310,18 @@ _INT8_VARIANTS = [(5120, 5120), (5120, 1024), (5120, 27648), (27648, 5120), (409
 def test_osparse_matmul_variant_widths_bit_exact(gen, d, n_out, t):
     _check_osparse(gen, _int8_linear(gen, d, n_out), t, d, n_out, 8, 16)
 
+
+
+# Qwen3-30B-A3B's attention under W8A8: q 2048 -> 4096, k/v 2048 -> 512 and
+# o 4096 -> 2048, static and per-token, pruned and dense, at a chunk and a
+# decode step.
+_INT8_QWEN3 = [(2048, 4096), (2048, 512), (4096, 2048)]
+
+
+@pytest.mark.parametrize("t", [4, 256])
+@pytest.mark.parametrize("d,n_out", _INT8_QWEN3, ids=[f"{d}x{n}" for d, n in _INT8_QWEN3])
+def test_osparse_matmul_moe_attention_bit_exact(gen, d, n_out, t):
+    _check_osparse(gen, _int8_linear(gen, d, n_out), t, d, n_out, 8, 16)
 
 @pytest.mark.parametrize("n_out", _INT8_N)
 @pytest.mark.parametrize("t", _INT8_T)
