@@ -58,7 +58,17 @@ Phases (any failed check exits non-zero; no phase is skipped):
              an Amber scale (9a's probes) and 2:4 with none (9c's Naive
              run), and ``osparse_matmul`` at
              Qwen3-30B-A3B's attention (q/k/v/o at a chunk and a decode
-             step, q per-token; bit-exact), timed the same way.
+             step, q per-token; bit-exact), timed the same way.  2l: the
+             sliding-window band: ``paged_attention`` with ``window`` over
+             NaN-poisoned pools at ``tests/test_kernels.py``'s window case
+             (head_dim 16, the rows kernel, bf16 and float32) and at
+             Mixtral-8x7B's heads (G = 4, window 4096, 6144-row tables): a
+             256-row chunk at q_offset 4800 and a B = 4 decode around 5000,
+             bf16 on the wgmma kernel and float32 on the rows kernel, timed
+             beside their bounds and SDPA with the same band;
+             ``flash_attention`` at B = 1, T = 6144, window 4096;
+             ``nm_prune_matmul`` at Mixtral's q and ``nm_prune`` at its
+             routed experts' inputs (bit-exact).
 3. serve   — ``Engine.from_config`` at full LLaMA-3.1-8B width (32 layers,
              random weights from a seed, bfloat16) under the paper's
              policy with the kernels on: 8 staggered requests, 32 new tokens
@@ -207,12 +217,38 @@ Phases (any failed check exits non-zero; no phase is skipped):
              ``naive_policy(2, 4)``'s (224 ``nm_prune_matmul``).  9a': depth
              2, float32, kernel path against plain path: e within
              ``SCAN_RTOL``, identical skips, N:M flips per probe.
+10. Mixtral-8x7B and the dense slab — after phase 9 freed its models.
+             10a: ``Engine`` at full width (d_model 4096, 32 / 8 heads, 8
+             experts x d_ff 14336 top-2, window 4096), depth 16 of 32 (43.7
+             GiB of bf16; all 32 layers are 87 GiB, more than one card
+             holds), on the dense per-slot slab (its rings are never paged:
+             4 slots x 16 layers x 4096 rows, 1.0 GiB) under
+             ``paper_policy(8, 16, ())`` with the kernels: phase 3's 8
+             requests plus two of 4500-5000 tokens (their rings wrap), 32
+             new tokens each, chunk 256, max_seq 6144; every bucket
+             captured once, launches exact (per sparse chunk 16
+             ``nm_prune_matmul`` and 32 ``nm_prune``; no paged kernel: the
+             ring's attention and writes are plain torch, as the reference
+             computes them outside Pallas), tok/s and peak memory, a chunk at
+             4800 and a decode step profiled with the grouped product beside
+             the bound of its own routing, graphed tokens equal to the eager
+             programs'.  10b: one-shot ``generate`` with
+             ``attn_impl="flash"`` at B = 1, T = 6144 (``flash_attention``
+             with the window band, 16 a prefill) on the ring layout, 32 new
+             tokens, graphs captured once, tokens equal to the run without
+             graphs.  10c: depth 2, a 4600-token and a 300-token prompt,
+             kernel path against plain path: float32 greedy tokens
+             identical, bf16 logits within phase 4's gate.  10d:
+             LLaMA-3.1-8B ``--trace --no-paged`` through the CLI at full
+             width (phase 6a's stream without its shared prefix): its report
+             with ``# paged KV: disabled``, launches exact; then depth 2 in
+             float32: the slab's greedy tokens equal the paged pool's.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is
 its count in the run of the path that first served it (phase 3, 3b, 5 or
 7a); ``launches_by_run`` holds its count in each main-path run that
-launched it (3, 3b, 5, 7a, 7e, 9a, 9b and 9c's Naive run), each counted
+launched it (3, 3b, 5, 7a, 7e, 9a, 9b, 9c's Naive run, 10a and 10b), each counted
 from 0.  Exits non-zero without a
 CUDA device, and when run outside the repository (it needs ``src/``).
 """
@@ -604,12 +640,13 @@ def poisoned_pools(torch, kp, vp, tab, kvl):
     return kpn, vpn
 
 
-def paged_attention_times(torch, timer, rates, q, kpool, vpool, tab, qo, kvl, causal):
+def paged_attention_times(torch, timer, rates, q, kpool, vpool, tab, qo, kvl, causal,
+                          window=0):
     """One ``paged_attention`` case timed: the kernel, the plain version,
     SDPA on the gathered view (KV heads repeated to the query heads outside
-    the timed call) and the bound (each visible K/V row read once, q read
-    and the output written once; 4 hd operations a visible (query head,
-    key) pair)."""
+    the timed call, the same band mask) and the bound (each K/V row some
+    query sees read once, q read and the output written once; 4 hd
+    operations a visible (query head, key) pair)."""
     from repro_torch.kernels import paged_attention as kpa
 
     bw, bf16_peak = rates[0], rates[1]
@@ -617,15 +654,19 @@ def paged_attention_times(torch, timer, rates, q, kpool, vpool, tab, qo, kvl, ca
     b, tq, hq, hd = q.shape
     rows, bs, hkv = kpool.shape[:3]
     mb = tab.shape[1]
-    ms = timer.ms(lambda: kpa.paged_attention(q, kpool, vpool, tab, qo, kvl, causal=causal))
+    ms = timer.ms(lambda: kpa.paged_attention(q, kpool, vpool, tab, qo, kvl, causal=causal,
+                                              window=window))
     plain_ms = timer.ms(
-        lambda: kpa.paged_attention_plain(q, kpool, vpool, tab, qo, kvl, causal=causal), 5)
+        lambda: kpa.paged_attention_plain(q, kpool, vpool, tab, qo, kvl, causal=causal,
+                                          window=window), 5)
     s_len = mb * bs
     kpos = torch.arange(s_len, device=dev)
     qpos = qo.long()[:, None] + torch.arange(tq, device=dev)[None, :]
     mask = kpos[None, None, :] < kvl.long()[:, None, None]
     if causal:
         mask = mask & (kpos[None, None, :] <= qpos[:, :, None])
+    if window:
+        mask = mask & (kpos[None, None, :] > qpos[:, :, None] - window)
     kg = kpool[tab.long().clamp(0, rows - 1)].reshape(b, s_len, hkv, hd)
     vg = vpool[tab.long().clamp(0, rows - 1)].reshape(b, s_len, hkv, hd)
     qt = q.transpose(1, 2)
@@ -635,7 +676,7 @@ def paged_attention_times(torch, timer, rates, q, kpool, vpool, tab, qo, kvl, ca
     lib_ms = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=am))
     pairs = int(mask.sum()) * hq
-    nbytes = (2 * q.numel() + 2 * int(kvl.sum()) * hkv * hd) * 2
+    nbytes = (2 * q.numel() + 2 * int(mask.any(dim=1).sum()) * hkv * hd) * 2
     ops = 4 * hd * pairs
     bound = max(nbytes / bw, ops / bf16_peak) * 1e3
     by = "bytes" if nbytes / bw >= ops / bf16_peak else "operations"
@@ -1159,7 +1200,8 @@ def step_counts(bk, fused: bool):
     return sparse, decode_only, steps
 
 
-def serve_requests(torch, model, params, policy, label, eager=False, **serving):
+def serve_requests(torch, model, params, policy, label, eager=False, stream_fn=None,
+                   **serving):
     """8 staggered requests (64-700 prompt tokens, 32 new tokens each) through
     ``Engine.from_config`` after one warm-up request, with the launch counts
     set to 0 just before and read just after.  Every request must end
@@ -1168,14 +1210,19 @@ def serve_requests(torch, model, params, policy, label, eager=False, **serving):
     program directly (``step_program``), with no graph, for the token
     comparison.  ``serving``: more ``ContinuousConfig`` fields
     (``fused_step=False``: the legacy split's ``prefill`` and ``decode``
-    programs).  Returns (launches, per-path step counts with the stream's
-    prefill and decode tok/s and peak memory, engine, outputs)."""
+    programs).  ``stream_fn(vocab, **serving)``: another stream in
+    :func:`serving_stream`'s form.  Returns (launches, per-path step counts
+    with the stream's prefill and decode tok/s and peak memory, engine,
+    outputs)."""
     from repro_torch import kernels
     from repro_torch.kernels import osparse_matmul as kos
     from repro_torch.serve import Engine, EngineConfig
 
     cfg = model.cfg
-    rng, prompts, arrivals, new, scfg = serving_stream(torch, cfg.vocab_size, **serving)
+    if stream_fn is None:
+        rng, prompts, arrivals, new, scfg = serving_stream(torch, cfg.vocab_size, **serving)
+    else:
+        rng, prompts, arrivals, new, scfg = stream_fn(cfg.vocab_size, **serving)
     eng = Engine.from_config(model, EngineConfig(serving=scfg), policy=policy)
     if eager:       # the executor's step programs, each step run as it is
         eng.replica.exec._graphs.run = lambda name, fn, params: fn()
@@ -1235,10 +1282,11 @@ def serve_requests(torch, model, params, policy, label, eager=False, **serving):
     return launches, steps, eng, outputs
 
 
-def check_graphed_tokens(torch, model, params, policy, label, outputs):
+def check_graphed_tokens(torch, model, params, policy, label, outputs, stream_fn=None):
     """The graphed run's tokens against the same requests run through the
     executor's step programs eagerly: identical."""
-    _, _, eng, eager = serve_requests(torch, model, params, policy, label, eager=True)
+    _, _, eng, eager = serve_requests(torch, model, params, policy, label, eager=True,
+                                      stream_fn=stream_fn)
     del eng
     if eager != outputs:
         diff = [i for i, (a, b) in enumerate(zip(outputs, eager)) if a != b]
@@ -1552,15 +1600,17 @@ def check_trace_cli(torch, arch: str, label: str):
         "nm_spmm": 0, "flash_attention": 0, "osparse_matmul": 0})
 
 
-def profile_steps(torch, model, params, policy, eng):
-    """One sparse 256-token prefill chunk (at offset 256) and one dense
-    4-slot decode step at full width, through :func:`profile_cases`: each
-    eagerly through the model, and as the executor of ``eng`` runs it, a
+def profile_steps(torch, model, params, policy, eng, max_seq=1024, chunk_pos=256,
+                  decode_pos=(700, 500, 300, 100)):
+    """One sparse 256-token prefill chunk (at offset ``chunk_pos``) and one
+    dense 4-slot decode step (at ``decode_pos``) at full width, through
+    :func:`profile_cases`: each eagerly through the model (on a cache of
+    ``max_seq`` positions), and as the executor of ``eng`` runs it, a
     replay of the bucket's graph (``Executor.step``: operands in, replay,
-    sampling, one host read) on its own cache, with the same positions.
-    Returns (:func:`profile_cases`' results, per case a function that runs
-    its computation eagerly: a replay's program body on the same operands
-    and cache)."""
+    sampling, one host read) on its own cache (paged, or the dense slab),
+    with the same positions.  Returns (:func:`profile_cases`' results, per
+    case a function that runs its computation eagerly: a replay's program
+    body on the same operands and cache)."""
     from types import SimpleNamespace
 
     from repro_torch.core.policy import DENSE
@@ -1568,19 +1618,21 @@ def profile_steps(torch, model, params, policy, eng):
 
     cfg = model.cfg
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    pcache = model.init_cache(1, 1024)
-    pcache["pos"] = torch.tensor(256, dtype=torch.int32, device="cuda")
+    pcache = model.init_cache(1, max_seq)
+    pcache["pos"] = torch.tensor(chunk_pos, dtype=torch.int32, device="cuda")
     ptoks = torch.randint(0, cfg.vocab_size, (1, 256), generator=g, device="cuda")
-    dcache = model.init_cache(4, 1024)
-    dpos = torch.tensor([700, 500, 300, 100], dtype=torch.int32, device="cuda")
+    dcache = model.init_cache(4, max_seq)
+    dpos = torch.tensor(decode_pos, dtype=torch.int32, device="cuda")
     dcache["pos"] = dpos.clone()
     dtoks = torch.randint(0, cfg.vocab_size, (4, 1), generator=g, device="cuda")
     dense = DENSE.with_(use_kernels=True)
     ex = eng.replica.exec
-    slots, mb = ex.cache["block_table"].shape
-    ex.cache["block_table"].copy_(torch.arange(slots * mb, dtype=torch.int32,
-                                               device="cuda").reshape(slots, mb))
-    ppos = torch.tensor([256] + [0] * (slots - 1), dtype=torch.int32, device="cuda")
+    slots = ex.cache["pos"].shape[0]
+    if "block_table" in ex.cache:
+        mb = ex.cache["block_table"].shape[1]
+        ex.cache["block_table"].copy_(torch.arange(slots * mb, dtype=torch.int32,
+                                                   device="cuda").reshape(slots, mb))
+    ppos = torch.tensor([chunk_pos] + [0] * (slots - 1), dtype=torch.int32, device="cuda")
     prefill_plan = StepPlan(prefill=PrefillWork(
         SimpleNamespace(slot=0), ptoks.cpu().numpy().astype(np.int32), 256, False))
     decode_plan = StepPlan(decode=DecodeWork(
@@ -1598,7 +1650,7 @@ def profile_steps(torch, model, params, policy, eng):
         return ex._programs[plan.bucket](params, ex.cache, *ex._views())
 
     cases = {
-        "prefill chunk (256 tokens, paper policy), eager":
+        f"prefill chunk (256 tokens at {chunk_pos}, paper policy), eager":
             (lambda: model.prefill_chunk(params, {"tokens": ptoks}, pcache, policy=policy),
              None),
         "prefill chunk, step_prefill graph replay":
@@ -2286,8 +2338,6 @@ def phase_moe_serve(torch, rates):
     serves LLaMA-3.1-8B, launches exact, the replayed steps profiled with the
     grouped product's time beside its bound, graphed tokens against eager.
     Returns (launches, step counts and rates, model, params, policy)."""
-    from repro_torch.models import moe as moe_lib
-
     t0 = time.perf_counter()
     cfg, model, params, policy = qwen3_moe(torch)
     torch.cuda.synchronize()
@@ -2316,6 +2366,17 @@ def phase_moe_serve(torch, rates):
 
     print("phase 7b: profile one prefill chunk and one decode step of Qwen3-30B-A3B")
     results, eager = profile_steps(torch, model, params, policy, eng)
+    grouped_report(torch, cfg, results, eager, rates)
+    del eng
+    check_graphed_tokens(torch, model, params, policy, "phase 7a", outputs)
+    return launches, st, model, params, policy
+
+
+def grouped_report(torch, cfg, results, eager, rates):
+    """Each profiled case's grouped product beside the bound of its own
+    routing (:func:`grouped_bound`)."""
+    from repro_torch.models import moe as moe_lib
+
     # each case's routing, recorded in one more eager run of its computation:
     # the eager chunk attends over a zeroed cache, the replayed one over the
     # engine's K/V of earlier requests (which routes the random-weight
@@ -2346,9 +2407,6 @@ def phase_moe_serve(torch, rates):
               f"{res['busy_ms'] if res['busy_ms'] is None else round(res['busy_ms'], 3)} ms "
               f"(wall {res['wall_ms']:.3f}); its bound {bound:.3f} ms ({by}; {hit} experts "
               f"hit over {cfg.n_layers} layers, of {cfg.n_layers * cfg.n_experts})")
-    del eng
-    check_graphed_tokens(torch, model, params, policy, "phase 7a", outputs)
-    return launches, st, model, params, policy
 
 
 def moe_parity_stream(cfg):
@@ -3396,6 +3454,458 @@ def phase_skipping(torch, phase3):
     return {"9a": launches, "9b": served, "9c": act}
 
 
+# ------------------------------------------------- phase 2l: sliding windows
+
+MIXTRAL_WINDOW = 4096
+
+
+def phase_window_kernels(torch, timer, rates, records):
+    """2l: the sliding-window band.  ``paged_attention`` with ``window``
+    over NaN-poisoned pools, against its plain version: the shapes of
+    ``tests/test_kernels.py``'s window case (head_dim 16: the CUDA-core rows
+    kernel) in bf16 and float32, and Mixtral-8x7B's heads (32 / 8, G = 4,
+    head_dim 128, window 4096, blocks of 16 over a 6144-row table) on both
+    routes: a 256-row chunk at q_offset 4800 and a B = 4 decode around
+    position 5000 (bf16 on the wgmma kernel, float32 on the rows kernel);
+    the Mixtral cases timed beside their bounds and SDPA on the gathered
+    view with the same band.  ``flash_attention`` at B = 1, T = 6144, window
+    4096 with Mixtral's heads.  Then ``nm_prune_matmul`` at Mixtral's q
+    (4096 x 4096, T = 256) and ``nm_prune`` at its routed experts' gate
+    input (256 x 4096) and down input (512 x 14336: top-2), bit-exact."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import nm_prune as knp
+    from repro_torch.kernels import paged_attention as kpa
+
+    bw, bf16_peak = rates[0], rates[1]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    dev = "cuda"
+    i32 = dict(dtype=torch.int32, device=dev)
+    keep = functools.partial(keep_case, records)
+    w = MIXTRAL_WINDOW
+
+    print("phase 2l: paged_attention's window band, tests/test_kernels.py's case (q 3 x 8 x "
+          "4 x 16, blocks of 8, window 6), NaN-poisoned")
+    nb, bs_t = 10, 8
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(7)) + 1
+    tab = torch.full((3, 6), -1, dtype=torch.int32)
+    tab[0, :3], tab[1, :5], tab[2, :2] = perm[:3], perm[3:8], perm[7:9]
+    tab = tab.to(dev)
+    qo, kvl = torch.tensor([13, 30, 5], **i32), torch.tensor([21, 38, 13], **i32)
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        kp = torch.randn(nb, bs_t, 2, 16, generator=g, device=dev).to(dtype)
+        vp = torch.randn(nb, bs_t, 2, 16, generator=g, device=dev).to(dtype)
+        q = torch.randn(3, 8, 4, 16, generator=g, device=dev).to(dtype)
+        kpn, vpn = poisoned_pools(torch, kp, vp, tab, kvl)
+        route = kpa.attention_plan(dtype, 3, 8, 4, 2, 16, bs_t, 6, True, window=6)
+        err = check_close(f"window 6 {dtype} {route}",
+                          kpa.paged_attention(q, kpn, vpn, tab, qo, kvl, causal=True, window=6),
+                          kpa.paged_attention_plain(q, kpn, vpn, tab, qo, kvl, causal=True,
+                                                    window=6), tol)
+        records["paged_attention"]["max_abs_err"] = max(
+            records["paged_attention"]["max_abs_err"], err)
+
+    print(f"phase 2l: paged_attention, Mixtral-8x7B heads (32 / 8, hd 128), window {w}, "
+          "6144-row tables of 16-row blocks, NaN-poisoned")
+    bs, mb = 16, 6144 // 16
+    rows = 4 * mb + 1
+    perm = torch.randperm(4 * mb, generator=g, device=dev).to(torch.int32)
+    kp = torch.randn(rows, bs, 8, 128, generator=g, device=dev).bfloat16()
+    vp = torch.randn(rows, bs, 8, 128, generator=g, device=dev).bfloat16()
+    tabc = perm[:mb].reshape(1, mb).contiguous()
+    posd = torch.tensor([5000, 4990, 4500, 100], **i32)
+    tabd = torch.full((4, mb), -1, **i32)
+    for r in range(4):
+        need = -(-(int(posd[r]) + 1) // bs)
+        tabd[r, :need] = perm[r * mb:r * mb + need]
+    cases = (("chunk Tq=256 q_offset=4800", 1, 256, tabc, torch.tensor([4800], **i32),
+              torch.tensor([5056], **i32), True),
+             ("decode B=4 pos 5000/4990/4500/100", 4, 1, tabd, posd, posd + 1, False))
+    for case, b, tq, tab, qo, kvl, causal in cases:
+        kpn, vpn = poisoned_pools(torch, kp, vp, tab, kvl)
+        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+            q = torch.randn(b, tq, 32, 128, generator=g, device=dev).to(dtype)
+            kq, vq = kpn.to(dtype), vpn.to(dtype)
+            route = kpa.attention_plan(dtype, b, tq, 32, 8, 128, bs, mb, True, window=w)
+            want_route = "wgmma" if dtype == torch.bfloat16 else "rows"
+            if route[0] != want_route:
+                fail(f"paged_attention Mixtral {case} {dtype}: route {route}, expected "
+                     f"{want_route}")
+            err = check_close(f"Mixtral {case} {dtype} {route}",
+                              kpa.paged_attention(q, kq, vq, tab, qo, kvl, causal=causal,
+                                                  window=w),
+                              kpa.paged_attention_plain(q, kq, vq, tab, qo, kvl, causal=causal,
+                                                        window=w), tol)
+            if dtype == torch.float32:
+                keep("paged_attention", f"Mixtral window {case} float32 (rows)", err,
+                     route=list(route))
+                continue
+            t = paged_attention_times(torch, timer, rates, q, kp, vp, tab, qo, kvl, causal,
+                                      window=w)
+            print(f"  Mixtral {case} {route}: kernel {t['ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain {t['plain_ms']:.4f} ms, "
+                  f"SDPA on the gathered view (band mask) {t['library_ms']:.4f} ms; "
+                  f"kernel/library {t['ms'] / t['library_ms']:.2f}")
+            keep("paged_attention", f"Mixtral window {case}", err, route=list(route), **t)
+        del kpn, vpn
+
+    print(f"phase 2l: flash_attention B=1 T=6144 causal window {w}, Mixtral heads (32 / 8)")
+    t_len, hq, hkv, hd = 6144, 32, 8, 128
+    q = torch.randn(1, t_len, hq, hd, generator=g, device=dev).bfloat16()
+    k = torch.randn(1, t_len, hkv, hd, generator=g, device=dev).bfloat16()
+    v = torch.randn(1, t_len, hkv, hd, generator=g, device=dev).bfloat16()
+    err = check_close(f"T={t_len} window {w}", kfa.flash_attention(q, k, v, window=w),
+                      kfa.flash_attention_plain(q, k, v, window=w), BF16_TOL)
+    ms = timer.ms(lambda: kfa.flash_attention(q, k, v, window=w))
+    plain_ms = timer.ms(lambda: kfa.flash_attention_plain(q, k, v, window=w), 3)
+    qpos = torch.arange(t_len, device=dev)
+    band = (qpos[None, :] <= qpos[:, None]) & (qpos[None, :] > qpos[:, None] - w)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib_ms = timer.ms(lambda: sdpa(qt, kt, vt, attn_mask=band, enable_gqa=True))
+    pairs = hq * int(band.sum())
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    ops = 4 * hd * pairs
+    bound = max(nbytes / bw, ops / bf16_peak) * 1e3
+    by = "bytes" if nbytes / bw >= ops / bf16_peak else "operations"
+    print(f"  T={t_len} window {w}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), plain "
+          f"{plain_ms:.4f} ms, SDPA (band mask, GQA) {lib_ms:.4f} ms; kernel/library "
+          f"{ms / lib_ms:.2f}, bound/kernel {bound / ms:.3f}")
+    keep("flash_attention", f"Mixtral T={t_len} window {w}", err, ms=ms, plain_ms=plain_ms,
+         library_ms=lib_ms, bound_ms=bound, bound_by=by)
+    del q, k, v, qt, kt, vt, band
+
+    print("phase 2l: nm_prune_matmul at Mixtral's q (T=256, 8:16) and nm_prune at its "
+          "routed experts' inputs (no scale, bit-exact)")
+    time_nm_prune_matmul(torch, timer, rates, g, keep, "Mixtral-8x7B q", 4096, 4096, 256,
+                         False)
+    n, m = 8, 16
+    for name, t, d in (("Mixtral expert gate input", 256, 4096),
+                       ("Mixtral expert down input", 512, 14336)):
+        x = torch.randn(t, d, generator=g, device=dev).bfloat16()
+        got, want = knp.nm_prune(x, None, n, m), knp.nm_prune_plain(x, None, n, m)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"nm_prune {name}: kernel and plain version differ")
+        ms = timer.ms(lambda: knp.nm_prune(x, None, n, m))
+        plain_ms = timer.ms(lambda: knp.nm_prune_plain(x, None, n, m), 5)
+        copy_ms = timer.ms(x.clone)
+        bound = 2 * x.numel() * 2 / bw * 1e3
+        print(f"  {name} T={t} D={d}: bit-exact; kernel {ms:.4f} ms, bound {bound:.4f} ms "
+              f"(bytes), plain {plain_ms:.4f} ms, x.clone() {copy_ms:.4f} ms")
+        keep("nm_prune", name, 0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+             bound_ms=bound, bound_by="bytes")
+
+
+# --------------------------------------------- phase 10: Mixtral and the slab
+
+MIXTRAL_DEPTH = 16
+# phase 10's sizes: the slab's and the one-shot prompt's max_seq, the long
+# requests' lengths (past the 4096-row ring), the profiled chunk's offset and
+# decode positions (the ring wrapped), and 10c's prompt lengths
+MIXTRAL_SEQ = 6144
+MIXTRAL_LONG = (4500, 5000)
+MIXTRAL_PROFILE = (4800, (5000, 4990, 4500, 100))
+MIXTRAL_PARITY_LENS = (4600, 300)
+
+
+def mixtral(torch, n_layers=MIXTRAL_DEPTH, seed=SEED, dtype=None):
+    """Mixtral-8x7B at full width (depth ``n_layers`` and dtype optionally
+    changed), random weights from ``seed`` made on the card, the paper's
+    policy with the kernels on and the Amber scales (q_proj's: the routed
+    experts get none)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.core.pruner import precompute_scales
+    from repro_torch.models import build_model
+
+    cfg = get_config("mixtral_8x7b")
+    cfg = dataclasses.replace(cfg, n_layers=n_layers, dtype=dtype or cfg.dtype)
+    model = build_model(cfg)
+    params = model.init(seed)
+    policy = paper_policy(8, 16, cfg.qgate_skip_layers).with_(use_kernels=True)
+    precompute_scales(params, policy)
+    return cfg, model, params, policy
+
+
+def mixtral_stream(vocab, **serving):
+    """Phase 3's 8 seeded requests plus two of 4500-5000 tokens, so that
+    their rings wrap, 32 new tokens each; 4 slots, chunk 256, max_seq 6144
+    (:func:`serving_stream`'s form)."""
+    from repro_torch.serve import ContinuousConfig
+
+    rng = np.random.default_rng(SEED)
+    prompts = (make_requests(rng, 8, 64, 700, vocab)
+               + make_requests(rng, 2, *MIXTRAL_LONG, vocab))
+    arrivals = [0, 0, 1, 2, 4, 6, 9, 12, 3, 14]
+    return rng, prompts, arrivals, 32, ContinuousConfig(
+        num_slots=4, chunk_size=256, max_seq=MIXTRAL_SEQ, **serving)
+
+
+def phase_mixtral_serve(torch, rates):
+    """10a: Mixtral-8x7B at full width, depth 16, continuous on the dense
+    slab (its rings are never paged), launches exact, graphed tokens equal
+    to the eager programs', the replayed chunk (at 4800, the ring wrapped)
+    and decode step profiled with the grouped product beside the bound of
+    the step's own routing.  Returns (launches, step counts and rates,
+    model, params, policy)."""
+    t0 = time.perf_counter()
+    cfg, model, params, policy = mixtral(torch)
+    torch.cuda.synchronize()
+    n_w = sum(p.numel() for p in params.parameters())
+    full = dataclasses.replace(cfg, n_layers=32).n_params()
+    print(f"phase 10a: serve {cfg.name} at full width, depth {cfg.n_layers} of 32 (d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.n_experts} experts "
+          f"top-{cfg.top_k}, moe_d_ff {cfg.moe_d_ff}, window {cfg.window}, {cfg.dtype}) on the "
+          f"dense slab, paper_policy(8, 16, {cfg.qgate_skip_layers}) with the kernels")
+    print(f"  random weights: {n_w / 1e9:.3f}B parameters (n_params {cfg.n_params() / 1e9:.3f}B;"
+          f" all 32 layers {full / 1e9:.3f}B = {full * 2 / 2**30:.1f} GiB in bf16, more than "
+          f"one 80 GB card holds) in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
+    fused, routed = prune_launches(cfg, policy)
+    if (fused, routed) != (cfg.n_layers, 2 * cfg.n_layers):
+        fail(f"phase 10a: the paper policy prunes {fused} projections and {routed} expert "
+             f"inputs per chunk, expected {cfg.n_layers} (q) and {2 * cfg.n_layers}")
+    launches, st, eng, outputs = serve_requests(torch, model, params, policy, "phase 10a",
+                                                stream_fn=mixtral_stream)
+    ex = eng.replica.exec
+    slab = sum(leaf.numel() * leaf.element_size() for layer in ex.cache["layers"]
+               for leaf in layer.values())
+    print(f"  the slab: {tuple(ex.cache['layers'][0]['k'].shape)} K and V a layer, "
+          f"{slab / 2**30:.3f} GiB; metrics paged {eng.replica.metrics['paged']}")
+    if ex.paged or "block_table" in ex.cache or eng.replica.metrics["paged"] != {
+            "enabled": False}:
+        fail("phase 10a: Mixtral was served on the paged pool")
+    check_launches("phase 10a", launches, {
+        "nm_prune_matmul": fused * st["sparse_chunks"], "nm_prune": routed * st["sparse_chunks"],
+        "paged_kv_scatter": 0, "paged_attention": 0, "nm_spmm": 0, "flash_attention": 0,
+        "osparse_matmul": 0})
+    print(f"  launches held: per sparse chunk nm_prune_matmul {fused} (q_proj), nm_prune "
+          f"{routed} (expert gate and down inputs); the ring's attention and writes are plain "
+          "torch (no paged kernel)")
+    chunk_pos, decode_pos = MIXTRAL_PROFILE
+    print(f"phase 10a: profile one prefill chunk (at {chunk_pos}: the ring wrapped) and one "
+          "decode step of Mixtral-8x7B")
+    results, eager = profile_steps(torch, model, params, policy, eng, max_seq=MIXTRAL_SEQ,
+                                   chunk_pos=chunk_pos, decode_pos=decode_pos)
+    grouped_report(torch, cfg, results, eager, rates)
+    del eng, ex
+    check_graphed_tokens(torch, model, params, policy, "phase 10a", outputs,
+                         stream_fn=mixtral_stream)
+    return launches, st, model, params, policy
+
+
+def phase_mixtral_oneshot(torch, model, params, policy):
+    """10b: ``ServingEngine.generate`` of Mixtral-8x7B (10a's weights) with
+    ``attn_impl="flash"`` at B = 1, T = 6144 (past the window: the flash
+    kernel's band) and 32 new tokens on the ring layout: the prefill and
+    decode graphs captured once, launches exact (per prefill 16
+    ``flash_attention``, 16 ``nm_prune_matmul``, 32 ``nm_prune``; no paged
+    kernel), tokens equal to the same run without graphs.  Returns the
+    launches of the timed run."""
+    from repro_torch import kernels
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeConfig, ServingEngine
+
+    cfg = dataclasses.replace(model.cfg, attn_impl="flash")
+    mflash = build_model(cfg)
+    t_len, new = MIXTRAL_SEQ, 32
+    prompts = torch.from_numpy(np.random.default_rng(SEED + 10).integers(
+        0, cfg.vocab_size, size=(1, t_len))).cuda()
+    print(f"phase 10b: one-shot {cfg.name} depth {cfg.n_layers}, attn_impl=flash, B=1, "
+          f"T={t_len}, {new} new tokens, ring of {min(cfg.window, t_len + new)} rows")
+    eng = ServingEngine(mflash, policy, ServeConfig(max_seq=t_len + new))
+    eng.generate(params, {"tokens": prompts}, max_new_tokens=2)          # capture
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    toks, pf_s, dec_s = timed_generate(torch, eng, params, prompts, new)
+    launches = kernels.launch_counts()
+    # timed_generate runs two generates: 1 + new tokens, two prefills
+    check_launches("phase 10b", launches, {
+        "flash_attention": 2 * cfg.n_layers, "nm_prune_matmul": 2 * cfg.n_layers,
+        "nm_prune": 2 * 2 * cfg.n_layers, "paged_kv_scatter": 0, "paged_attention": 0,
+        "nm_spmm": 0, "osparse_matmul": 0})
+    traces = eng.trace_counts
+    if any(n != 1 for n in traces.values()):
+        fail(f"phase 10b: trace_counts {traces}: each program must be captured once")
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail("phase 10b: a token outside the vocabulary")
+    cache = eng._state[1]["cache"]
+    if "block_table" in cache or cache["layers"][0]["k"].shape[1] != cfg.window:
+        fail("phase 10b: the one-shot cache is not the ring layout")
+    print(f"  trace_counts {traces}; launches {launches}")
+    print(f"  prefill {t_len} tokens in {pf_s:.3f} s = {t_len / pf_s:.1f} tok/s; decode "
+          f"{new - 1} steps in {dec_s:.3f} s = {(new - 1) / dec_s:.1f} tok/s; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+    eager = ServingEngine(mflash, policy, ServeConfig(max_seq=t_len + new))
+    eager._graphs.run = lambda name, fn, params: fn()
+    want = eager.generate(params, {"tokens": prompts}, max_new_tokens=new)["tokens"]
+    if not torch.equal(toks, want):
+        fail("phase 10b: graphed tokens differ from the eager run's")
+    print(f"  tokens {toks[0, :8].tolist()}...: identical to the same generate without graphs")
+    del eng, eager
+    return launches
+
+
+def greedy_ring(torch, mdl, prm, pol, prompt, new, max_seq):
+    """One prompt through 256-token chunks under ``pol`` into a fresh cache
+    (the ring), then ``new`` greedy decode steps under DENSE (with ``pol``'s
+    kernel switch), eagerly: (tokens, last-chunk logits)."""
+    from repro_torch.core.policy import DENSE
+
+    cache = mdl.init_cache(1, max_seq)
+    for s in range(0, len(prompt), 256):
+        chunk = torch.from_numpy(prompt[s:s + 256][None, :]).cuda()
+        lg, cache = mdl.prefill_chunk(prm, {"tokens": chunk}, cache, policy=pol)
+    first, out = lg, []
+    dense = DENSE.with_(use_kernels=pol.use_kernels)
+    for _ in range(new):
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+        out.append(int(tok[0, 0]))
+        lg, cache = mdl.decode_step(prm, tok, cache, policy=dense)
+    return out, first
+
+
+def phase_mixtral_parity(torch):
+    """10c: Mixtral-8x7B at full width, depth 2: the kernel path against the
+    plain path (``nm_prune_matmul``'s and ``nm_prune``'s plain versions, the
+    per-expert loop; eager, as 7c), on a 4600-token prompt (past the window:
+    its ring wraps) and a 300-token one, in 256-token chunks and 8 greedy
+    decode steps.  float32: identical greedy tokens; the last-chunk logits'
+    distance is printed, not checked (the kernel GEMM's summation order
+    flips N:M selections, as in phase 4, and here also near-tied routes of
+    the next layer's router, which moves a logit by more than phase 4's 2%:
+    0.107 of 4.4 on the 300-token prompt); bf16: each prompt's last-chunk
+    logits within BF16_E2E_FACTOR times the plain path's own bf16 effect
+    (:func:`check_bf16_logits`), greedy agreement printed."""
+    from repro_torch.models import build_model
+
+    rng = np.random.default_rng(SEED + 12)
+    for dtype in ("float32", "bfloat16"):
+        print(f"phase 10c: Mixtral-8x7B kernel path vs plain path, full width, depth 2, {dtype}")
+        cfg, model, params, policy = mixtral(torch, n_layers=2, seed=SEED + 1, dtype=dtype)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                   for n in MIXTRAL_PARITY_LENS]
+        plain = policy.with_(use_kernels=False)
+
+        def run(mdl, prm, pol):
+            toks, logits = [], []
+            for p in prompts:
+                t, lg = greedy_ring(torch, mdl, prm, pol, p, 8, MIXTRAL_SEQ)
+                toks.append(t)
+                logits.append(lg)
+            return toks, logits
+
+        got, got_logits = run(model, params, policy)
+        want, want_logits = run(model, params, plain)
+        print(f"  prompts {[len(p) for p in prompts]}: kernel path {got}")
+        if dtype == "float32":
+            for i, (a, b) in enumerate(zip(got_logits, want_logits)):
+                print(f"  prompt {i} last-chunk logits (reported, not checked): max_abs_err "
+                      f"{float((a - b).abs().max()):.3e}, largest |logit| "
+                      f"{float(b.abs().max()):.3e}")
+            if got != want:
+                fail(f"phase 10c: greedy tokens differ: kernel {got} vs plain {want}")
+            print("  greedy tokens identical")
+        else:
+            model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+            _, ref_logits = run(model32, copy.deepcopy(params).float(), plain)
+            check_bf16_logits(got_logits, want_logits, ref_logits)
+            margins = []
+            for b in want_logits:
+                top2 = torch.topk(b[0].float(), 2).values
+                margins.append(float(top2[0] - top2[1]))
+            report_bf16_agreement(got, want, margins)
+            del model32
+        del model, params
+        torch.cuda.empty_cache()
+
+
+def phase_slab_cli(torch):
+    """10d: LLaMA-3.1-8B on the dense slab through the CLI at full width
+    (``--no-paged`` with phase 6a's stream, without the shared prefix, which
+    the slab does not reuse): rc 0, ``# paged KV: disabled``, every program
+    captured once, one program per work iteration, all 16 requests done,
+    launches exact (``nm_prune_matmul`` per sparse chunk; no paged kernel).
+    Then LLaMA-3.1-8B at depth 2 in float32: the slab's greedy tokens equal
+    the paged pool's on phase 4's requests."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.models import build_model
+    from repro_torch.serve import ContinuousConfig, Engine, EngineConfig
+
+    flags = list(TRACE_FLAGS)
+    i = flags.index("--shared-prefix")
+    del flags[i:i + 2]
+    out, launches, met = run_cli(torch, ["--arch", "llama31_8b", "--no-paged"] + flags,
+                                 "phase 10d")
+    lines = out.splitlines()
+    for line in lines:
+        if line.startswith(("# throughput", "# latency", "# traces", "# dispatches",
+                            "# terminal", "# paged", "# prefix")):
+            print(f"  {line}")
+    traces = next(line for line in lines if line.startswith("# traces:"))
+    if any(n != "1" for _, n in re.findall(r"(\w+)=(\d+)", traces.split("(")[0])):
+        fail(f"phase 10d: {traces}: every program must be captured once")
+    n_req = flags[flags.index("--num-requests") + 1]
+    if ("# paged KV: disabled (dense per-slot slab)" not in out
+            or "1.00 per work iteration" not in out or f"done={n_req} " not in out
+            or met.paged.enabled):
+        fail("phase 10d: the slab's report is wrong")
+    _, _, st = step_counts(met.buckets, fused=True)
+    cfg = get_config("llama31_8b")
+    fused, _ = prune_launches(cfg, paper_policy(8, 16, cfg.qgate_skip_layers))
+    check_launches("phase 10d", launches, {
+        "nm_prune_matmul": fused * st["sparse_chunks"], "paged_kv_scatter": 0,
+        "paged_attention": 0, "nm_spmm": 0, "flash_attention": 0, "osparse_matmul": 0})
+
+    print("phase 10d: LLaMA-3.1-8B depth 2 float32, the slab against the paged pool")
+    cfg = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(SEED + 1)
+    policy = paper_policy(8, 16, cfg.qgate_skip_layers).with_(use_kernels=True)
+    rng = np.random.default_rng(SEED + 1)
+    prompts = make_requests(rng, 3, 64, 600, cfg.vocab_size)
+    outs = {}
+    for paged in (True, False):
+        eng = Engine.from_config(model, EngineConfig(serving=ContinuousConfig(
+            num_slots=2, chunk_size=256, max_seq=640, paged=paged)), policy=policy)
+        for p, a in zip(prompts, [0, 1, 3]):
+            eng.submit(p, max_new_tokens=8, arrival=a)
+        outs[paged] = eng.run(params)["outputs"]
+        del eng
+    print(f"  paged {outs[True]}; slab {outs[False]}")
+    if outs[True] != outs[False]:
+        fail("phase 10d: the slab's greedy tokens differ from the paged pool's")
+    print("  greedy tokens identical")
+    del model, params
+
+
+def phase_mixtral(torch, rates):
+    """Phase 10: Mixtral-8x7B and the dense slab, after phase 9 freed its
+    models.  Returns the launches of 10a and 10b, by run."""
+    free_device(torch, "before phase 10 (phase 9 freed)")
+    seconds = {}
+    t0 = time.perf_counter()
+    launches, _, model, params, policy = phase_mixtral_serve(torch, rates)
+    seconds["10a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one_shot = phase_mixtral_oneshot(torch, model, params, policy)
+    del model, params
+    free_device(torch, "after 10b")
+    seconds["10b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_mixtral_parity(torch)
+    free_device(torch, "after 10c")
+    seconds["10c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_slab_cli(torch)
+    free_device(torch, "after 10d")
+    seconds["10d"] = time.perf_counter() - t0
+    print(f"phase 10 seconds: {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}")
+    return {"10a": launches, "10b": one_shot}
+
+
 def main() -> int:
     import torch
 
@@ -3440,6 +3950,7 @@ def main() -> int:
     phase_grouped_product(torch, timer, rates)
     phase_variant_kernels(torch, timer, rates, records)
     phase_skipping_kernels(torch, timer, rates, records)
+    phase_window_kernels(torch, timer, rates, records)
     del timer
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
@@ -3468,11 +3979,14 @@ def main() -> int:
     t10 = time.perf_counter()
     s_launches = phase_skipping(torch, phase3)
     t11 = time.perf_counter()
+    x_launches = phase_mixtral(torch, rates)
+    t12 = time.perf_counter()
     print(f"phase seconds: build {t1 - t:.1f}, kernels {t2 - t1:.1f}, serve {t3 - t2:.1f}, "
           f"serve osparse {t4 - t3b:.1f}, parity {t5 - t4:.1f}, one-shot serve {t6 - t5:.1f}, "
           f"one-shot parity {t7 - t6:.1f}, serve CLI and serving lifecycle "
           f"{t8 - t7 + t3b - t3:.1f} (6b-6e {t3b - t3:.1f}, 6a and 6f {t8 - t7:.1f}), "
-          f"MoE {t9 - t8:.1f}, dense variants {t10 - t9:.1f}, layer skipping {t11 - t10:.1f}")
+          f"MoE {t9 - t8:.1f}, dense variants {t10 - t9:.1f}, layer skipping {t11 - t10:.1f}, "
+          f"Mixtral and the slab {t12 - t11:.1f}")
 
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import nm_prune as knp
@@ -3483,11 +3997,11 @@ def main() -> int:
     from repro_torch.kernels import w8a8_matmul as kw8
     # launches: each kernel's count in the run of the path that first served
     # it (phase 3, 3b, 5 or 7a); launches_by_run: its count in each main-path
-    # run, each counted from 0, that launched it; phases 6a and 7d's CLI runs
-    # drive phase 3's and 7a's kernels again and print their own counts;
+    # run, each counted from 0, that launched it; phases 6a, 7d and 10d's CLI
+    # runs drive phase 3's and 7a's kernels again and print their own counts;
     # w8a8_matmul is an entry point that no serving path calls
     runs = {"3": launches, "3b": q_launches, "5": o_launches, "7a": m_launches,
-            "7e": mq_launches, **s_launches}
+            "7e": mq_launches, **s_launches, **x_launches}
     meta = {
         "nm_prune_matmul": (knm.SOURCE, knm.REPLACES, "3"),
         "paged_kv_scatter": (kpa.SOURCE, kpa.SCATTER_REPLACES, "3"),

@@ -41,8 +41,14 @@
 // (the NaN fence: unwritten pool rows must never reach the P.V product),
 // maps query head h to KV head h / (Hq / Hkv), and runs the float32 online
 // softmax whose fully-masked rows come out as zeros (l clamped at 1e-20).
-// No sliding-window band (the TPU kernel's `window`): it comes with the
-// sliding-window models.  Bound on the H100: bytes (every visible K/V row
+// With window > 0 (the TPU kernel's `window`) a key is visible to query
+// position q only if k > q - window: the walk starts at the first key tile
+// or block that reaches the band of the query tile's lowest position (the
+// tiles below it are never loaded, as _block_visible skips them), edge
+// tiles mask the band per score, and a split walk splits the band, not the
+// table (the last split takes whatever the band leaves; a split with no
+// key writes (max -1e30, sum 0, O 0), which the merge weighs at 0).
+// Bound on the H100: bytes (every visible K/V row
 // read once) for decode and for the serving path's 256-token chunks (0.002
 // ms at 3.35 TB/s); what a call costs beyond that is latency: a row's key
 // tiles are walked in order.  Two paths, chosen by the wrapper's plan
@@ -226,8 +232,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                        const T* __restrict__ vp, const int* __restrict__ table,
                        const int* __restrict__ q_offset, const int* __restrict__ kv_len,
                        T* __restrict__ out, int Tq, int Hq, int Hkv, int hd, int bs,
-                       int mb, int n_rows, int causal, float scale, int ki_per_split,
-                       float* __restrict__ part) {
+                       int mb, int n_rows, int causal, int window, float scale,
+                       int ki_per_split, float* __restrict__ part) {
   __shared__ float ks[KT * MAX_HD];
   __shared__ float vs[KT * MAX_HD];
   const int kvh = blockIdx.y, b = blockIdx.z;
@@ -237,10 +243,13 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   // split mode: blockIdx.x picks a range of logical blocks, not a row tile
   const bool split = part != nullptr;
   const int tile0 = split ? 0 : blockIdx.x * ROWS;
-  const int ki_lo = split ? blockIdx.x * ki_per_split : 0;
-  const int ki_hi = split ? min(mb, ki_lo + ki_per_split) : mb;
   const int t_hi = min(Tq - 1, (tile0 + ROWS - 1) / G);
   const int q_hi = qoff + t_hi;                 // last query position of the tile
+  // the band's first block: keys below the tile's lowest query position
+  // less the window are visible to no row of the tile
+  const int ki_base = window > 0 ? max(0, qoff + tile0 / G - window + 1) / bs : 0;
+  const int ki_lo = split ? ki_base + blockIdx.x * ki_per_split : ki_base;
+  const int ki_hi = split && blockIdx.x + 1 < gridDim.x ? min(mb, ki_lo + ki_per_split) : mb;
 
   float qv[ROWS_PER_WARP][DPL], acc[ROWS_PER_WARP][DPL];
   float m_i[ROWS_PER_WARP], l_i[ROWS_PER_WARP];
@@ -293,7 +302,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
             }
             const float sc = warp_sum(dot);
             const int kpos = kbase + j;
-            const bool ok = kpos < kvl && (!causal || kpos <= qpos[rr]);
+            const bool ok = kpos < kvl && (!causal || kpos <= qpos[rr]) &&
+                            (window <= 0 || kpos > qpos[rr] - window);
             s[j] = ok ? sc : NEG;
           } else {
             s[j] = NEG;
@@ -394,14 +404,15 @@ template <typename T>
 int launch_attention(const void* q, const void* kp, const void* vp, const int* table,
                      const int* q_offset, const int* kv_len, void* out, int B, int Tq,
                      int Hq, int Hkv, int hd, int bs, int mb, int n_rows, int causal,
-                     float scale, int n_split, float* part, void* stream) {
+                     int window, float scale, int n_split, int per, float* part,
+                     void* stream) {
   const int G = Hq / Hkv;
   cudaStream_t s = (cudaStream_t)stream;
   if (n_split > 1 && part != nullptr && Tq * G <= ROWS) {
-    const int per = (mb + n_split - 1) / n_split;
+    if (per < 1) return (int)cudaErrorInvalidValue;
     paged_attention_kernel<T><<<dim3(n_split, Hkv, B), WARPS * 32, 0, s>>>(
         (const T*)q, (const T*)kp, (const T*)vp, table, q_offset, kv_len, (T*)out,
-        Tq, Hq, Hkv, hd, bs, mb, n_rows, causal, scale, per, part);
+        Tq, Hq, Hkv, hd, bs, mb, n_rows, causal, window, scale, per, part);
     const int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
     paged_attention_combine_kernel<T><<<dim3(Hkv, B), WARPS * 32, 0, s>>>(
@@ -411,7 +422,7 @@ int launch_attention(const void* q, const void* kp, const void* vp, const int* t
   dim3 grid((Tq * G + ROWS - 1) / ROWS, Hkv, B);
   paged_attention_kernel<T><<<grid, WARPS * 32, 0, s>>>(
       (const T*)q, (const T*)kp, (const T*)vp, table, q_offset, kv_len, (T*)out,
-      Tq, Hq, Hkv, hd, bs, mb, n_rows, causal, scale, mb, nullptr);
+      Tq, Hq, Hkv, hd, bs, mb, n_rows, causal, window, scale, mb, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -439,7 +450,7 @@ paged_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
                    const int* __restrict__ q_offset, const int* __restrict__ kv_len,
                    bf16* __restrict__ out, float* __restrict__ part, int* __restrict__ tickets,
                    int Tq, int Hq, int Hkv, int bs, int mb, int n_rows, int causal,
-                   float scale_log2, int nt, int per) {
+                   int window, float scale_log2, int nt, int per) {
   using L = PagedSmem<HD>;
   using namespace hopper;
   constexpr int CH = L::CH;
@@ -456,11 +467,15 @@ paged_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
   const int kvh = blockIdx.z % Hkv, b = blockIdx.z / Hkv;
   const int t0 = qt * nt;
   const int qoff = q_offset[b], kvl = max(kv_len[b], 0);
+  const int qpos_top = qoff + min(Tq, t0 + nt) - 1;      // the tile's last query position
   // this block's key tiles: split `split` of the tiles below kv_len and,
-  // causal, below the tile's last query position
-  const int k_end = causal ? min(kvl, qoff + min(Tq, t0 + nt)) : kvl;
-  const int kt0 = split * per;
-  const int n_tiles = max(0, min((k_end + PK - 1) / PK, kt0 + per) - kt0);
+  // causal, below the tile's last query position; with a window, from the
+  // first tile that reaches the band of the tile's first query position
+  // (the last split takes the rest of the walk)
+  const int k_end = causal ? min(kvl, qpos_top + 1) : kvl;
+  const int kt_end = (k_end + PK - 1) / PK;
+  const int kt0 = (window > 0 ? max(0, qoff + t0 - window + 1) / PK : 0) + split * per;
+  const int n_tiles = max(0, (split + 1 < n_split ? min(kt_end, kt0 + per) : kt_end) - kt0);
   const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -589,7 +604,8 @@ paged_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
     // online softmax in the log2 domain, as flash_attention.cu: a hidden
     // key's score becomes -inf (its weight exactly 0) on edge tiles only —
     // an unreadable key, or the causal diagonal
-    const bool edge = km != ~0ull || (causal && k0 + PK - 1 > qpos_lo);
+    const bool band = window > 0 && k0 <= qpos_top - window;
+    const bool edge = km != ~0ull || (causal && k0 + PK - 1 > qpos_lo) || band;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       if (edge) {
@@ -598,7 +614,8 @@ paged_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int kj = 8 * j + qd + e;
-            if (!((km >> kj) & 1ull) || (causal && k0 + kj > qpos[hr]))
+            if (!((km >> kj) & 1ull) || (causal && k0 + kj > qpos[hr]) ||
+                (band && k0 + kj <= qpos[hr] - window))
               sc[4 * j + 2 * hr + e] = -INFINITY;
           }
       }
@@ -815,7 +832,7 @@ template <int HD>
 int launch_wgmma(const void* q, const void* kp, const void* vp, const int* table,
                  const int* q_offset, const int* kv_len, void* out, float* part, int* tickets,
                  int B, int Tq, int Hq, int Hkv, int bs, int mb, int n_rows, int causal,
-                 float scale, int nt, int n_split, int per, cudaStream_t s) {
+                 int window, float scale, int nt, int n_split, int per, cudaStream_t s) {
   using L = PagedSmem<HD>;
   const int G = Hq / Hkv;
   CUtensorMap qm, om, km, vm;
@@ -830,7 +847,8 @@ int launch_wgmma(const void* q, const void* kp, const void* vp, const int* table
   dim3 grid(n_split, (Tq + nt - 1) / nt, B * Hkv);
   paged_wgmma_kernel<HD><<<grid, P_THREADS, L::BYTES, s>>>(
       qm, km, vm, om, table, q_offset, kv_len, (bf16*)out, n_split > 1 ? part : nullptr,
-      tickets, Tq, Hq, Hkv, bs, mb, n_rows, causal, scale * 1.4426950408889634f, nt, per);
+      tickets, Tq, Hq, Hkv, bs, mb, n_rows, causal, window, scale * 1.4426950408889634f, nt,
+      per);
   return (int)cudaGetLastError();
 }
 
@@ -864,7 +882,8 @@ extern "C" int paged_kv_scatter(const void* k_new, const void* v_new, void* k_po
 }
 
 // The wgmma path (the wrapper's plan says when): query tiles of `nt`
-// tokens, the key tiles of a row walked in `n_split` splits of `per` tiles.
+// tokens, the key tiles of a row (of its window band when window > 0)
+// walked in `n_split` splits of `per` tiles.
 // With n_split > 1, `part` is float32 scratch of (B * Hkv * ceil(Tq / nt)) *
 // n_split * 64 * (hd + 2) floats and `tickets` int32 counters, one per query
 // tile, that are 0 at launch and 0 again after it.
@@ -872,42 +891,45 @@ extern "C" int paged_attention_wgmma_bf16(const void* q, const void* k_pool, con
                                           const int* table, const int* q_offset,
                                           const int* kv_len, void* out, void* part,
                                           int* tickets, int B, int Tq, int Hq, int Hkv, int hd,
-                                          int bs, int mb, int n_rows, int causal, float scale,
-                                          int nt, int n_split, int per, void* stream) {
+                                          int bs, int mb, int n_rows, int causal, int window,
+                                          float scale, int nt, int n_split, int per,
+                                          void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n_split > MAX_SPLITS || (n_split > 1 && (part == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (hd == 128)
     return launch_wgmma<128>(q, k_pool, v_pool, table, q_offset, kv_len, out, (float*)part,
-                             tickets, B, Tq, Hq, Hkv, bs, mb, n_rows, causal, scale, nt, n_split,
-                             per, s);
+                             tickets, B, Tq, Hq, Hkv, bs, mb, n_rows, causal, window, scale, nt,
+                             n_split, per, s);
   if (hd == 64)
     return launch_wgmma<64>(q, k_pool, v_pool, table, q_offset, kv_len, out, (float*)part,
-                            tickets, B, Tq, Hq, Hkv, bs, mb, n_rows, causal, scale, nt, n_split,
-                            per, s);
+                            tickets, B, Tq, Hq, Hkv, bs, mb, n_rows, causal, window, scale, nt,
+                            n_split, per, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // The CUDA-core path.  `n_split` > 1 and caller-allocated float32 scratch
-// `part` of B * Hkv * n_split * 16 * (2 + hd) floats split a one-tile walk.
+// `part` of B * Hkv * n_split * 16 * (2 + hd) floats split a one-tile walk
+// into ranges of `per` blocks (from the window band's first block when
+// window > 0; the last range takes the rest).
 extern "C" int paged_attention_bf16(const void* q, const void* k_pool, const void* v_pool,
                                     const int* table, const int* q_offset,
                                     const int* kv_len, void* out, int B, int Tq, int Hq,
                                     int Hkv, int hd, int bs, int mb, int n_rows,
-                                    int causal, float scale, int n_split, void* part,
-                                    void* stream) {
+                                    int causal, int window, float scale, int n_split,
+                                    int per, void* part, void* stream) {
   return launch_attention<bf16>(q, k_pool, v_pool, table, q_offset, kv_len, out, B, Tq,
-                                Hq, Hkv, hd, bs, mb, n_rows, causal, scale, n_split,
-                                (float*)part, stream);
+                                Hq, Hkv, hd, bs, mb, n_rows, causal, window, scale, n_split,
+                                per, (float*)part, stream);
 }
 
 extern "C" int paged_attention_f32(const void* q, const void* k_pool, const void* v_pool,
                                    const int* table, const int* q_offset,
                                    const int* kv_len, void* out, int B, int Tq, int Hq,
                                    int Hkv, int hd, int bs, int mb, int n_rows,
-                                   int causal, float scale, int n_split, void* part,
-                                   void* stream) {
+                                   int causal, int window, float scale, int n_split,
+                                   int per, void* part, void* stream) {
   return launch_attention<float>(q, k_pool, v_pool, table, q_offset, kv_len, out, B, Tq,
-                                 Hq, Hkv, hd, bs, mb, n_rows, causal, scale, n_split,
-                                 (float*)part, stream);
+                                 Hq, Hkv, hd, bs, mb, n_rows, causal, window, scale, n_split,
+                                 per, (float*)part, stream);
 }

@@ -16,8 +16,9 @@ before it (the model builds them once a step, before its first layer).
 ``paged_attention`` replaces ``repro/kernels/paged_attention.py:
 paged_attention_pallas``: attention of ``q (B, Tq, Hq, hd)`` over the paged
 pools.  It walks the table, skips ``-1`` blocks, masks by absolute
-position (``q_offset[b] + row`` against the key position, and
-``k_pos < kv_len[b]``), zeroes V rows past ``kv_len`` so unwritten pool
+position (``q_offset[b] + row`` against the key position,
+``k_pos < kv_len[b]`` and, with ``window > 0``, the sliding-window band
+``k_pos > q_pos - window``), zeroes V rows past ``kv_len`` so unwritten pool
 memory cannot reach the output, maps query head ``h`` to KV head
 ``h // (Hq // Hkv)``, and gives zeros for a fully masked row.  Any ``Tq``
 is served, decode's ``Tq = 1`` included.  ``csrc/paged_attention.cu`` says
@@ -26,8 +27,12 @@ what bounds each kernel on the H100 and how the design answers it;
 (GQA heads packed into its rows, K/V pages by TMA, the key walk split over
 blocks) for bf16 at head_dim 64/128 with a block size TMA can box and
 16-byte-aligned tensors, the CUDA-core kernel for everything else.  Shape
-routes between hand kernels, not fallbacks.  No sliding-window band: the
-JAX kernel's ``window`` comes with the sliding-window models.
+routes between hand kernels, not fallbacks.  With a window both kernels
+skip the key tiles or blocks that lie below every row's band (as the JAX
+kernel's ``_block_visible`` does) and split only the band's walk; a split
+left with no key of its own writes an empty partial state, which the merge
+weighs at zero.  No model path passes a window (sliding-window layers keep
+ring caches, outside the pool), as in the JAX package.
 
 Each wrapper runs its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  ``paged_kv_scatter.launches`` and
@@ -71,11 +76,12 @@ def _lib():
     lib.paged_kv_scatter.restype = ctypes.c_int
     for sym in _ATTN_SYMBOLS.values():
         fn = getattr(lib, sym)
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.paged_attention_wgmma_bf16.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
         + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.paged_attention_wgmma_bf16.restype = ctypes.c_int
     return lib
@@ -161,7 +167,7 @@ paged_kv_scatter.launches = 0
 # ---------------------------------------------------------------- attention
 
 def paged_attention_plain(q, k_pool, v_pool, block_table, q_offset, kv_len,
-                          causal: bool = True) -> torch.Tensor:
+                          causal: bool = True, window: int = 0) -> torch.Tensor:
     """Plain version: gather every table row's logical view, mask, and run
     one float32 softmax over all keys (-1e30 sentinel, guarded weights,
     ``l`` clamped at 1e-20 — the kernel's fully-masked-row semantics)."""
@@ -182,6 +188,8 @@ def paged_attention_plain(q, k_pool, v_pool, block_table, q_offset, kv_len,
     valid = live[:, None, :]                                   # (B, 1|Tq, S)
     if causal:
         valid = valid & (kpos[None, None, :] <= qpos[:, :, None])
+    if window > 0:
+        valid = valid & (kpos[None, None, :] > qpos[:, :, None] - window)
     qg = q.float().reshape(b, tq, hkv, g, hd) * hd**-0.5
     s = torch.einsum("bthgd,bshd->bhgts", qg, k)
     s = torch.where(valid[:, None, None], s, torch.full((), _NEG, device=q.device))
@@ -193,8 +201,8 @@ def paged_attention_plain(q, k_pool, v_pool, block_table, q_offset, kv_len,
 
 
 def attention_plan(dtype: torch.dtype, b: int, tq: int, hq: int, hkv: int, hd: int,
-                   bs: int, mb: int, aligned: bool,
-                   sms: int = _H100_SMS) -> tuple[str, int, int, int]:
+                   bs: int, mb: int, aligned: bool, sms: int = _H100_SMS,
+                   window: int = 0) -> tuple[str, int, int, int]:
     """The kernel for one call: ``(route, tokens per query tile, splits,
     walk per split)``, from the shapes alone (no device values: ``kv_len``
     stays on the card, so the split is sized by the table width ``mb`` and
@@ -214,6 +222,11 @@ def attention_plan(dtype: torch.dtype, b: int, tq: int, hq: int, hkv: int, hd: i
       row's query heads in one 16-row tile) over a table of at least 8
       blocks splits its walk into up to 32 ranges of ``per`` blocks, merged
       by a combine kernel.
+
+    With ``window > 0`` the walk is the band's: a query tile of ``nt``
+    tokens reaches at most ``window + nt - 1`` keys, whose first tile or
+    block the kernels find from ``q_offset`` on the card, so splits and
+    ``per`` count the band's tiles (blocks), not the table's.
     """
     g = hq // hkv
     if (dtype == torch.bfloat16 and hd in (64, 128) and aligned and bs > 0 and bs % 8 == 0
@@ -221,13 +234,16 @@ def attention_plan(dtype: torch.dtype, b: int, tq: int, hq: int, hkv: int, hd: i
         nt = min(_KEY_TILE // g, tq)
         blocks = b * hkv * -(-tq // nt)
         tiles = max(1, -(-mb * bs // _KEY_TILE))
+        if window > 0:
+            tiles = min(tiles, -(-(window + nt - 1) // _KEY_TILE) + 1)
         n_split = min(tiles, _MAX_SPLITS, max(1, sms // blocks), max(1, 256 // (nt * g)))
         per = -(-tiles // n_split)
         return "wgmma", nt, -(-tiles // per), per
-    if tq * g <= _TILE_ROWS and mb >= 8:
-        n_split = min(32, -(-mb // 4))
-        return "rows", 0, n_split, -(-mb // n_split)
-    return "rows", 0, 1, mb
+    walk = mb if window <= 0 else min(mb, -(-(window + tq - 1) // bs) + 1)
+    if tq * g <= _TILE_ROWS and walk >= 8:
+        n_split = min(32, -(-walk // 4))
+        return "rows", 0, n_split, -(-walk // n_split)
+    return "rows", 0, 1, walk
 
 
 def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
@@ -245,16 +261,17 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def paged_attention(q, k_pool, v_pool, block_table, q_offset, kv_len,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
     """Attention of ``q (B, Tq, Hq, hd)`` over the paged pools.
 
     ``q_offset``: ``(B,)`` int32 absolute position of ``q[:, 0]``;
-    ``kv_len``: ``(B,)`` int32 number of valid KV positions per row.
+    ``kv_len``: ``(B,)`` int32 number of valid KV positions per row;
+    ``window``: > 0 keeps only keys at ``k_pos > q_pos - window``.
     Returns ``(B, Tq, Hq, hd)`` in q's dtype.
     """
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, block_table, q_offset,
-                                     kv_len, causal)
+                                     kv_len, causal, window)
     what = "paged_attention"
     _check_cuda(q.device, what, q=q, k_pool=k_pool, v_pool=v_pool,
                 block_table=block_table, q_offset=q_offset, kv_len=kv_len)
@@ -268,6 +285,8 @@ def paged_attention(q, k_pool, v_pool, block_table, q_offset, kv_len,
                         "bfloat16 or float32 throughout")
     if hd > _MAX_HD:
         raise ValueError(f"{what}: head_dim {hd} > {_MAX_HD}")
+    if window < 0:
+        raise ValueError(f"{what}: window {window} < 0")
     _check_index(what, b, block_table, q_offset=q_offset, kv_len=kv_len)
     out = torch.empty_like(q)
     if b == 0 or tq == 0:
@@ -277,7 +296,7 @@ def paged_attention(q, k_pool, v_pool, block_table, q_offset, kv_len,
     aligned = all(a.data_ptr() % 16 == 0 for a in (q, k_pool, v_pool))
     route, nt, n_split, per = attention_plan(
         q.dtype, b, tq, hq, hkv, hd, bs, mb, aligned,
-        torch.cuda.get_device_properties(q.device).multi_processor_count)
+        torch.cuda.get_device_properties(q.device).multi_processor_count, window)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),
             q_offset.data_ptr(), kv_len.data_ptr(), out.data_ptr())
@@ -292,15 +311,15 @@ def paged_attention(q, k_pool, v_pool, block_table, q_offset, kv_len,
             rc = _lib().paged_attention_wgmma_bf16(
                 *ptrs, None if part is None else part.data_ptr(),
                 None if tickets is None else tickets.data_ptr(), b, tq, hq, hkv, hd, bs,
-                mb, nb, int(causal), hd**-0.5, nt, n_split, per, stream)
+                mb, nb, int(causal), window, hd**-0.5, nt, n_split, per, stream)
         else:
             part = None
             if n_split > 1:
                 part = torch.empty(b * hkv * n_split * _TILE_ROWS * (2 + hd),
                                    dtype=torch.float32, device=q.device)
             rc = getattr(_lib(), _ATTN_SYMBOLS[q.dtype])(
-                *ptrs, b, tq, hq, hkv, hd, bs, mb, nb, int(causal), hd**-0.5, n_split,
-                None if part is None else part.data_ptr(), stream)
+                *ptrs, b, tq, hq, hkv, hd, bs, mb, nb, int(causal), window, hd**-0.5,
+                n_split, per, None if part is None else part.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed (CUDA error {rc})")
     paged_attention.launches += 1

@@ -24,14 +24,18 @@ differences:
   Asked for ``cuda`` without a GPU, the CLI raises; it never goes on on
   the CPU.
 * No ``--pallas-kernels``.
-* ``--dp``/``--tp`` above 1 (the router and tensor parallelism) and
-  ``--no-paged`` (the dense per-slot slab) raise ``NotImplementedError``.
+* ``--dp``/``--tp`` above 1 (the router and tensor parallelism) raise
+  ``NotImplementedError``.
+* ``--no-paged`` serves ``--trace`` on the dense per-slot slab, as the JAX
+  CLI does; a sliding-window model (``mixtral_8x7b``) is served there
+  without it, since its ring caches are never paged.
 * ``--arch`` takes the families the port models: dense (``llama31_8b``,
   ``qwen2_7b``, ``qwen2_5_32b``, ``chatglm3_6b`` with its 2-D RoPE,
   ``stablelm_3b`` with LayerNorm and head_dim 80, and ``granite_34b``,
   whose 88 layers (88 GiB of bf16 weights) do not fit one 80 GB card:
-  ``--smoke``) and MoE (``qwen3_30b_a3b``; ``llama4_scout_17b_a16e``, whose
-  full width does not fit one card either: ``--smoke``); other
+  ``--smoke``) and MoE (``qwen3_30b_a3b``; ``llama4_scout_17b_a16e`` and
+  ``mixtral_8x7b``, sliding-window attention with a 4096-row ring, whose
+  full widths do not fit one card either: ``--smoke``); other
   architectures raise in ``check_supported``.
 * The weights are random from seed 0 (``model.init(0)``), and the prompts
   come from a seeded numpy generator, not from ``jax.random``: in trace
@@ -61,7 +65,7 @@ def run(argv=None):
     ap.add_argument("--arch", default="qwen2_7b",
                     help="llama31_8b, qwen2_7b, qwen2_5_32b, chatglm3_6b, stablelm_3b, "
                          "granite_34b (--smoke on one card), qwen3_30b_a3b, "
-                         "llama4_scout_17b_a16e (--smoke on one card)")
+                         "llama4_scout_17b_a16e, mixtral_8x7b (--smoke on one card)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
@@ -84,7 +88,7 @@ def run(argv=None):
     ap.add_argument("--chunk", type=int, default=16,
                     help="prefill chunk size (prefill shape bucket)")
     ap.add_argument("--no-paged", action="store_true",
-                    help="dense per-slot KV slab (not ported: raises)")
+                    help="dense per-slot KV slab instead of the paged pool")
     ap.add_argument("--block-size", type=int, default=16,
                     help="KV rows per block (paged allocator)")
     ap.add_argument("--num-blocks", type=int, default=None,
@@ -113,9 +117,6 @@ def run(argv=None):
     if args.dp != 1 or args.tp != 1:
         raise NotImplementedError("--dp/--tp > 1 (the router, tensor parallelism) "
                                   "is not ported yet: ROADMAP.md A7")
-    if args.no_paged:
-        raise NotImplementedError("--no-paged (the dense per-slot slab) is not "
-                                  "ported yet: ROADMAP.md A6")
 
     import time
 
@@ -181,7 +182,8 @@ def _trace_mode(args, cfg, model, params, policy):
         serving=ContinuousConfig(
             max_seq=max_seq, num_slots=args.slots, chunk_size=args.chunk,
             temperature=args.temperature, seed=args.seed,
-            block_size=args.block_size, num_blocks=args.num_blocks,
+            paged=not args.no_paged, block_size=args.block_size,
+            num_blocks=args.num_blocks,
             prefix_cache=not args.no_prefix_cache,
             ttl_default=args.ttl, fused_step=not args.no_fused_step)),
         policy=policy, device=model.device)
@@ -235,6 +237,9 @@ def _trace_mode(args, cfg, model, params, policy):
           f"{m.dispatches_per_iteration:.2f} per work iteration "
           f"({'fused one-dispatch step' if not args.no_fused_step else 'legacy two-program split'})")
     pg = m.paged
+    if not pg.enabled:
+        print("# paged KV: disabled (dense per-slot slab)")
+        return 0, m
     print(f"# paged KV: block_size={pg.block_size} "
           f"pool={pg.num_blocks} blocks "
           f"({pg.num_blocks * pg.block_size} rows vs "

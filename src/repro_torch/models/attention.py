@@ -2,22 +2,25 @@
 
 * :func:`attention` — grouped-query attention of
   ``repro/models/attention.py:163``.  ``impl="flash"`` sends whole-sequence
-  self-attention (``T == S > 1`` from position 0, no ``kv_len``, full or
-  causally banded) to the ``flash_attention`` kernel, for every ``T`` (the
-  JAX package's ``T % 128`` gate is not carried over: the kernel masks its
-  own ragged edge).  Everything else takes the plain online softmax: a
-  Python loop over KV chunks carrying float32 (max, denom, acc), GQA in the
-  grouped ``(B, T, Hkv, G, hd)`` layout, without sliding windows (the ring
-  caches they need are not ported yet).
+  self-attention (``T == S > 1`` from position 0, no ``kv_len`` or
+  ``kv_positions``, full or causally banded) to the ``flash_attention``
+  kernel, for every ``T`` (the JAX package's ``T % 128`` gate is not carried
+  over: the kernel masks its own ragged edge).  Otherwise a sliding window
+  over the whole sequence takes :func:`_banded_attention` (a loop over query
+  chunks, each attending its ``window + chunk`` key slab), and everything
+  else the plain online softmax :func:`_kv_chunk_attention`: a Python loop
+  over KV chunks carrying float32 (max, denom, acc), GQA in the grouped
+  ``(B, T, Hkv, G, hd)`` layout, masked by ``kv_len``, causality and the
+  window on the keys' absolute ``kv_positions`` (``-1``: never written).
 * :func:`gather_kv_blocks` — the contiguous logical view of a pooled cache,
   with unallocated (``-1``) blocks zeroed.
 * :func:`paged_kv_update` / :func:`paged_attention` — the paged KV write and
   read.  ``use_kernel`` sends them to the Hopper kernels, which on CUDA
   tensors launch or raise; otherwise they run the flat-index scatter oracle
   and the gather oracle below.  There is no coverage rule: the kernel
-  serves every query count.  Under ``use_kernel`` each first consults its
-  fault site (``kernel.paged_scatter``, ``kernel.paged_attention``;
-  ``kernels/_faults.py``).
+  serves every query count and window.  Under ``use_kernel`` each first
+  consults its fault site (``kernel.paged_scatter``,
+  ``kernel.paged_attention``; ``kernels/_faults.py``).
 """
 from __future__ import annotations
 
@@ -50,9 +53,10 @@ def _long(v: IntOrTensor, device) -> torch.Tensor:
     return torch.as_tensor(v, device=device).long()
 
 
-def _kv_chunk_attention(q, k, v, q_pos, causal, kv_len, chunk):
+def _kv_chunk_attention(q, k, v, q_pos, causal, window, kv_len, kv_pos, chunk):
     """q (B, T, Hkv, G, hd) pre-scaled; k/v (B, S, Hkv, hd); q_pos (B|1, T);
-    kv_len None or (B|1,).  Returns float32 (B, T, Hkv, G, hd)."""
+    kv_len None or (B|1,); kv_pos (S,) absolute key positions (-1: masked).
+    Returns float32 (B, T, Hkv, G, hd)."""
     B, T, Hkv, G, hd = q.shape
     S = k.shape[1]
     c = min(chunk, S)
@@ -64,12 +68,16 @@ def _kv_chunk_attention(q, k, v, q_pos, causal, kv_len, chunk):
     for start in range(0, S, c):
         kc, vc = k[:, start:start + c], v[:, start:start + c]
         slot = start + torch.arange(kc.shape[1], device=dev)
+        pci = kv_pos[start:start + c]
         s = torch.einsum("bthgd,bchd->bthgc", qf, kc.float())
-        mask = torch.ones((1, 1, kc.shape[1]), dtype=torch.bool, device=dev)
+        # (B'|1, T'|1, c) masks broadcast against the (B, T, Hkv, G, c) tile
+        mask = (pci >= 0)[None, None, :]
         if kv_len is not None:
             mask = mask & (slot[None, None, :] < kv_len.reshape(-1, 1, 1))
         if causal:
-            mask = mask & (slot[None, None, :] <= q_pos[:, :, None])
+            mask = mask & (pci[None, None, :] <= q_pos[:, :, None])
+        if window is not None:
+            mask = mask & (pci[None, None, :] > q_pos[:, :, None] - window)
         mask = mask[:, :, None, None, :]
         s = torch.where(mask, s, torch.full((), _NEG, device=dev))
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -83,34 +91,68 @@ def _kv_chunk_attention(q, k, v, q_pos, causal, kv_len, chunk):
     return acc / l_sum.clamp_min(1e-20)[..., None]
 
 
+def _banded_attention(q, k, v, window: int, chunk: int):
+    """Sliding-window causal attention over the whole sequence
+    (``repro/models/attention.py:113``): q (B, T, Hkv, G, hd) pre-scaled,
+    k/v (B, T, Hkv, hd).  Each chunk of ``chunk`` queries attends the
+    ``window + chunk`` keys that can reach it, in one float32 softmax, so
+    the work is O(T * window).  Returns float32 (B, T, Hkv, G, hd)."""
+    B, T = q.shape[:2]
+    cq = min(chunk, T)
+    dev = q.device
+    outs = []
+    for s0 in range(0, T, cq):
+        s1 = min(s0 + cq, T)
+        lo = max(0, s0 - window)
+        q_pos = torch.arange(s0, s1, device=dev)
+        kv_pos = torch.arange(lo, s1, device=dev)
+        s = torch.einsum("bthgd,bchd->bthgc", q[:, s0:s1].float(), k[:, lo:s1].float())
+        mask = ((kv_pos[None, :] <= q_pos[:, None])
+                & (kv_pos[None, :] > q_pos[:, None] - window))[None, :, None, None, :]
+        s = torch.where(mask, s, torch.full((), _NEG, device=dev))
+        p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)),
+                        torch.zeros((), device=dev))
+        vc = v[:, lo:s1]
+        o = torch.einsum("bthgc,bchd->bthgd", p.to(vc.dtype).float(), vc.float())
+        outs.append(o / p.sum(dim=-1).clamp_min(1e-20)[..., None])
+    return torch.cat(outs, dim=1)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               q_offset: IntOrTensor = 0, kv_len: Optional[IntOrTensor] = None,
+              kv_positions: Optional[torch.Tensor] = None,
               chunk: int = 1024, impl: str = "chunked") -> torch.Tensor:
     """Grouped-query attention.  q (B, T, Hq, hd), k/v (B, S, Hkv, hd) →
     (B, T, Hq, hd).  ``q_offset`` / ``kv_len`` may be scalars or per-row
-    ``(B,)`` vectors.  ``impl="flash"`` takes the ``flash_attention`` kernel
-    where the JAX package takes its Pallas kernel (the self-attention
-    prefill case), and the online-softmax loop otherwise."""
+    ``(B,)`` vectors; ``kv_positions`` (S,) gives every key's absolute
+    position (ring caches; default ``arange(S)``, ``-1`` masks a key);
+    ``window`` keeps keys at ``k_pos > q_pos - window``.  ``impl="flash"``
+    takes the ``flash_attention`` kernel where the JAX package takes its
+    Pallas kernel (the self-attention prefill case), and the plain loops
+    otherwise."""
     B, T, Hq, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     from_zero = isinstance(q_offset, int) and q_offset == 0
-    if (impl == "flash" and T == S and T > 1 and kv_len is None and from_zero
-            and (window is None or causal)):
+    whole = (T == S and T > 1 and kv_len is None and kv_positions is None
+             and from_zero)
+    if impl == "flash" and whole and (window is None or causal):
         from repro_torch.kernels import flash_attention as kfa
 
         return kfa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                    causal=causal,
                                    window=0 if window is None else min(window, S))
-    if window is not None:
-        raise NotImplementedError("sliding-window attention outside the flash "
-                                  "kernel's case is not ported yet")
     qg = (q * hd**-0.5).reshape(B, T, Hkv, Hq // Hkv, hd)
+    if window is not None and whole and causal:
+        out = _banded_attention(qg, k, v, min(window, S), chunk)
+        return out.reshape(B, T, Hq, hd).to(q.dtype)
     qo = _long(q_offset, q.device)
     ar = torch.arange(T, device=q.device)
     q_pos = qo[:, None] + ar[None, :] if qo.dim() == 1 else (qo + ar)[None, :]
     kvl = None if kv_len is None else _long(kv_len, q.device)
-    out = _kv_chunk_attention(qg, k, v, q_pos, causal, kvl, chunk)
+    kv_pos = (torch.arange(S, device=q.device) if kv_positions is None
+              else kv_positions.long())
+    out = _kv_chunk_attention(qg, k, v, q_pos, causal, window, kvl, kv_pos, chunk)
     return out.reshape(B, T, Hq, hd).to(q.dtype)
 
 
@@ -179,12 +221,12 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                     use_kernel: bool = False) -> torch.Tensor:
     """Attention of ``q (B, T, Hq, hd)`` over non-contiguous physical KV
     blocks.  ``use_kernel`` sends the call to the ``paged_attention``
-    kernel (which takes any T); otherwise the gather oracle runs: the
-    logical view from :func:`gather_kv_blocks`, then :func:`attention`."""
+    kernel (which takes any T and window); otherwise the gather oracle
+    runs: the logical view from :func:`gather_kv_blocks`, then
+    :func:`attention`."""
     if use_kernel:
-        if window is not None or kv_len is None:
-            raise NotImplementedError(
-                "the paged_attention kernel takes full attention with kv_len")
+        if kv_len is None:
+            raise NotImplementedError("the paged_attention kernel takes kv_len")
         from repro_torch.kernels import paged_attention as kpa
         from repro_torch.kernels._faults import kernel_site
 
@@ -192,7 +234,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         b = q.shape[0]
         return kpa.paged_attention(q.contiguous(), k_pool, v_pool, block_table,
                                    _vec(q_offset, b, q.device),
-                                   _vec(kv_len, b, q.device), causal=causal)
+                                   _vec(kv_len, b, q.device), causal=causal,
+                                   window=0 if window is None else window)
     k = gather_kv_blocks(k_pool, block_table)
     v = gather_kv_blocks(v_pool, block_table)
     return attention(q, k, v, causal=causal, window=window, q_offset=q_offset,

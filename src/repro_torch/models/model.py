@@ -34,12 +34,16 @@ class Model:
         return transformer.forward(self.cfg, params, batch, policy=policy, phase=phase)
 
     def init_cache(self, batch_size: int, max_seq: int, dtype=None,
-                   block_size: int = 16):
+                   block_size: int = 16, paged=None):
         return transformer.init_cache(self.cfg, batch_size, max_seq, dtype,
-                                      device=self.device, block_size=block_size)
+                                      device=self.device, block_size=block_size,
+                                      paged=paged)
 
     def paged_kv_spec(self):
         return transformer.paged_kv_spec(self.cfg)
+
+    def pools_anything(self) -> bool:
+        return transformer.pools_anything(self.cfg)
 
     def prefill(self, params, batch, cache, *, policy: SparsityPolicy = DENSE):
         return transformer.prefill(self.cfg, params, batch, cache, policy=policy)

@@ -12,17 +12,32 @@ and gate_proj through the fused kernel in every layer the skip list does
 not name, where the JAX scan takes its mask-select form: the same function,
 with more of it on the kernel.
 
-Caches are paged: ``{"pos", "block_table", "layers": [{"k", "v"}, ...]}``
-with per-layer pools ``(rows, block_size, Hkv, hd)`` written in place.
-:func:`init_cache` gives each batch row its own contiguous run of blocks
-(a dense per-row slab expressed as a block table); serving builds a shared
-pool with ``serve.paged.init_paged_cache``.
+Caches come in two layouts, both written in place.  Paged: ``{"pos",
+"block_table", "layers": [{"k", "v"}, ...]}`` with per-layer pools ``(rows,
+block_size, Hkv, hd)``; :func:`init_cache` gives each batch row its own
+contiguous run of blocks, and serving builds a shared pool with
+``serve.paged.init_paged_cache``.  Dense: ``{"pos", "layers": [{"k", "v"},
+...]}`` with per-layer ``(B, s_c, Hkv, hd)`` slabs, ``s_c`` =
+``min(window, max_seq)`` for sliding-window layers (a ring: position ``p``
+lives in row ``p % s_c``) and ``max_seq`` otherwise.  Sliding-window layers
+are never paged (:func:`paged_kv_spec`), as in the JAX package; a
+full-attention model takes the dense layout when asked (``paged=False``,
+the serving slab of ``serve/slots.py``).  A dense cache may carry
+``"slot"``, a ``(B,)`` device index of the slab rows the batch occupies
+(:func:`~repro_torch.serve.slots.slice_slot`), so a step reads and writes
+one slot's rows in place without copying them out and back.
 
 Attention without a cache (:func:`forward`) and the one-shot
 :func:`prefill` attend over the fresh K/V with ``cfg.attn_impl``
-(``"flash"``: the ``flash_attention`` kernel); :func:`prefill` also writes
-all B rows into the cache at position 0.  Chunked prefill and decode read
-the paged pools.
+(``"flash"``: the ``flash_attention`` kernel, sliding windows included;
+otherwise the plain banded loop for a window); :func:`prefill` also writes
+all B rows into the cache at position 0 (a ring keeps the last ``s_c``).
+Chunked prefill and decode read the paged pools through the paged
+kernels, or the dense slab through the plain attention
+(``repro/models/transformer.py:302-375``, which the JAX package also
+computes outside any Pallas kernel): a ring chunk attends over ``[old ring
+∥ fresh chunk]`` with the keys' absolute positions, then scatters its valid
+rows into the ring.
 
 Every entry point is a sequence of device operations that a CUDA graph can
 capture: positions, lengths and the per-step index vectors of the paged
@@ -45,15 +60,17 @@ from repro_torch.models.attention import attention, paged_attention, paged_kv_up
 from repro_torch.models.mlp import init_mlp, mlp
 
 __all__ = ["Transformer", "AttnBlock", "check_supported", "init_params",
-           "init_cache", "paged_kv_spec", "forward", "prefill", "prefill_chunk",
-           "decode_step"]
+           "init_cache", "paged_kv_spec", "pools_anything", "forward",
+           "prefill", "prefill_chunk", "decode_step"]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port covers the dense and MoE full-attention families, with
+    """The port covers the dense and MoE families with full, sliding-window
+    or local attention (the JAX package treats the last two alike), with
     RMSNorm or LayerNorm and the default or the 2-D (ChatGLM) RoPE."""
     supported = {
-        "family": (cfg.family, ("dense", "moe")), "attn_type": (cfg.attn_type, ("full",)),
+        "family": (cfg.family, ("dense", "moe")),
+        "attn_type": (cfg.attn_type, ("full", "swa", "local")),
         "rope_variant": (cfg.rope_variant, ("default", "2d")),
         "norm": (cfg.norm, ("rmsnorm", "layernorm")),
         "attn_impl": (cfg.attn_impl, ("chunked", "flash")),
@@ -123,21 +140,63 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
 
 # ------------------------------------------------------------------- caches
 
+def _window(cfg: ModelConfig) -> Optional[int]:
+    return cfg.window if cfg.attn_type in ("swa", "local") else None
+
+
+def _attn_cache_len(cfg: ModelConfig, max_seq: int) -> int:
+    """Rows of a layer's dense cache: a sliding-window ring holds
+    ``min(window, max_seq)``."""
+    return max_seq if _window(cfg) is None else min(cfg.window, max_seq)
+
+
 def paged_kv_spec(cfg: ModelConfig) -> Dict:
-    """Which cache leaves live in the block pool: every attention K/V leaf
-    (every layer is a full-attention block, MoE layers included)."""
+    """Which cache leaves live in the block pool: the K/V leaves of
+    full-attention layers.  Sliding-window rings are already bounded by the
+    window and their wraparound does not compose with block tables, so
+    they stay out, and a model whose spec pools nothing is served on the
+    dense slab."""
     check_supported(cfg)
-    return {"layers": [{"k": True, "v": True} for _ in range(cfg.n_layers)]}
+    paged = _window(cfg) is None
+    return {"layers": [{"k": paged, "v": paged} for _ in range(cfg.n_layers)]}
+
+
+def pools_anything(cfg: ModelConfig) -> bool:
+    return any(leaf for layer in paged_kv_spec(cfg)["layers"] for leaf in layer.values())
+
+
+def _init_dense_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
+                     device=None) -> Dict:
+    """The dense layout: per layer ``(batch, s_c, Hkv, hd)`` zeros
+    (:func:`_attn_cache_len`) on ``device`` (default: the GPU, raising if
+    there is none), and a 0-d ``pos``."""
+    device = common.resolve_device(device)
+    dtype = dtype or common.dtype_of(cfg)
+    shape = (batch, _attn_cache_len(cfg, max_seq), cfg.n_kv_heads, cfg.head_dim)
+    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
+            "layers": [{"k": torch.zeros(shape, dtype=dtype, device=device),
+                        "v": torch.zeros(shape, dtype=dtype, device=device)}
+                       for _ in range(cfg.n_layers)]}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
-               device=None, block_size: int = 16) -> Dict:
-    """Per-row cache of ``max_seq`` positions in the paged layout on
-    ``device`` (default: the GPU, raising if there is none): row ``b`` owns
-    blocks ``b*mb .. b*mb + mb - 1`` (plus the pool's trailing sentinel row,
-    as ``serve.paged.device_pool_rows`` sizes it)."""
+               device=None, block_size: int = 16, paged: Optional[bool] = None) -> Dict:
+    """Per-row cache of ``max_seq`` positions on ``device`` (default: the
+    GPU, raising if there is none).  Paged (the default where
+    :func:`paged_kv_spec` pools something): row ``b`` owns blocks ``b*mb ..
+    b*mb + mb - 1`` (plus the pool's trailing sentinel row, as
+    ``serve.paged.device_pool_rows`` sizes it).  ``paged=False``, or a
+    model whose spec pools nothing (sliding windows): the dense layout of
+    :func:`_init_dense_cache`."""
     from repro_torch.serve.paged import init_paged_cache, max_blocks_per_slot
 
+    if paged is None:
+        paged = pools_anything(cfg)
+    if not paged:
+        return _init_dense_cache(cfg, batch, max_seq, dtype, device)
+    if not pools_anything(cfg):
+        raise ValueError(f"{cfg.name}: sliding-window layers keep ring caches, never "
+                         "paged ones")
     device = common.resolve_device(device)
     mb = max_blocks_per_slot(max_seq, block_size)
     cache = init_paged_cache(cfg, batch, max_seq, block_size, batch * mb,
@@ -164,6 +223,96 @@ def _paged_index(cache: Dict, b: int, pos: torch.Tensor, chunk_len: torch.Tensor
             "kv_len": None if kv_len is None else vec(kv_len), "causal": causal}
 
 
+def _dense_index(cfg: ModelConfig, cache: Dict, b: int, t: int, pos: torch.Tensor,
+                 chunk_len: Optional[torch.Tensor], mode: str) -> Dict:
+    """The dense layout's counterpart of :func:`_paged_index`, built once a
+    step: ``mode`` "prefill" (one-shot, position 0), "chunk" (at the 0-d
+    ``pos``, ``chunk_len`` valid rows) or "decode" (``pos`` 0-d or
+    ``(B,)``).  ``w_rows``/``w_valid`` say which slab row each new K/V row
+    goes to and whether it is written at all (pad rows and rows past a full
+    cache are dropped); a ring chunk gets every key's absolute position
+    (``kv_pos``: the old ring, then the chunk, -1 where never written) and a
+    full cache ``kv_len``."""
+    s_c = cache["layers"][0]["k"].shape[1]
+    dev = pos.device
+    rows = cache.get("slot")
+    idx = {"dense": True, "mode": mode, "pos": pos,
+           "rows": None if rows is None else rows.long()}
+    window = _window(cfg)
+    if mode == "prefill":
+        if t > s_c:     # a ring shorter than the prompt keeps its last s_c rows
+            idx["ring"] = torch.arange(t - s_c, t, device=dev) % s_c
+        return idx
+    p = pos.long()
+    if mode == "decode":
+        posv = p.reshape(-1).expand(b)
+        slot = posv % s_c if window is not None else posv
+        idx["w_rows"] = slot.clamp(max=s_c - 1)[:, None]
+        idx["w_valid"] = (slot < s_c)[:, None]
+        idx["kv_len"] = torch.clamp(pos + 1, max=s_c)
+        return idx
+    i = torch.arange(t, device=dev)
+    valid = i < chunk_len
+    wpos = p + i
+    # t <= s_c: the chunk's rows land on distinct slab rows, pad rows too
+    idx["w_rows"] = (wpos % s_c)[None, :].expand(b, t)
+    idx["w_valid"] = valid[None, :]
+    if window is not None:
+        # row r of the old ring holds the latest position <= pos - 1 that is
+        # r mod s_c (-1: never written)
+        p_old = p - 1 - torch.remainder(p - 1 - torch.arange(s_c, device=dev), s_c)
+        idx["kv_pos"] = torch.cat([torch.where(p_old >= 0, p_old, -1),
+                                   torch.where(valid, wpos, -1)])
+    else:
+        idx["kv_len"] = pos + chunk_len
+    return idx
+
+
+def _slab_rows(buf: torch.Tensor, rows: Optional[torch.Tensor]) -> torch.Tensor:
+    return buf if rows is None else buf.index_select(0, rows)
+
+
+def _write_rows(buf: torch.Tensor, rows: Optional[torch.Tensor], r: torch.Tensor,
+                new: torch.Tensor, valid: torch.Tensor) -> None:
+    """``buf[rows[b], r[b, t]] = new[b, t]`` where ``valid``, in place; rows
+    not valid keep what they hold (the JAX package's dropped scatter)."""
+    bi = (torch.arange(new.shape[0], device=new.device) if rows is None else rows)
+    bi = bi[:, None].expand_as(r)
+    buf[bi, r] = torch.where(valid[..., None, None], new, buf[bi, r])
+
+
+def _dense_attention(cfg: ModelConfig, q, k, v, cache: Dict, index: Dict):
+    """Write the step's K/V into the dense slab and attend (plain torch, as
+    the JAX package computes it outside any Pallas kernel)."""
+    ck, cv, rows, mode = cache["k"], cache["v"], index["rows"], index["mode"]
+    window = _window(cfg)
+    if mode == "prefill":
+        o = attention(q, k, v, causal=True, window=window, q_offset=0,
+                      chunk=cfg.attn_chunk, impl=cfg.attn_impl)
+        t = k.shape[1]
+        for buf, new in ((ck, k), (cv, v)):
+            if "ring" in index:
+                buf.index_copy_(1, index["ring"], new[:, t - buf.shape[1]:])
+            else:
+                buf[:, :t] = new
+        return o
+    if mode == "chunk" and window is not None:
+        # the chunk's early queries still see ring rows the chunk would
+        # overwrite: attend over [old ring ∥ fresh chunk] first, then write
+        o = attention(q, torch.cat([_slab_rows(ck, rows), k], dim=1),
+                      torch.cat([_slab_rows(cv, rows), v], dim=1), causal=True,
+                      window=window, q_offset=index["pos"], kv_positions=index["kv_pos"],
+                      chunk=cfg.attn_chunk)
+        _write_rows(ck, rows, index["w_rows"], k, index["w_valid"])
+        _write_rows(cv, rows, index["w_rows"], v, index["w_valid"])
+        return o
+    _write_rows(ck, rows, index["w_rows"], k, index["w_valid"])
+    _write_rows(cv, rows, index["w_rows"], v, index["w_valid"])
+    return attention(q, _slab_rows(ck, rows), _slab_rows(cv, rows),
+                     causal=mode == "chunk", q_offset=index["pos"],
+                     kv_len=index["kv_len"], chunk=cfg.attn_chunk)
+
+
 def _attn_block_apply(cfg: ModelConfig, h: torch.Tensor, p: AttnBlock,
                       policy: SparsityPolicy, phase: str, layer_idx: int,
                       cache: Optional[Dict], positions: torch.Tensor,
@@ -178,18 +327,23 @@ def _attn_block_apply(cfg: ModelConfig, h: torch.Tensor, p: AttnBlock,
     v = v.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
 
     use_kernel = policy.use_kernels
-    if cache is not None:
+    if index is not None and index.get("dense"):
+        o = _dense_attention(cfg, q, k, v, cache, index)
+    elif index is None or index["kv_len"] is None:
+        if cache is not None:
+            # the one-shot prefill into the paged layout: every row written
+            # at position 0 (with use_kernels a paged_kv_scatter launch)
+            paged_kv_update(cache["k"], cache["v"], k, v, index["table"], index["pos"],
+                            index["chunk_len"], use_kernel=use_kernel)
+        # no cache, or the one-shot prefill: attend over the fresh K/V
+        o = attention(q, k, v, causal=True, window=_window(cfg), q_offset=0,
+                      chunk=cfg.attn_chunk, impl=cfg.attn_impl)
+    else:
         # paged cache: logical row p of a batch row lives at physical row
         # (table[p // bs], p % bs).  The write goes first (in place); with
         # use_kernels it is a paged_kv_scatter launch
         paged_kv_update(cache["k"], cache["v"], k, v, index["table"], index["pos"],
                         index["chunk_len"], use_kernel=use_kernel)
-    if index is None or index["kv_len"] is None:
-        # no cache, or the one-shot prefill (written at position 0 above):
-        # attend over the fresh K/V
-        o = attention(q, k, v, causal=True, q_offset=0, chunk=cfg.attn_chunk,
-                      impl=cfg.attn_impl)
-    else:
         # chunked prefill (causal, batch 1) or decode (each row at its own
         # depth): the read of the pools, a paged_attention launch with
         # use_kernels
@@ -245,18 +399,25 @@ def prefill(cfg: ModelConfig, params: Transformer, batch: Dict, cache: Dict, *,
     """One-shot prompt ingestion of ``batch["tokens"] (B, T)`` into a cache
     from :func:`init_cache`: attention over the fresh K/V with
     ``cfg.attn_impl``, and every row's K/V written at position 0 (through
-    ``paged_kv_scatter`` under ``policy.use_kernels``).  Returns (last-token
-    logits (B, V), cache with ``pos + T``); the pools are updated in
-    place."""
+    ``paged_kv_scatter`` under ``policy.use_kernels``; a dense ring shorter
+    than the prompt keeps its last rows).  Returns (last-token logits (B,
+    V), cache with ``pos + T``); the cache is updated in place."""
     tokens = batch["tokens"]
     b, t = tokens.shape
-    bs, mb = cache["layers"][0]["k"].shape[1], cache["block_table"].shape[1]
-    if t > mb * bs:
-        raise ValueError(f"prefill: {t} tokens do not fit a cache of {mb * bs} positions")
     dev = tokens.device
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    if "block_table" in cache:
+        bs, mb = cache["layers"][0]["k"].shape[1], cache["block_table"].shape[1]
+        if t > mb * bs:
+            raise ValueError(f"prefill: {t} tokens do not fit a cache of {mb * bs} positions")
+        index = _paged_index(cache, b, zero, torch.full((), t, dtype=torch.int32, device=dev),
+                             None, True)
+    else:
+        s_c = cache["layers"][0]["k"].shape[1]
+        if t > s_c and _window(cfg) is None:
+            raise ValueError(f"prefill: {t} tokens do not fit a cache of {s_c} positions")
+        index = _dense_index(cfg, cache, b, t, zero, None, "prefill")
     positions = torch.arange(t, device=dev).expand(b, t)
-    index = _paged_index(cache, b, torch.zeros((), dtype=torch.int32, device=dev),
-                         torch.full((), t, dtype=torch.int32, device=dev), None, True)
     h = common.embed(tokens, params.embed)
     h = _run_blocks(cfg, params, h, policy, "prefill", cache, positions, index)
     logits = _lm_logits(cfg, params, h[:, -1:])[:, 0]
@@ -267,11 +428,13 @@ def prefill(cfg: ModelConfig, params: Transformer, batch: Dict, cache: Dict, *,
 def prefill_chunk(cfg: ModelConfig, params: Transformer, batch: Dict, cache: Dict,
                   *, policy: SparsityPolicy) -> Tuple[torch.Tensor, Dict]:
     """One prefill chunk written at the cache offset ``cache["pos"]`` (a 0-d
-    int32 tensor).  ``batch["tokens"]`` is ``(1, C)``; ``batch["chunk_len"]``
-    (default C) marks how many leading tokens are valid — the padded tail is
-    masked out of the KV write and the attention.  Returns (logits of the
-    last valid token (1, V), cache with ``pos += chunk_len``); the pools are
-    updated in place."""
+    int32 tensor).  ``batch["tokens"]`` is ``(1, C)`` (a dense cache takes
+    ``(B, C)`` rows at one offset); ``batch["chunk_len"]`` (default C) marks
+    how many leading tokens are valid — the padded tail is masked out of
+    the KV write and the attention.  A dense cache takes chunks of at most
+    its row count (a ring's ``min(window, max_seq)``).  Returns (logits of
+    the last valid token (B, V), cache with ``pos += chunk_len``); the cache
+    is updated in place."""
     tokens = batch["tokens"]
     b, t = tokens.shape
     dev = tokens.device
@@ -279,10 +442,16 @@ def prefill_chunk(cfg: ModelConfig, params: Transformer, batch: Dict, cache: Dic
     chunk_len = batch.get("chunk_len")
     if chunk_len is None:
         chunk_len = torch.full((), t, dtype=torch.int32, device=dev)
-    if b != 1:
-        raise ValueError("paged chunked prefill is per-slot (batch 1)")
+    if "block_table" in cache:
+        if b != 1:
+            raise ValueError("paged chunked prefill is per-slot (batch 1)")
+        index = _paged_index(cache, b, pos, chunk_len, pos + chunk_len, True)
+    else:
+        if t > cache["layers"][0]["k"].shape[1]:
+            raise ValueError(f"prefill_chunk: a {t}-token chunk exceeds the cache's "
+                             f"{cache['layers'][0]['k'].shape[1]} rows")
+        index = _dense_index(cfg, cache, b, t, pos, chunk_len, "chunk")
     positions = pos + torch.arange(t, device=dev).expand(b, t)
-    index = _paged_index(cache, b, pos, chunk_len, pos + chunk_len, True)
     h = common.embed(tokens, params.embed)
     h = _run_blocks(cfg, params, h, policy, "prefill", cache, positions, index)
     h_last = h.index_select(1, (chunk_len.long() - 1).reshape(1))
@@ -296,14 +465,18 @@ def decode_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
     """One decode step for ``tokens (B, 1)``; ``cache["pos"]`` is a (B,)
     int32 vector of per-row positions (or a scalar shared by every row).
     → ((B, V) logits, cache with
-    ``pos + 1``); the pools are updated in place."""
+    ``pos + 1``); the cache is updated in place."""
     b, t = tokens.shape
     pos = cache["pos"]
-    mb, bs = cache["block_table"].shape[1], cache["layers"][0]["k"].shape[1]
     # a scalar pos moves every row in lockstep (the one-shot cache)
-    index = _paged_index(cache, b, pos, torch.ones((), dtype=torch.int32, device=pos.device),
-                         torch.clamp(pos + 1, max=mb * bs), False)
-    positions = index["pos"][:, None].expand(b, t)
+    if "block_table" in cache:
+        mb, bs = cache["block_table"].shape[1], cache["layers"][0]["k"].shape[1]
+        index = _paged_index(cache, b, pos,
+                             torch.ones((), dtype=torch.int32, device=pos.device),
+                             torch.clamp(pos + 1, max=mb * bs), False)
+    else:
+        index = _dense_index(cfg, cache, b, t, pos, None, "decode")
+    positions = pos.reshape(-1, 1).expand(b, t)
     h = common.embed(tokens, params.embed)
     h = _run_blocks(cfg, params, h, policy, "decode", cache, positions, index)
     logits = _lm_logits(cfg, params, h)[:, 0]

@@ -1,10 +1,14 @@
 """Continuous-batching serving engine (port of ``repro/serve/continuous.py``):
 chunked Amber-sparse prefill interleaved with slot-batched dense decode
-over a paged KV cache.
+over a paged KV cache, or over the dense per-slot slab where the model's
+attention keeps sliding-window rings or ``ContinuousConfig.paged`` is
+False (no block pool, no preemption, no prefix cache; ``metrics["paged"]``
+reads ``{"enabled": False}``).
 
 Each scheduler iteration: reap cancellations and deadlines, admit waiting
-requests FCFS by block budget (reusing prefix-cached blocks), grab decode
-blocks (preempting the youngest request when the pool is dry), then run ONE
+requests FCFS (paged: by block budget, reusing prefix-cached blocks), grab
+decode blocks (preempting the youngest request when the pool is dry), then
+run ONE
 fused step — the oldest prefilling request's next chunk and the frozen
 decode roster — through the :class:`~repro_torch.serve.executor.Executor`,
 which on the GPU replays one CUDA graph per step bucket, captured at the
@@ -35,8 +39,7 @@ where a kernel wrapper is called from Python: every step on the CPU; on the
 GPU a bucket's eager first step and its capture, never a replay — the
 port's counterpart of the JAX package consulting them while it traces.
 
-Not ported: the dense per-slot slab (``paged=False``), TP, and modality
-extras.
+Not ported: TP and modality extras.
 """
 from __future__ import annotations
 
@@ -66,6 +69,8 @@ class ContinuousConfig:
     seed: int = 0             # temperature-sampling generator seed
     max_iters: int = 100_000  # scheduler-loop safety valve
     fused_step: bool = True   # False → the legacy two-program split
+    paged: bool = True        # False → the dense per-slot slab (also where
+    #                           the model pools nothing: sliding windows)
     block_size: int = 16      # KV rows per block
     num_blocks: Optional[int] = None   # None → num_slots * ceil(max_seq / block_size)
     prefix_cache: bool = True
@@ -94,7 +99,8 @@ class ContinuousServingEngine:
                           or os.environ.get("REPRO_VALIDATE_POOL") == "1")
         self.exec = Executor(model, policy, cfg)
         self.sched = Scheduler(cfg, policy_enabled=policy.enabled,
-                               prefix_cache=cfg.prefix_cache, faults=faults)
+                               prefix_cache=cfg.prefix_cache, paged=self.exec.paged,
+                               faults=faults)
         self.work_iterations = 0  # iterations that dispatched any program
         self.restores = 0         # times restore() rebuilt this engine
         self.metrics: Dict[str, Any] = {}
@@ -108,6 +114,10 @@ class ContinuousServingEngine:
     @property
     def pool(self):
         return self.sched.pool
+
+    @property
+    def paged(self) -> bool:
+        return self.exec.paged
 
     @property
     def trace_counts(self) -> Dict[str, int]:
@@ -200,7 +210,7 @@ class ContinuousServingEngine:
         as :meth:`MetricsSnapshot.to_dict` (the snapshot itself is
         ``metrics_snapshot``)."""
         sched, ex = self.sched, self.exec
-        ex.init_cache(sched.pool.num_blocks)
+        ex.init_cache(sched.pool.num_blocks if self.paged else None)
         t0 = time.perf_counter()
         it0 = sched.it
         counters0 = {k: getattr(sched, k) for k in (
@@ -209,8 +219,9 @@ class ContinuousServingEngine:
             "watchdog_trips", "timeouts", "cancellations")}
         disp0, work0 = ex.dispatches, self.work_iterations
         buckets0 = {k: dict(v) for k, v in ex.buckets.items()}
-        sched.pool.peak_in_use = sched.pool.in_use
-        evict0 = sched.pool.evictions
+        if self.paged:
+            sched.pool.peak_in_use = sched.pool.in_use   # per-run peak
+            evict0 = sched.pool.evictions
         # the pool and kernel sites cannot see this engine: the injector is
         # active globally for the duration of the loop
         fault_mod.activate(self.faults)
@@ -241,7 +252,7 @@ class ContinuousServingEngine:
                     worked = self._step_decode(params, it, t0) or worked
                 if worked:
                     self.work_iterations += 1
-                if self._validate:
+                if self.paged and self._validate:
                     sched.audit_pool()
                 sched.observe_progress(it, bool(reaped or admitted or worked))
                 sched.it += 1
@@ -274,7 +285,7 @@ class ContinuousServingEngine:
                 restores=self.restores,
                 faults_fired=self.faults.total_fired if self.faults is not None else 0,
             ),
-            paged=PagedMetrics(
+            paged=(PagedMetrics(
                 enabled=True,
                 block_size=sched.pool.block_size,
                 num_blocks=sched.pool.num_blocks,
@@ -289,7 +300,7 @@ class ContinuousServingEngine:
                 prefill_tokens=d["prefill_demand"],
                 cached_blocks=sched.pool.cached_blocks,
                 evictions=sched.pool.evictions - evict0,
-            ),
+            ) if self.paged else PagedMetrics(enabled=False)),
             requests=[RequestMetrics(
                 rid=r.rid, prompt_len=int(len(r.tokens)), arrival=r.arrival,
                 state=r.state, admitted_iter=r.admitted_iter,

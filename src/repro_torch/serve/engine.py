@@ -11,7 +11,9 @@ models.transformer.prefill` over all rows (under the policy — with
 ``flash_attention`` launch), then ``max_new_tokens - 1`` decode steps with
 an EOS ``done`` mask.  Decode runs dense under
 ``DENSE.with_(use_kernels=policy.use_kernels)``, so with the kernels on the
-KV write and read are the paged kernels.  Greedy output (temperature 0)
+KV write and read are the paged kernels; a sliding-window model's cache is
+the dense ring layout instead (``transformer.init_cache``), which decode
+writes and reads with plain torch, as the JAX package does.  Greedy output (temperature 0)
 equals the JAX package's; temperature sampling draws from an explicit
 ``torch.Generator`` seeded from the config.  Asynchronous arrivals go
 through :class:`~repro_torch.serve.continuous.ContinuousServingEngine`.

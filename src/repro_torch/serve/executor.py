@@ -1,11 +1,17 @@
 """Device layer of the serving engine (port of ``repro/serve/executor.py``).
 
-The :class:`Executor` owns the paged cache and one step program per
+The :class:`Executor` owns the cache and one step program per
 :data:`STEP_BUCKETS` row, and runs the scheduler's
 :class:`~repro_torch.serve.scheduler.StepPlan`s.  A step program is the JAX
 package's fused step: the active request's prefill chunk first, then the
-slot-batched decode, on the same in-place pools — the decode half reads the
-KV the prefill half just wrote.  Its operands are fixed-shape device
+slot-batched decode, on the same in-place cache — the decode half reads
+the KV the prefill half just wrote.  The cache is the paged pool, or the
+dense per-slot slab (``serve/slots.py``) where the model's
+``paged_kv_spec`` pools nothing (sliding-window rings) or
+``cfg.paged`` is False, as the JAX package chooses; the slab's steps are
+graphs of the same programs.  A sliding-window model's ``chunk_size``
+must fit its ring (``min(window, max_seq)``; the JAX package asserts it,
+the port raises ``ValueError``).  Its operands are fixed-shape device
 buffers: the slot (a 0-d index, :mod:`~repro_torch.serve.slots`), the chunk
 tokens padded to ``chunk_size``, ``chunk_len``, the decode tokens and the
 ``active`` mask and the fault operand, written from the host before each
@@ -95,8 +101,15 @@ class Executor:
         self.policy = policy
         self.cfg = cfg
         self.device = model.device
-        model.paged_kv_spec()        # raises for layouts the port has no pool for
-        self.paged_kernel = bool(policy.use_kernels)
+        model.paged_kv_spec()        # raises for layouts the port does not model
+        mcfg = model.cfg
+        if (mcfg.attn_type in ("swa", "local")
+                and cfg.chunk_size > min(mcfg.window, cfg.max_seq)):
+            raise ValueError(f"chunk_size {cfg.chunk_size} must fit the sliding-window "
+                             f"ring of min(window {mcfg.window}, max_seq {cfg.max_seq}) rows")
+        # the slab where the pool would hold nothing, or where asked
+        self.paged = bool(cfg.paged) and model.pools_anything()
+        self.paged_kernel = self.paged and bool(policy.use_kernels)
         dense = DENSE.with_(use_kernels=policy.use_kernels)
         # replay and decode are dense
         self._programs: Dict[Tuple[bool, bool, bool], Callable] = {
@@ -178,11 +191,14 @@ class Executor:
             self._gen.set_state(state)
 
     # ----------------------------------------------------------- the cache
-    def init_cache(self, num_blocks: int) -> None:
+    def init_cache(self, num_blocks: Optional[int]) -> None:
         if self.cache is None:
             cfg = self.cfg
-            self.cache = init_paged_cache(self.model.cfg, cfg.num_slots, cfg.max_seq,
-                                          cfg.block_size, num_blocks, device=self.device)
+            if self.paged:
+                self.cache = init_paged_cache(self.model.cfg, cfg.num_slots, cfg.max_seq,
+                                              cfg.block_size, num_blocks, device=self.device)
+            else:
+                self.cache = slot_ops.init_slot_cache(self.model, cfg.num_slots, cfg.max_seq)
             # [slot, chunk_len, chunk tokens (C), decode tokens (S), active (S),
             #  fault (float32 bits)]
             self._operands = torch.zeros(3 + cfg.chunk_size + 2 * cfg.num_slots,

@@ -1,9 +1,11 @@
 """Pure-host scheduling layer of the serving engine (port of
 ``repro/serve/scheduler.py``).
 
-A copy of the JAX package's :class:`Scheduler`, numpy only, for the paged
-cache of the dense family (no dense-slab branch, no modality extras, no
-exact dyadic chunks): the same stream makes the same decisions, faults
+A copy of the JAX package's :class:`Scheduler`, numpy only (no modality
+extras, no exact dyadic chunks), for the paged cache and, with
+``paged=False``, the dense per-slot slab (no block pool, no block-budget
+admission, no preemption, no prefix cache): the same stream makes the
+same decisions, faults
 included (the ``admit`` site, retries with backoff, the ``pool.alloc``
 recovery paths).  The :class:`Scheduler` owns every piece of host state — the
 :class:`Request` lifecycle machine, slot assignment, the paged
@@ -133,11 +135,13 @@ class Scheduler:
     results.  Never touches device tensors or sampling generators."""
 
     def __init__(self, cfg, *, policy_enabled: bool, prefix_cache: bool,
-                 faults=None):
+                 paged: bool = True, faults=None):
         self.cfg = cfg
         self.faults = faults
         self._policy_enabled = policy_enabled
-        self.prefix_cache = prefix_cache
+        self.paged = paged
+        # block reuse needs every piece of a request's KV in the pool
+        self.prefix_cache = paged and prefix_cache
         self.preemptions = 0
         self.rejections = 0
         self.admission_retries = 0   # transient admission failures absorbed
@@ -149,12 +153,15 @@ class Scheduler:
         self.blocks_reused = 0       # total shared-block acquisitions
         self.tokens_skipped = 0      # prefill rows served from the index
         self.prefill_demand = 0      # prefill rows requested at admission
-        self._max_blocks = max_blocks_per_slot(cfg.max_seq, cfg.block_size)
-        nb = (cfg.num_blocks if cfg.num_blocks is not None
-              else cfg.num_slots * self._max_blocks)
-        self.pool = BlockPool(nb, cfg.block_size, prefix_cache=self.prefix_cache)
-        self._host_table = np.full((cfg.num_slots, self._max_blocks), -1, np.int32)
-        self._table_dirty = True
+        self.pool: Optional[BlockPool] = None
+        self._table_dirty = False
+        if paged:
+            self._max_blocks = max_blocks_per_slot(cfg.max_seq, cfg.block_size)
+            nb = (cfg.num_blocks if cfg.num_blocks is not None
+                  else cfg.num_slots * self._max_blocks)
+            self.pool = BlockPool(nb, cfg.block_size, prefix_cache=self.prefix_cache)
+            self._host_table = np.full((cfg.num_slots, self._max_blocks), -1, np.int32)
+            self._table_dirty = True
         self.requests: List[Request] = []
         self._free_slots = list(range(cfg.num_slots))
         self._slot_req: List[Optional[Request]] = [None] * cfg.num_slots
@@ -172,7 +179,8 @@ class Scheduler:
             raise ValueError("empty prompt")
         if tokens.size + max_new_tokens > self.cfg.max_seq:
             raise ValueError("request exceeds slot capacity (max_seq)")
-        if self.pool.blocks_for(tokens.size + max_new_tokens) > self.pool.num_blocks:
+        if (self.paged and self.pool.blocks_for(tokens.size + max_new_tokens)
+                > self.pool.num_blocks):
             raise ValueError("request exceeds block pool capacity")
         rid = len(self.requests)
         if ttl is None:
@@ -211,8 +219,9 @@ class Scheduler:
                 req.blocks = []
                 req.shared = req.registered = 0
             if req.slot >= 0:
-                self._host_table[req.slot, :] = -1
-                self._table_dirty = True
+                if self.paged:
+                    self._host_table[req.slot, :] = -1
+                    self._table_dirty = True
                 self._free_slots.append(req.slot)
                 self._slot_req[req.slot] = None
                 req.slot = -1
@@ -318,8 +327,8 @@ class Scheduler:
             if req.next_retry_iter > it:
                 continue               # backing off a transient failure
             seq = self._seq(req)
-            need = self.pool.blocks_for(len(seq))
-            if need > min(self.pool.num_blocks, self._max_blocks):
+            need = self.pool.blocks_for(len(seq)) if self.paged else 0
+            if self.paged and need > min(self.pool.num_blocks, self._max_blocks):
                 # can NEVER fit: strict FCFS would wait on it forever
                 # and starve every request behind it (head-of-line
                 # livelock) — reject with a terminal state instead.
@@ -341,41 +350,43 @@ class Scheduler:
                 # plane hiccup): backoff-and-retry before the backstop
                 self._retry(req, it)
                 continue
-            shared = self.match_prefix(req, seq)
-            # full feasibility BEFORE taking anything: reviving a
-            # zero-ref cached hit consumes availability (sharing a
-            # live block does not), and the fresh remainder must fit
-            # what is left — so a refused admission never touches the
-            # pool (no rollback, no phantom peak_in_use spike)
-            revive = sum(map(self.pool.is_cached, shared))
-            if need - len(shared) > self.pool.available - revive:
-                # strict FCFS: the oldest waiting request admits first;
-                # skipping ahead would starve long prompts under
-                # sustained short-prompt traffic
-                break
-            acquired: List[int] = []
-            try:
-                for b in shared:
-                    self.pool.acquire_cached(b)
-                    acquired.append(b)
-                fresh = self.pool.alloc(need - len(shared))
-            except RuntimeError:
-                # allocation failed mid-admission (injected pool fault, or
-                # capacity raced away): roll back the prefix refs just
-                # acquired — the pool is left exactly as found — and retry
-                # with backoff
-                self.pool.release(acquired[::-1])
-                self._retry(req, it)
-                continue
-            req.blocks = shared + fresh
-            req.shared = req.registered = len(shared)
-            skip = len(shared) * self.pool.block_size
-            req.cached_tokens += skip
-            self.prefill_demand += len(seq)
-            self.tokens_skipped += skip
-            self.blocks_reused += len(shared)
-            if shared:
-                self.prefix_hits += 1
+            skip = 0
+            if self.paged:
+                shared = self.match_prefix(req, seq)
+                # full feasibility BEFORE taking anything: reviving a
+                # zero-ref cached hit consumes availability (sharing a
+                # live block does not), and the fresh remainder must fit
+                # what is left — so a refused admission never touches the
+                # pool (no rollback, no phantom peak_in_use spike)
+                revive = sum(map(self.pool.is_cached, shared))
+                if need - len(shared) > self.pool.available - revive:
+                    # strict FCFS: the oldest waiting request admits first;
+                    # skipping ahead would starve long prompts under
+                    # sustained short-prompt traffic
+                    break
+                acquired: List[int] = []
+                try:
+                    for b in shared:
+                        self.pool.acquire_cached(b)
+                        acquired.append(b)
+                    fresh = self.pool.alloc(need - len(shared))
+                except RuntimeError:
+                    # allocation failed mid-admission (injected pool fault,
+                    # or capacity raced away): roll back the prefix refs
+                    # just acquired — the pool is left exactly as found —
+                    # and retry with backoff
+                    self.pool.release(acquired[::-1])
+                    self._retry(req, it)
+                    continue
+                req.blocks = shared + fresh
+                req.shared = req.registered = len(shared)
+                skip = len(shared) * self.pool.block_size
+                req.cached_tokens += skip
+                self.prefill_demand += len(seq)
+                self.tokens_skipped += skip
+                self.blocks_reused += len(shared)
+                if shared:
+                    self.prefix_hits += 1
             slot = self._free_slots.pop(0)
             # prefix-cached rows are already valid KV: the executor resets
             # the slot's pos to the first non-cached token so the first
@@ -384,9 +395,10 @@ class Scheduler:
             # pooled leaves, so the shared blocks other slots may be
             # reading survive the slot handoff)
             self._pending_resets.append((slot, skip))
-            self._host_table[slot, :] = -1
-            self._host_table[slot, :len(req.blocks)] = req.blocks
-            self._table_dirty = True
+            if self.paged:
+                self._host_table[slot, :] = -1
+                self._host_table[slot, :len(req.blocks)] = req.blocks
+                self._table_dirty = True
             req.slot, req.state = slot, PREFILL
             req.filled = req.kv_len = skip
             req.admitted_iter = it
@@ -446,7 +458,10 @@ class Scheduler:
         """Grab a fresh block for every decoding slot crossing a block
         boundary; when the pool is dry, preempt the youngest active
         request until the oldest decoders can proceed (or the needy
-        request is itself the youngest and yields)."""
+        request is itself the youngest and yields).  Nothing to do on the
+        dense slab."""
+        if not self.paged:
+            return
         order = sorted((r for r in self.requests if r.state == DECODE),
                        key=lambda r: (r.admitted_iter, r.rid))
         for r in order:
@@ -475,7 +490,7 @@ class Scheduler:
         req.done_iter = it
         anchor = req.arrival_time if req.arrival_time >= 0 else t0
         req.done_time = time.perf_counter() - anchor
-        if req.blocks:
+        if self.paged and req.blocks:
             self._register_blocks(req)
             self.pool.release(req.blocks[::-1])   # chain head → MRU end
             req.blocks = []
@@ -524,7 +539,7 @@ class Scheduler:
     def _drain_effects(self, plan: StepPlan) -> None:
         plan.resets = self._pending_resets
         self._pending_resets = []
-        if self._table_dirty:
+        if self.paged and self._table_dirty:
             plan.table = self._host_table
             self._table_dirty = False
 
@@ -666,8 +681,8 @@ class Scheduler:
             "slot_rids": [None if r is None else r.rid
                           for r in self._slot_req],
             "free_slots": list(self._free_slots),
-            "pool": self.pool.snapshot(),
-            "host_table": self._host_table.copy(),
+            "pool": self.pool.snapshot() if self.paged else None,
+            "host_table": self._host_table.copy() if self.paged else None,
             "counters": {
                 "preemptions": self.preemptions,
                 "rejections": self.rejections,
@@ -703,10 +718,11 @@ class Scheduler:
                 r.shared = r.registered = 0
                 r.filled = 0
                 r.kv_len = 0
-        self.pool = BlockPool(snap["pool"]["num_blocks"], cfg.block_size,
-                              prefix_cache=self.prefix_cache)
-        self._host_table = np.full((cfg.num_slots, self._max_blocks), -1,
-                                   np.int32)
-        self._table_dirty = True
+        if self.paged:
+            self.pool = BlockPool(snap["pool"]["num_blocks"], cfg.block_size,
+                                  prefix_cache=self.prefix_cache)
+            self._host_table = np.full((cfg.num_slots, self._max_blocks), -1,
+                                       np.int32)
+            self._table_dirty = True
         for name, val in snap["counters"].items():
             setattr(self, name, val)

@@ -18,8 +18,10 @@ An MoE block's ``moe`` dict becomes its :class:`~repro_torch.models.moe.MoE`:
 ``router/w`` in float32 (its Amber scale, which the JAX walk attaches and
 nothing reads, is not carried), ``experts/{gate,up,down}_proj/w``
 (layer ``i`` of the ``(L, E, D, F)`` stack) as they are, and ``shared`` as
-an MLP with its Amber scales; a quantized dict there (or in an MoE block's
-attention) becomes a ``QuantLinear`` as anywhere else.
+an MLP with its Amber scales, where the model has one (Mixtral-8x7B has
+none: its blocks carry the router and the expert stacks alone); a
+quantized dict there (or in an MoE block's attention) becomes a
+``QuantLinear`` as anywhere else.
 
 ``quantize_linears(model, absmax, qcfg)`` applies the offline
 SmoothQuant / Outstanding rewrite (``core.quant.make_quantized_linear``) to

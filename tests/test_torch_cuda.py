@@ -590,6 +590,58 @@ def test_paged_attention_rows_hd80(gen, case, bs):
     _check_paged_case(gen, case, 32, 32, 80, bs, "rows")
 
 
+# (b, tq, kv_len, q_offset) of the window cases: a chunk at an offset whose
+# band starts tiles into the row; decode rows far past the band, at it and
+# short of it (kv_len 2 sees every key)
+_WINDOW_CASES = {"chunk": (1, 100, [1230], [1130]), "chunk_short": (2, 40, [60, 300], [20, 260]),
+                 "decode": (4, 1, [1701, 514, 65, 2], [1700, 513, 64, 1])}
+
+
+@pytest.mark.parametrize("window", [1, 37, 100, 300])
+@pytest.mark.parametrize("case", list(_WINDOW_CASES))
+@pytest.mark.parametrize("route,hq,hkv,hd", [("wgmma", 32, 8, 128), ("wgmma", 14, 2, 64),
+                                            ("rows", 32, 32, 80)],
+                         ids=["wgmma_g4", "wgmma_g7_hd64", "rows_hd80"])
+def test_paged_attention_window(gen, route, hq, hkv, hd, case, window):
+    """The sliding-window band (keys at k > q - window) on both routes
+    against the plain version over NaN-poisoned pools: key tiles and blocks
+    below the band are skipped, edge tiles masked per score; decode splits
+    the band's walk (window 1: one split holds no key)."""
+    b, tq, kv_len, qoff = _WINDOW_CASES[case]
+    q, kp, vp, tab, qo, kvl = _paged_case(gen, b, tq, hq, hkv, hd, 16, kv_len, qoff)
+    assert kpa.attention_plan(q.dtype, b, tq, hq, hkv, hd, 16, tab.shape[1], True,
+                              window=window)[0] == route
+    causal = tq > 1
+    _close(kpa.paged_attention(q, kp, vp, tab, qo, kvl, causal=causal, window=window),
+           kpa.paged_attention_plain(q, kp, vp, tab, qo, kvl, causal=causal, window=window),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("route,hq,hkv,hd,dtype", [("wgmma", 32, 8, 128, torch.bfloat16),
+                                                   ("rows", 32, 8, 128, torch.float32)])
+def test_paged_attention_window_off_band_splits(gen, monkeypatch, route, hq, hkv, hd, dtype):
+    """A decode walk split as if it had no window (the whole table's 27 key
+    tiles in 4 wgmma splits, or its 108 blocks in 27 rows-kernel ranges)
+    under a window of 40: the band's walk starts at its first tile, so the
+    first split holds it all and the others find no key, write an empty
+    partial state, and the merge still gives the plain version's output."""
+    plan = kpa.attention_plan
+
+    def no_window(*args, **kw):            # the wrapper passes it after sms
+        kw.pop("window", None)
+        return plan(*args[:10], **kw, window=0)
+
+    monkeypatch.setattr(kpa, "attention_plan", no_window)
+    b, tq, kv_len, qoff = _WINDOW_CASES["decode"]
+    q, kp, vp, tab, qo, kvl = _paged_case(gen, b, tq, hq, hkv, hd, 16, kv_len, qoff)
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    route_, _, n_split, _ = kpa.attention_plan(dtype, b, tq, hq, hkv, hd, 16, tab.shape[1],
+                                              True, window=40)
+    assert route_ == route and n_split > 1
+    _close(kpa.paged_attention(q, kp, vp, tab, qo, kvl, causal=False, window=40),
+           kpa.paged_attention_plain(q, kp, vp, tab, qo, kvl, causal=False, window=40), dtype)
+
+
 def test_paged_attention_wgmma_repeat_resets_tickets(gen):
     """The split walk's ticket counters end each launch at 0: the same call
     twice gives the same bits."""

@@ -121,8 +121,8 @@ def test_one_shot_mode_chatglm3(capsys):
     assert re.search(r"agreement dense vs sparse-prefill: [\d.]+", out)
 
 
-@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"], ["--no-paged"]],
-                         ids=["dp", "tp", "no-paged"])
+@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"], ["--dp", "2", "--no-paged"]],
+                         ids=["dp", "tp", "dp-no-paged"])
 def test_unported_layouts_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(TRACE + ["--device", "cpu"] + flags)

@@ -129,8 +129,9 @@ def test_bf16_weights_round_trip_exactly(smoke):
 
 def test_unported_configs_raise():
     tcfg = tget("llama31_8b")
-    for kw in (dict(attn_type="swa"), dict(is_encdec=True, n_encoder_layers=2),
-               dict(rope_variant="mrope")):
+    for kw in (dict(block_pattern=("rglru", "rglru", "attn")),
+               dict(is_encdec=True, n_encoder_layers=2), dict(rope_variant="mrope")):
         with pytest.raises(NotImplementedError):
             build_model(dataclasses.replace(tcfg, **kw), device="cpu")
     build_model(dataclasses.replace(tcfg, attn_impl="flash"), device="cpu")
+    build_model(tget("mixtral_8x7b"), device="cpu")     # sliding windows are ported

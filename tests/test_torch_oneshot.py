@@ -130,11 +130,16 @@ def test_attention_flash_route_only_for_whole_sequence(kw, monkeypatch):
 
 
 def test_chunked_attention_with_window_raises():
-    x = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError):
-        tattn.attention(x, x, x, window=4)
-    with pytest.raises(NotImplementedError):
-        tattn.attention(x, x, x, window=4, causal=False, impl="flash")
+    """The two windowed cases outside the flash kernel's that raised until
+    sliding windows were ported (the causal band of the plain path, and a
+    non-causal band, which ``impl="flash"`` leaves to the plain loop) now
+    match the JAX package's ``attention`` (float32)."""
+    x = _np(10, 1, 8, 2, 16)
+    for kw in (dict(window=4), dict(window=4, causal=False, impl="flash")):
+        got = tattn.attention(torch.from_numpy(x), torch.from_numpy(x), torch.from_numpy(x),
+                              **kw).numpy()
+        want = jattn.attention(jnp.asarray(x), jnp.asarray(x), jnp.asarray(x), **kw)
+        np.testing.assert_allclose(got, np.asarray(want), **F32)
 
 
 # ------------------------------------------------------------ nm_spmm
