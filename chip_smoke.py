@@ -47,10 +47,12 @@ Phases (any failed check exits non-zero; no phase is skipped):
              128- or 256-row blocks) are checked and timed against each
              other where the plan chooses them.  2j: the dense variants'
              shapes: ``paged_attention`` chunk and decode at G = 5, 16 and
-             48 (wgmma) and at head_dim 80 (the CUDA-core rows kernel) over
-             NaN-poisoned pools, ``paged_kv_scatter`` at 80 x 32 KV heads
-             and at one KV head, ``flash_attention`` at head_dim 80 and
-             G = 16, ``nm_prune_matmul`` at their q/gate/down widths,
+             48 and at head_dim 80 (wgmma, head_dim 80 on the 128-column
+             tile) over NaN-poisoned pools, ``paged_kv_scatter`` at 80 x 32
+             KV heads and at one KV head, ``flash_attention`` at head_dim 80
+             and G = 16 and at RecurrentGemma-2B's heads (10 / 1 at head_dim
+             256, T = 4096, window 2048: the 256-column tile), each with its
+             route printed, ``nm_prune_matmul`` at their q/gate/down widths,
              ``osparse_matmul`` at Qwen2.5-32B q and k with their biases
              (bit-exact), each timed beside its bound and library call.
              2k: ``nm_prune_matmul`` at the widths of all seven of
@@ -186,11 +188,15 @@ Phases (any failed check exits non-zero; no phase is skipped):
              Outstanding-sparse as in 3b, every ``osparse_matmul`` launch on
              its wgmma or swap_fused route with the q/k/v biases in the
              epilogue; 8c ChatGLM3-6B (28 layers, 2-D RoPE, G = 16); 8d
-             StableLM-3B (32 layers, LayerNorm, head_dim 80: the CUDA-core
-             rows kernel); 8e Granite-34B at full width and depth 16 (MQA,
+             StableLM-3B (32 layers, LayerNorm, head_dim 80: the wgmma
+             kernel's 128-column tile); every served model's
+             ``paged_attention`` launches all on the wgmma route, none on
+             rows; 8e Granite-34B at full width and depth 16 (MQA,
              G = 48: its 88 layers take 88 GiB of bf16, which no one
              80 GB card holds).  8f: phases 4 and 4 bf16 for each of the
-             four at full width and depth 2.  Each subphase's seconds are
+             four at full width and depth 2 (the float32 kernel path's
+             ``paged_attention`` launches all on the rows route, the bf16
+             path's none).  Each subphase's seconds are
              printed.  Phases 4 and 8f (float32) count the N:M flips
              between the kernel and plain paths on prompt 0, per projection
              and layer.
@@ -1215,7 +1221,9 @@ def serve_requests(torch, model, params, policy, label, eager=False, stream_fn=N
     with the stream's prefill and decode tok/s and peak memory, engine,
     outputs)."""
     from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import osparse_matmul as kos
+    from repro_torch.kernels import paged_attention as kpa
     from repro_torch.serve import Engine, EngineConfig
 
     cfg = model.cfg
@@ -1236,6 +1244,8 @@ def serve_requests(torch, model, params, policy, label, eager=False, stream_fn=N
     launches = kernels.launch_counts()
     launches["osparse_matmul (prune=True)"] = kos.osparse_matmul.pruned_launches
     launches["osparse_matmul routes"] = dict(kos.osparse_matmul.route_launches)
+    launches["paged_attention routes"] = dict(kpa.paged_attention.route_launches)
+    launches["flash_attention routes"] = dict(kfa.flash_attention.route_launches)
     met = res["metrics"]
     states = {r["rid"]: r["state"] for r in met["requests"]}
     for rid in rids:
@@ -1924,12 +1934,14 @@ def phase_parity(torch, quantized: bool, dtype: str = "float32", arch: str = "ll
     comparison is printed, not checked.  In float32 without W8A8, the N:M
     flips between the paths on prompt 0 are counted per projection and
     layer (:func:`nm_flips`)."""
+    from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.core import quant
     from repro_torch.core.policy import paper_policy
     from repro_torch.core.pruner import precompute_scales
     from repro_torch.kernels import ops
     from repro_torch.kernels import osparse_matmul as kos
+    from repro_torch.kernels import paged_attention as kpa
     from repro_torch.models import build_model
     from repro_torch.serve import ContinuousConfig, Engine, EngineConfig
     from repro_torch.weights import quantize_linears
@@ -1983,8 +1995,19 @@ def phase_parity(torch, quantized: bool, dtype: str = "float32", arch: str = "ll
         finally:
             ops.osparse_matmul = kernel_osparse
 
+    kernels.reset_launch_counts()
     got, got_logits = run("kernel")
-    print(f"  prompts {[len(p) for p in prompts]}: kernel path {got}")
+    torch.cuda.synchronize()
+    # the attention's route: float32 keeps the CUDA-core rows kernel, bf16
+    # never takes it (every head_dim the models have is a multiple of 8)
+    routes = dict(kpa.paged_attention.route_launches)
+    n_attn = kpa.paged_attention.launches
+    want_routes = ({"wgmma": n_attn, "rows": 0} if bf16 else {"wgmma": 0, "rows": n_attn})
+    if n_attn <= 0 or routes != want_routes:
+        fail(f"{label}: paged_attention routes {routes} of {n_attn} launches on the kernel "
+             f"path, expected {want_routes}")
+    print(f"  prompts {[len(p) for p in prompts]}: kernel path {got}; paged_attention "
+          f"{n_attn} launches, routes {routes}")
     want, want_logits = run("plain osparse" if quantized else "plain")
     margins = []
     for i, (a, b) in enumerate(zip(got_logits, want_logits)):
@@ -2706,9 +2729,15 @@ def phase_moe(torch, rates):
 # ------------------------------------------------ the dense-family variants
 
 # (label, Hq, Hkv, head_dim): Qwen2.5-32B, ChatGLM3-6B, Granite-34B (MQA)
-# and StableLM-3B (MHA at head_dim 80, the CUDA-core rows kernel)
+# and StableLM-3B (MHA at head_dim 80, the wgmma kernel's 128-column tile)
 VARIANT_HEADS = (("Qwen2.5-32B G=5", 40, 8, 128), ("ChatGLM3-6B G=16", 32, 2, 128),
                  ("Granite-34B G=48", 48, 1, 128), ("StableLM-3B hd=80 G=1", 32, 32, 80))
+# flash_attention's causal cases of 2j: (label, B, T, Hq, Hkv, head_dim,
+# window); RecurrentGemma-2B's local attention (10 query heads on one KV
+# head of 256, window 2048) on the 256-column tile
+FLASH_VARIANT_HEADS = (("StableLM-3B hd=80 G=1", 4, 512, 32, 32, 80, 0),
+                       ("ChatGLM3-6B G=16", 4, 512, 32, 2, 128, 0),
+                       ("RecurrentGemma-2B hd=256 G=10 window 2048", 1, 4096, 10, 1, 256, 2048))
 # nm_prune_matmul's projections on the variants' paths: (label, K, N_out,
 # bias), q carrying the model's q bias where it has one
 VARIANT_PRUNED = (("StableLM-3B q", 2560, 2560, False), ("StableLM-3B gate", 2560, 6912, False),
@@ -2795,27 +2824,40 @@ def phase_variant_kernels(torch, timer, rates, records):
                   f"plain {r['plain_ms']:.4f} ms, index_put_ K+V {r['library_ms']:.4f} ms")
             keep("paged_kv_scatter", f"{label} {case}", 0.0, bound_by="bytes", **r)
 
-    print("phase 2j: flash_attention B=4 T=512 causal at head_dim 80 (G=1) and G=16")
-    for label, hq, hkv, hd in (("StableLM-3B hd=80 G=1", 32, 32, 80),
-                               ("ChatGLM3-6B G=16", 32, 2, 128)):
-        b, t = 4, 512
+    print("phase 2j: flash_attention causal at head_dim 80 (G=1) and G=16 (B=4 T=512), and "
+          "at RecurrentGemma-2B's heads (B=1 T=4096, 10/1 heads of 256, window 2048)")
+    for label, b, t, hq, hkv, hd, window in FLASH_VARIANT_HEADS:
         q = torch.randn(b, t, hq, hd, generator=g, device=dev).bfloat16()
         k = torch.randn(b, t, hkv, hd, generator=g, device=dev).bfloat16()
         v = torch.randn(b, t, hkv, hd, generator=g, device=dev).bfloat16()
-        err = check_close(label, kfa.flash_attention(q, k, v), kfa.flash_attention_plain(q, k, v),
-                          BF16_TOL)
-        ms = timer.ms(lambda: kfa.flash_attention(q, k, v))
-        plain_ms = timer.ms(lambda: kfa.flash_attention_plain(q, k, v), 5)
-        lib_ms = sdpa_ms(torch, timer, q, k, v, True)
+        route = kfa.flash_plan(q.dtype, hd, True)
+        before = kfa.flash_attention.route_launches[route[0]]
+        err = check_close(f"{label} {route}", kfa.flash_attention(q, k, v, window=window),
+                          kfa.flash_attention_plain(q, k, v, window=window), BF16_TOL)
+        if kfa.flash_attention.route_launches[route[0]] != before + 1:
+            fail(f"flash_attention {label}: the call did not take its plan's route {route}")
+        ms = timer.ms(lambda: kfa.flash_attention(q, k, v, window=window))
+        plain_ms = timer.ms(lambda: kfa.flash_attention_plain(q, k, v, window=window), 5)
+        if window:
+            pos = torch.arange(t, device=dev)
+            band = ((pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            lib_ms = timer.ms(lambda: sdpa(qt, kt, vt, attn_mask=band, enable_gqa=True))
+            pairs = int(band.sum())
+        else:
+            lib_ms = sdpa_ms(torch, timer, q, k, v, True)
+            pairs = t * (t + 1) // 2
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-        ops = 4 * hd * b * hq * t * (t + 1) // 2
+        ops = 4 * hd * b * hq * pairs
         bound = max(nbytes / bw, ops / bf16_peak) * 1e3
         by = "bytes" if nbytes / bw >= ops / bf16_peak else "operations"
-        print(f"  {label}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), plain "
-              f"{plain_ms:.4f} ms, SDPA (is_causal, GQA) {lib_ms:.4f} ms; kernel/library "
-              f"{ms / lib_ms:.2f}")
-        keep("flash_attention", label, err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-             bound_ms=bound, bound_by=by)
+        print(f"  {label} {route}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}; {pairs} "
+              f"visible pairs a head), plain {plain_ms:.4f} ms, SDPA (GQA, "
+              f"{'band mask' if window else 'is_causal'}) {lib_ms:.4f} ms; kernel/library "
+              f"{ms / lib_ms:.2f}, kernel/plain {ms / plain_ms:.3f}")
+        keep("flash_attention", label, err, route=list(route), ms=ms, plain_ms=plain_ms,
+             library_ms=lib_ms, bound_ms=bound, bound_by=by)
 
     print("phase 2j: nm_prune_matmul at the variants' widths (T=256, 8:16)")
     for label, d, n_out, biased in VARIANT_PRUNED:
@@ -3047,8 +3089,12 @@ def serve_dense(torch, label, arch, n_layers=None, cut=None):
         "nm_prune_matmul": fused * st["sparse_chunks"], "paged_kv_scatter": per_step,
         "paged_attention": per_step, "nm_prune": 0, "nm_spmm": 0, "flash_attention": 0,
         "osparse_matmul": 0})
+    if launches["paged_attention routes"] != {"wgmma": per_step, "rows": 0}:
+        fail(f"phase {label}: paged_attention routes {launches['paged_attention routes']}, "
+             f"expected all {per_step} launches of the bf16 stream on wgmma")
     print(f"  launches held: per sparse chunk nm_prune_matmul {fused}; paged_kv_scatter "
-          f"and paged_attention {cfg.n_layers} per prefill or decode half")
+          f"and paged_attention {cfg.n_layers} per prefill or decode half, every "
+          f"paged_attention launch on the wgmma route")
     profile_steps(torch, model, params, policy, eng)
     del eng
     check_graphed_tokens(torch, model, params, policy, f"phase {label}", outputs)

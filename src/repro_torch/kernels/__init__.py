@@ -14,7 +14,8 @@ launch counter.
 
 Libraries are built with ``nvcc`` at first use (``_build.py``).  Each
 wrapper counts its launches; :func:`counters` reads every count (by kernel,
-``osparse_matmul``'s pruned calls, the int8 GEMMs' calls by route) as one
+``osparse_matmul``'s pruned calls, the int8 GEMMs' and the attention
+kernels' calls by route) as one
 flat dict, which ``_capture.Graph`` adds to at every replay of a captured
 step.
 """
@@ -42,7 +43,8 @@ KERNELS = {
 }
 
 
-_ROUTED = {"osparse_matmul": _osp.osparse_matmul, "w8a8_matmul": _w8.w8a8_matmul}
+_ROUTED = {"osparse_matmul": _osp.osparse_matmul, "w8a8_matmul": _w8.w8a8_matmul,
+           "paged_attention": _pa.paged_attention, "flash_attention": _fa.flash_attention}
 
 
 def launch_counts() -> dict:
@@ -51,7 +53,8 @@ def launch_counts() -> dict:
 
 def counters() -> dict:
     """Every launch counter: ``{kernel: launches, "osparse_matmul.pruned":
-    n, "<int8 GEMM>.<route>": n}``."""
+    n, "<routed kernel>.<route>": n}`` (the int8 GEMMs' and the attention
+    kernels' routes)."""
     out = launch_counts()
     out["osparse_matmul.pruned"] = _osp.osparse_matmul.pruned_launches
     for name, fn in _ROUTED.items():

@@ -17,32 +17,43 @@
 // Hq = 28, Hkv = 4, T = 512, hd = 128, causal) the kernel moves ~34 MB and
 // does ~7.5 GFLOP of visible products: 0.010 ms of memory and 0.008 ms of
 // tensor-core time at the data-sheet rates, so it is bound by how well the
-// tensor cores are kept fed.  Two paths:
-//  * bf16, head_dim 64 or 128, 16-byte-aligned tensors: flash_bf16_kernel, on
-//    the wgmma tensor-core path.  One block per (NWG x 64 query rows, query
-//    head, batch row), the last (heaviest causal) query tiles launched
-//    first; NWG consumer warpgroups (2 at hd 128, 3 at hd 64) take 64 rows
-//    each and share every K/V tile, which one producer warp streams through
-//    a 3-stage ring with TMA (4-d tensor maps over the (B, T, H, hd)
-//    layout, 128-byte swizzle; rows past T arrive as zeros) under full and
-//    empty mbarriers.  S = Q K^T is a wgmma from shared memory (both
-//    K-major); the online softmax runs on the accumulator fragments in the
-//    log2 domain (row max and sum across the 4 lanes of a row by shuffles;
-//    the visibility test only on tiles that straddle the diagonal, the band
-//    edge or T); P is rounded to bf16 in registers and is the A operand of
-//    O += P V, with V the MN-major B operand as stored.  S and P never touch
-//    shared memory; O stays in registers until the epilogue rounds it into
-//    the warpgroup's (then free) Q tile, which leaves by TMA store in whole
-//    128-byte lines.  What bounds it now (chip_smoke.py phase 2g on an H100:
-//    0.039 ms against 0.008 ms of tensor-core work) is not the tensor cores
-//    but the softmax between a warpgroup's two products and each block's
-//    first loads, which nothing else on the SM overlaps.
-//  * everything else (float32, other head sizes, unaligned tensors): one
-//    block per (16-row tile, KV head, batch row) on the CUDA cores; the tile
-//    flattens (query position, head in the GQA group), so the G = Hq / Hkv
-//    heads that share a KV head read each staged 16-key sub-tile once; one
-//    warp per row, each lane holding hd / 32 of the query, the accumulator
-//    and the value dims.  Products are float32 FMAs (no TF32).
+// tensor cores are kept fed.  Two paths, chosen by the wrapper's plan
+// (kernels/flash_attention.py: flash_plan):
+//  * bf16, head_dim a multiple of 8 up to 256, 16-byte-aligned tensors:
+//    flash_bf16_kernel, on the wgmma tensor-core path, built for tiles of
+//    64, 128 and 256 columns (head_dim <= 64, <= 128, <= 256).  A head_dim
+//    below its tile's is padded by the tensor maps, which span the real
+//    head_dim: a box's columns past it load as zeros, Q K^T adds exact
+//    zeros and the TMA store clips O's extra columns, so device memory
+//    moves the real bytes and the tensor cores the tile's work.  One block
+//    per (NWG x 64 query rows, query head, batch row), the last (heaviest
+//    causal) query tiles launched first; NWG consumer warpgroups (3 at tile
+//    64, 2 at 128, 1 at 256) take 64 rows each and share every K/V tile,
+//    which one producer warp streams through a 3-stage ring with TMA (4-d
+//    tensor maps over the (B, T, H, hd) layout, 128-byte swizzle; rows past
+//    T arrive as zeros) under full and empty mbarriers.  At tile 256 a
+//    stage is 64 KiB, so Q and the ring take 225 of an SM's 227 KiB, and O
+//    is 128 float32 registers a thread (P V two n128 products): a second
+//    warpgroup would leave 2 stages and spill under the 224 registers a
+//    288-thread block may hold (it was built so and ran slower).  S = Q K^T
+//    is a wgmma from shared memory (both K-major); the online softmax runs
+//    on the accumulator fragments in the log2 domain (row max and sum
+//    across the 4 lanes of a row by shuffles; the visibility test only on
+//    tiles that straddle the diagonal, the band edge or T); P is rounded to
+//    bf16 in registers and is the A operand of O += P V, with V the
+//    MN-major B operand as stored.  S and P never touch shared memory; O
+//    stays in registers until the epilogue rounds it into the warpgroup's
+//    (then free) Q tile, which leaves by TMA store in whole 128-byte lines.
+//    What bounds it now (chip_smoke.py phase 2g on an H100: 0.039 ms
+//    against 0.008 ms of tensor-core work) is not the tensor cores but the
+//    softmax between a warpgroup's two products and each block's first
+//    loads, which nothing else on the SM overlaps.
+//  * everything else (float32, head_dim not a multiple of 8, unaligned
+//    tensors): one block per (16-row tile, KV head, batch row) on the CUDA
+//    cores; the tile flattens (query position, head in the GQA group), so
+//    the G = Hq / Hkv heads that share a KV head read each staged 16-key
+//    sub-tile once; one warp per row, each lane holding hd / 32 of the
+//    query, the accumulator and the value dims.  Products are float32 FMAs (no TF32).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -222,6 +233,7 @@ struct FlashSmem {
   static constexpr int TILE = FK * HD * 2;                // K or V tile bytes
   static constexpr int STAGE = 2 * TILE;
   static constexpr int BYTES = Q + FSTAGES * STAGE + 1024;  // + alignment slack
+  static_assert(BYTES <= 227 * 1024, "over the shared memory of an SM");
 };
 
 template <int HD, int NWG>
@@ -380,17 +392,26 @@ flash_bf16_kernel(__grid_constant__ const CUtensorMap qmap,
         pa[4 * kk + 3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
       }
 
-      // O += P V: V is the MN-major B operand (head dims along the rows)
+      // O += P V: V is the MN-major B operand (head dims along the rows);
+      // at HD 256 two n128 products, on V's chunks 0-1 and 2-3 into O's
+      // columns 0-127 (o[0..63]) and 128-255 (o[64..127])
       wgmma_fence();
       fence_regs(o);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
         const uint64_t dv = desc_mn_major(vs + kk * 16 * 128, L::CHUNK_KV);
-        if constexpr (HD == 128)
+        if constexpr (HD == 256) {
+          wgmma_m64n128k16_rs<1>(*reinterpret_cast<float(*)[64]>(o), a, dv, 1);
+          wgmma_m64n128k16_rs<1>(*reinterpret_cast<float(*)[64]>(o + 64), a,
+                                 desc_mn_major(vs + 2 * L::CHUNK_KV + kk * 16 * 128,
+                                               L::CHUNK_KV),
+                                 1);
+        } else if constexpr (HD == 128) {
           wgmma_m64n128k16_rs<1>(o, a, dv, 1);
-        else
+        } else {
           wgmma_m64n64k16_rs<1>(o, a, dv, 1);
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -429,25 +450,26 @@ flash_bf16_kernel(__grid_constant__ const CUtensorMap qmap,
   }
 }
 
-// (hd, H, T, B) view of a (B, T, H, hd) tensor, boxes of 64 dims x 64 rows
-template <int HD>
-int flash_map(CUtensorMap* map, const void* p, int B, int T_, int H) {
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)H, (cuuint64_t)T_, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, (cuuint64_t)H * HD * 2,
-                                 (cuuint64_t)T_ * H * HD * 2};
+// (hd, H, T, B) view of a (B, T, H, hd) tensor, boxes of 64 dims x 64 rows.
+// It spans the real head_dim, so a tile's columns past it load as zeros and
+// are clipped from the store.
+int flash_map(CUtensorMap* map, const void* p, int B, int T_, int H, int hd) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)T_, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)H * hd * 2,
+                                 (cuuint64_t)T_ * H * hd * 2};
   const cuuint32_t box[4] = {64, 1, 64, 1};
   return hopper::encode_bf16_sw128(map, p, 4, dims, strides, box);
 }
 
 template <int HD, int NWG>
 int launch_flash(const void* q, const void* k, const void* v, void* out, int B, int T_, int Hq,
-                 int Hkv, int causal, int window, float scale, cudaStream_t s) {
+                 int Hkv, int hd, int causal, int window, float scale, cudaStream_t s) {
   using L = FlashSmem<HD, NWG>;
   CUtensorMap qm, km, vm, om;
-  int rc = flash_map<HD>(&qm, q, B, T_, Hq);
-  if (rc == 0) rc = flash_map<HD>(&km, k, B, T_, Hkv);
-  if (rc == 0) rc = flash_map<HD>(&vm, v, B, T_, Hkv);
-  if (rc == 0) rc = flash_map<HD>(&om, out, B, T_, Hq);
+  int rc = flash_map(&qm, q, B, T_, Hq, hd);
+  if (rc == 0) rc = flash_map(&km, k, B, T_, Hkv, hd);
+  if (rc == 0) rc = flash_map(&vm, v, B, T_, Hkv, hd);
+  if (rc == 0) rc = flash_map(&om, out, B, T_, Hq, hd);
   if (rc != 0) return rc;
   cudaError_t e = cudaFuncSetAttribute(flash_bf16_kernel<HD, NWG>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
@@ -463,20 +485,34 @@ int launch_flash(const void* q, const void* k, const void* v, void* out, int B, 
 // Plain C interface (loaded with ctypes).  All pointers are device pointers
 // to contiguous tensors; q/out (B, T, Hq, hd), k/v (B, T, Hkv, hd); Hq is a
 // multiple of Hkv and hd <= 256 (the wrapper checks).  `window` <= 0 means
-// no band.  Launches on `stream`, does not synchronise, and returns
+// no band.  Each launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() (0 = launched).
+//
+// The wgmma path (the wrapper's flash_plan says when): bf16, 16-byte-aligned
+// tensors, hd a multiple of 8 at most `tile_hd`, on the kernel built for
+// (tile_hd, nwg) consumer warpgroups: (64, 3), (128, 2) or (256, 1); any
+// other pair is refused.
+extern "C" int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v,
+                                          void* out, int B, int T, int Hq, int Hkv, int hd,
+                                          int causal, int window, float scale, int tile_hd,
+                                          int nwg, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (hd <= 0 || hd % 8 != 0 || hd > tile_hd) return (int)cudaErrorInvalidValue;
+  if (tile_hd == 128 && nwg == 2)             // 8 consumer warps + a producer
+    return launch_flash<128, 2>(q, k, v, out, B, T, Hq, Hkv, hd, causal, window, scale, s);
+  if (tile_hd == 64 && nwg == 3)              // 12 + a producer
+    return launch_flash<64, 3>(q, k, v, out, B, T, Hq, Hkv, hd, causal, window, scale, s);
+  if (tile_hd == 256 && nwg == 1)             // 4 + a producer
+    return launch_flash<256, 1>(q, k, v, out, B, T, Hq, Hkv, hd, causal, window, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The CUDA-core rows path (float32, hd not a multiple of 8, unaligned tensors).
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                     int B, int T, int Hq, int Hkv, int hd, int causal,
                                     int window, float scale, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) &
-                        15) == 0;
-  if (aligned && hd == 128)                   // 2 consumer warpgroups: 8 warps + a producer
-    return launch_flash<128, 2>(q, k, v, out, B, T, Hq, Hkv, causal, window, scale, s);
-  if (aligned && hd == 64)                    // 3: 12 warps + a producer
-    return launch_flash<64, 3>(q, k, v, out, B, T, Hq, Hkv, causal, window, scale, s);
-  return launch_rows<bf16>(q, k, v, out, B, T, Hq, Hkv, hd, causal, window, scale, s);
+  return launch_rows<bf16>(q, k, v, out, B, T, Hq, Hkv, hd, causal, window, scale,
+                           (cudaStream_t)stream);
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* out,

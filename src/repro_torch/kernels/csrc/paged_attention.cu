@@ -53,14 +53,21 @@
 // ms at 3.35 TB/s); what a call costs beyond that is latency: a row's key
 // tiles are walked in order.  Two paths, chosen by the wrapper's plan
 // (kernels/paged_attention.py: attention_plan):
-//  * paged_wgmma_kernel: bf16, head_dim 64 or 128, 16-byte-aligned tensors,
-//    a block size TMA can box (a multiple of 8 that divides 64, or a
-//    multiple of 64); chunks and decode alike.  One block per (query tile,
-//    KV head, batch row, key split).  The query tile packs the G = Hq / Hkv
-//    heads that share the KV head into the 64 wgmma rows (row = token * G +
-//    head: 16 tokens at G = 4, 9 at G = 7, one at decode), loaded as one
-//    4-d TMA box over (B, Tq, Hq, hd), so each K/V page leaves device memory
-//    once per query tile, not G times.  A producer warp reads the row's
+//  * paged_wgmma_kernel: bf16, head_dim a multiple of 8 up to 128,
+//    16-byte-aligned tensors, a block size TMA can box (a multiple of 8 that
+//    divides 64, or a multiple of 64), at most 64 query heads per KV head;
+//    chunks and decode alike.  It is built for tiles of 64 and 128 columns:
+//    head_dim <= 64 takes the first, up to 128 the second, and a head_dim
+//    below its tile's is padded by the tensor maps, which span the real
+//    head_dim: a box's columns past it load as zeros (Q K^T adds exact
+//    zeros, the O columns past it are never stored; the TMA store clips
+//    them and the split merge skips them), so device memory moves only the
+//    real bytes and the tensor cores do the tile's work (hd 80: 128 / 80).
+//    One block per (query tile, KV head, batch row, key split).  The query
+//    tile packs the G = Hq / Hkv heads that share the KV head into the 64
+//    wgmma rows (row = token * G + head: 16 tokens at G = 4, 9 at G = 7,
+//    one at decode), loaded as one 4-d TMA box over (B, Tq, Hq, hd), so
+//    each K/V page leaves device memory once per query tile, not G times.  A producer warp reads the row's
 //    table and streams 64-key tiles through a ring of TMA loads: a page of
 //    bs rows is a 4-d box over the pool (n_rows, bs, Hkv, hd), and 64 / bs
 //    such boxes stack into exactly the 128-byte-swizzled tile one 64-row
@@ -81,12 +88,13 @@
 //    sum, O) state, and the last block of a query tile (a ticket counter it
 //    resets) merges them in split order — deterministic, one launch.
 //    Unsplit, O / l leaves by TMA store.
-//  * paged_attention_kernel (float32, other head sizes or block sizes,
-//    misaligned tensors): one block per (query-row tile, KV head, batch
-//    row) on the CUDA cores; the tile flattens (query position, head in the
-//    GQA group), so the G heads that share a KV head read each staged K/V
-//    sub-tile once; one warp per row, each lane holding hd / 32 of the
-//    query, the accumulator and the value dims.  When all of a row's
+//  * paged_attention_kernel (float32, head_dim not a multiple of 8 or above
+//    128, other block sizes, misaligned tensors, G > 64): one block per
+//    (query-row tile, KV head, batch row) on the CUDA cores; the tile
+//    flattens (query position, head in the GQA group), so the G heads that
+//    share a KV head read each staged K/V sub-tile once; one warp per row,
+//    each lane holding hd / 32 of the query, the accumulator and the value
+//    dims.  When all of a row's
 //    queries fit one tile (decode), the walk over the block table is split
 //    across `n_split` blocks that write partial (max, sum, acc) states, and
 //    a combine kernel merges them.
@@ -449,7 +457,7 @@ paged_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
                    __grid_constant__ const CUtensorMap omap, const int* __restrict__ table,
                    const int* __restrict__ q_offset, const int* __restrict__ kv_len,
                    bf16* __restrict__ out, float* __restrict__ part, int* __restrict__ tickets,
-                   int Tq, int Hq, int Hkv, int bs, int mb, int n_rows, int causal,
+                   int Tq, int Hq, int Hkv, int hd, int bs, int mb, int n_rows, int causal,
                    int window, float scale_log2, int nt, int per) {
   using L = PagedSmem<HD>;
   using namespace hopper;
@@ -763,8 +771,11 @@ paged_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
     wts[n_split * 64 + threadIdx.x] = 1.f / fmaxf(l, 1e-20f);
   }
   named_barrier(1, 128);
-  for (int e = threadIdx.x; e < rows * (HD / 8); e += 128) {
-    const int r = e / (HD / 8), c8 = (e % (HD / 8)) * 8;
+  // the real head_dim's 8-column groups only: the tile's columns past hd
+  // hold the zeros of the padded product and are never stored
+  const int g8 = hd / 8;
+  for (int e = threadIdx.x; e < rows * g8; e += 128) {
+    const int r = e / g8, c8 = (e % g8) * 8;
     const int t = t0 + r / G, h = kvh * G + r % G;
     if (t >= Tq) continue;
     float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -782,7 +793,7 @@ paged_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
     v.y = pack_bf16(acc[2] * inv, acc[3] * inv);
     v.z = pack_bf16(acc[4] * inv, acc[5] * inv);
     v.w = pack_bf16(acc[6] * inv, acc[7] * inv);
-    *reinterpret_cast<uint4*>(out + (((size_t)b * Tq + t) * Hq + h) * HD + c8) = v;
+    *reinterpret_cast<uint4*>(out + (((size_t)b * Tq + t) * Hq + h) * hd + c8) = v;
   }
   if (threadIdx.x == 0) tickets[tile_id] = 0;             // ready for the next launch
 }
@@ -831,15 +842,18 @@ int pool_map(CUtensorMap* map, const void* base, int rows, int bs, int hkv, int 
 template <int HD>
 int launch_wgmma(const void* q, const void* kp, const void* vp, const int* table,
                  const int* q_offset, const int* kv_len, void* out, float* part, int* tickets,
-                 int B, int Tq, int Hq, int Hkv, int bs, int mb, int n_rows, int causal,
-                 int window, float scale, int nt, int n_split, int per, cudaStream_t s) {
+                 int B, int Tq, int Hq, int Hkv, int hd, int bs, int mb, int n_rows,
+                 int causal, int window, float scale, int nt, int n_split, int per,
+                 cudaStream_t s) {
   using L = PagedSmem<HD>;
   const int G = Hq / Hkv;
+  // the maps span the real head_dim: a box's columns past it load as zeros
+  // and are clipped from the store
   CUtensorMap qm, om, km, vm;
-  int rc = rows_map(&qm, q, B, Tq, Hq, HD, G, nt);
-  if (rc == 0) rc = rows_map(&om, out, B, Tq, Hq, HD, G, nt);
-  if (rc == 0) rc = pool_map(&km, kp, n_rows, bs, Hkv, HD);
-  if (rc == 0) rc = pool_map(&vm, vp, n_rows, bs, Hkv, HD);
+  int rc = rows_map(&qm, q, B, Tq, Hq, hd, G, nt);
+  if (rc == 0) rc = rows_map(&om, out, B, Tq, Hq, hd, G, nt);
+  if (rc == 0) rc = pool_map(&km, kp, n_rows, bs, Hkv, hd);
+  if (rc == 0) rc = pool_map(&vm, vp, n_rows, bs, Hkv, hd);
   if (rc != 0) return rc;
   const cudaError_t e = cudaFuncSetAttribute(
       paged_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
@@ -847,8 +861,8 @@ int launch_wgmma(const void* q, const void* kp, const void* vp, const int* table
   dim3 grid(n_split, (Tq + nt - 1) / nt, B * Hkv);
   paged_wgmma_kernel<HD><<<grid, P_THREADS, L::BYTES, s>>>(
       qm, km, vm, om, table, q_offset, kv_len, (bf16*)out, n_split > 1 ? part : nullptr,
-      tickets, Tq, Hq, Hkv, bs, mb, n_rows, causal, window, scale * 1.4426950408889634f, nt,
-      per);
+      tickets, Tq, Hq, Hkv, hd, bs, mb, n_rows, causal, window, scale * 1.4426950408889634f,
+      nt, per);
   return (int)cudaGetLastError();
 }
 
@@ -883,28 +897,31 @@ extern "C" int paged_kv_scatter(const void* k_new, const void* v_new, void* k_po
 
 // The wgmma path (the wrapper's plan says when): query tiles of `nt`
 // tokens, the key tiles of a row (of its window band when window > 0)
-// walked in `n_split` splits of `per` tiles.
+// walked in `n_split` splits of `per` tiles, on the kernel built for the
+// plan's tile width `tile_hd` (64 or 128; any other is refused) with the
+// head_dim `hd` (a multiple of 8, at most tile_hd) padded to it.
 // With n_split > 1, `part` is float32 scratch of (B * Hkv * ceil(Tq / nt)) *
-// n_split * 64 * (hd + 2) floats and `tickets` int32 counters, one per query
-// tile, that are 0 at launch and 0 again after it.
+// n_split * 64 * (tile_hd + 2) floats and `tickets` int32 counters, one per
+// query tile, that are 0 at launch and 0 again after it.
 extern "C" int paged_attention_wgmma_bf16(const void* q, const void* k_pool, const void* v_pool,
                                           const int* table, const int* q_offset,
                                           const int* kv_len, void* out, void* part,
                                           int* tickets, int B, int Tq, int Hq, int Hkv, int hd,
-                                          int bs, int mb, int n_rows, int causal, int window,
-                                          float scale, int nt, int n_split, int per,
+                                          int tile_hd, int bs, int mb, int n_rows, int causal,
+                                          int window, float scale, int nt, int n_split, int per,
                                           void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n_split > MAX_SPLITS || (n_split > 1 && (part == nullptr || tickets == nullptr)))
+  if (n_split > MAX_SPLITS || (n_split > 1 && (part == nullptr || tickets == nullptr)) ||
+      hd <= 0 || hd % 8 != 0 || hd > tile_hd)
     return (int)cudaErrorInvalidValue;
-  if (hd == 128)
+  if (tile_hd == 128)
     return launch_wgmma<128>(q, k_pool, v_pool, table, q_offset, kv_len, out, (float*)part,
-                             tickets, B, Tq, Hq, Hkv, bs, mb, n_rows, causal, window, scale, nt,
-                             n_split, per, s);
-  if (hd == 64)
+                             tickets, B, Tq, Hq, Hkv, hd, bs, mb, n_rows, causal, window, scale,
+                             nt, n_split, per, s);
+  if (tile_hd == 64)
     return launch_wgmma<64>(q, k_pool, v_pool, table, q_offset, kv_len, out, (float*)part,
-                            tickets, B, Tq, Hq, Hkv, bs, mb, n_rows, causal, window, scale, nt,
-                            n_split, per, s);
+                            tickets, B, Tq, Hq, Hkv, hd, bs, mb, n_rows, causal, window, scale,
+                            nt, n_split, per, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -14,13 +14,16 @@ edge, so every ``T`` is served (the JAX package's ``attention`` takes its
 jnp scan when ``T % min(128, T) != 0``; the port has no such gate).
 
 ``csrc/flash_attention.cu`` says what bounds the kernel on the H100 and how
-its design answers it: bf16 at head_dim 64 or 128 with 16-byte-aligned
-q/k/v takes the wgmma kernel (TMA ring, S and P in registers); float32,
-other head sizes and unaligned tensors take the CUDA-core rows kernel — a
-shape route between two hand kernels, not a fallback.  The wrapper runs
-the plain version only for tensors on the CPU; for CUDA tensors it launches
-the kernel or raises.
-``flash_attention.launches`` counts kernel launches.
+its design answers it.  :func:`flash_plan` picks the kernel: bf16 at a
+head_dim that is a multiple of 8 with 16-byte-aligned q/k/v takes the wgmma
+kernel (TMA ring, S and P in registers) on the tile of 64, 128 or 256
+columns that holds the head_dim, padded to it; float32, other head sizes
+and unaligned tensors take the CUDA-core rows kernel — a shape route
+between two hand kernels, not a fallback: a call the plan gives the wgmma
+kernel launches it or raises.  The wrapper runs the plain version only for
+tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+``flash_attention.launches`` counts kernel launches and
+``flash_attention.route_launches`` them by route.
 """
 from __future__ import annotations
 
@@ -30,20 +33,48 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["flash_attention", "flash_attention_plain"]
+__all__ = ["flash_attention", "flash_attention_plain", "flash_plan"]
 
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:116"
 _MAX_HD = 256
 _SYMBOLS = {torch.bfloat16: "flash_attention_bf16", torch.float32: "flash_attention_f32"}
+ROUTES = ("wgmma", "rows")
+# the wgmma kernel's builds: (tile width, consumer warpgroups), narrowest first
+_TILES = ((64, 3), (128, 2), (256, 1))
 
 
-def _fn(dtype: torch.dtype):
-    fn = getattr(_build.load("flash_attention.cu"), _SYMBOLS[dtype])
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def flash_plan(dtype: torch.dtype, hd: int, aligned: bool) -> tuple[str, int, int]:
+    """The kernel for one call: ``(route, tile width, consumer warpgroups)``.
+
+    ``("wgmma", tile, nwg)``: bf16, ``hd`` a multiple of 8, ``aligned`` (q,
+    k, v and the output 16-byte aligned).  The tile is the narrowest of 64,
+    128 and 256 columns that holds ``hd`` (hd 80 pads to 128, hd 160 to 256;
+    the padded columns are zeros that the kernel never stores), and ``nwg``
+    64-row warpgroups share each K/V tile: 3 at tile 64, 2 at 128, 1 at 256
+    (whose K/V ring and 128 accumulator registers a thread leave room for
+    no second one).
+    ``("rows", 0, 0)``: the CUDA-core kernel, for the rest.
+    """
+    if dtype == torch.bfloat16 and aligned and hd > 0 and hd % 8 == 0:
+        for tile, nwg in _TILES:
+            if hd <= tile:
+                return "wgmma", tile, nwg
+    return "rows", 0, 0
+
+
+def _lib():
+    lib = _build.load("flash_attention.cu")
+    for sym in _SYMBOLS.values():
+        fn = getattr(lib, sym)
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.flash_attention_wgmma_bf16.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p])
+    lib.flash_attention_wgmma_bf16.restype = ctypes.c_int
+    return lib
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -95,14 +126,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0 or t == 0:
         return out
+    route, tile, nwg = flash_plan(q.dtype, hd,
+                                  all(a.data_ptr() % 16 == 0 for a in (q, k, v, out)))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, hq, hkv, hd,
+            int(causal), int(window), hd**-0.5)
     with torch.cuda.device(q.device):
-        rc = _fn(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                          b, t, hq, hkv, hd, int(causal), int(window), hd**-0.5,
-                          torch.cuda.current_stream(q.device).cuda_stream)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if route == "wgmma":
+            rc = _lib().flash_attention_wgmma_bf16(*args, tile, nwg, stream)
+        else:
+            rc = getattr(_lib(), _SYMBOLS[q.dtype])(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed (CUDA error {rc})")
+        raise RuntimeError(f"{what} kernel launch failed on the {route} route (CUDA error "
+                           f"{rc})")
     flash_attention.launches += 1
+    flash_attention.route_launches[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(ROUTES, 0)

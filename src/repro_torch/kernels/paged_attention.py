@@ -25,18 +25,21 @@ is served, decode's ``Tq = 1`` included.  ``csrc/paged_attention.cu`` says
 what bounds each kernel on the H100 and how the design answers it;
 :func:`attention_plan` picks the kernel from the shapes: the wgmma kernel
 (GQA heads packed into its rows, K/V pages by TMA, the key walk split over
-blocks) for bf16 at head_dim 64/128 with a block size TMA can box and
+blocks) for bf16 at a head_dim that is a multiple of 8 up to 128 (padded
+to a tile of 64 or 128 columns) with a block size TMA can box and
 16-byte-aligned tensors, the CUDA-core kernel for everything else.  Shape
-routes between hand kernels, not fallbacks.  With a window both kernels
-skip the key tiles or blocks that lie below every row's band (as the JAX
-kernel's ``_block_visible`` does) and split only the band's walk; a split
+routes between hand kernels, not fallbacks: a call the plan gives the wgmma
+kernel launches it or raises.  With a window both kernels skip the key
+tiles or blocks that lie below every row's band (as the JAX kernel's
+``_block_visible`` does) and split only the band's walk; a split
 left with no key of its own writes an empty partial state, which the merge
 weighs at zero.  No model path passes a window (sliding-window layers keep
 ring caches, outside the pool), as in the JAX package.
 
 Each wrapper runs its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  ``paged_kv_scatter.launches`` and
-``paged_attention.launches`` count kernel launches.
+``paged_attention.launches`` count kernel launches, and
+``paged_attention.route_launches`` the attention's by route.
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ import torch
 
 from repro_torch.kernels import _build, _capture
 
-__all__ = ["attention_plan", "paged_kv_scatter", "paged_kv_scatter_plain",
+__all__ = ["AttentionPlan", "attention_plan", "paged_kv_scatter", "paged_kv_scatter_plain",
            "paged_attention", "paged_attention_plain"]
 
 SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
@@ -59,6 +62,8 @@ _ATTN_SYMBOLS = {torch.bfloat16: "paged_attention_bf16",
                  torch.float32: "paged_attention_f32"}
 _H100_SMS = 132
 _KEY_TILE = 64         # keys of one wgmma tile
+_WGMMA_TILES = (64, 128)  # the wgmma kernel's builds: columns of a head_dim tile
+ROUTES = ("wgmma", "rows")
 _MAX_SPLITS = 16       # the wgmma kernel's merge holds 16 walks' weights
 # per (device, stream): int32 ticket counters of the split wgmma walk, one
 # per query tile; every launch leaves them 0 (the merging block resets its
@@ -81,7 +86,7 @@ def _lib():
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.paged_attention_wgmma_bf16.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
         + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.paged_attention_wgmma_bf16.restype = ctypes.c_int
     return lib
@@ -200,19 +205,35 @@ def paged_attention_plain(q, k_pool, v_pool, block_table, q_offset, kv_len,
     return o.permute(0, 3, 1, 2, 4).reshape(b, tq, hq, hd).to(q.dtype)
 
 
+class AttentionPlan(tuple):
+    """``(route, nt, n_split, per)`` as :func:`attention_plan` says, and
+    ``.tile_hd``: the columns of the wgmma kernel's head_dim tile (64 or
+    128; 0 on the rows route), which the kernel is launched for and which
+    sizes the split walk's scratch."""
+
+    def __new__(cls, route: str, nt: int, n_split: int, per: int, tile_hd: int = 0):
+        plan = super().__new__(cls, (route, nt, n_split, per))
+        plan.tile_hd = tile_hd
+        return plan
+
+
 def attention_plan(dtype: torch.dtype, b: int, tq: int, hq: int, hkv: int, hd: int,
                    bs: int, mb: int, aligned: bool, sms: int = _H100_SMS,
-                   window: int = 0) -> tuple[str, int, int, int]:
+                   window: int = 0) -> AttentionPlan:
     """The kernel for one call: ``(route, tokens per query tile, splits,
-    walk per split)``, from the shapes alone (no device values: ``kv_len``
-    stays on the card, so the split is sized by the table width ``mb`` and
-    splits past a row's ``kv_len`` end at once).
+    walk per split)`` with the tile width as ``.tile_hd``, from the shapes
+    alone (no device values: ``kv_len`` stays on the card, so the split is
+    sized by the table width ``mb`` and splits past a row's ``kv_len`` end
+    at once).
 
-    * ``("wgmma", nt, n_split, per)``: bf16, ``hd`` 64 or 128, ``bs`` a
-      multiple of 8 that divides 64 or a multiple of 64 (the TMA boxes a
-      page), ``aligned`` (q and the pools 16-byte aligned), at most 64 query
-      heads per KV head.  A query tile is ``nt`` tokens of all ``G = hq //
-      hkv`` heads of a KV head (``nt * G <= 64`` wgmma rows); a row's key
+    * ``("wgmma", nt, n_split, per)``: bf16, ``hd`` a multiple of 8 up to
+      128, ``bs`` a multiple of 8 that divides 64 or a multiple of 64 (the
+      TMA boxes a page), ``aligned`` (q and the pools 16-byte aligned), at
+      most 64 query heads per KV head.  The kernel is built for head_dim
+      tiles of 64 and 128 columns: ``hd`` up to 64 takes the first, up to
+      128 the second (StableLM-3B's 80 pads to 128), the padded columns
+      zeros that are never stored.  A query tile is ``nt`` tokens of all
+      ``G = hq // hkv`` heads of a KV head (``nt * G <= 64`` wgmma rows); a row's key
       tiles of 64 are split into ``n_split`` walks of ``per`` tiles only
       where the query tiles leave SMs without a block, and into at most 16
       and 256 / rows walks: the last block merges them, at a cost that grows
@@ -229,8 +250,9 @@ def attention_plan(dtype: torch.dtype, b: int, tq: int, hq: int, hkv: int, hd: i
     ``per`` count the band's tiles (blocks), not the table's.
     """
     g = hq // hkv
-    if (dtype == torch.bfloat16 and hd in (64, 128) and aligned and bs > 0 and bs % 8 == 0
-            and (_KEY_TILE % bs == 0 or bs % _KEY_TILE == 0) and g <= _KEY_TILE):
+    if (dtype == torch.bfloat16 and 0 < hd <= _WGMMA_TILES[-1] and hd % 8 == 0 and aligned
+            and bs > 0 and bs % 8 == 0 and (_KEY_TILE % bs == 0 or bs % _KEY_TILE == 0)
+            and g <= _KEY_TILE):
         nt = min(_KEY_TILE // g, tq)
         blocks = b * hkv * -(-tq // nt)
         tiles = max(1, -(-mb * bs // _KEY_TILE))
@@ -238,12 +260,13 @@ def attention_plan(dtype: torch.dtype, b: int, tq: int, hq: int, hkv: int, hd: i
             tiles = min(tiles, -(-(window + nt - 1) // _KEY_TILE) + 1)
         n_split = min(tiles, _MAX_SPLITS, max(1, sms // blocks), max(1, 256 // (nt * g)))
         per = -(-tiles // n_split)
-        return "wgmma", nt, -(-tiles // per), per
+        tile_hd = next(w for w in _WGMMA_TILES if hd <= w)
+        return AttentionPlan("wgmma", nt, -(-tiles // per), per, tile_hd)
     walk = mb if window <= 0 else min(mb, -(-(window + tq - 1) // bs) + 1)
     if tq * g <= _TILE_ROWS and walk >= 8:
         n_split = min(32, -(-walk // 4))
-        return "rows", 0, n_split, -(-walk // n_split)
-    return "rows", 0, 1, walk
+        return AttentionPlan("rows", 0, n_split, -(-walk // n_split))
+    return AttentionPlan("rows", 0, 1, walk)
 
 
 def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
@@ -294,9 +317,10 @@ def paged_attention(q, k_pool, v_pool, block_table, q_offset, kv_len,
     nb, bs, hkv = k_pool.shape[:3]
     mb = block_table.shape[1]
     aligned = all(a.data_ptr() % 16 == 0 for a in (q, k_pool, v_pool))
-    route, nt, n_split, per = attention_plan(
-        q.dtype, b, tq, hq, hkv, hd, bs, mb, aligned,
-        torch.cuda.get_device_properties(q.device).multi_processor_count, window)
+    plan = attention_plan(q.dtype, b, tq, hq, hkv, hd, bs, mb, aligned,
+                          torch.cuda.get_device_properties(q.device).multi_processor_count,
+                          window)
+    route, nt, n_split, per = plan
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),
             q_offset.data_ptr(), kv_len.data_ptr(), out.data_ptr())
@@ -304,14 +328,15 @@ def paged_attention(q, k_pool, v_pool, block_table, q_offset, kv_len,
         if route == "wgmma":
             q_tiles = b * hkv * -(-tq // nt)
             part = tickets = None
-            if n_split > 1:     # per split: (max, sum) and O of 64 rows, float32
-                part = torch.empty(q_tiles * n_split * 64 * (hd + 2), dtype=torch.float32,
-                                   device=q.device)
+            if n_split > 1:     # per split: (max, sum) and O of 64 rows x the tile, float32
+                part = torch.empty(q_tiles * n_split * 64 * (plan.tile_hd + 2),
+                                   dtype=torch.float32, device=q.device)
                 tickets = _tickets(q.device, stream, q_tiles)
             rc = _lib().paged_attention_wgmma_bf16(
                 *ptrs, None if part is None else part.data_ptr(),
-                None if tickets is None else tickets.data_ptr(), b, tq, hq, hkv, hd, bs,
-                mb, nb, int(causal), window, hd**-0.5, nt, n_split, per, stream)
+                None if tickets is None else tickets.data_ptr(), b, tq, hq, hkv, hd,
+                plan.tile_hd, bs, mb, nb, int(causal), window, hd**-0.5, nt, n_split, per,
+                stream)
         else:
             part = None
             if n_split > 1:
@@ -321,9 +346,12 @@ def paged_attention(q, k_pool, v_pool, block_table, q_offset, kv_len,
                 *ptrs, b, tq, hq, hkv, hd, bs, mb, nb, int(causal), window, hd**-0.5,
                 n_split, per, None if part is None else part.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed (CUDA error {rc})")
+        raise RuntimeError(f"paged_attention kernel launch failed on the {route} route "
+                           f"(CUDA error {rc})")
     paged_attention.launches += 1
+    paged_attention.route_launches[route] += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.route_launches = dict.fromkeys(ROUTES, 0)

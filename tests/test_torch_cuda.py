@@ -417,15 +417,68 @@ def test_flash_attention_wgmma(gen, hd, case, t, causal, window):
 @pytest.mark.parametrize("hq,hkv,hd", [(8, 8, 80), (16, 1, 128)], ids=["hd80_g1", "g16"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
 def test_flash_attention_variant_heads(gen, hq, hkv, hd, causal):
-    """StableLM-3B's head_dim 80 (the CUDA-core rows kernel) and a GQA
-    group of 16 at head_dim 128 (the wgmma kernel), T ragged against the
-    tiles."""
+    """StableLM-3B's head_dim 80 (the wgmma kernel's 128-column tile, 48
+    columns of zeros) and a GQA group of 16 at head_dim 128, T ragged
+    against the tiles."""
     b, t = 2, 300
     q = torch.randn(b, t, hq, hd, generator=gen, device="cuda").bfloat16()
     k = torch.randn(b, t, hkv, hd, generator=gen, device="cuda").bfloat16()
     v = torch.randn(b, t, hkv, hd, generator=gen, device="cuda").bfloat16()
+    assert kfa.flash_plan(q.dtype, hd, True) == ("wgmma", 128, 2)
     _close(kfa.flash_attention(q, k, v, causal=causal),
            kfa.flash_attention_plain(q, k, v, causal=causal), torch.bfloat16)
+
+
+@pytest.mark.parametrize("case,t,causal,window", [
+    ("causal", 300, True, 0),
+    ("window", 700, True, 200),
+    ("noncausal", 130, False, 0),
+    ("one_tile", 40, True, 0),
+])
+@pytest.mark.parametrize("hq,hkv,hd", [(10, 1, 256), (4, 2, 160), (4, 4, 136)],
+                         ids=["hd256_g10", "hd160", "hd136"])
+def test_flash_attention_tile256(gen, hq, hkv, hd, case, t, causal, window):
+    """The wgmma kernel's 256-column tile: RecurrentGemma-2B's heads (10
+    query heads on one KV head, head_dim 256) and head dims it pads (160:
+    one 64-column chunk of zeros, another half; 136: 120 columns of zeros),
+    causal, windowed, non-causal and one short tile, T ragged."""
+    b = 2
+    q = torch.randn(b, t, hq, hd, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(b, t, hkv, hd, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(b, t, hkv, hd, generator=gen, device="cuda").bfloat16()
+    assert kfa.flash_plan(q.dtype, hd, True)[:2] == ("wgmma", 256)
+    _close(kfa.flash_attention(q, k, v, causal=causal, window=window),
+           kfa.flash_attention_plain(q, k, v, causal=causal, window=window), torch.bfloat16)
+
+
+@pytest.mark.parametrize("hd", [8, 32, 48, 96, 120])
+def test_flash_attention_padded_tiles(gen, hd):
+    """Head dims below the 64- and 128-column tiles they pad to, GQA 7:1,
+    causal over a ragged T."""
+    b, t, hq, hkv = 2, 200, 14, 2
+    q = torch.randn(b, t, hq, hd, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(b, t, hkv, hd, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(b, t, hkv, hd, generator=gen, device="cuda").bfloat16()
+    assert kfa.flash_plan(q.dtype, hd, True)[0] == "wgmma"
+    _close(kfa.flash_attention(q, k, v), kfa.flash_attention_plain(q, k, v), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype,hd,aligned,route", [
+    (torch.bfloat16, 80, True, "wgmma"), (torch.bfloat16, 256, True, "wgmma"),
+    (torch.bfloat16, 36, True, "rows"), (torch.float32, 80, True, "rows"),
+    (torch.bfloat16, 80, False, "rows")], ids=["hd80", "hd256", "hd36", "f32_hd80", "offset"])
+def test_flash_attention_counts_its_route(gen, dtype, hd, aligned, route):
+    """Each call adds one to the route its plan names, and to no other."""
+    q = torch.randn(1, 70, 4, hd, generator=gen, device="cuda").to(dtype)
+    if not aligned:
+        q = _misaligned(q)
+    k = torch.randn(1, 70, 2, hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(1, 70, 2, hd, generator=gen, device="cuda").to(dtype)
+    before = dict(kfa.flash_attention.route_launches)
+    got = kfa.flash_attention(q, k, v)
+    after = kfa.flash_attention.route_launches
+    assert {r: after[r] - before[r] for r in after} == {r: int(r == route) for r in after}
+    _close(got, kfa.flash_attention_plain(q, k, v), dtype)
 
 
 def test_flash_attention_misaligned_takes_rows_path(gen):
@@ -439,8 +492,9 @@ def test_flash_attention_misaligned_takes_rows_path(gen):
 @pytest.mark.parametrize("case", ["causal", "ragged", "window", "noncausal", "head_dim_32"])
 def test_flash_attention(gen, dtype, case):
     """GQA 7:1 as in Qwen2-7B; a ragged T the 64-row tiles do not divide; a
-    causal window band (key blocks below it skipped); non-causal; a head
-    size the tensor-core path does not take."""
+    causal window band (key blocks below it skipped); non-causal; head_dim
+    32, which bf16 pads to the wgmma kernel's 64-column tile and float32
+    runs on the rows kernel."""
     b, hq, hkv, t, hd = 2, 14, 2, 200, 64
     causal, window = case != "noncausal", 48 if case == "window" else 0
     if case == "ragged":
@@ -540,7 +594,7 @@ def _paged_case(gen, b, tq, hq, hkv, hd, bs, kv_len, q_offset, holes=()):
 _PAGED_CASES = ["chunk", "chunk_hole", "chunk_masked_tile", "decode", "decode_edges"]
 
 
-def _check_paged_case(gen, case, hq, hkv, hd, bs, route):
+def _check_paged_case(gen, case, hq, hkv, hd, bs, route, dtype=torch.bfloat16):
     """One case of the NaN-poisoned pools on ``route`` against the plain
     version: a prefill chunk at an offset; a -1 page in the middle of a row;
     a query tile that sees only a -1 page (wholly masked, so zeros); decode
@@ -557,12 +611,16 @@ def _check_paged_case(gen, case, hq, hkv, hd, bs, route):
         args = (3, 1, [4 * bs, 0, 1], [4 * bs - 1, 0, 0], ((0, 1),))
     b, tq, kv_len, qoff, holes = args
     q, kp, vp, tab, qo, kvl = _paged_case(gen, b, tq, hq, hkv, hd, bs, kv_len, qoff, holes)
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
     plan = kpa.attention_plan(q.dtype, b, tq, hq, hkv, hd, bs, tab.shape[1], True)
     assert plan[0] == route, plan
     causal = tq > 1
+    before = dict(kpa.paged_attention.route_launches)
     got = kpa.paged_attention(q, kp, vp, tab, qo, kvl, causal=causal)
+    after = kpa.paged_attention.route_launches
+    assert {r: after[r] - before[r] for r in after} == {r: int(r == route) for r in after}
     want = kpa.paged_attention_plain(q, kp, vp, tab, qo, kvl, causal=causal)
-    _close(got, want, torch.bfloat16)
+    _close(got, want, dtype)
     if case == "chunk_masked_tile":        # tokens 0..bs-1 see only the -1 page
         assert bool((got[0, :bs] == 0).all())
     if case == "decode_edges":             # kv_len = 0 gives zeros
@@ -585,9 +643,31 @@ def test_paged_attention_wgmma(gen, case, hq, hkv, hd, bs):
 @pytest.mark.parametrize("bs", [16, 32])
 @pytest.mark.parametrize("case", _PAGED_CASES)
 def test_paged_attention_rows_hd80(gen, case, bs):
-    """StableLM-3B's heads (32 / 32, head_dim 80) take the CUDA-core rows
-    kernel: chunks walk one row at a time, decode splits the walk."""
-    _check_paged_case(gen, case, 32, 32, 80, bs, "rows")
+    """StableLM-3B's heads (32 / 32, head_dim 80) in float32 keep the
+    CUDA-core rows kernel: chunks walk one row at a time, decode splits the
+    walk."""
+    _check_paged_case(gen, case, 32, 32, 80, bs, "rows", torch.float32)
+
+
+@pytest.mark.parametrize("bs", [16, 32])
+@pytest.mark.parametrize("case", _PAGED_CASES)
+def test_paged_attention_wgmma_hd80(gen, case, bs):
+    """StableLM-3B's heads (32 / 32, head_dim 80) in bf16 take the wgmma
+    kernel's 128-column tile (48 columns of zeros loaded, never stored):
+    64 tokens a chunk tile, decode's walk split where blocks leave SMs."""
+    _check_paged_case(gen, case, 32, 32, 80, bs, "wgmma")
+
+
+@pytest.mark.parametrize("hq,hkv,hd,route", [(8, 2, 32, "wgmma"), (14, 2, 48, "wgmma"),
+                                             (32, 8, 96, "wgmma"), (8, 8, 120, "wgmma"),
+                                             (8, 2, 256, "rows"), (8, 2, 36, "rows")],
+                         ids=["hd32", "hd48_g7", "hd96_g4", "hd120", "hd256", "hd36"])
+@pytest.mark.parametrize("case", _PAGED_CASES)
+def test_paged_attention_padded_heads(gen, case, hq, hkv, hd, route):
+    """Head dims below the wgmma kernel's 64- and 128-column tiles, on it
+    (the split decode's merge writes only the real columns); head_dim 256
+    and a head_dim that is not a multiple of 8 keep the rows kernel."""
+    _check_paged_case(gen, case, hq, hkv, hd, 16, route)
 
 
 # (b, tq, kv_len, q_offset) of the window cases: a chunk at an offset whose
@@ -599,22 +679,25 @@ _WINDOW_CASES = {"chunk": (1, 100, [1230], [1130]), "chunk_short": (2, 40, [60, 
 
 @pytest.mark.parametrize("window", [1, 37, 100, 300])
 @pytest.mark.parametrize("case", list(_WINDOW_CASES))
-@pytest.mark.parametrize("route,hq,hkv,hd", [("wgmma", 32, 8, 128), ("wgmma", 14, 2, 64),
-                                            ("rows", 32, 32, 80)],
-                         ids=["wgmma_g4", "wgmma_g7_hd64", "rows_hd80"])
-def test_paged_attention_window(gen, route, hq, hkv, hd, case, window):
+@pytest.mark.parametrize("route,hq,hkv,hd,dtype", [
+    ("wgmma", 32, 8, 128, torch.bfloat16), ("wgmma", 14, 2, 64, torch.bfloat16),
+    ("rows", 32, 32, 80, torch.float32), ("wgmma", 32, 32, 80, torch.bfloat16)],
+    ids=["wgmma_g4", "wgmma_g7_hd64", "rows_hd80", "wgmma_hd80"])
+def test_paged_attention_window(gen, route, hq, hkv, hd, dtype, case, window):
     """The sliding-window band (keys at k > q - window) on both routes
     against the plain version over NaN-poisoned pools: key tiles and blocks
     below the band are skipped, edge tiles masked per score; decode splits
-    the band's walk (window 1: one split holds no key)."""
+    the band's walk (window 1: one split holds no key).  Head_dim 80 runs
+    on the rows kernel in float32 and on wgmma's padded tile in bf16."""
     b, tq, kv_len, qoff = _WINDOW_CASES[case]
     q, kp, vp, tab, qo, kvl = _paged_case(gen, b, tq, hq, hkv, hd, 16, kv_len, qoff)
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
     assert kpa.attention_plan(q.dtype, b, tq, hq, hkv, hd, 16, tab.shape[1], True,
                               window=window)[0] == route
     causal = tq > 1
     _close(kpa.paged_attention(q, kp, vp, tab, qo, kvl, causal=causal, window=window),
            kpa.paged_attention_plain(q, kp, vp, tab, qo, kvl, causal=causal, window=window),
-           torch.bfloat16)
+           dtype)
 
 
 @pytest.mark.parametrize("route,hq,hkv,hd,dtype", [("wgmma", 32, 8, 128, torch.bfloat16),

@@ -13,8 +13,10 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.paged_attention import paged_attention_pallas, paged_kv_scatter_pallas
 from repro.models import attention as jattn
+from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import nm_prune_matmul as knm
 from repro_torch.kernels import paged_attention as kpa
 from repro_torch.models import attention as tattn
@@ -193,24 +195,33 @@ def test_wrappers_reject_other_devices():
     ("decode_long_kv", (torch.bfloat16, 1, 1, 32, 8, 128, 16, 512, True), ("wgmma", 1, 16, 8)),
     ("float32", (torch.float32, 4, 1, 28, 4, 128, 16, 34, True), ("rows", 0, 9, 4)),
     ("float32_chunk", (torch.float32, 1, 256, 32, 8, 128, 16, 46, True), ("rows", 0, 1, 46)),
-    ("hd32", (torch.bfloat16, 1, 40, 8, 2, 32, 16, 12, True), ("rows", 0, 1, 12)),
+    ("hd32", (torch.bfloat16, 1, 40, 8, 2, 32, 16, 12, True), ("wgmma", 16, 3, 1)),
     ("hd256", (torch.bfloat16, 4, 1, 8, 2, 256, 16, 12, True), ("rows", 0, 3, 4)),
     ("bs12", (torch.bfloat16, 1, 40, 8, 2, 128, 12, 12, True), ("rows", 0, 1, 12)),
     ("bs48", (torch.bfloat16, 4, 1, 8, 2, 128, 48, 12, True), ("rows", 0, 3, 4)),
     ("bs4", (torch.bfloat16, 4, 1, 8, 2, 128, 4, 12, True), ("rows", 0, 3, 4)),
     ("misaligned", (torch.bfloat16, 1, 256, 32, 8, 128, 16, 46, False), ("rows", 0, 1, 46)),
     ("g128", (torch.bfloat16, 1, 4, 128, 1, 64, 16, 4, True), ("rows", 0, 1, 4)),
+    ("hd96", (torch.bfloat16, 1, 256, 32, 8, 96, 16, 46, True), ("wgmma", 16, 1, 12)),
+    ("hd8", (torch.bfloat16, 4, 1, 8, 2, 8, 16, 12, True), ("wgmma", 1, 3, 1)),
+    ("hd36", (torch.bfloat16, 1, 40, 8, 2, 36, 16, 12, True), ("rows", 0, 1, 12)),
+    ("float32_hd80", (torch.float32, 4, 1, 32, 32, 80, 16, 46, True), ("rows", 0, 12, 4)),
+    ("hd256_chunk", (torch.bfloat16, 1, 256, 16, 16, 256, 16, 46, True), ("rows", 0, 1, 46)),
+    ("hd136", (torch.bfloat16, 4, 1, 8, 2, 136, 16, 12, True), ("rows", 0, 3, 4)),
 ])
 def test_attention_plan_routes(case, args, route):
-    """Which shapes take the wgmma kernel (bf16, head_dim 64/128, a block
-    size the TMA can box, 16-byte-aligned tensors, a GQA group that fits the
-    64 rows) and how it tiles and splits them (a split only where blocks
+    """Which shapes take the wgmma kernel (bf16, head_dim a multiple of 8 up
+    to 128, a block size the TMA can box, 16-byte-aligned tensors, a GQA
+    group that fits the 64 rows), on which head_dim tile (64 up to hd 64,
+    else 128), and how it tiles and splits them (a split only where blocks
     are fewer than SMs, at most 16 and 256 / rows); the CUDA-core kernel
-    takes the rest, splitting a decode walk over a wide table."""
+    takes the rest (float32, head_dim not a multiple of 8 or above 128),
+    splitting a decode walk over a wide table."""
     plan = kpa.attention_plan(*args, sms=132)
     assert plan == route
     kind, nt, n_split, per = plan
     dtype, b, tq, hq, hkv, hd, bs, mb, _ = args
+    assert plan.tile_hd == ((64 if hd <= 64 else 128) if kind == "wgmma" else 0)
     if kind == "wgmma":
         tiles = -(-mb * bs // 64)
         assert 1 <= nt <= tq and nt * (hq // hkv) <= 64
@@ -218,6 +229,65 @@ def test_attention_plan_routes(case, args, route):
         assert n_split * per >= tiles > (n_split - 1) * per        # no empty split
     else:
         assert n_split * per >= mb > (n_split - 1) * per
+
+
+@pytest.mark.parametrize("case,args,plan", [
+    # (dtype, hd, aligned) -> (route, tile width, consumer warpgroups)
+    ("hd64", (torch.bfloat16, 64, True), ("wgmma", 64, 3)),
+    ("hd32", (torch.bfloat16, 32, True), ("wgmma", 64, 3)),
+    ("hd8", (torch.bfloat16, 8, True), ("wgmma", 64, 3)),
+    ("hd128", (torch.bfloat16, 128, True), ("wgmma", 128, 2)),
+    ("hd80", (torch.bfloat16, 80, True), ("wgmma", 128, 2)),
+    ("hd72", (torch.bfloat16, 72, True), ("wgmma", 128, 2)),
+    ("hd256", (torch.bfloat16, 256, True), ("wgmma", 256, 1)),
+    ("hd136", (torch.bfloat16, 136, True), ("wgmma", 256, 1)),
+    ("hd36", (torch.bfloat16, 36, True), ("rows", 0, 0)),
+    ("hd250", (torch.bfloat16, 250, True), ("rows", 0, 0)),
+    ("float32_hd80", (torch.float32, 80, True), ("rows", 0, 0)),
+    ("float32_hd128", (torch.float32, 128, True), ("rows", 0, 0)),
+    ("misaligned_hd80", (torch.bfloat16, 80, False), ("rows", 0, 0)),
+])
+def test_flash_plan_routes(case, args, plan):
+    """``flash_attention``'s kernel: bf16 at a head_dim that is a multiple of
+    8 with aligned tensors takes the wgmma kernel on the narrowest tile of
+    64, 128 or 256 columns that holds it; float32, other head dims and
+    misaligned tensors take the CUDA-core rows kernel."""
+    got = kfa.flash_plan(*args)
+    assert got == plan
+    dtype, hd, _ = args
+    if got[0] == "wgmma":
+        assert hd <= got[1] and (got[1] == 64 or hd > got[1] // 2)
+
+
+@pytest.mark.parametrize("window", [0, 5], ids=["full", "window5"])
+@pytest.mark.parametrize("hq,hkv,hd", [(4, 4, 80), (10, 1, 256)], ids=["hd80", "hd256"])
+def test_plain_attention_at_padded_head_dims_matches_pallas(hq, hkv, hd, window):
+    """The plain versions the card holds the padded wgmma tiles against, at
+    StableLM-3B's head_dim 80 (4 / 4 heads) and RecurrentGemma-2B's 256 (10
+    query heads on one KV head), causal with and without a window band:
+    ``flash_attention_plain`` against ``flash_attention_pallas`` and
+    ``paged_attention_plain`` (a chunk at an offset with a -1 page, and
+    decode) against ``paged_attention_pallas``, both in interpret mode."""
+    b, t = 2, 64
+    q, k, v = _np(11, b, t, hq, hd), _np(12, b, t, hkv, hd), _np(13, b, t, hkv, hd)
+    got = kfa.flash_attention_plain(_t(q), _t(k), _t(v), causal=True, window=window)
+    tr = lambda a: jnp.asarray(a).transpose(0, 2, 1, 3)
+    want = tr(flash_attention_pallas(tr(q), tr(k), tr(v), causal=True, window=window,
+                                     block_q=32, block_k=32, interpret=True))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+    nb, bs, mb = 12, 8, 6
+    kp, vp = _np(14, nb, bs, hkv, hd), _np(15, nb, bs, hkv, hd)
+    tab = np.full((b, mb), -1, np.int32)
+    tab[0, :5] = [5, 1, -1, 8, 3]
+    tab[1, :3] = [9, 2, 7]
+    for tq, causal, qo, kvl in ((8, True, [30, 13], [38, 21]), (1, False, [36, 20], [37, 21])):
+        qq = _np(16 + tq, b, tq, hq, hd)
+        args = (qq, kp, vp, tab, np.int32(qo), np.int32(kvl))
+        got = kpa.paged_attention_plain(*(_t(a) for a in args), causal=causal, window=window)
+        want = paged_attention_pallas(*(jnp.asarray(a) for a in args), causal=causal,
+                                      window=window, block_q=tq, interpret=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
 
 
 # ------------------------- paged attention semantics of the wgmma route

@@ -188,17 +188,24 @@ def test_configs_are_the_jax_configs(arch):
     ("granite_decode_g48", (torch.bfloat16, 4, 1, 48, 1, 128, 16, 46, True),
      ("wgmma", 1, 4, 3)),
     ("stablelm_chunk_hd80", (torch.bfloat16, 1, 256, 32, 32, 80, 16, 46, True),
-     ("rows", 0, 1, 46)),
+     ("wgmma", 64, 1, 12)),
     ("stablelm_decode_hd80", (torch.bfloat16, 4, 1, 32, 32, 80, 16, 46, True),
+     ("wgmma", 1, 1, 12)),
+    ("stablelm_chunk_hd80_f32", (torch.float32, 1, 256, 32, 32, 80, 16, 46, True),
+     ("rows", 0, 1, 46)),
+    ("stablelm_decode_hd80_f32", (torch.float32, 4, 1, 32, 32, 80, 16, 46, True),
      ("rows", 0, 12, 4)),
 ])
 def test_attention_plan_variants(case, args, route):
     """The variants' serving shapes: the wgmma route packs 12, 4 and 1
-    tokens of G = 5, 16 and 48 heads (60, 64 and 48 of the 64 rows); head
-    dim 80 takes the CUDA-core rows kernel, one walk per row for a chunk and
-    a split walk for decode."""
+    tokens of G = 5, 16 and 48 heads (60, 64 and 48 of the 64 rows), and
+    StableLM-3B's 64 tokens of one head at head_dim 80 on the 128-column
+    tile (its 32 KV heads give 128 blocks a step, so decode does not split);
+    in float32, head_dim 80 keeps the CUDA-core rows kernel, one walk per
+    row for a chunk and a split walk for decode."""
     plan = kpa.attention_plan(*args, sms=132)
     assert plan == route
+    assert plan.tile_hd == (128 if plan[0] == "wgmma" else 0)
     _, b, tq, hq, hkv, hd, bs, mb, _ = args
     if plan[0] == "wgmma":
         assert plan[1] * (hq // hkv) <= 64 and plan[2] * plan[3] >= -(-mb * bs // 64)
