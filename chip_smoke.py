@@ -70,7 +70,10 @@ Phases (any failed check exits non-zero; no phase is skipped):
              beside their bounds and SDPA with the same band;
              ``flash_attention`` at B = 1, T = 6144, window 4096;
              ``nm_prune_matmul`` at Mixtral's q and ``nm_prune`` at its
-             routed experts' inputs (bit-exact).
+             routed experts' inputs (bit-exact).  2m: ``nm_prune_matmul``
+             at RWKV6-7B's (4096², 4096 x 14336, 14336 x 4096) and
+             RecurrentGemma-2B's (2560², 2560 x 7680, 7680 x 2560) pruned
+             widths, at 256 rows and the dyadic tails 64, 8 and 1.
 3. serve   — ``Engine.from_config`` at full LLaMA-3.1-8B width (32 layers,
              random weights from a seed, bfloat16) under the paper's
              policy with the kernels on: 8 staggered requests, 32 new tokens
@@ -249,12 +252,38 @@ Phases (any failed check exits non-zero; no phase is skipped):
              width (phase 6a's stream without its shared prefix): its report
              with ``# paged KV: disabled``, launches exact; then depth 2 in
              float32: the slab's greedy tokens equal the paged pool's.
+11. the recurrent families — after phase 10 freed its models, on the
+             dense slab in exact dyadic chunks (every prefill chunk a power
+             of two; each step program captured once per chunk length it
+             ran, which ``trace_counts`` must equal, counted from the plans),
+             under ``paper_policy(8, 16, ())`` with the kernels.  11a:
+             RWKV6-7B at full width and depth (32 layers, 7.53B parameters),
+             phase 3's stream: launches exact (192 ``nm_prune_matmul`` a
+             sparse chunk: r/k/v/g as q_proj, the channel mix's gate and
+             down; no attention kernel), tok/s, peak memory and the seconds
+             spent capturing; a 256-token chunk and a decode step profiled
+             eagerly and replayed, with the recurrence as a family of its
+             own (its calls recorded and timed alone, eager and as one
+             graph), layer 0's chunked WKV held to its token loop within
+             ``F32_TOL``; graphed tokens equal to the eager programs'.  11b:
+             RecurrentGemma-2B at full size (26 layers) the same way, with
+             two more requests of 2300-2600 tokens so that its 2048-row
+             rings wrap (max_seq 4096): 96 ``nm_prune_matmul`` a sparse
+             chunk.  11c: its one-shot ``generate`` with
+             ``attn_impl="flash"`` at B = 1, T = 4096: 8 ``flash_attention``
+             (the 256-column tile) and 96 ``nm_prune_matmul`` a prefill,
+             graphs captured once, tokens equal to the run without graphs.
+             11d: both at full width, depth 2 (RWKV6-7B) and 5
+             (RecurrentGemma-2B): float32 kernel path against plain path,
+             identical greedy tokens (N:M flips printed); bf16 logits within
+             phase 4's gate.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is
 its count in the run of the path that first served it (phase 3, 3b, 5 or
 7a); ``launches_by_run`` holds its count in each main-path run that
-launched it (3, 3b, 5, 7a, 7e, 9a, 9b, 9c's Naive run, 10a and 10b), each counted
+launched it (3, 3b, 5, 7a, 7e, 9a, 9b, 9c's Naive run, 10a, 10b, 11a, 11b and
+11c), each counted
 from 0.  Exits non-zero without a
 CUDA device, and when run outside the repository (it needs ``src/``).
 """
@@ -1178,9 +1207,18 @@ def serving_stream(torch, vocab, **serving):
 def warm_up(eng, params, rng, vocab):
     """Library handles, the allocator, and the programs of the three buckets
     phase 3's stream uses (a 40-token request decodes while a 300-token one
-    is prefilled); then the engine is cleared for the measured stream."""
-    eng.submit(rng.integers(0, vocab, size=40), max_new_tokens=4)
-    eng.submit(rng.integers(0, vocab, size=300), max_new_tokens=2, arrival=1)
+    is prefilled); then the engine is cleared for the measured stream.
+    Under exact chunks a program runs at every dyadic length, so two
+    requests of ``2 * chunk - 1`` tokens instead: the first's chunks (every
+    power of two up to ``chunk``) run alone, the second's while the first
+    decodes, so the measured stream replays graphs only."""
+    if eng.replica.exec.exact_chunks:
+        n = 2 * eng.replica.cfg.chunk_size - 1
+        eng.submit(rng.integers(0, vocab, size=n), max_new_tokens=n.bit_length() + 3)
+        eng.submit(rng.integers(0, vocab, size=n), max_new_tokens=2, arrival=1)
+    else:
+        eng.submit(rng.integers(0, vocab, size=40), max_new_tokens=4)
+        eng.submit(rng.integers(0, vocab, size=300), max_new_tokens=2, arrival=1)
     eng.run(params)
     eng.clear()
 
@@ -1232,8 +1270,9 @@ def serve_requests(torch, model, params, policy, label, eager=False, stream_fn=N
     else:
         rng, prompts, arrivals, new, scfg = stream_fn(cfg.vocab_size, **serving)
     eng = Engine.from_config(model, EngineConfig(serving=scfg), policy=policy)
+    shapes = program_shapes(eng.replica.exec)
     if eager:       # the executor's step programs, each step run as it is
-        eng.replica.exec._graphs.run = lambda name, fn, params: fn()
+        eng.replica.exec._graphs.run = lambda name, fn, params, shape=None: fn()
     warm_up(eng, params, rng, cfg.vocab_size)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1261,10 +1300,14 @@ def serve_requests(torch, model, params, policy, label, eager=False, stream_fn=N
               f"{outputs[0][:8]}, wall {met['wall_s']:.3f} s")
         return launches, None, eng, outputs
     traces = eng.replica.trace_counts
+    want = {name: len(lens) for name, lens in shapes.items()}
     print(f"  trace_counts {traces} (graph captures per step bucket)")
-    if set(bk) - set(traces) or any(n != 1 for n in traces.values()):
+    if eng.replica.exec.exact_chunks:
+        ran = {k: sorted(v, key=str) for k, v in shapes.items()}
+        print(f"  exact chunks: the chunk lengths each program ran {ran}")
+    if set(bk) - set(traces) or traces != want:
         fail(f"{label}: trace_counts {traces}: every bucket used ({sorted(bk)}) must be "
-             "captured exactly once")
+             f"captured once for each chunk length it ran ({want})")
 
     sparse, decode_only, steps = step_counts(bk, scfg.fused_step)
     agg = functools.partial(bucket_sum, bk)
@@ -1290,6 +1333,28 @@ def serve_requests(torch, model, params, policy, label, eager=False, stream_fn=N
           f"pool's free blocks); held after the run {torch.cuda.memory_allocated() / 2**30:.2f}"
           f" GiB")
     return launches, steps, eng, outputs
+
+
+def program_shapes(ex):
+    """Record, from the plans themselves, the chunk lengths each step
+    program of the executor ``ex`` runs: ``{name: {length, ...}}`` (None for
+    a program of one shape: no exact chunks, or no prefill half), filled as
+    the engine runs.  Under exact chunks every length is a graph of its own,
+    so ``trace_counts`` must equal these sets' sizes.  The wrapper holds the
+    executor weakly: a cycle would keep a dropped engine's graphs alive until
+    a collection, which may fall inside another engine's capture."""
+    import weakref
+
+    shapes = {}
+    exact, real, ref = ex.exact_chunks, type(ex)._run, weakref.ref(ex)
+
+    def run(params, plan, name, fault):
+        length = plan.prefill.chunk_len if plan.prefill is not None and exact else None
+        shapes.setdefault(name, set()).add(length)
+        return real(ref(), params, plan, name, fault)
+
+    ex._run = run
+    return shapes
 
 
 def check_graphed_tokens(torch, model, params, policy, label, outputs, stream_fn=None):
@@ -1530,14 +1595,20 @@ def run_cli(torch, argv, label):
 
 def prune_launches(cfg, policy):
     """Launches per sparse prefill chunk under ``policy``: ``nm_prune_matmul``
-    once per pruned float projection (the attention projections, and those
-    of a dense MLP or a shared expert, as the skip list says), and
-    ``nm_prune`` once per pruned input of the routed experts in every layer
-    (layer None: the skip list does not reach them)."""
+    once per pruned float projection of each layer, by its kind (attention:
+    q/k/v/o, and those of a dense MLP or a shared expert; rwkv6: r/k/v/g as
+    q_proj, o, the channel mix's gate/down/up; rglru: W_in as q_proj, W_gate,
+    W_out as o_proj and its MLP's), as the skip list says, and ``nm_prune``
+    once per pruned input of the routed experts in every layer (layer None:
+    the skip list does not reach them)."""
     from repro_torch.core.policy import ATTN_PROJS, MLP_PROJS
+    from repro_torch.models.transformer import layer_kinds
 
-    mods = ATTN_PROJS + (MLP_PROJS if not cfg.n_experts or cfg.shared_expert else ())
-    fused = sum(policy.should_prune(mod, i) for i in range(cfg.n_layers) for mod in mods)
+    mods = {"attn": ATTN_PROJS + (MLP_PROJS if not cfg.n_experts or cfg.shared_expert else ()),
+            "rwkv6": ("q_proj",) * 4 + ("o_proj", "gate_proj", "down_proj", "up_proj"),
+            "rglru": ("q_proj", "gate_proj", "o_proj") + MLP_PROJS}
+    fused = sum(policy.should_prune(mod, i) for i, kind in enumerate(layer_kinds(cfg))
+                for mod in mods[kind])
     routed = cfg.n_layers * sum(policy.should_prune(mod, None) for mod in MLP_PROJS)
     return fused, routed if cfg.n_experts else 0
 
@@ -1670,9 +1741,11 @@ def profile_steps(torch, model, params, policy, eng, max_seq=1024, chunk_pos=256
         "decode step, step_decode graph replay":
             (lambda: replay(decode_plan, dpos), lambda: body(decode_plan, dpos)),
     }
+    traces = dict(ex.trace_counts)
     results = profile_cases(torch, {case: fn for case, (fn, _) in cases.items()})
-    if any(n != 1 for n in ex.trace_counts.values()):
-        fail(f"profile: trace_counts {ex.trace_counts}: a bucket was captured again")
+    if ex.trace_counts != traces:
+        fail(f"profile: trace_counts {ex.trace_counts} (before {traces}): a bucket was "
+             "captured again")
     # each case's computation run eagerly (a replay's through its program)
     return results, {case: eager or fn for case, (fn, eager) in cases.items()}
 
@@ -1820,22 +1893,26 @@ def spy_projections(hook):
     """Every projection call of the port's model passes its input to
     ``hook(x, p, module, policy, phase, layer_idx)`` first.  The port's
     projections are functions over ``Linear`` modules (``sparse_linear``,
-    which ``models/transformer.py`` and ``models/mlp.py`` call by name), so
+    which ``models/transformer.py``, ``models/mlp.py``, ``models/rwkv6.py``
+    and ``models/rglru.py`` call by name), so
     ``nn.Module`` forward hooks never fire: this is their counterpart."""
     from repro_torch.models import mlp as mlp_lib
-    from repro_torch.models import transformer
+    from repro_torch.models import rglru, rwkv6, transformer
 
+    mods = (transformer, mlp_lib, rwkv6, rglru)
     real = transformer.sparse_linear
 
     def spy(x, p, module, policy, phase, layer_idx=None):
         hook(x, p, module, policy, phase, layer_idx)
         return real(x, p, module, policy, phase, layer_idx)
 
-    transformer.sparse_linear = mlp_lib.sparse_linear = spy
+    for mod in mods:
+        mod.sparse_linear = spy
     try:
         yield
     finally:
-        transformer.sparse_linear = mlp_lib.sparse_linear = real
+        for mod in mods:
+            mod.sparse_linear = real
 
 
 def nm_flips(torch, run):
@@ -2167,7 +2244,7 @@ def phase_serve_oneshot(torch):
     print(f"  tokens[0][:8] {out[0, :8].tolist()}")
     # the same generate with every program run as it is, no graph
     eager = ServingEngine(model, policy, ServeConfig(max_seq=t + new))
-    eager._graphs.run = lambda name, fn, params: fn()
+    eager._graphs.run = lambda name, fn, params, shape=None: fn()
     eager_out = eager.generate(params, {"tokens": prompts}, max_new_tokens=new)["tokens"]
     if not torch.equal(eager_out, out):
         fail("phase 5: graphed tokens differ from the eager programs' tokens")
@@ -3784,7 +3861,7 @@ def phase_mixtral_oneshot(torch, model, params, policy):
           f"{new - 1} steps in {dec_s:.3f} s = {(new - 1) / dec_s:.1f} tok/s; peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
     eager = ServingEngine(mflash, policy, ServeConfig(max_seq=t_len + new))
-    eager._graphs.run = lambda name, fn, params: fn()
+    eager._graphs.run = lambda name, fn, params, shape=None: fn()
     want = eager.generate(params, {"tokens": prompts}, max_new_tokens=new)["tokens"]
     if not torch.equal(toks, want):
         fail("phase 10b: graphed tokens differ from the eager run's")
@@ -3952,6 +4029,427 @@ def phase_mixtral(torch, rates):
     return {"10a": launches, "10b": one_shot}
 
 
+# ------------------------------------------ phase 11: the recurrent families
+
+# phase 2m: nm_prune_matmul at the recurrent families' projection widths, at
+# a full chunk and the dyadic tail sizes an exact-chunk prefill also runs
+RECURRENT_PRUNED = (("RWKV6-7B r/k/v/g", 4096, 4096), ("RWKV6-7B gate", 4096, 14336),
+                    ("RWKV6-7B down", 14336, 4096), ("RecurrentGemma-2B W_in/W_gate", 2560, 2560),
+                    ("RecurrentGemma-2B gate", 2560, 7680),
+                    ("RecurrentGemma-2B down", 7680, 2560))
+DYADIC_ROWS = (256, 64, 8, 1)
+
+
+def phase_recurrent_kernels(torch, timer, rates, records):
+    """2m: ``nm_prune_matmul`` (8:16, an Amber scale) at RWKV6-7B's and
+    RecurrentGemma-2B's pruned projection widths, at 256 rows (a full
+    chunk) and at 64, 8 and 1 (exact dyadic tails): within ``BF16_TOL`` of
+    its plain version on its wgmma route, timed beside its bound and
+    ``torch.matmul`` of the pruned x (:func:`time_nm_prune_matmul`)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    keep = functools.partial(keep_case, records)
+    print("phase 2m: nm_prune_matmul at the recurrent families' widths, 256 rows and the "
+          f"dyadic tails {DYADIC_ROWS[1:]}")
+    for label, d, n_out in RECURRENT_PRUNED:
+        for t in DYADIC_ROWS:
+            time_nm_prune_matmul(torch, timer, rates, g, keep, f"{label} T={t}", d, n_out, t,
+                                 biased=False)
+
+
+# 11b's two long requests (past RecurrentGemma-2B's 2048-row rings) and max_seq
+RG_LONG = (2300, 2600)
+RG_SEQ = 4096
+# 11c's one-shot prompt (2j's timed flash shape) and 11d's prompt lengths
+RG_ONESHOT = 4096
+RECURRENT_PARITY_LENS = {"rwkv6_7b": (600, 300), "recurrentgemma_2b": (2300, 300)}
+
+
+def recurrent_model(torch, arch, n_layers=None, seed=SEED, dtype=None):
+    """``arch`` at full width (depth and dtype optionally changed), random
+    weights from ``seed`` made on the card, the paper's policy with the
+    kernels on and the Amber scales."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.core.pruner import precompute_scales
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers, dtype=dtype or cfg.dtype)
+    model = build_model(cfg)
+    params = model.init(seed)
+    policy = paper_policy(8, 16, cfg.qgate_skip_layers).with_(use_kernels=True)
+    precompute_scales(params, policy)
+    return cfg, model, params, policy
+
+
+def rg_stream(vocab, **serving):
+    """Phase 3's 8 seeded requests plus two of 2300-2600 tokens, so that
+    RecurrentGemma-2B's 2048-row rings wrap, 32 new tokens each; 4 slots,
+    chunk 256, max_seq 4096 (:func:`serving_stream`'s form)."""
+    from repro_torch.serve import ContinuousConfig
+
+    rng = np.random.default_rng(SEED)
+    prompts = make_requests(rng, 8, 64, 700, vocab) + make_requests(rng, 2, *RG_LONG, vocab)
+    arrivals = [0, 0, 1, 2, 4, 6, 9, 12, 3, 14]
+    return rng, prompts, arrivals, 32, ContinuousConfig(
+        num_slots=4, chunk_size=256, max_seq=RG_SEQ, **serving)
+
+
+@contextlib.contextmanager
+def timed_captures(torch):
+    """Seconds spent capturing graphs (``_capture.Graph.capture``) while
+    the block runs: ``out["seconds"]``, ``out["graphs"]``."""
+    from repro_torch.kernels import _capture
+
+    out = {"seconds": 0.0, "graphs": 0}
+    real = _capture.Graph.capture
+
+    def capture(self, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real(self, fn)
+        torch.cuda.synchronize()
+        out["seconds"] += time.perf_counter() - t0
+        out["graphs"] += 1
+        return res
+
+    _capture.Graph.capture = capture
+    try:
+        yield out
+    finally:
+        _capture.Graph.capture = real
+
+
+# the recurrences: plain torch, computed outside any kernel of the port (the
+# reference computes them outside Pallas); a profile books them as a family
+# of their own by recording their calls and timing those alone
+RECURRENCE_FNS = (("rwkv6", "wkv_chunked"), ("rwkv6", "_time_mix_step"),
+                  ("rglru", "_rglru_scan"), ("rglru", "_rglru_step"))
+
+
+def recurrence_report(torch, results, eager):
+    """The recurrence as a family of each profiled step: every call of
+    ``RECURRENCE_FNS`` that the step's eager computation makes is recorded
+    (its inputs cloned), then the recorded calls alone are profiled eagerly
+    (device busy time, kernels) and captured into one CUDA graph whose
+    replay is timed with CUDA events (median of 5), and set beside the
+    step's own busy time."""
+    import importlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    mods = {m: importlib.import_module(f"repro_torch.models.{m}") for m, _ in RECURRENCE_FNS}
+    for case, fn in eager.items():
+        calls = []
+        reals = {}
+        for m, name in RECURRENCE_FNS:
+            real = reals[m, name] = getattr(mods[m], name)
+
+            def spy(*args, _real=real):
+                calls.append((_real, [a.clone() if torch.is_tensor(a) else a for a in args]))
+                return _real(*args)
+
+            setattr(mods[m], name, spy)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            for (m, name), real in reals.items():
+                setattr(mods[m], name, real)
+
+        if not calls:
+            fail(f"{case}: the step made no recurrence call")
+
+        def rec():
+            for real, args in calls:
+                real(*args)
+
+        rec()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rec()
+            torch.cuda.synchronize()
+        spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        eager_ms = busy_time(spans) / 1e3
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            rec()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            rec()
+        times = []
+        for _ in range(5):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            graph.replay()
+            ev[1].record()
+            ev[1].synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        graph_ms = statistics.median(times)
+        busy = results[case]["busy_ms"]
+        share = "" if not busy else f", {graph_ms / busy:.3f} of the step's busy {busy:.3f} ms"
+        print(f"  {case}: recurrence {len(calls)} calls, {len(spans)} kernels, eager busy "
+              f"{eager_ms:.3f} ms; as one graph {graph_ms:.3f} ms (CUDA events){share}")
+        del graph
+        chunked = [args for real, args in calls if real is reals["rwkv6", "wkv_chunked"]]
+        if chunked:
+            wkv_against_the_loop(torch, mods["rwkv6"], chunked[0], case)
+        del calls
+
+
+def wkv_against_the_loop(torch, rwkv6, args, case):
+    """One layer's chunked WKV against its plain twin, the token loop
+    (``wkv_scan``), on the inputs it had in ``case``: output and state
+    within ``F32_TOL``; each timed alone with CUDA events (median of 3)."""
+    S, r, k, v, lw, u, n_heads = args
+    got = rwkv6.wkv_chunked(S, r, k, v, lw, u, n_heads)
+    want = rwkv6.wkv_scan(S, r, k, v, lw.exp(), u, n_heads)
+    check_close(f"{case}: layer 0 WKV chunked vs the token loop, y (T={r.shape[1]})", got[1],
+                want[1], F32_TOL)
+    check_close(f"{case}: layer 0 WKV chunked vs the token loop, state", got[0], want[0],
+                F32_TOL)
+    times = {}
+    for name, fn in (("chunked", lambda: rwkv6.wkv_chunked(S, r, k, v, lw, u, n_heads)),
+                     ("loop", lambda: rwkv6.wkv_scan(S, r, k, v, lw.exp(), u, n_heads))):
+        fn()
+        ms = []
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            fn()
+            ev[1].record()
+            ev[1].synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        times[name] = statistics.median(ms)
+    print(f"  layer 0 WKV alone, eager: chunked {times['chunked']:.3f} ms, token loop "
+          f"{times['loop']:.3f} ms")
+
+
+def serve_recurrent(torch, label, arch, rates, stream_fn=None, chunk_pos=256,
+                    decode_pos=(700, 500, 300, 100)):
+    """11a/11b: ``arch`` at full width and depth, served on the dense slab
+    in exact dyadic chunks (:func:`serve_requests` with ``stream_fn``; each
+    program captured once per chunk length it ran), launches exact (per
+    sparse chunk :func:`prune_launches` ``nm_prune_matmul``; no
+    other kernel: the ring attention and the recurrences are plain torch),
+    tok/s, peak memory and capture seconds, a 256-token chunk (at
+    ``chunk_pos``) and a decode step profiled with the recurrence as a
+    family of its own, graphed tokens equal to the eager programs'.
+    Returns (launches, model, params, policy)."""
+    t0 = time.perf_counter()
+    cfg, model, params, policy = recurrent_model(torch, arch)
+    torch.cuda.synchronize()
+    n_w = sum(p.numel() for p in params.parameters())
+    print(f"phase {label}: serve {cfg.name} at full width and depth ({cfg.n_layers} layers "
+          f"{cfg.block_pattern}, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, rnn_width {cfg.rnn_width}, vocab {cfg.vocab_size}, "
+          f"{cfg.attn_type} window {cfg.window}, {cfg.dtype}) on the dense slab, exact dyadic "
+          f"chunks, paper_policy(8, 16, {cfg.qgate_skip_layers}) with the kernels")
+    print(f"  random weights: {n_w / 1e9:.3f}B parameters ({n_w * 2 / 2**30:.2f} GiB in bf16; "
+          f"n_params() {cfg.n_params() / 1e9:.3f}B) in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
+    fused, _ = prune_launches(cfg, policy)
+    want = {"rwkv6_7b": 192, "recurrentgemma_2b": 96}[arch]
+    if fused != want:
+        fail(f"phase {label}: the paper policy prunes {fused} projections per chunk, "
+             f"expected {want}")
+    with timed_captures(torch) as cap:
+        launches, st, eng, outputs = serve_requests(torch, model, params, policy,
+                                                    f"phase {label}", stream_fn=stream_fn)
+    ex = eng.replica.exec
+    if ex.paged or not ex.exact_chunks or eng.replica.metrics["paged"] != {"enabled": False}:
+        fail(f"phase {label}: not served on the slab in exact chunks")
+    print(f"  graph captures {cap['graphs']} in {cap['seconds']:.2f} s (warm-up and stream; "
+          f"each after its program's eager first step)")
+    check_launches(f"phase {label}", launches, {
+        "nm_prune_matmul": fused * st["sparse_chunks"], "nm_prune": 0, "paged_kv_scatter": 0,
+        "paged_attention": 0, "nm_spmm": 0, "flash_attention": 0, "osparse_matmul": 0})
+    print(f"  launches held: per sparse chunk nm_prune_matmul {fused}; no attention kernel "
+          "(the ring attention and the recurrences are plain torch)")
+    state = sum(leaf.numel() * leaf.element_size() for layer in ex.cache["layers"]
+                for k, leaf in layer.items() if k not in ("k", "v"))
+    print(f"  the slab's recurrent state {state / 2**20:.1f} MiB for {ex.cache['pos'].shape[0]} "
+          "slots")
+    print(f"phase {label}: profile one 256-token prefill chunk (at {chunk_pos}) and one decode "
+          f"step of {cfg.name}")
+    results, eager = profile_steps(torch, model, params, policy, eng,
+                                   max_seq=eng.replica.cfg.max_seq, chunk_pos=chunk_pos,
+                                   decode_pos=decode_pos)
+    recurrence_report(torch, results, eager)
+    del eng, ex
+    check_graphed_tokens(torch, model, params, policy, f"phase {label}", outputs,
+                         stream_fn=stream_fn)
+    return launches, model, params, policy
+
+
+def phase_recurrent_oneshot(torch, model, params, policy):
+    """11c: ``ServingEngine.generate`` of RecurrentGemma-2B (11b's weights)
+    with ``attn_impl="flash"`` at B = 1, T = 4096 (past the 2048 window:
+    the flash kernel's 256-column tile and band) and 32 new tokens: the
+    prefill and decode graphs captured once, per prefill exactly 8
+    ``flash_attention`` and 96 ``nm_prune_matmul`` launches (no paged
+    kernel), tokens equal to the same run without graphs.  Returns the
+    launches of the timed run."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.serve import ServeConfig, ServingEngine
+
+    cfg = dataclasses.replace(model.cfg, attn_impl="flash")
+    mflash = build_model(cfg)
+    t_len, new = RG_ONESHOT, 32
+    n_attn = layer_kinds(cfg).count("attn")
+    fused, _ = prune_launches(cfg, policy)
+    prompts = torch.from_numpy(np.random.default_rng(SEED + 15).integers(
+        0, cfg.vocab_size, size=(1, t_len))).cuda()
+    print(f"phase 11c: one-shot {cfg.name}, attn_impl=flash, B=1, T={t_len}, {new} new tokens, "
+          f"rings of {min(cfg.window, t_len + new)} rows; flash_plan "
+          f"{kfa.flash_plan(torch.bfloat16, cfg.head_dim, True)}")
+    eng = ServingEngine(mflash, policy, ServeConfig(max_seq=t_len + new))
+    with timed_captures(torch) as cap:
+        eng.generate(params, {"tokens": prompts}, max_new_tokens=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    toks, pf_s, dec_s = timed_generate(torch, eng, params, prompts, new)
+    launches = kernels.launch_counts()
+    routes = dict(kfa.flash_attention.route_launches)
+    # timed_generate runs two generates: two prefills
+    check_launches("phase 11c", launches, {
+        "flash_attention": 2 * n_attn, "nm_prune_matmul": 2 * fused, "nm_prune": 0,
+        "paged_kv_scatter": 0, "paged_attention": 0, "nm_spmm": 0, "osparse_matmul": 0})
+    traces = eng.trace_counts
+    if any(n != 1 for n in traces.values()):
+        fail(f"phase 11c: trace_counts {traces}: each program must be captured once")
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail("phase 11c: a token outside the vocabulary")
+    print(f"  trace_counts {traces} ({cap['graphs']} captures in {cap['seconds']:.2f} s); "
+          f"launches {launches}; flash_attention routes {routes}")
+    print(f"  per prefill: flash_attention {n_attn}, nm_prune_matmul {fused}")
+    print(f"  prefill {t_len} tokens in {pf_s:.3f} s = {t_len / pf_s:.1f} tok/s; decode "
+          f"{new - 1} steps in {dec_s:.3f} s = {(new - 1) / dec_s:.1f} tok/s; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+    eager = ServingEngine(mflash, policy, ServeConfig(max_seq=t_len + new))
+    eager._graphs.run = lambda name, fn, params, shape=None: fn()
+    want = eager.generate(params, {"tokens": prompts}, max_new_tokens=new)["tokens"]
+    if not torch.equal(toks, want):
+        fail("phase 11c: graphed tokens differ from the eager run's")
+    print(f"  tokens {toks[0, :8].tolist()}...: identical to the same generate without graphs")
+    del eng, eager
+    return launches
+
+
+def dyadic_greedy(torch, mdl, prm, pol, prompt, new, max_seq, chunk=256):
+    """One prompt through exact dyadic chunks of at most ``chunk`` tokens
+    under ``pol`` into a fresh cache, then ``new`` greedy decode steps under
+    DENSE (with ``pol``'s kernel switch), eagerly: (tokens, last-chunk
+    logits)."""
+    from repro_torch.core.policy import DENSE
+    from repro_torch.serve.scheduler import _dyadic_sizes
+
+    cache = mdl.init_cache(1, max_seq)
+    s = 0
+    for size in _dyadic_sizes(len(prompt), chunk):
+        toks = torch.from_numpy(prompt[s:s + size][None, :]).cuda()
+        lg, cache = mdl.prefill_chunk(prm, {"tokens": toks}, cache, policy=pol)
+        s += size
+    first, out = lg, []
+    dense = DENSE.with_(use_kernels=pol.use_kernels)
+    for _ in range(new):
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+        out.append(int(tok[0, 0]))
+        lg, cache = mdl.decode_step(prm, tok, cache, policy=dense)
+    return out, first
+
+
+def phase_recurrent_parity(torch):
+    """11d: both models at full width, depth 2 (RWKV6-7B) and 5
+    (RecurrentGemma-2B: one period and its two tail blocks): the kernel
+    path against the plain path on two prompts each (RecurrentGemma's
+    longer one past its window) in exact dyadic chunks and 8 greedy decode
+    steps, eagerly.  float32: identical greedy tokens, the N:M flips between
+    the paths counted on prompt 0; bf16: the last-chunk logits within
+    ``BF16_E2E_FACTOR`` times the plain path's own bf16 effect
+    (:func:`check_bf16_logits`), greedy agreement printed."""
+    from repro_torch.models import build_model
+
+    for arch, depth in (("rwkv6_7b", 2), ("recurrentgemma_2b", 5)):
+        rng = np.random.default_rng(SEED + 16)
+        for dtype in ("float32", "bfloat16"):
+            cfg, model, params, policy = recurrent_model(torch, arch, depth, SEED + 1, dtype)
+            print(f"phase 11d: {cfg.name} kernel path vs plain path, full width, depth "
+                  f"{depth}, {dtype}")
+            prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                       for n in RECURRENT_PARITY_LENS[arch]]
+            plain = policy.with_(use_kernels=False)
+            max_seq = max(len(p) for p in prompts) + 16
+
+            def run(mdl, prm, pol, ps=prompts):
+                toks, logits = [], []
+                for p in ps:
+                    t, lg = dyadic_greedy(torch, mdl, prm, pol, p, 8, max_seq)
+                    toks.append(t)
+                    logits.append(lg)
+                return toks, logits
+
+            got, got_logits = run(model, params, policy)
+            want, want_logits = run(model, params, plain)
+            print(f"  prompts {[len(p) for p in prompts]}: kernel path {got}")
+            if dtype == "float32":
+                for i, (a, b) in enumerate(zip(got_logits, want_logits)):
+                    print(f"  prompt {i} last-chunk logits: max_abs_err "
+                          f"{float((a - b).abs().max()):.3e}, largest |logit| "
+                          f"{float(b.abs().max()):.3e}")
+                print_flips("phase 11d", nm_flips(torch, lambda k: run(
+                    model, params, policy if k else plain, prompts[:1])))
+                if got != want:
+                    fail(f"phase 11d: greedy tokens differ: kernel {got} vs plain {want}")
+                print("  greedy tokens identical")
+            else:
+                model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+                p32 = copy.deepcopy(params).float()
+                _, ref_logits = run(model32, p32, plain)
+                check_bf16_logits(got_logits, want_logits, ref_logits)
+                margins = [float(torch.topk(b[0].float(), 2).values.diff().abs())
+                           for b in want_logits]
+                report_bf16_agreement(got, want, margins)
+                del model32, p32
+            del model, params
+            torch.cuda.empty_cache()
+
+
+def phase_recurrent(torch, rates):
+    """Phase 11: the recurrent families, after phase 10 freed its models.
+    Returns the launches of 11a, 11b and 11c, by run."""
+    free_device(torch, "before phase 11 (phase 10 freed)")
+    seconds, runs = {}, {}
+    t0 = time.perf_counter()
+    runs["11a"], model, params, _ = serve_recurrent(torch, "11a", "rwkv6_7b", rates)
+    del model, params
+    free_device(torch, "after 11a")
+    seconds["11a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runs["11b"], model, params, policy = serve_recurrent(
+        torch, "11b", "recurrentgemma_2b", rates, stream_fn=rg_stream, chunk_pos=2304,
+        decode_pos=(2400, 2100, 300, 100))
+    seconds["11b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runs["11c"] = phase_recurrent_oneshot(torch, model, params, policy)
+    del model, params
+    free_device(torch, "after 11c")
+    seconds["11c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_recurrent_parity(torch)
+    free_device(torch, "after 11d")
+    seconds["11d"] = time.perf_counter() - t0
+    print(f"phase 11 seconds: {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}")
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -3997,6 +4495,7 @@ def main() -> int:
     phase_variant_kernels(torch, timer, rates, records)
     phase_skipping_kernels(torch, timer, rates, records)
     phase_window_kernels(torch, timer, rates, records)
+    phase_recurrent_kernels(torch, timer, rates, records)
     del timer
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
@@ -4027,12 +4526,14 @@ def main() -> int:
     t11 = time.perf_counter()
     x_launches = phase_mixtral(torch, rates)
     t12 = time.perf_counter()
+    r_launches = phase_recurrent(torch, rates)
+    t13 = time.perf_counter()
     print(f"phase seconds: build {t1 - t:.1f}, kernels {t2 - t1:.1f}, serve {t3 - t2:.1f}, "
           f"serve osparse {t4 - t3b:.1f}, parity {t5 - t4:.1f}, one-shot serve {t6 - t5:.1f}, "
           f"one-shot parity {t7 - t6:.1f}, serve CLI and serving lifecycle "
           f"{t8 - t7 + t3b - t3:.1f} (6b-6e {t3b - t3:.1f}, 6a and 6f {t8 - t7:.1f}), "
           f"MoE {t9 - t8:.1f}, dense variants {t10 - t9:.1f}, layer skipping {t11 - t10:.1f}, "
-          f"Mixtral and the slab {t12 - t11:.1f}")
+          f"Mixtral and the slab {t12 - t11:.1f}, the recurrent families {t13 - t12:.1f}")
 
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import nm_prune as knp
@@ -4047,7 +4548,7 @@ def main() -> int:
     # runs drive phase 3's and 7a's kernels again and print their own counts;
     # w8a8_matmul is an entry point that no serving path calls
     runs = {"3": launches, "3b": q_launches, "5": o_launches, "7a": m_launches,
-            "7e": mq_launches, **s_launches, **x_launches}
+            "7e": mq_launches, **s_launches, **x_launches, **r_launches}
     meta = {
         "nm_prune_matmul": (knm.SOURCE, knm.REPLACES, "3"),
         "paged_kv_scatter": (kpa.SOURCE, kpa.SCATTER_REPLACES, "3"),

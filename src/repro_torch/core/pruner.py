@@ -16,11 +16,14 @@ import torch
 from torch import nn
 
 from repro_torch.core import nm, scoring
-from repro_torch.core.policy import SparsityPolicy
+from repro_torch.core.policy import ALL_PROJS, SparsityPolicy
 
-__all__ = ["prune_input", "sparse_matmul", "precompute_scales", "SCALE_KEY"]
+__all__ = ["prune_input", "sparse_matmul", "precompute_scales", "SCALE_KEY", "SCALED_PROJS"]
 
 SCALE_KEY = "amber_scale"  # attribute name of the channel scale on a Linear
+# the Linear attribute names that read a scale: the seven projections, and
+# RWKV6's time-mix r/k/v/g (pruned under category q_proj)
+SCALED_PROJS = ALL_PROJS + ("r_proj", "k_proj_tm", "v_proj_tm", "g_proj")
 
 
 def prune_input(x: torch.Tensor, scale: torch.Tensor | None,
@@ -65,10 +68,16 @@ def sparse_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None,
 def precompute_scales(params: nn.Module, policy: SparsityPolicy) -> nn.Module:
     """Offline pass: attach Amber channel scales to every prunable linear.
 
-    Walks the module tree; every projection ``Linear`` whose attribute name
-    is prunable under the policy (layer-independent, as the JAX walk over
-    the stacked pytree is) gets an ``amber_scale`` tensor.  The LM head is
-    not a projection and never reads a scale, so it gets none.  Only float
+    Walks the module tree; every projection ``Linear`` (an attribute name in
+    :data:`SCALED_PROJS`) whose name is prunable under the policy
+    (layer-independent, as the JAX walk over the stacked pytree is) gets an
+    ``amber_scale`` tensor.  The JAX walk attaches one to every dict with a
+    2-D ``w`` whose name the policy does not skip; the port attaches the
+    ones a projection reads: RWKV6's ``r_proj``, ``k_proj_tm``,
+    ``v_proj_tm`` and ``g_proj`` included (they prune under category
+    ``q_proj`` and read their own scale), but not the LM head, the
+    embedding or RG-LRU's ``gate_a``/``gate_x`` (plain products that never
+    prune).  Only float
     ``Linear``s are visited (the JAX walk visits dicts with ``w``): a
     ``QuantLinear`` keeps the scale computed from its float weight before
     the rewrite.  Updates ``params`` in place and returns it.
@@ -82,14 +91,13 @@ def precompute_scales(params: nn.Module, policy: SparsityPolicy) -> nn.Module:
     get one, as in JAX.  The router is not a projection name, so it gets
     none; JAX gives it one that nothing reads.
     """
-    from repro_torch.core.policy import ALL_PROJS
     from repro_torch.layers.linear import Linear
 
     if policy.score_mode == "naive" or not policy.enabled:
         return params
     for name, mod in params.named_modules():
         leaf = name.rsplit(".", 1)[-1]
-        if (isinstance(mod, Linear) and leaf in ALL_PROJS
+        if (isinstance(mod, Linear) and leaf in SCALED_PROJS
                 and policy.should_prune(leaf)):
             mod.amber_scale = scoring.precompute_scale(mod.w, policy.score_mode)
     return params

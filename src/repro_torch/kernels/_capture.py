@@ -14,8 +14,9 @@ captured on the calling thread, or ``None``; the ``paged_attention``
 wrapper takes that graph's counters while it is captured.
 
 :class:`Programs` is what the serving engines run their steps through: one
-graph per named program, captured after the program's first (eager) call
-and replayed from then on, with ``trace_counts`` of the captures.
+graph per named program (and shape, where a program runs at several),
+captured after its first (eager) call and replayed from then on, with
+``trace_counts`` of the captures.
 """
 from __future__ import annotations
 
@@ -75,41 +76,47 @@ class Graph:
 class Programs:
     """Step programs by name, as CUDA graphs on ``device``.
 
-    :meth:`run` calls a program: the first call of a name runs ``fn()``
-    eagerly (the real step, which also builds the kernels) and then
-    captures it; later calls replay the graph and return the tensors its
-    capture returned (fixed addresses, rewritten by every replay: read them
-    before the next call).  ``fn`` must read its inputs from, and keep its
+    :meth:`run` calls a program: the first call of a name and ``shape`` (a
+    hashable, e.g. an exact chunk's length; None for a program of one shape)
+    runs ``fn()`` eagerly (the real step, which also builds the kernels) and
+    then captures it; later calls with the same key replay its graph and
+    return the tensors its capture returned (fixed addresses, rewritten by
+    every replay: read them before the next call).  ``fn`` must read its
+    inputs from, and keep its
     state in, tensors that outlive the graph.  The graphs share one memory
     pool, since they never run at once, and hold the ``params`` they were
     captured with: a call with another ``params`` object drops them all and
-    captures again.  ``trace_counts[name]`` counts the captures.  On the
-    CPU there are no graphs: ``fn()`` runs every time, and ``trace_counts``
-    counts each name's first call, so a name used reads 1 on either
-    device."""
+    captures again.  ``trace_counts[name]`` counts the captures of a name
+    over all its shapes.  On the CPU there are no graphs: ``fn()`` runs
+    every time, and ``trace_counts`` counts each key's first call, so a
+    name used at one shape reads 1 on either device."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
         self.trace_counts: Dict[str, int] = {}
-        self._graphs: Dict[str, tuple] = {}
+        self._graphs: Dict[tuple, tuple] = {}
+        self._seen: set = set()
         self._params = None
         self._pool = None
 
-    def run(self, name: str, fn: Callable, params):
+    def run(self, name: str, fn: Callable, params, shape=None):
+        key = (name, shape)
         if self.device.type != "cuda":
-            self.trace_counts.setdefault(name, 1)
+            if key not in self._seen:
+                self._seen.add(key)
+                self.trace_counts[name] = self.trace_counts.get(name, 0) + 1
             return fn()
         if params is not self._params:
             self._graphs.clear()
             self._params = params
-        if name in self._graphs:
-            graph, out = self._graphs[name]
+        if key in self._graphs:
+            graph, out = self._graphs[key]
             graph.replay()
             return out
         result = fn()
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = Graph(self.device, self._pool)
-        self._graphs[name] = (graph, graph.capture(fn))
+        self._graphs[key] = (graph, graph.capture(fn))
         self.trace_counts[name] = self.trace_counts.get(name, 0) + 1
         return result

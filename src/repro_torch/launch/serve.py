@@ -35,8 +35,10 @@ differences:
   whose 88 layers (88 GiB of bf16 weights) do not fit one 80 GB card:
   ``--smoke``) and MoE (``qwen3_30b_a3b``; ``llama4_scout_17b_a16e`` and
   ``mixtral_8x7b``, sliding-window attention with a 4096-row ring, whose
-  full widths do not fit one card either: ``--smoke``); other
-  architectures raise in ``check_supported``.
+  full widths do not fit one card either: ``--smoke``) and the recurrent
+  families (``rwkv6_7b``, attention-free, and ``recurrentgemma_2b``, RG-LRU
+  blocks with local attention: both served on the dense slab in exact
+  dyadic chunks); other architectures raise in ``check_supported``.
 * The weights are random from seed 0 (``model.init(0)``), and the prompts
   come from a seeded numpy generator, not from ``jax.random``: in trace
   mode the arrival gaps and prompt lengths are drawn from
@@ -65,7 +67,8 @@ def run(argv=None):
     ap.add_argument("--arch", default="qwen2_7b",
                     help="llama31_8b, qwen2_7b, qwen2_5_32b, chatglm3_6b, stablelm_3b, "
                          "granite_34b (--smoke on one card), qwen3_30b_a3b, "
-                         "llama4_scout_17b_a16e, mixtral_8x7b (--smoke on one card)")
+                         "llama4_scout_17b_a16e, mixtral_8x7b (--smoke on one card), "
+                         "rwkv6_7b, recurrentgemma_2b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")

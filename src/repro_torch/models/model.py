@@ -39,6 +39,9 @@ class Model:
                                       device=self.device, block_size=block_size,
                                       paged=paged)
 
+    def layer_kinds(self):
+        return transformer.layer_kinds(self.cfg)
+
     def paged_kv_spec(self):
         return transformer.paged_kv_spec(self.cfg)
 

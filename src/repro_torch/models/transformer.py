@@ -1,10 +1,14 @@
-"""Decoder-only LM, dense and MoE families (port of
+"""Decoder-only LM: the dense, MoE and recurrent families (port of
 ``repro/models/transformer.py``).
 
-A :class:`Transformer` holds the embedding, an ``nn.ModuleList`` of
-attention blocks, the final norm and the LM head.  A block's feed-forward
-is a gated MLP, or with ``cfg.n_experts`` the routed experts of
-``models/moe.py`` (``family="moe"``).  Layers run as a Python
+A :class:`Transformer` holds the embedding, an ``nn.ModuleList`` of blocks
+whose kinds follow ``cfg.block_pattern`` tiled over the layers
+(:func:`layer_kinds`), the final norm and the LM head.  An attention
+block's feed-forward is a gated MLP, or with ``cfg.n_experts`` the routed
+experts of ``models/moe.py`` (``family="moe"``).  An ``rwkv6`` block
+(:class:`RWKVLayer`) is ``models/rwkv6.py``'s time and channel mix with no
+norm around it; an ``rglru`` block (:class:`RGLRULayer`) is a norm, the
+RG-LRU of ``models/rglru.py``, a norm and a gated MLP.  Layers run as a Python
 loop with a static layer index, so each projection consults the policy's
 skip list directly (the JAX package scans the stacked layers and passes a
 traced per-layer flag instead).  Under ``paper_policy`` this routes q_proj
@@ -26,6 +30,18 @@ the serving slab of ``serve/slots.py``).  A dense cache may carry
 ``"slot"``, a ``(B,)`` device index of the slab rows the batch occupies
 (:func:`~repro_torch.serve.slots.slice_slot`), so a step reads and writes
 one slot's rows in place without copying them out and back.
+
+A recurrent layer's cache is its state, per batch row and in place like
+the K/V: ``rwkv6`` ``{"tm_shift", "cm_shift"}`` ``(B, d)`` in the model
+dtype and ``"S"`` ``(B, H, N, N)`` float32; ``rglru`` ``{"h"}`` ``(B, W)``
+float32 and ``"conv"`` ``(B, cw - 1, W)`` in the model dtype.  Recurrent
+layers live on the dense layout only (their state is per slot, and a
+hybrid with full-attention layers, which would pool its K/V, is not ported).
+:func:`prefill` starts them from zeros; :func:`prefill_chunk` carries the
+state of the slot it runs on but cannot mask padded tokens out of a scan,
+so a recurrent model's chunk must be fully valid (the serving engine sends
+exact dyadic chunks); :func:`decode_step` on a cache carrying ``"active"``,
+a ``(B,)`` bool mask, leaves the state of inactive rows as it was.
 
 Attention without a cache (:func:`forward`) and the one-shot
 :func:`prefill` attend over the fresh K/V with ``cfg.attn_impl``
@@ -58,23 +74,30 @@ from repro_torch.models import common
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import attention, paged_attention, paged_kv_update
 from repro_torch.models.mlp import init_mlp, mlp
+from repro_torch.models.rglru import RGLRUBlock, init_rglru_state, rglru_block
+from repro_torch.models.rwkv6 import RWKV6Block, init_rwkv6_state, rwkv6_block
 
-__all__ = ["Transformer", "AttnBlock", "check_supported", "init_params",
-           "init_cache", "paged_kv_spec", "pools_anything", "forward",
-           "prefill", "prefill_chunk", "decode_step"]
+__all__ = ["Transformer", "AttnBlock", "RWKVLayer", "RGLRULayer", "check_supported",
+           "layer_kinds", "init_params", "init_cache", "paged_kv_spec", "pools_anything",
+           "forward", "prefill", "prefill_chunk", "decode_step"]
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port covers the dense and MoE families with full, sliding-window
     or local attention (the JAX package treats the last two alike), with
-    RMSNorm or LayerNorm and the default or the 2-D (ChatGLM) RoPE."""
+    RMSNorm or LayerNorm and the default or the 2-D (ChatGLM) RoPE, and the
+    recurrent families: RWKV6 (``("rwkv6",)``, no RoPE) and the
+    RecurrentGemma hybrid (``("rglru", "rglru", "attn")``) with windowed
+    attention.  A recurrent model with full-attention layers (a paged
+    hybrid) is not ported."""
     supported = {
-        "family": (cfg.family, ("dense", "moe")),
+        "family": (cfg.family, ("dense", "moe", "ssm", "hybrid")),
         "attn_type": (cfg.attn_type, ("full", "swa", "local")),
-        "rope_variant": (cfg.rope_variant, ("default", "2d")),
+        "rope_variant": (cfg.rope_variant, ("default", "2d", "none")),
         "norm": (cfg.norm, ("rmsnorm", "layernorm")),
         "attn_impl": (cfg.attn_impl, ("chunked", "flash")),
-        "block_pattern": (cfg.block_pattern, (("attn",),)),
+        "block_pattern": (cfg.block_pattern,
+                          (("attn",), ("rwkv6",), ("rglru", "rglru", "attn"))),
     }
     for field, (have, want) in supported.items():
         if have not in want:
@@ -82,9 +105,26 @@ def check_supported(cfg: ModelConfig) -> None:
                 f"{cfg.name}: {field}={have!r} is not ported yet (only {want!r})")
     if cfg.is_encdec or cfg.vision_stub:
         raise NotImplementedError(f"{cfg.name}: encdec/VLM are not ported yet")
+    kinds = set(layer_kinds(cfg))
+    if kinds != {"attn"} and "attn" in kinds and _window(cfg) is None:
+        raise NotImplementedError(f"{cfg.name}: a recurrent model with full-attention "
+                                  "layers (a paged hybrid) is not ported yet")
+
+
+def layer_kinds(cfg: ModelConfig):
+    """Each layer's block kind: ``cfg.block_pattern`` tiled over the layers."""
+    return [cfg.block_pattern[i % len(cfg.block_pattern)] for i in range(cfg.n_layers)]
+
+
+def _n_periods(cfg: ModelConfig) -> Tuple[int, int]:
+    """(whole periods of the pattern, layers of the tail)."""
+    p = len(cfg.block_pattern)
+    return cfg.n_layers // p, cfg.n_layers % p
 
 
 def _apply_rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    if cfg.rope_variant == "none":
+        return x
     if cfg.rope_variant == "default":
         return common.apply_rope(x, positions, cfg.rope_theta)
     if cfg.rope_variant == "2d":
@@ -111,6 +151,31 @@ class AttnBlock(nn.Module):
             self.mlp = init_mlp(d, cfg.d_ff, **kw)
 
 
+class RWKVLayer(nn.Module):
+    """An ``rwkv6`` layer: the JAX package's ``{"rwkv": ...}``."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device, generator):
+        super().__init__()
+        self.rwkv = RWKV6Block(cfg.d_model, cfg.d_ff, cfg.n_heads, dtype=dtype, device=device,
+                               generator=generator)
+
+
+class RGLRULayer(nn.Module):
+    """An ``rglru`` layer: ``ln1``, ``rglru``, ``ln2``, ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device, generator):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        d = cfg.d_model
+        self.ln1 = common.init_norm(d, cfg.norm, dtype=dtype, device=device)
+        self.rglru = RGLRUBlock(d, cfg.rnn_width or d, cfg.conv_width, **kw)
+        self.ln2 = common.init_norm(d, cfg.norm, dtype=dtype, device=device)
+        self.mlp = init_mlp(d, cfg.d_ff, **kw)
+
+
+_BLOCKS = {"attn": AttnBlock, "rwkv6": RWKVLayer, "rglru": RGLRULayer}
+
+
 class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device, generator):
         super().__init__()
@@ -120,8 +185,8 @@ class Transformer(nn.Module):
         self.embed = common.init_embedding(cfg.vocab_size, cfg.d_model, dtype=dtype,
                                            device=device, generator=generator)
         self.blocks = nn.ModuleList(
-            AttnBlock(cfg, dtype=dtype, device=device, generator=generator)
-            for _ in range(cfg.n_layers))
+            _BLOCKS[kind](cfg, dtype=dtype, device=device, generator=generator)
+            for kind in layer_kinds(cfg))
         self.final_norm = common.init_norm(cfg.d_model, cfg.norm, dtype=dtype,
                                            device=device)
         self.lm_head = (None if cfg.tie_embeddings else
@@ -150,33 +215,51 @@ def _attn_cache_len(cfg: ModelConfig, max_seq: int) -> int:
     return max_seq if _window(cfg) is None else min(cfg.window, max_seq)
 
 
+def _layer_leaves(kind: str) -> Tuple[str, ...]:
+    return {"attn": ("k", "v"), "rwkv6": ("tm_shift", "cm_shift", "S"),
+            "rglru": ("h", "conv")}[kind]
+
+
 def paged_kv_spec(cfg: ModelConfig) -> Dict:
     """Which cache leaves live in the block pool: the K/V leaves of
     full-attention layers.  Sliding-window rings are already bounded by the
-    window and their wraparound does not compose with block tables, so
-    they stay out, and a model whose spec pools nothing is served on the
-    dense slab."""
+    window and their wraparound does not compose with block tables, and a
+    recurrent layer's state is per slot and position-independent, so they
+    stay out, and a model whose spec pools nothing is served on the dense
+    slab."""
     check_supported(cfg)
     paged = _window(cfg) is None
-    return {"layers": [{"k": paged, "v": paged} for _ in range(cfg.n_layers)]}
+    return {"layers": [{leaf: kind == "attn" and paged for leaf in _layer_leaves(kind)}
+                       for kind in layer_kinds(cfg)]}
 
 
 def pools_anything(cfg: ModelConfig) -> bool:
     return any(leaf for layer in paged_kv_spec(cfg)["layers"] for leaf in layer.values())
 
 
+def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype,
+                      device) -> Dict:
+    if kind == "rwkv6":
+        return init_rwkv6_state(batch, cfg.d_model, cfg.n_heads, dtype, device)
+    if kind == "rglru":
+        return init_rglru_state(batch, cfg.rnn_width or cfg.d_model, cfg.conv_width, dtype,
+                                device)
+    shape = (batch, _attn_cache_len(cfg, max_seq), cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def _init_dense_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                      device=None) -> Dict:
-    """The dense layout: per layer ``(batch, s_c, Hkv, hd)`` zeros
-    (:func:`_attn_cache_len`) on ``device`` (default: the GPU, raising if
-    there is none), and a 0-d ``pos``."""
+    """The dense layout: per attention layer ``(batch, s_c, Hkv, hd)`` zeros
+    (:func:`_attn_cache_len`), per recurrent layer its zero state, on
+    ``device`` (default: the GPU, raising if there is none), and a 0-d
+    ``pos``."""
     device = common.resolve_device(device)
     dtype = dtype or common.dtype_of(cfg)
-    shape = (batch, _attn_cache_len(cfg, max_seq), cfg.n_kv_heads, cfg.head_dim)
     return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "layers": [{"k": torch.zeros(shape, dtype=dtype, device=device),
-                        "v": torch.zeros(shape, dtype=dtype, device=device)}
-                       for _ in range(cfg.n_layers)]}
+            "layers": [_init_layer_cache(cfg, kind, batch, max_seq, dtype, device)
+                       for kind in layer_kinds(cfg)]}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
@@ -186,8 +269,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     :func:`paged_kv_spec` pools something): row ``b`` owns blocks ``b*mb ..
     b*mb + mb - 1`` (plus the pool's trailing sentinel row, as
     ``serve.paged.device_pool_rows`` sizes it).  ``paged=False``, or a
-    model whose spec pools nothing (sliding windows): the dense layout of
-    :func:`_init_dense_cache`."""
+    model whose spec pools nothing (sliding windows, recurrent layers): the
+    dense layout of :func:`_init_dense_cache`."""
     from repro_torch.serve.paged import init_paged_cache, max_blocks_per_slot
 
     if paged is None:
@@ -195,8 +278,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     if not paged:
         return _init_dense_cache(cfg, batch, max_seq, dtype, device)
     if not pools_anything(cfg):
-        raise ValueError(f"{cfg.name}: sliding-window layers keep ring caches, never "
-                         "paged ones")
+        raise ValueError(f"{cfg.name}: sliding-window rings and recurrent state are "
+                         "never paged")
     device = common.resolve_device(device)
     mb = max_blocks_per_slot(max_seq, block_size)
     cache = init_paged_cache(cfg, batch, max_seq, block_size, batch * mb,
@@ -219,8 +302,9 @@ def _paged_index(cache: Dict, b: int, pos: torch.Tensor, chunk_len: torch.Tensor
     def vec(v):
         return v.to(torch.int32).reshape(-1).expand(b).contiguous()
 
-    return {"table": cache["block_table"], "pos": vec(pos), "chunk_len": vec(chunk_len),
-            "kv_len": None if kv_len is None else vec(kv_len), "causal": causal}
+    return {"dense": False, "table": cache["block_table"], "pos": vec(pos),
+            "chunk_len": vec(chunk_len), "kv_len": None if kv_len is None else vec(kv_len),
+            "causal": causal}
 
 
 def _dense_index(cfg: ModelConfig, cache: Dict, b: int, t: int, pos: torch.Tensor,
@@ -232,12 +316,16 @@ def _dense_index(cfg: ModelConfig, cache: Dict, b: int, t: int, pos: torch.Tenso
     goes to and whether it is written at all (pad rows and rows past a full
     cache are dropped); a ring chunk gets every key's absolute position
     (``kv_pos``: the old ring, then the chunk, -1 where never written) and a
-    full cache ``kv_len``."""
-    s_c = cache["layers"][0]["k"].shape[1]
+    full cache ``kv_len``.  ``rows`` (the slot) and ``active`` (decode's
+    mask of the rows whose recurrent state moves) are the recurrent
+    layers'; a model with no attention layer needs nothing more."""
+    s_c = _attn_rows(cache)
     dev = pos.device
     rows = cache.get("slot")
     idx = {"dense": True, "mode": mode, "pos": pos,
-           "rows": None if rows is None else rows.long()}
+           "rows": None if rows is None else rows.long(), "active": cache.get("active")}
+    if s_c is None:
+        return idx
     window = _window(cfg)
     if mode == "prefill":
         if t > s_c:     # a ring shorter than the prompt keeps its last s_c rows
@@ -266,6 +354,12 @@ def _dense_index(cfg: ModelConfig, cache: Dict, b: int, t: int, pos: torch.Tenso
     else:
         idx["kv_len"] = pos + chunk_len
     return idx
+
+
+def _attn_rows(cache: Dict) -> Optional[int]:
+    """Rows of the first attention layer's dense cache (None: no attention
+    layer)."""
+    return next((layer["k"].shape[1] for layer in cache["layers"] if "k" in layer), None)
 
 
 def _slab_rows(buf: torch.Tensor, rows: Optional[torch.Tensor]) -> torch.Tensor:
@@ -327,7 +421,7 @@ def _attn_block_apply(cfg: ModelConfig, h: torch.Tensor, p: AttnBlock,
     v = v.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
 
     use_kernel = policy.use_kernels
-    if index is not None and index.get("dense"):
+    if index is not None and index["dense"]:
         o = _dense_attention(cfg, q, k, v, cache, index)
     elif index is None or index["kv_len"] is None:
         if cache is not None:
@@ -363,12 +457,55 @@ def _attn_block_apply(cfg: ModelConfig, h: torch.Tensor, p: AttnBlock,
     return h + ff
 
 
+def _read_state(cache: Optional[Dict], index: Optional[Dict]) -> Optional[Dict]:
+    """A recurrent layer's state for this step: None (zeros) without a cache
+    and in the one-shot prefill; else the batch's rows of the cache."""
+    if cache is None or index is None or index["mode"] == "prefill":
+        return None
+    return {k: _slab_rows(buf, index["rows"]) for k, buf in cache.items()}
+
+
+def _write_state(cache: Optional[Dict], index: Optional[Dict], new: Dict) -> None:
+    """Write a recurrent layer's new state into its cache in place: at the
+    slot's rows, or every row (decode: only where ``active``)."""
+    if cache is None:
+        return
+    rows, active = index["rows"], index["active"]
+    for k, buf in cache.items():
+        val = new[k].to(buf.dtype)
+        if rows is not None:
+            buf.index_copy_(0, rows, val)
+            continue
+        if active is not None:
+            val = torch.where(active.reshape(-1, *[1] * (val.ndim - 1)), val, buf)
+        buf.copy_(val)
+
+
+def _recurrent_apply(cfg: ModelConfig, kind: str, h: torch.Tensor, p, policy: SparsityPolicy,
+                     phase: str, layer_idx: int, cache: Optional[Dict],
+                     index: Optional[Dict]) -> torch.Tensor:
+    """An ``rwkv6`` or ``rglru`` layer (``repro/models/transformer.py:390-405``)."""
+    state = _read_state(cache, index)
+    if kind == "rwkv6":
+        h, new = rwkv6_block(h, p.rwkv, policy, phase, cfg.n_heads, state, layer_idx)
+    else:
+        x = common.norm_apply(h, p.ln1, cfg.norm)
+        y, new = rglru_block(x, p.rglru, policy, phase, state, layer_idx)
+        h = h + y
+        x2 = common.norm_apply(h, p.ln2, cfg.norm)
+        h = h + mlp(x2, p.mlp, policy, phase, cfg.act_fn, layer_idx)
+    _write_state(cache, index, new)
+    return h
+
+
 def _run_blocks(cfg, params: Transformer, h, policy, phase, cache, positions,
                 index=None):
-    for i, blk in enumerate(params.blocks):
-        h = _attn_block_apply(cfg, h, blk, policy, phase, i,
-                              None if cache is None else cache["layers"][i],
-                              positions, index)
+    for i, (kind, blk) in enumerate(zip(layer_kinds(cfg), params.blocks)):
+        layer = None if cache is None else cache["layers"][i]
+        if kind == "attn":
+            h = _attn_block_apply(cfg, h, blk, policy, phase, i, layer, positions, index)
+        else:
+            h = _recurrent_apply(cfg, kind, h, blk, policy, phase, i, layer, index)
     return h
 
 
@@ -413,8 +550,8 @@ def prefill(cfg: ModelConfig, params: Transformer, batch: Dict, cache: Dict, *,
         index = _paged_index(cache, b, zero, torch.full((), t, dtype=torch.int32, device=dev),
                              None, True)
     else:
-        s_c = cache["layers"][0]["k"].shape[1]
-        if t > s_c and _window(cfg) is None:
+        s_c = _attn_rows(cache)
+        if s_c is not None and t > s_c and _window(cfg) is None:
             raise ValueError(f"prefill: {t} tokens do not fit a cache of {s_c} positions")
         index = _dense_index(cfg, cache, b, t, zero, None, "prefill")
     positions = torch.arange(t, device=dev).expand(b, t)
@@ -447,9 +584,10 @@ def prefill_chunk(cfg: ModelConfig, params: Transformer, batch: Dict, cache: Dic
             raise ValueError("paged chunked prefill is per-slot (batch 1)")
         index = _paged_index(cache, b, pos, chunk_len, pos + chunk_len, True)
     else:
-        if t > cache["layers"][0]["k"].shape[1]:
+        s_c = _attn_rows(cache)
+        if s_c is not None and t > s_c:
             raise ValueError(f"prefill_chunk: a {t}-token chunk exceeds the cache's "
-                             f"{cache['layers'][0]['k'].shape[1]} rows")
+                             f"{s_c} rows")
         index = _dense_index(cfg, cache, b, t, pos, chunk_len, "chunk")
     positions = pos + torch.arange(t, device=dev).expand(b, t)
     h = common.embed(tokens, params.embed)
@@ -464,8 +602,9 @@ def decode_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
                 cache: Dict, *, policy: SparsityPolicy) -> Tuple[torch.Tensor, Dict]:
     """One decode step for ``tokens (B, 1)``; ``cache["pos"]`` is a (B,)
     int32 vector of per-row positions (or a scalar shared by every row).
-    → ((B, V) logits, cache with
-    ``pos + 1``); the cache is updated in place."""
+    A dense cache may carry ``"active"``, a ``(B,)`` bool mask: the
+    recurrent state of the other rows is left as it was.  → ((B, V) logits,
+    cache with ``pos + 1``); the cache is updated in place."""
     b, t = tokens.shape
     pos = cache["pos"]
     # a scalar pos moves every row in lockstep (the one-shot cache)

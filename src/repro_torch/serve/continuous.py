@@ -100,7 +100,7 @@ class ContinuousServingEngine:
         self.exec = Executor(model, policy, cfg)
         self.sched = Scheduler(cfg, policy_enabled=policy.enabled,
                                prefix_cache=cfg.prefix_cache, paged=self.exec.paged,
-                               faults=faults)
+                               exact_chunks=self.exec.exact_chunks, faults=faults)
         self.work_iterations = 0  # iterations that dispatched any program
         self.restores = 0         # times restore() rebuilt this engine
         self.metrics: Dict[str, Any] = {}

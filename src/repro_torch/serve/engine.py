@@ -13,8 +13,11 @@ an EOS ``done`` mask.  Decode runs dense under
 ``DENSE.with_(use_kernels=policy.use_kernels)``, so with the kernels on the
 KV write and read are the paged kernels; a sliding-window model's cache is
 the dense ring layout instead (``transformer.init_cache``), which decode
-writes and reads with plain torch, as the JAX package does.  Greedy output (temperature 0)
-equals the JAX package's; temperature sampling draws from an explicit
+writes and reads with plain torch, as the JAX package does.  A recurrent
+model carries its state in the same cache: the prefill starts it from
+zeros and writes it, each decode step reads and rewrites it in place.
+Greedy output (temperature 0) equals the JAX package's; temperature
+sampling draws from an explicit
 ``torch.Generator`` seeded from the config.  Asynchronous arrivals go
 through :class:`~repro_torch.serve.continuous.ContinuousServingEngine`.
 

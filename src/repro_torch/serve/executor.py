@@ -11,15 +11,22 @@ dense per-slot slab (``serve/slots.py``) where the model's
 ``cfg.paged`` is False, as the JAX package chooses; the slab's steps are
 graphs of the same programs.  A sliding-window model's ``chunk_size``
 must fit its ring (``min(window, max_seq)``; the JAX package asserts it,
-the port raises ``ValueError``).  Its operands are fixed-shape device
-buffers: the slot (a 0-d index, :mod:`~repro_torch.serve.slots`), the chunk
-tokens padded to ``chunk_size``, ``chunk_len``, the decode tokens and the
-``active`` mask and the fault operand, written from the host before each
-step in one copy.  The fault operand is a 0-d float32 view of the buffer's
-last 4 bytes that the program adds to its logits (0 on a clean step, NaN
-when the engine injects a ``"nonfinite"`` fault; a device operand, so a
-replayed graph sees it, where a Python number would be baked in at
-capture).  It returns the logits and one all-finite flag (inactive
+the port raises ``ValueError``).  A model with recurrent layers
+(``exact_chunks``: their scans cannot mask padded tokens) gets exact
+dyadic chunks from the scheduler, every one a power of two of at most
+``chunk_size`` tokens, and keeps its prefix cache off, as in the JAX
+package.  Its operands are fixed-shape device buffers: the slot (a 0-d
+index, :mod:`~repro_torch.serve.slots`), the chunk tokens padded to
+``chunk_size`` (an exact chunk reads the first ``chunk_len`` of them),
+``chunk_len``, the decode tokens and the ``active`` mask and the fault
+operand, written from the host before each step in one copy.  The decode
+half passes ``active`` to the model, so a slot that is empty or still
+prefilling keeps its recurrent state (the JAX package selects every slab
+leaf per active slot after the step).  The fault operand is a 0-d
+float32 view of the buffer's last 4 bytes that the program adds to its
+logits (0 on a clean step, NaN when the engine injects a ``"nonfinite"``
+fault; a device operand, so a replayed graph sees it, where a Python
+number would be baked in at capture).  It returns the logits and one all-finite flag (inactive
 decode rows masked).
 
 The legacy two-program split (``ContinuousConfig.fused_step=False``) runs
@@ -109,6 +116,8 @@ class Executor:
                              f"ring of min(window {mcfg.window}, max_seq {cfg.max_seq}) rows")
         # the slab where the pool would hold nothing, or where asked
         self.paged = bool(cfg.paged) and model.pools_anything()
+        # recurrent scans cannot mask padded tokens out of their state
+        self.exact_chunks = any(kind != "attn" for kind in model.layer_kinds())
         self.paged_kernel = self.paged and bool(policy.use_kernels)
         dense = DENSE.with_(use_kernels=policy.use_kernels)
         # replay and decode are dense
@@ -144,7 +153,9 @@ class Executor:
                 p_logits = p_logits[0] + fault
                 finite = finite & torch.isfinite(p_logits).all()
             if has_decode:
-                d_logits, new = model.decode_step(params, toks[:, None], cache,
+                # inactive slots keep their recurrent state
+                d_logits, new = model.decode_step(params, toks[:, None],
+                                                  {**cache, "active": active},
                                                   policy=dec_policy)
                 slot_ops.where_active(active, new, cache)
                 d_logits = d_logits + fault
@@ -212,13 +223,15 @@ class Executor:
         if plan.table is not None:
             self.cache["block_table"].copy_(torch.from_numpy(plan.table))
 
-    def _views(self):
-        """The step programs' operands: views of the operand buffer,
-        ``active`` as a mask (made inside the program, so a graph makes it
-        at replay), and the fault operand, the last slot read as float32."""
+    def _views(self, length: Optional[int] = None):
+        """The step programs' operands: views of the operand buffer (the
+        chunk tokens' first ``length``, default ``chunk_size``), ``active``
+        as a mask (made inside the program, so a graph makes it at replay),
+        and the fault operand, the last slot read as float32."""
         c, s = self.cfg.chunk_size, self.cfg.num_slots
         buf = self._operands
-        return (buf[0], buf[2:2 + c].reshape(1, c), buf[1], buf[2 + c:2 + c + s],
+        t = c if length is None else length
+        return (buf[0], buf[2:2 + t].reshape(1, t), buf[1], buf[2 + c:2 + c + s],
                 buf[2 + c + s:2 + c + 2 * s] != 0, buf[-1:].view(torch.float32)[0])
 
     def _write_operands(self, plan: StepPlan, fault: float) -> None:
@@ -227,7 +240,7 @@ class Executor:
         if plan.prefill is not None:
             pw = plan.prefill
             host[0], host[1] = pw.req.slot, pw.chunk_len
-            host[2:2 + c] = pw.tokens.reshape(-1)
+            host[2:2 + pw.tokens.size] = pw.tokens.reshape(-1)
         if plan.decode is not None:
             host[2 + c:2 + c + s] = plan.decode.toks
             host[2 + c + s:2 + c + 2 * s] = plan.decode.active
@@ -263,8 +276,11 @@ class Executor:
         pw, dw = plan.prefill, plan.decode
         self._write_operands(plan, fault)
         prog = self._programs[plan.bucket]
+        # an exact chunk runs the program of its own length
+        length = pw.chunk_len if pw is not None and self.exact_chunks else None
         p_logits, d_logits, finite = self._graphs.run(
-            name, lambda: prog(params, self.cache, *self._views()), params)
+            name, lambda: prog(params, self.cache, *self._views(length)), params,
+            shape=length)
         out = []
         if pw is not None:
             out.append(self._sample(p_logits).reshape(1))

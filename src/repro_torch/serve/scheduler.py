@@ -2,13 +2,16 @@
 ``repro/serve/scheduler.py``).
 
 A copy of the JAX package's :class:`Scheduler`, numpy only (no modality
-extras, no exact dyadic chunks), for the paged cache and, with
+extras), for the paged cache and, with
 ``paged=False``, the dense per-slot slab (no block pool, no block-budget
 admission, no preemption, no prefix cache): the same stream makes the
 same decisions, faults
 included (the ``admit`` site, retries with backoff, the ``pool.alloc``
-recovery paths).  The :class:`Scheduler` owns every piece of host state — the
-:class:`Request` lifecycle machine, slot assignment, the paged
+recovery paths), exact dyadic chunks included (``exact_chunks``: models
+with recurrent layers, whose scans cannot mask a padded tail, prefill in
+power-of-two chunks of at most ``chunk_size`` that sum to the prompt, and
+keep the prefix cache off).  The :class:`Scheduler` owns every piece of
+host state — the :class:`Request` lifecycle machine, slot assignment, the paged
 :class:`~repro_torch.serve.paged.BlockPool`, the prefix index bookkeeping,
 the watchdog, and the scheduling counters — and never touches device
 tensors.  Each iteration it emits a :class:`StepPlan` (or, for the legacy
@@ -82,6 +85,25 @@ class Request:
     next_retry_iter: int = 0           # backoff window after a transient fail
 
 
+def _dyadic_sizes(length: int, cap: int) -> List[int]:
+    """Non-increasing powers of two ≤ cap summing exactly to length
+    (``[]`` for ``length <= 0``: a cancel or timeout can land between
+    scheduling and prefill, and the ladder must then be empty, not spin)."""
+    if length <= 0:
+        return []
+    sizes = []
+    c = 1
+    while c * 2 <= cap:
+        c *= 2
+    rem = length
+    while rem:
+        while c > rem:
+            c //= 2
+        sizes.append(c)
+        rem -= c
+    return sizes
+
+
 # --------------------------------------------------------------- the plan
 # The Scheduler→Executor contract: a plan is plain host data (numpy + ints
 # + Request references for commit bookkeeping).  The Executor reads ONLY
@@ -135,13 +157,15 @@ class Scheduler:
     results.  Never touches device tensors or sampling generators."""
 
     def __init__(self, cfg, *, policy_enabled: bool, prefix_cache: bool,
-                 paged: bool = True, faults=None):
+                 paged: bool = True, exact_chunks: bool = False, faults=None):
         self.cfg = cfg
         self.faults = faults
         self._policy_enabled = policy_enabled
+        self._exact_chunks = exact_chunks
         self.paged = paged
-        # block reuse needs every piece of a request's KV in the pool
-        self.prefix_cache = paged and prefix_cache
+        # block reuse needs every piece of a request's state in the pool:
+        # recurrent scan state is not, so exact-chunk archs keep it off
+        self.prefix_cache = paged and prefix_cache and not exact_chunks
         self.preemptions = 0
         self.rejections = 0
         self.admission_retries = 0   # transient admission failures absorbed
@@ -515,7 +539,8 @@ class Scheduler:
     # ------------------------------------------------------- plan building
     def next_chunk(self, req: Request):
         """(tokens (1, C), chunk_len, is_replay) for the next chunk, padded
-        to ``chunk_size``.  Chunks never span the prompt/emitted boundary,
+        to ``chunk_size`` (under exact chunks: the next dyadic size, unpadded,
+        ``C == chunk_len``).  Chunks never span the prompt/emitted boundary,
         so a replay chunk (re-ingesting emitted tokens after a preemption)
         is entirely replay and runs through the dense program.
 
@@ -531,6 +556,9 @@ class Scheduler:
             replay = False
         else:
             replay = self._policy_enabled
+        if self._exact_chunks:
+            size = _dyadic_sizes(rem, c)[0]
+            return seq[req.filled:req.filled + size][None, :], size, replay
         v = min(c, rem)
         chunk = np.zeros((c,), np.int32)
         chunk[:v] = seq[req.filled:req.filled + v]

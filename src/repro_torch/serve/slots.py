@@ -9,8 +9,9 @@ Two layouts, told apart by ``"block_table"``:
   block-table scatter already wrote the slot's own blocks in place.  Only
   ``pos`` and the slot's table row are per-slot.
 * the dense per-slot slab (:func:`init_slot_cache`): ``{"pos",
-  "layers": [{"k", "v"}, ...]}`` with ``(num_slots, s_c, Hkv, hd)`` leaves,
-  the slot axis first (the JAX package's ``slot_axis`` is 1 under its
+  "layers": [{"k", "v"}, ...]}`` with ``(num_slots, s_c, Hkv, hd)`` leaves
+  (a recurrent layer's state leaves instead, ``(num_slots, ...)``), the
+  slot axis first (the JAX package's ``slot_axis`` is 1 under its
   scan-stacked layers; the port keeps its layers in a list).  A slice is
   not a copy: it carries the slot's index as ``"slot"``, and the model
   reads and writes that slot's rows of the slab in place (a ring chunk
@@ -83,9 +84,13 @@ def reset_slot(cache: Dict[str, Any], slot: int, pos: int = 0) -> Dict[str, Any]
 def where_active(active: torch.Tensor, new: Dict[str, Any],
                  old: Dict[str, Any]) -> Dict[str, Any]:
     """After a batched decode step: advance ``old["pos"]`` in place, only
-    where ``active``.  The K/V keep the new writes verbatim (the JAX
-    package selects them per slot): paged, empty slots carry ``-1`` table
-    rows, so their decode writes were dropped; on either layout a slot
+    where ``active``.  The JAX package selects every slab leaf per active
+    slot here.  Recurrent state must not move for a slot that is empty or
+    still prefilling, and the decode step does that selection itself: it is
+    given ``active`` and writes ``torch.where(active, new, old)`` into each
+    recurrent leaf.  The K/V keep the new writes verbatim: paged, empty
+    slots carry ``-1`` table rows, so their decode writes were dropped; on
+    either layout a slot
     still prefilling had a row written at its ``pos``, which its next chunk
     writes before anything reads it (a ring chunk reads that row first,
     but as position ``pos - s_c``, which no query of the chunk sees: below

@@ -3,9 +3,14 @@
 ``from_jax_params(cfg, params_np)`` takes the JAX parameter pytree as
 nested dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray,
 params)``) and returns the port's :class:`~repro_torch.models.transformer.
-Transformer` with the same weights: the scan-stacked ``periods`` layer axis
-is unstacked into the block list, a LayerNorm's bias ``b`` is carried
-beside its ``w``, and ``amber_scale`` entries are carried as float32.
+Transformer` with the same weights: the scan-stacked ``periods`` are
+unstacked into the block list (block ``b{j}`` of period ``i`` is layer
+``i * len(block_pattern) + j``, and the tail's ``t{j}`` follows the last
+period), a LayerNorm's bias ``b`` is carried beside its ``w``, and
+``amber_scale`` entries are carried as float32.  A recurrent layer's
+parameters keep their JAX names and dtypes (``w0``, ``u`` and ``lam`` stay
+float32); the Amber scales the JAX walk gives RG-LRU's ``gate_a`` and
+``gate_x``, which nothing reads, are not carried.
 bfloat16 arrays come out of numpy as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` refuses, so every float array goes through float32
 first; bf16 → f32 → bf16 is exact.
@@ -26,7 +31,8 @@ quantized dict there (or in an MoE block's attention) becomes a
 ``quantize_linears(model, absmax, qcfg)`` applies the offline
 SmoothQuant / Outstanding rewrite (``core.quant.make_quantized_linear``) to
 the projections ``qcfg`` quantizes and frees their float weights (in an
-MoE block: the attention projections and the shared expert's).
+MoE block: the attention projections and the shared expert's); the
+recurrent families are not quantized yet.
 
 This module imports nothing of JAX: it sees only numpy arrays.
 """
@@ -50,6 +56,14 @@ __all__ = ["from_jax_params", "quantize_linears"]
 def _t(a, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a).astype(np.float32)).to(device=device,
                                                                  dtype=dtype)
+
+
+def _load(owner, names, p: Dict[str, Any], device) -> None:
+    """Copy ``p[name]`` into each tensor ``owner.<name>``, in that tensor's
+    dtype (the float32 ones stay float32)."""
+    for name in names:
+        dst = getattr(owner, name)
+        dst.copy_(_t(p[name], dst.dtype, device))
 
 
 def _quant_linear(p: Dict[str, Any], dtype, device) -> QuantLinear:
@@ -81,16 +95,22 @@ def _load_norm(norm, p: Dict[str, Any], dtype, device) -> None:
         norm.b.copy_(_t(p["b"], dtype, device))
 
 
-def _layer_params(params_np: Dict, i: int) -> Dict:
-    """Layer ``i`` of the scan-stacked ``periods`` pytree (the dense family's
-    block pattern is one attention block, so period i is layer i).  A leaf
-    without a layer axis (a quantized dict's ``per_token`` flag) is the
-    same in every layer and is carried as it is."""
+def _layer_params(cfg: ModelConfig, params_np: Dict, i: int) -> Dict:
+    """Layer ``i`` of the JAX pytree: block ``b{j}`` of the scan-stacked
+    period ``i // len(pattern)``, or the tail's ``t{j}``.  A leaf without a
+    layer axis (a quantized dict's ``per_token`` flag) is the same in every
+    layer and is carried as it is."""
+    plen = len(cfg.block_pattern)
+    n_per, _ = transformer._n_periods(cfg)
+    if i >= n_per * plen:
+        return params_np["tail"][f"t{i - n_per * plen}"]
+    per, j = divmod(i, plen)
+
     def take(d):
-        return {k: take(v) if isinstance(v, dict) else np.asarray(v)[i] if np.ndim(v) else v
+        return {k: take(v) if isinstance(v, dict) else np.asarray(v)[per] if np.ndim(v) else v
                 for k, v in d.items()}
 
-    return take(params_np["periods"]["b0"])
+    return take(params_np["periods"][f"b{j}"])
 
 
 @torch.no_grad()
@@ -105,18 +125,44 @@ def from_jax_params(cfg: ModelConfig, params_np: Dict, device=None
     _load_norm(model.final_norm, params_np["final_norm"], dtype, device)
     if model.lm_head is not None:
         _load_linear(model, "lm_head", params_np["lm_head"], dtype, device)
-    for i, blk in enumerate(model.blocks):
-        lp = _layer_params(params_np, i)
+    for i, (kind, blk) in enumerate(zip(transformer.layer_kinds(cfg), model.blocks)):
+        lp = _layer_params(cfg, params_np, i)
+        if kind == "rwkv6":
+            _load_rwkv6(blk.rwkv, lp["rwkv"], dtype, device)
+            continue
         _load_norm(blk.ln1, lp["ln1"], dtype, device)
         _load_norm(blk.ln2, lp["ln2"], dtype, device)
-        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
-            _load_linear(blk, name, lp[name], dtype, device)
-        if "moe" in lp:
-            _load_moe(blk.moe, lp["moe"], dtype, device)
-            continue
+        if kind == "rglru":
+            _load_rglru(blk.rglru, lp["rglru"], dtype, device)
+        else:
+            for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+                _load_linear(blk, name, lp[name], dtype, device)
+            if "moe" in lp:
+                _load_moe(blk.moe, lp["moe"], dtype, device)
+                continue
         for name in ("gate_proj", "up_proj", "down_proj"):
             _load_linear(blk.mlp, name, lp["mlp"][name], dtype, device)
     return model
+
+
+def _load_rwkv6(p, lp: Dict, dtype, device) -> None:
+    tm, cm = lp["tm"], lp["cm"]
+    _load(p.tm, ("mix_r", "mix_k", "mix_v", "mix_w", "mix_g", "w0", "w_A", "w_B", "u"), tm,
+          device)
+    for name in ("r_proj", "k_proj_tm", "v_proj_tm", "g_proj", "o_proj"):
+        _load_linear(p.tm, name, tm[name], dtype, device)
+    _load_norm(p.tm.ln_x, tm["ln_x"], dtype, device)
+    _load(p.cm, ("mix_k", "mix_r"), cm, device)
+    for name in ("gate_proj", "down_proj", "up_proj"):
+        _load_linear(p.cm, name, cm[name], dtype, device)
+
+
+def _load_rglru(p, lp: Dict, dtype, device) -> None:
+    for name in ("q_proj", "gate_proj", "o_proj"):
+        _load_linear(p, name, lp[name], dtype, device)
+    _load(p, ("conv_w", "conv_b", "lam"), lp, device)
+    for name in ("gate_a", "gate_x"):      # plain products: their scales are not read
+        _load(getattr(p, name), ("w",), lp[name], device)
 
 
 def _load_moe(p, lp: Dict, dtype, device) -> None:
@@ -152,7 +198,11 @@ def quantize_linears(model: transformer.Transformer,
     ``model``.  In an MoE block the attention projections and the shared
     expert's are quantized; the routed experts stay in the model dtype, as
     the reference's do (``repro/models/moe.py`` has no quantized grouped
-    product)."""
+    product).  A recurrent model raises ``NotImplementedError``: its
+    W8A8 rewrite is not ported yet."""
+    if model.cfg.block_pattern != ("attn",):
+        raise NotImplementedError(f"{model.cfg.name}: W8A8 of the recurrent families is not "
+                                  "ported yet")
     for i, blk in enumerate(model.blocks):
         for owner, name in _projections(blk):
             lin = getattr(owner, name)

@@ -1061,7 +1061,7 @@ def test_legacy_graphs_replay_token_identical(gen):
     for mode in ("legacy", "legacy-eager", "fused"):
         eng = _lifecycle_engine(model, policy, fused_step=mode == "fused")
         if mode == "legacy-eager":
-            eng.exec._graphs.run = lambda name, fn, params: fn()
+            eng.exec._graphs.run = lambda name, fn, params, shape=None: fn()
         _lifecycle_requests(eng)
         outs[mode] = eng.run(params)["outputs"]
         if mode == "legacy":
@@ -1183,3 +1183,66 @@ def test_grouped_matmul_matches_plain_with_empty_groups(gen, rows):
     w = (torch.randn(e, d, f, generator=gen, device="cuda") * d**-0.5).bfloat16()
     got = moe_lib.grouped_matmul(x, w, offs)
     _close(got, moe_lib.grouped_matmul_plain(x, w, offs), torch.bfloat16)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "recurrentgemma_2b"])
+def test_replayed_decode_leaves_inactive_slots_state_unchanged(gen, arch):
+    """The recurrent families' smoke models in bf16 with the kernels: a fused
+    step (slot 1's 4-token exact chunk, slot 0 decoding, slot 2 empty) run
+    eagerly and captured, then replayed from the same state: the replay
+    leaves slot 2's recurrent state bit-unchanged, moves slot 0's, and gives
+    slot 1 what the same chunk run alone gives; each program is captured
+    once for its chunk length."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.core.pruner import precompute_scales
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.serve import ContinuousConfig
+    from repro_torch.serve.executor import Executor
+    from repro_torch.serve.scheduler import DecodeWork, PrefillWork, StepPlan
+
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    policy = paper_policy(8, 16).with_(use_kernels=True)
+    precompute_scales(params, policy)
+    ex = Executor(model, policy, ContinuousConfig(max_seq=32, num_slots=3, chunk_size=8))
+    ex.init_cache(None)
+    assert ex.exact_chunks and not ex.paged
+    for layer in ex.cache["layers"]:
+        for leaf in layer.values():
+            leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda").to(leaf.dtype))
+    start = [{k: v.clone() for k, v in layer.items()} for layer in ex.cache["layers"]]
+    pos = torch.tensor([9, 4, 0], dtype=torch.int32, device="cuda")
+    prefill = PrefillWork(SimpleNamespace(slot=1), np.arange(7, 11, dtype=np.int32)[None], 4,
+                          False)
+    fused = StepPlan(prefill=prefill, decode=DecodeWork(
+        [], np.array([3, 0, 0], np.int32), np.array([True, False, False])))
+
+    def run(plan):
+        for layer, old in zip(ex.cache["layers"], start):
+            for k, v in layer.items():
+                v.copy_(old[k])
+        ex.cache["pos"].copy_(pos)
+        ex.step(params, plan)
+        torch.cuda.synchronize()
+        return [{k: v.clone() for k, v in layer.items()} for layer in ex.cache["layers"]]
+
+    run(fused)                         # eager, then captured
+    replayed = run(fused)              # a replay
+    alone = run(StepPlan(prefill=prefill))
+    assert ex.trace_counts == {"step_prefill_decode": 1, "step_prefill": 1}
+    moved = False
+    for kind, new, one, old in zip(layer_kinds(cfg), replayed, alone, start):
+        if kind == "attn":
+            continue
+        for k in new:
+            assert torch.equal(new[k][2], old[k][2]), (kind, k)
+            assert torch.equal(new[k][1], one[k][1]), (kind, k)
+            moved |= not torch.equal(new[k][0], old[k][0])
+    assert moved

@@ -1,7 +1,7 @@
 """The port's serving CLI (``python -m repro_torch.launch.serve``) against the
 JAX package's (``python -m repro.launch.serve``), at the LLaMA-3.1 smoke
-config on the CPU (``--device cpu``), and at the MoE and dense-variant
-architectures' smoke configs.
+config on the CPU (``--device cpu``), and at the MoE, dense-variant and
+recurrent architectures' smoke configs.
 
 Both CLIs draw arrival gaps and prompt lengths from
 ``numpy.random.default_rng(--seed)`` in the same order; the prompt tokens
@@ -116,6 +116,33 @@ def test_one_shot_mode_chatglm3(capsys):
     biases): rc 0, both engines' lines and the agreement line."""
     assert main(["--arch", "chatglm3_6b", "--device", "cpu", "--smoke", "--batch", "2",
                  "--prompt-len", "16", "--new-tokens", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "[     dense] generated (2, 4)" in out and "[amber 8:16] generated (2, 4)" in out
+    assert re.search(r"agreement dense vs sparse-prefill: [\d.]+", out)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "recurrentgemma_2b"])
+def test_trace_cli_on_the_recurrent_families_matches_jax_cli(capsys, arch):
+    """``--smoke --arch rwkv6_7b`` / ``recurrentgemma_2b`` in ``--trace``
+    mode: rc 0, served on the slab (``# paged KV: disabled``) in exact
+    dyadic chunks, and the JAX CLI's counters: per-request rows, terminal
+    states, lifecycle, dispatches and ``# traces:`` (a program captured once
+    per chunk length it ran, so ``step_prefill`` more than once).  Then the
+    one-shot mode: both engines' lines and the agreement line."""
+    flags = ["--arch", arch, "--len-range", "6:30"]
+    assert jax_main(TRACE + flags) == 0
+    want = capsys.readouterr().out
+    assert main(TRACE + flags + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert "# paged KV: disabled (dense per-slot slab)" in got
+    rows, lines = _report(got)
+    assert rows and rows == _report(want)[0]
+    jlines = _report(want)[1]
+    for label in ("throughput", "terminal states", "lifecycle", "traces", "dispatches"):
+        assert lines[label] == jlines[label], label
+    assert int(re.search(r"step_prefill=(\d+)", got).group(1)) > 1
+    assert main(["--arch", arch, "--device", "cpu", "--smoke", "--batch", "2",
+                 "--prompt-len", "12", "--new-tokens", "4"]) == 0
     out = capsys.readouterr().out
     assert "[     dense] generated (2, 4)" in out and "[amber 8:16] generated (2, 4)" in out
     assert re.search(r"agreement dense vs sparse-prefill: [\d.]+", out)
