@@ -73,7 +73,17 @@ Phases (any failed check exits non-zero; no phase is skipped):
              routed experts' inputs (bit-exact).  2m: ``nm_prune_matmul``
              at RWKV6-7B's (4096², 4096 x 14336, 14336 x 4096) and
              RecurrentGemma-2B's (2560², 2560 x 7680, 7680 x 2560) pruned
-             widths, at 256 rows and the dyadic tails 64, 8 and 1.
+             widths, at 256 rows and the dyadic tails 64, 8 and 1.  2n:
+             ``flash_attention`` non-causal over keys of another length,
+             Whisper-medium's cross-attention (16 / 16 heads of 64 over
+             S = 1500 encoder rows, an edge key tile): a 256-query chunk
+             and a decode batch of 4, bf16 on the wgmma and the rows route
+             (a misaligned q) and float32 on rows, against SDPA;
+             ``paged_attention`` at Qwen2-VL-2B's G = 6 (12 / 2 heads of
+             128), chunk and decode; ``nm_prune_matmul`` at Whisper-medium's
+             (1024², 1024 x 4096, 4096 x 1024, biased) and Qwen2-VL-2B's
+             (1536² biased, 1536 x 8960, 8960 x 1536) widths at 256 and
+             1500 rows.
 3. serve   — ``Engine.from_config`` at full LLaMA-3.1-8B width (32 layers,
              random weights from a seed, bfloat16) under the paper's
              policy with the kernels on: 8 staggered requests, 32 new tokens
@@ -277,13 +287,41 @@ Phases (any failed check exits non-zero; no phase is skipped):
              (RecurrentGemma-2B): float32 kernel path against plain path,
              identical greedy tokens (N:M flips printed); bf16 logits within
              phase 4's gate.
+12. the modality families — after phase 11 freed its models, with
+             seeded nonzero biases, under ``paper_policy(8, 16, ())`` with
+             the kernels, through ``Engine.run(params, extras)``: every
+             request's seeded stub goes with its first prefill chunk, and
+             ``trace_counts`` must read 2 for each prefill program (with
+             and without extras) and 1 for decode.  12a: Whisper-medium at
+             full size (24 + 24 layers, 16 heads of 64, encoder_seq 1500)
+             on the dense slab, phase 3's stream with ``frame_embeds (1,
+             1500, 1024)``: launches exact (``nm_prune_matmul`` 168 a first
+             chunk, 96 a later one: the encoder-decoder passes no layer
+             index, so q, fc1 and fc2 prune in every encoder layer and self
+             q, cross q, fc1 and fc2 in every decoder layer; no attention
+             kernel: the reference's encoder-decoder attention is plain),
+             tok/s, peak memory, a first chunk (with the encoder), a later
+             chunk and a decode step profiled, graphed tokens equal to the
+             eager programs'.  12b: its one-shot ``generate`` at B = 4,
+             T = 256 with ``frame_embeds``: 168 ``nm_prune_matmul`` a
+             prefill, graphs captured once, tokens equal to the run
+             without graphs.  12c: Qwen2-VL-2B at full size (28 layers,
+             12 / 2 heads of 128, M-RoPE), paged, phase 3's stream with
+             ``pixel_embeds (1, 64, 1536)`` behind two text-only requests
+             sharing a 32-token prefix: 84 ``nm_prune_matmul`` a sparse
+             chunk, 28 ``paged_kv_scatter`` and 28 ``paged_attention`` a
+             step half, every one on wgmma, prefix hits from the text-only
+             pair alone; profiled and token-checked as 12a.  12d: both at
+             full width, depth 2: float32 kernel path against plain path
+             (identical greedy tokens, logits within 2%, N:M flips
+             printed), bf16 logits within phase 4's gate.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is
 its count in the run of the path that first served it (phase 3, 3b, 5 or
 7a); ``launches_by_run`` holds its count in each main-path run that
-launched it (3, 3b, 5, 7a, 7e, 9a, 9b, 9c's Naive run, 10a, 10b, 11a, 11b and
-11c), each counted
+launched it (3, 3b, 5, 7a, 7e, 9a, 9b, 9c's Naive run, 10a, 10b, 11a, 11b,
+11c, 12a, 12b and 12c), each counted
 from 0.  Exits non-zero without a
 CUDA device, and when run outside the repository (it needs ``src/``).
 """
@@ -1204,14 +1242,24 @@ def serving_stream(torch, vocab, **serving):
         num_slots=4, chunk_size=256, block_size=bsz, max_seq=max_seq, **serving)
 
 
-def warm_up(eng, params, rng, vocab):
+def warm_up(eng, params, rng, vocab, extras_fn=None):
     """Library handles, the allocator, and the programs of the three buckets
     phase 3's stream uses (a 40-token request decodes while a 300-token one
     is prefilled); then the engine is cleared for the measured stream.
     Under exact chunks a program runs at every dyadic length, so two
     requests of ``2 * chunk - 1`` tokens instead: the first's chunks (every
     power of two up to ``chunk``) run alone, the second's while the first
-    decodes, so the measured stream replays graphs only."""
+    decodes, so the measured stream replays graphs only.  With modality
+    extras (``extras_fn(i)``: request ``i``'s) every prefill program runs with
+    and without them: two 300-token requests with extras, the second
+    arriving while the first decodes (first and later chunks alone, then
+    beside a decode)."""
+    if extras_fn is not None:
+        for i, (arrival, new) in enumerate(((0, 4), (2, 2))):
+            eng.submit(rng.integers(0, vocab, size=300), max_new_tokens=new, arrival=arrival)
+        eng.run(params, extras={i: extras_fn(1000 + i) for i in range(2)})
+        eng.clear()
+        return
     if eng.replica.exec.exact_chunks:
         n = 2 * eng.replica.cfg.chunk_size - 1
         eng.submit(rng.integers(0, vocab, size=n), max_new_tokens=n.bit_length() + 3)
@@ -1245,7 +1293,7 @@ def step_counts(bk, fused: bool):
 
 
 def serve_requests(torch, model, params, policy, label, eager=False, stream_fn=None,
-                   **serving):
+                   extras_fn=None, **serving):
     """8 staggered requests (64-700 prompt tokens, 32 new tokens each) through
     ``Engine.from_config`` after one warm-up request, with the launch counts
     set to 0 just before and read just after.  Every request must end
@@ -1255,8 +1303,10 @@ def serve_requests(torch, model, params, policy, label, eager=False, stream_fn=N
     comparison.  ``serving``: more ``ContinuousConfig`` fields
     (``fused_step=False``: the legacy split's ``prefill`` and ``decode``
     programs).  ``stream_fn(vocab, **serving)``: another stream in
-    :func:`serving_stream`'s form.  Returns (launches, per-path step counts
-    with the stream's prefill and decode tok/s and peak memory, engine,
+    :func:`serving_stream`'s form.  ``extras_fn(i)``: request ``i``'s modality
+    arrays, or None for a request without any (every request is asked;
+    the warm-up too).  Returns (launches, per-path step counts with the
+    stream's prefill and decode tok/s and peak memory, engine,
     outputs)."""
     from repro_torch import kernels
     from repro_torch.kernels import flash_attention as kfa
@@ -1273,12 +1323,15 @@ def serve_requests(torch, model, params, policy, label, eager=False, stream_fn=N
     shapes = program_shapes(eng.replica.exec)
     if eager:       # the executor's step programs, each step run as it is
         eng.replica.exec._graphs.run = lambda name, fn, params, shape=None: fn()
-    warm_up(eng, params, rng, cfg.vocab_size)
+    warm_up(eng, params, rng, cfg.vocab_size, extras_fn)
+    extras = {}
+    if extras_fn is not None:
+        extras = {i: ex for i in range(len(prompts)) if (ex := extras_fn(i)) is not None}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     rids = [eng.submit(p, max_new_tokens=new, arrival=a) for p, a in zip(prompts, arrivals)]
-    res = eng.run(params)
+    res = eng.run(params, extras=extras)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     launches["osparse_matmul (prune=True)"] = kos.osparse_matmul.pruned_launches
@@ -1338,9 +1391,10 @@ def serve_requests(torch, model, params, policy, label, eager=False, stream_fn=N
 def program_shapes(ex):
     """Record, from the plans themselves, the chunk lengths each step
     program of the executor ``ex`` runs: ``{name: {length, ...}}`` (None for
-    a program of one shape: no exact chunks, or no prefill half), filled as
-    the engine runs.  Under exact chunks every length is a graph of its own,
-    so ``trace_counts`` must equal these sets' sizes.  The wrapper holds the
+    a program of one shape: no exact chunks, or no prefill half; a chunk
+    with modality extras as ``(length, their names)``), filled as the engine
+    runs.  Under exact chunks every length, and a chunk with extras, is a
+    graph of its own, so ``trace_counts`` must equal these sets' sizes.  The wrapper holds the
     executor weakly: a cycle would keep a dropped engine's graphs alive until
     a collection, which may fall inside another engine's capture."""
     import weakref
@@ -1348,20 +1402,22 @@ def program_shapes(ex):
     shapes = {}
     exact, real, ref = ex.exact_chunks, type(ex)._run, weakref.ref(ex)
 
-    def run(params, plan, name, fault):
+    def run(params, plan, name, fault, extras=None):
         length = plan.prefill.chunk_len if plan.prefill is not None and exact else None
-        shapes.setdefault(name, set()).add(length)
-        return real(ref(), params, plan, name, fault)
+        ex = tuple(sorted(extras)) if extras and plan.prefill is not None else ()
+        shapes.setdefault(name, set()).add((length, ex) if ex else length)
+        return real(ref(), params, plan, name, fault, extras)
 
     ex._run = run
     return shapes
 
 
-def check_graphed_tokens(torch, model, params, policy, label, outputs, stream_fn=None):
+def check_graphed_tokens(torch, model, params, policy, label, outputs, stream_fn=None,
+                         extras_fn=None):
     """The graphed run's tokens against the same requests run through the
     executor's step programs eagerly: identical."""
     _, _, eng, eager = serve_requests(torch, model, params, policy, label, eager=True,
-                                      stream_fn=stream_fn)
+                                      stream_fn=stream_fn, extras_fn=extras_fn)
     del eng
     if eager != outputs:
         diff = [i for i, (a, b) in enumerate(zip(outputs, eager)) if a != b]
@@ -1682,16 +1738,19 @@ def check_trace_cli(torch, arch: str, label: str):
 
 
 def profile_steps(torch, model, params, policy, eng, max_seq=1024, chunk_pos=256,
-                  decode_pos=(700, 500, 300, 100)):
+                  decode_pos=(700, 500, 300, 100), extras=None):
     """One sparse 256-token prefill chunk (at offset ``chunk_pos``) and one
     dense 4-slot decode step (at ``decode_pos``) at full width, through
     :func:`profile_cases`: each eagerly through the model (on a cache of
     ``max_seq`` positions), and as the executor of ``eng`` runs it, a
     replay of the bucket's graph (``Executor.step``: operands in, replay,
     sampling, one host read) on its own cache (paged, or the dense slab),
-    with the same positions.  Returns (:func:`profile_cases`' results, per
-    case a function that runs its computation eagerly: a replay's program
-    body on the same operands and cache)."""
+    with the same positions.  ``extras`` (a request's modality arrays): a
+    first chunk (at 0, carrying them: the encoder or the patch rows) is
+    profiled the same way, before the others.  Returns
+    (:func:`profile_cases`' results, per case a function that runs its
+    computation eagerly: a replay's program body on the same operands and
+    cache)."""
     from types import SimpleNamespace
 
     from repro_torch.core.policy import DENSE
@@ -1723,14 +1782,31 @@ def profile_steps(torch, model, params, policy, eng, max_seq=1024, chunk_pos=256
         ex.cache["pos"].copy_(pos)
         ex.step(params, plan)
 
-    def body(plan, pos):
+    def body(plan, pos, ext=None):
         """The replayed step's program run eagerly on the same cache and
         operands: the same computation (it rewrites the same K/V rows)."""
         ex.cache["pos"].copy_(pos)
         ex._write_operands(plan, 0.0)
-        return ex._programs[plan.bucket](params, ex.cache, *ex._views())
+        return ex._programs[plan.bucket](params, ex.cache, *ex._views(),
+                                         extras=ex._write_extras(ext) if ext else {})
 
-    cases = {
+    cases = {}
+    if extras is not None:
+        fcache = model.init_cache(1, max_seq)
+        fbatch = {"tokens": ptoks, **{k: torch.as_tensor(v).cuda() for k, v in extras.items()}}
+        zero = torch.zeros(slots, dtype=torch.int32, device="cuda")
+        first_plan = StepPlan(prefill=PrefillWork(
+            SimpleNamespace(slot=0), ptoks.cpu().numpy().astype(np.int32), 256, False, True))
+
+        def replay_first():
+            ex.cache["pos"].copy_(zero)
+            ex.step(params, first_plan, 0.0, extras)
+
+        cases["first prefill chunk (256 tokens at 0, with its extras), eager"] = (
+            lambda: model.prefill_chunk(params, fbatch, fcache, policy=policy), None)
+        cases["first prefill chunk, step_prefill graph replay (with extras)"] = (
+            replay_first, lambda: body(first_plan, zero, extras))
+    cases.update({
         f"prefill chunk (256 tokens at {chunk_pos}, paper policy), eager":
             (lambda: model.prefill_chunk(params, {"tokens": ptoks}, pcache, policy=policy),
              None),
@@ -1740,7 +1816,7 @@ def profile_steps(torch, model, params, policy, eng, max_seq=1024, chunk_pos=256
             (lambda: model.decode_step(params, dtoks, dcache, policy=dense), None),
         "decode step, step_decode graph replay":
             (lambda: replay(decode_plan, dpos), lambda: body(decode_plan, dpos)),
-    }
+    })
     traces = dict(ex.trace_counts)
     results = profile_cases(torch, {case: fn for case, (fn, _) in cases.items()})
     if ex.trace_counts != traces:
@@ -1893,13 +1969,13 @@ def spy_projections(hook):
     """Every projection call of the port's model passes its input to
     ``hook(x, p, module, policy, phase, layer_idx)`` first.  The port's
     projections are functions over ``Linear`` modules (``sparse_linear``,
-    which ``models/transformer.py``, ``models/mlp.py``, ``models/rwkv6.py``
-    and ``models/rglru.py`` call by name), so
+    which ``models/transformer.py``, ``models/mlp.py``, ``models/rwkv6.py``,
+    ``models/rglru.py`` and ``models/encdec.py`` call by name), so
     ``nn.Module`` forward hooks never fire: this is their counterpart."""
+    from repro_torch.models import encdec, rglru, rwkv6, transformer
     from repro_torch.models import mlp as mlp_lib
-    from repro_torch.models import rglru, rwkv6, transformer
 
-    mods = (transformer, mlp_lib, rwkv6, rglru)
+    mods = (transformer, mlp_lib, rwkv6, rglru, encdec)
     real = transformer.sparse_linear
 
     def spy(x, p, module, policy, phase, layer_idx=None):
@@ -2164,11 +2240,12 @@ def qwen_oneshot(torch, n_layers=None, dtype=None):
     return cfg, model, params, policy, prompts
 
 
-def timed_generate(torch, eng, params, prompts, new):
+def timed_generate(torch, eng, params, prompts, new, extras=None):
     """Wall seconds of ``eng.generate`` (greedy) with 1 new token (the
     prefill replay and its sample) and with ``new`` tokens, each ended by a
-    synchronise: (tokens, prefill seconds, decode seconds = the difference)."""
-    batch = {"tokens": prompts}
+    synchronise: (tokens, prefill seconds, decode seconds = the difference).
+    ``extras``: the batch's modality stubs."""
+    batch = {"tokens": prompts, **(extras or {})}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.generate(params, batch, max_new_tokens=1)
@@ -3085,14 +3162,16 @@ def phase_skipping_kernels(torch, timer, rates, records):
 
 
 def seed_biases(torch, params, seed: int) -> None:
-    """Seeded nonzero LayerNorm biases and q/k/v biases (the init leaves
-    them zero, which would not exercise the bias adds)."""
+    """Seeded nonzero LayerNorm biases, then projection biases (q/k/v in the
+    dense family; every projection's in the encoder-decoder), in module
+    order (the init leaves them zero, which would not exercise the bias
+    adds)."""
+    from repro_torch.layers.linear import Linear
     from repro_torch.models.common import LayerNorm
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     biases = [mod.b for mod in params.modules() if isinstance(mod, LayerNorm)]
-    biases += [lin.b for blk in params.blocks for lin in (blk.q_proj, blk.k_proj, blk.v_proj)
-               if lin.b is not None]
+    biases += [mod.b for mod in params.modules() if isinstance(mod, Linear) and mod.b is not None]
     for b in biases:
         b.copy_((torch.randn(b.shape, generator=g, device="cuda") * 0.1).to(b.dtype))
 
@@ -4450,6 +4529,573 @@ def phase_recurrent(torch, rates):
     return runs
 
 
+# ------------------------------------------------------- the modality families
+
+# 2n: nm_prune_matmul's projections on the modality paths: (label, K, N_out,
+# bias); Whisper-medium's every projection has a bias, Qwen2-VL-2B's q one
+MODALITY_PRUNED = (("Whisper-medium q", 1024, 1024, True),
+                   ("Whisper-medium fc1", 1024, 4096, True),
+                   ("Whisper-medium fc2", 4096, 1024, True),
+                   ("Qwen2-VL-2B q", 1536, 1536, True), ("Qwen2-VL-2B gate", 1536, 8960, False),
+                   ("Qwen2-VL-2B down", 8960, 1536, False))
+# a prefill chunk's rows and Whisper-medium's encoder rows
+MODALITY_ROWS = (256, 1500)
+WHISPER_ENC = 1500
+
+
+def misaligned(torch, t):
+    """A contiguous copy of ``t`` whose storage starts one element past a
+    16-byte boundary (the rows route's case of a bf16 call)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def phase_modality_kernels(torch, timer, rates, records):
+    """2n: the kernels at the modality families' shapes, each held to its
+    plain version and timed beside its bound and library yardstick:
+    ``flash_attention`` non-causal over keys of another length (Whisper-
+    medium's cross-attention, 16 / 16 heads of 64 over 1500 encoder rows:
+    a chunk of 256 queries and a decode batch of 4), bf16 on the wgmma and
+    the rows route and float32 on the rows route, against SDPA;
+    ``paged_attention`` at Qwen2-VL-2B's heads (12 / 2 of 128, G = 6) over
+    NaN-poisoned pools, a chunk and a decode step; ``nm_prune_matmul`` at
+    both models' pruned widths at 256 and 1500 rows."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import paged_attention as kpa
+
+    bw, bf16_peak, f32_peak, _ = rates
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    dev = "cuda"
+    i32 = dict(dtype=torch.int32, device=dev)
+    keep = functools.partial(keep_case, records)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    s_len, h, hd = WHISPER_ENC, 16, 64
+    print(f"phase 2n: flash_attention non-causal, S != T: Whisper-medium's cross-attention "
+          f"({h}/{h} heads of {hd} over S={s_len} encoder rows, an edge key tile)")
+    for case, b, t in (("chunk B=1 T=256", 1, 256), ("decode B=4 T=1", 4, 1)):
+        k32 = torch.randn(b, s_len, h, hd, generator=g, device=dev)
+        v32 = torch.randn(b, s_len, h, hd, generator=g, device=dev)
+        q32 = torch.randn(b, t, h, hd, generator=g, device=dev)
+        for dtype, aligned in ((torch.bfloat16, True), (torch.bfloat16, False),
+                               (torch.float32, True)):
+            qa, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
+            q = qa if aligned else misaligned(torch, qa)
+            bf16 = dtype == torch.bfloat16
+            route = kfa.flash_plan(dtype, hd, aligned)
+            label = f"Whisper-medium cross {case} S={s_len} {str(dtype)[6:]} {route[0]}"
+            before = kfa.flash_attention.route_launches[route[0]]
+            err = check_close(f"{label} {route}", kfa.flash_attention(q, k, v, causal=False),
+                              kfa.flash_attention_plain(q, k, v, causal=False),
+                              BF16_TOL if bf16 else F32_TOL)
+            if kfa.flash_attention.route_launches[route[0]] != before + 1:
+                fail(f"flash_attention {label}: the call did not take its plan's route {route}")
+            ms = timer.ms(lambda: kfa.flash_attention(q, k, v, causal=False))
+            plain_ms = timer.ms(lambda: kfa.flash_attention_plain(q, k, v, causal=False), 5)
+            # the yardstick on the aligned copy: SDPA faults on a misaligned q
+            qt, kt, vt = qa.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            lib_ms = timer.ms(lambda: sdpa(qt, kt, vt))
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+            ops = 4 * hd * b * h * t * s_len
+            peak = bf16_peak if bf16 else f32_peak
+            bound = max(nbytes / bw, ops / peak) * 1e3
+            by = "bytes" if nbytes / bw >= ops / peak else "operations"
+            print(f"  {label}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), plain "
+                  f"{plain_ms:.4f} ms, SDPA non-causal {lib_ms:.4f} ms; kernel/library "
+                  f"{ms / lib_ms:.2f}")
+            keep("flash_attention", label, err, route=list(route), ms=ms, plain_ms=plain_ms,
+                 library_ms=lib_ms, bound_ms=bound, bound_by=by)
+
+    hq, hkv, hd = 12, 2, 128
+    print(f"phase 2n: paged_attention at Qwen2-VL-2B's heads ({hq}/{hkv} of {hd}, G = "
+          f"{hq // hkv}): chunk Tq=256 at offset 300 (kv_len 556), decode B=4; NaN-poisoned "
+          "pools")
+    bs, mb = 16, 46
+    rows = 4 * mb + 1
+    perm = torch.randperm(4 * mb, generator=g, device=dev).to(torch.int32)
+    tab1 = perm[:mb].reshape(1, mb).contiguous()
+    qoff1, kvl1 = torch.tensor([300], **i32), torch.tensor([556], **i32)
+    posd = torch.tensor([700, 513, 64, 0], **i32)
+    kvld = posd + 1
+    tabd = torch.full((4, mb), -1, **i32)
+    for r in range(4):
+        need = -(-int(kvld[r]) // bs)
+        tabd[r, :need] = perm[r * mb:r * mb + need]
+    kp = torch.randn(rows, bs, hkv, hd, generator=g, device=dev).bfloat16()
+    vp = torch.randn(rows, bs, hkv, hd, generator=g, device=dev).bfloat16()
+    for case, b, tq, tab, qo, kvl, causal in (("chunk", 1, 256, tab1, qoff1, kvl1, True),
+                                              ("decode", 4, 1, tabd, posd, kvld, False)):
+        q = torch.randn(b, tq, hq, hd, generator=g, device=dev).bfloat16()
+        kpn, vpn = poisoned_pools(torch, kp, vp, tab, kvl)
+        route = attention_route(q, kp, tab)
+        if route[0] != "wgmma":
+            fail(f"paged_attention Qwen2-VL-2B {case}: plan {route}, expected wgmma")
+        err = check_close(f"Qwen2-VL-2B G=6 {case} {route}",
+                          kpa.paged_attention(q, kpn, vpn, tab, qo, kvl, causal=causal),
+                          kpa.paged_attention_plain(q, kpn, vpn, tab, qo, kvl, causal=causal),
+                          BF16_TOL)
+        t = paged_attention_times(torch, timer, rates, q, kp, vp, tab, qo, kvl, causal)
+        print(f"  Qwen2-VL-2B G=6 {case} {route}: kernel {t['ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain {t['plain_ms']:.4f} ms, SDPA "
+              f"on the gathered view {t['library_ms']:.4f} ms; kernel/library "
+              f"{t['ms'] / t['library_ms']:.2f}")
+        keep("paged_attention", f"Qwen2-VL-2B G=6 {case}", err, route=list(route), **t)
+
+    print(f"phase 2n: nm_prune_matmul at the modality families' widths, {MODALITY_ROWS} rows")
+    for label, d, n_out, biased in MODALITY_PRUNED:
+        for t in MODALITY_ROWS:
+            time_nm_prune_matmul(torch, timer, rates, g, keep, f"{label} T={t}", d, n_out, t,
+                                 biased)
+
+
+def modality_model(torch, arch, n_layers=None, seed=SEED, dtype=None):
+    """``arch`` at full width (depth, the encoder's too, and dtype optionally
+    changed), random weights from ``seed`` made on the card with seeded
+    nonzero biases, the paper's policy with the kernels and the Amber
+    scales."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.core.pruner import precompute_scales
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    depth = dict(n_layers=n_layers) if n_layers else {}
+    if n_layers and cfg.is_encdec:
+        depth["n_encoder_layers"] = n_layers
+    cfg = dataclasses.replace(cfg, dtype=dtype or cfg.dtype, **depth)
+    model = build_model(cfg)
+    params = model.init(seed)
+    seed_biases(torch, params, seed + 100)
+    policy = paper_policy(8, 16, cfg.qgate_skip_layers).with_(use_kernels=True)
+    precompute_scales(params, policy)
+    return cfg, model, params, policy
+
+
+def stub_fn(model, text_only=(), base=200):
+    """Request ``i``'s modality arrays: seeded standard normals ``(1, rows,
+    d_model)`` float32 for each stub of ``model.stub_shapes()``, as the CLI
+    makes them (generator ``SEED + base + i``); None for the requests in
+    ``text_only``."""
+    def fn(i):
+        if i in text_only:
+            return None
+        rng = np.random.default_rng(SEED + base + i)
+        return {key: rng.standard_normal((1, *shape)).astype(np.float32)
+                for key, shape in model.stub_shapes().items()}
+    return fn
+
+
+VL_PREFIX = 32
+VL_TEXT_ONLY = (0, 1)
+WHISPER_SEQ = 736       # 700 prompt tokens and 32 new ones, in blocks of 16
+
+
+def whisper_stream(vocab, **serving):
+    """12a's stream: phase 3's, on a slab of ``WHISPER_SEQ`` rows a slot (the
+    top of its 64-700-token range plus 32 new tokens)."""
+    rng, prompts, arrivals, new, scfg = serving_stream(None, vocab, **serving)
+    return rng, prompts, arrivals, new, dataclasses.replace(scfg, max_seq=WHISPER_SEQ)
+
+
+def vl_stream(vocab, **serving):
+    """12c's stream: two text-only requests behind one 32-token prefix
+    (arrivals 0 and 1: the second is admitted after the first's chunk
+    registered its blocks), then phase 3's 8 requests (:func:`serving_stream`'s
+    form)."""
+    rng, prompts, arrivals, new, scfg = serving_stream(None, vocab, **serving)
+    prefix = rng.integers(0, vocab, size=VL_PREFIX)
+    pair = [np.concatenate([prefix, rng.integers(0, vocab, size=n)]).astype(np.int32)
+            for n in (100, 200)]
+    return rng, pair + prompts, [0, 1] + arrivals, new, scfg
+
+
+def modality_launches(cfg, policy):
+    """``nm_prune_matmul`` launches of a sparse chunk: (a first chunk's, a
+    later chunk's), with the derivation.  The encoder-decoder passes no
+    layer index, so the skip list never reaches it: q, fc1 and fc2 in every
+    encoder layer (a first chunk only), self q, cross q, fc1 and fc2 in
+    every decoder layer; the VLM prunes as the dense family does."""
+    if cfg.is_encdec:
+        enc = cfg.n_encoder_layers * sum(policy.should_prune(m, None)
+                                         for m in ("q_proj", "gate_proj", "down_proj"))
+        dec = cfg.n_layers * sum(policy.should_prune(m, None)
+                                 for m in ("q_proj", "q_proj", "gate_proj", "down_proj"))
+        why = (f"encoder {cfg.n_encoder_layers} x 3 (q, fc1, fc2) = {enc} on a first chunk, "
+               f"decoder {cfg.n_layers} x 4 (self q, cross q, fc1, fc2) = {dec} on every chunk")
+        return enc + dec, dec, why
+    fused, _ = prune_launches(cfg, policy)
+    return fused, fused, f"{cfg.n_layers} x 3 (q, gate, down) = {fused} on every chunk"
+
+
+def serve_modality(torch, label, arch, rates):
+    """12a (Whisper-medium, on the slab) and 12c (Qwen2-VL-2B, paged): full
+    size, phase 3's stream with a seeded stub on each request (12c adds the
+    text-only pair of :func:`vl_stream`), served through ``Engine.run(params,
+    extras)``: ``trace_counts`` 2 for each prefill program (with and without
+    extras) and 1 for decode, launches exact, tok/s and peak memory, a first
+    chunk, a later chunk and a decode step profiled, graphed tokens equal to
+    the eager programs'.  Returns (launches, model, params, policy)."""
+    from repro_torch.kernels import paged_attention as kpa
+
+    t0 = time.perf_counter()
+    cfg, model, params, policy = modality_model(torch, arch)
+    torch.cuda.synchronize()
+    n_w = sum(p.numel() for p in params.parameters())
+    vl = cfg.vision_stub
+    what = (f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers, encoder_seq "
+            f"{cfg.encoder_seq}" if cfg.is_encdec else
+            f"{cfg.n_layers} layers, M-RoPE, n_patches {cfg.n_patches}")
+    print(f"phase {label}: serve {cfg.name} at full size ({what}, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}) through Engine.run(params, extras), "
+          f"paper_policy(8, 16, {cfg.qgate_skip_layers}) with the kernels, "
+          + ("paged" if vl else "on the dense slab"))
+    print(f"  random weights: {n_w / 1e9:.3f}B parameters ({n_w * 2 / 2**30:.2f} GiB in bf16) "
+          f"in {time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} "
+          "GiB held")
+    first, later, why = modality_launches(cfg, policy)
+    want = {"whisper_medium": (168, 96), "qwen2_vl_2b": (84, 84)}[arch]
+    print(f"  nm_prune_matmul per sparse chunk: {why}")
+    if (first, later) != want:
+        fail(f"phase {label}: {first}/{later} pruned projections a first/later chunk, "
+             f"expected {want}")
+    stream = vl_stream if vl else whisper_stream
+    stubs = stub_fn(model, VL_TEXT_ONLY if vl else ())
+    launches, st, eng, outputs = serve_requests(torch, model, params, policy, f"phase {label}",
+                                                stream_fn=stream, extras_fn=stubs)
+    rep = eng.replica
+    traces = rep.trace_counts
+    want_traces = {"step_prefill": 2, "step_prefill_decode": 2, "step_decode": 1}
+    if traces != want_traces:
+        fail(f"phase {label}: trace_counts {traces}, expected {want_traces}")
+    if rep.exec.paged != vl or rep.exec.exact_chunks:
+        fail(f"phase {label}: paged {rep.exec.paged}, exact chunks {rep.exec.exact_chunks}")
+    met = rep.metrics
+    n_first = sum(stubs(i) is not None for i in range(len(outputs)))
+    per_step = cfg.n_layers * (st["prefill_halves"] + st["decode_halves"]) if vl else 0
+    check_launches(f"phase {label}", launches, {
+        "nm_prune_matmul": later * st["sparse_chunks"] + (first - later) * n_first,
+        "paged_kv_scatter": per_step, "paged_attention": per_step, "nm_prune": 0,
+        "nm_spmm": 0, "flash_attention": 0, "osparse_matmul": 0})
+    print(f"  launches held: nm_prune_matmul {later} x {st['sparse_chunks']} sparse chunks + "
+          f"{first - later} x {n_first} first chunks (with extras)"
+          + (f"; paged_kv_scatter and paged_attention {cfg.n_layers} per prefill or decode "
+             "half" if vl else "; no attention kernel (the reference's encoder-decoder "
+                               "attention is plain, outside Pallas)"))
+    if vl:
+        if launches["paged_attention routes"] != {"wgmma": per_step, "rows": 0}:
+            fail(f"phase {label}: paged_attention routes "
+                 f"{launches['paged_attention routes']}, expected all {per_step} on wgmma")
+        cached = {r["rid"]: r["cached_tokens"] for r in met["requests"]}
+        hits = met["paged"]["prefix_hits"]
+        print(f"  prefix cache: hits {hits}, cached tokens by request {cached}")
+        if hits != 1 or any(c for rid, c in cached.items() if rid != VL_TEXT_ONLY[1]):
+            fail(f"phase {label}: prefix hits must come from the text-only pair alone "
+                 f"(hits {hits}, cached {cached})")
+        for case, b, tq in (("chunk", 1, 256), ("decode", 4, 1)):
+            plan = kpa.attention_plan(torch.bfloat16, b, tq, cfg.n_heads, cfg.n_kv_heads,
+                                      cfg.head_dim, 16, rep.cfg.max_seq // 16, True)
+            print(f"  attention_plan of a {case} step: {plan}")
+    else:
+        cache = rep.exec.cache
+        nbytes = sum(leaf.numel() * leaf.element_size() for layer in cache["layers"]
+                     for leaf in layer.values())
+        print(f"  the slab: {nbytes / 2**30:.2f} GiB (self K/V {rep.cfg.max_seq} and cross "
+              f"K/V {cfg.encoder_seq} rows, {rep.cfg.num_slots} slots, {cfg.n_layers} layers)")
+    print(f"phase {label}: profile a first chunk (with its extras), a later 256-token chunk "
+          f"and a decode step of {cfg.name}")
+    profile_steps(torch, model, params, policy, eng, max_seq=rep.cfg.max_seq,
+                  extras=stubs(len(outputs)))
+    del eng, rep
+    check_graphed_tokens(torch, model, params, policy, f"phase {label}", outputs,
+                         stream_fn=stream, extras_fn=stubs)
+    return launches, model, params, policy
+
+
+def phase_whisper_oneshot(torch, model, params, policy):
+    """12b: ``ServingEngine.generate`` of Whisper-medium (12a's weights) at
+    B = 4, T = 256 with seeded ``frame_embeds (4, 1500, 1024)`` and 32 new
+    tokens: prefill and decode graphs captured once, per prefill exactly
+    168 ``nm_prune_matmul`` launches (4 x 256 decoder rows and 4 x 1500
+    encoder rows, one launch a projection), no attention kernel, tokens
+    equal to the same run without graphs.  Returns the launches of the
+    timed run."""
+    from repro_torch import kernels
+    from repro_torch.serve import ServeConfig, ServingEngine
+
+    cfg = model.cfg
+    b, t_len, new = 4, 256, 32
+    first, _, _ = modality_launches(cfg, policy)
+    rng = np.random.default_rng(SEED + 18)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, t_len))).cuda()
+    extras = {"frame_embeds": torch.from_numpy(rng.standard_normal(
+        (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)).cuda()}
+    print(f"phase 12b: one-shot {cfg.name}, B={b}, T={t_len}, frame_embeds "
+          f"{tuple(extras['frame_embeds'].shape)}, {new} new tokens")
+    eng = ServingEngine(model, policy, ServeConfig(max_seq=t_len + new))
+    with timed_captures(torch) as cap:
+        eng.generate(params, {"tokens": prompts, **extras}, max_new_tokens=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    toks, pf_s, dec_s = timed_generate(torch, eng, params, prompts, new, extras)
+    launches = kernels.launch_counts()
+    # timed_generate runs two generates: two prefills
+    check_launches("phase 12b", launches, {
+        "nm_prune_matmul": 2 * first, "flash_attention": 0, "nm_prune": 0,
+        "paged_kv_scatter": 0, "paged_attention": 0, "nm_spmm": 0, "osparse_matmul": 0})
+    traces = eng.trace_counts
+    if traces != {f"prefill_{b}x{t_len}": 1, f"decode_{b}": 1}:
+        fail(f"phase 12b: trace_counts {traces}: each program must be captured once")
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail("phase 12b: a token outside the vocabulary")
+    print(f"  trace_counts {traces} ({cap['graphs']} captures in {cap['seconds']:.2f} s); "
+          f"launches {launches}; per prefill nm_prune_matmul {first}")
+    print(f"  prefill {b} x {t_len} tokens (and {b} x {cfg.encoder_seq} encoder rows) in "
+          f"{pf_s:.3f} s = {b * t_len / pf_s:.1f} tok/s; decode {new - 1} steps of {b} in "
+          f"{dec_s:.3f} s = {b * (new - 1) / dec_s:.1f} tok/s; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+    eager = ServingEngine(model, policy, ServeConfig(max_seq=t_len + new))
+    eager._graphs.run = lambda name, fn, params, shape=None: fn()
+    want = eager.generate(params, {"tokens": prompts, **extras}, max_new_tokens=new)["tokens"]
+    if not torch.equal(toks, want):
+        fail("phase 12b: graphed tokens differ from the eager run's")
+    print(f"  tokens {toks[0, :8].tolist()}...: identical to the same generate without graphs")
+    del eng, eager
+    return launches
+
+
+MODALITY_PARITY_LENS = (600, 300, 64)
+
+
+def modality_parity(torch, arch):
+    """12d: ``arch`` at full width, depth 2 (Whisper-medium: 2 encoder and 2
+    decoder layers), three requests with their stubs through
+    ``Engine.run(params, extras)`` on the kernel path and the plain path,
+    and each prompt's last-chunk logits (its 256-token chunks on a fresh
+    cache, the stub with the first).  float32: identical greedy tokens; the
+    logits within phase 4's 2% of the largest against the plain path run on
+    the kernel path's N:M selections (:func:`forced_selection_logits`); and
+    the free-running paths' logits within the same 2%: Qwen2-VL's for every
+    prompt, Whisper's for every prompt, under the stream's stubs and a second
+    seeding of them, on which no N:M group flips between the paths (at least
+    one must be such).  A selection that flips on a near-tie moves everything
+    after it, through the encoder into every decoder token, so where one
+    flips the first call at which the paths' selections part is printed, and
+    its inputs must agree within ``F32_TOL`` of their largest (the paths
+    agree up to it; :func:`first_parting`).  Qwen2-VL's paged_attention all
+    on the rows route; bf16: the logits
+    within ``BF16_E2E_FACTOR`` times the plain path's own bf16 effect
+    (:func:`check_bf16_logits`), greedy agreement printed (paged_attention
+    all on wgmma)."""
+    from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.models import build_model
+    from repro_torch.serve import ContinuousConfig, Engine, EngineConfig
+
+    rng = np.random.default_rng(SEED + 19)
+    for dtype in ("float32", "bfloat16"):
+        cfg, model, params, policy = modality_model(torch, arch, 2, SEED + 1, dtype)
+        bf16 = dtype == "bfloat16"
+        print(f"phase 12d: {cfg.name} kernel path vs plain path, full width, depth 2, {dtype}")
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                   for n in MODALITY_PARITY_LENS]
+        seedings = [stub_fn(model, base=b) for b in ((200, 500) if cfg.is_encdec else (200,))]
+        extras = {i: seedings[0](i) for i in range(len(prompts))}
+        new, max_seq = 8, 624
+        scfg = ContinuousConfig(num_slots=2, chunk_size=256, block_size=16, max_seq=max_seq)
+
+        def chunk_logits(pol, mdl=model, prm=params, ps=prompts, ex=None):
+            """Each prompt's last-chunk logits: its 256-token chunks on a
+            fresh cache, its stub (``ex``, default ``extras``) with the first."""
+            ex = [extras[i] for i in range(len(ps))] if ex is None else ex
+            logits = []
+            for prompt, stub in zip(ps, ex):
+                cache = mdl.init_cache(1, max_seq)
+                for s in range(0, len(prompt), 256):
+                    batch = {"tokens": torch.from_numpy(prompt[s:s + 256][None, :]).cuda()}
+                    if s == 0:
+                        batch.update({k: torch.from_numpy(v).cuda() for k, v in stub.items()})
+                    lg, cache = mdl.prefill_chunk(prm, batch, cache, policy=pol)
+                logits.append(lg)
+            return logits
+
+        def run(pol, mdl=model, prm=params):
+            eng = Engine.from_config(mdl, EngineConfig(serving=scfg), policy=pol)
+            for p, a in zip(prompts, (0, 1, 3)):
+                eng.submit(p, max_new_tokens=new, arrival=a)
+            outs = eng.run(prm, extras=extras)["outputs"]
+            return [outs[r] for r in sorted(outs)], chunk_logits(pol, mdl, prm)
+
+        before = dict(kpa.paged_attention.route_launches)
+        got, got_logits = run(policy)
+        torch.cuda.synchronize()
+        routes = {r: n - before[r] for r, n in kpa.paged_attention.route_launches.items()}
+        n_attn = sum(routes.values())
+        if cfg.vision_stub:
+            want_routes = {"wgmma": n_attn, "rows": 0} if bf16 else {"wgmma": 0, "rows": n_attn}
+            if n_attn <= 0 or routes != want_routes:
+                fail(f"phase 12d: paged_attention routes {routes}, expected {want_routes}")
+        print(f"  prompts {[len(p) for p in prompts]}: kernel path {got}; paged_attention "
+              f"routes {routes}")
+        plain = policy.with_(use_kernels=False)
+        want, want_logits = run(plain)
+        if bf16:
+            model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+            _, ref_logits = run(plain, model32, copy.deepcopy(params).float())
+            check_bf16_logits(got_logits, want_logits, ref_logits)
+            margins = [float(torch.topk(b[0].float(), 2).values.diff().abs())
+                       for b in want_logits]
+            report_bf16_agreement(got, want, margins)
+            del model32
+        else:
+            free = 0
+            for j, stubs in enumerate(seedings):
+                ex = [stubs(i) for i in range(len(prompts))]
+                kern, plain_l = ((got_logits, want_logits) if j == 0 else
+                                 (chunk_logits(policy, ex=ex), chunk_logits(plain, ex=ex)))
+                for i, (a, b) in enumerate(zip(kern, plain_l)):
+                    name = f"seeding {j} prompt {i} last-chunk logits, free-running paths"
+                    part = first_parting(torch, lambda k: chunk_logits(
+                        policy.with_(use_kernels=k), ps=prompts[i:i + 1], ex=ex[i:i + 1]))
+                    if part is None or cfg.vision_stub:
+                        check_close(name + ("" if part else " (no N:M flip)"), a, b, 2e-2)
+                        free += part is None
+                    if part is not None:
+                        print(f"  {name}: max_abs_err {float((a - b).abs().max()):.3e}, "
+                              f"largest |logit| {float(b.abs().max()):.3e}; the selections "
+                              f"first part at pruned call {part['call']} of {part['calls']} "
+                              f"({part['module']}): {part['flipped']} of {part['groups']} "
+                              f"groups, inputs' max_abs_err {part['x_err']:.3e} of "
+                              f"{part['x_max']:.3e}, smallest flipped score margin "
+                              f"{part['margin']:.3e} of {part['score_max']:.3e}")
+                        if not part["x_err"] <= F32_TOL * part["x_max"]:
+                            fail(f"phase 12d: {name}: the inputs where the selections first "
+                                 f"part differ by {part['x_err']} > {F32_TOL} x "
+                                 f"{part['x_max']}")
+            if cfg.is_encdec and free < 1:
+                fail("phase 12d: no prompt ran free of N:M flips between the paths")
+            print_flips(f"phase 12d {cfg.name} prompt 0", nm_flips(
+                torch, lambda k: chunk_logits(policy.with_(use_kernels=k), ps=prompts[:1])))
+            kern, forced = forced_selection_logits(torch, chunk_logits, policy)
+            for i, (a, b) in enumerate(zip(kern, forced)):
+                check_close(f"prompt {i} last-chunk logits against the plain path on the kernel "
+                            "path's N:M selections", a, b, 2e-2)
+            if got != want:
+                fail(f"phase 12d: greedy tokens differ: kernel {got} vs plain {want}")
+            print("  greedy tokens identical")
+        del model, params
+        torch.cuda.empty_cache()
+
+
+def first_parting(torch, run):
+    """Where the kernel path's and the plain path's N:M selections first
+    part.  ``run(use_kernels)`` drives one computation on one path; every
+    pruned float projection's input is kept, the calls of the two runs are
+    paired in order, and each call's keep masks (``core.nm.nm_topk_mask`` of
+    |x|·scale) compared.  None when no group flips; else the first such
+    call: its index, the number of calls, its module, its flipped and total
+    groups, the two inputs' max |difference| and largest |input|, and the
+    smallest gap, over its flipped groups, between the plain path's N-th and
+    (N+1)-th score of the group (with the largest score of those groups)."""
+    from repro_torch.core import nm, scoring
+    from repro_torch.layers.linear import Linear
+
+    calls = {True: [], False: []}
+
+    def recorder(use_kernels):
+        def hook(x, p, module, policy, phase, layer):
+            if (isinstance(p, Linear) and policy.active(phase)
+                    and policy.should_prune(module, layer)):
+                calls[use_kernels].append((module, x.detach().float().clone(), p.amber_scale,
+                                           policy.n, policy.m))
+        return hook
+
+    for use_kernels in (True, False):
+        with spy_projections(recorder(use_kernels)):
+            run(use_kernels)
+    if [c[0] for c in calls[True]] != [c[0] for c in calls[False]]:
+        fail("first_parting: the two paths pruned different projections")
+    for i, ((module, xa, scale, n, m), (_, xb, _, _, _)) in enumerate(
+            zip(calls[True], calls[False])):
+        sa = scoring.score_activations(xa, scale)
+        sb = scoring.score_activations(xb, scale)
+        flip = (nm.nm_topk_mask(sa, n, m).reshape(-1, m)
+                != nm.nm_topk_mask(sb, n, m).reshape(-1, m)).any(-1)
+        if bool(flip.any()):
+            g = sb.reshape(-1, m)[flip].float()
+            top = torch.topk(g, n + 1, dim=-1).values
+            return {"call": i, "calls": len(calls[True]), "module": module,
+                    "flipped": int(flip.sum()), "groups": flip.numel(),
+                    "x_err": float((xa - xb).abs().max()), "x_max": float(xb.abs().max()),
+                    "margin": float((top[:, n - 1] - top[:, n]).min()),
+                    "score_max": float(g.max())}
+    return None
+
+
+def forced_selection_logits(torch, logits_fn, policy):
+    """``logits_fn(policy)`` on the kernel path, recording every pruned float
+    projection's per-token keep mask (``core.nm.nm_topk_mask`` of
+    |x|·scale: the kernel's own selection, bit-exact on equal inputs), then
+    on the plain path with ``core.pruner.prune_input`` applying those masks
+    in the same call order: the two paths' arithmetic, end to end, on one
+    set of N:M selections.  Returns (kernel logits, forced plain logits)."""
+    from repro_torch.core import nm, pruner, scoring
+    from repro_torch.layers.linear import Linear
+
+    masks = []
+
+    def record(x, p, module, pol, phase, layer):
+        if isinstance(p, Linear) and pol.active(phase) and pol.should_prune(module, layer):
+            masks.append(nm.nm_topk_mask(scoring.score_activations(x, p.amber_scale),
+                                         pol.n, pol.m))
+
+    with spy_projections(record):
+        got = logits_fn(policy)
+    order = iter(masks)
+    real = pruner.prune_input
+
+    def forced(x, scale, pol):
+        return torch.where(next(order), x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    pruner.prune_input = forced
+    try:
+        want = logits_fn(policy.with_(use_kernels=False))
+    finally:
+        pruner.prune_input = real
+    if next(order, None) is not None:
+        fail("forced selections: the plain path pruned fewer projections than the kernel path")
+    return got, want
+
+
+def phase_modality(torch, rates):
+    """Phase 12: the modality families, after phase 11 freed its models.
+    Returns the launches of 12a, 12b and 12c, by run."""
+    free_device(torch, "before phase 12 (phase 11 freed)")
+    seconds, runs = {}, {}
+    t0 = time.perf_counter()
+    runs["12a"], model, params, policy = serve_modality(torch, "12a", "whisper_medium", rates)
+    seconds["12a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runs["12b"] = phase_whisper_oneshot(torch, model, params, policy)
+    del model, params
+    free_device(torch, "after 12b")
+    seconds["12b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runs["12c"], model, params, _ = serve_modality(torch, "12c", "qwen2_vl_2b", rates)
+    del model, params
+    free_device(torch, "after 12c")
+    seconds["12c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for arch in ("whisper_medium", "qwen2_vl_2b"):
+        modality_parity(torch, arch)
+    free_device(torch, "after 12d")
+    seconds["12d"] = time.perf_counter() - t0
+    print(f"phase 12 seconds: {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}")
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -4496,6 +5142,7 @@ def main() -> int:
     phase_skipping_kernels(torch, timer, rates, records)
     phase_window_kernels(torch, timer, rates, records)
     phase_recurrent_kernels(torch, timer, rates, records)
+    phase_modality_kernels(torch, timer, rates, records)
     del timer
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
@@ -4528,12 +5175,15 @@ def main() -> int:
     t12 = time.perf_counter()
     r_launches = phase_recurrent(torch, rates)
     t13 = time.perf_counter()
+    md_launches = phase_modality(torch, rates)
+    t14 = time.perf_counter()
     print(f"phase seconds: build {t1 - t:.1f}, kernels {t2 - t1:.1f}, serve {t3 - t2:.1f}, "
           f"serve osparse {t4 - t3b:.1f}, parity {t5 - t4:.1f}, one-shot serve {t6 - t5:.1f}, "
           f"one-shot parity {t7 - t6:.1f}, serve CLI and serving lifecycle "
           f"{t8 - t7 + t3b - t3:.1f} (6b-6e {t3b - t3:.1f}, 6a and 6f {t8 - t7:.1f}), "
           f"MoE {t9 - t8:.1f}, dense variants {t10 - t9:.1f}, layer skipping {t11 - t10:.1f}, "
-          f"Mixtral and the slab {t12 - t11:.1f}, the recurrent families {t13 - t12:.1f}")
+          f"Mixtral and the slab {t12 - t11:.1f}, the recurrent families {t13 - t12:.1f}, "
+          f"the modality families {t14 - t13:.1f}")
 
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import nm_prune as knp
@@ -4548,7 +5198,7 @@ def main() -> int:
     # runs drive phase 3's and 7a's kernels again and print their own counts;
     # w8a8_matmul is an entry point that no serving path calls
     runs = {"3": launches, "3b": q_launches, "5": o_launches, "7a": m_launches,
-            "7e": mq_launches, **s_launches, **x_launches, **r_launches}
+            "7e": mq_launches, **s_launches, **x_launches, **r_launches, **md_launches}
     meta = {
         "nm_prune_matmul": (knm.SOURCE, knm.REPLACES, "3"),
         "paged_kv_scatter": (kpa.SOURCE, kpa.SCATTER_REPLACES, "3"),

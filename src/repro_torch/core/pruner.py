@@ -90,6 +90,11 @@ def precompute_scales(params: nn.Module, policy: SparsityPolicy) -> nn.Module:
     The shared expert's ``gate_proj``/``down_proj`` are ``Linear``s and do
     get one, as in JAX.  The router is not a projection name, so it gets
     none; JAX gives it one that nothing reads.
+
+    The encoder-decoder (``models/encdec.py``) is walked the same way: q
+    (encoder, decoder self and cross), fc1 (``gate_proj``) and fc2
+    (``down_proj``) of every layer.  The JAX walk also scales its embedding
+    and its layer-stacked LayerNorms (a 2-D ``w``), which nothing reads.
     """
     from repro_torch.layers.linear import Linear
 

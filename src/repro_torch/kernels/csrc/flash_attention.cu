@@ -1,16 +1,18 @@
-// Self-attention over contiguous K/V (causal or not, optional sliding-window
-// band) for Hopper (sm_90a).
+// Attention over contiguous K/V (causal or not, optional sliding-window band)
+// for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:
 // flash_attention_pallas (body _kernel, softmax helpers softmax_init /
 // softmax_update / softmax_finalize).  q (B, T, Hq, hd) attends to k/v
-// (B, T, Hkv, hd) of the same length T — the port's layout, read in place,
-// no head-repeated KV: query head h reads KV head h / (Hq / Hkv).  Key p is
-// visible to query t when p < T, (causal) p <= t, and (window > 0)
-// p > t - window.  A masked key's weight is exactly 0 (bf16 path: its score
-// is -inf and the running max starts at -1e30; rows path: score -1e30 and the
-// s > -1e30/2 guard); the float32 online softmax divides by max(l, 1e-20),
-// so a row that sees no key gives 0.  Key blocks wholly outside a query
+// (B, S, Hkv, hd) — the port's layout, read in place, no head-repeated KV:
+// query head h reads KV head h / (Hq / Hkv).  S == T for causal or banded
+// attention; a non-causal call with no band may take any S (keys longer or
+// shorter than the queries: cross-attention).  Key p is visible to query t
+// when p < S, (causal) p <= t, and (window > 0) p > t - window.  A masked
+// key's weight is exactly 0 (bf16 path: its score is -inf and the running
+// max starts at -1e30; rows path: score -1e30 and the s > -1e30/2 guard);
+// the float32 online softmax divides by max(l, 1e-20), so a row that sees
+// no key gives 0.  Key blocks wholly outside a query
 // tile's band are skipped, as the TPU kernel's block visibility check does.
 //
 // What bounds it on the H100: at the one-shot prefill's shape (B = 4,
@@ -87,8 +89,8 @@ __device__ __forceinline__ int band_start(int q_lo, int window, int align) {
   return lo - lo % align;
 }
 
-__device__ __forceinline__ bool visible(int kp, int qp, int T_, int causal, int window) {
-  return kp < T_ && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
+__device__ __forceinline__ bool visible(int kp, int qp, int S_, int causal, int window) {
+  return kp < S_ && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
 }
 
 // ------------------------------------------------------ CUDA-core path
@@ -102,8 +104,8 @@ constexpr int DPL = MAX_HD / 32;              // dims per lane (upper bound)
 template <typename T>
 __global__ void __launch_bounds__(WARPS * 32)
 attention_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ out, int T_, int Hq, int Hkv,
-                      int hd, int causal, int window, float scale) {
+                      const T* __restrict__ v, T* __restrict__ out, int T_, int S_, int Hq,
+                      int Hkv, int hd, int causal, int window, float scale) {
   __shared__ float ks[KT * MAX_HD];
   __shared__ float vs[KT * MAX_HD];
   const int kvh = blockIdx.y, b = blockIdx.z;
@@ -134,12 +136,12 @@ attention_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  const int k_end = causal ? t_hi + 1 : T_;
+  const int k_end = causal ? t_hi + 1 : S_;
   const size_t row_stride = (size_t)Hkv * hd;   // elements between key rows
   for (int kbase = band_start(t_lo, window, KT); kbase < k_end; kbase += KT) {
     const int nk = min(KT, k_end - kbase);
     __syncthreads();                            // previous sub-tile consumed
-    const size_t base = ((size_t)b * T_ + kbase) * row_stride + (size_t)kvh * hd;
+    const size_t base = ((size_t)b * S_ + kbase) * row_stride + (size_t)kvh * hd;
     for (int i = threadIdx.x; i < nk * hd; i += blockDim.x) {
       const int j = i / hd, d = i % hd;
       ks[j * hd + d] = to_f(k[base + j * row_stride + d]);
@@ -161,7 +163,7 @@ attention_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
             if (d < hd) dot = fmaf(qv[rr][i], ks[j * hd + d], dot);
           }
           const float sc = warp_sum(dot);
-          s[j] = visible(kbase + j, qpos[rr], T_, causal, window) ? sc : NEG;
+          s[j] = visible(kbase + j, qpos[rr], S_, causal, window) ? sc : NEG;
         } else {
           s[j] = NEG;
         }
@@ -206,12 +208,12 @@ attention_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T>
-int launch_rows(const void* q, const void* k, const void* v, void* out, int B, int T_, int Hq,
-                int Hkv, int hd, int causal, int window, float scale, cudaStream_t s) {
+int launch_rows(const void* q, const void* k, const void* v, void* out, int B, int T_, int S_,
+                int Hq, int Hkv, int hd, int causal, int window, float scale, cudaStream_t s) {
   const int G = Hq / Hkv;
   dim3 grid((T_ * G + ROWS - 1) / ROWS, Hkv, B);
   attention_rows_kernel<T><<<grid, WARPS * 32, 0, s>>>((const T*)q, (const T*)k, (const T*)v,
-                                                       (T*)out, T_, Hq, Hkv, hd, causal,
+                                                       (T*)out, T_, S_, Hq, Hkv, hd, causal,
                                                        window, scale);
   return (int)cudaGetLastError();
 }
@@ -241,7 +243,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
 flash_bf16_kernel(__grid_constant__ const CUtensorMap qmap,
                   __grid_constant__ const CUtensorMap kmap,
                   __grid_constant__ const CUtensorMap vmap,
-                  __grid_constant__ const CUtensorMap omap, int T_, int Hq, int Hkv,
+                  __grid_constant__ const CUtensorMap omap, int T_, int S_, int Hq, int Hkv,
                   int causal, int window, float scale_log2) {
   using L = FlashSmem<HD, NWG>;
   using namespace hopper;
@@ -253,11 +255,13 @@ flash_bf16_kernel(__grid_constant__ const CUtensorMap qmap,
   unsigned char* kvs = fsmem + L::Q;
 
   const int h = blockIdx.x, b = blockIdx.y, kvh = h / (Hq / Hkv);
-  const int t0 = (gridDim.z - 1 - blockIdx.z) * (NWG * FQ);   // heaviest tiles first
+  // heaviest causal tiles first (without a causal mask every tile walks
+  // all ceil(S / 64) key tiles, and the order does not matter)
+  const int t0 = (gridDim.z - 1 - blockIdx.z) * (NWG * FQ);
   const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
-  // the block's key tiles
+  // the block's key tiles (causal or banded: S == T)
   const int k_begin = band_start(t0, window, FK);
-  const int k_end = causal ? min(T_ - 1, t0 + NWG * FQ - 1) + 1 : T_;
+  const int k_end = causal ? min(T_ - 1, t0 + NWG * FQ - 1) + 1 : S_;
   const int n_tiles = (k_end - k_begin + FK - 1) / FK;
 
   if (threadIdx.x == 0) {
@@ -296,7 +300,7 @@ flash_bf16_kernel(__grid_constant__ const CUtensorMap qmap,
   const int w_lo = t0 + wg * FQ, w_hi = w_lo + FQ - 1;
   const bool live = w_lo < T_;
   const int w_begin = band_start(w_lo, window, FK);
-  const int w_end = live ? (causal ? min(T_ - 1, w_hi) + 1 : T_) : 0;
+  const int w_end = live ? (causal ? min(T_ - 1, w_hi) + 1 : S_) : 0;
   // this thread's two rows of the tile: r and r + 8
   const int warp = (threadIdx.x % 128) / 32;
   const int row0 = w_lo + warp * 16 + lane / 4;
@@ -331,10 +335,10 @@ flash_bf16_kernel(__grid_constant__ const CUtensorMap qmap,
 
       // online softmax on the fragments, in the log2 domain: p = 2^(s c -
       // m c) with c = scale * log2(e) as one FFMA; the visibility test
-      // only on tiles that straddle the diagonal, the band edge or T, where
+      // only on tiles that straddle the diagonal, the band edge or S, where
       // a hidden key's score becomes -inf and its weight exactly 0.  The
       // running max starts at -1e30, so it is never -inf.
-      const bool edge = k0 + FK > T_ || (causal && k0 + FK - 1 > w_lo) ||
+      const bool edge = k0 + FK > S_ || (causal && k0 + FK - 1 > w_lo) ||
                         (window > 0 && k0 <= w_hi - window);
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
@@ -344,7 +348,7 @@ flash_bf16_kernel(__grid_constant__ const CUtensorMap qmap,
           for (int j = 0; j < 8; ++j)
 #pragma unroll
             for (int e = 0; e < 2; ++e)
-              if (!visible(k0 + 8 * j + qd + e, qpos, T_, causal, window))
+              if (!visible(k0 + 8 * j + qd + e, qpos, S_, causal, window))
                 sc[4 * j + 2 * hr + e] = -INFINITY;
         }
         float mx[8];
@@ -462,13 +466,13 @@ int flash_map(CUtensorMap* map, const void* p, int B, int T_, int H, int hd) {
 }
 
 template <int HD, int NWG>
-int launch_flash(const void* q, const void* k, const void* v, void* out, int B, int T_, int Hq,
-                 int Hkv, int hd, int causal, int window, float scale, cudaStream_t s) {
+int launch_flash(const void* q, const void* k, const void* v, void* out, int B, int T_, int S_,
+                 int Hq, int Hkv, int hd, int causal, int window, float scale, cudaStream_t s) {
   using L = FlashSmem<HD, NWG>;
   CUtensorMap qm, km, vm, om;
   int rc = flash_map(&qm, q, B, T_, Hq, hd);
-  if (rc == 0) rc = flash_map(&km, k, B, T_, Hkv, hd);
-  if (rc == 0) rc = flash_map(&vm, v, B, T_, Hkv, hd);
+  if (rc == 0) rc = flash_map(&km, k, B, S_, Hkv, hd);   // rows past S arrive as zeros
+  if (rc == 0) rc = flash_map(&vm, v, B, S_, Hkv, hd);
   if (rc == 0) rc = flash_map(&om, out, B, T_, Hq, hd);
   if (rc != 0) return rc;
   cudaError_t e = cudaFuncSetAttribute(flash_bf16_kernel<HD, NWG>,
@@ -476,48 +480,52 @@ int launch_flash(const void* q, const void* k, const void* v, void* out, int B, 
   if (e != cudaSuccess) return (int)e;
   dim3 grid(Hq, B, (T_ + NWG * FQ - 1) / (NWG * FQ));
   flash_bf16_kernel<HD, NWG><<<grid, NWG * 128 + 32, L::BYTES, s>>>(
-      qm, km, vm, om, T_, Hq, Hkv, causal, window, scale * 1.4426950408889634f);
+      qm, km, vm, om, T_, S_, Hq, Hkv, causal, window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  All pointers are device pointers
-// to contiguous tensors; q/out (B, T, Hq, hd), k/v (B, T, Hkv, hd); Hq is a
-// multiple of Hkv and hd <= 256 (the wrapper checks).  `window` <= 0 means
-// no band.  Each launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() (0 = launched).
+// to contiguous tensors; q/out (B, T, Hq, hd), k/v (B, S, Hkv, hd); Hq is a
+// multiple of Hkv, hd <= 256, and S == T unless causal == 0 and window <= 0
+// (the wrapper checks).  `window` <= 0 means no band.  Each launches on
+// `stream`, does not synchronise, and returns cudaGetLastError() (0 =
+// launched).
 //
 // The wgmma path (the wrapper's flash_plan says when): bf16, 16-byte-aligned
 // tensors, hd a multiple of 8 at most `tile_hd`, on the kernel built for
 // (tile_hd, nwg) consumer warpgroups: (64, 3), (128, 2) or (256, 1); any
 // other pair is refused.
 extern "C" int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v,
-                                          void* out, int B, int T, int Hq, int Hkv, int hd,
-                                          int causal, int window, float scale, int tile_hd,
-                                          int nwg, void* stream) {
+                                          void* out, int B, int T, int S, int Hq, int Hkv,
+                                          int hd, int causal, int window, float scale,
+                                          int tile_hd, int nwg, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (hd <= 0 || hd % 8 != 0 || hd > tile_hd) return (int)cudaErrorInvalidValue;
+  if (S != T && (causal || window > 0)) return (int)cudaErrorInvalidValue;
   if (tile_hd == 128 && nwg == 2)             // 8 consumer warps + a producer
-    return launch_flash<128, 2>(q, k, v, out, B, T, Hq, Hkv, hd, causal, window, scale, s);
+    return launch_flash<128, 2>(q, k, v, out, B, T, S, Hq, Hkv, hd, causal, window, scale, s);
   if (tile_hd == 64 && nwg == 3)              // 12 + a producer
-    return launch_flash<64, 3>(q, k, v, out, B, T, Hq, Hkv, hd, causal, window, scale, s);
+    return launch_flash<64, 3>(q, k, v, out, B, T, S, Hq, Hkv, hd, causal, window, scale, s);
   if (tile_hd == 256 && nwg == 1)             // 4 + a producer
-    return launch_flash<256, 1>(q, k, v, out, B, T, Hq, Hkv, hd, causal, window, scale, s);
+    return launch_flash<256, 1>(q, k, v, out, B, T, S, Hq, Hkv, hd, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // The CUDA-core rows path (float32, hd not a multiple of 8, unaligned tensors).
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
-                                    int B, int T, int Hq, int Hkv, int hd, int causal,
+                                    int B, int T, int S, int Hq, int Hkv, int hd, int causal,
                                     int window, float scale, void* stream) {
-  return launch_rows<bf16>(q, k, v, out, B, T, Hq, Hkv, hd, causal, window, scale,
+  if (S != T && (causal || window > 0)) return (int)cudaErrorInvalidValue;
+  return launch_rows<bf16>(q, k, v, out, B, T, S, Hq, Hkv, hd, causal, window, scale,
                            (cudaStream_t)stream);
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
-                                   int B, int T, int Hq, int Hkv, int hd, int causal,
+                                   int B, int T, int S, int Hq, int Hkv, int hd, int causal,
                                    int window, float scale, void* stream) {
-  return launch_rows<float>(q, k, v, out, B, T, Hq, Hkv, hd, causal, window, scale,
+  if (S != T && (causal || window > 0)) return (int)cudaErrorInvalidValue;
+  return launch_rows<float>(q, k, v, out, B, T, S, Hq, Hkv, hd, causal, window, scale,
                             (cudaStream_t)stream);
 }

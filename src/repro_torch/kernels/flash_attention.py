@@ -1,12 +1,17 @@
-"""Self-attention over contiguous K/V: the CUDA kernel's wrapper and its plain
+"""Attention over contiguous K/V: the CUDA kernel's wrapper and its plain
 PyTorch version.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py:
 flash_attention_pallas`` (with ``softmax_init``/``softmax_update``/
-``softmax_finalize``): ``q (B, T, Hq, hd)`` attends to ``k``/``v (B, T,
-Hkv, hd)`` of the same length, causal or not, with an optional
-sliding-window band (``window > 0``: key ``p`` visible to query ``t`` iff
-``p > t - window``); query head ``h`` reads KV head ``h // (Hq // Hkv)``;
+``softmax_finalize``): ``q (B, T, Hq, hd)`` attends to ``k``/``v (B, S,
+Hkv, hd)``, causal or not, with an optional sliding-window band (``window
+> 0``: key ``p`` visible to query ``t`` iff ``p > t - window``); the keys
+may be longer or shorter than the queries (``S != T``) only without a
+causal mask or a band, as in the JAX kernel's test of keys longer than its
+queries — the reference kernel counts both positions from 0 there, while
+its oracle aligns the last query with the last key, so a causal or banded
+``S != T`` call has no one meaning and raises ``ValueError``; query head
+``h`` reads KV head ``h // (Hq // Hkv)``;
 float32 softmax; the output is in q's dtype and the scale is ``hd**-0.5``.
 The port's ``(B, T, H, hd)`` layout is taken as it is: nothing is
 transposed and no KV head is repeated.  The kernel masks its own ragged
@@ -67,11 +72,11 @@ def _lib():
     lib = _build.load("flash_attention.cu")
     for sym in _SYMBOLS.values():
         fn = getattr(lib, sym)
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.flash_attention_wgmma_bf16.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 2
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_int] * 2
         + [ctypes.c_void_p])
     lib.flash_attention_wgmma_bf16.restype = ctypes.c_int
     return lib
@@ -80,8 +85,10 @@ def _lib():
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, window: int = 0) -> torch.Tensor:
     """Plain version (``repro/kernels/ref.py:flash_attention_ref``): one dense
-    float32 softmax over all keys, masked with -inf, in the grouped
-    ``(B, T, Hkv, G, hd)`` view."""
+    float32 softmax over all ``S`` keys, masked with -inf, in the grouped
+    ``(B, T, Hkv, G, hd)`` view (a causal or banded mask aligns the last
+    query with the last key, as the oracle does; the wrapper takes such
+    masks only at ``S == T``)."""
     b, t, hq, hd = q.shape
     s_len, hkv = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, t, hkv, hq // hkv, hd)
@@ -98,10 +105,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, t, hq, hd).to(q.dtype)
 
 
+def _check_lengths(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int) -> None:
+    if k.dim() == 4 and q.dim() == 4 and k.shape[1] != q.shape[1] and (causal or window > 0):
+        raise ValueError(f"flash_attention: {k.shape[1]} keys for {q.shape[1]} queries take "
+                         "neither a causal mask nor a band (S != T: non-causal, window 0)")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Attention of ``q (B, T, Hq, hd)`` over ``k``/``v (B, T, Hkv, hd)`` →
-    ``(B, T, Hq, hd)`` in q's dtype; ``window > 0`` adds the sliding band."""
+    """Attention of ``q (B, T, Hq, hd)`` over ``k``/``v (B, S, Hkv, hd)`` →
+    ``(B, T, Hq, hd)`` in q's dtype; ``window > 0`` adds the sliding band.
+    ``S != T`` only with ``causal=False`` and ``window=0``."""
+    _check_lengths(q, k, causal, window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window)
     what = "flash_attention"
@@ -111,25 +126,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if a.device != q.device or not a.is_contiguous() or a.dim() != 4:
             raise ValueError(f"{what}: {name} must be a contiguous 4-d tensor on {q.device}")
     b, t, hq, hd = q.shape
-    hkv = k.shape[2]
-    if (v.shape != k.shape or k.shape[:2] != (b, t) or k.shape[3] != hd
+    s_len, hkv = k.shape[1], k.shape[2]
+    if (v.shape != k.shape or k.shape[0] != b or s_len == 0 or k.shape[3] != hd
             or hkv == 0 or hq % hkv != 0):
         raise ValueError(f"{what}: q {tuple(q.shape)} does not fit k/v {tuple(k.shape)} "
-                         "(self-attention: same B and T, Hq a multiple of Hkv)")
+                         "(same B and head_dim, at least one key, Hq a multiple of Hkv)")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _SYMBOLS:
         raise TypeError(f"{what}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; the kernel takes "
                         "bfloat16 or float32 throughout")
     if not 0 < hd <= _MAX_HD:
         raise ValueError(f"{what}: head_dim {hd} outside (0, {_MAX_HD}]")
-    if max(q.shape) >= 2**31:
+    if max(*q.shape, s_len) >= 2**31:
         raise ValueError(f"{what}: dimension exceeds int32")
     out = torch.empty_like(q)
     if b == 0 or t == 0:
         return out
     route, tile, nwg = flash_plan(q.dtype, hd,
                                   all(a.data_ptr() % 16 == 0 for a in (q, k, v, out)))
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, hq, hkv, hd,
-            int(causal), int(window), hd**-0.5)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, s_len, hq, hkv,
+            hd, int(causal), int(window), hd**-0.5)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "wgmma":

@@ -38,13 +38,21 @@ differences:
   full widths do not fit one card either: ``--smoke``) and the recurrent
   families (``rwkv6_7b``, attention-free, and ``recurrentgemma_2b``, RG-LRU
   blocks with local attention: both served on the dense slab in exact
-  dyadic chunks); other architectures raise in ``check_supported``.
+  dyadic chunks) and the modality families (``whisper_medium``, the
+  encoder-decoder, on the dense slab, and ``qwen2_vl_2b``, M-RoPE and patch
+  embeddings, paged); other architectures raise in ``check_supported``.
 * The weights are random from seed 0 (``model.init(0)``), and the prompts
   come from a seeded numpy generator, not from ``jax.random``: in trace
   mode the arrival gaps and prompt lengths are drawn from
   ``default_rng(--seed)`` exactly as the JAX CLI draws them, then the
   shared prefix and the prompts from the same generator; in one-shot mode
-  the batch comes from ``default_rng(--seed + 1)``.
+  the batch comes from ``default_rng(--seed + 1)``.  The modality stubs are
+  standard normals, as the JAX CLI makes them, from numpy generators with
+  the JAX CLI's seeds: one-shot ``frame_embeds``/``pixel_embeds (batch, S,
+  d_model)`` from ``default_rng(2)``/``default_rng(3)``, rounded to bf16 as
+  there; in trace mode request ``i``'s ``(1, S, d_model)`` float32 from
+  ``default_rng(200 + i)``/``default_rng(300 + i)``, sent with its first
+  prefill chunk.
 
 :func:`main` is the command; :func:`run` does its work and also returns
 the trace run's :class:`~repro_torch.serve.metrics.MetricsSnapshot`, for a
@@ -68,7 +76,9 @@ def run(argv=None):
                     help="llama31_8b, qwen2_7b, qwen2_5_32b, chatglm3_6b, stablelm_3b, "
                          "granite_34b (--smoke on one card), qwen3_30b_a3b, "
                          "llama4_scout_17b_a16e, mixtral_8x7b (--smoke on one card), "
-                         "rwkv6_7b, recurrentgemma_2b")
+                         "rwkv6_7b, recurrentgemma_2b, whisper_medium, qwen2_vl_2b (their "
+                         "frame/patch embeddings: standard normals from numpy generators "
+                         "seeded 2/3 in one-shot mode, 200+i/300+i for --trace request i)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
@@ -151,6 +161,9 @@ def run(argv=None):
     rng = np.random.default_rng(args.seed + 1)
     batch = {"tokens": torch.from_numpy(rng.integers(
         0, cfg.vocab_size, size=(args.batch, args.prompt_len)))}
+    for key, (rows, d) in model.stub_shapes().items():
+        batch[key] = torch.from_numpy(np.random.default_rng(STUB_SEEDS[key]).standard_normal(
+            (args.batch, rows, d)).astype(np.float32)).to(torch.bfloat16)
 
     outs = []
     for name, eng in [("dense", dense_engine), (f"amber {n}:{m}", engine)]:
@@ -165,6 +178,11 @@ def run(argv=None):
     agree = (outs[0] == outs[1]).float().mean()
     print(f"greedy-decode agreement dense vs sparse-prefill: {float(agree):.3f}")
     return 0, None
+
+
+# each modality stub's seed: the one-shot batch's, and ``100 * seed + i`` for
+# request i of a trace
+STUB_SEEDS = {"frame_embeds": 2, "pixel_embeds": 3}
 
 
 def _trace_mode(args, cfg, model, params, policy):
@@ -191,13 +209,18 @@ def _trace_mode(args, cfg, model, params, policy):
             ttl_default=args.ttl, fused_step=not args.no_fused_step)),
         policy=policy, device=model.device)
     sysp = rng.integers(0, cfg.vocab_size, args.shared_prefix)
+    extras = {}
     for i in range(args.num_requests):
         toks = rng.integers(0, cfg.vocab_size, int(lens[i]))
         if args.shared_prefix:
             toks = np.concatenate([sysp, toks])
-        eng.submit(toks, max_new_tokens=args.new_tokens, arrival=int(arrivals[i]))
+        rid = eng.submit(toks, max_new_tokens=args.new_tokens, arrival=int(arrivals[i]))
+        ex = {key: np.random.default_rng(100 * STUB_SEEDS[key] + i).standard_normal(
+            (1, *shape)).astype(np.float32) for key, shape in model.stub_shapes().items()}
+        if ex:
+            extras[rid] = ex
 
-    eng.run(params)
+    eng.run(params, extras=extras)
     m = eng.metrics          # typed MetricsSnapshot
     print(f"# {args.num_requests} requests, λ={args.rate}/iter, "
           f"lens {lo}..{hi}, slots={args.slots}, chunk={args.chunk}, "

@@ -1,14 +1,14 @@
-"""Shared model pieces: norms, embeddings, RoPE (port of
-``repro/models/common.py``, the parts the dense family uses: RMSNorm and
-LayerNorm, the default and the 2-D RoPE)."""
+"""Shared model pieces: norms, embeddings, positions (port of
+``repro/models/common.py``: RMSNorm and LayerNorm, the sinusoidal
+positions of the encoder-decoder, the default, the 2-D and the M-RoPE)."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 __all__ = ["RMSNorm", "LayerNorm", "Embedding", "rms_norm", "layer_norm", "norm_apply",
-           "init_norm", "init_embedding", "embed", "rope_freqs", "apply_rope",
-           "apply_rope_2d", "dtype_of", "resolve_device"]
+           "init_norm", "init_embedding", "embed", "sinusoidal_positions", "rope_freqs",
+           "apply_rope", "apply_rope_2d", "apply_mrope", "dtype_of", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -100,6 +100,17 @@ def embed(tokens: torch.Tensor, p: Embedding) -> torch.Tensor:
     return p.w[tokens.long()]
 
 
+def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """The classic sinusoidal embedding ``[sin ∥ cos]`` of ``positions``
+    (any shape) → ``(..., d)`` float32 (the caller casts it)."""
+    half = d // 2
+    dev = positions.device
+    log_base = torch.full((), 10000.0, dtype=torch.float32, device=dev).log()
+    freqs = torch.exp(-log_base * torch.arange(half, dtype=torch.float32, device=dev) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def rope_freqs(head_dim: int, theta: float, rotary_dim: int | None = None,
                device=None) -> torch.Tensor:
     rd = rotary_dim or head_dim
@@ -137,3 +148,23 @@ def apply_rope_2d(x: torch.Tensor, positions: torch.Tensor, theta: float) -> tor
     inv = rope_freqs(hd, theta, rotary_dim=rd, device=x.device)  # (rd/2,)
     return torch.cat([_rotate(x[..., :rd], *_cos_sin(positions, inv, x.dtype)),
                       x[..., rd:]], dim=-1)
+
+
+MROPE_SECTIONS = (0.25, 0.375, 0.375)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
+                sections=MROPE_SECTIONS) -> torch.Tensor:
+    """Qwen2-VL's M-RoPE: the half head_dim's frequencies split into
+    ``sections`` of the temporal, height and width position streams, each
+    frequency rotated by the angle of its own stream.  x: (B, T, H, hd);
+    positions_3d: (3, B, T)."""
+    half = x.shape[-1] // 2
+    inv = rope_freqs(x.shape[-1], theta, device=x.device)        # (half,)
+    n_t = int(half * sections[0])
+    n_th = n_t + int(half * sections[1])
+    ang_all = positions_3d.float()[..., None] * inv               # (3, B, T, half)
+    ang = torch.cat([ang_all[0, ..., :n_t], ang_all[1, ..., n_t:n_th],
+                     ang_all[2, ..., n_th:]], dim=-1)
+    return _rotate(x, torch.cos(ang)[:, :, None, :].to(x.dtype),
+                   torch.sin(ang)[:, :, None, :].to(x.dtype))

@@ -1,5 +1,5 @@
-"""Decoder-only LM: the dense, MoE and recurrent families (port of
-``repro/models/transformer.py``).
+"""Decoder-only LM: the dense, MoE, VLM and recurrent families (port of
+``repro/models/transformer.py``; the encoder-decoder is ``models/encdec.py``).
 
 A :class:`Transformer` holds the embedding, an ``nn.ModuleList`` of blocks
 whose kinds follow ``cfg.block_pattern`` tiled over the layers
@@ -8,7 +8,10 @@ block's feed-forward is a gated MLP, or with ``cfg.n_experts`` the routed
 experts of ``models/moe.py`` (``family="moe"``).  An ``rwkv6`` block
 (:class:`RWKVLayer`) is ``models/rwkv6.py``'s time and channel mix with no
 norm around it; an ``rglru`` block (:class:`RGLRULayer`) is a norm, the
-RG-LRU of ``models/rglru.py``, a norm and a gated MLP.  Layers run as a Python
+RG-LRU of ``models/rglru.py``, a norm and a gated MLP.  The VLM
+(``family="vlm"``) is the dense family with M-RoPE (``(3, B, T)`` position
+streams, all three the token positions by default) and a first chunk's
+``pixel_embeds`` in place of its first ``n_patches`` rows.  Layers run as a Python
 loop with a static layer index, so each projection consults the policy's
 skip list directly (the JAX package scans the stacked layers and passes a
 traced per-layer flag instead).  Under ``paper_policy`` this routes q_proj
@@ -83,17 +86,19 @@ __all__ = ["Transformer", "AttnBlock", "RWKVLayer", "RGLRULayer", "check_support
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port covers the dense and MoE families with full, sliding-window
-    or local attention (the JAX package treats the last two alike), with
-    RMSNorm or LayerNorm and the default or the 2-D (ChatGLM) RoPE, and the
+    """The port's decoder-only LM covers the dense, MoE and VLM families with
+    full, sliding-window or local attention (the JAX package treats the
+    last two alike), with RMSNorm or LayerNorm and the default, the 2-D
+    (ChatGLM) or the M-RoPE (Qwen2-VL, whose ``vision_stub`` patch
+    embeddings replace a prompt's first ``n_patches`` token rows), and the
     recurrent families: RWKV6 (``("rwkv6",)``, no RoPE) and the
     RecurrentGemma hybrid (``("rglru", "rglru", "attn")``) with windowed
     attention.  A recurrent model with full-attention layers (a paged
-    hybrid) is not ported."""
+    hybrid) is not ported; an encoder-decoder is ``models/encdec.py``'s."""
     supported = {
-        "family": (cfg.family, ("dense", "moe", "ssm", "hybrid")),
+        "family": (cfg.family, ("dense", "moe", "ssm", "hybrid", "vlm")),
         "attn_type": (cfg.attn_type, ("full", "swa", "local")),
-        "rope_variant": (cfg.rope_variant, ("default", "2d", "none")),
+        "rope_variant": (cfg.rope_variant, ("default", "2d", "mrope", "none")),
         "norm": (cfg.norm, ("rmsnorm", "layernorm")),
         "attn_impl": (cfg.attn_impl, ("chunked", "flash")),
         "block_pattern": (cfg.block_pattern,
@@ -103,8 +108,9 @@ def check_supported(cfg: ModelConfig) -> None:
         if have not in want:
             raise NotImplementedError(
                 f"{cfg.name}: {field}={have!r} is not ported yet (only {want!r})")
-    if cfg.is_encdec or cfg.vision_stub:
-        raise NotImplementedError(f"{cfg.name}: encdec/VLM are not ported yet")
+    if cfg.is_encdec:
+        raise NotImplementedError(f"{cfg.name}: an encoder-decoder is models/encdec.py's, "
+                                  "not the decoder-only transformer's")
     kinds = set(layer_kinds(cfg))
     if kinds != {"attn"} and "attn" in kinds and _window(cfg) is None:
         raise NotImplementedError(f"{cfg.name}: a recurrent model with full-attention "
@@ -123,12 +129,16 @@ def _n_periods(cfg: ModelConfig) -> Tuple[int, int]:
 
 
 def _apply_rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """RoPE of ``x (B, T, H, hd)`` at ``positions``: ``(B, T)``, or under
+    M-RoPE the ``(3, B, T)`` position streams (:func:`_rope_positions`)."""
     if cfg.rope_variant == "none":
         return x
     if cfg.rope_variant == "default":
         return common.apply_rope(x, positions, cfg.rope_theta)
     if cfg.rope_variant == "2d":
         return common.apply_rope_2d(x, positions, cfg.rope_theta)
+    if cfg.rope_variant == "mrope":
+        return common.apply_mrope(x, positions, cfg.rope_theta)
     raise NotImplementedError(f"{cfg.name}: rope_variant={cfg.rope_variant!r} is not "
                               "ported yet")
 
@@ -342,9 +352,10 @@ def _dense_index(cfg: ModelConfig, cache: Dict, b: int, t: int, pos: torch.Tenso
     i = torch.arange(t, device=dev)
     valid = i < chunk_len
     wpos = p + i
-    # t <= s_c: the chunk's rows land on distinct slab rows, pad rows too
+    # t <= s_c: the chunk's rows land on distinct slab rows, pad rows too;
+    # a full cache drops the rows past its end, a ring wraps them
     idx["w_rows"] = (wpos % s_c)[None, :].expand(b, t)
-    idx["w_valid"] = valid[None, :]
+    idx["w_valid"] = (valid if window is not None else valid & (wpos < s_c))[None, :]
     if window is not None:
         # row r of the old ring holds the latest position <= pos - 1 that is
         # r mod s_c (-1: never written)
@@ -498,6 +509,31 @@ def _recurrent_apply(cfg: ModelConfig, kind: str, h: torch.Tensor, p, policy: Sp
     return h
 
 
+def _rope_positions(cfg: ModelConfig, positions: torch.Tensor,
+                    positions_3d: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """What the attention blocks rotate by: ``positions (B, T)``, or under
+    M-RoPE the ``(3, B, T)`` streams, by default the positions broadcast to
+    all three, as the reference builds them
+    (``repro/models/transformer.py:619, 642, 688, 723-728``)."""
+    if cfg.rope_variant != "mrope":
+        return positions
+    return positions[None].expand(3, *positions.shape) if positions_3d is None else positions_3d
+
+
+def _embed_inputs(cfg: ModelConfig, params: Transformer, batch: Dict) -> torch.Tensor:
+    """The token embeddings; a VLM's ``batch["pixel_embeds"] (B, P, d)``,
+    cast to the model dtype, replaces the first ``P`` rows
+    (``repro/models/transformer.py:451-462``)."""
+    h = common.embed(batch["tokens"], params.embed)
+    pe = batch.get("pixel_embeds") if cfg.vision_stub else None
+    if pe is not None:
+        if pe.shape[1] > h.shape[1]:
+            raise ValueError(f"{cfg.name}: {pe.shape[1]} patch embeddings do not fit "
+                             f"{h.shape[1]} token rows")
+        h[:, :pe.shape[1]] = pe.to(h.dtype)
+    return h
+
+
 def _run_blocks(cfg, params: Transformer, h, policy, phase, cache, positions,
                 index=None):
     for i, (kind, blk) in enumerate(zip(layer_kinds(cfg), params.blocks)):
@@ -525,8 +561,9 @@ def forward(cfg: ModelConfig, params: Transformer, batch: Dict, *,
     tokens = batch["tokens"]
     b, t = tokens.shape
     positions = torch.arange(t, device=tokens.device).expand(b, t)
-    h = common.embed(tokens, params.embed)
-    h = _run_blocks(cfg, params, h, policy, phase, None, positions)
+    h = _embed_inputs(cfg, params, batch)
+    h = _run_blocks(cfg, params, h, policy, phase, None,
+                    _rope_positions(cfg, positions, batch.get("positions_3d")))
     return _lm_logits(cfg, params, h)
 
 
@@ -555,8 +592,9 @@ def prefill(cfg: ModelConfig, params: Transformer, batch: Dict, cache: Dict, *,
             raise ValueError(f"prefill: {t} tokens do not fit a cache of {s_c} positions")
         index = _dense_index(cfg, cache, b, t, zero, None, "prefill")
     positions = torch.arange(t, device=dev).expand(b, t)
-    h = common.embed(tokens, params.embed)
-    h = _run_blocks(cfg, params, h, policy, "prefill", cache, positions, index)
+    h = _embed_inputs(cfg, params, batch)
+    h = _run_blocks(cfg, params, h, policy, "prefill", cache,
+                    _rope_positions(cfg, positions, batch.get("positions_3d")), index)
     logits = _lm_logits(cfg, params, h[:, -1:])[:, 0]
     return logits, {**cache, "pos": cache["pos"] + t}
 
@@ -590,8 +628,9 @@ def prefill_chunk(cfg: ModelConfig, params: Transformer, batch: Dict, cache: Dic
                              f"{s_c} rows")
         index = _dense_index(cfg, cache, b, t, pos, chunk_len, "chunk")
     positions = pos + torch.arange(t, device=dev).expand(b, t)
-    h = common.embed(tokens, params.embed)
-    h = _run_blocks(cfg, params, h, policy, "prefill", cache, positions, index)
+    h = _embed_inputs(cfg, params, batch)
+    h = _run_blocks(cfg, params, h, policy, "prefill", cache,
+                    _rope_positions(cfg, positions), index)
     h_last = h.index_select(1, (chunk_len.long() - 1).reshape(1))
     logits = _lm_logits(cfg, params, h_last)[:, 0]
     return logits, {**cache, "pos": pos + chunk_len}
@@ -617,6 +656,7 @@ def decode_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
         index = _dense_index(cfg, cache, b, t, pos, None, "decode")
     positions = pos.reshape(-1, 1).expand(b, t)
     h = common.embed(tokens, params.embed)
-    h = _run_blocks(cfg, params, h, policy, "decode", cache, positions, index)
+    h = _run_blocks(cfg, params, h, policy, "decode", cache,
+                    _rope_positions(cfg, positions), index)
     logits = _lm_logits(cfg, params, h)[:, 0]
     return logits, {**cache, "pos": pos + 1}

@@ -62,8 +62,10 @@ class Engine:
     def cancel(self, rid: int) -> bool:
         return self._replica.cancel(rid)
 
-    def run(self, params) -> Dict:
-        return self._replica.run(params)
+    def run(self, params, extras: Optional[Dict[int, Dict]] = None) -> Dict:
+        """Serve every submitted request; ``extras`` maps request id →
+        modality arrays sent with its first prefill chunk."""
+        return self._replica.run(params, extras=extras)
 
     def clear(self) -> None:
         self._replica.clear()

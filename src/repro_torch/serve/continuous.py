@@ -39,7 +39,13 @@ where a kernel wrapper is called from Python: every step on the CPU; on the
 GPU a bucket's eager first step and its capture, never a replay — the
 port's counterpart of the JAX package consulting them while it traces.
 
-Not ported: TP and modality extras.
+Modality extras (:meth:`ContinuousServingEngine.run`'s ``extras``: request
+id → ``{name: array}``, ``frame_embeds`` for the encoder-decoder,
+``pixel_embeds`` for the VLM) go with a request's first prefill chunk,
+again on a preempted or restored request's replay; such requests keep out
+of the prefix cache.
+
+Not ported: TP.
 """
 from __future__ import annotations
 
@@ -147,7 +153,7 @@ class ContinuousServingEngine:
             raise EngineCrash(f"injected crash in {site} (it={it})")
         return float("nan") if kind == "nonfinite" else 0.0
 
-    def _step_fused(self, params, it: int, t0: float) -> bool:
+    def _step_fused(self, params, extras: Dict[int, Dict], it: int, t0: float) -> bool:
         """One-dispatch iteration: the scheduler's fused plan through its
         bucket's program.  Returns whether any model work ran.  A request
         whose final chunk lands this iteration decodes from the next one
@@ -163,8 +169,9 @@ class ContinuousServingEngine:
             fault += self._crash_fire("prefill", it)
         if plan.decode is not None:
             fault += self._crash_fire("decode", it)
-        res = self.exec.step(params, plan, fault)
         pw = plan.prefill
+        ex = extras.get(pw.req.rid, {}) if pw is not None and pw.first else {}
+        res = self.exec.step(params, plan, fault, ex)
         if pw is not None:
             self.sched.commit_chunk(pw.req, pw.chunk_len)
             if self.sched.seq_complete(pw.req):
@@ -173,7 +180,7 @@ class ContinuousServingEngine:
             self.sched.emit_decode_tokens(plan.decode, res.decode_tokens, it, t0)
         return True
 
-    def _step_prefill(self, params, it: int, t0: float) -> bool:
+    def _step_prefill(self, params, extras: Dict[int, Dict], it: int, t0: float) -> bool:
         """Legacy two-program split, phase 1: one chunk for the oldest
         prefilling request.  Returns whether the PREFILL roster was
         non-empty (a fully-ingested request parked in PREFILL counts as
@@ -185,7 +192,8 @@ class ContinuousServingEngine:
         if pw is None:     # fully ingested, parked — nothing to run
             return True
         self.exec.apply_effects(plan)
-        tok = self.exec.prefill(params, plan, self._crash_fire("prefill", it))
+        ex = extras.get(pw.req.rid, {}) if pw.first else {}
+        tok = self.exec.prefill(params, plan, self._crash_fire("prefill", it), ex)
         self.sched.commit_chunk(pw.req, pw.chunk_len)
         if self.sched.seq_complete(pw.req):
             self.sched.emit_prefill_token(pw.req, tok, it, t0)
@@ -204,13 +212,18 @@ class ContinuousServingEngine:
         return True
 
     # ------------------------------------------------------------ main loop
-    def run(self, params) -> Dict:
+    def run(self, params, extras: Optional[Dict[int, Dict]] = None) -> Dict:
         """Drive the scheduler until every submitted request is terminal.
-        Returns ``{"outputs": {rid: tokens}, "metrics": ...}``, the metrics
-        as :meth:`MetricsSnapshot.to_dict` (the snapshot itself is
+        ``extras`` maps request id → modality arrays (``{"frame_embeds":
+        (1, encoder_seq, d_model)}`` or ``{"pixel_embeds": (1, n_patches,
+        d_model)}``, numpy or tensors) sent with the request's first prefill
+        chunk.  Returns ``{"outputs": {rid: tokens}, "metrics": ...}``, the
+        metrics as :meth:`MetricsSnapshot.to_dict` (the snapshot itself is
         ``metrics_snapshot``)."""
+        extras = extras or {}
         sched, ex = self.sched, self.exec
         ex.init_cache(sched.pool.num_blocks if self.paged else None)
+        sched.mark_extras(extras)
         t0 = time.perf_counter()
         it0 = sched.it
         counters0 = {k: getattr(sched, k) for k in (
@@ -245,9 +258,9 @@ class ContinuousServingEngine:
                     # block grab BEFORE the dispatch: the fused program reads
                     # the final roster and table
                     sched.ensure_decode_blocks()
-                    worked = self._step_fused(params, it, t0)
+                    worked = self._step_fused(params, extras, it, t0)
                 else:
-                    worked = self._step_prefill(params, it, t0)
+                    worked = self._step_prefill(params, extras, it, t0)
                     sched.ensure_decode_blocks()
                     worked = self._step_decode(params, it, t0) or worked
                 if worked:

@@ -29,6 +29,18 @@ fault; a device operand, so a replayed graph sees it, where a Python
 number would be baked in at capture).  It returns the logits and one all-finite flag (inactive
 decode rows masked).
 
+Modality extras ride with a request's first prefill chunk, as in the JAX
+package: an encoder-decoder's ``frame_embeds (1, encoder_seq, d_model)``
+(the chunk runs the encoder and writes the slot's cross K/V) and a VLM's
+``pixel_embeds (1, n_patches, d_model)`` (they replace the chunk's first
+rows; ``chunk_size`` must cover them, else ``ValueError``).  Each has a
+device buffer of its own in the model dtype, at a fixed address, filled
+from the host before the step; a step that carries extras runs a second
+graph of its bucket's program, which reads the buffers, so
+``trace_counts`` reads 2 for a prefill program that ran with and without
+them, as the JAX package traces it twice.  An encoder-decoder is served on
+the slab in padded chunks.
+
 The legacy two-program split (``ContinuousConfig.fused_step=False``) runs
 the prefill-only and decode-only programs of the same table through
 :meth:`Executor.prefill` and :meth:`Executor.decode`, as programs of their
@@ -68,6 +80,7 @@ import torch
 
 from repro_torch.core.policy import DENSE, SparsityPolicy
 from repro_torch.kernels import _capture
+from repro_torch.models.common import dtype_of, resolve_device
 from repro_torch.serve import slots as slot_ops
 from repro_torch.serve.paged import init_paged_cache
 from repro_torch.serve.scheduler import StepPlan
@@ -107,7 +120,7 @@ class Executor:
         self.model = model
         self.policy = policy
         self.cfg = cfg
-        self.device = model.device
+        self.device = resolve_device(model.device)   # a model on the GPU needs one
         model.paged_kv_spec()        # raises for layouts the port does not model
         mcfg = model.cfg
         if (mcfg.attn_type in ("swa", "local")
@@ -119,6 +132,12 @@ class Executor:
         # recurrent scans cannot mask padded tokens out of their state
         self.exact_chunks = any(kind != "attn" for kind in model.layer_kinds())
         self.paged_kernel = self.paged and bool(policy.use_kernels)
+        # the modality buffers' shapes, by batch key
+        self.extras_shapes: Dict[str, Tuple[int, ...]] = {
+            k: (1, *shape) for k, shape in model.stub_shapes().items()}
+        if mcfg.vision_stub and cfg.chunk_size < mcfg.n_patches:
+            raise ValueError(f"chunk_size {cfg.chunk_size} must cover the VLM's "
+                             f"{mcfg.n_patches} patch embeddings")
         dense = DENSE.with_(use_kernels=policy.use_kernels)
         # replay and decode are dense
         self._programs: Dict[Tuple[bool, bool, bool], Callable] = {
@@ -126,6 +145,7 @@ class Executor:
             for key in STEP_BUCKETS}
         self.cache = None
         self._operands: Optional[torch.Tensor] = None
+        self._extras: Dict[str, torch.Tensor] = {}
         self._graphs = _capture.Programs(self.device)
         self.buckets: Dict[str, Dict[str, float]] = {}
         self.dispatches = 0
@@ -136,19 +156,20 @@ class Executor:
                       has_prefill: bool, has_decode: bool) -> Callable:
         model = self.model      # not self: the executor must not hold itself in a cycle
 
-        def step_fn(params, cache, slot, tokens, chunk_len, toks, active, fault):
+        def step_fn(params, cache, slot, tokens, chunk_len, toks, active, fault, extras=None):
             """One fused step on the cache, updated in place.  ``slot``: 0-d
             int; ``tokens (1, C)``; ``chunk_len``: 0-d int32; ``toks``,
             ``active``: ``(num_slots,)``; ``fault``: 0-d float32 added to
-            the logits.  Returns (prefill logits ``(V,)`` or None, decode
-            logits ``(num_slots, V)`` or None, all-finite 0-d bool)."""
+            the logits; ``extras``: the modality tensors of a first chunk.
+            Returns (prefill logits ``(V,)`` or None, decode logits
+            ``(num_slots, V)`` or None, all-finite 0-d bool)."""
             finite = torch.ones((), dtype=torch.bool, device=cache["pos"].device)
             p_logits = d_logits = None
             if has_prefill:
                 sub = slot_ops.slice_slot(cache, slot)
                 p_logits, sub = model.prefill_chunk(
-                    params, {"tokens": tokens, "chunk_len": chunk_len}, sub,
-                    policy=pf_policy)
+                    params, {"tokens": tokens, "chunk_len": chunk_len, **(extras or {})},
+                    sub, policy=pf_policy)
                 slot_ops.write_slot(cache, slot, sub)
                 p_logits = p_logits[0] + fault
                 finite = finite & torch.isfinite(p_logits).all()
@@ -171,8 +192,8 @@ class Executor:
 
     def step_program(self, bucket: Tuple[bool, bool, bool]) -> Callable:
         """The raw step program of a phase-presence bucket: ``prog(params,
-        cache, slot, tokens, chunk_len, toks, active, fault)``, eager on any
-        device (what a bucket's graph captures)."""
+        cache, slot, tokens, chunk_len, toks, active, fault, extras=None)``,
+        eager on any device (what a bucket's graph captures)."""
         return self._programs[bucket]
 
     def step_programs(self) -> Iterator[Tuple[Tuple[bool, bool, bool], str, Callable]]:
@@ -214,6 +235,9 @@ class Executor:
             #  fault (float32 bits)]
             self._operands = torch.zeros(3 + cfg.chunk_size + 2 * cfg.num_slots,
                                          dtype=torch.int32, device=self.device)
+            dtype = dtype_of(self.model.cfg)
+            self._extras = {k: torch.zeros(shape, dtype=dtype, device=self.device)
+                            for k, shape in self.extras_shapes.items()}
 
     def apply_effects(self, plan: StepPlan) -> None:
         """Slot resets decided at admission and the rewritten host block
@@ -248,19 +272,23 @@ class Executor:
         self._operands.copy_(torch.from_numpy(host))
 
     # ------------------------------------------------------------ dispatch
-    def step(self, params, plan: StepPlan, fault: float = 0.0) -> StepResult:
+    def step(self, params, plan: StepPlan, fault: float = 0.0,
+             extras: Optional[Dict] = None) -> StepResult:
         """Run a fused plan through its bucket's program.  ``fault`` is the
-        value of the fault operand (0.0 clean, NaN injected)."""
-        return self._run(params, plan, STEP_BUCKETS[plan.bucket], fault)
+        value of the fault operand (0.0 clean, NaN injected); ``extras`` the
+        modality arrays of the prefill chunk (the engine sends them with a
+        request's first chunk only)."""
+        return self._run(params, plan, STEP_BUCKETS[plan.bucket], fault, extras)
 
-    def prefill(self, params, plan: StepPlan, fault: float = 0.0) -> int:
+    def prefill(self, params, plan: StepPlan, fault: float = 0.0,
+                extras: Optional[Dict] = None) -> int:
         """Legacy two-program split, phase 1: the chunk of a prefill-only
         plan through the ``prefill`` program (``prefill_replay`` for a
         replay chunk); returns the token sampled from its last position,
         which the engine keeps only when the chunk completed the
         sequence."""
         name = "prefill_replay" if plan.prefill.replay else "prefill"
-        return self._run(params, plan, name, fault).prefill_token
+        return self._run(params, plan, name, fault, extras).prefill_token
 
     def decode(self, params, plan: StepPlan, fault: float = 0.0) -> np.ndarray:
         """Legacy two-program split, phase 2: one slot-batched decode step
@@ -268,19 +296,38 @@ class Executor:
         ``(num_slots,)`` next tokens."""
         return self._run(params, plan, "decode", fault).decode_tokens
 
+    def _write_extras(self, extras: Dict) -> Dict[str, torch.Tensor]:
+        """Copy a first chunk's modality arrays into their device buffers
+        (cast to the model dtype) and return the buffers."""
+        for k, arr in extras.items():
+            if k not in self._extras:
+                raise ValueError(f"{self.model.cfg.name} takes no {k!r} (only "
+                                 f"{sorted(self._extras)})")
+            buf = self._extras[k]
+            src = torch.as_tensor(arr)
+            if tuple(src.shape) != tuple(buf.shape):
+                raise ValueError(f"{k}: shape {tuple(src.shape)}, expected {tuple(buf.shape)}")
+            buf.copy_(src)
+        return {k: self._extras[k] for k in sorted(extras)}
+
     @torch.no_grad()
-    def _run(self, params, plan: StepPlan, name: str, fault: float) -> StepResult:
+    def _run(self, params, plan: StepPlan, name: str, fault: float,
+             extras: Optional[Dict] = None) -> StepResult:
         """Run one plan through program ``name`` (the plan's bucket's body):
-        operands in, the program, sampling, one host sync."""
+        operands (and a first chunk's extras) in, the program, sampling, one
+        host sync."""
         t0 = time.perf_counter()
         pw, dw = plan.prefill, plan.decode
         self._write_operands(plan, fault)
+        ex = self._write_extras(extras) if extras and pw is not None else {}
         prog = self._programs[plan.bucket]
-        # an exact chunk runs the program of its own length
+        # an exact chunk runs the program of its own length; a chunk with
+        # extras the program's second graph, which reads their buffers
         length = pw.chunk_len if pw is not None and self.exact_chunks else None
+        shape = (length, tuple(ex)) if ex else length
         p_logits, d_logits, finite = self._graphs.run(
-            name, lambda: prog(params, self.cache, *self._views(length)), params,
-            shape=length)
+            name, lambda: prog(params, self.cache, *self._views(length), extras=ex), params,
+            shape=shape)
         out = []
         if pw is not None:
             out.append(self._sample(p_logits).reshape(1))

@@ -1,8 +1,8 @@
 """Pure-host scheduling layer of the serving engine (port of
 ``repro/serve/scheduler.py``).
 
-A copy of the JAX package's :class:`Scheduler`, numpy only (no modality
-extras), for the paged cache and, with
+A copy of the JAX package's :class:`Scheduler`, numpy only, for the paged
+cache and, with
 ``paged=False``, the dense per-slot slab (no block pool, no block-budget
 admission, no preemption, no prefix cache): the same stream makes the
 same decisions, faults
@@ -10,7 +10,12 @@ included (the ``admit`` site, retries with backoff, the ``pool.alloc``
 recovery paths), exact dyadic chunks included (``exact_chunks``: models
 with recurrent layers, whose scans cannot mask a padded tail, prefill in
 power-of-two chunks of at most ``chunk_size`` that sum to the prompt, and
-keep the prefix cache off).  The :class:`Scheduler` owns every piece of
+keep the prefix cache off), modality extras included (a request marked
+with :meth:`Scheduler.mark_extras` carries frame or patch embeddings that
+its KV depends on beyond its tokens, so it neither matches nor registers
+prefix blocks; a chunk's ``first`` flag says that the engine sends the
+extras with it, also on a preempted request's replay).  The
+:class:`Scheduler` owns every piece of
 host state — the :class:`Request` lifecycle machine, slot assignment, the paged
 :class:`~repro_torch.serve.paged.BlockPool`, the prefix index bookkeeping,
 the watchdog, and the scheduling counters — and never touches device
@@ -117,6 +122,7 @@ class PrefillWork:
     tokens: np.ndarray         # (1, C) chunk token ids
     chunk_len: int
     replay: bool               # re-ingesting emitted tokens → dense program
+    first: bool = False        # the request's first chunk: its extras attach here
 
 
 @dataclasses.dataclass
@@ -190,6 +196,9 @@ class Scheduler:
         self._free_slots = list(range(cfg.num_slots))
         self._slot_req: List[Optional[Request]] = [None] * cfg.num_slots
         self._pending_resets: List[Tuple[int, int]] = []
+        # requests with modality extras: their KV depends on more than their
+        # tokens, so they never match or register prefix blocks
+        self._extra_rids: set = set()
         self.it = 0                       # scheduler-iteration clock
         self._last_progress = 0           # watchdog bookkeeping
 
@@ -214,6 +223,10 @@ class Scheduler:
             arrival=arrival,
             deadline=None if ttl is None else arrival + ttl))
         return rid
+
+    def mark_extras(self, rids) -> None:
+        """Requests ``rids`` carry modality extras: no prefix cache for them."""
+        self._extra_rids |= set(rids)
 
     def cancel(self, rid: int) -> bool:
         req = next((r for r in self.requests if r.rid == rid), None)
@@ -328,7 +341,7 @@ class Scheduler:
         so the request's last block is always a fresh allocation (and a
         partially-covered tail block has no full-block hash anyway) —
         shared blocks are therefore never writable."""
-        if not self.prefix_cache:
+        if not self.prefix_cache or req.rid in self._extra_rids:
             return []
         n_full = (len(seq) - 1) // self.pool.block_size
         if n_full == 0:
@@ -438,7 +451,7 @@ class Scheduler:
         Called whenever row content is final AND worth publishing: after
         each prefill chunk, and — to pick up decode-written rows — right
         before the blocks are released at preemption or completion."""
-        if not self.prefix_cache:
+        if not self.prefix_cache or req.rid in self._extra_rids:
             return
         bs = self.pool.block_size
         n_full = min(req.kv_len // bs, len(req.blocks))
@@ -533,24 +546,29 @@ class Scheduler:
         assert all(r.state in TERMINAL for r in self.requests), \
             "cannot clear with requests in flight"
         self.requests = []
+        # rids restart at 0 for the next stream: stale extras marks must not
+        # reach unrelated requests of the same rid
+        self._extra_rids = set()
         self.it = 0
         self._last_progress = 0
 
     # ------------------------------------------------------- plan building
     def next_chunk(self, req: Request):
-        """(tokens (1, C), chunk_len, is_replay) for the next chunk, padded
-        to ``chunk_size`` (under exact chunks: the next dyadic size, unpadded,
-        ``C == chunk_len``).  Chunks never span the prompt/emitted boundary,
-        so a replay chunk (re-ingesting emitted tokens after a preemption)
-        is entirely replay and runs through the dense program.
+        """(tokens (1, C), chunk_len, send_extras, is_replay) for the next
+        chunk, padded to ``chunk_size`` (under exact chunks: the next dyadic
+        size, unpadded, ``C == chunk_len``).  ``send_extras``: the chunk is
+        the first of the request's sequence (``filled == 0``, also after a
+        preemption or a restore).  Chunks never span the prompt/emitted
+        boundary, so a replay chunk (re-ingesting emitted tokens after a
+        preemption) is entirely replay and runs through the dense program.
 
-        Returns the ``(None, 0, False)`` sentinel when nothing remains to
-        ingest (a fully-filled request momentarily parked in PREFILL)."""
+        Returns the ``(None, 0, False, False)`` sentinel when nothing remains
+        to ingest (a fully-filled request momentarily parked in PREFILL)."""
         c = self.cfg.chunk_size
         seq = self._seq(req)
         rem = len(seq) - req.filled
         if rem <= 0:
-            return None, 0, False
+            return None, 0, False, False
         if req.filled < len(req.tokens):
             rem = min(rem, len(req.tokens) - req.filled)
             replay = False
@@ -558,11 +576,12 @@ class Scheduler:
             replay = self._policy_enabled
         if self._exact_chunks:
             size = _dyadic_sizes(rem, c)[0]
-            return seq[req.filled:req.filled + size][None, :], size, replay
+            return (seq[req.filled:req.filled + size][None, :], size, req.filled == 0,
+                    replay)
         v = min(c, rem)
         chunk = np.zeros((c,), np.int32)
         chunk[:v] = seq[req.filled:req.filled + v]
-        return chunk[None, :], v, replay
+        return chunk[None, :], v, req.filled == 0, replay
 
     def _drain_effects(self, plan: StepPlan) -> None:
         plan.resets = self._pending_resets
@@ -576,10 +595,10 @@ class Scheduler:
         if not prefilling:
             return None
         req = prefilling[0]
-        tokens, clen, replay = self.next_chunk(req)
+        tokens, clen, first, replay = self.next_chunk(req)
         if tokens is None:     # fully ingested, parked — nothing to run
             return None
-        return PrefillWork(req, tokens, clen, replay)
+        return PrefillWork(req, tokens, clen, replay, first)
 
     def _decode_work(self) -> Optional[DecodeWork]:
         decoding = [r for r in self.requests if r.state == DECODE]
@@ -709,6 +728,7 @@ class Scheduler:
             "slot_rids": [None if r is None else r.rid
                           for r in self._slot_req],
             "free_slots": list(self._free_slots),
+            "extra_rids": set(self._extra_rids),
             "pool": self.pool.snapshot() if self.paged else None,
             "host_table": self._host_table.copy() if self.paged else None,
             "counters": {
@@ -738,6 +758,7 @@ class Scheduler:
         self._free_slots = list(range(cfg.num_slots))
         self._slot_req = [None] * cfg.num_slots
         self._pending_resets = []
+        self._extra_rids = set(snap["extra_rids"])
         for r in self.requests:
             if r.state in (PREFILL, DECODE):
                 r.state = WAITING

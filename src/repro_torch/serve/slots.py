@@ -10,7 +10,9 @@ Two layouts, told apart by ``"block_table"``:
   ``pos`` and the slot's table row are per-slot.
 * the dense per-slot slab (:func:`init_slot_cache`): ``{"pos",
   "layers": [{"k", "v"}, ...]}`` with ``(num_slots, s_c, Hkv, hd)`` leaves
-  (a recurrent layer's state leaves instead, ``(num_slots, ...)``), the
+  (a recurrent layer's state leaves instead, ``(num_slots, ...)``; an
+  encoder-decoder's ``k``/``v`` and ``cross_k``/``cross_v`` of ``max_seq``
+  and ``encoder_seq`` rows), the
   slot axis first (the JAX package's ``slot_axis`` is 1 under its
   scan-stacked layers; the port keeps its layers in a list).  A slice is
   not a copy: it carries the slot's index as ``"slot"``, and the model

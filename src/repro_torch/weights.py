@@ -27,12 +27,16 @@ an MLP with its Amber scales, where the model has one (Mixtral-8x7B has
 none: its blocks carry the router and the expert stacks alone); a
 quantized dict there (or in an MoE block's attention) becomes a
 ``QuantLinear`` as anywhere else.
+An encoder-decoder's ``enc_blocks``/``dec_blocks`` (vmap-stacked: layer
+``i`` is index ``i`` of every leaf) become its block lists, with
+``enc_norm``, ``dec_norm``, the embedding and the LM head; a VLM's tree is
+the dense family's.
 
 ``quantize_linears(model, absmax, qcfg)`` applies the offline
 SmoothQuant / Outstanding rewrite (``core.quant.make_quantized_linear``) to
 the projections ``qcfg`` quantizes and frees their float weights (in an
 MoE block: the attention projections and the shared expert's); the
-recurrent families are not quantized yet.
+recurrent families and the encoder-decoder are not quantized yet.
 
 This module imports nothing of JAX: it sees only numpy arrays.
 """
@@ -48,7 +52,7 @@ from repro_torch.core import quant
 from repro_torch.core.policy import ALL_PROJS, MLP_PROJS
 from repro_torch.core.pruner import SCALE_KEY
 from repro_torch.layers.linear import Linear, QuantLinear
-from repro_torch.models import common, transformer
+from repro_torch.models import common, encdec, transformer
 
 __all__ = ["from_jax_params", "quantize_linears"]
 
@@ -105,12 +109,13 @@ def _layer_params(cfg: ModelConfig, params_np: Dict, i: int) -> Dict:
     if i >= n_per * plen:
         return params_np["tail"][f"t{i - n_per * plen}"]
     per, j = divmod(i, plen)
+    return _take(params_np["periods"][f"b{j}"], per)
 
-    def take(d):
-        return {k: take(v) if isinstance(v, dict) else np.asarray(v)[per] if np.ndim(v) else v
-                for k, v in d.items()}
 
-    return take(params_np["periods"][f"b{j}"])
+def _take(d: Dict, i: int) -> Dict:
+    """Index ``i`` of every leaf with a leading layer axis."""
+    return {k: _take(v, i) if isinstance(v, dict) else np.asarray(v)[i] if np.ndim(v) else v
+            for k, v in d.items()}
 
 
 @torch.no_grad()
@@ -120,6 +125,8 @@ def from_jax_params(cfg: ModelConfig, params_np: Dict, device=None
     ``device`` (default: the GPU, raising if there is none)."""
     device = common.resolve_device(device)
     dtype = common.dtype_of(cfg)
+    if cfg.is_encdec:
+        return _from_jax_encdec(cfg, params_np, dtype, device)
     model = transformer.init_params(cfg, 0, device=device)
     model.embed.w.copy_(_t(params_np["embed"]["w"], dtype, device))
     _load_norm(model.final_norm, params_np["final_norm"], dtype, device)
@@ -135,13 +142,36 @@ def from_jax_params(cfg: ModelConfig, params_np: Dict, device=None
         if kind == "rglru":
             _load_rglru(blk.rglru, lp["rglru"], dtype, device)
         else:
-            for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
-                _load_linear(blk, name, lp[name], dtype, device)
+            _load_attn(blk, lp, dtype, device)
             if "moe" in lp:
                 _load_moe(blk.moe, lp["moe"], dtype, device)
                 continue
         for name in ("gate_proj", "up_proj", "down_proj"):
             _load_linear(blk.mlp, name, lp["mlp"][name], dtype, device)
+    return model
+
+
+def _load_attn(p, lp: Dict, dtype, device) -> None:
+    for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+        _load_linear(p, name, lp[name], dtype, device)
+
+
+def _from_jax_encdec(cfg: ModelConfig, params_np: Dict, dtype, device) -> encdec.EncDec:
+    model = encdec.init_params(cfg, 0, device=device)
+    model.embed.w.copy_(_t(params_np["embed"]["w"], dtype, device))
+    _load_linear(model, "lm_head", params_np["lm_head"], dtype, device)
+    for name in ("enc_norm", "dec_norm"):
+        _load_norm(getattr(model, name), params_np[name], dtype, device)
+    for stack, blocks, attns in (("enc_blocks", model.enc_blocks, ("attn",)),
+                                 ("dec_blocks", model.dec_blocks, ("self_attn", "cross_attn"))):
+        for i, blk in enumerate(blocks):
+            lp = _take(params_np[stack], i)
+            for name in ("ln1", "ln2") + (("ln_x",) if "ln_x" in lp else ()):
+                _load_norm(getattr(blk, name), lp[name], dtype, device)
+            for name in attns:
+                _load_attn(getattr(blk, name), lp[name], dtype, device)
+            for name in ("gate_proj", "down_proj"):
+                _load_linear(blk.ff, name, lp["ff"][name], dtype, device)
     return model
 
 
@@ -198,11 +228,11 @@ def quantize_linears(model: transformer.Transformer,
     ``model``.  In an MoE block the attention projections and the shared
     expert's are quantized; the routed experts stay in the model dtype, as
     the reference's do (``repro/models/moe.py`` has no quantized grouped
-    product).  A recurrent model raises ``NotImplementedError``: its
-    W8A8 rewrite is not ported yet."""
-    if model.cfg.block_pattern != ("attn",):
-        raise NotImplementedError(f"{model.cfg.name}: W8A8 of the recurrent families is not "
-                                  "ported yet")
+    product).  A recurrent model or an encoder-decoder raises
+    ``NotImplementedError``: their W8A8 rewrite is not ported yet."""
+    if model.cfg.block_pattern != ("attn",) or model.cfg.is_encdec:
+        raise NotImplementedError(f"{model.cfg.name}: W8A8 of the recurrent families and of "
+                                  "the encoder-decoder is not ported yet")
     for i, blk in enumerate(model.blocks):
         for owner, name in _projections(blk):
             lin = getattr(owner, name)

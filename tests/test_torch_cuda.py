@@ -69,6 +69,28 @@ def test_nm_prune_matmul_variant_widths(gen, d, n_out, t):
            knm.nm_prune_matmul_plain(x, w, sc, 8, 16, bias=b), torch.bfloat16)
 
 
+# The modality families' pruned widths (K, N_out): Whisper-medium q, fc1,
+# fc2 and Qwen2-VL-2B q, gate, down, at Whisper's 1500 encoder rows and a
+# 256-token chunk, with a bias where the model has one (all of Whisper's,
+# Qwen2-VL's q).
+_MODALITY_WIDTHS = [(1024, 1024), (1024, 4096), (4096, 1024), (1536, 1536), (1536, 8960),
+                    (8960, 1536)]
+
+
+@pytest.mark.parametrize("t", [1500, 256])
+@pytest.mark.parametrize("d,n_out", _MODALITY_WIDTHS,
+                         ids=[f"{d}x{n}" for d, n in _MODALITY_WIDTHS])
+def test_nm_prune_matmul_modality_widths(gen, d, n_out, t):
+    x = torch.randn(t, d, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(d, n_out, generator=gen, device="cuda") * d**-0.5).bfloat16()
+    sc = torch.rand(d, generator=gen, device="cuda") + 0.5
+    biased = d in (1024, 4096) or d == n_out
+    b = (torch.randn(n_out, generator=gen, device="cuda") * 0.1).bfloat16() if biased else None
+    assert knm.gemm_plan(w, t) >= 1                  # the wgmma route
+    _close(knm.nm_prune_matmul(x, w, sc, 8, 16, bias=b),
+           knm.nm_prune_matmul_plain(x, w, sc, 8, 16, bias=b), torch.bfloat16)
+
+
 # LLaMA-3.1-8B's projections at the sensitivity scan's 512 rows and a
 # ragged 137: k/v (4096 -> 1024, split k), q/o (4096 -> 4096), gate/up
 # (4096 -> 14336) and down (14336 -> 4096), at 8:16 (the scan's probes) and
@@ -486,6 +508,39 @@ def test_flash_attention_misaligned_takes_rows_path(gen):
     k = torch.randn(1, 70, 2, 64, generator=gen, device="cuda").bfloat16()
     v = torch.randn(1, 70, 2, 64, generator=gen, device="cuda").bfloat16()
     _close(kfa.flash_attention(q, k, v), kfa.flash_attention_plain(q, k, v), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype,aligned,route", [
+    (torch.bfloat16, True, "wgmma"), (torch.bfloat16, False, "rows"),
+    (torch.float32, True, "rows")], ids=["bf16_wgmma", "bf16_rows", "f32_rows"])
+@pytest.mark.parametrize("b,t,s,hq,hkv,hd", [
+    (1, 256, 1500, 16, 16, 64), (4, 1, 1500, 16, 16, 64), (2, 64, 128, 2, 2, 32),
+    (2, 100, 37, 14, 2, 128)], ids=["whisper_cross_chunk", "whisper_cross_decode",
+                                    "jax_test_case", "gqa_short_keys"])
+def test_flash_attention_keys_of_another_length(gen, dtype, aligned, route, b, t, s, hq, hkv,
+                                                hd):
+    """Non-causal attention over S != T keys on both routes: Whisper-medium's
+    cross-attention (16 / 16 heads of 64 over 1500 encoder rows, an edge key
+    tile) for a chunk and a decode batch, the JAX kernel test's (2, 2, 64,
+    128) case, and fewer keys than queries at GQA 7:1; each call on the
+    route its plan names."""
+    q = torch.randn(b, t, hq, hd, generator=gen, device="cuda").to(dtype)
+    if not aligned:
+        q = _misaligned(q)
+    k = torch.randn(b, s, hkv, hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, s, hkv, hd, generator=gen, device="cuda").to(dtype)
+    before = dict(kfa.flash_attention.route_launches)
+    got = kfa.flash_attention(q, k, v, causal=False)
+    assert kfa.flash_attention.route_launches[route] == before[route] + 1
+    _close(got, kfa.flash_attention_plain(q, k, v, causal=False), dtype)
+
+
+def test_flash_attention_keys_of_another_length_raise_when_masked(gen):
+    q = torch.randn(1, 64, 4, 64, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(1, 128, 4, 64, generator=gen, device="cuda").bfloat16()
+    for causal, window in ((True, 0), (False, 32), (True, 32)):
+        with pytest.raises(ValueError, match="S != T"):
+            kfa.flash_attention(q, k, k, causal=causal, window=window)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -135,8 +135,8 @@ def test_prefill_into_slot_2_while_slots_0_and_1_decode():
     seen = []
     step = ex.step
 
-    def recording_step(params, plan, fault=0.0):
-        out = step(params, plan, fault)
+    def recording_step(params, plan, fault=0.0, extras=None):
+        out = step(params, plan, fault, extras)
         if plan.prefill is not None:        # the slot the plan named, and the operand's
             seen.append((plan.prefill.req.slot, plan.decode is not None,
                          int(ex._operands[0])))

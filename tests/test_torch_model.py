@@ -129,15 +129,17 @@ def test_bf16_weights_round_trip_exactly(smoke):
 
 def test_unported_configs_raise():
     """A paged hybrid (recurrent blocks beside full-attention layers, whose
-    K/V would be pooled), encoder-decoders and M-RoPE raise; flash,
-    sliding windows and the recurrent families build."""
+    K/V would be pooled) raises; flash, sliding windows, the recurrent
+    families and the modality families (the encoder-decoder and the M-RoPE
+    VLM) build."""
     tcfg = tget("llama31_8b")
     for kw in (dict(block_pattern=("rglru", "attn")),
-               dict(block_pattern=("rglru", "rglru", "attn")),
-               dict(is_encdec=True, n_encoder_layers=2), dict(rope_variant="mrope")):
+               dict(block_pattern=("rglru", "rglru", "attn"))):
         with pytest.raises(NotImplementedError):
             build_model(dataclasses.replace(tcfg, **kw), device="cpu")
     build_model(dataclasses.replace(tcfg, attn_impl="flash"), device="cpu")
     build_model(tget("mixtral_8x7b"), device="cpu")     # sliding windows are ported
     for arch in ("rwkv6_7b", "recurrentgemma_2b"):       # the recurrent families too
+        build_model(tget(arch), device="cpu")
+    for arch in ("whisper_medium", "qwen2_vl_2b"):       # and the modality families
         build_model(tget(arch), device="cpu")

@@ -258,6 +258,25 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine.from_config(model)
     Engine.from_config(model, device="cpu")
+    # the modality families: build_model, Engine.run with extras, and the
+    # one-shot engine with frame embeddings, for a model on the GPU
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServingEngine
+
+    for arch in ("whisper_medium", "qwen2_vl_2b"):
+        for cfg in (get_config(arch), tget(arch)):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                build_model(cfg)
+    wcfg = tget("whisper_medium")
+    on_gpu = Model(cfg=wcfg, device=torch.device("cuda"))
+    fe = np.zeros((1, wcfg.encoder_seq, wcfg.d_model), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(ContinuousServingEngine(on_gpu, tpolicy.DENSE), EngineConfig()).run(
+            None, extras={0: {"frame_embeds": fe}})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(on_gpu, tpolicy.DENSE).generate(
+            None, {"tokens": np.zeros((1, 4), np.int64), "frame_embeds": fe}, 2)
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in-repo", "alone"])

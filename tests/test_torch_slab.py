@@ -123,6 +123,23 @@ def test_slab_engine_matches_jax(models, served, arch, name, fused, use_kernels)
                for leaf in layer.values())
 
 
+def test_full_cache_chunk_drops_the_rows_past_its_end(models):
+    """A chunk whose valid rows run past a full-attention dense cache (16
+    rows, chunks of 6, 6 and 8): the JAX package drops the rows past the end
+    (its scatter's ``mode="drop"``), so every chunk's logits match JAX's; a
+    wrap would overwrite the cache's first rows before the chunk attends."""
+    jm, params, tm, tcfg = models["llama31_8b"]
+    tp = from_jax_params(tcfg, jax.tree_util.tree_map(np.asarray, params), device="cpu")
+    toks = np.random.default_rng(5).integers(0, 256, size=(1, 20)).astype(np.int32)
+    jc, tc = jm.init_cache(1, 16), tm.init_cache(1, 16, paged=False)
+    for s, e in ((0, 6), (6, 12), (12, 20)):
+        jl, jc = jm.prefill_chunk(params, {"tokens": jnp.asarray(toks[:, s:e])}, jc,
+                                  policy=jpolicy.DENSE)
+        tl, tc = tm.prefill_chunk(tp, {"tokens": torch.from_numpy(toks[:, s:e])}, tc,
+                                  policy=tpolicy.DENSE)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4, atol=1e-4)
+
+
 CRASHES = [dict(site="decode", kind="crash", iters=tuple(range(4, 9)), limit=1),
            dict(site="prefill", kind="crash", iters=tuple(range(11, 15)), limit=1)]
 
