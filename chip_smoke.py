@@ -83,7 +83,12 @@ Phases (any failed check exits non-zero; no phase is skipped):
              128), chunk and decode; ``nm_prune_matmul`` at Whisper-medium's
              (1024², 1024 x 4096, 4096 x 1024, biased) and Qwen2-VL-2B's
              (1536² biased, 1536 x 8960, 8960 x 1536) widths at 256 and
-             1500 rows.
+             1500 rows.  2o: ``osparse_matmul`` (8:16 pruned, the static
+             scale) at the W8A8 rewrites' widths: RWKV6-7B's 4096² and 4096 x
+             14336 at 256 rows and the dyadic tails 64, 8 and 1 (swap_fused at
+             8 and 1), Whisper-medium's biased 1024² and 1024 x 4096 at 256
+             and 1500 rows; bit-exact, each on its plan's route, timed beside
+             its bound and ``torch._int_mm`` with the dequant.
 3. serve   — ``Engine.from_config`` at full LLaMA-3.1-8B width (32 layers,
              random weights from a seed, bfloat16) under the paper's
              policy with the kernels on: 8 staggered requests, 32 new tokens
@@ -142,7 +147,25 @@ Phases (any failed check exits non-zero; no phase is skipped):
              and ``admit`` transient at the third: tokens identical,
              admission retries; 6e a ``nonfinite`` decode fault at iteration
              10, after a warm-up that captured every bucket, must raise
-             ``FloatingPointError`` from the replay, and nothing else passes.
+             ``FloatingPointError`` from the replay, and nothing else passes;
+             6g two replicas behind the router (``EngineConfig(dp=2)``, one
+             after another on the card), each warmed up, phase 3's stream:
+             tokens identical, both replicas served, each replica's every
+             bucket captured once, 86 ``nm_prune_matmul`` a sparse chunk
+             summed over the two, merged and per-replica tok/s and peak
+             memory; 6h the same at ``dp=2`` with a crash at decode iteration
+             3: one crash, its requests transplanted to the survivor, the
+             others' tokens identical to phase 3's; a transplanted request's
+             tokens emitted before the crash identical, and every token after
+             it the argmax of the eager replay path (``eager_rows``: the
+             prompt's chunks, the emitted tokens as one dense chunk, then one
+             decode step a token, fed the served tokens) or within one ulp
+             of it (``near_tie``); where it parts from phase 3's tokens,
+             phase 3's token within one ulp of the served one on the eager
+             decode and replay paths (a 4-slot batch rounds otherwise than
+             one row); how many of those positions a replay that lost the
+             emitted tokens' K/V would fail printed; the degraded fleet's
+             snapshot refused.
              After phase 5b: 6a ``repro_torch.launch.serve.main`` in this
              process, ``--trace`` at full LLaMA-3.1-8B width (16 Poisson
              requests, 64-700 tokens behind a 128-token shared prefix, 32
@@ -151,7 +174,10 @@ Phases (any failed check exits non-zero; no phase is skipped):
              requests done, and ``nm_prune_matmul``, ``paged_kv_scatter`` and
              ``paged_attention`` launched (counts set to 0 just before); its
              report lines are echoed; 6f the one-shot CLI on Qwen2-7B (4 x
-             512 tokens, 32 new): rc 0 and its agreement line.
+             512 tokens, 32 new): rc 0 and its agreement line; 6a' the
+             ``--trace`` CLI with ``--dp 2`` (6a's flags without the shared
+             prefix, which affinity would send to one replica): both replicas
+             served, each replica's programs captured once, launches exact.
 
 7. MoE    — Qwen3-30B-A3B, the paper's MoE model, after phases 3-6 freed
              their models.  7a: ``Engine`` at full width and depth (48
@@ -286,7 +312,19 @@ Phases (any failed check exits non-zero; no phase is skipped):
              11d: both at full width, depth 2 (RWKV6-7B) and 5
              (RecurrentGemma-2B): float32 kernel path against plain path,
              identical greedy tokens (N:M flips printed); bf16 logits within
-             phase 4's gate.
+             phase 4's gate; W8A8 (``QuantConfig()``) in float32: on the
+             kernel path's N:M selections and int8 codes identical greedy
+             tokens and logits within ``FORCED_W8A8_TOL`` (0.1%) of the
+             largest, free-running identical tokens for RWKV6-7B (the
+             difference printed for RecurrentGemma-2B, whose float32
+             selections already flip).  11e (after 11a, on its weights): RWKV6-7B
+             rewritten to W8A8 from a seeded calibration absmax, 11a's stream:
+             per layer 7 ``osparse_matmul`` a step half (r/k/v/g as q_proj, o,
+             the channel mix's gate and up), 5 of them pruned a sparse chunk,
+             and ``nm_prune_matmul`` for the value projection (``down_proj``,
+             left bf16), every int8 launch on wgmma (chunks) or swap_fused
+             (decode, tails of at most 16 rows), profiled as 11a, graphed
+             tokens equal to the eager programs'.
 12. the modality families — after phase 11 freed its models, with
              seeded nonzero biases, under ``paper_policy(8, 16, ())`` with
              the kernels, through ``Engine.run(params, extras)``: every
@@ -314,15 +352,23 @@ Phases (any failed check exits non-zero; no phase is skipped):
              pair alone; profiled and token-checked as 12a.  12d: both at
              full width, depth 2: float32 kernel path against plain path
              (identical greedy tokens, logits within 2%, N:M flips
-             printed), bf16 logits within phase 4's gate.
+             printed), bf16 logits within phase 4's gate; Whisper-medium in
+             W8A8, float32: each prompt's last-chunk logits against the plain
+             path on the kernel path's N:M selections and int8 codes within
+             ``FORCED_W8A8_TOL`` (0.1%).  12e (after 12b, on 12a's weights):
+             Whisper-medium rewritten to W8A8 (every attention's q/k/v/o and
+             fc1; fc2 left bf16), served as 12a: per decoder layer 7
+             ``osparse_matmul`` a step half (3 pruned) and 1
+             ``nm_prune_matmul`` a sparse chunk, on a first chunk 5 + 1 more
+             per encoder layer and the cross k/v per decoder layer, every
+             int8 launch on its route, profiled and token-checked as 12a.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is
 its count in the run of the path that first served it (phase 3, 3b, 5 or
 7a); ``launches_by_run`` holds its count in each main-path run that
-launched it (3, 3b, 5, 7a, 7e, 9a, 9b, 9c's Naive run, 10a, 10b, 11a, 11b,
-11c, 12a, 12b and 12c), each counted
-from 0.  Exits non-zero without a
+launched it (3, 3b, 5, 6g over both replicas, 7a, 7e, 9a, 9b, 9c's Naive run,
+10a, 10b, 11a, 11e, 11b, 11c, 12a, 12b, 12e and 12c), each counted from 0.  Exits non-zero without a
 CUDA device, and when run outside the repository (it needs ``src/``).
 """
 from __future__ import annotations
@@ -332,6 +378,7 @@ import copy
 import dataclasses
 import functools
 import json
+import math
 import re
 import shutil
 import statistics
@@ -1253,15 +1300,17 @@ def warm_up(eng, params, rng, vocab, extras_fn=None):
     extras (``extras_fn(i)``: request ``i``'s) every prefill program runs with
     and without them: two 300-token requests with extras, the second
     arriving while the first decodes (first and later chunks alone, then
-    beside a decode)."""
+    beside a decode).  ``eng``: an ``Engine`` of one replica, or one replica
+    (a ``ContinuousServingEngine``) of a larger fleet."""
+    ex = eng.exec if hasattr(eng, "exec") else eng.replica.exec
     if extras_fn is not None:
         for i, (arrival, new) in enumerate(((0, 4), (2, 2))):
             eng.submit(rng.integers(0, vocab, size=300), max_new_tokens=new, arrival=arrival)
         eng.run(params, extras={i: extras_fn(1000 + i) for i in range(2)})
         eng.clear()
         return
-    if eng.replica.exec.exact_chunks:
-        n = 2 * eng.replica.cfg.chunk_size - 1
+    if ex.exact_chunks:
+        n = 2 * ex.cfg.chunk_size - 1
         eng.submit(rng.integers(0, vocab, size=n), max_new_tokens=n.bit_length() + 3)
         eng.submit(rng.integers(0, vocab, size=n), max_new_tokens=2, arrival=1)
     else:
@@ -1556,7 +1605,7 @@ def phase_lifecycle(torch, model, params, policy, want):
         traces = eng.replica.trace_counts
         if any(n != 1 for n in traces.values()):
             fail(f"phase 6c: crashed engine's trace_counts {traces}")
-        snap, dead = eng.replica.last_snapshot, weakref.ref(eng.replica.exec)
+        snap, dead = eng.last_snapshot, weakref.ref(eng.replica.exec)
         del eng
         freed = freed and dead() is None
         eng, _ = fresh_engine(torch, model, policy, inj, snapshot_every=1)
@@ -1619,6 +1668,185 @@ def phase_lifecycle(torch, model, params, policy, want):
     torch.cuda.empty_cache()
 
 
+def phase_replicas(torch, model, params, policy, want):
+    """Phases 6g and 6h, on phase 3's model, weights and requests (before 3b
+    rewrites the weights); ``want`` is phase 3's tokens.  6g: two replicas
+    behind the router (``EngineConfig(dp=2)``), each warmed up as phase 3's
+    engine is, then phase 3's stream: tokens identical, both replicas
+    served, each replica's every bucket captured once, launches exact over
+    the two (per sparse chunk 86 ``nm_prune_matmul``), merged and
+    per-replica tok/s and peak memory.  6h: the same stream at ``dp=2``
+    with a crash at decode iteration 3: one replica lost, its requests
+    transplanted to the other and each held, token by token after the
+    crash, to the eager replay path (:func:`eager_rows`, :func:`near_tie`),
+    the others identical to phase 3's, and the degraded fleet refuses to
+    snapshot.  Returns 6g's launches."""
+    from repro_torch import kernels
+    from repro_torch.serve import Engine, EngineConfig
+    from repro_torch.serve.faults import FaultInjector, FaultSpec
+
+    cfg = model.cfg
+    print("phase 6g: phase 3's requests through two replicas behind the router (dp=2, one "
+          "card: the replicas run one after another, so no throughput gain is expected)")
+    rng, prompts, arrivals, new, scfg = serving_stream(torch, cfg.vocab_size)
+    eng = Engine.from_config(model, EngineConfig(dp=2, serving=scfg), policy=policy)
+    shapes = [program_shapes(rep.exec) for rep in eng.replicas]
+    for rep in eng.replicas:
+        warm_up(rep, params, rng, cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    rids = [eng.submit(p, max_new_tokens=new, arrival=a) for p, a in zip(prompts, arrivals)]
+    res = eng.run(params)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    m = eng.metrics
+    check_tokens("phase 6g", [res["outputs"][r] for r in rids], want)
+    served = [sorted(g for g, (rep, _) in eng._router._rid_map.items() if rep == i)
+              for i in range(2)]
+    print(f"  requests by replica {served}")
+    if not all(served):
+        fail(f"phase 6g: a replica served nothing ({served})")
+    for i, (rep, sh) in enumerate(zip(eng.replicas, shapes)):
+        traces = rep.trace_counts
+        print(f"  replica {i}: trace_counts {traces}")
+        if traces != {name: len(lens) for name, lens in sh.items()} \
+                or any(n != 1 for n in traces.values()):
+            fail(f"phase 6g: replica {i}'s trace_counts {traces}: every bucket it used must "
+                 "be captured once")
+    _, _, st = step_counts(m.buckets, fused=True)
+    fused, _ = prune_launches(cfg, policy)
+    if fused != 86:
+        fail(f"phase 6g: {fused} nm_prune_matmul a sparse chunk, expected 86")
+    per_step = cfg.n_layers * (st["prefill_halves"] + st["decode_halves"])
+    check_launches("phase 6g", launches, {
+        "nm_prune_matmul": fused * st["sparse_chunks"], "paged_kv_scatter": per_step,
+        "paged_attention": per_step, "nm_prune": 0, "nm_spmm": 0, "flash_attention": 0,
+        "osparse_matmul": 0})
+    print(f"  launches held over both replicas: {st}; nm_prune_matmul {fused} a sparse chunk")
+    print(f"  merged: {m.generated_tokens} tokens in {m.wall_s:.3f} s = {m.tokens_per_s:.1f} "
+          f"tok/s over {m.iterations} iterations (the longer replica's); per replica "
+          + ", ".join(f"r{i} {p.generated_tokens} tokens in {p.wall_s:.3f} s = "
+                      f"{p.tokens_per_s:.1f} tok/s" for i, p in enumerate(m.replicas)))
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"allocated, {torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved (both "
+          "replicas' caches and graph pools)")
+    del eng
+
+    print("phase 6h: the same stream at dp=2 with a crash at decode iteration 3: the "
+          "replica is drained to the survivor")
+    inj = FaultInjector(seed=SEED, schedule=[FaultSpec("decode", "crash", iters=(3,),
+                                                       limit=1)])
+    eng = Engine.from_config(model, EngineConfig(dp=2, serving=scfg), policy=policy,
+                             faults=inj)
+    rids = [eng.submit(p, max_new_tokens=new, arrival=a) for p, a in zip(prompts, arrivals)]
+    router = eng._router
+    home = dict(router._rid_map)
+    res = eng.run(params)
+    print(f"  fired {inj.fired}; crashes {router.crashes}, transplants {router.transplants}, "
+          f"alive {router.alive}")
+    if router.crashes != 1 or router.transplants < 1 or sum(router.alive) != 1:
+        fail(f"phase 6h: crashes {router.crashes}, transplants {router.transplants}, "
+             f"alive {router.alive}")
+    wrong = [0, 0]
+    for i, g in enumerate(rids):
+        got = res["outputs"][g]
+        rep, lrid = home[g]
+        if router._rid_map[g][0] == rep:
+            if got != want[i]:
+                fail(f"phase 6h: request {g} (not transplanted) differs from phase 3's")
+            continue
+        kept = len(router.replicas[rep].requests[lrid].out)
+        if got[:kept] != want[i][:kept]:
+            fail(f"phase 6h: request {g}'s tokens emitted before the crash changed")
+        rows = eager_rows(torch, model, params, policy, prompts[i], got[:kept], got[kept:-1],
+                          scfg.max_seq)
+        for j, row in enumerate(rows):
+            near_tie("phase 6h", row, got[kept + j],
+                     f"request {g}'s replayed token {kept + j} ({kept} emitted before the "
+                     "crash) against the eager replay path's argmax")
+        print(f"  phase 6h: request {g}: {kept} tokens emitted before the crash, the "
+              f"{len(rows)} after it each the eager replay path's argmax or within "
+              f"{NEAR_TIE_ULPS} ulp of it")
+        if kept:      # the same check on a replay that lost the emitted tokens' K/V
+            bad = eager_rows(torch, model, params, policy, prompts[i], [], got[kept:-1],
+                             scfg.max_seq)
+            wrong[0] += sum(not near_tie(None, r, t) for r, t in zip(bad[1:], got[kept + 1:]))
+            wrong[1] += len(bad) - 1
+        if got != want[i]:
+            k = next(j for j, (x, y) in enumerate(zip(got, want[i])) if x != y)
+            decode = eager_rows(torch, model, params, policy, prompts[i], [], want[i][:k],
+                                scfg.max_seq)[-1]
+            for path, row in (("decode", decode), ("replay", rows[k - kept])):
+                near_tie("phase 6h", row, want[i][k],
+                         f"request {g} parts from phase 3's tokens at {k}: phase 3's "
+                         f"{want[i][k]} against the replayed {got[k]} on the eager {path} path",
+                         against=got[k])
+    print(f"  phase 6h: a replay that lost the emitted tokens' K/V would fail {wrong[0]} of "
+          f"the {wrong[1]} later positions of the transplanted requests")
+    try:
+        eng.snapshot()
+    except AssertionError as e:
+        print(f"  snapshot of the degraded fleet refused: {e}")
+    else:
+        fail("phase 6h: a degraded fleet took a snapshot")
+    del eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def eager_rows(torch, model, params, policy, prompt, replayed, fed, max_seq):
+    """One request's logits, eagerly at batch 1, as a server computes them:
+    the prompt's 256-token chunks under ``policy``, then ``replayed`` (the
+    tokens emitted before a transplant, which the survivor re-ingests) as
+    one dense chunk, then ``fed`` one dense decode step each.  Returns the
+    logits row after the prompt or the replay chunk, then one after each fed
+    token: each row predicts the next token."""
+    from repro_torch.core.policy import DENSE
+
+    dense = DENSE.with_(use_kernels=policy.use_kernels)
+    cache = model.init_cache(1, max_seq)
+    for s in range(0, len(prompt), 256):
+        chunk = torch.from_numpy(prompt[s:s + 256][None, :].astype(np.int32)).cuda()
+        lg, cache = model.prefill_chunk(params, {"tokens": chunk}, cache, policy=policy)
+    if replayed:
+        toks = torch.tensor([replayed], dtype=torch.int32, device="cuda")
+        lg, cache = model.prefill_chunk(params, {"tokens": toks}, cache, policy=dense)
+    rows = [lg[0]]
+    for t in fed:
+        lg, cache = model.decode_step(params, torch.tensor([[t]], dtype=torch.int32,
+                                                           device="cuda"), cache, policy=dense)
+        rows.append(lg[0])
+    return rows
+
+
+def near_tie(label, row, tok, what="", against=None):
+    """Whether token ``tok`` is ``row``'s argmax (or the token ``against``,
+    when given) or within ``NEAR_TIE_ULPS`` ulp of its logit: one rounding of
+    the logits' own dtype at the largest |logit|.  With a ``label``, a token beyond that
+    fails the phase, and one that is not the argmax is printed."""
+    import torch
+
+    ref = int(row.argmax()) if against is None else against
+    big = float(row.abs().max())
+    ulp = torch.finfo(row.dtype).eps * 2.0 ** math.floor(math.log2(big))
+    gap = float(row[ref].float() - row[tok].float())
+    ok = abs(gap) <= NEAR_TIE_ULPS * ulp
+    if label is not None and tok != ref:
+        print(f"  {label}: {what}: token {tok}, {ref} leads it by {gap:.4f} "
+              f"({gap / ulp:.2f} ulp of {row.dtype} at the largest |logit| {big:.2f})")
+        if not ok:
+            fail(f"{label}: {what}: a lead of {gap} is more than {NEAR_TIE_ULPS} ulp ({ulp}): "
+                 "not a near-tie")
+    return ok
+
+
+# a near-tie between two tokens: their logits at most this many ulps of the
+# logits' dtype apart at the largest |logit| (bf16: 2^-5 at 4.34)
+NEAR_TIE_ULPS = 1
+
+
 def run_cli(torch, argv, label):
     """``repro_torch.launch.serve.main(argv)`` in this process, its output
     kept and echoed; the launch counts set to 0 just before and read just
@@ -1676,6 +1904,7 @@ def phase_cli(torch):
     from repro_torch.core.policy import paper_policy
 
     check_trace_cli(torch, "llama31_8b", "phase 6a")
+    check_trace_cli(torch, "llama31_8b", "phase 6a'", dp=2)
 
     out, launches, _ = run_cli(torch, ["--arch", "qwen2_7b", "--batch", "4", "--prompt-len",
                                        "512", "--new-tokens", "32"], "phase 6f")
@@ -1700,28 +1929,43 @@ TRACE_FLAGS = ["--trace", "--num-requests", "16", "--rate", "0.5", "--len-range"
                "--shared-prefix", "128", "--sparsity", "8:16"]
 
 
-def check_trace_cli(torch, arch: str, label: str):
+def check_trace_cli(torch, arch: str, label: str, dp: int = 1):
     """The ``--trace`` CLI at ``arch``'s full width with phase 6a's flags: rc
     0, its report lines echoed, every ``# traces:`` entry 1, one program per
     work iteration, prefix-cache hits, all 16 requests done, and the launch
-    counts exact (from the snapshot's buckets)."""
+    counts exact (from the snapshot's buckets).  ``dp`` > 1 (6a'): ``--dp``
+    replicas and no shared prefix (prefix affinity would send every request
+    to one replica): each replica served and captured each of its programs
+    once, and the launches are exact over the replicas."""
     from repro_torch.configs import get_config
     from repro_torch.core.policy import paper_policy
 
-    out, launches, met = run_cli(torch, ["--arch", arch] + TRACE_FLAGS, label)
+    flags = TRACE_FLAGS if dp == 1 else (TRACE_FLAGS[:TRACE_FLAGS.index("--shared-prefix")]
+                                         + TRACE_FLAGS[TRACE_FLAGS.index("--sparsity"):]
+                                         + ["--dp", str(dp)])
+    out, launches, met = run_cli(torch, ["--arch", arch] + flags, label)
     lines = out.splitlines()
     for line in lines:
         if line.startswith(("# throughput", "# latency", "# traces", "# dispatches",
-                            "# terminal", "# lifecycle", "# paged", "# prefix")):
+                            "# terminal", "# lifecycle", "# paged", "# prefix", "# replicas")):
             print(f"  {line}")
-    traces = next(line for line in lines if line.startswith("# traces:"))
-    counts = re.findall(r"(\w+)=(\d+)", traces.split("(")[0])
-    if not counts or any(n != "1" for _, n in counts):
-        fail(f"{label}: {traces}: every program must be captured once")
+    parts = met.replicas
+    if len(parts) != dp or not all(p.generated_tokens for p in parts):
+        fail(f"{label}: {len(parts)} replicas reported, generated "
+             f"{[p.generated_tokens for p in parts]}")
+    for i, p in enumerate(parts):
+        if not p.trace_counts or any(n != 1 for n in p.trace_counts.values()):
+            fail(f"{label}: replica {i}'s trace_counts {p.trace_counts}: every program must "
+                 "be captured once")
+    if dp == 1:
+        traces = next(line for line in lines if line.startswith("# traces:"))
+        counts = re.findall(r"(\w+)=(\d+)", traces.split("(")[0])
+        if not counts or any(n != "1" for _, n in counts):
+            fail(f"{label}: {traces}: every program must be captured once")
     if "1.00 per work iteration" not in out:
         fail(f"{label}: the fused path did not run one program per work iteration")
     hits = int(re.search(r"# prefix cache: hits=(\d+)", out).group(1))
-    if hits < 1:
+    if dp == 1 and hits < 1:
         fail(f"{label}: the prefix cache never hit on a 128-token shared prefix")
     if "ERROR" in out or "done=16 " not in out:
         fail(f"{label}: a request leaked or did not finish")
@@ -4135,6 +4379,31 @@ def phase_recurrent_kernels(torch, timer, rates, records):
                                  biased=False)
 
 
+# 2o: osparse_matmul at the shapes the W8A8 rewrite of RWKV6-7B (11e) and of
+# Whisper-medium (12e) gives it: (label, K, N_out, bias, rows)
+FAMILY_QUANT = (("RWKV6-7B r/k/v/g/o/up", 4096, 4096, False, DYADIC_ROWS),
+                ("RWKV6-7B gate", 4096, 14336, False, DYADIC_ROWS),
+                ("Whisper-medium q/v/o", 1024, 1024, True, (256, 1500)),
+                ("Whisper-medium fc1", 1024, 4096, True, (256, 1500)))
+
+
+def phase_family_int8_kernels(torch, timer, rates, records):
+    """2o: ``osparse_matmul`` (8:16 pruned, the static per-tensor scale) at
+    RWKV6-7B's 4096² and 4096 x 14336 at 256 rows and the dyadic tails 64, 8
+    and 1, and at Whisper-medium's biased 1024² and 1024 x 4096 at a
+    256-row chunk and the encoder's 1500 rows: bit-exact against its plain
+    version on its plan's route, timed beside its bound and ``torch._int_mm``
+    with the dequant (:func:`time_osparse_matmul`)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    rng = np.random.default_rng(SEED + 23)
+    keep = functools.partial(keep_case, records)
+    print("phase 2o: osparse_matmul at the W8A8 recurrent and encoder-decoder widths")
+    for label, d, n_out, biased, rows in FAMILY_QUANT:
+        for t in rows:
+            time_osparse_matmul(torch, timer, rates, g, rng, keep, label, d, n_out, t,
+                                prune=True, biased=biased)
+
+
 # 11b's two long requests (past RecurrentGemma-2B's 2048-row rings) and max_seq
 RG_LONG = (2300, 2600)
 RG_SEQ = 4096
@@ -4364,6 +4633,119 @@ def serve_recurrent(torch, label, arch, rates, stream_fn=None, chunk_pos=256,
     return launches, model, params, policy
 
 
+def quantize_family(torch, params, seed):
+    """``params`` rewritten in place to W8A8 under ``QuantConfig()`` from a
+    seeded calibration absmax for every projection site
+    (``weights.projection_sites``: its key, its input width); returns the
+    int8 weights' bytes."""
+    from repro_torch.core import quant
+    from repro_torch.weights import projection_sites, quantize_linears
+
+    rng = np.random.default_rng(seed)
+    absmax = {key: calib_absmax(rng, getattr(owner, name).w.shape[0])
+              for key, owner, name, _, _ in projection_sites(params)}
+    quantize_linears(params, absmax, quant.QuantConfig())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return sum(b.numel() for n_, b in params.named_buffers() if n_.endswith(".wq"))
+
+
+def family_launches(params, policy):
+    """Per-layer launch counts of a W8A8 model's projections, from the module
+    name each call passes and what the rewrite made of it: ``(every, first)``,
+    each ``[osparse_matmul, of them pruned, nm_prune_matmul]``.  ``every``
+    counts the projections of every step half (the pruned ones in a sparse
+    chunk only, ``nm_prune_matmul`` never in decode); ``first`` those of a
+    first chunk alone: the encoder-decoder's encoder and its cross k/v,
+    which later chunks and decode read from the cache."""
+    from repro_torch.layers.linear import QuantLinear
+    from repro_torch.weights import projection_sites
+
+    every, first = [0, 0, 0], [0, 0, 0]
+    for key, owner, name, module, layer in projection_sites(params):
+        q = isinstance(getattr(owner, name), QuantLinear)
+        p = policy.should_prune(module, layer)
+        once = params.cfg.is_encdec and (key[0] == "enc" or key[2] in (
+            "cross_attn.k_proj", "cross_attn.v_proj"))
+        acc = first if once else every
+        acc[0] += q
+        acc[1] += q and p
+        acc[2] += p and not q
+    return every, first
+
+
+# 11e and 12e: per-layer (every, first) launches under paper_policy and
+# QuantConfig(): RWKV6-7B's 7 quantized calls a layer (r/k/v/g as q_proj, o,
+# the channel mix's gate and up), 5 of them pruned, down on nm_prune_matmul;
+# Whisper-medium's decoder 7 a step half (self q/k/v/o, cross q/o, fc1; 3
+# pruned: self q, cross q, fc1; fc2 on nm_prune_matmul) and on a first chunk
+# its encoder's 5 (q/k/v/o, fc1; q and fc1 pruned; fc2) and cross k/v
+FAMILY_PER_LAYER = {"rwkv6-7b": ([7, 5, 1], [0, 0, 0]),
+                    "whisper-medium": ([7, 3, 1], [7, 2, 1])}
+
+
+def serve_quantized_family(torch, label, model, params, policy, stream_fn=None,
+                           extras_fn=None, **profile):
+    """11e (RWKV6-7B, 11a's weights) and 12e (Whisper-medium, 12a's): the
+    model rewritten in place to W8A8 under ``QuantConfig()`` from a seeded
+    calibration absmax, served as the float model was (:func:`serve_requests`
+    with its stream and stubs): launches exact (:func:`family_launches`,
+    held to ``FAMILY_PER_LAYER``), every ``osparse_matmul`` launch on its
+    wgmma or swap_fused route, tok/s and peak memory, a chunk and a decode
+    step profiled (``profile``: :func:`profile_steps`' positions), graphed
+    tokens equal to the eager programs'.  Returns the launches."""
+    from repro_torch.core import quant
+
+    cfg = model.cfg
+    qcfg = quant.QuantConfig()
+    print(f"phase {label}: serve {cfg.name} Outstanding-sparse at full size (W8A8 "
+          f"alpha={qcfg.alpha} outstanding={qcfg.outstanding} per_token={qcfg.per_token_act} "
+          f"skip_modules={qcfg.skip_modules}, a seeded calibration absmax; Amber 8:16 under "
+          "the paper policy), as the float model was served")
+    t0 = time.perf_counter()
+    n_q = quantize_family(torch, params, SEED + 20)
+    print(f"  rewrite in {time.perf_counter() - t0:.1f} s: {n_q / 1e9:.3f}B int8 weights; "
+          f"device memory held {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    every, first = family_launches(params, policy)
+    n_every = cfg.n_layers
+    n_first = cfg.n_encoder_layers if cfg.is_encdec else 0
+    per_layer = ([x // n_every for x in every], [x // max(n_first, 1) for x in first])
+    print(f"  per layer: every step half {per_layer[0]}, a first chunk alone {per_layer[1]} "
+          "(osparse_matmul, of them pruned, nm_prune_matmul)")
+    if per_layer != FAMILY_PER_LAYER[cfg.name] or any(
+            x % n_every for x in every) or any(x % max(n_first, 1) for x in first):
+        fail(f"phase {label}: launches a layer {per_layer}, expected "
+             f"{FAMILY_PER_LAYER[cfg.name]}")
+    launches, st, eng, outputs = serve_requests(torch, model, params, policy, f"phase {label}",
+                                                stream_fn=stream_fn, extras_fn=extras_fn)
+    rep = eng.replica
+    n_ex = sum(extras_fn(i) is not None for i in range(len(outputs))) if extras_fn else 0
+    halves = st["prefill_halves"] + st["decode_halves"]
+    check_launches(f"phase {label}", launches, {
+        "osparse_matmul": every[0] * halves + first[0] * n_ex,
+        "osparse_matmul (prune=True)": every[1] * st["sparse_chunks"] + first[1] * n_ex,
+        "nm_prune_matmul": every[2] * st["sparse_chunks"] + first[2] * n_ex,
+        "paged_kv_scatter": 0, "paged_attention": 0, "nm_prune": 0, "nm_spmm": 0,
+        "flash_attention": 0})
+    routes = {r: c for r, c in launches["osparse_matmul routes"].items() if c}
+    print(f"  launches held: osparse_matmul {every[0]} a step half"
+          + (f" + {first[0]} a first chunk" if n_ex else "") + f", {every[1]} pruned a sparse "
+          f"chunk, nm_prune_matmul {every[2]} a sparse chunk"
+          + (f" + {first[2]} a first chunk" if n_ex else "") + f"; by route {routes}")
+    if not routes or not set(routes) <= {"wgmma", "swap_fused"}:
+        fail(f"phase {label}: osparse_matmul launches by route {routes}, expected wgmma "
+             "(prefill) and swap_fused (decode) only")
+    print(f"phase {label}: profile a chunk and a decode step of {cfg.name} in W8A8")
+    results, eager = profile_steps(torch, model, params, policy, eng,
+                                   max_seq=rep.cfg.max_seq, **profile)
+    if not cfg.is_encdec:
+        recurrence_report(torch, results, eager)
+    del eng, rep
+    check_graphed_tokens(torch, model, params, policy, f"phase {label}", outputs,
+                         stream_fn=stream_fn, extras_fn=extras_fn)
+    return launches
+
+
 def phase_recurrent_oneshot(torch, model, params, policy):
     """11c: ``ServingEngine.generate`` of RecurrentGemma-2B (11b's weights)
     with ``attn_impl="flash"`` at B = 1, T = 4096 (past the 2048 window:
@@ -4501,16 +4883,74 @@ def phase_recurrent_parity(torch):
             torch.cuda.empty_cache()
 
 
+def recurrent_w8a8_parity(torch):
+    """11d, W8A8: both models at 11d's depths in float32, rewritten to W8A8
+    (:func:`quantize_family`), on 11d's prompts in exact dyadic chunks and 8
+    greedy decode steps, the kernel path (``osparse_matmul`` for every
+    quantized projection) against the plain path: per prompt, on the kernel
+    path's N:M selections and int8 codes (:func:`forced_selection_logits`),
+    greedy tokens identical and the last-chunk logits within
+    ``FORCED_W8A8_TOL`` of the largest (where the plain path's own codes
+    would have parted from the kernel's is printed,
+    :func:`print_code_parting`); free-running, the logits' difference
+    printed and, for RWKV6-7B, greedy tokens identical.
+    RecurrentGemma-2B's free-running paths part: its float32 selections
+    flip already (11d, 12% of the groups at layer 4 on its 2300-token
+    prompt, carried through the recurrent state)."""
+    for arch, depth in (("rwkv6_7b", 2), ("recurrentgemma_2b", 5)):
+        rng = np.random.default_rng(SEED + 16)
+        cfg, model, params, policy = recurrent_model(torch, arch, depth, SEED + 1, "float32")
+        quantize_family(torch, params, SEED + 21)
+        print(f"phase 11d: {cfg.name} in W8A8 (QuantConfig()), kernel path vs plain path, "
+              f"full width, depth {depth}, float32")
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                   for n in RECURRENT_PARITY_LENS[arch]]
+        max_seq = max(len(p) for p in prompts) + 16
+
+        def run(pol, ps=prompts):
+            out = [dyadic_greedy(torch, model, params, pol, p, 8, max_seq) for p in ps]
+            return [t for t, _ in out], [lg for _, lg in out]
+
+        got, got_logits = run(policy)
+        want, want_logits = run(policy.with_(use_kernels=False))
+        for i, (a, b) in enumerate(zip(got_logits, want_logits)):
+            print(f"  prompt {i} last-chunk logits, free-running: max_abs_err "
+                  f"{float((a - b).abs().max()):.3e}, largest |logit| {float(b.abs().max()):.3e}")
+        agree = sum(x == y for g, w in zip(got, want) for x, y in zip(g, w))
+        print(f"  free-running greedy tokens agree {agree}/{sum(len(g) for g in got)}")
+        if arch == "rwkv6_7b" and got != want:
+            fail(f"phase 11d W8A8: greedy tokens differ: kernel {got} vs plain {want}")
+        for i, prompt in enumerate(prompts):
+            codes = []
+            (ktoks, klogits), (ftoks, flogits) = forced_selection_logits(
+                torch, lambda pol: run(pol, [prompt]), policy, codes)
+            check_close(f"prompt {i} last-chunk logits against the plain path on the kernel "
+                        "path's N:M selections and int8 codes", klogits[0], flogits[0],
+                        FORCED_W8A8_TOL)
+            print_code_parting(codes)
+            if ktoks != ftoks:
+                fail(f"phase 11d W8A8: prompt {i}'s greedy tokens on the kernel path's "
+                     f"selections and codes differ: kernel {ktoks} vs plain {ftoks}")
+            print(f"  prompt {i}: greedy tokens on the kernel path's selections and codes "
+                  f"identical: {ktoks}")
+            del codes
+        del model, params
+        torch.cuda.empty_cache()
+
+
 def phase_recurrent(torch, rates):
     """Phase 11: the recurrent families, after phase 10 freed its models.
-    Returns the launches of 11a, 11b and 11c, by run."""
+    Returns the launches of 11a, 11e, 11b and 11c, by run."""
     free_device(torch, "before phase 11 (phase 10 freed)")
     seconds, runs = {}, {}
     t0 = time.perf_counter()
-    runs["11a"], model, params, _ = serve_recurrent(torch, "11a", "rwkv6_7b", rates)
-    del model, params
-    free_device(torch, "after 11a")
+    runs["11a"], model, params, policy = serve_recurrent(torch, "11a", "rwkv6_7b", rates)
     seconds["11a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runs["11e"] = serve_quantized_family(torch, "11e", model, params, policy)
+    del model, params
+    free_device(torch, "after 11e")
+    seconds["11e"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     runs["11b"], model, params, policy = serve_recurrent(
         torch, "11b", "recurrentgemma_2b", rates, stream_fn=rg_stream, chunk_pos=2304,
@@ -4523,6 +4963,7 @@ def phase_recurrent(torch, rates):
     seconds["11c"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     phase_recurrent_parity(torch)
+    recurrent_w8a8_parity(torch)
     free_device(torch, "after 11d")
     seconds["11d"] = time.perf_counter() - t0
     print(f"phase 11 seconds: {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}")
@@ -4989,6 +5430,55 @@ def modality_parity(torch, arch):
         torch.cuda.empty_cache()
 
 
+def whisper_w8a8_parity(torch):
+    """12d, W8A8: Whisper-medium at depth 2 in float32, rewritten to W8A8
+    (:func:`quantize_family`), 12d's prompts with their stubs, each prompt's
+    last-chunk logits: the kernel path against the plain path run on the
+    kernel path's N:M selections and int8 codes
+    (:func:`forced_selection_logits`) within ``FORCED_W8A8_TOL`` of the
+    largest, where the plain path's own codes would have parted printed
+    (:func:`print_code_parting`); the free-running paths' difference printed
+    (its encoder's near-ties flip, ROADMAP C.6)."""
+    cfg, model, params, policy = modality_model(torch, "whisper_medium", 2, SEED + 1,
+                                                "float32")
+    quantize_family(torch, params, SEED + 21)
+    print(f"phase 12d: {cfg.name} in W8A8 (QuantConfig()), kernel path vs plain path on the "
+          "kernel path's selections, full width, depth 2, float32")
+    rng = np.random.default_rng(SEED + 19)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in MODALITY_PARITY_LENS]
+    stubs = stub_fn(model)
+
+    def chunk_logits(pol, ids=range(len(prompts))):
+        logits = []
+        for i in ids:
+            prompt = prompts[i]
+            cache = model.init_cache(1, 624)
+            for s in range(0, len(prompt), 256):
+                batch = {"tokens": torch.from_numpy(prompt[s:s + 256][None, :]).cuda()}
+                if s == 0:
+                    batch.update({k: torch.from_numpy(v).cuda() for k, v in stubs(i).items()})
+                lg, cache = model.prefill_chunk(params, batch, cache, policy=pol)
+            logits.append(lg)
+        return logits
+
+    free = chunk_logits(policy.with_(use_kernels=False))
+    for i in range(len(prompts)):
+        codes = []
+        (a,), (b,) = forced_selection_logits(torch, lambda pol: chunk_logits(pol, [i]), policy,
+                                             codes)
+        check_close(f"prompt {i} last-chunk logits against the plain path on the kernel "
+                    "path's N:M selections and int8 codes", a, b, FORCED_W8A8_TOL)
+        print_code_parting(codes)
+        c = free[i]
+        print(f"  prompt {i}: free-running paths' max_abs_err {float((a - c).abs().max()):.3e}"
+              f" of largest |logit| {float(c.abs().max()):.3e}; greedy token "
+              f"{int(a.argmax())} vs {int(c.argmax())}")
+        del codes
+    del model, params
+    torch.cuda.empty_cache()
+
+
 def first_parting(torch, run):
     """Where the kernel path's and the plain path's N:M selections first
     part.  ``run(use_kernels)`` drives one computation on one path; every
@@ -5034,44 +5524,105 @@ def first_parting(torch, run):
     return None
 
 
-def forced_selection_logits(torch, logits_fn, policy):
+def forced_selection_logits(torch, logits_fn, policy, codes=None):
     """``logits_fn(policy)`` on the kernel path, recording every pruned float
-    projection's per-token keep mask (``core.nm.nm_topk_mask`` of
-    |x|·scale: the kernel's own selection, bit-exact on equal inputs), then
-    on the plain path with ``core.pruner.prune_input`` applying those masks
-    in the same call order: the two paths' arithmetic, end to end, on one
-    set of N:M selections.  Returns (kernel logits, forced plain logits)."""
-    from repro_torch.core import nm, pruner, scoring
-    from repro_torch.layers.linear import Linear
+    projection's per-token keep mask (``core.nm.nm_topk_mask`` of |x|·scale:
+    the kernel's own selection, bit-exact on equal inputs) and every W8A8
+    projection's int8 codes and activation scale (``osparse_quantize``,
+    bit-exact with the kernel's own quantize pass, its N:M selection of
+    ``x / smooth`` included), then on the plain path with
+    ``core.pruner.prune_input`` applying those masks and
+    ``osparse_quantize_plain`` returning those codes, in the same call
+    order: the two paths' arithmetic, end to end, on one set of discrete
+    choices (the int32 GEMM of equal codes is exact; what is left is float
+    arithmetic).  Returns (kernel logits, forced plain logits).  ``codes``
+    (a list): every W8A8 call's smoothed input and int8 codes on each path,
+    the plain path's its own (on the forced N:M selection), appended as
+    ``(module, (xs, xq) kernel path, (xs, xq) plain path)`` for
+    :func:`print_code_parting`."""
+    from repro_torch.core import nm, pruner, quant, scoring
+    from repro_torch.kernels import osparse_matmul as kos
+    from repro_torch.layers.linear import Linear, QuantLinear
 
-    masks = []
+    masks, kcodes, pcodes = [], [], []
 
     def record(x, p, module, pol, phase, layer):
-        if isinstance(p, Linear) and pol.active(phase) and pol.should_prune(module, layer):
+        prune = pol.active(phase) and pol.should_prune(module, layer)
+        if isinstance(p, QuantLinear):
+            x2 = x.reshape(-1, x.shape[-1]).contiguous()
+            xs = x2.float() / p.smooth
+            mask = (nm.nm_topk_mask(scoring.score_activations(xs, p.amber_scale), pol.n, pol.m)
+                    if prune else None)
+            xq, scale = kos.osparse_quantize(x2, p.smooth, p.amber_scale, pol.n, pol.m,
+                                             None if p.per_token else p.act_scale, prune,
+                                             p.per_token)
+            kcodes.append((module, xs if codes is not None else None, mask, xq, scale))
+        elif isinstance(p, Linear) and prune:
             masks.append(nm.nm_topk_mask(scoring.score_activations(x, p.amber_scale),
                                          pol.n, pol.m))
 
     with spy_projections(record):
         got = logits_fn(policy)
-    order = iter(masks)
-    real = pruner.prune_input
+    order, qorder = iter(masks), iter(kcodes)
+    real, real_q = pruner.prune_input, kos.osparse_quantize_plain
 
     def forced(x, scale, pol):
         return torch.where(next(order), x, torch.zeros((), dtype=x.dtype, device=x.device))
 
-    pruner.prune_input = forced
+    def forced_q(x, smooth, amber, n, m, act_scale=None, prune=True, per_token=False):
+        module, xk, mask, xq, scale = next(qorder)
+        xs = (x.float() / smooth).reshape(xq.shape) if x.numel() == xq.numel() else None
+        if xs is None or (mask is not None) != prune:
+            fail(f"forced selections: W8A8 call {len(pcodes)} ({module}) is not the kernel "
+                 "path's call there")
+        if codes is not None:
+            own = torch.where(mask, xs, torch.zeros_like(xs)) if prune else xs
+            own = (quant.quantize_act_per_token(own)[0] if per_token else
+                   quant.quantize_act_per_tensor(own, act_scale))
+            pcodes.append((xs, own))
+        if per_token:
+            return xq.reshape(x.shape), scale.reshape(*x.shape[:-1], 1)
+        return xq.reshape(x.shape), act_scale
+
+    pruner.prune_input, kos.osparse_quantize_plain = forced, forced_q
     try:
         want = logits_fn(policy.with_(use_kernels=False))
     finally:
-        pruner.prune_input = real
-    if next(order, None) is not None:
-        fail("forced selections: the plain path pruned fewer projections than the kernel path")
+        pruner.prune_input, kos.osparse_quantize_plain = real, real_q
+    if next(order, None) is not None or next(qorder, None) is not None:
+        fail("forced selections: the plain path made fewer projection calls than the kernel "
+             "path")
+    if codes is not None:
+        codes.extend((m, (xs, xq), p) for (m, xs, _, xq, _), p in zip(kcodes, pcodes))
     return got, want
+
+
+def print_code_parting(codes):
+    """A diagnostic: print the first W8A8 call of
+    :func:`forced_selection_logits`' ``codes`` where the plain path's own
+    int8 codes differ from the kernel path's (which the plain path was
+    given): its module, the codes that differ and their largest step, and
+    the smoothed inputs' max |difference| and largest |value|."""
+    for i, (module, (xk, ck), (xp, cp)) in enumerate(codes):
+        diff = ck.int() - cp.int()
+        if bool(diff.any()):
+            print(f"    the plain path's own int8 codes would first part at W8A8 call {i} of "
+                  f"{len(codes)} ({module}): {int((diff != 0).sum())} of {diff.numel()} "
+                  f"codes, by at most {int(diff.abs().max())} step, on smoothed inputs "
+                  f"{float((xk - xp).abs().max()):.3e} of {float(xp.abs().max()):.3e} apart")
+            return
+    print(f"    the plain path's own int8 codes equal the kernel path's in all {len(codes)} "
+          "W8A8 calls")
+
+
+# W8A8 on forced selections and codes: no discrete choice is left to part
+# the paths, so their logits are held far tighter than 12d's free-running 2%
+FORCED_W8A8_TOL = 1e-3
 
 
 def phase_modality(torch, rates):
     """Phase 12: the modality families, after phase 11 freed its models.
-    Returns the launches of 12a, 12b and 12c, by run."""
+    Returns the launches of 12a, 12b, 12e and 12c, by run."""
     free_device(torch, "before phase 12 (phase 11 freed)")
     seconds, runs = {}, {}
     t0 = time.perf_counter()
@@ -5079,9 +5630,14 @@ def phase_modality(torch, rates):
     seconds["12a"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     runs["12b"] = phase_whisper_oneshot(torch, model, params, policy)
-    del model, params
-    free_device(torch, "after 12b")
     seconds["12b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runs["12e"] = serve_quantized_family(torch, "12e", model, params, policy,
+                                         stream_fn=whisper_stream, extras_fn=stub_fn(model),
+                                         extras=stub_fn(model)(8))
+    del model, params
+    free_device(torch, "after 12e")
+    seconds["12e"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     runs["12c"], model, params, _ = serve_modality(torch, "12c", "qwen2_vl_2b", rates)
     del model, params
@@ -5090,6 +5646,7 @@ def phase_modality(torch, rates):
     t0 = time.perf_counter()
     for arch in ("whisper_medium", "qwen2_vl_2b"):
         modality_parity(torch, arch)
+    whisper_w8a8_parity(torch)
     free_device(torch, "after 12d")
     seconds["12d"] = time.perf_counter() - t0
     print(f"phase 12 seconds: {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}")
@@ -5143,12 +5700,15 @@ def main() -> int:
     phase_window_kernels(torch, timer, rates, records)
     phase_recurrent_kernels(torch, timer, rates, records)
     phase_modality_kernels(torch, timer, rates, records)
+    phase_family_int8_kernels(torch, timer, rates, records)
     del timer
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
     launches, model, params, policy, outputs, phase3 = serve_dense(torch, "3", "llama31_8b")
     t3 = time.perf_counter()
     phase_lifecycle(torch, model, params, policy, outputs)
+    t3g = time.perf_counter()
+    r_launches6g = phase_replicas(torch, model, params, policy, outputs)
     t3b = time.perf_counter()
     q_launches = phase_serve_osparse(torch, model, params, policy)
     del model, params
@@ -5180,7 +5740,8 @@ def main() -> int:
     print(f"phase seconds: build {t1 - t:.1f}, kernels {t2 - t1:.1f}, serve {t3 - t2:.1f}, "
           f"serve osparse {t4 - t3b:.1f}, parity {t5 - t4:.1f}, one-shot serve {t6 - t5:.1f}, "
           f"one-shot parity {t7 - t6:.1f}, serve CLI and serving lifecycle "
-          f"{t8 - t7 + t3b - t3:.1f} (6b-6e {t3b - t3:.1f}, 6a and 6f {t8 - t7:.1f}), "
+          f"{t8 - t7 + t3b - t3:.1f} (6b-6e {t3g - t3:.1f}, 6g and 6h {t3b - t3g:.1f}, "
+          f"6a, 6a' and 6f {t8 - t7:.1f}), "
           f"MoE {t9 - t8:.1f}, dense variants {t10 - t9:.1f}, layer skipping {t11 - t10:.1f}, "
           f"Mixtral and the slab {t12 - t11:.1f}, the recurrent families {t13 - t12:.1f}, "
           f"the modality families {t14 - t13:.1f}")
@@ -5194,10 +5755,12 @@ def main() -> int:
     from repro_torch.kernels import w8a8_matmul as kw8
     # launches: each kernel's count in the run of the path that first served
     # it (phase 3, 3b, 5 or 7a); launches_by_run: its count in each main-path
-    # run, each counted from 0, that launched it; phases 6a, 7d and 10d's CLI
+    # run, each counted from 0, that launched it (6g over both replicas);
+    # phases 6a, 6a', 7d and 10d's CLI
     # runs drive phase 3's and 7a's kernels again and print their own counts;
     # w8a8_matmul is an entry point that no serving path calls
-    runs = {"3": launches, "3b": q_launches, "5": o_launches, "7a": m_launches,
+    runs = {"3": launches, "3b": q_launches, "5": o_launches, "6g": r_launches6g,
+            "7a": m_launches,
             "7e": mq_launches, **s_launches, **x_launches, **r_launches, **md_launches}
     meta = {
         "nm_prune_matmul": (knm.SOURCE, knm.REPLACES, "3"),

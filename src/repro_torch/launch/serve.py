@@ -24,7 +24,10 @@ differences:
   Asked for ``cuda`` without a GPU, the CLI raises; it never goes on on
   the CPU.
 * No ``--pallas-kernels``.
-* ``--dp``/``--tp`` above 1 (the router and tensor parallelism) raise
+* ``--dp N`` serves ``--trace`` on ``N`` replicas behind the router
+  (``serve/router.py``), one after another on the one card, and reports
+  each replica's tokens, iterations and dispatches per iteration, as the
+  JAX CLI does; ``--tp`` above 1 (tensor parallelism) raises
   ``NotImplementedError``.
 * ``--no-paged`` serves ``--trace`` on the dense per-slot slab, as the JAX
   CLI does; a sliding-window model (``mixtral_8x7b``) is served there
@@ -121,15 +124,16 @@ def run(argv=None):
                          "and decode programs) instead of the fused "
                          "one-dispatch step program")
     ap.add_argument("--dp", type=int, default=1,
-                    help="data-parallel replicas (not ported: > 1 raises)")
+                    help="data-parallel engine replicas behind the router (--trace), "
+                         "one after another on the one device")
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel shards (not ported: > 1 raises)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.dp != 1 or args.tp != 1:
-        raise NotImplementedError("--dp/--tp > 1 (the router, tensor parallelism) "
-                                  "is not ported yet: ROADMAP.md A7")
+    if args.tp != 1:
+        raise NotImplementedError("--tp > 1 (tensor parallelism) is not ported yet: "
+                                  "ROADMAP.md A4")
 
     import time
 
@@ -200,7 +204,7 @@ def _trace_mode(args, cfg, model, params, policy):
     max_seq = hi + args.new_tokens + 8 + args.shared_prefix
 
     eng = Engine.from_config(model, EngineConfig(
-        serving=ContinuousConfig(
+        dp=args.dp, serving=ContinuousConfig(
             max_seq=max_seq, num_slots=args.slots, chunk_size=args.chunk,
             temperature=args.temperature, seed=args.seed,
             paged=not args.no_paged, block_size=args.block_size,
@@ -221,7 +225,7 @@ def _trace_mode(args, cfg, model, params, policy):
             extras[rid] = ex
 
     eng.run(params, extras=extras)
-    m = eng.metrics          # typed MetricsSnapshot
+    m = eng.metrics          # typed MetricsSnapshot, merged over the replicas
     print(f"# {args.num_requests} requests, λ={args.rate}/iter, "
           f"lens {lo}..{hi}, slots={args.slots}, chunk={args.chunk}, "
           f"dp={args.dp}, tp={args.tp} "
@@ -262,6 +266,9 @@ def _trace_mode(args, cfg, model, params, policy):
           f"{m.iterations} iterations = "
           f"{m.dispatches_per_iteration:.2f} per work iteration "
           f"({'fused one-dispatch step' if not args.no_fused_step else 'legacy two-program split'})")
+    per = ", ".join(f"r{i}: {p.generated_tokens} tok / {p.iterations} iters / "
+                    f"dpi {p.dispatches_per_iteration:.2f}" for i, p in enumerate(m.replicas))
+    print(f"# replicas ({len(m.replicas)}): {per}")
     pg = m.paged
     if not pg.enabled:
         print("# paged KV: disabled (dense per-slot slab)")
@@ -269,7 +276,7 @@ def _trace_mode(args, cfg, model, params, policy):
     print(f"# paged KV: block_size={pg.block_size} "
           f"pool={pg.num_blocks} blocks "
           f"({pg.num_blocks * pg.block_size} rows vs "
-          f"{args.slots * max_seq} dense-slab rows); "
+          f"{args.slots * max_seq * args.dp} dense-slab rows); "
           f"peak_in_use={pg.peak_blocks_in_use} "
           f"preemptions={pg.preemptions} "
           f"rejections={pg.rejections}; "

@@ -2,40 +2,52 @@
 
     from repro_torch.serve.api import Engine, EngineConfig
 
-    eng = Engine.from_config(model, EngineConfig(serving=...), policy=...)
+    eng = Engine.from_config(model, EngineConfig(dp=2, serving=...), policy=...)
     rid = eng.submit(prompt_tokens, max_new_tokens=32)
     res = eng.run(params)                # res["outputs"][rid]
     print(eng.metrics.to_json(indent=2))
 
-One replica on one device: ``dp == tp == 1``; the router and tensor
-parallelism are not ported yet and raise ``NotImplementedError``.  The
-engine runs on the model's device, which is the GPU unless ``device="cpu"``
-is named.
+``EngineConfig`` holds the per-replica :class:`ContinuousConfig` and the
+parallel layout.  ``dp`` replicas sit behind a
+:class:`~repro_torch.serve.router.Router` at every ``dp``, as in the
+reference: each an independent Scheduler + Executor with its own slots,
+block pool and CUDA graphs, all on the model's device (one card), sharing
+its weights.  ``tp > 1`` (tensor parallelism) is not ported and raises
+``NotImplementedError``.  The engine runs on the model's device, which is
+the GPU unless ``device="cpu"`` is named.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.policy import DENSE, SparsityPolicy
 from repro_torch.models.model import resolve_device
 from repro_torch.serve.continuous import ContinuousConfig, ContinuousServingEngine
 from repro_torch.serve.faults import FaultInjector
 from repro_torch.serve.metrics import MetricsSnapshot
+from repro_torch.serve.router import Router
 
 __all__ = ["EngineConfig", "Engine"]
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    dp: int = 1
-    tp: int = 1
+    """Serving-wide configuration: parallel layout + per-replica knobs."""
+    dp: int = 1                    # data-parallel engine replicas
+    tp: int = 1                    # tensor-parallel shards per replica (not ported)
     serving: ContinuousConfig = ContinuousConfig()
+
+    def __post_init__(self):
+        assert self.dp >= 1 and self.tp >= 1, "dp/tp must be positive"
 
 
 class Engine:
-    def __init__(self, replica: ContinuousServingEngine, cfg: EngineConfig):
-        self._replica = replica
+    """User-facing serving engine: a :class:`Router` with a typed config and
+    a :class:`MetricsSnapshot`-returning metrics surface."""
+
+    def __init__(self, router: Router, cfg: EngineConfig):
+        self._router = router
         self.cfg = cfg
 
     @classmethod
@@ -43,32 +55,30 @@ class Engine:
                     policy: SparsityPolicy = DENSE,
                     faults: Optional[FaultInjector] = None,
                     device=None) -> "Engine":
-        """Build the serving stack for ``model`` on ``device`` (default: the
+        """Build ``cfg.dp`` replicas for ``model`` on ``device`` (default: the
         GPU, raising if there is none); the model must live there.
-        ``faults`` is consulted at the fault sites (``serve/faults.py``)."""
-        if cfg.dp != 1 or cfg.tp != 1:
-            raise NotImplementedError("dp/tp > 1 (router, tensor parallelism) "
-                                      "is not ported yet")
+        ``faults`` is consulted at the fault sites (``serve/faults.py``),
+        one injector for the whole fleet."""
+        if cfg.tp != 1:
+            raise NotImplementedError("tp > 1 (tensor parallelism) is not ported yet: "
+                                      "ROADMAP.md A4")
         dev = resolve_device(device)
         if model.device.type != dev.type:
             raise ValueError(f"model is on {model.device}, engine asked for {dev}")
-        return cls(ContinuousServingEngine(model, policy, cfg.serving, faults=faults),
-                   cfg)
+        return cls(Router(model, policy, cfg.serving, dp=cfg.dp, faults=faults), cfg)
 
+    # ------------------------------------------------------------ requests
     def submit(self, tokens, max_new_tokens: int = 32, arrival: int = 0,
                ttl: Optional[int] = None) -> int:
-        return self._replica.submit(tokens, max_new_tokens, arrival, ttl)
+        return self._router.submit(tokens, max_new_tokens, arrival, ttl)
 
     def cancel(self, rid: int) -> bool:
-        return self._replica.cancel(rid)
+        return self._router.cancel(rid)
 
     def run(self, params, extras: Optional[Dict[int, Dict]] = None) -> Dict:
         """Serve every submitted request; ``extras`` maps request id →
         modality arrays sent with its first prefill chunk."""
-        return self._replica.run(params, extras=extras)
-
-    def clear(self) -> None:
-        self._replica.clear()
+        return self._router.run(params, extras=extras)
 
     def generate(self, params, prompts: Sequence, max_new_tokens: int = 32
                  ) -> List[List[int]]:
@@ -78,20 +88,40 @@ class Engine:
         res = self.run(params)
         return [res["outputs"][r] for r in rids]
 
+    # ------------------------------------------------------------- observe
     @property
     def metrics(self) -> Optional[MetricsSnapshot]:
-        """The last ``run()``'s metrics (None before one)."""
-        return self._replica.metrics_snapshot
+        """Merged fleet metrics of the last ``run()`` (None before one);
+        the replicas' own under ``replicas``."""
+        return self._router.metrics_snapshot
 
     def request_state(self, rid: int) -> str:
-        return self._replica.requests[rid].state
+        return self._router.request_state(rid)
 
-    def snapshot(self) -> Dict[str, Any]:
-        return self._replica.snapshot()
-
-    def restore(self, snap: Dict[str, Any]) -> None:
-        self._replica.restore(snap)
+    @property
+    def replicas(self) -> Tuple[ContinuousServingEngine, ...]:
+        """The per-replica engines (read-only introspection)."""
+        return tuple(self._router.replicas)
 
     @property
     def replica(self) -> ContinuousServingEngine:
-        return self._replica
+        """The one replica of a ``dp == 1`` engine (``replicas`` at any dp)."""
+        if self.cfg.dp != 1:
+            raise ValueError(f"dp={self.cfg.dp}: Engine.replicas holds the replicas")
+        return self._router.replicas[0]
+
+    # ---------------------------------------------------- state management
+    def snapshot(self) -> Dict[str, Any]:
+        return self._router.snapshot()
+
+    @property
+    def last_snapshot(self) -> Optional[Dict[str, Any]]:
+        """The fleet's last periodic snapshot (``snapshot_every``), for
+        :meth:`restore` into a new engine after an ``EngineCrash``."""
+        return self._router.last_snapshot
+
+    def restore(self, snap: Dict[str, Any]) -> None:
+        self._router.restore(snap)
+
+    def clear(self) -> None:
+        self._router.clear()

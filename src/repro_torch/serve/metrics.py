@@ -152,11 +152,11 @@ class MetricsSnapshot:
     @classmethod
     def merge(cls, parts: List["MetricsSnapshot"],
               wall_s: Optional[float] = None) -> "MetricsSnapshot":
-        """Merge of per-replica snapshots, as the JAX package's router
-        merges them (the port has no router yet): counters and buckets
-        sum, request records concatenate (already relabeled to global
-        rids), ``dispatches_per_iteration`` is the max across replicas,
-        and the parts are kept under ``replicas``."""
+        """Merge of per-replica snapshots (``serve.router.Router.run``):
+        counters, trace counts and buckets sum, request records
+        concatenate (already relabeled to global rids),
+        ``dispatches_per_iteration`` is the max across replicas, and the
+        parts are kept under ``replicas``."""
         assert parts, "nothing to merge"
         wall = wall_s if wall_s is not None else max(
             p.wall_s for p in parts)

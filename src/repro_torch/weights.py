@@ -34,9 +34,11 @@ the dense family's.
 
 ``quantize_linears(model, absmax, qcfg)`` applies the offline
 SmoothQuant / Outstanding rewrite (``core.quant.make_quantized_linear``) to
-the projections ``qcfg`` quantizes and frees their float weights (in an
-MoE block: the attention projections and the shared expert's); the
-recurrent families and the encoder-decoder are not quantized yet.
+the projections ``qcfg`` quantizes and frees their float weights, in every
+family: dense and MoE blocks (the attention projections and the MLP's or
+the shared expert's), RWKV6 and RG-LRU layers, and the encoder-decoder's
+two stacks.  ``absmax`` is keyed by each projection's place
+(:func:`projection_sites`).
 
 This module imports nothing of JAX: it sees only numpy arrays.
 """
@@ -49,12 +51,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
-from repro_torch.core.policy import ALL_PROJS, MLP_PROJS
+from repro_torch.core.policy import ATTN_PROJS, MLP_PROJS
 from repro_torch.core.pruner import SCALE_KEY
 from repro_torch.layers.linear import Linear, QuantLinear
 from repro_torch.models import common, encdec, transformer
 
-__all__ = ["from_jax_params", "quantize_linears"]
+__all__ = ["from_jax_params", "projection_sites", "quantize_linears"]
 
 
 def _t(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -204,42 +206,95 @@ def _load_moe(p, lp: Dict, dtype, device) -> None:
             _load_linear(p.shared, name, lp["shared"][name], dtype, device)
 
 
-def _projections(blk):
-    """(owner, name) of every ``Linear`` projection of a block: q/k/v/o, then
-    the MLP's gate/up/down, or an MoE block's shared expert's (the routed
-    experts are ``moe.Experts`` parameters, not projections)."""
-    ffn = blk.moe.shared if hasattr(blk, "moe") else blk.mlp
-    for name in ALL_PROJS:
-        owner = blk if name not in MLP_PROJS else ffn
-        if owner is not None:
-            yield owner, name
+# an RWKV6 layer's projections: (sub-block, attribute, the module name its
+# ``sparse_linear`` call passes); W_A/W_B of the decay are plain float products
+_RWKV6 = (("tm", "r_proj", "q_proj"), ("tm", "k_proj_tm", "q_proj"),
+          ("tm", "v_proj_tm", "q_proj"), ("tm", "g_proj", "q_proj"), ("tm", "o_proj", "o_proj"),
+          ("cm", "gate_proj", "gate_proj"), ("cm", "down_proj", "down_proj"),
+          ("cm", "up_proj", "up_proj"))
+# an RG-LRU block's: W_in, W_gate and W_out; gate_a/gate_x and the conv stay float32
+_RGLRU = ("q_proj", "gate_proj", "o_proj")
+
+
+def projection_sites(model):
+    """Every projection the W8A8 rewrite may take, as ``(key, owner,
+    attribute, module, layer)``: ``module`` is the name its ``sparse_linear``
+    call passes (what ``QuantConfig.should_quantize`` sees), ``layer`` the
+    index ``skip_layers`` is held to (None in the encoder-decoder), and
+    ``key`` its ``absmax`` key, its place in the module tree:
+
+    * an attention block: ``(i, name)`` for q/k/v/o and the MLP's (or an MoE
+      block's shared expert's) gate/up/down; the routed experts are
+      ``moe.Experts`` parameters, not projections;
+    * an RWKV6 layer: ``(i, "tm.r_proj")``, ``"tm.k_proj_tm"``,
+      ``"tm.v_proj_tm"``, ``"tm.g_proj"`` (module ``q_proj``),
+      ``"tm.o_proj"``, ``"cm.gate_proj"``, ``"cm.down_proj"``,
+      ``"cm.up_proj"``;
+    * an RG-LRU layer: ``(i, "rglru.q_proj")``, ``"rglru.gate_proj"``,
+      ``"rglru.o_proj"``, and its MLP's as an attention block's;
+    * the encoder-decoder: ``("enc", i, "attn.<name>")``, ``("enc", i,
+      "ff.<name>")``, ``("dec", i, "self_attn.<name>")``, ``("dec", i,
+      "cross_attn.<name>")``, ``("dec", i, "ff.<name>")`` (fc1 and fc2 are
+      ``gate_proj`` and ``down_proj``)."""
+    cfg = model.cfg
+    if cfg.is_encdec:
+        for stack, blocks, parts in (("enc", model.enc_blocks, ("attn", "ff")),
+                                     ("dec", model.dec_blocks, ("self_attn", "cross_attn", "ff"))):
+            for i, blk in enumerate(blocks):
+                for part in parts:
+                    names = ("gate_proj", "down_proj") if part == "ff" else ATTN_PROJS
+                    for name in names:
+                        yield (stack, i, f"{part}.{name}"), getattr(blk, part), name, name, None
+        return
+    for i, (kind, blk) in enumerate(zip(transformer.layer_kinds(cfg), model.blocks)):
+        if kind == "rwkv6":
+            for part, name, module in _RWKV6:
+                yield (i, f"{part}.{name}"), getattr(blk.rwkv, part), name, module, i
+            continue
+        if kind == "rglru":
+            for name in _RGLRU:
+                yield (i, f"rglru.{name}"), blk.rglru, name, name, i
+        else:
+            for name in ATTN_PROJS:
+                yield (i, name), blk, name, name, i
+        ffn = blk.moe.shared if hasattr(blk, "moe") else blk.mlp
+        if ffn is not None:
+            for name in MLP_PROJS:
+                yield (i, name), ffn, name, name, i
 
 
 @torch.no_grad()
-def quantize_linears(model: transformer.Transformer,
-                     absmax: Dict[Tuple[int, str], torch.Tensor],
-                     qcfg: quant.QuantConfig) -> transformer.Transformer:
-    """Replace every projection ``qcfg.should_quantize(module, layer)`` with
-    its :class:`QuantLinear` (``absmax[(layer, module)]`` is the ``(d_in,)``
-    calibrated activation absmax), keeping its Amber scale and bias, and
-    free the float weight; the int8 weights are stored K-major
-    (``quant.k_major``), one buffer each.  Amber scales are computed from the float
-    weights, so run ``precompute_scales`` first.  In place; returns
-    ``model``.  In an MoE block the attention projections and the shared
-    expert's are quantized; the routed experts stay in the model dtype, as
-    the reference's do (``repro/models/moe.py`` has no quantized grouped
-    product).  A recurrent model or an encoder-decoder raises
-    ``NotImplementedError``: their W8A8 rewrite is not ported yet."""
-    if model.cfg.block_pattern != ("attn",) or model.cfg.is_encdec:
-        raise NotImplementedError(f"{model.cfg.name}: W8A8 of the recurrent families and of "
-                                  "the encoder-decoder is not ported yet")
-    for i, blk in enumerate(model.blocks):
-        for owner, name in _projections(blk):
-            lin = getattr(owner, name)
-            if not isinstance(lin, Linear) or not qcfg.should_quantize(name, i):
-                continue
-            am = torch.as_tensor(absmax[(i, name)], device=lin.w.device)
-            ql = quant.make_quantized_linear(lin.w, am, qcfg)
-            setattr(owner, name, QuantLinear(
-                ql, lin.amber_scale, None if lin.b is None else lin.b.detach()))
+def quantize_linears(model, absmax: Dict[Tuple, torch.Tensor],
+                     qcfg: quant.QuantConfig):
+    """Replace every projection ``qcfg.should_quantize(module, layer)``
+    selects with its :class:`QuantLinear` (``absmax[key]`` is the ``(d_in,)``
+    calibrated activation absmax; keys, modules and layers as
+    :func:`projection_sites` gives them), keeping its Amber scale and bias,
+    and free the float weight; the int8 weights are stored K-major
+    (``quant.k_major``), one buffer each.  Amber scales are computed from
+    the float weights, so run ``precompute_scales`` first.  In place;
+    returns ``model``.
+
+    In an MoE block the routed experts stay in the model dtype, as the
+    reference's do (``repro/models/moe.py`` has no quantized grouped
+    product).  Under ``QuantConfig()`` (``down_proj`` skipped) an RWKV6
+    layer keeps its channel mix's value projection and the encoder-decoder
+    its fc2 in the model dtype.  ``skip_layers``: the reference's recurrent
+    and encoder-decoder calls pass no layer index, so its stacked trees
+    give every layer the same choice and only ``skip_layers=()`` has a
+    reference there.  The port honours a non-empty one by block index in the
+    RWKV6 and RG-LRU models, as in the dense family; in the encoder-decoder,
+    where a layer index names nothing (two stacks, each numbered from 0), a
+    non-empty one raises ``ValueError``."""
+    if model.cfg.is_encdec and qcfg.skip_layers:
+        raise ValueError(f"{model.cfg.name}: skip_layers {qcfg.skip_layers} names no layer of "
+                         "the encoder-decoder's two stacks")
+    for key, owner, name, module, layer in list(projection_sites(model)):
+        lin = getattr(owner, name)
+        if not isinstance(lin, Linear) or not qcfg.should_quantize(module, layer):
+            continue
+        am = torch.as_tensor(absmax[key], device=lin.w.device)
+        ql = quant.make_quantized_linear(lin.w, am, qcfg)
+        setattr(owner, name, QuantLinear(
+            ql, lin.amber_scale, None if lin.b is None else lin.b.detach()))
     return model

@@ -259,9 +259,9 @@ def test_snapshot_is_deep_and_reusable(tiny):
         eng.submit(p, 6, a)
     with pytest.raises(EngineCrash):
         eng.run(tp)
-    snap = eng.replica.last_snapshot
+    snap = eng.last_snapshot
     assert eng.request_state(0) in ("prefill", "decode")
-    frozen = [(r.rid, r.state, list(r.out)) for r in snap["requests"]]
+    frozen = [(r.rid, r.state, list(r.out)) for r in snap["replicas"][0]["requests"]]
     outs = []
     for _ in range(2):
         e2 = engine()
@@ -270,7 +270,7 @@ def test_snapshot_is_deep_and_reusable(tiny):
         assert [e2.request_state(r) for r in (0, 1)] == [DONE, DONE]
         assert e2.metrics.lifecycle.restores == 1
         _drained(e2.replica)
-    assert [(r.rid, r.state, list(r.out)) for r in snap["requests"]] == frozen
+    assert [(r.rid, r.state, list(r.out)) for r in snap["replicas"][0]["requests"]] == frozen
     assert outs[0] == outs[1]
     _, base = _jax(jm, jp, prompts, [0, 1], 6, snapshot_every=2)
     assert outs[0] == base["outputs"]

@@ -148,10 +148,13 @@ def test_trace_cli_on_the_recurrent_families_matches_jax_cli(capsys, arch):
     assert re.search(r"agreement dense vs sparse-prefill: [\d.]+", out)
 
 
-@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"], ["--dp", "2", "--no-paged"]],
-                         ids=["dp", "tp", "dp-no-paged"])
+@pytest.mark.parametrize("flags", [["--tp", "2"], ["--dp", "2", "--tp", "2"],
+                                   ["--tp", "2", "--no-paged"]],
+                         ids=["tp", "dp-tp", "tp-no-paged"])
 def test_unported_layouts_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Tensor parallelism (``--tp`` above 1) is not ported; ``--dp`` is
+    (``tests/test_torch_router.py``)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
         main(TRACE + ["--device", "cpu"] + flags)
 
 

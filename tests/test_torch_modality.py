@@ -277,7 +277,9 @@ def test_precompute_scales_match_the_jax_walk_on_the_encdec(models):
     """The port's walk over the ``EncDec`` modules scales exactly the
     projections the JAX walk scales (``should_prune(module, None)``: q, fc1
     and fc2 of every encoder and decoder layer, self and cross q), with the
-    same values; W8A8 of the encoder-decoder raises."""
+    same values.  The encoder-decoder's W8A8 rewrite (ported:
+    ``tests/test_torch_quant_families.py``) asks for the calibration absmax
+    by stack, layer and place, and refuses a ``skip_layers``."""
     from repro_torch.core.pruner import precompute_scales
     from repro_torch.core.quant import QuantConfig
     from repro_torch.layers.linear import Linear
@@ -298,8 +300,10 @@ def test_precompute_scales_match_the_jax_walk_on_the_encdec(models):
             leaf = leaf[k]
         got = tp.get_submodule(name).amber_scale.numpy()
         np.testing.assert_allclose(got, np.asarray(leaf["amber_scale"])[int(parts[1])], **TOL)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError, match="attn.q_proj"):
         quantize_linears(tp, {}, QuantConfig())
+    with pytest.raises(ValueError, match="skip_layers"):
+        quantize_linears(tp, {}, QuantConfig(skip_layers=(0,)))
 
 
 def test_encdec_prunes_q_and_the_mlp_in_every_layer(models, monkeypatch):

@@ -387,12 +387,14 @@ def test_dyadic_sizes_match_jax():
 
 
 def test_unported_recurrent_layouts_raise(models):
-    """A recurrent model's W8A8 rewrite and its paged cache raise."""
+    """A recurrent model's paged cache raises.  Its W8A8 rewrite is ported
+    (``tests/test_torch_quant_families.py``) and asks for the calibration
+    absmax by each projection's place in the module tree."""
     from repro_torch.core.quant import QuantConfig
     from repro_torch.weights import quantize_linears
 
     tm, tcfg = models["rwkv6_7b"][2:]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError, match="tm.r_proj"):
         quantize_linears(tm.init(0), {}, QuantConfig())
     with pytest.raises(ValueError):
         ttransformer.init_cache(tcfg, 1, 16, device="cpu", paged=True)
