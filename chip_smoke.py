@@ -362,13 +362,40 @@ Phases (any failed check exits non-zero; no phase is skipped):
              ``nm_prune_matmul`` a sparse chunk, on a first chunk 5 + 1 more
              per encoder layer and the cross k/v per decoder layer, every
              int8 launch on its route, profiled and token-checked as 12a.
+13. training — after phase 12 freed its models (``phase_training``).
+             13a: LLaMA-3.1-8B at full width, depth 16 of 32 (4.54B
+             parameters; 32 layers' weights, gradients and float32 AdamW
+             moments, ~100 GiB, do not fit the card), bf16, remat, dense:
+             six ``make_train_step`` steps at ``DataConfig(seq_len=512,
+             global_batch=4)``, ``OptConfig(lr=3e-4, warmup_steps=2,
+             total_steps=6)``: a finite loss and ``grad_norm`` every step,
+             every leaf's AdamW moment moved by step 1 and every leaf whose
+             step exceeds half a bf16 ulp moved; the step's wall time
+             (median of steps 2-6), tokens/s, its model FLOPs against the
+             bf16 peak, the optimizer pass alone against its byte bound (22
+             B a parameter), peak memory, a checkpoint's write rate and one
+             step profiled.  13b: the same with ``--sparse-train``'s policy
+             on the kernels: ``nm_prune_matmul`` exactly 96 times a step
+             (q, gate and down in 16 layers, run again by remat), nothing
+             else.  13c: full width, depth 2, float32, one batch of 1 x 256
+             with a 16-channel group of layer 0's RMSNorm weight zeroed (a
+             zero group in every row of its q input, whose first 8 are
+             kept): every gradient of the kernel path (``PruneMatmul``)
+             within ``F32_TOL`` of the plain path's on the kernel path's
+             N:M selections; the free-running flips printed.  13d: the CPU
+             tests' crash and resume on the card (smoke width, 12 steps, a
+             crash at 7, resume from 5): the final loss within rel 1e-5 of
+             the uninterrupted run; bit-identity printed.  13e: ``python -m
+             repro_torch.launch.train --arch llama31_8b --smoke --steps 20
+             --sparsity 8:16 --sparse-train`` rc 0, then ``--steps 30``
+             resumes from 20.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is
 its count in the run of the path that first served it (phase 3, 3b, 5 or
 7a); ``launches_by_run`` holds its count in each main-path run that
 launched it (3, 3b, 5, 6g over both replicas, 7a, 7e, 9a, 9b, 9c's Naive run,
-10a, 10b, 11a, 11e, 11b, 11c, 12a, 12b, 12e and 12c), each counted from 0.  Exits non-zero without a
+10a, 10b, 11a, 11e, 11b, 11c, 12a, 12b, 12e, 12c and 13b), each counted from 0.  Exits non-zero without a
 CUDA device, and when run outside the repository (it needs ``src/``).
 """
 from __future__ import annotations
@@ -3677,7 +3704,8 @@ def phase_scan(torch, model, params, cfg):
           f"of every layer), nothing else; {secs:.2f} s, {secs / (probes + 1) * 1e3:.1f} ms "
           "per forward")
     profile_cases(torch, {"9a probe forward (q_proj of layer 0 pruned), eager": lambda: (
-        model.forward(params, batch, policy=targeted_policy("q_proj", 0, cfg.n_layers, base)))})
+        model.forward(params, batch, policy=targeted_policy("q_proj", 0, cfg.n_layers, base),
+                      phase="prefill"))})
     print_scan_rows(cfg, sens)
     skips, cov = derive_skips(cfg, sens)
     print(f"  select_qgate_skips at a 0.55 target: {skips} ({len(skips)} layers), coverage "
@@ -3772,13 +3800,15 @@ def phase_weight_sparsity(torch, model, params):
         sumsq[(layer, module)] = (xf * xf).sum(0)
 
     with spy_projections(hook):
-        model.forward(params, {"tokens": calib["tokens"][:, :SCAN_TOKENS]}, policy=DENSE)
+        model.forward(params, {"tokens": calib["tokens"][:, :SCAN_TOKENS]}, policy=DENSE,
+                      phase="prefill")
     if len(sumsq) != len(ALL_PROJS) * cfg.n_layers:
         fail(f"phase 9c: {len(sumsq)} projection inputs recorded")
     batch = scan_batch(cfg)
-    y0 = model.forward(params, batch, policy=DENSE)
+    y0 = model.forward(params, batch, policy=DENSE, phase="prefill")
     kernels.reset_launch_counts()
-    y = model.forward(params, batch, policy=naive_policy(n, m).with_(use_kernels=True))
+    y = model.forward(params, batch, policy=naive_policy(n, m).with_(use_kernels=True),
+                      phase="prefill")
     launches = kernels.launch_counts()
     check_launches("phase 9c", launches, {
         "nm_prune_matmul": len(ALL_PROJS) * cfg.n_layers, "paged_kv_scatter": 0,
@@ -3806,8 +3836,8 @@ def phase_weight_sparsity(torch, model, params):
                 getattr(dst.mlp if name in MLP_PROJS else dst, name).w.copy_(wp)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        pert[method] = float(relative_perturbation(y0, model.forward(pruned, batch,
-                                                                     policy=DENSE)))
+        pert[method] = float(relative_perturbation(y0, model.forward(
+            pruned, batch, policy=DENSE, phase="prefill")))
         print(f"  {method}_nm: {len(ALL_PROJS) * cfg.n_layers} weights pruned in {secs:.2f} s;"
               f" every one of {groups} groups of {m} along d_in keeps at most {n} ({short} "
               f"keep fewer: an exact zero)")
@@ -3863,7 +3893,7 @@ def phase_scan_parity(torch):
             def probe(use_kernels, module=module, layer=layer):
                 pol = targeted_policy(module, layer, cfg.n_layers,
                                       base.with_(use_kernels=use_kernels))
-                model.forward(params, batch, policy=pol)
+                model.forward(params, batch, policy=pol, phase="prefill")
             table.update(nm_flips(torch, probe))
     print_flips("9a'", table)
     del params, model
@@ -5653,6 +5683,384 @@ def phase_modality(torch, rates):
     return runs
 
 
+TRAIN_DEPTH = 16            # of 32: PERF.md section 4 has the reckoning
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 512, 4, 6
+TRAIN_BYTES_PER_PARAM = 22  # AdamW: p read + written (bf16), g read (bf16), mu, nu r+w (f32)
+TRAIN_CPU_RTOL = 1e-4       # 13d: twelve float32 steps, card against CPU
+
+
+def train_model(torch, n_layers, dtype=None):
+    """LLaMA-3.1-8B at full width and ``n_layers``, random weights from the
+    seed made on the card and made trainable."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import make_trainable
+
+    cfg = get_config("llama31_8b")
+    cfg = dataclasses.replace(cfg, n_layers=n_layers, dtype=dtype or cfg.dtype)
+    model = build_model(cfg)
+    return cfg, model, make_trainable(model.init(SEED))
+
+
+def train_flops(cfg, params, tokens: int, seq: int) -> float:
+    """Model FLOPs of one train step, the PaLM convention: 6 N a token for
+    the N parameters of the products (every one but the embedding's lookup;
+    the LM head counts) plus 12 L d S a token for attention at sequence
+    length S, counted whole (not halved for causality); remat's second
+    forward is not counted."""
+    n = sum(p.numel() for k, p in params.named_parameters() if k != "embed.w")
+    return 6.0 * n * tokens + 12.0 * cfg.n_layers * cfg.d_model * seq * tokens
+
+
+def profile_once(torch, label, fn, wall_ms=None):
+    """One call of ``fn`` under ``torch.profiler``: wall, device busy (the
+    union of the kernels' intervals), idle share (against ``wall_ms``, the
+    call's wall without the profiler, where given), and the largest kernel
+    families.  Returns (wall ms, busy ms, {family: ms})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_time(spans) / 1e3
+    fam = {}
+    for e in kern:
+        fam[kernel_family(e.key)] = fam.get(kernel_family(e.key), 0.0) + e.self_device_time_total / 1e3
+    ref = wall if wall_ms is None else wall_ms
+    print(f"  {label} profiled: wall {wall:.1f} ms under the profiler, device busy "
+          f"{busy:.1f} ms over {sum(e.count for e in kern)} kernels, idle share "
+          f"{max(0.0, 1 - busy / ref):.3f} of the {ref:.1f} ms wall"
+          f"{' without the profiler' if wall_ms is not None else ''}")
+    for name, ms in sorted(fam.items(), key=lambda kv: -kv[1]):
+        print(f"    {name}: {ms:.1f} ms")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"    top: {e.key[:90]} x{e.count}: {e.self_device_time_total / 1e3:.1f} ms")
+    return wall, busy, fam
+
+
+def sample_leaves(named, tokens):
+    """A sample of every leaf, to tell later whether it moved without a
+    second copy of the weights: the embedding's rows of (up to 64 of) the
+    first batch's tokens (the rows a step's gradient reaches), a strided
+    4096 entries of any other leaf."""
+    rows = tokens[:, :-1].reshape(-1).unique()[:64].long()
+    return {k: (p.detach()[rows].clone() if k == "embed.w" else
+                p.detach().reshape(-1)[::max(1, p.numel() // 4096)].clone())
+            for k, p in named.items()}
+
+
+def train_run(torch, label, rates, policy):
+    """13a / 13b: ``TRAIN_STEPS`` steps of LLaMA-3.1-8B at depth
+    ``TRAIN_DEPTH``; returns (median step seconds, launches, the
+    nm_prune_matmul launches of one step)."""
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    from repro_torch.train import OptConfig, adamw_init, adamw_update, make_train_step
+    from repro_torch.train import trainable_params
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params = train_model(torch, TRAIN_DEPTH)
+    named = trainable_params(params)
+    n_params = sum(p.numel() for p in named.values())
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    opt_cfg = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    kept, keep = {}, []
+
+    def keep_grads(grads):
+        if keep:                        # the profiled step's, for the optimizer's timing
+            kept.update(grads)
+        return grads
+
+    step = make_train_step(model, opt_cfg, policy, compressor=keep_grads)
+    opt = adamw_init(named)
+    batches = [lm_batch(data, i) for i in range(TRAIN_STEPS + 1)]
+    before = sample_leaves(named, batches[0]["tokens"])
+    walls, losses = [], []
+    kernels.reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt, m = step(params, opt, batches[i])[1:]
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        losses.append(loss)
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            fail(f"{label}: step {i} loss {loss} grad_norm {gnorm}")
+        print(f"  {label} step {i}: loss {loss:.4f} grad_norm {gnorm:.4f} "
+              f"wall {walls[-1] * 1e3:.1f} ms")
+        if i == 0:
+            after = sample_leaves(named, batches[0]["tokens"])
+            still = [k for k in named if torch.equal(before[k], after[k])]
+            no_moment = [k for k, mu in opt["mu"].items() if not bool((mu != 0).any())]
+            if no_moment:
+                fail(f"{label}: no gradient reached {no_moment[:4]}")
+            lr1 = 3e-4 * 1 / 2
+            # a bf16 weight moves only where lr * |update| > half an ulp: a
+            # norm weight of 1 (ulp 2**-7) does not at lr 1.5e-4
+            big = [k for k in still if float(before[k].float().abs().min()) < lr1 * 2**7]
+            print(f"  {label}: after step 1 every leaf's AdamW moment is nonzero; "
+                  f"{len(named) - len(still)} of {len(named)} leaves moved, the others "
+                  f"({len(still)}: {sorted({k.split('.')[-2] for k in still})}) hold values "
+                  f"whose bf16 half-ulp exceeds the step lr * |delta| <= {lr1:.1e}")
+            if big:
+                fail(f"{label}: leaves {big[:4]} did not move though the step exceeds half "
+                     "their ulp")
+            del before, after
+    launches = kernels.launch_counts()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    med = statistics.median(walls[1:])
+    flops = train_flops(cfg, params, tokens, TRAIN_SEQ)
+    bound = flops / rates[1]
+    print(f"  {label}: step wall {med * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}), "
+          f"{tokens / med:.0f} tokens/s; model FLOPs {flops / 1e12:.2f} TFLOP (6 N T + 12 L d "
+          f"S T, N = {sum(p.numel() for k, p in named.items() if k != 'embed.w') / 1e9:.3f}B "
+          f"without the embedding), bound {bound * 1e3:.1f} ms at {rates[1] / 1e12:.0f} "
+          f"TFLOP/s: {bound / med:.3f} of it; losses {[round(x, 4) for x in losses]}")
+    print(f"  {label}: peak memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB, reserved {torch.cuda.max_memory_reserved() / 2**30:.2f} GiB "
+          f"({n_params / 1e9:.3f}B parameters)")
+    if label == "13a" and any(launches.values()):
+        fail(f"13a: the dense step launched {launches}")
+    keep.append(True)
+    prof = profile_once(torch, f"{label} step {TRAIN_STEPS + 1}",
+                        lambda: step(params, opt, batches[TRAIN_STEPS]), med * 1e3)
+    out = {"step_s": med, "launches": launches, "prof": prof}
+    if label == "13a":
+        # the optimizer pass alone, on the last step's gradients
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        times = []
+        for _ in range(3):
+            ev[0].record()
+            adamw_update(opt_cfg, kept, opt, named)
+            ev[1].record()
+            ev[1].synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        byte_ms = TRAIN_BYTES_PER_PARAM * n_params / rates[0] * 1e3
+        opt_ms = statistics.median(times)
+        print(f"  13a optimizer pass alone: {opt_ms:.1f} ms (median of 3, CUDA events) "
+              f"against its byte bound {byte_ms:.1f} ms ({TRAIN_BYTES_PER_PARAM} B a parameter "
+              f"at {rates[0] / 1e12:.2f} TB/s): {byte_ms / opt_ms:.3f} of it")
+        out["opt_ms"] = opt_ms
+        checkpoint_rate(torch, params, opt, named)
+    kept.clear()
+    del params, opt, named, model, step, batches
+    free_device(torch, label)
+    return out
+
+
+def checkpoint_rate(torch, params, opt, named):
+    """The write rate of ``save_checkpoint`` (device to host, npz, atomic
+    rename) on layer 0's attention projections with their AdamW moments,
+    and the time it implies for the whole state."""
+    import tempfile
+
+    from repro_torch.checkpoint import save_checkpoint
+
+    keys = [k for k in named if k.startswith("blocks.0.") and k.endswith("_proj.w")
+            and ".mlp." not in k]
+    part = {"params": {k: named[k] for k in keys},
+            "opt": {"mu": {k: opt["mu"][k] for k in keys}, "nu": {k: opt["nu"][k] for k in keys}}}
+    size = sum(t.numel() * t.element_size() for d in (part["params"], part["opt"]["mu"],
+                                                     part["opt"]["nu"]) for t in d.values())
+    whole = sum(p.numel() * (p.element_size() + 8) for p in named.values())  # p, mu, nu
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_checkpoint(f"{tmp}/ckpt.npz", part)
+        secs = time.perf_counter() - t0
+    rate = size / secs
+    print(f"  13a checkpoint write: {size / 2**30:.2f} GiB in {secs:.2f} s = "
+          f"{rate / 2**30:.2f} GiB/s (page cache warm, the machine's local disk); the whole "
+          f"state, {whole / 2**30:.1f} GiB, would take {whole / rate:.0f} s at that rate")
+
+
+def train_gradient_gate(torch):
+    """13c: full width, depth 2, float32, 1 x 256 tokens: the kernel path's
+    gradients against the plain path's on the kernel path's N:M selections,
+    with a zeroed 16-channel group of layer 0's ``ln1`` weight."""
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.train import loss_fn, trainable_params
+
+    cfg, model, params = train_model(torch, 2, dtype="float32")
+    with torch.no_grad():
+        params.blocks[0].ln1.w[:16] = 0.0
+    named = trainable_params(params)
+    gen = torch.Generator().manual_seed(SEED + 13)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 257), generator=gen).to(model.device)}
+    policy = paper_policy(8, 16, cfg.qgate_skip_layers).with_(phases=("train", "prefill"),
+                                                              use_kernels=True)
+
+    def grads(pol):
+        loss = loss_fn(model, params, batch, pol)
+        return [loss.detach()] + list(torch.autograd.grad(loss, list(named.values())))
+
+    kept_zero = []
+
+    def spy_keep(x, p, module, pol, phase, layer):
+        if module == "q_proj" and layer == 0 and pol.use_kernels and not kept_zero:
+            from repro_torch.core import nm, scoring
+
+            x = x.detach()     # recording nothing for autograd: remat counts saved tensors
+            keep = nm.nm_topk_mask(scoring.score_activations(x, p.amber_scale), 8, 16)
+            kept_zero.append(bool(keep[..., :8].all()) and not bool(keep[..., 8:16].any())
+                             and not bool(x[..., :16].any()))
+
+    with spy_projections(spy_keep):
+        got, want = forced_selection_logits(torch, grads, policy)
+    if kept_zero != [True]:
+        fail(f"13c: layer 0's q input does not hold a kept zero group ({kept_zero})")
+    check_close("13c loss (kernel path vs plain on its selections)", got[0], want[0], F32_TOL)
+    worst = 0.0
+    for (k, _), g, w in zip(named.items(), got[1:], want[1:]):
+        if not bool(g.isfinite().all()):
+            fail(f"13c: gradient of {k} is not finite")
+        err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        worst = max(worst, err)
+        if err > F32_TOL:
+            fail(f"13c: gradient of {k}: max|diff| / max|g| = {err:.3e} > {F32_TOL}")
+    q_in = got[1 + list(named).index("blocks.0.ln1.w")]
+    print(f"  13c: {len(named)} gradients within {F32_TOL} of the largest entry (worst "
+          f"{worst:.3e}); layer 0's zeroed ln1 channels 0-7 (kept) get gradient "
+          f"{float(q_in[:8].abs().max()):.3e}")
+    table = nm_flips(torch, lambda uk: grads(policy.with_(use_kernels=uk)))
+    print_flips("13c free-running", table)
+
+
+class SeededCopy:
+    """A model whose ``init`` returns a copy of given weights; everything
+    else is the wrapped model's."""
+
+    def __init__(self, model, weights):
+        self._model, self._weights = model, weights
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def init(self, seed):
+        return copy.deepcopy(self._weights)
+
+
+def train_crash_resume(torch):
+    """13d: the CPU tests' crash and resume, on the card."""
+    import tempfile
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import build_model
+    from repro_torch.train import OptConfig, Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_smoke_config("llama31_8b"), dtype="float32")
+
+    def trainer(path, resume="auto", device=None):
+        return Trainer(build_model(cfg, device=device),
+                       DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=2),
+                       OptConfig(lr=1e-3, total_steps=12),
+                       TrainerConfig(total_steps=12, ckpt_every=5, ckpt_dir=path, keep=5,
+                                     resume=resume))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = trainer(f"{tmp}/ref", "none").run(SEED)
+        try:
+            trainer(f"{tmp}/crash").run(SEED, crash_at=7)
+            fail("13d: the crash at step 7 did not happen")
+        except RuntimeError as e:
+            if "simulated node failure at step 7" not in str(e):
+                raise
+        out = trainer(f"{tmp}/crash").run(SEED)
+        # the same run on the CPU from the card's seeded weights (a CUDA
+        # generator draws other numbers than the CPU's from one seed)
+        on_cpu = trainer(f"{tmp}/cpu", "none", device="cpu")
+        on_cpu.model = SeededCopy(on_cpu.model, build_model(cfg).init(SEED).to("cpu"))
+        cpu = on_cpu.run(SEED)
+    if out["resumed_from"] != 5:
+        fail(f"13d: resumed from {out['resumed_from']}, not 5")
+    a, b = ref["metrics"][-1]["loss"], out["metrics"][-1]["loss"]
+    if not abs(a - b) <= 1e-5 * abs(a):
+        fail(f"13d: final loss {b} against {a} uninterrupted")
+    same = all(torch.equal(ref["state"]["params"][k], out["state"]["params"][k])
+               for k in ref["state"]["params"])
+    # the card's run against the same trainer on the CPU: float32 with TF32
+    # off, so summation order only
+    parted = max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+                 for x, y in zip(ref["metrics"], cpu["metrics"]))
+    if not parted <= TRAIN_CPU_RTOL:
+        fail(f"13d: the card's losses part from the CPU's by rel {parted:.2e}")
+    print(f"  13d: the card's 12 losses against the same run on the CPU: rel {parted:.2e} at "
+          f"most (limit {TRAIN_CPU_RTOL})")
+    print(f"  13d: resumed from step 5; final loss {b:.7f} against {a:.7f} uninterrupted "
+          f"(rel {abs(a - b) / abs(a):.2e}); parameters bit-identical: {same} (default "
+          "settings: torch.use_deterministic_algorithms off, cuBLAS's default workspace; "
+          f"median step {statistics.median(m['step_time_s'] for m in out['metrics']) * 1e3:.1f} "
+          "ms)")
+
+
+def train_cli(torch):
+    """13e: the train CLI on the card with ``--sparse-train``, and its
+    resume."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.launch.train import main as train_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for steps, start in (("20", 0), ("30", 20)):
+            argv = ["--arch", "llama31_8b", "--smoke", "--steps", steps, "--sparsity", "8:16",
+                    "--sparse-train", "--ckpt-dir", tmp]
+            print(f"13e: python -m repro_torch.launch.train {' '.join(argv)}")
+            buf = io.StringIO()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = train_main(argv)
+            torch.cuda.synchronize()
+            out = buf.getvalue()
+            print("  " + out.strip().replace("\n", "\n  "))
+            launches = kernels.launch_counts()
+            if rc != 0 or f"(resumed_from={start})" not in out:
+                fail(f"13e: rc {rc}, expected resumed_from={start}")
+            if not launches["nm_prune_matmul"]:
+                fail("13e: the CLI launched no nm_prune_matmul")
+            print(f"  rc 0 in {time.perf_counter() - t0:.1f} s; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }")
+
+
+def phase_training(torch, rates):
+    """Phase 13 (module docstring).  Returns {"13b": launches}."""
+    from repro_torch.core.policy import DENSE, paper_policy
+
+    print(f"phase 13: training, LLaMA-3.1-8B at full width and depth {TRAIN_DEPTH}, bf16")
+    from repro_torch.configs import get_config
+
+    dense = train_run(torch, "13a", rates, DENSE)
+    skips = get_config("llama31_8b").qgate_skip_layers
+    if min(skips) < TRAIN_DEPTH:
+        fail(f"13b: the skip list {skips} reaches below depth {TRAIN_DEPTH}")
+    sparse = train_run(torch, "13b", rates, paper_policy(8, 16, skips).with_(
+        phases=("train", "prefill"), use_kernels=True))
+    want = 2 * 3 * TRAIN_DEPTH * TRAIN_STEPS     # q, gate, down; remat runs each twice
+    check_launches("13b", sparse["launches"], {
+        "nm_prune_matmul": want, "nm_prune": 0, "paged_kv_scatter": 0, "paged_attention": 0,
+        "nm_spmm": 0, "flash_attention": 0, "osparse_matmul": 0, "w8a8_matmul": 0})
+    print(f"  13b: {want // TRAIN_STEPS} nm_prune_matmul a step ({3 * TRAIN_DEPTH} a forward, "
+          f"remat's second forward as many; the backward launches none); step wall "
+          f"{sparse['step_s'] * 1e3:.1f} ms against 13a's {dense['step_s'] * 1e3:.1f} ms "
+          f"({sparse['step_s'] / dense['step_s']:.3f}x)")
+    train_gradient_gate(torch)
+    free_device(torch, "13c")
+    train_crash_resume(torch)
+    train_cli(torch)
+    return {"13b": sparse["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -5737,6 +6145,8 @@ def main() -> int:
     t13 = time.perf_counter()
     md_launches = phase_modality(torch, rates)
     t14 = time.perf_counter()
+    tr_launches = phase_training(torch, rates)
+    t15 = time.perf_counter()
     print(f"phase seconds: build {t1 - t:.1f}, kernels {t2 - t1:.1f}, serve {t3 - t2:.1f}, "
           f"serve osparse {t4 - t3b:.1f}, parity {t5 - t4:.1f}, one-shot serve {t6 - t5:.1f}, "
           f"one-shot parity {t7 - t6:.1f}, serve CLI and serving lifecycle "
@@ -5744,7 +6154,8 @@ def main() -> int:
           f"6a, 6a' and 6f {t8 - t7:.1f}), "
           f"MoE {t9 - t8:.1f}, dense variants {t10 - t9:.1f}, layer skipping {t11 - t10:.1f}, "
           f"Mixtral and the slab {t12 - t11:.1f}, the recurrent families {t13 - t12:.1f}, "
-          f"the modality families {t14 - t13:.1f}")
+          f"the modality families {t14 - t13:.1f}, training {t15 - t14:.1f}; phases in all "
+          f"{t15 - t:.1f}")
 
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import nm_prune as knp
@@ -5761,7 +6172,8 @@ def main() -> int:
     # w8a8_matmul is an entry point that no serving path calls
     runs = {"3": launches, "3b": q_launches, "5": o_launches, "6g": r_launches6g,
             "7a": m_launches,
-            "7e": mq_launches, **s_launches, **x_launches, **r_launches, **md_launches}
+            "7e": mq_launches, **s_launches, **x_launches, **r_launches, **md_launches,
+            **tr_launches}
     meta = {
         "nm_prune_matmul": (knm.SOURCE, knm.REPLACES, "3"),
         "paged_kv_scatter": (kpa.SOURCE, kpa.SCATTER_REPLACES, "3"),

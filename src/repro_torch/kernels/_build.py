@@ -8,6 +8,9 @@ root (listed in ``.gitignore``), where ``<key>`` hashes the sources and the
 compiler flags: an edited source rebuilds, an unchanged one loads.  The
 build runs at the first launch of a kernel (or when ``chip_smoke.py``
 calls :func:`build`), never at import.
+
+:func:`refuse_grad` is the one guard of the kernels that have no backward:
+their wrappers call it on CUDA tensors, before the launch.
 """
 from __future__ import annotations
 
@@ -20,7 +23,9 @@ import time
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["build", "load", "SOURCES"]
+import torch
+
+__all__ = ["build", "load", "refuse_grad", "SOURCES"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -92,3 +97,15 @@ def load(source: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _loaded[source] = lib
     return lib
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise ``RuntimeError`` when autograd would record a call of
+    ``kernel``, a kernel with no backward: grad mode is on and an input
+    requires grad.  A ctypes launch on ``data_ptr()`` returns a tensor with
+    no ``grad_fn``, so the gradient would stop there without a word.  The
+    serving paths run under ``no_grad`` on parameters that need none, so
+    this never fires there."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel}: the CUDA kernel has no backward; it cannot run "
+                           "where autograd records (an input requires grad)")

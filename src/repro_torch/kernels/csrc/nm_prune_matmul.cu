@@ -79,10 +79,14 @@ template <> __device__ __forceinline__ float from_f<float>(float v) { return v; 
 // ---------------------------------------------------------------- selection
 // One thread per (row, group): n rounds of argmax over the m scores, a
 // strict '>' keeping the lowest index on ties — the JAX package's iterative
-// first-occurrence argmax, so the masks are bit-identical.
+// first-occurrence argmax, so the masks are bit-identical.  `keep_out`, when
+// not null, receives the selection itself, one byte per channel (1 = kept):
+// the training backward's mask, in which a kept channel whose value is 0
+// still passes its gradient.  Every serving call passes null.
 template <typename T>
 __global__ void nm_select_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                                 T* __restrict__ xp, int T_, int D, int n, int m) {
+                                 T* __restrict__ xp, uint8_t* __restrict__ keep_out, int T_,
+                                 int D, int n, int m) {
   const int groups = D / m;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)T_ * groups) return;
@@ -103,6 +107,10 @@ __global__ void nm_select_kernel(const T* __restrict__ x, const float* __restric
   }
   T* po = xp + (size_t)r * D + (size_t)g * m;
   for (int j = 0; j < m; ++j) po[j] = ((keep >> j) & 1u) ? px[j] : from_f<T>(0.f);
+  if (keep_out != nullptr) {
+    uint8_t* pk = keep_out + (size_t)r * D + (size_t)g * m;
+    for (int j = 0; j < m; ++j) pk[j] = (uint8_t)((keep >> j) & 1u);
+  }
 }
 
 // The same selection, vectorised: one thread per E = max(M, 16 / sizeof(T))
@@ -110,7 +118,8 @@ __global__ void nm_select_kernel(const T* __restrict__ x, const float* __restric
 // comes in and the result goes out as uint4, the scale as float4.  Each
 // group's mask comes from hopper::nm_keep (a sorting network in place of n
 // serial rounds of argmax; bit-identical for finite scores).  Bound by the 4
-// bytes a bf16 element moves (read once, written once).
+// bytes a bf16 element moves (read once, written once); `keep_out` as in
+// nm_select_kernel (one more byte an element where it is not null).
 template <typename T>
 __device__ __forceinline__ float word_elem(const uint32_t* w, int j) {
   if constexpr (sizeof(T) == 2)
@@ -122,7 +131,8 @@ __device__ __forceinline__ float word_elem(const uint32_t* w, int j) {
 template <typename T, int M>
 __global__ void __launch_bounds__(256)
 nm_select_vec_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                     T* __restrict__ xp, unsigned chunks, int D, int n) {
+                     T* __restrict__ xp, uint8_t* __restrict__ keep_out, unsigned chunks, int D,
+                     int n) {
   constexpr int V = 16 / sizeof(T);              // elements per 16-byte vector
   constexpr int E = M > V ? M : V;               // elements per chunk
   constexpr int NW = E * sizeof(T) / 4;          // 32-bit words per chunk
@@ -173,6 +183,10 @@ nm_select_vec_kernel(const T* __restrict__ x, const float* __restrict__ scale,
     for (int k = 0; k < NW / 4; ++k)
       reinterpret_cast<uint4*>(xp + e0)[k] = make_uint4(w[4 * k], w[4 * k + 1], w[4 * k + 2],
                                                         w[4 * k + 3]);
+    if (keep_out != nullptr) {
+#pragma unroll
+      for (int j = 0; j < E; ++j) keep_out[e0 + j] = (uint8_t)((keep >> j) & 1u);
+    }
     if (more) {
 #pragma unroll
       for (int k = 0; k < NW; ++k) w[k] = nxt[k];
@@ -537,24 +551,25 @@ int sm_count() {
 }
 
 template <typename T, int M>
-int launch_select_vec(const void* x, const float* scale, void* xp, long long elems, int D,
-                      int n, cudaStream_t stream) {
+int launch_select_vec(const void* x, const float* scale, void* xp, uint8_t* keep,
+                      long long elems, int D, int n, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   constexpr int E = M > V ? M : V;
   const unsigned chunks = (unsigned)(elems / E);
   // two blocks an SM: about three chunks a thread at the serving chunk's sizes
   const unsigned blocks = std::min((chunks + 255) / 256, 2u * sm_count());
-  nm_select_vec_kernel<T, M><<<blocks, 256, 0, stream>>>((const T*)x, scale, (T*)xp, chunks, D,
-                                                         n);
+  nm_select_vec_kernel<T, M><<<blocks, 256, 0, stream>>>((const T*)x, scale, (T*)xp, keep,
+                                                         chunks, D, n);
   return (int)cudaGetLastError();
 }
 
 // The selection: the vectorised kernel where m is a power of two, every
 // thread's span holds whole groups of a row, the pointers are 16-byte
-// aligned and x has under 2^31 elements; else one thread per group.
+// aligned and x has under 2^31 elements; else one thread per group.  `keep`
+// (null, or T x D bytes) receives the selection.
 template <typename T>
-int launch_select(const void* x, const float* scale, void* xp, int T_, int D, int n, int m,
-                  cudaStream_t stream) {
+int launch_select(const void* x, const float* scale, void* xp, uint8_t* keep, int T_, int D,
+                  int n, int m, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const int span = m > V ? m : V;
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(xp) |
@@ -562,19 +577,19 @@ int launch_select(const void* x, const float* scale, void* xp, int T_, int D, in
   const long long elems = (long long)T_ * D;
   if (aligned && D % span == 0 && elems < (1LL << 31)) {
     switch (m) {
-      case 1: return launch_select_vec<T, 1>(x, scale, xp, elems, D, n, stream);
-      case 2: return launch_select_vec<T, 2>(x, scale, xp, elems, D, n, stream);
-      case 4: return launch_select_vec<T, 4>(x, scale, xp, elems, D, n, stream);
-      case 8: return launch_select_vec<T, 8>(x, scale, xp, elems, D, n, stream);
-      case 16: return launch_select_vec<T, 16>(x, scale, xp, elems, D, n, stream);
-      case 32: return launch_select_vec<T, 32>(x, scale, xp, elems, D, n, stream);
+      case 1: return launch_select_vec<T, 1>(x, scale, xp, keep, elems, D, n, stream);
+      case 2: return launch_select_vec<T, 2>(x, scale, xp, keep, elems, D, n, stream);
+      case 4: return launch_select_vec<T, 4>(x, scale, xp, keep, elems, D, n, stream);
+      case 8: return launch_select_vec<T, 8>(x, scale, xp, keep, elems, D, n, stream);
+      case 16: return launch_select_vec<T, 16>(x, scale, xp, keep, elems, D, n, stream);
+      case 32: return launch_select_vec<T, 32>(x, scale, xp, keep, elems, D, n, stream);
       default: break;
     }
   }
   const long long work = (long long)T_ * (D / m);
   const int threads = 256;
   nm_select_kernel<T><<<(unsigned)((work + threads - 1) / threads), threads, 0, stream>>>(
-      (const T*)x, scale, (T*)xp, T_, D, n, m);
+      (const T*)x, scale, (T*)xp, keep, T_, D, n, m);
   return (int)cudaGetLastError();
 }
 
@@ -627,18 +642,20 @@ int launch_gemm(const void* xp, const void* w, const float* bias, void* out, flo
 // scale and bias may be null; `xp` is caller-allocated scratch shaped like
 // x that receives the pruned activations, `part` a float32 workspace of
 // plan * T * N elements when nm_prune_matmul_bf16_plan returns plan > 1
-// (else unused, may be null).  Launches the selection, the GEMM (and the
-// split-k reduce) on `stream`, does not synchronise, and returns
-// cudaGetLastError().
+// (else unused, may be null), `keep` null or T * D bytes that receive the
+// selection (1 = kept; the training backward's mask).  Launches the
+// selection, the GEMM (and the split-k reduce) on `stream`, does not
+// synchronise, and returns cudaGetLastError().
 extern "C" int nm_prune_matmul_bf16_plan(const void* w, int T, int D, int N) {
   return gemm_plan(w, T, D, N);
 }
 
 extern "C" int nm_prune_matmul_bf16(const void* x, const void* w, const float* scale,
-                                    const float* bias, void* xp, void* out, float* part, int T,
-                                    int D, int N, int n, int m, void* stream) {
+                                    const float* bias, void* xp, void* out, float* part,
+                                    uint8_t* keep, int T, int D, int N, int n, int m,
+                                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int rc = launch_select<bf16>(x, scale, xp, T, D, n, m, s);
+  int rc = launch_select<bf16>(x, scale, xp, keep, T, D, n, m, s);
   if (rc != 0) return rc;
   const int splits = gemm_plan(w, T, D, N);
   if (splits == 0) {                              // the shape route: WMMA
@@ -675,10 +692,10 @@ extern "C" int wgmma_probe_bf16(const void* a, const void* b, float* out, int mo
 }
 
 extern "C" int nm_prune_matmul_f32(const void* x, const void* w, const float* scale,
-                                   const float* bias, void* xp, void* out, int T, int D,
-                                   int N, int n, int m, void* stream) {
+                                   const float* bias, void* xp, void* out, uint8_t* keep,
+                                   int T, int D, int N, int n, int m, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int rc = launch_select<float>(x, scale, xp, T, D, n, m, s);
+  int rc = launch_select<float>(x, scale, xp, keep, T, D, n, m, s);
   if (rc != 0) return rc;
   dim3 grid((T + BM32 - 1) / BM32, (N + BN32 - 1) / BN32);
   nm_matmul_f32_kernel<<<grid, THREADS32, 0, s>>>((const float*)xp, (const float*)w, bias,
@@ -693,10 +710,10 @@ extern "C" int nm_prune_matmul_f32(const void* x, const void* w, const float* sc
 // group) keeps the group's scores in registers.
 extern "C" int nm_prune_bf16(const void* x, const float* scale, void* out, int T, int D, int n,
                              int m, void* stream) {
-  return launch_select<bf16>(x, scale, out, T, D, n, m, (cudaStream_t)stream);
+  return launch_select<bf16>(x, scale, out, nullptr, T, D, n, m, (cudaStream_t)stream);
 }
 
 extern "C" int nm_prune_f32(const void* x, const float* scale, void* out, int T, int D, int n,
                             int m, void* stream) {
-  return launch_select<float>(x, scale, out, T, D, n, m, (cudaStream_t)stream);
+  return launch_select<float>(x, scale, out, nullptr, T, D, n, m, (cudaStream_t)stream);
 }

@@ -120,6 +120,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window)
     what = "flash_attention"
+    _build.refuse_grad(what, q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     for name, a in (("q", q), ("k", k), ("v", v)):

@@ -51,6 +51,7 @@ def nm_prune(x: torch.Tensor, scale: torch.Tensor | None, n: int, m: int) -> tor
     ``scale`` is the ``(D,)`` float32 Amber channel scale or None."""
     if x.device.type == "cpu":
         return nm_prune_plain(x, scale, n, m)
+    _build.refuse_grad("nm_prune", x, scale)
     if x.device.type != "cuda":
         raise ValueError(f"nm_prune: unsupported device {x.device}")
     if x.dim() != 2 or x.dtype not in _SYMBOLS or not x.is_contiguous():

@@ -23,6 +23,21 @@ hand kernels, not a fallback.
 The wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``nm_prune_matmul.launches``
 counts kernel launches.
+
+Training (``--sparse-train``): where autograd records the call (grad mode
+on and ``x``, ``w`` or ``bias`` requiring grad) it goes through
+:class:`PruneMatmul`, a ``torch.autograd.Function``.  Its forward is the
+same single launch, with the selection kernel also writing its keep-mask
+(one byte a channel) beside the pruned activations ``xp``, which the
+wrapper already allocates as scratch; both are kept for the backward:
+``dX = (dY @ wᵀ) ⊙ keep``, ``dW = xpᵀ @ dY``, ``db = Σ_rows dY``, two
+``torch.matmul`` products and a sum (the reference leaves its backward to
+XLA; no TPU kernel has one).  The mask is the kernel's own selection, not
+``xp != 0``: a kept channel whose value is exactly 0 passes its gradient,
+as ``jnp.where(mask, x, 0)`` does (``repro/core/nm.py:75``).  The channel
+scale is a buffer and the selection has no derivative, so neither gets a
+gradient.  On the CPU the Function's forward is the plain version with its
+mask exposed, so the tests run the same backward.
 """
 from __future__ import annotations
 
@@ -33,7 +48,7 @@ import torch
 from repro_torch.core import nm, scoring
 from repro_torch.kernels import _build
 
-__all__ = ["gemm_plan", "nm_prune_matmul", "nm_prune_matmul_plain"]
+__all__ = ["PruneMatmul", "gemm_plan", "nm_prune_matmul", "nm_prune_matmul_plain"]
 
 SOURCE = "src/repro_torch/kernels/csrc/nm_prune_matmul.cu"
 REPLACES = "src/repro/kernels/nm_prune_matmul.py:67"
@@ -45,8 +60,9 @@ _SYMBOLS = {torch.bfloat16: "nm_prune_matmul_bf16",
 def _fn(dtype: torch.dtype):
     lib = _build.load("nm_prune_matmul.cu")
     fn = getattr(lib, _SYMBOLS[dtype])
-    # the bf16 entry takes the split-k workspace after ``out``
-    n_ptr = 7 if dtype == torch.bfloat16 else 6
+    # the bf16 entry takes the split-k workspace after ``out``; both then
+    # take the keep-mask output
+    n_ptr = 8 if dtype == torch.bfloat16 else 7
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -64,27 +80,30 @@ def gemm_plan(w: torch.Tensor, t: int) -> int:
         return fn(w.data_ptr(), t, w.shape[0], w.shape[1])
 
 
+def _plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None, n: int, m: int,
+           bias: torch.Tensor | None):
+    """The plain version's ``(out, xp, keep)``: ``core.nm``'s mask, the
+    pruned input, then a float32 matmul."""
+    keep = nm.nm_topk_mask(scoring.score_activations(x, scale), n, m)
+    xp = torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
+    y = xp.float() @ w.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(torch.result_type(x, w)), xp, keep
+
+
 def nm_prune_matmul_plain(x: torch.Tensor, w: torch.Tensor,
                           scale: torch.Tensor | None, n: int, m: int,
                           bias: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version: mask with ``core.nm`` then a float32 matmul."""
-    xp = nm.apply_nm(x, scoring.score_activations(x, scale), n, m)
-    y = xp.float() @ w.float()
-    if bias is not None:
-        y = y + bias.float()
-    return y.to(torch.result_type(x, w))
+    return _plain(x, w, scale, n, m, bias)[0]
 
 
-def nm_prune_matmul(x: torch.Tensor, w: torch.Tensor,
-                    scale: torch.Tensor | None, n: int, m: int,
-                    bias: torch.Tensor | None = None) -> torch.Tensor:
-    """``x (T, D) @ w (D, N_out)`` with per-token N:M pruning of ``x``.
-
-    ``scale`` is the ``(D,)`` float32 Amber channel scale or None (plain
-    ``|x|``); ``bias`` an optional ``(N_out,)`` epilogue add.
-    """
-    if x.device.type == "cpu":
-        return nm_prune_matmul_plain(x, w, scale, n, m, bias)
+def _launch(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None, n: int, m: int,
+            bias: torch.Tensor | None, with_keep: bool):
+    """One kernel launch on CUDA tensors → ``(out, xp, keep)``: ``xp`` the
+    pruned-activation scratch, ``keep`` the selection as ``(T, D)`` uint8
+    where ``with_keep`` (else None; the kernel then writes no mask)."""
     if x.device.type != "cuda":
         raise ValueError(f"nm_prune_matmul: unsupported device {x.device}")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
@@ -109,9 +128,10 @@ def nm_prune_matmul(x: torch.Tensor, w: torch.Tensor,
             raise ValueError("nm_prune_matmul: bias must be (N_out,) on x's device")
         bias = bias.float().contiguous()      # added to the float32 sum
     out = torch.empty((t, n_out), dtype=x.dtype, device=x.device)
-    if t == 0:
-        return out
     xp = torch.empty_like(x)                 # scratch: the pruned activations
+    keep = torch.empty((t, d), dtype=torch.uint8, device=x.device) if with_keep else None
+    if t == 0:
+        return out, xp, keep
     ptrs = [x.data_ptr(), w.data_ptr(), None if scale is None else scale.data_ptr(),
             None if bias is None else bias.data_ptr(), xp.data_ptr(), out.data_ptr()]
     if x.dtype == torch.bfloat16:
@@ -119,13 +139,61 @@ def nm_prune_matmul(x: torch.Tensor, w: torch.Tensor,
         part = (torch.empty((slices, t, n_out), dtype=torch.float32, device=x.device)
                 if slices > 1 else None)
         ptrs.append(None if part is None else part.data_ptr())
+    ptrs.append(None if keep is None else keep.data_ptr())
     with torch.cuda.device(x.device):
         rc = _fn(x.dtype)(*ptrs, t, d, n_out, n, m,
                           torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"nm_prune_matmul kernel launch failed (CUDA error {rc})")
     nm_prune_matmul.launches += 1
-    return out
+    return out, xp, keep
+
+
+class PruneMatmul(torch.autograd.Function):
+    """``nm_prune_matmul`` under autograd: the forward is the kernel (the
+    plain version on the CPU) with its selection kept, the backward two
+    products and a sum (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, scale, n, m):
+        if x.device.type == "cpu":
+            y, xp, keep = _plain(x, w, scale, n, m, bias)
+        else:
+            y, xp, keep = _launch(x, w, scale, n, m, bias, with_keep=True)
+        ctx.save_for_backward(xp, keep, w)
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        xp, keep, w = ctx.saved_tensors
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            # the kernel's uint8 mask holds 0/1: a bool view, no copy
+            dx = torch.where(keep.view(torch.bool), dy @ w.t(),
+                             torch.zeros((), dtype=dy.dtype, device=dy.device))
+        if ctx.needs_input_grad[1]:
+            dw = (xp.t() @ dy).to(w.dtype)
+        if ctx.bias_dtype is not None and ctx.needs_input_grad[2]:
+            db = dy.sum(0).to(ctx.bias_dtype)
+        return dx, dw, db, None, None, None
+
+
+def nm_prune_matmul(x: torch.Tensor, w: torch.Tensor,
+                    scale: torch.Tensor | None, n: int, m: int,
+                    bias: torch.Tensor | None = None) -> torch.Tensor:
+    """``x (T, D) @ w (D, N_out)`` with per-token N:M pruning of ``x``.
+
+    ``scale`` is the ``(D,)`` float32 Amber channel scale or None (plain
+    ``|x|``); ``bias`` an optional ``(N_out,)`` epilogue add.  Where autograd
+    records the call, it goes through :class:`PruneMatmul`.
+    """
+    if torch.is_grad_enabled() and any(a is not None and a.requires_grad
+                                       for a in (x, w, bias)):
+        return PruneMatmul.apply(x, w, bias, scale, n, m)
+    if x.device.type == "cpu":
+        return nm_prune_matmul_plain(x, w, scale, n, m, bias)
+    return _launch(x, w, scale, n, m, bias, with_keep=False)[0]
 
 
 nm_prune_matmul.launches = 0

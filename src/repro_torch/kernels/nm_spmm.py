@@ -153,6 +153,7 @@ def consensus_select(x: torch.Tensor, scale: torch.Tensor | None, n: int, m: int
     ``(idx, xc)`` as :func:`consensus_select_plain` gives them.  For checks."""
     if x.device.type == "cpu":
         return consensus_select_plain(x, scale, n, m, tile)
+    _build.refuse_grad("consensus_select", x, scale)
     _check("consensus_select", x, scale, n, m, tile)
     bt, idx, xc = _scratch(x, n, m, tile)
     if x.shape[0] == 0:
@@ -174,6 +175,7 @@ def nm_spmm(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None, n: int
     None (plain ``|x|``); ``tile`` the consensus tile in tokens."""
     if x.device.type == "cpu":
         return nm_spmm_plain(x, w, scale, n, m, tile)
+    _build.refuse_grad("nm_spmm", x, w, scale)
     _check("nm_spmm", x, scale, n, m, tile)
     t, d = x.shape
     if (w.dim() != 2 or w.shape[0] != d or w.dtype != x.dtype or w.device != x.device

@@ -89,6 +89,7 @@ def osparse_quantize(x: torch.Tensor, smooth: torch.Tensor, amber: torch.Tensor 
     D)``: ``(xq, scale)`` as :func:`osparse_quantize_plain` gives them, so the
     int8 codes can be held against the plain version's.  Not a launch of
     ``osparse_matmul``."""
+    _build.refuse_grad("osparse_quantize", x, smooth, amber, act_scale)
     _check(x, smooth, amber, n, m, act_scale, prune, per_token)
     t, d = x.shape
     xq = torch.empty((t, d), dtype=torch.int8, device=x.device)
@@ -153,6 +154,7 @@ def osparse_matmul(x: torch.Tensor, wq: torch.Tensor, smooth: torch.Tensor,
     if x.device.type == "cpu":
         return osparse_matmul_plain(x, wq, smooth, amber, w_scale, n, m, act_scale,
                                     bias, prune, per_token)
+    _build.refuse_grad("osparse_matmul", x, wq, smooth, amber, w_scale, act_scale, bias)
     _check(x, smooth, amber, n, m, act_scale, prune, per_token)
     check_int8_gemm("osparse_matmul", x.shape, wq, w_scale, x.device)
     t, d = x.shape

@@ -138,6 +138,7 @@ def paged_kv_scatter(k_new, v_new, k_pool, v_pool, block_table, pos,
         return paged_kv_scatter_plain(k_new, v_new, k_pool, v_pool,
                                       block_table, pos, chunk_len)
     what = "paged_kv_scatter"
+    _build.refuse_grad(what, k_new, v_new, k_pool, v_pool)
     _check_cuda(k_new.device, what, k_new=k_new, v_new=v_new, k_pool=k_pool,
                 v_pool=v_pool, block_table=block_table, pos=pos,
                 chunk_len=chunk_len)
@@ -296,6 +297,7 @@ def paged_attention(q, k_pool, v_pool, block_table, q_offset, kv_len,
         return paged_attention_plain(q, k_pool, v_pool, block_table, q_offset,
                                      kv_len, causal, window)
     what = "paged_attention"
+    _build.refuse_grad(what, q, k_pool, v_pool)
     _check_cuda(q.device, what, q=q, k_pool=k_pool, v_pool=v_pool,
                 block_table=block_table, q_offset=q_offset, kv_len=kv_len)
     b, tq, hq, hd = q.shape

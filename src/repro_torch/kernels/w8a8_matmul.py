@@ -178,6 +178,7 @@ def w8a8_matmul(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
     ``x_scale`` is a one-element float32 tensor, ``w_scale`` ``(N,)``."""
     if xq.device.type == "cpu":
         return w8a8_matmul_plain(xq, wq, x_scale, w_scale)
+    _build.refuse_grad("w8a8_matmul", xq, wq, x_scale, w_scale)
     if xq.device.type != "cuda":
         raise ValueError(f"w8a8_matmul: unsupported device {xq.device}")
     if xq.dim() != 2 or xq.dtype != torch.int8 or not xq.is_contiguous():

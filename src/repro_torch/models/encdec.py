@@ -286,11 +286,15 @@ def _logits(cfg: ModelConfig, params: EncDec, h: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------ entries
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, params: EncDec, batch: Dict, *, policy: SparsityPolicy,
-            phase: str = "prefill") -> torch.Tensor:
+            phase: str = "train") -> torch.Tensor:
     """Encoder over ``batch["frame_embeds"]``, then the causal decoder over
-    ``batch["tokens"] (B, T)`` without a cache → ``(B, T, V)`` logits."""
+    ``batch["tokens"] (B, T)`` without a cache → ``(B, T, V)`` logits.  The
+    phase defaults to ``"train"``, as the reference's does.  Training is
+    not ported: under grad mode with parameters that require grad it raises
+    ``NotImplementedError`` (ROADMAP A3b)."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters()):
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder training: ROADMAP A3b")
     enc_out = _encode(cfg, params, batch["frame_embeds"], policy, phase)
     h = _embed_dec(cfg, params, batch["tokens"], None)
     h = _decode_blocks(cfg, params, h, enc_out, policy, phase, None, None)

@@ -4,7 +4,7 @@ other family to ``models/transformer.py``::
 
     model = build_model(cfg)                 # cuda; device="cpu" for tests
     params = model.init(seed)                # a Transformer or EncDec nn.Module
-    logits = model.forward(params, batch, policy=...)
+    logits = model.forward(params, batch, policy=...)   # phase="train", as the reference
     logits, cache = model.prefill(params, batch, cache, policy=...)
     logits, cache = model.prefill_chunk(params, batch, cache, policy=...)
     logits, cache = model.decode_step(params, tokens, cache, policy=...)
@@ -37,7 +37,7 @@ class Model:
         return self._mod.init_params(self.cfg, seed, device=self.device)
 
     def forward(self, params, batch, *, policy: SparsityPolicy = DENSE,
-                phase: str = "prefill"):
+                phase: str = "train"):
         return self._mod.forward(self.cfg, params, batch, policy=policy, phase=phase)
 
     def init_cache(self, batch_size: int, max_seq: int, dtype=None,

@@ -69,10 +69,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import SparsityPolicy
-from repro_torch.layers.linear import dense_linear, init_linear, sparse_linear
+from repro_torch.layers.linear import QuantLinear, dense_linear, init_linear, sparse_linear
 from repro_torch.models import common
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import attention, paged_attention, paged_kv_update
@@ -81,6 +82,7 @@ from repro_torch.models.rglru import RGLRUBlock, init_rglru_state, rglru_block
 from repro_torch.models.rwkv6 import RWKV6Block, init_rwkv6_state, rwkv6_block
 
 __all__ = ["Transformer", "AttnBlock", "RWKVLayer", "RGLRULayer", "check_supported",
+           "check_trainable",
            "layer_kinds", "init_params", "init_cache", "paged_kv_spec", "pools_anything",
            "forward", "prefill", "prefill_chunk", "decode_step"]
 
@@ -536,12 +538,20 @@ def _embed_inputs(cfg: ModelConfig, params: Transformer, batch: Dict) -> torch.T
 
 def _run_blocks(cfg, params: Transformer, h, policy, phase, cache, positions,
                 index=None):
+    # the reference's jax.checkpoint around the layer body
+    # (repro/models/transformer.py:497-530): under "train" with cfg.remat and
+    # autograd recording, each block keeps only its input and is run again
+    # in the backward
+    remat = cfg.remat and phase == "train" and cache is None and torch.is_grad_enabled()
     for i, (kind, blk) in enumerate(zip(layer_kinds(cfg), params.blocks)):
         layer = None if cache is None else cache["layers"][i]
-        if kind == "attn":
-            h = _attn_block_apply(cfg, h, blk, policy, phase, i, layer, positions, index)
-        else:
+        if kind != "attn":
             h = _recurrent_apply(cfg, kind, h, blk, policy, phase, i, layer, index)
+        elif remat:
+            h = checkpoint(_attn_block_apply, cfg, h, blk, policy, phase, i, None, positions,
+                           use_reentrant=False)
+        else:
+            h = _attn_block_apply(cfg, h, blk, policy, phase, i, layer, positions, index)
     return h
 
 
@@ -554,10 +564,30 @@ def _lm_logits(cfg: ModelConfig, params: Transformer, h: torch.Tensor) -> torch.
 
 # ------------------------------------------------------------------ entries
 
-@torch.no_grad()
+def check_trainable(cfg: ModelConfig, params: Transformer) -> None:
+    """Raise ``NotImplementedError`` where autograd would record a forward
+    that the port does not train: an MoE, a recurrent layer or a W8A8
+    (``QuantLinear``) projection with parameters that require grad, under
+    grad mode (ROADMAP A3b).  Without either, every family runs as it
+    serves."""
+    if not torch.is_grad_enabled() or not any(p.requires_grad for p in params.parameters()):
+        return
+    what = ("an MoE" if cfg.n_experts else
+            "a recurrent layer" if set(layer_kinds(cfg)) != {"attn"} else
+            "a W8A8 projection" if any(isinstance(m, QuantLinear) for m in params.modules())
+            else None)
+    if what is not None:
+        raise NotImplementedError(f"{cfg.name}: {what} training: ROADMAP A3b")
+
+
 def forward(cfg: ModelConfig, params: Transformer, batch: Dict, *,
-            policy: SparsityPolicy, phase: str = "prefill") -> torch.Tensor:
-    """Full-sequence causal pass without a cache → (B, T, V) logits."""
+            policy: SparsityPolicy, phase: str = "train") -> torch.Tensor:
+    """Full-sequence causal pass without a cache → (B, T, V) logits.  The
+    phase defaults to ``"train"``, as the reference's does, so a policy
+    whose phases omit it leaves the pass dense.  Autograd records the pass
+    when grad is enabled and the parameters require it (the dense family;
+    :func:`check_trainable` says what raises)."""
+    check_trainable(cfg, params)
     tokens = batch["tokens"]
     b, t = tokens.shape
     positions = torch.arange(t, device=tokens.device).expand(b, t)

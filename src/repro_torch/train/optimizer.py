@@ -1,0 +1,126 @@
+"""AdamW, the cosine schedule and global-norm clipping (port of
+``repro/train/optimizer.py``).
+
+The state is plain tensors keyed by the port's parameter names
+(``model.named_parameters()``): ``{"mu": {name: float32}, "nu": {name:
+float32}, "step": 0-d int32}``, so it checkpoints like the parameters.
+``mu`` and ``nu`` are float32 whatever the parameter dtype, and the update
+runs in float32 on a float32 copy of each parameter, cast back once, as the
+reference does (``torch.optim.AdamW`` keeps its moments in the parameter's
+dtype, so it computes another function).
+
+:func:`adamw_update` keeps the reference's interface (it returns the new
+parameters and state) but writes them into the tensors it is given, one
+leaf at a time, so a full-size model holds one copy of its state and the
+float32 temporaries of one leaf: ``mu`` and ``nu`` are updated in place and
+each parameter is overwritten with its new value.  The per-leaf arithmetic
+keeps the reference's order of operations (``b1 * mu + (1 - b1) * g``,
+``(1 - b2) * g * g``, bias corrections as divisions).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Tuple
+
+import torch
+
+__all__ = ["OptConfig", "adamw_init", "adamw_update", "cosine_lr", "decays",
+           "global_norm"]
+
+Tensors = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    min_lr_frac: float = 0.1
+
+
+def _f32(v, device) -> torch.Tensor:
+    return torch.as_tensor(v, device=device).to(torch.float32)
+
+
+def cosine_lr(cfg: OptConfig, step) -> torch.Tensor:
+    """Linear warm-up to ``cfg.lr``, then a cosine decay to ``min_lr_frac``
+    of it, as a float32 0-d tensor on ``step``'s device."""
+    step = _f32(step, step.device if isinstance(step, torch.Tensor) else "cpu")
+    warm = cfg.lr * step / max(cfg.warmup_steps, 1)
+    prog = torch.clamp((step - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = cfg.lr * (cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5
+                    * (1 + torch.cos(_f32(math.pi, step.device) * prog)))
+    return torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def global_norm(tree: Tensors) -> torch.Tensor:
+    """The float32 L2 norm of every tensor of ``tree`` together."""
+    total = None
+    for g in tree.values():
+        sq = torch.sum(torch.square(g.float()))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+def decays(name: str, p: torch.Tensor) -> bool:
+    """Whether AdamW decays the parameter ``name``.
+
+    The reference decays a leaf with ``p.ndim >= 2``
+    (``repro/train/optimizer.py:86``) on its scan-stacked tree, where every
+    per-layer leaf carries a leading layer axis: a layer's norm weights and
+    biases are ``(n_layers, d)`` there and are decayed, as are the
+    embedding and the LM head; only the top-level 1-D leaves
+    (``final_norm``) are not.  The port keeps one tensor a layer, so the
+    rule reads the reference's rank: every leaf under ``blocks.``, and any
+    other of rank 2 or more."""
+    return name.startswith("blocks.") or p.dim() >= 2
+
+
+def adamw_init(params: Tensors) -> Dict:
+    """Zero float32 moments beside each parameter and a 0-d int32 step."""
+    any_p = next(iter(params.values()))
+    return {"mu": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                   for k, p in params.items()},
+            "nu": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                   for k, p in params.items()},
+            "step": torch.zeros((), dtype=torch.int32, device=any_p.device)}
+
+
+@torch.no_grad()
+def adamw_update(cfg: OptConfig, grads: Tensors, opt_state: Dict, params: Tensors
+                 ) -> Tuple[Tensors, Dict]:
+    """One AdamW step with global-norm clipping → ``(params, opt_state)``.
+
+    The clip scale ``min(1, clip_norm / (gnorm + 1e-9))`` multiplies the
+    float32 gradients before the moments.  In place (module docstring):
+    the returned dicts hold the tensors passed in, updated; ``step`` is a
+    new tensor."""
+    step = opt_state["step"] + 1
+    lr = cosine_lr(cfg, step)
+    gnorm = global_norm(grads)
+    # torch.div, not ``clip / tensor``, which torch computes as a reciprocal
+    # times the number: two roundings where the reference has one
+    scale = torch.clamp(torch.div(_f32(cfg.clip_norm, gnorm.device), gnorm + 1e-9), max=1.0)
+    stepf = step.to(torch.float32)
+    b1t = 1 - torch.pow(_f32(cfg.b1, step.device), stepf)
+    b2t = 1 - torch.pow(_f32(cfg.b2, step.device), stepf)
+    mus, nus = opt_state["mu"], opt_state["nu"]
+    for name, p in params.items():
+        g = grads[name].float() * scale
+        mu, nu = mus[name], nus[name]
+        mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        nu.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+        del g
+        delta = (mu / b1t).div_(torch.sqrt(nu / b2t).add_(cfg.eps))
+        p32 = p.float()
+        if decays(name, p):
+            delta.add_(cfg.weight_decay * p32)
+        p.copy_(p32 - lr * delta)
+    return params, {"mu": mus, "nu": nus, "step": step}

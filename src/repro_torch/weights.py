@@ -40,6 +40,12 @@ the shared expert's), RWKV6 and RG-LRU layers, and the encoder-decoder's
 two stacks.  ``absmax`` is keyed by each projection's place
 (:func:`projection_sites`).
 
+``named_from_jax(cfg, tree_np)`` maps any parameter-shaped tree of the
+dense family (parameters, gradients, AdamW's ``mu`` and ``nu``) onto the
+port's parameter names (``model.named_parameters()``), unstacked but not
+cast: ``from_jax_params`` casts to ``cfg.dtype``, which would round float32
+moments of a bf16 model.
+
 This module imports nothing of JAX: it sees only numpy arrays.
 """
 from __future__ import annotations
@@ -56,7 +62,7 @@ from repro_torch.core.pruner import SCALE_KEY
 from repro_torch.layers.linear import Linear, QuantLinear
 from repro_torch.models import common, encdec, transformer
 
-__all__ = ["from_jax_params", "projection_sites", "quantize_linears"]
+__all__ = ["from_jax_params", "named_from_jax", "projection_sites", "quantize_linears"]
 
 
 def _t(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -151,6 +157,29 @@ def from_jax_params(cfg: ModelConfig, params_np: Dict, device=None
         for name in ("gate_proj", "up_proj", "down_proj"):
             _load_linear(blk.mlp, name, lp["mlp"][name], dtype, device)
     return model
+
+
+def named_from_jax(cfg: ModelConfig, tree_np: Dict) -> Dict[str, np.ndarray]:
+    """``{port parameter name: array}`` of a parameter-shaped JAX tree of
+    the dense family (``blocks.{i}.`` + the layer's path, ``embed.w``,
+    ``final_norm.w``, ``lm_head.w``), each array as it is: no cast.  The
+    Amber scales are buffers in the port, not parameters, and are left
+    out."""
+    if cfg.is_encdec or cfg.n_experts or set(transformer.layer_kinds(cfg)) != {"attn"}:
+        raise NotImplementedError(f"{cfg.name}: named_from_jax maps the dense family's tree")
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(prefix: str, d: Dict) -> None:
+        for k, v in d.items():
+            if isinstance(v, dict):
+                walk(f"{prefix}{k}.", v)
+            elif k != SCALE_KEY:
+                out[prefix + k] = np.asarray(v)
+
+    walk("", {k: v for k, v in tree_np.items() if k not in ("periods", "tail")})
+    for i in range(cfg.n_layers):
+        walk(f"blocks.{i}.", _layer_params(cfg, tree_np, i))
+    return out
 
 
 def _load_attn(p, lp: Dict, dtype, device) -> None:

@@ -18,6 +18,7 @@ import weakref
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs.base import get_smoke_config
 from repro.core import policy as jpolicy
@@ -38,6 +39,18 @@ from repro_torch.weights import from_jax_params
 
 MAX_SEQ = 64
 SERVE = dict(max_seq=MAX_SEQ, num_slots=2, chunk_size=8, block_size=4, validate_pool=True)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's smoke engines run thousands of tiny torch ops: with the
+    suite's six workers, torch's intra-op thread pools oversubscribe the
+    cores and slow them.  One thread a worker while this module runs;
+    restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

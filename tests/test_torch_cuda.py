@@ -10,7 +10,7 @@ import ctypes
 import pytest
 import torch
 
-from repro_torch.core import quant
+from repro_torch.core import nm, quant, scoring
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import nm_prune as knp
@@ -1301,3 +1301,87 @@ def test_replayed_decode_leaves_inactive_slots_state_unchanged(gen, arch):
             assert torch.equal(new[k][1], one[k][1]), (kind, k)
             moved |= not torch.equal(new[k][0], old[k][0])
     assert moved
+
+
+# ------------------------------------------------------------- training
+
+def _req(t):
+    return t.requires_grad_(True)
+
+
+_GUARDED = {
+    "flash_attention": lambda d: kfa.flash_attention(
+        _req(torch.randn(1, 32, 2, 64, device=d)), *[torch.randn(1, 32, 2, 64, device=d)] * 2),
+    "nm_spmm": lambda d: kns.nm_spmm(_req(torch.randn(32, 64, device=d)),
+                                     torch.randn(64, 16, device=d), None, 8, 16),
+    "osparse_matmul": lambda d: kos.osparse_matmul(
+        _req(torch.randn(4, 64, device=d)), torch.zeros(64, 16, dtype=torch.int8, device=d),
+        torch.ones(64, device=d), None, torch.ones(16, device=d), 8, 16,
+        act_scale=torch.ones(1, device=d)),
+    "w8a8_matmul": lambda d: kw8.w8a8_matmul(
+        torch.zeros(4, 64, dtype=torch.int8, device=d),
+        torch.zeros(64, 16, dtype=torch.int8, device=d), torch.ones(1, device=d),
+        _req(torch.ones(16, device=d))),
+    "paged_kv_scatter": lambda d: kpa.paged_kv_scatter(
+        _req(torch.randn(1, 4, 1, 64, device=d)), torch.randn(1, 4, 1, 64, device=d),
+        torch.zeros(2, 8, 1, 64, device=d), torch.zeros(2, 8, 1, 64, device=d),
+        torch.zeros(1, 1, dtype=torch.int32, device=d),
+        torch.zeros(1, dtype=torch.int32, device=d), torch.full((1,), 4, dtype=torch.int32,
+                                                                device=d)),
+    "paged_attention": lambda d: kpa.paged_attention(
+        _req(torch.randn(1, 1, 1, 64, device=d)), torch.zeros(2, 8, 1, 64, device=d),
+        torch.zeros(2, 8, 1, 64, device=d), torch.zeros(1, 1, dtype=torch.int32, device=d),
+        torch.zeros(1, dtype=torch.int32, device=d), torch.ones(1, dtype=torch.int32, device=d)),
+    "nm_prune": lambda d: knp.nm_prune(_req(torch.randn(4, 64, device=d)), None, 8, 16),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(_GUARDED))
+def test_kernels_without_backward_refuse_grad(gen, kernel):
+    """A kernel with no backward, called where autograd records (an input
+    requires grad, grad mode on), raises naming itself, before any launch;
+    under ``no_grad`` the guard lets the same tensors through."""
+    with pytest.raises(RuntimeError, match=f"{kernel}: the CUDA kernel has no backward"):
+        _GUARDED[kernel]("cuda")
+    x = torch.randn(4, 64, device="cuda", requires_grad=True)
+    with torch.no_grad():
+        assert knp.nm_prune(x, None, 8, 16).grad_fn is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,n_out,bias", [(37, 128, 72, True), (256, 4096, 1024, False)])
+def test_prune_matmul_function_matches_plain_autograd(gen, dtype, t, d, n_out, bias):
+    """``PruneMatmul`` on the card (one kernel launch, its selection kept)
+    against the plain path's autograd on the same inputs, with a whole
+    16-group of zeros and a lone zero: the kernel's keep-mask is the plain
+    selection bit for bit (kept zeros included), and y, dX, dW and db are
+    within the kernels' tolerance (dX and dW are ``torch.matmul`` on both
+    sides)."""
+    x = torch.randn(t, d, generator=gen, device="cuda").to(dtype)
+    x[1, :16] = 0
+    x[2, 5] = 0
+    w = (torch.randn(d, n_out, generator=gen, device="cuda") * d**-0.5).to(dtype)
+    b = torch.randn(n_out, generator=gen, device="cuda").to(dtype) if bias else None
+    sc = torch.rand(d, generator=gen, device="cuda") + 0.5
+    dy = torch.randn(t, n_out, generator=gen, device="cuda").to(dtype)
+    _, _, keep = knm._launch(x, w, sc, 8, 16, b, with_keep=True)
+    want_keep = nm.nm_topk_mask(scoring.score_activations(x, sc), 8, 16)
+    assert torch.equal(keep.view(torch.bool), want_keep)
+    assert bool(keep[1, :8].all()) and not bool(keep[1, 8:16].any())
+    outs = []
+    for via_kernel in (True, False):
+        xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+        ba = b.clone().requires_grad_() if bias else None
+        n0 = knm.nm_prune_matmul.launches
+        if via_kernel:
+            y = knm.nm_prune_matmul(xa, wa, sc, 8, 16, bias=ba)
+            assert knm.nm_prune_matmul.launches == n0 + 1
+        else:
+            y = torch.where(want_keep, xa, torch.zeros((), dtype=dtype, device="cuda")) @ wa
+            y = y if ba is None else y + ba
+        y.backward(dy)
+        outs.append([y.detach(), xa.grad, wa.grad] + ([ba.grad] if bias else []))
+    for got, want in zip(*outs):
+        _close(got, want, dtype)
+    assert bool((outs[0][1][1, :8] != 0).any())          # kept zeros pass their gradient
+    assert not bool(outs[0][1][1, 8:16].any())

@@ -29,6 +29,18 @@ TRACE = ["--smoke", "--arch", "llama31_8b", "--trace", "--num-requests", "4", "-
          "0.7", "--len-range", "6:20", "--slots", "2", "--chunk", "8", "--new-tokens", "5"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's smoke engines run thousands of tiny torch ops: with the
+    suite's six workers, torch's intra-op thread pools oversubscribe the
+    cores and slow them.  One thread a worker while this module runs;
+    restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _report(out: str):
     """The counters of a ``--trace`` report: per-request rows without the
     wall-clock column, and the counts of each ``#`` line, keyed by its

@@ -61,6 +61,18 @@ CHUNK_TOL = dict(rtol=0, atol=5e-5)       # tests/test_prefill_chunk.py's
 STUB = {"whisper_medium": "frame_embeds", "qwen2_vl_2b": "pixel_embeds"}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's smoke engines run thousands of tiny torch ops: with the
+    suite's six workers, torch's intra-op thread pools oversubscribe the
+    cores and slow them.  One thread a worker while this module runs;
+    restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def models():
     """Per arch: (JAX model, JAX params, port model, port cfg), float32."""
@@ -203,7 +215,8 @@ def test_forward_prefill_and_decode_match_jax(models, arch, name, kernels):
     ref = _jax_reference(models, arch, name)
     tp = from_jax_params(tcfg, ref["params"], device="cpu")
     _, _, tb = _batch(tcfg, 2, 11, 3)
-    np.testing.assert_allclose(tm.forward(tp, tb, policy=tpol).numpy(), ref["forward"], **TOL)
+    np.testing.assert_allclose(tm.forward(tp, tb, policy=tpol, phase="prefill").numpy(),
+                               ref["forward"], **TOL)
     tl, tc = tm.prefill(tp, tb, tm.init_cache(2, 24), policy=tpol)
     np.testing.assert_allclose(tl.numpy(), ref["steps"][0][1], **TOL)
     for tok, want in ref["steps"][1:]:
@@ -318,12 +331,13 @@ def test_encdec_prunes_q_and_the_mlp_in_every_layer(models, monkeypatch):
     jp, tp = _both(models, "whisper_medium", jpolicy.paper_policy(8, 16))
     _, jb, tb = _batch(tcfg, 1, 8, 5)
     skip = tpolicy.paper_policy(8, 16, every)
-    got = tm.forward(tp, tb, policy=skip).numpy()
+    got = tm.forward(tp, tb, policy=skip, phase="prefill").numpy()
     np.testing.assert_array_equal(got, tm.forward(tp, tb, policy=tpolicy.paper_policy(
-        8, 16)).numpy())
+        8, 16), phase="prefill").numpy())
     np.testing.assert_allclose(got, _np(jm.forward(
         jp, jb, policy=jpolicy.paper_policy(8, 16, every), phase="prefill")), **TOL)
-    assert not np.allclose(got, tm.forward(tp, tb, policy=tpolicy.DENSE).numpy(), atol=1e-3)
+    assert not np.allclose(got, tm.forward(tp, tb, policy=tpolicy.DENSE, phase="prefill").numpy(),
+                           atol=1e-3)
 
     calls = []
     real = encdec.sparse_linear

@@ -88,7 +88,7 @@ def _port(smoke, reference, name, use_kernels):
 @pytest.mark.parametrize("name", sorted(POLICIES))
 def test_forward_logits_match(smoke, reference, name, use_kernels):
     tm, tp, tpol = _port(smoke, reference, name, use_kernels)
-    got = tm.forward(tp, {"tokens": torch.from_numpy(TOKS)}, policy=tpol).numpy()
+    got = tm.forward(tp, {"tokens": torch.from_numpy(TOKS)}, policy=tpol, phase="prefill").numpy()
     np.testing.assert_allclose(got, reference[name][1], **TOL)
 
 

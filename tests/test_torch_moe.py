@@ -176,7 +176,7 @@ def test_model_logits_match(jax_models, reference, arch, name, use_kernels):
     params_np, fwd, chunks, steps = reference[arch, name]
     tpol = _policies(tcfg.qgate_skip_layers)[name][1].with_(use_kernels=use_kernels)
     tm, tp = build_model(tcfg, device="cpu"), from_jax_params(tcfg, params_np, device="cpu")
-    got = tm.forward(tp, {"tokens": torch.from_numpy(TOKS)}, policy=tpol).numpy()
+    got = tm.forward(tp, {"tokens": torch.from_numpy(TOKS)}, policy=tpol, phase="prefill").numpy()
     np.testing.assert_allclose(got, fwd, **TOL)
     cache = tm.init_cache(1, 48, block_size=8)
     for (chunk, clen), want in zip(_chunks(), chunks):

@@ -253,7 +253,7 @@ def test_quantized_moe_logits_and_tokens_match(reference, arch, variant, use_ker
     cfg = ref["cfg"]
     tm, tp = build_model(cfg, device="cpu"), from_jax_params(cfg, ref["quant_np"], device="cpu")
     tpol = _policies(cfg)[1].with_(use_kernels=use_kernels)
-    got = tm.forward(tp, {"tokens": torch.from_numpy(TOKS)}, policy=tpol).numpy()
+    got = tm.forward(tp, {"tokens": torch.from_numpy(TOKS)}, policy=tpol, phase="prefill").numpy()
     _close(got, ref["fwd"])
     assert (got.argmax(-1) == ref["fwd"].argmax(-1)).all()
     cache = tm.init_cache(1, 48, block_size=8)

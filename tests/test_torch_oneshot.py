@@ -341,7 +341,7 @@ def _port(impl, params_np, name, use_kernels):
 def test_qwen_forward_logits_match(qwen_reference, name, impl, use_kernels):
     params_np, fwd, _ = qwen_reference[name, impl]
     tm, tp, tpol = _port(impl, params_np, name, use_kernels)
-    got = tm.forward(tp, {"tokens": torch.from_numpy(TOKS)}, policy=tpol).numpy()
+    got = tm.forward(tp, {"tokens": torch.from_numpy(TOKS)}, policy=tpol, phase="prefill").numpy()
     np.testing.assert_allclose(got, fwd, **TOL)
 
 

@@ -472,7 +472,8 @@ def test_quantized_family_logits_match_jax(reference, arch, use_kernels):
     pol = tpolicy.paper_policy(8, 16, cfg.qgate_skip_layers).with_(use_kernels=use_kernels)
     batch = {"tokens": torch.from_numpy(TOKS),
              **{k: torch.from_numpy(v) for k, v in _stubs(cfg, 2, 4).items()}}
-    _close(tm.forward(tp, batch, policy=pol)[:, -1].numpy(), ref["steps"][0][1])
+    _close(tm.forward(tp, batch, policy=pol, phase="prefill")[:, -1].numpy(),
+           ref["steps"][0][1])
     tl, cache = tm.prefill(tp, batch, tm.init_cache(2, 24), policy=pol)
     _close(tl.numpy(), ref["steps"][0][1])
     for tok, want in ref["steps"][1:]:

@@ -57,6 +57,18 @@ TOL = dict(rtol=1e-4, atol=1e-4)          # float32, another summation order
 CHUNK_TOL = dict(rtol=0, atol=5e-5)       # tests/test_prefill_chunk.py's
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's smoke engines run thousands of tiny torch ops: with the
+    suite's six workers, torch's intra-op thread pools oversubscribe the
+    cores and slow them.  One thread a worker while this module runs;
+    restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def models():
     """Per arch: (JAX model, JAX params, port model, port cfg), float32."""
@@ -220,7 +232,7 @@ def test_forward_prefill_and_decode_match_jax(models, arch):
     jp, tp = _both(models, arch, "paper_2_4")
     jpol, tpol = _policies("paper_2_4")
     want = jm.forward(jp, {"tokens": jnp.asarray(TOKS)}, policy=jpol, phase="prefill")
-    got = tm.forward(tp, {"tokens": torch.from_numpy(TOKS)}, policy=tpol)
+    got = tm.forward(tp, {"tokens": torch.from_numpy(TOKS)}, policy=tpol, phase="prefill")
     np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
     jc, tc = jm.init_cache(2, 32), tm.init_cache(2, 32)
     jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(TOKS)}, jc, policy=jpol)

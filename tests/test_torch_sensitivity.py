@@ -196,9 +196,10 @@ def test_sensitivity_scan_matches_jax(scan, use_kernels):
     got = tsens.sensitivity_scan(tm.forward, tp, {"tokens": toks}, SCAN_MODULES,
                                  tcfg.n_layers, base)
     got["k_proj", 1] = float(tsens.relative_perturbation(
-        tm.forward(tp, {"tokens": toks}, policy=tpolicy.DENSE),
+        tm.forward(tp, {"tokens": toks}, policy=tpolicy.DENSE, phase="prefill"),
         tm.forward(tp, {"tokens": toks},
-                   policy=tsens.targeted_policy("k_proj", 1, tcfg.n_layers, base))))
+                   policy=tsens.targeted_policy("k_proj", 1, tcfg.n_layers, base),
+                   phase="prefill")))
     assert set(got) == set(want) and all(isinstance(v, float) for v in got.values())
     for key, e in want.items():
         assert got[key] == pytest.approx(e, rel=SCAN_RTOL), key
@@ -319,13 +320,14 @@ def test_chip_smoke_scan_helpers(scan):
     seen = []
     with cs.spy_projections(lambda x, p, module, policy, phase, layer:
                             seen.append((module, layer, x.shape[-1]))):
-        tm.forward(tp, {"tokens": toks}, policy=tpolicy.DENSE)
+        tm.forward(tp, {"tokens": toks}, policy=tpolicy.DENSE, phase="prefill")
     assert sorted((m, i) for m, i, _ in seen) == sorted(
         (m, i) for m in tpolicy.ALL_PROJS for i in range(tcfg.n_layers))
     assert {(m, d) for m, _, d in seen} == {(m, dims[0]) for m, dims in _dims(tcfg).items()}
     pol = tpolicy.paper_policy(8, 16)
     table = cs.nm_flips(torch, lambda uk: tm.forward(tp, {"tokens": toks},
-                                                     policy=pol.with_(use_kernels=uk)))
+                                                     policy=pol.with_(use_kernels=uk),
+                                                     phase="prefill"))
     rows = toks.numel()
     assert table == {(m, i): [0, rows * _dims(tcfg)[m][0] // 16]
                      for m in ("q_proj", "gate_proj", "down_proj") for i in range(tcfg.n_layers)}

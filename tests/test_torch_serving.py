@@ -55,6 +55,18 @@ POLICIES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's smoke engines run thousands of tiny torch ops: with the
+    suite's six workers, torch's intra-op thread pools oversubscribe the
+    cores and slow them.  One thread a worker while this module runs;
+    restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _traffic():
     rng = np.random.default_rng(5)
     shared = rng.integers(0, 256, size=16)               # two full blocks

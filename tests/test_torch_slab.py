@@ -56,6 +56,18 @@ PROMPTS = [np.random.default_rng(3).integers(0, 256, size=n).astype(np.int32)
 ARRIVALS, NEW = [0, 0, 2, 5], [6, 9, 5, 7]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's smoke engines run thousands of tiny torch ops: with the
+    suite's six workers, torch's intra-op thread pools oversubscribe the
+    cores and slow them.  One thread a worker while this module runs;
+    restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def models():
     """Per arch: (JAX model, JAX params, port model, port cfg), float32."""

@@ -301,7 +301,7 @@ def test_forward_matches_jax_and_the_ring(mixtral):
     tp = from_jax_params(tcfg, jax.tree_util.tree_map(np.asarray, params), device="cpu")
     want = np.asarray(jm.forward(params, {"tokens": jnp.asarray(TOKS)}, policy=jpolicy.DENSE,
                                  phase="prefill"))
-    got = tm.forward(tp, {"tokens": torch.from_numpy(TOKS)}).numpy()
+    got = tm.forward(tp, {"tokens": torch.from_numpy(TOKS)}, phase="prefill").numpy()
     np.testing.assert_allclose(got, want, **MODEL_TOL)
     cache = tm.init_cache(1, 48)
     tl, cache = tm.prefill(tp, {"tokens": torch.from_numpy(TOKS[:1, :40])}, cache)

@@ -62,6 +62,18 @@ SERVE = dict(max_seq=64, num_slots=2, chunk_size=8, block_size=8, num_blocks=8)
 ONE_SHOT_SEQ, NEW = 32, 6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's smoke engines run thousands of tiny torch ops: with the
+    suite's six workers, torch's intra-op thread pools oversubscribe the
+    cores and slow them.  One thread a worker while this module runs;
+    restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np(seed, *shape):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
 
@@ -316,7 +328,7 @@ def test_norm_and_bias_weights_carried_from_jax(models, arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_logits_match(models, reference, arch, name, use_kernels):
     tm, tp, tpol = _port(models, reference, arch, name, use_kernels)
-    got = tm.forward(tp, {"tokens": torch.from_numpy(TOKS)}, policy=tpol).numpy()
+    got = tm.forward(tp, {"tokens": torch.from_numpy(TOKS)}, policy=tpol, phase="prefill").numpy()
     np.testing.assert_allclose(got, reference[arch, name][1], **TOL)
 
 
