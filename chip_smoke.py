@@ -222,7 +222,8 @@ Phases (any failed check exits non-zero; no phase is skipped):
              and a decode step profiled, graphed tokens equal to the eager
              programs', peak memory printed), with ``attention_plan``'s
              route of its chunk and decode step: 8a Qwen2.5-32B at full
-             width and depth (64 layers, 40/8 heads, q/k/v biases; 192
+             width, depth 32 of its 64 layers (cut to make room for
+             phase 14 in the run's time; 40/8 heads, q/k/v biases; 96
              ``nm_prune_matmul`` a chunk); 8b the same weights rewritten
              Outstanding-sparse as in 3b, every ``osparse_matmul`` launch on
              its wgmma or swap_fused route with the q/k/v biases in the
@@ -293,8 +294,10 @@ Phases (any failed check exits non-zero; no phase is skipped):
              of two; each step program captured once per chunk length it
              ran, which ``trace_counts`` must equal, counted from the plans),
              under ``paper_policy(8, 16, ())`` with the kernels.  11a:
-             RWKV6-7B at full width and depth (32 layers, 7.53B parameters),
-             phase 3's stream: launches exact (192 ``nm_prune_matmul`` a
+             RWKV6-7B at full width, depth 16 of its 32 layers (cut to
+             make room for phase 14 in the run's time; all 32: 7.53B
+             parameters),
+             phase 3's stream: launches exact (96 ``nm_prune_matmul`` a
              sparse chunk: r/k/v/g as q_proj, the channel mix's gate and
              down; no attention kernel), tok/s, peak memory and the seconds
              spent capturing; a 256-token chunk and a decode step profiled
@@ -331,17 +334,18 @@ Phases (any failed check exits non-zero; no phase is skipped):
              request's seeded stub goes with its first prefill chunk, and
              ``trace_counts`` must read 2 for each prefill program (with
              and without extras) and 1 for decode.  12a: Whisper-medium at
-             full size (24 + 24 layers, 16 heads of 64, encoder_seq 1500)
+             full width, 12 + 12 of its 24 + 24 layers (cut to make room
+             for phase 14 in the run's time; 16 heads of 64, encoder_seq 1500)
              on the dense slab, phase 3's stream with ``frame_embeds (1,
-             1500, 1024)``: launches exact (``nm_prune_matmul`` 168 a first
-             chunk, 96 a later one: the encoder-decoder passes no layer
+             1500, 1024)``: launches exact (``nm_prune_matmul`` 84 a first
+             chunk, 48 a later one: the encoder-decoder passes no layer
              index, so q, fc1 and fc2 prune in every encoder layer and self
              q, cross q, fc1 and fc2 in every decoder layer; no attention
              kernel: the reference's encoder-decoder attention is plain),
              tok/s, peak memory, a first chunk (with the encoder), a later
              chunk and a decode step profiled, graphed tokens equal to the
              eager programs'.  12b: its one-shot ``generate`` at B = 4,
-             T = 256 with ``frame_embeds``: 168 ``nm_prune_matmul`` a
+             T = 256 with ``frame_embeds``: 84 ``nm_prune_matmul`` a
              prefill, graphs captured once, tokens equal to the run
              without graphs.  12c: Qwen2-VL-2B at full size (28 layers,
              12 / 2 heads of 128, M-RoPE), paged, phase 3's stream with
@@ -389,13 +393,48 @@ Phases (any failed check exits non-zero; no phase is skipped):
              repro_torch.launch.train --arch llama31_8b --smoke --steps 20
              --sparsity 8:16 --sparse-train`` rc 0, then ``--steps 30``
              resumes from 20.
+14. tensor parallelism — after phase 13 freed its models
+             (``phase_tp``).  14a: each sharded entry point at
+             LLaMA-3.1-8B's shapes at tp = 2 and 4, every rank's shard
+             computed in this process on the unsharded call's plan (the
+             plan ``kernels.ops`` and ``models.attention`` hand a shard
+             under a TP scope) and concatenated: ``nm_prune_matmul`` q
+             4096², gate 4096 x 14336 and down 14336 x 4096 at T = 256;
+             ``osparse_matmul`` on the same widths pruned at T = 256 and
+             with ``prune=False`` at T = 4 (each K-major ``wq`` shard a
+             view); ``nm_spmm`` (2h's Qwen2-7B shapes, T = 2048) and
+             ``w8a8_matmul`` (2e's); ``paged_attention`` chunk (Tq 256) and
+             decode (B = 4) at 32 / 8 heads of 128 over each rank's heads;
+             ``paged_kv_scatter`` of a 256-row chunk into each rank's
+             pools.  Each bit-identical to the unsharded launch, each
+             shard's plan printed beside the one it would pick alone.
+             14b: two ranks on this card over gloo (``launch.mesh.spawn``;
+             NCCL refuses two ranks of one communicator on one device), each
+             serving LLaMA-3.1-8B at full width and ``TP_DEPTH`` layers with
+             phase 3's weights, policy, warm-up and stream through
+             ``Engine`` at ``EngineConfig(tp=2)``, every step eager (a CUDA
+             graph cannot hold a gloo collective): every request's tokens
+             equal phase 3's on both ranks; each rank's pools hold 4 of the
+             8 KV heads; per rank the launches exact (86 ``nm_prune_matmul``
+             a sparse chunk, 32 ``paged_kv_scatter`` and ``paged_attention``
+             a step half, each a shard) and the gathers exact (118 a chunk
+             alone: q, gate, down and attention; 32 a decode step), with the
+             gathered bytes, eager wall time per chunk and per decode step
+             and peak memory printed.  14c: the same with 3b's W8A8 rewrite
+             on 3b's stream (tokens equal to 3b's; 192 ``osparse_matmul`` a
+             step half, 54 pruned a sparse chunk, 32 ``nm_prune_matmul``;
+             256 gathers a chunk alone, 224 a decode step).  14d: ``python
+             -m repro_torch.launch.serve --tp 2`` on the card (the smoke
+             LLaMA-3.1 config, 6 requests) exits 0 with the ``--tp 1`` run's
+             token digest.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is
 its count in the run of the path that first served it (phase 3, 3b, 5 or
 7a); ``launches_by_run`` holds its count in each main-path run that
 launched it (3, 3b, 5, 6g over both replicas, 7a, 7e, 9a, 9b, 9c's Naive run,
-10a, 10b, 11a, 11e, 11b, 11c, 12a, 12b, 12e, 12c and 13b), each counted from 0.  Exits non-zero without a
+10a, 10b, 11a, 11e, 11b, 11c, 12a, 12b, 12e, 12c, 13b, and 14b and 14c on rank
+0), each counted from 0.  Exits non-zero without a
 CUDA device, and when run outside the repository (it needs ``src/``).
 """
 from __future__ import annotations
@@ -1513,13 +1552,24 @@ def check_launches(label, launches, want):
             fail(f"{label}: {name} launched {launches[name]} times, expected {count}")
 
 
+def w8a8_rewrite(cfg, params) -> None:
+    """Phase 3b's rewrite, in place: q/k/v/o/gate/up of every layer to W8A8
+    (``QuantConfig()``) from a calibration absmax seeded ``SEED + 3``."""
+    from repro_torch.core import quant
+    from repro_torch.weights import quantize_linears
+
+    rng = np.random.default_rng(SEED + 3)
+    absmax = {(i, name): calib_absmax(rng, cfg.q_dim if name == "o_proj" else cfg.d_model)
+              for i in range(cfg.n_layers) for name in QPROJS}
+    quantize_linears(params, absmax, quant.QuantConfig())
+
+
 def phase_serve_osparse(torch, model, params, policy, label="3b"):
     """Phase 3's (or 8a's) weights and Amber scales, rewritten to W8A8 on
     q/k/v/o/gate/up of every layer, served the same way; the q/k/v biases
     of a model that has them go into the int8 epilogue."""
     from repro_torch.core import quant
     from repro_torch.layers.linear import QuantLinear
-    from repro_torch.weights import quantize_linears
 
     cfg = model.cfg
     qcfg = quant.QuantConfig()
@@ -1528,10 +1578,7 @@ def phase_serve_osparse(torch, model, params, policy, label="3b"):
           f"{qcfg.per_token_act} skip_modules={qcfg.skip_modules} skip_layers="
           f"{qcfg.skip_layers}; Amber 8:16 under the paper policy)")
     t0 = time.perf_counter()
-    rng = np.random.default_rng(SEED + 3)
-    absmax = {(i, name): calib_absmax(rng, cfg.q_dim if name == "o_proj" else cfg.d_model)
-              for i in range(cfg.n_layers) for name in QPROJS}
-    quantize_linears(params, absmax, qcfg)
+    w8a8_rewrite(cfg, params)
     if cfg.qkv_bias and not all(isinstance(lin, QuantLinear) and lin.b is not None
                                 for blk in params.blocks
                                 for lin in (blk.q_proj, blk.k_proj, blk.v_proj)):
@@ -1564,7 +1611,7 @@ def phase_serve_osparse(torch, model, params, policy, label="3b"):
     profile_steps(torch, model, params, policy, eng)
     del eng
     check_graphed_tokens(torch, model, params, policy, f"phase {label}", outputs)
-    return launches
+    return launches, outputs
 
 
 def fresh_engine(torch, model, policy, faults=None, **serving):
@@ -1579,11 +1626,11 @@ def fresh_engine(torch, model, policy, faults=None, **serving):
                  for p, a in zip(prompts, arrivals)]
 
 
-def check_tokens(label, outputs, want):
+def check_tokens(label, outputs, want, of="phase 3's"):
     if outputs != want:
         diff = [i for i, (a, b) in enumerate(zip(outputs, want)) if a != b]
-        fail(f"{label}: tokens differ from phase 3's in requests {diff}")
-    print(f"  {label}: tokens identical to phase 3's ({len(want)} requests x {len(want[0])})")
+        fail(f"{label}: tokens differ from {of} in requests {diff}")
+    print(f"  {label}: tokens identical to {of} ({len(want)} requests x {len(want[0])})")
 
 
 def phase_lifecycle(torch, model, params, policy, want):
@@ -3469,7 +3516,8 @@ def dense_model(torch, arch, n_layers=None):
 # phase 8's models: (subphase, arch, depth on one card (None: all its
 # layers), why it is cut)
 VARIANT_SERVING = (
-    ("8a", "qwen2_5_32b", None, None),
+    ("8a", "qwen2_5_32b", 32, "depth 32 of its 64 layers, to make room for phase 14 in the "
+                              "run's time: full width"),
     ("8c", "chatglm3_6b", None, None),
     ("8d", "stablelm_3b", None, None),
     ("8e", "granite_34b", 16, "its 88 layers take 88.0 GiB in bf16, which no 80 GB card "
@@ -4435,6 +4483,9 @@ def phase_family_int8_kernels(torch, timer, rates, records):
 
 
 # 11b's two long requests (past RecurrentGemma-2B's 2048-row rings) and max_seq
+# 11a/11e: RWKV6-7B's depth, cut from its 32 layers to make room for phase 14
+# in the run's time (full width)
+RWKV_DEPTH, RWKV_FULL_DEPTH = 16, 32
 RG_LONG = (2300, 2600)
 RG_SEQ = 4096
 # 11c's one-shot prompt (2j's timed flash shape) and 11d's prompt lengths
@@ -4607,8 +4658,9 @@ def wkv_against_the_loop(torch, rwkv6, args, case):
 
 
 def serve_recurrent(torch, label, arch, rates, stream_fn=None, chunk_pos=256,
-                    decode_pos=(700, 500, 300, 100)):
-    """11a/11b: ``arch`` at full width and depth, served on the dense slab
+                    decode_pos=(700, 500, 300, 100), n_layers=None):
+    """11a/11b: ``arch`` at full width (depth ``n_layers``, default all its
+    layers), served on the dense slab
     in exact dyadic chunks (:func:`serve_requests` with ``stream_fn``; each
     program captured once per chunk length it ran), launches exact (per
     sparse chunk :func:`prune_launches` ``nm_prune_matmul``; no
@@ -4618,10 +4670,11 @@ def serve_recurrent(torch, label, arch, rates, stream_fn=None, chunk_pos=256,
     family of its own, graphed tokens equal to the eager programs'.
     Returns (launches, model, params, policy)."""
     t0 = time.perf_counter()
-    cfg, model, params, policy = recurrent_model(torch, arch)
+    cfg, model, params, policy = recurrent_model(torch, arch, n_layers)
     torch.cuda.synchronize()
     n_w = sum(p.numel() for p in params.parameters())
-    print(f"phase {label}: serve {cfg.name} at full width and depth ({cfg.n_layers} layers "
+    depth = "and depth" if n_layers is None else f"depth {n_layers} of {RWKV_FULL_DEPTH}"
+    print(f"phase {label}: serve {cfg.name} at full width {depth} ({cfg.n_layers} layers "
           f"{cfg.block_pattern}, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
           f"{cfg.head_dim}, d_ff {cfg.d_ff}, rnn_width {cfg.rnn_width}, vocab {cfg.vocab_size}, "
           f"{cfg.attn_type} window {cfg.window}, {cfg.dtype}) on the dense slab, exact dyadic "
@@ -4630,7 +4683,8 @@ def serve_recurrent(torch, label, arch, rates, stream_fn=None, chunk_pos=256,
           f"n_params() {cfg.n_params() / 1e9:.3f}B) in {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
     fused, _ = prune_launches(cfg, policy)
-    want = {"rwkv6_7b": 192, "recurrentgemma_2b": 96}[arch]
+    # RWKV6-7B: r/k/v/g (as q_proj), gate and down in every layer
+    want = {"rwkv6_7b": 6 * cfg.n_layers, "recurrentgemma_2b": 96}[arch]
     if fused != want:
         fail(f"phase {label}: the paper policy prunes {fused} projections per chunk, "
              f"expected {want}")
@@ -4974,7 +5028,8 @@ def phase_recurrent(torch, rates):
     free_device(torch, "before phase 11 (phase 10 freed)")
     seconds, runs = {}, {}
     t0 = time.perf_counter()
-    runs["11a"], model, params, policy = serve_recurrent(torch, "11a", "rwkv6_7b", rates)
+    runs["11a"], model, params, policy = serve_recurrent(torch, "11a", "rwkv6_7b", rates,
+                                                         n_layers=RWKV_DEPTH)
     seconds["11a"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     runs["11e"] = serve_quantized_family(torch, "11e", model, params, policy)
@@ -5012,6 +5067,9 @@ MODALITY_PRUNED = (("Whisper-medium q", 1024, 1024, True),
 # a prefill chunk's rows and Whisper-medium's encoder rows
 MODALITY_ROWS = (256, 1500)
 WHISPER_ENC = 1500
+# 12a/12b/12e: Whisper-medium's encoder and decoder depth, cut from their 24
+# layers each to make room for phase 14 in the run's time (full width)
+WHISPER_DEPTH, WHISPER_FULL_DEPTH = 12, 24
 
 
 def misaligned(torch, t):
@@ -5200,9 +5258,10 @@ def modality_launches(cfg, policy):
     return fused, fused, f"{cfg.n_layers} x 3 (q, gate, down) = {fused} on every chunk"
 
 
-def serve_modality(torch, label, arch, rates):
-    """12a (Whisper-medium, on the slab) and 12c (Qwen2-VL-2B, paged): full
-    size, phase 3's stream with a seeded stub on each request (12c adds the
+def serve_modality(torch, label, arch, rates, n_layers=None):
+    """12a (Whisper-medium, on the slab; ``n_layers`` encoder and decoder
+    layers, default all) and 12c (Qwen2-VL-2B, paged): full width, phase
+    3's stream with a seeded stub on each request (12c adds the
     text-only pair of :func:`vl_stream`), served through ``Engine.run(params,
     extras)``: ``trace_counts`` 2 for each prefill program (with and without
     extras) and 1 for decode, launches exact, tok/s and peak memory, a first
@@ -5211,14 +5270,16 @@ def serve_modality(torch, label, arch, rates):
     from repro_torch.kernels import paged_attention as kpa
 
     t0 = time.perf_counter()
-    cfg, model, params, policy = modality_model(torch, arch)
+    cfg, model, params, policy = modality_model(torch, arch, n_layers)
     torch.cuda.synchronize()
     n_w = sum(p.numel() for p in params.parameters())
     vl = cfg.vision_stub
     what = (f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers, encoder_seq "
             f"{cfg.encoder_seq}" if cfg.is_encdec else
             f"{cfg.n_layers} layers, M-RoPE, n_patches {cfg.n_patches}")
-    print(f"phase {label}: serve {cfg.name} at full size ({what}, d_model {cfg.d_model}, "
+    size = ("full size" if n_layers is None
+            else f"full width, depth {n_layers} of {WHISPER_FULL_DEPTH}")
+    print(f"phase {label}: serve {cfg.name} at {size} ({what}, d_model {cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}) through Engine.run(params, extras), "
           f"paper_policy(8, 16, {cfg.qgate_skip_layers}) with the kernels, "
@@ -5227,7 +5288,8 @@ def serve_modality(torch, label, arch, rates):
           f"in {time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} "
           "GiB held")
     first, later, why = modality_launches(cfg, policy)
-    want = {"whisper_medium": (168, 96), "qwen2_vl_2b": (84, 84)}[arch]
+    # Whisper-medium: 3 an encoder layer on a first chunk, 4 a decoder layer
+    want = {"whisper_medium": (7 * cfg.n_layers, 4 * cfg.n_layers), "qwen2_vl_2b": (84, 84)}[arch]
     print(f"  nm_prune_matmul per sparse chunk: {why}")
     if (first, later) != want:
         fail(f"phase {label}: {first}/{later} pruned projections a first/later chunk, "
@@ -5289,8 +5351,8 @@ def phase_whisper_oneshot(torch, model, params, policy):
     """12b: ``ServingEngine.generate`` of Whisper-medium (12a's weights) at
     B = 4, T = 256 with seeded ``frame_embeds (4, 1500, 1024)`` and 32 new
     tokens: prefill and decode graphs captured once, per prefill exactly
-    168 ``nm_prune_matmul`` launches (4 x 256 decoder rows and 4 x 1500
-    encoder rows, one launch a projection), no attention kernel, tokens
+    7 ``nm_prune_matmul`` launches a layer pair (4 x 256 decoder rows and 4
+    x 1500 encoder rows, one launch a projection), no attention kernel, tokens
     equal to the same run without graphs.  Returns the launches of the
     timed run."""
     from repro_torch import kernels
@@ -5656,7 +5718,8 @@ def phase_modality(torch, rates):
     free_device(torch, "before phase 12 (phase 11 freed)")
     seconds, runs = {}, {}
     t0 = time.perf_counter()
-    runs["12a"], model, params, policy = serve_modality(torch, "12a", "whisper_medium", rates)
+    runs["12a"], model, params, policy = serve_modality(torch, "12a", "whisper_medium", rates,
+                                                        n_layers=WHISPER_DEPTH)
     seconds["12a"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     runs["12b"] = phase_whisper_oneshot(torch, model, params, policy)
@@ -6061,6 +6124,340 @@ def phase_training(torch, rates):
     return {"13b": sparse["launches"]}
 
 
+# ------------------------------------------------------ tensor parallelism
+TP_DEPTH = 32               # LLaMA-3.1-8B's layers in 14b and 14c
+# 14d: the CLI at the smoke size (14b and 14c serve the full width)
+TP_CLI_FLAGS = ["--arch", "llama31_8b", "--smoke", "--trace", "--num-requests", "6",
+                "--len-range", "6:40", "--slots", "2", "--chunk", "16", "--new-tokens", "8",
+                "--sparsity", "8:16"]
+
+
+def shards_equal(torch, label, full, shards, plan=None, own=None):
+    """The shards concatenated along the last (column) or head axis against
+    the unsharded launch: bit-identical, or the phase fails.  ``plan``: the
+    unsharded call's, which every shard took; ``own``: the plan a shard
+    would have picked alone."""
+    torch.cuda.synchronize()
+    got = torch.cat(shards, dim=1 if full.dim() == 2 else 2)
+    same = torch.equal(got, full)
+    plans = ("" if plan is None else f"shards on the full call's plan {tuple(plan)}, alone "
+             f"a shard would take {tuple(own)}; ")
+    print(f"  {label}: {plans}concatenated bit-identical={same}")
+    if not same:
+        fail(f"phase 14a: {label}: the shards differ from the unsharded launch")
+
+
+def tp_kernel_shards(torch):
+    """Phase 14a: each sharded entry point at LLaMA-3.1-8B's shapes, at tp = 2
+    and 4, every rank's shard computed in this process on the unsharded
+    call's plan (as ``kernels.ops`` and ``models.attention`` hand it under a
+    TP scope), against the unsharded launch."""
+    from repro_torch.core import quant
+    from repro_torch.distributed.tp import shard_columns
+    from repro_torch.kernels import nm_prune_matmul as knm
+    from repro_torch.kernels import nm_spmm as kns
+    from repro_torch.kernels import osparse_matmul as kos
+    from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.kernels import w8a8_matmul as kw8
+
+    print("phase 14a: the sharded entry points at LLaMA-3.1-8B shapes, tp = 2 and 4: each "
+          "rank's shard on the unsharded call's plan, in this process, against the "
+          "unsharded launch")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    dev = "cuda"
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).bfloat16()
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev).to(torch.int8)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, d, n_out in (("q", 4096, 4096), ("gate", 4096, 14336), ("down", 14336, 4096)):
+        x, w = randn(256, d), randn(d, n_out, scale=d**-0.5)
+        sc = torch.rand(d, generator=g, device=dev) + 0.5
+        plan = knm.gemm_plan(w, 256)
+        full = knm.nm_prune_matmul(x, w, sc, 8, 16)
+        wq = quant.k_major(int8(d, n_out))
+        smooth = torch.rand(d, generator=g, device=dev) + 0.5
+        amber = torch.rand(d, generator=g, device=dev) + 0.5
+        ws = torch.rand(n_out, generator=g, device=dev) * 1e-3
+        act = torch.full((1,), 0.02, device=dev)
+        for tp in (2, 4):
+            cols = [shard_columns(w, r, tp) for r in range(tp)]
+            shards_equal(torch, f"nm_prune_matmul {name} {d}x{n_out} T=256 tp={tp}", full,
+                         [knm.nm_prune_matmul(x, c, sc, 8, 16, plan=plan) for c in cols],
+                         (plan,), (knm.gemm_plan(cols[0], 256),))
+            qcols = [(shard_columns(wq, r, tp), shard_columns(ws, r, tp)) for r in range(tp)]
+            if qcols[1][0].data_ptr() != wq.data_ptr() + d * (n_out // tp):
+                fail("phase 14a: a K-major wq's column shard is not a view")
+            for t, prune in ((256, True), (4, False)):
+                xt = x[:t].contiguous()
+                op = kos.call_plan(xt, wq, smooth, amber, 16, prune, False)
+                shards_equal(
+                    torch, f"osparse_matmul {name} T={t} prune={prune} tp={tp}",
+                    kos.osparse_matmul(xt, wq, smooth, amber, ws, 8, 16, act_scale=act,
+                                       prune=prune),
+                    [kos.osparse_matmul(xt, c, smooth, amber, s, 8, 16, act_scale=act,
+                                        prune=prune, plan=op) for c, s in qcols],
+                    op, kos.call_plan(xt, qcols[0][0], smooth, amber, 16, prune, False))
+    # nm_spmm and w8a8_matmul at phase 2's shapes (2h, 2e)
+    for name, d, n_out in QWEN_SPARSE_PROJS:
+        x, w = randn(2048, d), randn(d, n_out, scale=d**-0.5)
+        plan = kns.gemm_plan(x.dtype, 2048, d, n_out, 8, 16, 256, True, sms)
+        full = kns.nm_spmm(x, w, None, 8, 16)
+        for tp in (2, 4):
+            shards_equal(torch, f"nm_spmm Qwen2-7B {name} T=2048 tp={tp}", full,
+                         [kns.nm_spmm(x, shard_columns(w, r, tp), None, 8, 16, plan=plan)
+                          for r in range(tp)], plan,
+                         kns.gemm_plan(x.dtype, 2048, d, n_out // tp, 8, 16, 256, True, sms))
+    for t, d, n_out in ((256, 4096, 14336), (4, 4096, 1024)):
+        xq, wq = int8(t, d), quant.k_major(int8(d, n_out))
+        ws = torch.rand(n_out, generator=g, device=dev) * 1e-3
+        xs = torch.full((1,), 0.013, device=dev)
+        plan = kw8.call_plan(xq, wq)
+        full = kw8.w8a8_matmul(xq, wq, xs, ws)
+        for tp in (2, 4):
+            cols = [(shard_columns(wq, r, tp), shard_columns(ws, r, tp)) for r in range(tp)]
+            shards_equal(torch, f"w8a8_matmul {t}x{d}x{n_out} tp={tp}", full,
+                         [kw8.w8a8_matmul(xq, c, xs, s, plan=plan) for c, s in cols], plan,
+                         kw8.call_plan(xq, cols[0][0]))
+    # paged attention and the scatter: 32 / 8 heads of 128, blocks of 16
+    mb, bs = 48, 16
+    kp, vp = randn(4 * mb + 1, bs, 8, 128), randn(4 * mb + 1, bs, 8, 128)
+    tab = torch.arange(4 * mb, dtype=torch.int32, device=dev).reshape(4, mb)
+
+    def heads(t, r, tp):
+        h = t.shape[2] // tp
+        return t[:, :, r * h:(r + 1) * h].contiguous()
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    for case, b, tq, qo in (("chunk", 1, 256, [444]), ("decode", 4, 1, [700, 513, 64, 1])):
+        q = randn(b, tq, 32, 128)
+        qo_t = torch.tensor(qo, **i32)
+        kvl = qo_t + tq
+        plan = kpa.call_plan(q, kp, vp, tab[:b])
+        full = kpa.paged_attention(q, kp, vp, tab[:b], qo_t, kvl, causal=tq > 1)
+        for tp in (2, 4):
+            parts = [(heads(q, r, tp), heads(kp, r, tp), heads(vp, r, tp)) for r in range(tp)]
+            shards_equal(torch, f"paged_attention {case} B={b} Tq={tq} tp={tp}", full,
+                         [kpa.paged_attention(qq, kk, vv, tab[:b], qo_t, kvl, causal=tq > 1,
+                                              plan=plan) for qq, kk, vv in parts], plan,
+                         kpa.call_plan(*parts[0], tab[:b]))
+    kn, vn = randn(1, 256, 8, 128), randn(1, 256, 8, 128)
+    pos, clen = torch.tensor([300], **i32), torch.tensor([256], **i32)
+    kp_full, vp_full = kp.clone(), vp.clone()
+    kpa.paged_kv_scatter(kn, vn, kp_full, vp_full, tab[:1], pos, clen)
+    for tp in (2, 4):
+        pools = [(heads(kp, r, tp), heads(vp, r, tp)) for r in range(tp)]
+        for r, (k_r, v_r) in enumerate(pools):
+            kpa.paged_kv_scatter(heads(kn, r, tp), heads(vn, r, tp), k_r, v_r, tab[:1], pos,
+                                 clen)
+        for leaf, full, i in (("k", kp_full, 0), ("v", vp_full, 1)):
+            shards_equal(torch, f"paged_kv_scatter of a 256-row chunk into each rank's {leaf} "
+                         f"pool tp={tp}", full, [p[i] for p in pools])
+
+
+def gather_steps(ex):
+    """Record, per step program of the executor ``ex``, its calls, the
+    gathers and gathered bytes of ``distributed.tp.gather`` and its wall
+    seconds (eager steps: the host waits on every gather); filled as the
+    engine runs.  Holds the executor weakly, as :func:`program_shapes`."""
+    import weakref
+
+    from repro_torch.distributed import tp
+
+    steps = {}
+    real, ref = type(ex)._run, weakref.ref(ex)
+
+    def run(params, plan, name, fault, extras=None):
+        c0, b0, t0 = tp.gather.calls, tp.gather.bytes, time.perf_counter()
+        out = real(ref(), params, plan, name, fault, extras)
+        st = steps.setdefault(name, dict(calls=0, gathers=0, bytes=0, seconds=0.0))
+        st["calls"] += 1
+        st["gathers"] += tp.gather.calls - c0
+        st["bytes"] += tp.gather.bytes - b0
+        st["seconds"] += time.perf_counter() - t0
+        return out
+
+    ex._run = run
+    return steps
+
+
+def tp_serve_rank(n_layers: int):
+    """One of 14b's and 14c's two ranks: LLaMA-3.1-8B at ``n_layers`` with
+    phase 3's weights and policy serves phase 3's stream through ``Engine``
+    at tp = 2 (14b), then, rewritten in place as 3b rewrites them, 3b's
+    stream (14c).  No warm-up: every step is eager, so a bucket's first
+    step costs what the others do.  Returns, for every rank, each run's
+    record (tokens, launches counted from 0 over the stream, gathers by
+    step program, memory), gathered to every rank."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.serve import Engine, EngineConfig
+
+    numerics(torch)
+    t0 = time.perf_counter()
+    cfg, model, params, policy = dense_model(torch, "llama31_8b", n_layers)
+    records = {}
+    for label in ("14b", "14c"):
+        if label == "14c":
+            t0 = time.perf_counter()
+            w8a8_rewrite(cfg, params)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        _, prompts, arrivals, new, scfg = serving_stream(torch, cfg.vocab_size)
+        eng = Engine.from_config(model, EngineConfig(tp=2, serving=scfg), policy=policy)
+        ex = eng.replica.exec
+        steps = gather_steps(ex)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        rids = [eng.submit(p, max_new_tokens=new, arrival=a)
+                for p, a in zip(prompts, arrivals)]
+        t1 = time.perf_counter()
+        res = eng.run(params)
+        torch.cuda.synchronize()
+        records[label] = dict(
+            rank=dist.get_rank(), outputs=[res["outputs"][r] for r in rids],
+            launches=kernels.counters(), steps=steps, buckets=res["metrics"]["buckets"],
+            trace_counts=dict(eng.replica.trace_counts), wall=time.perf_counter() - t1,
+            built=built, captures=ex._graphs.capture,
+            pool_heads=ex.cache["layers"][0]["k"].shape[2],
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            reserved_gib=torch.cuda.max_memory_reserved() / 2**30,
+            dpi=res["metrics"]["dispatches_per_iteration"])
+        del eng, ex
+        torch.cuda.empty_cache()
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, records)
+    return everyone
+
+
+def tp_serve(torch, want3, want3b):
+    """14b and 14c: two ranks on this card over gloo (``launch.mesh.spawn``)
+    serve LLaMA-3.1-8B at full width, in bf16 and then in W8A8; every
+    request's tokens must equal phase 3's (14b) and 3b's (14c) on both
+    ranks, the launches and gathers of each rank exact.  Returns rank 0's
+    launch counts by run."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.launch.mesh import spawn
+
+    cfg = dataclasses.replace(get_config("llama31_8b"), n_layers=TP_DEPTH)
+    policy = paper_policy(8, 16, cfg.qgate_skip_layers)
+    print(f"phase 14b / 14c: LLaMA-3.1-8B at full width, depth {TP_DEPTH} of 32, "
+          f"paper_policy(8, 16) with the kernels, phase 3's weights and stream (14b), then "
+          f"3b's W8A8 rewrite of them and its stream (14c), at tp = 2: two ranks on cuda:0 "
+          f"over gloo, eager steps ({nvidia_smi_line()})")
+    t0 = time.perf_counter()
+    ranks = spawn(tp_serve_rank, 2, TP_DEPTH, device="cuda")
+    print(f"  spawned, built, served and joined in {time.perf_counter() - t0:.1f} s")
+    fused, _ = prune_launches(cfg, policy)
+    pruned_q = sum(policy.should_prune(mod, i) for i in range(cfg.n_layers)
+                   for mod in ("q_proj", "gate_proj"))
+    layers = cfg.n_layers
+    runs = {}
+    for label, want, of in (("14b", want3, "phase 3's"), ("14c", want3b, "phase 3b's")):
+        for me in (records[label] for records in ranks):
+            r = me["rank"]
+            check_tokens(f"phase {label} rank {r}", me["outputs"], want, of)
+            if me["captures"] or me["pool_heads"] != cfg.n_kv_heads // 2 or me["dpi"] != 1.0:
+                fail(f"phase {label} rank {r}: captures {me['captures']}, pool heads "
+                     f"{me['pool_heads']}, dispatches/iteration {me['dpi']}")
+            if any(n != 1 for n in me["trace_counts"].values()):
+                fail(f"phase {label} rank {r}: trace_counts {me['trace_counts']}")
+            _, _, st = step_counts(me["buckets"], fused=True)
+            halves = st["prefill_halves"] + st["decode_halves"]
+            if label == "14c":   # q/k/v/o/gate/up in W8A8; down bf16 on nm_prune_matmul
+                want_l = {"osparse_matmul": len(QPROJS) * layers * halves,
+                          "osparse_matmul.pruned": pruned_q * st["sparse_chunks"],
+                          "nm_prune_matmul": layers * st["sparse_chunks"]}
+                per_chunk, per_decode = (len(QPROJS) + 2) * layers, (len(QPROJS) + 1) * layers
+            else:
+                want_l = {"nm_prune_matmul": fused * st["sparse_chunks"], "osparse_matmul": 0}
+                per_chunk, per_decode = fused + layers, layers
+            want_l.update(paged_kv_scatter=layers * halves, paged_attention=layers * halves,
+                          nm_prune=0, nm_spmm=0, flash_attention=0)
+            check_launches(f"phase {label} rank {r}", me["launches"], want_l)
+            steps = me["steps"]
+            for name, per in (("step_prefill", per_chunk), ("step_decode", per_decode),
+                              ("step_prefill_decode", per_chunk + per_decode)):
+                got = steps[name]["gathers"] / steps[name]["calls"]
+                if got != per:
+                    fail(f"phase {label} rank {r}: {got} gathers a {name} step, expected {per}")
+            pf, dec = steps["step_prefill"], steps["step_decode"]
+            print(f"  {label} rank {r}: weights built in {me['built']:.1f} s; stream "
+                  f"{me['wall']:.2f} s; peak {me['peak_gib']:.2f} GiB allocated, "
+                  f"{me['reserved_gib']:.2f} GiB reserved; pools hold {me['pool_heads']} of "
+                  f"{cfg.n_kv_heads} KV heads; a chunk alone (step_prefill, {pf['calls']} "
+                  f"calls): {per_chunk} gathers, {pf['bytes'] / pf['calls'] / 2**20:.2f} MiB "
+                  f"gathered, {1e3 * pf['seconds'] / pf['calls']:.1f} ms eager wall; a decode "
+                  f"step (step_decode, {dec['calls']} calls): {per_decode} gathers, "
+                  f"{dec['bytes'] / dec['calls'] / 2**20:.3f} MiB, "
+                  f"{1e3 * dec['seconds'] / dec['calls']:.1f} ms eager wall")
+            print(f"  {label} rank {r}: launches {me['launches']}; steps {json.dumps(steps)}")
+        runs[label] = {k: v for k, v in ranks[0][label]["launches"].items() if "." not in k}
+    return runs
+
+
+def tp_cli(torch):
+    """14d: ``python -m repro_torch.launch.serve --tp 2`` on the card (the
+    smoke LLaMA-3.1 config: 14b and 14c serve the full width) exits 0 with
+    the ``--tp 1`` run's tokens (the report's digest); ``--tp 1`` runs in
+    this process, ``--tp 2`` as a command (its ranks print to its output)."""
+    import os
+
+    def digest(out):
+        return next(x for x in out.splitlines() if x.startswith("# tokens:"))
+
+    one = digest(run_cli(torch, TP_CLI_FLAGS + ["--tp", "1"], "phase 14d")[0])
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", *TP_CLI_FLAGS, "--tp", "2"]
+    print(f"phase 14d: python -m repro_torch.launch.serve {' '.join(argv[3:])}")
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, env=dict(os.environ, PYTHONPATH=str(
+        Path(__file__).resolve().parent / "src")), capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        print(r.stdout[-4000:], r.stderr[-4000:])
+        fail(f"phase 14d: --tp 2 exited {r.returncode}")
+    for x in r.stdout.splitlines():
+        if x.startswith("#"):
+            print(f"  {x}")
+    print(f"  rc 0 in {time.perf_counter() - t0:.1f} s")
+    if digest(r.stdout) != one:
+        fail(f"phase 14d: --tp 2 served other tokens than --tp 1: {digest(r.stdout)} / {one}")
+    print(f"  phase 14d: --tp 2 tokens identical to --tp 1's ({one})")
+
+
+def phase_tp(torch, want3, want3b):
+    """Phase 14 (after 13 freed its models): 14a, 14b, 14c, 14d.  Returns
+    14b's and 14c's rank-0 launches."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tp_kernel_shards(torch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    runs = tp_serve(torch, want3, want3b)
+    t2 = time.perf_counter()
+    tp_cli(torch)
+    print(f"phase 14 seconds: 14a {t1 - t0:.1f}, 14b and 14c {t2 - t1:.1f}, "
+          f"14d {time.perf_counter() - t2:.1f}")
+    return runs
+
+
+
+def numerics(torch) -> None:
+    """Full-precision float32 and bf16 GEMM reductions, in this process and
+    in every rank it starts."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
 def main() -> int:
     import torch
 
@@ -6075,9 +6472,7 @@ def main() -> int:
     sys.path.insert(0, str(src))
     from repro_torch.kernels import _build
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    numerics(torch)
     card = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
     rates = card_rates(name)
@@ -6118,7 +6513,7 @@ def main() -> int:
     t3g = time.perf_counter()
     r_launches6g = phase_replicas(torch, model, params, policy, outputs)
     t3b = time.perf_counter()
-    q_launches = phase_serve_osparse(torch, model, params, policy)
+    q_launches, outputs3b = phase_serve_osparse(torch, model, params, policy)
     del model, params
     torch.cuda.empty_cache()
     t4 = time.perf_counter()
@@ -6147,6 +6542,8 @@ def main() -> int:
     t14 = time.perf_counter()
     tr_launches = phase_training(torch, rates)
     t15 = time.perf_counter()
+    tp_launches = phase_tp(torch, outputs, outputs3b)
+    t16 = time.perf_counter()
     print(f"phase seconds: build {t1 - t:.1f}, kernels {t2 - t1:.1f}, serve {t3 - t2:.1f}, "
           f"serve osparse {t4 - t3b:.1f}, parity {t5 - t4:.1f}, one-shot serve {t6 - t5:.1f}, "
           f"one-shot parity {t7 - t6:.1f}, serve CLI and serving lifecycle "
@@ -6154,8 +6551,8 @@ def main() -> int:
           f"6a, 6a' and 6f {t8 - t7:.1f}), "
           f"MoE {t9 - t8:.1f}, dense variants {t10 - t9:.1f}, layer skipping {t11 - t10:.1f}, "
           f"Mixtral and the slab {t12 - t11:.1f}, the recurrent families {t13 - t12:.1f}, "
-          f"the modality families {t14 - t13:.1f}, training {t15 - t14:.1f}; phases in all "
-          f"{t15 - t:.1f}")
+          f"the modality families {t14 - t13:.1f}, training {t15 - t14:.1f}, tensor "
+          f"parallelism {t16 - t15:.1f}; phases in all {t16 - t:.1f}")
 
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import nm_prune as knp
@@ -6173,7 +6570,7 @@ def main() -> int:
     runs = {"3": launches, "3b": q_launches, "5": o_launches, "6g": r_launches6g,
             "7a": m_launches,
             "7e": mq_launches, **s_launches, **x_launches, **r_launches, **md_launches,
-            **tr_launches}
+            **tr_launches, **tp_launches}
     meta = {
         "nm_prune_matmul": (knm.SOURCE, knm.REPLACES, "3"),
         "paged_kv_scatter": (kpa.SOURCE, kpa.SCATTER_REPLACES, "3"),

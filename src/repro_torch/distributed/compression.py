@@ -7,7 +7,7 @@ of step t+1, so the accumulated update is unbiased (Karimireddy et al.
 2019, "EF-SGD").  Like the reference, this is the algorithmic transform
 (quantize, dequantize, feed the error back) as a stage of the gradient
 pipeline, on dicts of tensors keyed by parameter name; the collective it
-would shrink is not part of the port yet (ROADMAP A4).
+would shrink is not part of the port yet (ROADMAP A4b).
 """
 from __future__ import annotations
 

@@ -87,12 +87,15 @@ class Programs:
     pool, since they never run at once, and hold the ``params`` they were
     captured with: a call with another ``params`` object drops them all and
     captures again.  ``trace_counts[name]`` counts the captures of a name
-    over all its shapes.  On the CPU there are no graphs: ``fn()`` runs
-    every time, and ``trace_counts`` counts each key's first call, so a
-    name used at one shape reads 1 on either device."""
+    over all its shapes.  On the CPU, and on the card where ``capture`` is
+    False (an executor whose collectives a graph cannot hold: a gloo
+    tensor-parallel group), there are no graphs: ``fn()`` runs every time,
+    and ``trace_counts`` counts each key's first call, so a name used at one
+    shape reads 1 either way."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, capture: bool = True):
         self.device = torch.device(device)
+        self.capture = capture and self.device.type == "cuda"
         self.trace_counts: Dict[str, int] = {}
         self._graphs: Dict[tuple, tuple] = {}
         self._seen: set = set()
@@ -101,7 +104,7 @@ class Programs:
 
     def run(self, name: str, fn: Callable, params, shape=None):
         key = (name, shape)
-        if self.device.type != "cuda":
+        if not self.capture:
             if key not in self._seen:
                 self._seen.add(key)
                 self.trace_counts[name] = self.trace_counts.get(name, 0) + 1

@@ -643,9 +643,12 @@ int launch_gemm(const void* xp, const void* w, const float* bias, void* out, flo
 // x that receives the pruned activations, `part` a float32 workspace of
 // plan * T * N elements when nm_prune_matmul_bf16_plan returns plan > 1
 // (else unused, may be null), `keep` null or T * D bytes that receive the
-// selection (1 = kept; the training backward's mask).  Launches the
-// selection, the GEMM (and the split-k reduce) on `stream`, does not
-// synchronise, and returns cudaGetLastError().
+// selection (1 = kept; the training backward's mask), `plan` the GEMM's plan
+// to take: -1 for this call's own (nm_prune_matmul_bf16_plan), else one
+// that call gave for the same D (a column shard takes the unsharded call's,
+// so its float32 sums run in the same order; a plan above 0 needs a w the
+// TMA takes).  Launches the selection, the GEMM (and the split-k reduce) on
+// `stream`, does not synchronise, and returns cudaGetLastError().
 extern "C" int nm_prune_matmul_bf16_plan(const void* w, int T, int D, int N) {
   return gemm_plan(w, T, D, N);
 }
@@ -653,11 +656,13 @@ extern "C" int nm_prune_matmul_bf16_plan(const void* w, int T, int D, int N) {
 extern "C" int nm_prune_matmul_bf16(const void* x, const void* w, const float* scale,
                                     const float* bias, void* xp, void* out, float* part,
                                     uint8_t* keep, int T, int D, int N, int n, int m,
-                                    void* stream) {
+                                    int plan, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (plan > 0 && ((reinterpret_cast<uintptr_t>(w) & 15) || D % 8 || N % 8))
+    return (int)cudaErrorInvalidValue;
   int rc = launch_select<bf16>(x, scale, xp, keep, T, D, n, m, s);
   if (rc != 0) return rc;
-  const int splits = gemm_plan(w, T, D, N);
+  const int splits = plan < 0 ? gemm_plan(w, T, D, N) : plan;
   if (splits == 0) {                              // the shape route: WMMA
     dim3 grid((T + BM - 1) / BM, (N + BN - 1) / BN);
     nm_matmul_bf16_kernel<<<grid, THREADS, 0, s>>>((const bf16*)xp, (const bf16*)w, bias,

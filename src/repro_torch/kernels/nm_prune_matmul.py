@@ -48,7 +48,7 @@ import torch
 from repro_torch.core import nm, scoring
 from repro_torch.kernels import _build
 
-__all__ = ["PruneMatmul", "gemm_plan", "nm_prune_matmul", "nm_prune_matmul_plain"]
+__all__ = ["PruneMatmul", "gemm_plan", "nm_prune_matmul", "nm_prune_matmul_plain", "takes_wgmma"]
 
 SOURCE = "src/repro_torch/kernels/csrc/nm_prune_matmul.cu"
 REPLACES = "src/repro/kernels/nm_prune_matmul.py:67"
@@ -62,8 +62,9 @@ def _fn(dtype: torch.dtype):
     fn = getattr(lib, _SYMBOLS[dtype])
     # the bf16 entry takes the split-k workspace after ``out``; both then
     # take the keep-mask output
-    n_ptr = 8 if dtype == torch.bfloat16 else 7
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    # and the bf16 entry the GEMM's plan after n and m
+    n_ptr, n_int = (8, 6) if dtype == torch.bfloat16 else (7, 5)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -72,12 +73,18 @@ def gemm_plan(w: torch.Tensor, t: int) -> int:
     """The bf16 GEMM's route for ``w`` at ``t`` tokens, as the kernel takes
     it: 0 = the WMMA kernel (``w`` not 16-byte aligned, or D or N_out not a
     multiple of 8), else the wgmma kernel in that many k slices (> 1: a
-    float32 workspace of slices * T * N_out and the ordered reduce)."""
+    float32 workspace of slices * T * N_out and the ordered reduce).  Any
+    plan is valid for a ``w`` that :func:`takes_wgmma`; 0 for every ``w``."""
     fn = _build.load("nm_prune_matmul.cu").nm_prune_matmul_bf16_plan
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3
     fn.restype = ctypes.c_int
     with torch.cuda.device(w.device):
         return fn(w.data_ptr(), t, w.shape[0], w.shape[1])
+
+
+def takes_wgmma(w: torch.Tensor) -> bool:
+    """Whether the wgmma GEMM can take ``w`` (the TMA's 16-byte rule)."""
+    return w.data_ptr() % 16 == 0 and w.shape[0] % 8 == 0 and w.shape[1] % 8 == 0
 
 
 def _plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None, n: int, m: int,
@@ -100,10 +107,12 @@ def nm_prune_matmul_plain(x: torch.Tensor, w: torch.Tensor,
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None, n: int, m: int,
-            bias: torch.Tensor | None, with_keep: bool):
+            bias: torch.Tensor | None, with_keep: bool, plan: int | None = None):
     """One kernel launch on CUDA tensors → ``(out, xp, keep)``: ``xp`` the
     pruned-activation scratch, ``keep`` the selection as ``(T, D)`` uint8
-    where ``with_keep`` (else None; the kernel then writes no mask)."""
+    where ``with_keep`` (else None; the kernel then writes no mask).
+    ``plan``: the bf16 GEMM's :func:`gemm_plan` to take (default: the one
+    for these shapes)."""
     if x.device.type != "cuda":
         raise ValueError(f"nm_prune_matmul: unsupported device {x.device}")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
@@ -135,14 +144,18 @@ def _launch(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None, n: int
     ptrs = [x.data_ptr(), w.data_ptr(), None if scale is None else scale.data_ptr(),
             None if bias is None else bias.data_ptr(), xp.data_ptr(), out.data_ptr()]
     if x.dtype == torch.bfloat16:
-        slices = gemm_plan(w, t)
+        slices = gemm_plan(w, t) if plan is None else plan
+        if slices < 0 or (slices > 0 and not takes_wgmma(w)):
+            raise ValueError(f"nm_prune_matmul: plan {slices} for w {tuple(w.shape)} "
+                             "(the wgmma GEMM needs a 16-byte aligned w, D and N_out "
+                             "multiples of 8)")
         part = (torch.empty((slices, t, n_out), dtype=torch.float32, device=x.device)
                 if slices > 1 else None)
         ptrs.append(None if part is None else part.data_ptr())
     ptrs.append(None if keep is None else keep.data_ptr())
+    ints = [t, d, n_out, n, m] + ([slices] if x.dtype == torch.bfloat16 else [])
     with torch.cuda.device(x.device):
-        rc = _fn(x.dtype)(*ptrs, t, d, n_out, n, m,
-                          torch.cuda.current_stream(x.device).cuda_stream)
+        rc = _fn(x.dtype)(*ptrs, *ints, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"nm_prune_matmul kernel launch failed (CUDA error {rc})")
     nm_prune_matmul.launches += 1
@@ -181,19 +194,22 @@ class PruneMatmul(torch.autograd.Function):
 
 def nm_prune_matmul(x: torch.Tensor, w: torch.Tensor,
                     scale: torch.Tensor | None, n: int, m: int,
-                    bias: torch.Tensor | None = None) -> torch.Tensor:
+                    bias: torch.Tensor | None = None, plan: int | None = None) -> torch.Tensor:
     """``x (T, D) @ w (D, N_out)`` with per-token N:M pruning of ``x``.
 
     ``scale`` is the ``(D,)`` float32 Amber channel scale or None (plain
-    ``|x|``); ``bias`` an optional ``(N_out,)`` epilogue add.  Where autograd
-    records the call, it goes through :class:`PruneMatmul`.
+    ``|x|``); ``bias`` an optional ``(N_out,)`` epilogue add.  ``plan``: the
+    bf16 GEMM's :func:`gemm_plan` to take instead of this call's own (a
+    column shard takes the unsharded call's, so that its float32 sums run in
+    the same order); the CPU has none.  Where autograd records the call, it
+    goes through :class:`PruneMatmul`.
     """
     if torch.is_grad_enabled() and any(a is not None and a.requires_grad
                                        for a in (x, w, bias)):
         return PruneMatmul.apply(x, w, bias, scale, n, m)
     if x.device.type == "cpu":
         return nm_prune_matmul_plain(x, w, scale, n, m, bias)
-    return _launch(x, w, scale, n, m, bias, with_keep=False)[0]
+    return _launch(x, w, scale, n, m, bias, with_keep=False, plan=plan)[0]
 
 
 nm_prune_matmul.launches = 0

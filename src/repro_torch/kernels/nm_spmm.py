@@ -36,7 +36,7 @@ import torch
 from repro_torch.core import nm, scoring
 from repro_torch.kernels import _build
 
-__all__ = ["gemm_plan", "nm_spmm", "nm_spmm_plain", "consensus_select",
+__all__ = ["gemm_plan", "fits_plan", "nm_spmm", "nm_spmm_plain", "consensus_select",
            "consensus_select_plain"]
 
 SOURCE = "src/repro_torch/kernels/csrc/nm_spmm.cu"
@@ -168,11 +168,22 @@ def consensus_select(x: torch.Tensor, scale: torch.Tensor | None, n: int, m: int
     return idx, xc
 
 
+def fits_plan(plan: tuple[str, int, int], w: torch.Tensor, n: int, m: int) -> bool:
+    """Whether a call with weight ``w`` can take ``plan`` (a :func:`gemm_plan`
+    result for the same x): the wgmma route needs a 16-byte aligned ``w``
+    and N_out and the kept width multiples of 8; the others take any."""
+    return plan[0] != "wgmma" or (w.data_ptr() % 16 == 0 and w.shape[1] % 8 == 0
+                                  and (w.shape[0] // m * n) % 8 == 0)
+
+
 def nm_spmm(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None, n: int,
-            m: int, tile: int = 256) -> torch.Tensor:
+            m: int, tile: int = 256, plan: tuple[str, int, int] | None = None) -> torch.Tensor:
     """``x (T, D) @ w (D, N_out)`` over the tile-consensus N:M columns of x,
     in x's dtype.  ``scale`` is the ``(D,)`` float32 Amber channel scale or
-    None (plain ``|x|``); ``tile`` the consensus tile in tokens."""
+    None (plain ``|x|``); ``tile`` the consensus tile in tokens.  ``plan``: the
+    GEMM's :func:`gemm_plan` to take instead of this call's own (a column
+    shard takes the unsharded call's: its k split sets the order of the
+    float32 sums); the CPU has none."""
     if x.device.type == "cpu":
         return nm_spmm_plain(x, w, scale, n, m, tile)
     _build.refuse_grad("nm_spmm", x, w, scale)
@@ -187,8 +198,12 @@ def nm_spmm(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None, n: int
         raise ValueError("nm_spmm: dimension exceeds int32")
     if t == 0:
         return torch.empty((0, n_out), dtype=x.dtype, device=x.device)
-    out = _launch(x, w, scale, n, m, tile, gemm_plan(x.dtype, t, d, n_out, n, m, tile,
-                                                     w.data_ptr() % 16 == 0, _sms(x.device)))
+    if plan is None:
+        plan = gemm_plan(x.dtype, t, d, n_out, n, m, tile, w.data_ptr() % 16 == 0,
+                         _sms(x.device))
+    elif (plan[0] == "f32") != (x.dtype == torch.float32) or not fits_plan(plan, w, n, m):
+        raise ValueError(f"nm_spmm: plan {plan} does not fit {x.dtype} w {tuple(w.shape)}")
+    out = _launch(x, w, scale, n, m, tile, plan)
     nm_spmm.launches += 1
     return out
 

@@ -35,10 +35,10 @@ import torch
 
 from repro_torch.core import nm, quant, scoring
 from repro_torch.kernels import _build
-from repro_torch.kernels.w8a8_matmul import (ROUTES, _sms, check_int8_gemm, gemm_plan,
-                                              route_code)
+from repro_torch.kernels.w8a8_matmul import (ROUTES, GemmPlan, _sms, check_int8_gemm,
+                                              gemm_plan, route_code)
 
-__all__ = ["osparse_matmul", "osparse_matmul_plain", "osparse_quantize",
+__all__ = ["call_plan", "osparse_matmul", "osparse_matmul_plain", "osparse_quantize",
            "osparse_quantize_plain"]
 
 SOURCE = "src/repro_torch/kernels/csrc/osparse_matmul.cu"
@@ -135,11 +135,22 @@ def _check(x, smooth, amber, n, m, act_scale, prune, per_token) -> None:
                          "x's device")
 
 
+def call_plan(x: torch.Tensor, wq: torch.Tensor, smooth: torch.Tensor,
+              amber: torch.Tensor | None, m: int, prune: bool, per_token: bool) -> GemmPlan:
+    """The :func:`gemm_plan` of a call on these CUDA tensors.  A call may take
+    another plan of the same route (a column shard takes the unsharded
+    call's)."""
+    x_ptrs = x.data_ptr() | smooth.data_ptr() | (0 if amber is None else amber.data_ptr())
+    return gemm_plan(x.shape[0], x.shape[1], wq.shape[1], x.dtype, per_token, prune, m,
+                     aligned=wq.data_ptr() % 16 == 0, x_aligned=x_ptrs % 16 == 0,
+                     sms=_sms(x.device))
+
+
 def osparse_matmul(x: torch.Tensor, wq: torch.Tensor, smooth: torch.Tensor,
                    amber: torch.Tensor | None, w_scale: torch.Tensor, n: int, m: int,
                    act_scale: torch.Tensor | None = None,
                    bias: torch.Tensor | None = None, prune: bool = True,
-                   per_token: bool = False) -> torch.Tensor:
+                   per_token: bool = False, plan: GemmPlan | None = None) -> torch.Tensor:
     """``x (T, D)`` through the Outstanding-sparse chain against ``wq (D, N)``
     int8 → ``(T, N)`` float32.
 
@@ -147,7 +158,9 @@ def osparse_matmul(x: torch.Tensor, wq: torch.Tensor, smooth: torch.Tensor,
     ``|xs|`` scores), ``w_scale`` ``(N,)`` float32, ``act_scale`` a
     one-element float32 tensor (required unless ``per_token``), ``bias`` an
     optional ``(N,)`` epilogue add.  ``prune=False`` skips the selection
-    (the decode-phase W8A8 GEMM).
+    (the decode-phase W8A8 GEMM).  ``plan``: the :func:`gemm_plan` to take
+    instead of this call's own (a column shard takes the unsharded call's);
+    the CPU has none.
     """
     if act_scale is None and not per_token:
         raise ValueError("osparse_matmul: act_scale is required for per-tensor mode")
@@ -166,9 +179,12 @@ def osparse_matmul(x: torch.Tensor, wq: torch.Tensor, smooth: torch.Tensor,
     out = torch.empty((t, n_out), dtype=torch.float32, device=x.device)
     if t == 0:
         return out
-    x_ptrs = x.data_ptr() | smooth.data_ptr() | (0 if amber is None else amber.data_ptr())
-    plan = gemm_plan(t, d, n_out, x.dtype, per_token, prune, m, aligned=wq.data_ptr() % 16 == 0,
-                     x_aligned=x_ptrs % 16 == 0, sms=_sms(x.device))
+    own = call_plan(x, wq, smooth, amber, m, prune, per_token)
+    if plan is None:
+        plan = own
+    elif plan.route != own.route:
+        raise ValueError(f"osparse_matmul: plan {plan} does not fit this call, whose own "
+                         f"is {own}")
     fused = plan.route == "swap_fused"
     # scratch of the quantize pass (none on the fused route)
     xq = torch.empty((0 if fused else t, d), dtype=torch.int8, device=x.device)

@@ -49,8 +49,8 @@ import torch
 
 from repro_torch.kernels import _build, _capture
 
-__all__ = ["AttentionPlan", "attention_plan", "paged_kv_scatter", "paged_kv_scatter_plain",
-           "paged_attention", "paged_attention_plain"]
+__all__ = ["AttentionPlan", "attention_plan", "call_plan", "paged_kv_scatter",
+           "paged_kv_scatter_plain", "paged_attention", "paged_attention_plain"]
 
 SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 SCATTER_REPLACES = "src/repro/kernels/paged_attention.py:263"
@@ -284,13 +284,27 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return t
 
 
+def call_plan(q, k_pool, v_pool, block_table, window: int = 0) -> AttentionPlan:
+    """The :func:`attention_plan` of a call on these CUDA tensors."""
+    b, tq, hq, hd = q.shape
+    return attention_plan(q.dtype, b, tq, hq, k_pool.shape[2], hd, k_pool.shape[1],
+                          block_table.shape[1],
+                          all(a.data_ptr() % 16 == 0 for a in (q, k_pool, v_pool)),
+                          torch.cuda.get_device_properties(q.device).multi_processor_count,
+                          window)
+
+
 def paged_attention(q, k_pool, v_pool, block_table, q_offset, kv_len,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    plan: AttentionPlan | None = None) -> torch.Tensor:
     """Attention of ``q (B, Tq, Hq, hd)`` over the paged pools.
 
     ``q_offset``: ``(B,)`` int32 absolute position of ``q[:, 0]``;
     ``kv_len``: ``(B,)`` int32 number of valid KV positions per row;
     ``window``: > 0 keeps only keys at ``k_pos > q_pos - window``.
+    ``plan``: an :func:`attention_plan` of the same route to take instead of
+    this call's own (a head shard takes the unsharded call's: its key-walk
+    split sets the order of the float32 merge); the CPU has none.
     Returns ``(B, Tq, Hq, hd)`` in q's dtype.
     """
     if q.device.type == "cpu":
@@ -318,10 +332,12 @@ def paged_attention(q, k_pool, v_pool, block_table, q_offset, kv_len,
         return out
     nb, bs, hkv = k_pool.shape[:3]
     mb = block_table.shape[1]
-    aligned = all(a.data_ptr() % 16 == 0 for a in (q, k_pool, v_pool))
-    plan = attention_plan(q.dtype, b, tq, hq, hkv, hd, bs, mb, aligned,
-                          torch.cuda.get_device_properties(q.device).multi_processor_count,
-                          window)
+    own = call_plan(q, k_pool, v_pool, block_table, window)
+    if plan is None:
+        plan = own
+    elif plan[0] != own[0] or plan.tile_hd != own.tile_hd or plan[1] != own[1]:
+        raise ValueError(f"{what}: plan {tuple(plan)} does not fit this call, whose own is "
+                         f"{tuple(own)}")
     route, nt, n_split, per = plan
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),

@@ -41,7 +41,7 @@ from repro_torch.core import quant
 from repro_torch.kernels import _build
 
 __all__ = ["w8a8_matmul", "w8a8_matmul_plain", "gemm_plan", "GemmPlan", "ROUTES",
-           "check_int8_gemm", "route_code"]
+           "check_int8_gemm", "route_code", "call_plan"]
 
 SOURCE = "src/repro_torch/kernels/csrc/osparse_matmul.cu"
 REPLACES = "src/repro/kernels/w8a8_matmul.py:49"
@@ -172,10 +172,20 @@ def w8a8_matmul_plain(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
     return quant.quantized_matmul(xq, wq, x_scale, w_scale)
 
 
+def call_plan(xq: torch.Tensor, wq: torch.Tensor) -> GemmPlan:
+    """The :func:`gemm_plan` of a call on these CUDA tensors.  A call may take
+    another plan of the same route (a column shard takes the unsharded
+    call's)."""
+    return gemm_plan(xq.shape[0], xq.shape[1], wq.shape[1], torch.int8,
+                     aligned=(xq.data_ptr() | wq.data_ptr()) % 16 == 0, sms=_sms(xq.device))
+
+
 def w8a8_matmul(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
-                w_scale: torch.Tensor) -> torch.Tensor:
+                w_scale: torch.Tensor, plan: GemmPlan | None = None) -> torch.Tensor:
     """``xq (T, D) int8 @ wq (D, N) int8`` → float32 ``* x_scale * w_scale``;
-    ``x_scale`` is a one-element float32 tensor, ``w_scale`` ``(N,)``."""
+    ``x_scale`` is a one-element float32 tensor, ``w_scale`` ``(N,)``.
+    ``plan``: the :func:`gemm_plan` to take instead of this call's own (a
+    column shard takes the unsharded call's); the CPU has none."""
     if xq.device.type == "cpu":
         return w8a8_matmul_plain(xq, wq, x_scale, w_scale)
     _build.refuse_grad("w8a8_matmul", xq, wq, x_scale, w_scale)
@@ -192,8 +202,12 @@ def w8a8_matmul(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
     out = torch.empty((t, n_out), dtype=torch.float32, device=xq.device)
     if t == 0:
         return out
-    plan = gemm_plan(t, d, n_out, torch.int8,
-                     aligned=(xq.data_ptr() | wq.data_ptr()) % 16 == 0, sms=_sms(xq.device))
+    own = call_plan(xq, wq)
+    if plan is None:
+        plan = own
+    elif plan.route != own.route:
+        raise ValueError(f"w8a8_matmul: plan {plan} does not fit this call, whose own is "
+                         f"{own}")
     x_scale = x_scale.contiguous()
     with torch.cuda.device(xq.device):
         rc = _fn()(xq.data_ptr(), wq.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),

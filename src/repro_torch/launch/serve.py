@@ -27,8 +27,16 @@ differences:
 * ``--dp N`` serves ``--trace`` on ``N`` replicas behind the router
   (``serve/router.py``), one after another on the one card, and reports
   each replica's tokens, iterations and dispatches per iteration, as the
-  JAX CLI does; ``--tp`` above 1 (tensor parallelism) raises
-  ``NotImplementedError``.
+  JAX CLI does.
+* ``--tp N`` serves ``--trace`` tensor-parallel on ``N`` ranks: the CLI
+  starts them (``launch.mesh.spawn``, a file store in the temporary
+  directory), every rank builds the same model and engine and serves the
+  same stream, each kernel of a step runs sharded (``distributed/tp.py``),
+  and rank 0 prints the report.  The ranks live on the CPU with ``--device
+  cpu``, else on the cards (all on one card where there is one); the
+  backend is gloo either way, so every step runs eagerly (a CUDA graph
+  cannot hold a gloo collective), and the CLI prints that choice first.
+  One-shot mode takes no ``--tp``.
 * ``--no-paged`` serves ``--trace`` on the dense per-slot slab, as the JAX
   CLI does; a sliding-window model (``mixtral_8x7b``) is served there
   without it, since its ring caches are never paged.
@@ -127,13 +135,23 @@ def run(argv=None):
                     help="data-parallel engine replicas behind the router (--trace), "
                          "one after another on the one device")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel shards (not ported: > 1 raises)")
+                    help="tensor-parallel ranks per replica for --trace (started by the "
+                         "CLI, gloo, eager steps; rank 0 prints the report)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.tp != 1:
-        raise NotImplementedError("--tp > 1 (tensor parallelism) is not ported yet: "
-                                  "ROADMAP.md A4")
+    if args.tp > 1:
+        if not args.trace:
+            raise ValueError("--tp serves --trace only (as the JAX CLI's)")
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            import sys
+
+            from repro_torch.launch.mesh import spawn
+
+            return spawn(_serve_rank, args.tp, list(sys.argv[1:] if argv is None else argv),
+                         device=args.device)
 
     import time
 
@@ -184,6 +202,19 @@ def run(argv=None):
     return 0, None
 
 
+def _serve_rank(argv):
+    """One rank of ``--tp``: the same run; only rank 0 prints."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    if dist.get_rank() == 0:
+        return run(argv)
+    with contextlib.redirect_stdout(io.StringIO()):
+        return run(argv)
+
+
 # each modality stub's seed: the one-shot batch's, and ``100 * seed + i`` for
 # request i of a trace
 STUB_SEEDS = {"frame_embeds": 2, "pixel_embeds": 3}
@@ -195,6 +226,7 @@ def _trace_mode(args, cfg, model, params, policy):
 
     from repro_torch.serve.api import Engine, EngineConfig
     from repro_torch.serve.continuous import ContinuousConfig
+    from repro_torch.serve.router import outputs_digest
 
     rng = np.random.default_rng(args.seed)
     lo, hi = (int(x) for x in args.len_range.split(":"))
@@ -204,7 +236,7 @@ def _trace_mode(args, cfg, model, params, policy):
     max_seq = hi + args.new_tokens + 8 + args.shared_prefix
 
     eng = Engine.from_config(model, EngineConfig(
-        dp=args.dp, serving=ContinuousConfig(
+        dp=args.dp, tp=args.tp, serving=ContinuousConfig(
             max_seq=max_seq, num_slots=args.slots, chunk_size=args.chunk,
             temperature=args.temperature, seed=args.seed,
             paged=not args.no_paged, block_size=args.block_size,
@@ -224,7 +256,7 @@ def _trace_mode(args, cfg, model, params, policy):
         if ex:
             extras[rid] = ex
 
-    eng.run(params, extras=extras)
+    outputs = eng.run(params, extras=extras)["outputs"]
     m = eng.metrics          # typed MetricsSnapshot, merged over the replicas
     print(f"# {args.num_requests} requests, λ={args.rate}/iter, "
           f"lens {lo}..{hi}, slots={args.slots}, chunk={args.chunk}, "
@@ -237,6 +269,8 @@ def _trace_mode(args, cfg, model, params, policy):
               f"{r.first_token_iter},{r.done_iter},"
               f"{r.latency_iters},{r.latency_s:.3f},{r.n_out},"
               f"{r.preemptions},{r.retries}")
+    print(f"# tokens: sha256 {outputs_digest(outputs)[:16]} over {len(outputs)} requests "
+          "(the same for any --dp and --tp)")
     lat = [r.latency_iters for r in m.requests]
     print(f"# throughput: {m.generated_tokens} tokens in "
           f"{m.wall_s:.2f}s = {m.tokens_per_s:.1f} tok/s "

@@ -20,7 +20,12 @@
   and the gather oracle below.  There is no coverage rule: the kernel
   serves every query count and window.  Under ``use_kernel`` each first
   consults its fault site (``kernel.paged_scatter``,
-  ``kernel.paged_attention``; ``kernels/_faults.py``).
+  ``kernel.paged_attention``; ``kernels/_faults.py``).  Under an active TP
+  scope (``distributed/tp.py``) a pool that holds this rank's share of the
+  KV heads takes this rank's heads of the new rows, and attention runs this
+  rank's query heads over it and gathers the output along the head axis; on
+  the card the kernel takes the unsharded call's plan.  Both paths shard
+  (the kernel and the oracles), since the pools hold only their heads.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ import numbers
 from typing import Optional, Union
 
 import torch
+
+from repro_torch.distributed import tp
 
 __all__ = ["attention", "gather_kv_blocks", "paged_kv_update", "paged_attention"]
 
@@ -187,6 +194,17 @@ def paged_kv_update(k_pool: torch.Tensor, v_pool: torch.Tensor,
     b, t = k_new.shape[:2]
     posv = _vec(pos, b, k_new.device)
     cl = _vec(t if chunk_len is None else chunk_len, b, k_new.device)
+    out = tp.head_sharded_scatter(
+        lambda kn, vn, kp, vp: _scatter(kp, vp, kn, vn, block_table, posv, cl, use_kernel),
+        k_new, v_new, k_pool, v_pool)
+    if out is not None:
+        return out
+    return _scatter(k_pool, v_pool, k_new, v_new, block_table, posv, cl, use_kernel)
+
+
+def _scatter(k_pool, v_pool, k_new, v_new, block_table, posv, cl, use_kernel: bool):
+    """:func:`paged_kv_update` on ``(B,)`` positions and lengths."""
+    b, t = k_new.shape[:2]
     if use_kernel:
         from repro_torch.kernels import paged_attention as kpa
         from repro_torch.kernels._faults import kernel_site
@@ -218,12 +236,39 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                     block_table: torch.Tensor, *, causal: bool = True,
                     window: Optional[int] = None, q_offset: IntOrTensor = 0,
                     kv_len: Optional[IntOrTensor] = None, chunk: int = 1024,
-                    use_kernel: bool = False) -> torch.Tensor:
+                    use_kernel: bool = False, kv_heads: Optional[int] = None) -> torch.Tensor:
     """Attention of ``q (B, T, Hq, hd)`` over non-contiguous physical KV
     blocks.  ``use_kernel`` sends the call to the ``paged_attention``
     kernel (which takes any T and window); otherwise the gather oracle
     runs: the logical view from :func:`gather_kv_blocks`, then
-    :func:`attention`."""
+    :func:`attention`.  ``kv_heads``: the model's KV heads, of which the
+    pools may hold one rank's share under a TP scope (default: the pools
+    hold them all)."""
+    kv_heads = k_pool.shape[2] if kv_heads is None else kv_heads
+    plan = None
+    if use_kernel and q.is_cuda and tp.current() is not None:
+        from repro_torch.kernels import paged_attention as kpa
+
+        # the unsharded call's plan: a shard of fewer heads would split its
+        # key walk further and merge in another order
+        plan = kpa.attention_plan(
+            q.dtype, q.shape[0], q.shape[1], q.shape[2], kv_heads, q.shape[3],
+            k_pool.shape[1], block_table.shape[1], True,
+            torch.cuda.get_device_properties(q.device).multi_processor_count,
+            0 if window is None else window)
+    out = tp.head_sharded_attention(
+        lambda q_, kp, vp: _attend(q_, kp, vp, block_table, causal, window, q_offset, kv_len,
+                                   chunk, use_kernel, plan),
+        q, k_pool, v_pool, kv_heads)
+    if out is not None:
+        return out
+    return _attend(q, k_pool, v_pool, block_table, causal, window, q_offset, kv_len, chunk,
+                   use_kernel, None)
+
+
+def _attend(q, k_pool, v_pool, block_table, causal, window, q_offset, kv_len, chunk,
+            use_kernel: bool, plan) -> torch.Tensor:
+    """:func:`paged_attention` on pools that hold q's KV heads."""
     if use_kernel:
         if kv_len is None:
             raise NotImplementedError("the paged_attention kernel takes kv_len")
@@ -235,7 +280,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         return kpa.paged_attention(q.contiguous(), k_pool, v_pool, block_table,
                                    _vec(q_offset, b, q.device),
                                    _vec(kv_len, b, q.device), causal=causal,
-                                   window=0 if window is None else window)
+                                   window=0 if window is None else window, plan=plan)
     k = gather_kv_blocks(k_pool, block_table)
     v = gather_kv_blocks(v_pool, block_table)
     return attention(q, k, v, causal=causal, window=window, q_offset=q_offset,

@@ -457,7 +457,7 @@ def _attn_block_apply(cfg: ModelConfig, h: torch.Tensor, p: AttnBlock,
         o = paged_attention(q, cache["k"], cache["v"], index["table"],
                             causal=index["causal"], q_offset=index["pos"],
                             kv_len=index["kv_len"], chunk=cfg.attn_chunk,
-                            use_kernel=use_kernel)
+                            use_kernel=use_kernel, kv_heads=cfg.n_kv_heads)
     o = sparse_linear(o.reshape(b, t, cfg.q_dim), p.o_proj, "o_proj", policy,
                       phase, layer_idx)
     h = h + o

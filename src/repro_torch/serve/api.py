@@ -12,9 +12,14 @@ parallel layout.  ``dp`` replicas sit behind a
 :class:`~repro_torch.serve.router.Router` at every ``dp``, as in the
 reference: each an independent Scheduler + Executor with its own slots,
 block pool and CUDA graphs, all on the model's device (one card), sharing
-its weights.  ``tp > 1`` (tensor parallelism) is not ported and raises
-``NotImplementedError``.  The engine runs on the model's device, which is
-the GPU unless ``device="cpu"`` is named.
+its weights.  ``tp > 1`` shards each replica's kernels over a
+``torch.distributed`` group of ``tp`` ranks (``distributed/tp.py``): the
+calling process is one rank, every rank builds the same engine, and
+:func:`repro_torch.launch.mesh.spawn` starts them.  Outside an initialised
+group of world size ``tp`` it raises ``ValueError`` up front.  Under a gloo
+group (the CPU, and ranks that share one card) every step runs eagerly,
+since a CUDA graph cannot hold a gloo collective.  The engine runs on the
+model's device, which is the GPU unless ``device="cpu"`` is named.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ __all__ = ["EngineConfig", "Engine"]
 class EngineConfig:
     """Serving-wide configuration: parallel layout + per-replica knobs."""
     dp: int = 1                    # data-parallel engine replicas
-    tp: int = 1                    # tensor-parallel shards per replica (not ported)
+    tp: int = 1                    # tensor-parallel shards per replica (ranks)
     serving: ContinuousConfig = ContinuousConfig()
 
     def __post_init__(self):
@@ -54,18 +59,23 @@ class Engine:
     def from_config(cls, model, cfg: EngineConfig = EngineConfig(), *,
                     policy: SparsityPolicy = DENSE,
                     faults: Optional[FaultInjector] = None,
-                    device=None) -> "Engine":
+                    device=None, mesh=None) -> "Engine":
         """Build ``cfg.dp`` replicas for ``model`` on ``device`` (default: the
         GPU, raising if there is none); the model must live there.
         ``faults`` is consulted at the fault sites (``serve/faults.py``),
-        one injector for the whole fleet."""
-        if cfg.tp != 1:
-            raise NotImplementedError("tp > 1 (tensor parallelism) is not ported yet: "
-                                      "ROADMAP.md A4")
+        one injector for the whole fleet.  ``mesh`` overrides the one that
+        ``tp > 1`` builds from the initialised group
+        (``launch.mesh.make_serving_mesh``, which raises ``ValueError`` when
+        there is none or its world size is not ``tp``)."""
+        if mesh is None and cfg.tp > 1:
+            from repro_torch.launch.mesh import make_serving_mesh
+
+            mesh = make_serving_mesh(cfg.dp, cfg.tp)
         dev = resolve_device(device)
         if model.device.type != dev.type:
             raise ValueError(f"model is on {model.device}, engine asked for {dev}")
-        return cls(Router(model, policy, cfg.serving, dp=cfg.dp, faults=faults), cfg)
+        return cls(Router(model, policy, cfg.serving, dp=cfg.dp, mesh=mesh, faults=faults),
+                   cfg)
 
     # ------------------------------------------------------------ requests
     def submit(self, tokens, max_new_tokens: int = 32, arrival: int = 0,

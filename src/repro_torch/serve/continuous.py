@@ -93,7 +93,7 @@ class ContinuousServingEngine:
 
     def __init__(self, model, policy: SparsityPolicy = DENSE,
                  cfg: ContinuousConfig = ContinuousConfig(),
-                 faults: Optional[FaultInjector] = None):
+                 faults: Optional[FaultInjector] = None, group=None):
         self.model = model
         self.policy = policy
         self.cfg = cfg
@@ -103,7 +103,8 @@ class ContinuousServingEngine:
         self.iteration_hook: Optional[Callable] = None
         self._validate = (cfg.validate_pool
                           or os.environ.get("REPRO_VALIDATE_POOL") == "1")
-        self.exec = Executor(model, policy, cfg)
+        # group: this replica's tensor-parallel group (distributed/tp.py)
+        self.exec = Executor(model, policy, cfg, group=group)
         self.sched = Scheduler(cfg, policy_enabled=policy.enabled,
                                prefix_cache=cfg.prefix_cache, paged=self.exec.paged,
                                exact_chunks=self.exec.exact_chunks, faults=faults)

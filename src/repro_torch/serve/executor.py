@@ -60,6 +60,16 @@ the JAX package counts traces; on the CPU, where there are no graphs and
 the program runs as it is, it counts each program's first use.  The launch
 counters of the kernels count replays (``kernels/_capture.py``).
 
+Tensor parallelism: an executor built with a ``group`` (one rank of a
+``torch.distributed`` group of ``tp`` ranks, every rank running the same
+host code) opens a TP scope on it around every step, so the projection
+kernels run column-parallel and paged attention head-sharded
+(``distributed/tp.py``); where the model's KV heads divide over the ranks,
+each rank's pools hold only its share of them.  Under a gloo group (the
+CPU, and ranks that share one card) every step runs eagerly, decided here
+when the executor is built: a CUDA graph cannot hold a gloo collective.
+``trace_counts`` then counts each program's first use, as on the CPU.
+
 Sampling runs after the program, on its logits, with the explicit
 ``torch.Generator`` (temperature > 0) or ``argmax``; one device-to-host copy
 then reads the tokens and the finite flag.  There is no oracle twin and no
@@ -79,6 +89,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.policy import DENSE, SparsityPolicy
+from repro_torch.distributed import tp
 from repro_torch.kernels import _capture
 from repro_torch.models.common import dtype_of, resolve_device
 from repro_torch.serve import slots as slot_ops
@@ -116,10 +127,11 @@ class Executor:
     """Owns the cache, the step programs and their graphs; executes plans.
     Never reads or mutates request state."""
 
-    def __init__(self, model, policy: SparsityPolicy, cfg):
+    def __init__(self, model, policy: SparsityPolicy, cfg, group=None):
         self.model = model
         self.policy = policy
         self.cfg = cfg
+        self.group = group       # the TP group (None: one rank)
         self.device = resolve_device(model.device)   # a model on the GPU needs one
         model.paged_kv_spec()        # raises for layouts the port does not model
         mcfg = model.cfg
@@ -146,7 +158,7 @@ class Executor:
         self.cache = None
         self._operands: Optional[torch.Tensor] = None
         self._extras: Dict[str, torch.Tensor] = {}
-        self._graphs = _capture.Programs(self.device)
+        self._graphs = _capture.Programs(self.device, capture=tp.captures(group))
         self.buckets: Dict[str, Dict[str, float]] = {}
         self.dispatches = 0
         self._gen = None
@@ -228,7 +240,8 @@ class Executor:
             cfg = self.cfg
             if self.paged:
                 self.cache = init_paged_cache(self.model.cfg, cfg.num_slots, cfg.max_seq,
-                                              cfg.block_size, num_blocks, device=self.device)
+                                              cfg.block_size, num_blocks, device=self.device,
+                                              kv_heads=self.pool_heads())
             else:
                 self.cache = slot_ops.init_slot_cache(self.model, cfg.num_slots, cfg.max_seq)
             # [slot, chunk_len, chunk tokens (C), decode tokens (S), active (S),
@@ -238,6 +251,15 @@ class Executor:
             dtype = dtype_of(self.model.cfg)
             self._extras = {k: torch.zeros(shape, dtype=dtype, device=self.device)
                             for k, shape in self.extras_shapes.items()}
+
+    def pool_heads(self) -> int:
+        """The KV heads this rank's pools hold: its share where the model's
+        heads divide over the TP group, else all of them."""
+        mcfg = self.model.cfg
+        size = tp.size_of(self.group)
+        if tp.shards_kv(mcfg.n_heads, mcfg.n_kv_heads, size):
+            return mcfg.n_kv_heads // size
+        return mcfg.n_kv_heads
 
     def apply_effects(self, plan: StepPlan) -> None:
         """Slot resets decided at admission and the rewritten host block
@@ -325,9 +347,10 @@ class Executor:
         # extras the program's second graph, which reads their buffers
         length = pw.chunk_len if pw is not None and self.exact_chunks else None
         shape = (length, tuple(ex)) if ex else length
-        p_logits, d_logits, finite = self._graphs.run(
-            name, lambda: prog(params, self.cache, *self._views(length), extras=ex), params,
-            shape=shape)
+        with tp.scope(self.group):
+            p_logits, d_logits, finite = self._graphs.run(
+                name, lambda: prog(params, self.cache, *self._views(length), extras=ex),
+                params, shape=shape)
         out = []
         if pw is not None:
             out.append(self._sample(p_logits).reshape(1))

@@ -7,8 +7,17 @@ the model's device, each a full Scheduler + Executor pair with its own
 slots, block pool or slab, prefix index and CUDA graphs
 (``kernels/_capture.Programs``); they share the model's weights.  dp
 replication is host-level: no replica ever reads another's activations or
-cache, so the replicas run one after another on one card.  Tensor
-parallelism (the reference's ``mesh`` argument) is not ported.
+cache, so the replicas run one after another on one card.
+
+Tensor parallelism (the reference's ``mesh``): a
+:class:`~repro_torch.launch.mesh.ServingMesh` gives every replica the TP
+group of its shard (``distributed/tp.replica_groups``).  Each of the mesh's
+``tp`` ranks is a process that runs this same router, whose host decisions
+are deterministic, so every rank makes the same plans; rank ``t`` holds
+shard ``t`` of every replica, and since the replicas run one after another,
+one group serves them all.  Under a gloo group every step runs eagerly
+(``serve/executor.py``).  At the end of :meth:`Router.run` the ranks compare
+a digest of their outputs and raise if any rank's differs.
 
 Routing is least-loaded (a replica's load is the tokens it still owes)
 with prefix affinity: a prompt whose first ``block_size`` tokens match an
@@ -31,33 +40,44 @@ the caller (the one-engine snapshot/restore contract).
 from __future__ import annotations
 
 import copy
+import hashlib
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.core.policy import DENSE, SparsityPolicy
+from repro_torch.distributed import tp as tp_mod
 from repro_torch.serve.continuous import ContinuousConfig, ContinuousServingEngine
 from repro_torch.serve.faults import EngineCrash, FaultInjector
 from repro_torch.serve.metrics import MetricsSnapshot
 from repro_torch.serve.scheduler import TERMINAL, WAITING
 
-__all__ = ["Router"]
+__all__ = ["Router", "outputs_digest"]
+
+
+def outputs_digest(outputs: Dict[int, List[int]]) -> str:
+    """A SHA-256 of every request's tokens, by request id."""
+    return hashlib.sha256(repr(sorted((int(g), [int(t) for t in o])
+                                      for g, o in outputs.items())).encode()).hexdigest()
 
 
 class Router:
     """dp-replicated continuous serving behind one request surface."""
 
     def __init__(self, model, policy: SparsityPolicy = DENSE,
-                 cfg: ContinuousConfig = ContinuousConfig(), *, dp: int = 1,
+                 cfg: ContinuousConfig = ContinuousConfig(), *, dp: int = 1, mesh=None,
                  faults: Optional[FaultInjector] = None):
         assert dp >= 1, "need at least one replica"
         self.cfg = cfg
         self.dp = dp
+        self.mesh = mesh
+        groups = tp_mod.replica_groups(mesh, dp)
         # the injector is shared: site schedules (and their limits) apply
         # across the whole fleet, wherever the site happens to fire
         self.replicas: List[ContinuousServingEngine] = [
-            ContinuousServingEngine(model, policy, cfg, faults=faults) for _ in range(dp)]
+            ContinuousServingEngine(model, policy, cfg, faults=faults, group=groups[i])
+            for i in range(dp)]
         self.alive = [True] * dp
         self.crashes = 0                  # replicas lost to EngineCrash
         self.transplants = 0              # requests re-admitted to survivors
@@ -190,7 +210,21 @@ class Router:
         for g, (rep, lrid) in self._rid_map.items():
             if g not in outputs:
                 outputs[g] = list(self.replicas[rep].requests[lrid].out)
+        if self.mesh is not None:
+            self._check_ranks_agree(outputs)
         return {"outputs": outputs, "metrics": self.metrics}
+
+    def _check_ranks_agree(self, outputs: Dict[int, List[int]]) -> None:
+        """Every rank of the mesh must have emitted the same tokens: compare
+        a digest of the outputs across the group, and raise if one differs."""
+        import torch.distributed as dist
+
+        digest = outputs_digest(outputs)
+        digests = [None] * dist.get_world_size(self.mesh.group)
+        dist.all_gather_object(digests, digest, group=self.mesh.group)
+        if len(set(digests)) != 1:
+            raise RuntimeError(f"tensor-parallel ranks emitted different tokens: output "
+                               f"digests by rank {digests}")
 
     # ------------------------------------------------------ crash recovery
     def snapshot(self) -> Dict[str, Any]:

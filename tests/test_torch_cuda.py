@@ -1385,3 +1385,121 @@ def test_prune_matmul_function_matches_plain_autograd(gen, dtype, t, d, n_out, b
         _close(got, want, dtype)
     assert bool((outs[0][1][1, :8] != 0).any())          # kept zeros pass their gradient
     assert not bool(outs[0][1][1, 8:16].any())
+
+
+# ------------------------------------------------ tensor-parallel shards
+# Each sharded entry point's shards computed in this one process, each with
+# the unsharded call's plan, concatenated: bit-identical to the unsharded
+# launch (the gathers are concatenations).  Each case also shows that a
+# shard's own plan differs, which would sum in another order.
+
+def _column_shards(full, tp, fn):
+    """``fn(r)`` for every rank's shard, concatenated along the last axis."""
+    return torch.cat([fn(r) for r in range(tp)], dim=-1)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_nm_prune_matmul_shards_take_the_full_plan(gen, tp):
+    from repro_torch.distributed.tp import shard_columns
+
+    x = torch.randn(256, 4096, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(4096, 4096, generator=gen, device="cuda") * 4096**-0.5).bfloat16()
+    sc = torch.rand(4096, generator=gen, device="cuda") + 0.5
+    b = (torch.randn(4096, generator=gen, device="cuda") * 0.1).bfloat16()
+    plan = knm.gemm_plan(w, 256)
+    assert knm.gemm_plan(shard_columns(w, 0, tp), 256) != plan
+    got = _column_shards(w, tp, lambda r: knm.nm_prune_matmul(
+        x, shard_columns(w, r, tp), sc, 8, 16, bias=shard_columns(b, r, tp), plan=plan))
+    assert torch.equal(got, knm.nm_prune_matmul(x, w, sc, 8, 16, bias=b))
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_nm_spmm_shards_take_the_full_plan(gen, tp):
+    from repro_torch.distributed.tp import shard_columns
+
+    x = torch.randn(512, 3584, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(3584, 3584, generator=gen, device="cuda") * 3584**-0.5).bfloat16()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = kns.gemm_plan(x.dtype, 512, 3584, 3584, 8, 16, 256, True, sms)
+    assert kns.gemm_plan(x.dtype, 512, 3584, 3584 // tp, 8, 16, 256, True, sms) != plan
+    got = _column_shards(w, tp, lambda r: kns.nm_spmm(x, shard_columns(w, r, tp), None, 8,
+                                                       16, plan=plan))
+    assert torch.equal(got, kns.nm_spmm(x, w, None, 8, 16))
+
+
+@pytest.mark.parametrize("t,prune", [(256, True), (4, False)], ids=["prefill", "decode"])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_osparse_matmul_shards_take_the_full_plan(gen, tp, t, prune):
+    from repro_torch.distributed.tp import shard_columns
+
+    x = torch.randn(t, 4096, generator=gen, device="cuda").bfloat16()
+    wq = quant.k_major(torch.randint(-127, 128, (4096, 4096), generator=gen,
+                                     device="cuda").to(torch.int8))
+    smooth = torch.rand(4096, generator=gen, device="cuda") + 0.5
+    amber = torch.rand(4096, generator=gen, device="cuda") + 0.5
+    ws = torch.rand(4096, generator=gen, device="cuda") * 1e-3
+    act = torch.full((1,), 0.02, device="cuda")
+    plan = kos.call_plan(x, wq, smooth, amber, 16, prune, False)
+    shard = shard_columns(wq, 1, tp)
+    assert shard.data_ptr() == wq.data_ptr() + 4096 * 4096 // tp     # a view
+    assert kos.call_plan(x, shard, smooth, amber, 16, prune, False) != plan
+    got = _column_shards(wq, tp, lambda r: kos.osparse_matmul(
+        x, shard_columns(wq, r, tp), smooth, amber, shard_columns(ws, r, tp), 8, 16,
+        act_scale=act, prune=prune, plan=plan))
+    assert torch.equal(got, kos.osparse_matmul(x, wq, smooth, amber, ws, 8, 16,
+                                               act_scale=act, prune=prune))
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_w8a8_matmul_shards_take_the_full_plan(gen, tp):
+    from repro_torch.distributed.tp import shard_columns
+
+    xq = torch.randint(-127, 128, (256, 4096), generator=gen, device="cuda").to(torch.int8)
+    wq = quant.k_major(torch.randint(-127, 128, (4096, 4096), generator=gen,
+                                     device="cuda").to(torch.int8))
+    ws = torch.rand(4096, generator=gen, device="cuda") * 1e-3
+    xs = torch.full((1,), 0.02, device="cuda")
+    plan = kw8.call_plan(xq, wq)
+    assert kw8.call_plan(xq, shard_columns(wq, 0, tp)) != plan
+    got = _column_shards(wq, tp, lambda r: kw8.w8a8_matmul(
+        xq, shard_columns(wq, r, tp), xs, shard_columns(ws, r, tp), plan=plan))
+    assert torch.equal(got, kw8.w8a8_matmul(xq, wq, xs, ws))
+
+
+def _heads(t, r, tp):
+    h = t.shape[2] // tp
+    return t[:, :, r * h:(r + 1) * h].contiguous()
+
+
+@pytest.mark.parametrize("case", ["chunk", "decode"])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_paged_attention_head_shards_take_the_full_plan(gen, tp, case):
+    """LLaMA-3.1-8B's heads (32 / 8 of 128): a 256-token chunk and a decode
+    batch of 4 over each rank's share of the pools."""
+    b, tq, kv_len, qoff = ((1, 256, [700], [444]) if case == "chunk"
+                           else (4, 1, [701, 514, 65, 2], [700, 513, 64, 1]))
+    q, kp, vp, tab, qo, kvl = _paged_case(gen, b, tq, 32, 8, 128, 16, kv_len, qoff)
+    kp, vp = kp.nan_to_num(), vp.nan_to_num()
+    plan = kpa.call_plan(q, kp, vp, tab)
+    # a shard of fewer heads leaves more SMs idle, so it would split its walk
+    assert kpa.call_plan(_heads(q, 0, tp), _heads(kp, 0, tp), _heads(vp, 0, tp), tab) != plan
+    got = torch.cat([kpa.paged_attention(_heads(q, r, tp), _heads(kp, r, tp),
+                                         _heads(vp, r, tp), tab, qo, kvl, causal=tq > 1,
+                                         plan=plan) for r in range(tp)], dim=2)
+    assert torch.equal(got, kpa.paged_attention(q, kp, vp, tab, qo, kvl, causal=tq > 1))
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_paged_kv_scatter_into_head_shards(gen, tp):
+    kp, vp, tab = _paged(gen, torch.bfloat16, 3, 8, 128, 16, 6, [90, 20, 33])
+    kp, vp = kp.nan_to_num(), vp.nan_to_num()
+    kn = torch.randn(3, 24, 8, 128, generator=gen, device="cuda").bfloat16()
+    vn = torch.randn(3, 24, 8, 128, generator=gen, device="cuda").bfloat16()
+    pos = torch.tensor([70, 20, 9], dtype=torch.int32, device="cuda")
+    clen = torch.tensor([24, 13, 5], dtype=torch.int32, device="cuda")
+    shards = [(_heads(kp, r, tp), _heads(vp, r, tp)) for r in range(tp)]
+    for r, (k_r, v_r) in enumerate(shards):
+        kpa.paged_kv_scatter(_heads(kn, r, tp), _heads(vn, r, tp), k_r, v_r, tab, pos, clen)
+    kpa.paged_kv_scatter(kn, vn, kp, vp, tab, pos, clen)
+    assert torch.equal(torch.cat([k for k, _ in shards], dim=2), kp)
+    assert torch.equal(torch.cat([v for _, v in shards], dim=2), vp)

@@ -163,11 +163,19 @@ def test_trace_cli_on_the_recurrent_families_matches_jax_cli(capsys, arch):
 @pytest.mark.parametrize("flags", [["--tp", "2"], ["--dp", "2", "--tp", "2"],
                                    ["--tp", "2", "--no-paged"]],
                          ids=["tp", "dp-tp", "tp-no-paged"])
-def test_unported_layouts_raise(flags):
-    """Tensor parallelism (``--tp`` above 1) is not ported; ``--dp`` is
-    (``tests/test_torch_router.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        main(TRACE + ["--device", "cpu"] + flags)
+def test_unported_layouts_raise(flags, tmp_path):
+    """``--tp 2`` inside an initialised group whose world size is not 2
+    raises ``ValueError`` up front, naming the fix.  Outside any group the
+    CLI starts the ranks itself (``tests/test_torch_tp.py``)."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(ValueError, match="needs 2 ranks but the group has 1"):
+            main(TRACE + ["--device", "cpu"] + flags)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_cuda_without_a_card_raises(monkeypatch):

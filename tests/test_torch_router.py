@@ -291,14 +291,15 @@ TRACE = ["--smoke", "--arch", "llama31_8b", "--trace", "--num-requests", "6", "-
          "0.7", "--len-range", "6:20", "--slots", "2", "--chunk", "8", "--new-tokens", "5"]
 
 
-def test_cli_dp2_trace_reports_both_replicas(capsys):
+def test_cli_dp2_trace_reports_both_replicas(capfd):
     """``--dp 2 --trace --device cpu``: rc 0, every request done, one
     program per work iteration, a replica line whose two parts add up to
     the throughput line's tokens, each replica's programs traced once (the
-    merged ``# traces:`` sums them); ``--tp 2`` still raises, naming the
-    ROADMAP item."""
+    merged ``# traces:`` sums them); ``--dp 2 --tp 2`` (two ranks the CLI
+    starts; rank 0 prints the report) serves the same tokens (the report's
+    digest) on both replicas."""
     assert main(TRACE + ["--dp", "2", "--device", "cpu"]) == 0
-    out = capsys.readouterr().out
+    out = capfd.readouterr().out
     assert "dp=2, tp=1" in out and "done=6 " in out and "ERROR" not in out
     assert "1.00 per work iteration" in out
     per = re.findall(r"r(\d): (\d+) tok / \d+ iters / dpi 1.00",
@@ -308,5 +309,11 @@ def test_cli_dp2_trace_reports_both_replicas(capsys):
     assert sum(int(n) for _, n in per) == total == 6 * 5
     traces = re.findall(r"(\w+)=(\d+)", out.split("# traces:")[1].split("(")[0])
     assert traces and all(1 <= int(n) <= 2 for _, n in traces)
-    with pytest.raises(NotImplementedError, match="A4"):
-        main(TRACE + ["--tp", "2", "--device", "cpu"])
+    assert main(TRACE + ["--dp", "2", "--tp", "2", "--device", "cpu"]) == 0
+    tp2 = capfd.readouterr().out
+
+    def digest(report):
+        return next(x for x in report.splitlines() if x.startswith("# tokens:"))
+
+    assert "dp=2, tp=2" in tp2 and "# replicas (2):" in tp2
+    assert digest(tp2) == digest(out)

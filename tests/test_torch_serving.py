@@ -192,13 +192,15 @@ def test_engine_generate_and_dp_tp_guard():
         max_seq=32, num_slots=2, chunk_size=8)), device="cpu")
     outs = eng.generate(params, [np.arange(5), np.arange(9)], max_new_tokens=3)
     assert [len(o) for o in outs] == [3, 3]
-    # dp > 1 serves the same tokens through the router; tp > 1 still raises
+    # dp > 1 serves the same tokens through the router; tp > 1 needs an
+    # initialised group of tp ranks and raises up front outside one
+    # (tests/test_torch_tp.py serves it)
     eng = Engine.from_config(model, EngineConfig(dp=2, serving=ContinuousConfig(
         max_seq=32, num_slots=2, chunk_size=8)), device="cpu")
     assert eng.generate(params, [np.arange(5), np.arange(9)], max_new_tokens=3) == outs
     assert len(eng.replicas) == 2
     for dp, tp in ((1, 2), (2, 2)):
-        with pytest.raises(NotImplementedError, match="A4"):
+        with pytest.raises(ValueError, match="none is initialised"):
             Engine.from_config(model, EngineConfig(dp=dp, tp=tp), device="cpu")
 
 
