@@ -222,16 +222,17 @@ Phases (any failed check exits non-zero; no phase is skipped):
              and a decode step profiled, graphed tokens equal to the eager
              programs', peak memory printed), with ``attention_plan``'s
              route of its chunk and decode step: 8a Qwen2.5-32B at full
-             width, depth 32 of its 64 layers (cut to make room for
-             phase 14 in the run's time; 40/8 heads, q/k/v biases; 96
-             ``nm_prune_matmul`` a chunk); 8b the same weights rewritten
+             width, depth 16 of its 64 layers (cut to make room for
+             phases 14 and 15 in the run's time; 40/8 heads, q/k/v
+             biases; 48 ``nm_prune_matmul`` a chunk); 8b the same weights rewritten
              Outstanding-sparse as in 3b, every ``osparse_matmul`` launch on
              its wgmma or swap_fused route with the q/k/v biases in the
-             epilogue; 8c ChatGLM3-6B (28 layers, 2-D RoPE, G = 16); 8d
-             StableLM-3B (32 layers, LayerNorm, head_dim 80: the wgmma
-             kernel's 128-column tile); every served model's
+             epilogue; 8c ChatGLM3-6B (depth 16 of 28 layers, 2-D RoPE,
+             G = 16); 8d StableLM-3B (depth 16 of 32 layers, LayerNorm,
+             head_dim 80: the wgmma kernel's 128-column tile; both at full
+             depth until phase 15 needed the time); every served model's
              ``paged_attention`` launches all on the wgmma route, none on
-             rows; 8e Granite-34B at full width and depth 16 (MQA,
+             rows; 8e Granite-34B at full width and depth 8 (MQA,
              G = 48: its 88 layers take 88 GiB of bf16, which no one
              80 GB card holds).  8f: phases 4 and 4 bf16 for each of the
              four at full width and depth 2 (the float32 kernel path's
@@ -265,10 +266,10 @@ Phases (any failed check exits non-zero; no phase is skipped):
              ``SCAN_RTOL``, identical skips, N:M flips per probe.
 10. Mixtral-8x7B and the dense slab — after phase 9 freed its models.
              10a: ``Engine`` at full width (d_model 4096, 32 / 8 heads, 8
-             experts x d_ff 14336 top-2, window 4096), depth 16 of 32 (43.7
-             GiB of bf16; all 32 layers are 87 GiB, more than one card
-             holds), on the dense per-slot slab (its rings are never paged:
-             4 slots x 16 layers x 4096 rows, 1.0 GiB) under
+             experts x d_ff 14336 top-2, window 4096), depth 8 of 32 (all 32
+             layers are 87 GiB of bf16, more than one card holds; 16 until
+             phase 15 needed the time), on the dense per-slot slab (its
+             rings are never paged: 4 slots x 8 layers x 4096 rows) under
              ``paper_policy(8, 16, ())`` with the kernels: phase 3's 8
              requests plus two of 4500-5000 tokens (their rings wrap), 32
              new tokens each, chunk 256, max_seq 6144; every bucket
@@ -294,10 +295,10 @@ Phases (any failed check exits non-zero; no phase is skipped):
              of two; each step program captured once per chunk length it
              ran, which ``trace_counts`` must equal, counted from the plans),
              under ``paper_policy(8, 16, ())`` with the kernels.  11a:
-             RWKV6-7B at full width, depth 16 of its 32 layers (cut to
-             make room for phase 14 in the run's time; all 32: 7.53B
+             RWKV6-7B at full width, depth 8 of its 32 layers (cut to
+             make room for phases 14 and 15 in the run's time; all 32: 7.53B
              parameters),
-             phase 3's stream: launches exact (96 ``nm_prune_matmul`` a
+             phase 3's stream: launches exact (48 ``nm_prune_matmul`` a
              sparse chunk: r/k/v/g as q_proj, the channel mix's gate and
              down; no attention kernel), tok/s, peak memory and the seconds
              spent capturing; a 256-token chunk and a decode step profiled
@@ -305,12 +306,13 @@ Phases (any failed check exits non-zero; no phase is skipped):
              own (its calls recorded and timed alone, eager and as one
              graph), layer 0's chunked WKV held to its token loop within
              ``F32_TOL``; graphed tokens equal to the eager programs'.  11b:
-             RecurrentGemma-2B at full size (26 layers) the same way, with
-             two more requests of 2300-2600 tokens so that its 2048-row
-             rings wrap (max_seq 4096): 96 ``nm_prune_matmul`` a sparse
-             chunk.  11c: its one-shot ``generate`` with
-             ``attn_impl="flash"`` at B = 1, T = 4096: 8 ``flash_attention``
-             (the 256-column tile) and 96 ``nm_prune_matmul`` a prefill,
+             RecurrentGemma-2B at full width, depth 14 of its 26 layers
+             (4 periods and the 2-layer tail; cut for phase 15's time) the
+             same way, with two more requests of 2300-2600 tokens so that
+             its 2048-row rings wrap (max_seq 4096): 52 ``nm_prune_matmul``
+             a sparse chunk.  11c: its one-shot ``generate`` with
+             ``attn_impl="flash"`` at B = 1, T = 4096: 4 ``flash_attention``
+             (the 256-column tile) and 52 ``nm_prune_matmul`` a prefill,
              graphs captured once, tokens equal to the run without graphs.
              11d: both at full width, depth 2 (RWKV6-7B) and 5
              (RecurrentGemma-2B): float32 kernel path against plain path,
@@ -334,11 +336,12 @@ Phases (any failed check exits non-zero; no phase is skipped):
              request's seeded stub goes with its first prefill chunk, and
              ``trace_counts`` must read 2 for each prefill program (with
              and without extras) and 1 for decode.  12a: Whisper-medium at
-             full width, 12 + 12 of its 24 + 24 layers (cut to make room
-             for phase 14 in the run's time; 16 heads of 64, encoder_seq 1500)
+             full width, 6 + 6 of its 24 + 24 layers (cut to make room
+             for phases 14 and 15 in the run's time; 16 heads of 64,
+             encoder_seq 1500)
              on the dense slab, phase 3's stream with ``frame_embeds (1,
-             1500, 1024)``: launches exact (``nm_prune_matmul`` 84 a first
-             chunk, 48 a later one: the encoder-decoder passes no layer
+             1500, 1024)``: launches exact (``nm_prune_matmul`` 42 a first
+             chunk, 24 a later one: the encoder-decoder passes no layer
              index, so q, fc1 and fc2 prune in every encoder layer and self
              q, cross q, fc1 and fc2 in every decoder layer; no attention
              kernel: the reference's encoder-decoder attention is plain),
@@ -347,11 +350,12 @@ Phases (any failed check exits non-zero; no phase is skipped):
              eager programs'.  12b: its one-shot ``generate`` at B = 4,
              T = 256 with ``frame_embeds``: 84 ``nm_prune_matmul`` a
              prefill, graphs captured once, tokens equal to the run
-             without graphs.  12c: Qwen2-VL-2B at full size (28 layers,
-             12 / 2 heads of 128, M-RoPE), paged, phase 3's stream with
+             without graphs.  12c: Qwen2-VL-2B at full width, depth 14 of
+             its 28 layers (cut to make room for phase 15; 12 / 2 heads of
+             128, M-RoPE), paged, phase 3's stream with
              ``pixel_embeds (1, 64, 1536)`` behind two text-only requests
-             sharing a 32-token prefix: 84 ``nm_prune_matmul`` a sparse
-             chunk, 28 ``paged_kv_scatter`` and 28 ``paged_attention`` a
+             sharing a 32-token prefix: 42 ``nm_prune_matmul`` a sparse
+             chunk, 14 ``paged_kv_scatter`` and 14 ``paged_attention`` a
              step half, every one on wgmma, prefix hits from the text-only
              pair alone; profiled and token-checked as 12a.  12d: both at
              full width, depth 2: float32 kernel path against plain path
@@ -367,9 +371,10 @@ Phases (any failed check exits non-zero; no phase is skipped):
              per encoder layer and the cross k/v per decoder layer, every
              int8 launch on its route, profiled and token-checked as 12a.
 13. training — after phase 12 freed its models (``phase_training``).
-             13a: LLaMA-3.1-8B at full width, depth 16 of 32 (4.54B
+             13a: LLaMA-3.1-8B at full width, depth 8 of 32 (2.80B
              parameters; 32 layers' weights, gradients and float32 AdamW
-             moments, ~100 GiB, do not fit the card), bf16, remat, dense:
+             moments, ~100 GiB, do not fit the card; 16 until phase 15
+             needed the time), bf16, remat, dense:
              six ``make_train_step`` steps at ``DataConfig(seq_len=512,
              global_batch=4)``, ``OptConfig(lr=3e-4, warmup_steps=2,
              total_steps=6)``: a finite loss and ``grad_norm`` every step,
@@ -379,8 +384,8 @@ Phases (any failed check exits non-zero; no phase is skipped):
              bf16 peak, the optimizer pass alone against its byte bound (22
              B a parameter), peak memory, a checkpoint's write rate and one
              step profiled.  13b: the same with ``--sparse-train``'s policy
-             on the kernels: ``nm_prune_matmul`` exactly 96 times a step
-             (q, gate and down in 16 layers, run again by remat), nothing
+             on the kernels: ``nm_prune_matmul`` exactly 48 times a step
+             (q, gate and down in 8 layers, run again by remat), nothing
              else.  13c: full width, depth 2, float32, one batch of 1 x 256
              with a 16-channel group of layer 0's RMSNorm weight zeroed (a
              zero group in every row of its q input, whose first 8 are
@@ -410,31 +415,61 @@ Phases (any failed check exits non-zero; no phase is skipped):
              shard's plan printed beside the one it would pick alone.
              14b: two ranks on this card over gloo (``launch.mesh.spawn``;
              NCCL refuses two ranks of one communicator on one device), each
-             serving LLaMA-3.1-8B at full width and ``TP_DEPTH`` layers with
-             phase 3's weights, policy, warm-up and stream through
-             ``Engine`` at ``EngineConfig(tp=2)``, every step eager (a CUDA
-             graph cannot hold a gloo collective): every request's tokens
-             equal phase 3's on both ranks; each rank's pools hold 4 of the
-             8 KV heads; per rank the launches exact (86 ``nm_prune_matmul``
-             a sparse chunk, 32 ``paged_kv_scatter`` and ``paged_attention``
-             a step half, each a shard) and the gathers exact (118 a chunk
-             alone: q, gate, down and attention; 32 a decode step), with the
+             serving LLaMA-3.1-8B at full width and ``TP_DEPTH`` (16) layers
+             with phase 3's weights, policy and stream through ``Engine``
+             at ``EngineConfig(tp=2)``, every step eager (a CUDA graph
+             cannot hold a gloo collective): every request's tokens equal
+             the same model's at tp = 1 (served in this process first) on
+             both ranks; each rank's pools hold 4 of the 8 KV heads; per
+             rank the launches exact (48 ``nm_prune_matmul`` a sparse
+             chunk, 16 ``paged_kv_scatter`` and ``paged_attention`` a step
+             half, each a shard) and the gathers exact (64 a chunk alone:
+             q, gate, down and attention; 16 a decode step), with the
              gathered bytes, eager wall time per chunk and per decode step
              and peak memory printed.  14c: the same with 3b's W8A8 rewrite
-             on 3b's stream (tokens equal to 3b's; 192 ``osparse_matmul`` a
-             step half, 54 pruned a sparse chunk, 32 ``nm_prune_matmul``;
-             256 gathers a chunk alone, 224 a decode step).  14d: ``python
+             on 3b's stream (tokens equal to tp = 1's; 96 ``osparse_matmul``
+             a step half, 32 pruned a sparse chunk, 16 ``nm_prune_matmul``;
+             128 gathers a chunk alone, 112 a decode step).  14d: ``python
              -m repro_torch.launch.serve --tp 2`` on the card (the smoke
              LLaMA-3.1 config, 6 requests) exits 0 with the ``--tp 1`` run's
              token digest.
+15. sharded cells — after phase 14 (``phase_cells``), two ranks on this
+             card over gloo (one start; the collectives split across
+             ``launch.mesh.LANES`` groups), ``launch.cells.build_cell`` /
+             ``Cell.materialize`` / ``Cell.run``.  15a: Qwen3-30B-A3B at
+             full width and depth 48 on a (data 1, model 2) cell mesh, its
+             ``prefill_32k`` cell cut to ``CELL_MOE_BT`` (2 x 1024), under
+             ``paper_policy(8, 16, (41, 46, 47))`` with the kernels: each
+             rank holds half of every expert's d_ff (~29 GiB), the experts
+             run through ``_moe_shard_map``; per rank the launches exact
+             (96 ``nm_prune``: the slot tensors' gate and down inputs; 45
+             ``nm_prune_matmul``: q column-parallel outside the skips), the
+             wall time, peak memory, all-reduces and all-gathers with their
+             MiB, the capacity and the share of (token, expert) pairs
+             dropped; at depth 4 both ranks' logits within ``BF16_TOL`` of
+             the one-rank cell's (``_moe_shard_map`` on a 1 x 1 mesh) and
+             layer 0's expert-input keep-masks bit-identical.  15b:
+             LLaMA-3.1-8B's ``train_4k`` cell at full width, depth 4, on
+             (data 2, model 1), cut to 4 x 512 tokens, ``grad_accum`` 2, 3
+             steps: weights, moments and the accumulator halved against the
+             one-rank cell, the losses and grad norms within
+             ``CELL_TRAIN_RTOL``, the parameters' slices' sums of squares too;
+             a checkpoint saved whole by the ranks after 2 steps, restored in
+             this process, whose step 3 loss equals the ranks'.  15c:
+             LLaMA-3.1-8B's ``decode_32k`` cell at depth 4 on (1, 2): B = 4
+             over a 4096-deep cache holding 4 of the 8 KV heads a rank,
+             ``CELL_DECODE``'s greedy steps, tokens equal to the one-rank
+             cell's.  2p (with the kernels of phase 2): ``nm_prune`` at the
+             slot tensors 15a launches it on, (128 x 160, 2048) and
+             (128 x 160, 384), bit-exact and timed.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is
 its count in the run of the path that first served it (phase 3, 3b, 5 or
 7a); ``launches_by_run`` holds its count in each main-path run that
 launched it (3, 3b, 5, 6g over both replicas, 7a, 7e, 9a, 9b, 9c's Naive run,
-10a, 10b, 11a, 11e, 11b, 11c, 12a, 12b, 12e, 12c, 13b, and 14b and 14c on rank
-0), each counted from 0.  Exits non-zero without a
+10a, 10b, 11a, 11e, 11b, 11c, 12a, 12b, 12e, 12c, 13b, and 14b, 14c and 15a on
+rank 0), each counted from 0.  Exits non-zero without a
 CUDA device, and when run outside the repository (it needs ``src/``).
 """
 from __future__ import annotations
@@ -3516,12 +3551,14 @@ def dense_model(torch, arch, n_layers=None):
 # phase 8's models: (subphase, arch, depth on one card (None: all its
 # layers), why it is cut)
 VARIANT_SERVING = (
-    ("8a", "qwen2_5_32b", 32, "depth 32 of its 64 layers, to make room for phase 14 in the "
+    ("8a", "qwen2_5_32b", 16, "depth 16 of its 64 layers, to make room for phases 14 and 15 "
+                              "in the run's time: full width"),
+    ("8c", "chatglm3_6b", 16, "depth 16 of its 28 layers, to make room for phase 15 in the "
                               "run's time: full width"),
-    ("8c", "chatglm3_6b", None, None),
-    ("8d", "stablelm_3b", None, None),
-    ("8e", "granite_34b", 16, "its 88 layers take 88.0 GiB in bf16, which no 80 GB card "
-                              "holds: full width, depth 16"),
+    ("8d", "stablelm_3b", 16, "depth 16 of its 32 layers, to make room for phase 15 in the "
+                              "run's time: full width"),
+    ("8e", "granite_34b", 8, "its 88 layers take 88.0 GiB in bf16, which no 80 GB card "
+                             "holds: full width, depth 8 (16 until phase 15 needed the time)"),
 )
 
 
@@ -4122,7 +4159,7 @@ def phase_window_kernels(torch, timer, rates, records):
 
 # --------------------------------------------- phase 10: Mixtral and the slab
 
-MIXTRAL_DEPTH = 16
+MIXTRAL_DEPTH = 8            # of 32, cut from 16 to make room for phase 15 (full width)
 # phase 10's sizes: the slab's and the one-shot prompt's max_seq, the long
 # requests' lengths (past the 4096-row ring), the profiled chunk's offset and
 # decode positions (the ring wrapped), and 10c's prompt lengths
@@ -4166,7 +4203,7 @@ def mixtral_stream(vocab, **serving):
 
 
 def phase_mixtral_serve(torch, rates):
-    """10a: Mixtral-8x7B at full width, depth 16, continuous on the dense
+    """10a: Mixtral-8x7B at full width, depth ``MIXTRAL_DEPTH``, continuous on the dense
     slab (its rings are never paged), launches exact, graphed tokens equal
     to the eager programs', the replayed chunk (at 4800, the ring wrapped)
     and decode step profiled with the grouped product beside the bound of
@@ -4483,9 +4520,13 @@ def phase_family_int8_kernels(torch, timer, rates, records):
 
 
 # 11b's two long requests (past RecurrentGemma-2B's 2048-row rings) and max_seq
-# 11a/11e: RWKV6-7B's depth, cut from its 32 layers to make room for phase 14
-# in the run's time (full width)
-RWKV_DEPTH, RWKV_FULL_DEPTH = 16, 32
+# 11a/11e: RWKV6-7B's depth, cut from its 32 layers to make room for phases 14
+# and 15 in the run's time (full width)
+RWKV_DEPTH, RWKV_FULL_DEPTH = 8, 32
+# 11b/11c: RecurrentGemma-2B's depth, cut from its 26 layers (8 periods of
+# rglru, rglru, attn and two rglru) to 4 periods and the two, for phase 15's
+# time (full width)
+RG_DEPTH = 14
 RG_LONG = (2300, 2600)
 RG_SEQ = 4096
 # 11c's one-shot prompt (2j's timed flash shape) and 11d's prompt lengths
@@ -4669,11 +4710,15 @@ def serve_recurrent(torch, label, arch, rates, stream_fn=None, chunk_pos=256,
     ``chunk_pos``) and a decode step profiled with the recurrence as a
     family of its own, graphed tokens equal to the eager programs'.
     Returns (launches, model, params, policy)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import layer_kinds
+
     t0 = time.perf_counter()
     cfg, model, params, policy = recurrent_model(torch, arch, n_layers)
     torch.cuda.synchronize()
     n_w = sum(p.numel() for p in params.parameters())
-    depth = "and depth" if n_layers is None else f"depth {n_layers} of {RWKV_FULL_DEPTH}"
+    full = get_config(arch).n_layers
+    depth = "and depth" if n_layers is None else f"depth {n_layers} of {full}"
     print(f"phase {label}: serve {cfg.name} at full width {depth} ({cfg.n_layers} layers "
           f"{cfg.block_pattern}, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
           f"{cfg.head_dim}, d_ff {cfg.d_ff}, rnn_width {cfg.rnn_width}, vocab {cfg.vocab_size}, "
@@ -4683,8 +4728,12 @@ def serve_recurrent(torch, label, arch, rates, stream_fn=None, chunk_pos=256,
           f"n_params() {cfg.n_params() / 1e9:.3f}B) in {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held")
     fused, _ = prune_launches(cfg, policy)
-    # RWKV6-7B: r/k/v/g (as q_proj), gate and down in every layer
-    want = {"rwkv6_7b": 6 * cfg.n_layers, "recurrentgemma_2b": 96}[arch]
+    # RWKV6-7B: r/k/v/g (as q_proj), gate and down in every layer;
+    # RecurrentGemma-2B: W_in, W_gate, the MLP's gate and down in an rglru
+    # layer, q, gate and down in an attention layer
+    kinds = layer_kinds(cfg)
+    want = {"rwkv6_7b": 6 * cfg.n_layers,
+            "recurrentgemma_2b": 4 * kinds.count("rglru") + 3 * kinds.count("attn")}[arch]
     if fused != want:
         fail(f"phase {label}: the paper policy prunes {fused} projections per chunk, "
              f"expected {want}")
@@ -5039,7 +5088,7 @@ def phase_recurrent(torch, rates):
     t0 = time.perf_counter()
     runs["11b"], model, params, policy = serve_recurrent(
         torch, "11b", "recurrentgemma_2b", rates, stream_fn=rg_stream, chunk_pos=2304,
-        decode_pos=(2400, 2100, 300, 100))
+        decode_pos=(2400, 2100, 300, 100), n_layers=RG_DEPTH)
     seconds["11b"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     runs["11c"] = phase_recurrent_oneshot(torch, model, params, policy)
@@ -5068,8 +5117,11 @@ MODALITY_PRUNED = (("Whisper-medium q", 1024, 1024, True),
 MODALITY_ROWS = (256, 1500)
 WHISPER_ENC = 1500
 # 12a/12b/12e: Whisper-medium's encoder and decoder depth, cut from their 24
-# layers each to make room for phase 14 in the run's time (full width)
-WHISPER_DEPTH, WHISPER_FULL_DEPTH = 12, 24
+# layers each to make room for phases 14 and 15 in the run's time (full width)
+WHISPER_DEPTH, WHISPER_FULL_DEPTH = 6, 24
+# 12c: Qwen2-VL-2B's depth, cut from its 28 layers to make room for phase 15
+# in the run's time (full width)
+VL_DEPTH = 14
 
 
 def misaligned(torch, t):
@@ -5277,8 +5329,8 @@ def serve_modality(torch, label, arch, rates, n_layers=None):
     what = (f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers, encoder_seq "
             f"{cfg.encoder_seq}" if cfg.is_encdec else
             f"{cfg.n_layers} layers, M-RoPE, n_patches {cfg.n_patches}")
-    size = ("full size" if n_layers is None
-            else f"full width, depth {n_layers} of {WHISPER_FULL_DEPTH}")
+    size = ("full size" if n_layers is None else
+            f"full width, depth {n_layers} of {WHISPER_FULL_DEPTH if cfg.is_encdec else 28}")
     print(f"phase {label}: serve {cfg.name} at {size} ({what}, d_model {cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}) through Engine.run(params, extras), "
@@ -5289,7 +5341,9 @@ def serve_modality(torch, label, arch, rates, n_layers=None):
           "GiB held")
     first, later, why = modality_launches(cfg, policy)
     # Whisper-medium: 3 an encoder layer on a first chunk, 4 a decoder layer
-    want = {"whisper_medium": (7 * cfg.n_layers, 4 * cfg.n_layers), "qwen2_vl_2b": (84, 84)}[arch]
+    # Qwen2-VL-2B: q, gate and down in every layer
+    want = {"whisper_medium": (7 * cfg.n_layers, 4 * cfg.n_layers),
+            "qwen2_vl_2b": (3 * cfg.n_layers, 3 * cfg.n_layers)}[arch]
     print(f"  nm_prune_matmul per sparse chunk: {why}")
     if (first, later) != want:
         fail(f"phase {label}: {first}/{later} pruned projections a first/later chunk, "
@@ -5732,7 +5786,8 @@ def phase_modality(torch, rates):
     free_device(torch, "after 12e")
     seconds["12e"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    runs["12c"], model, params, _ = serve_modality(torch, "12c", "qwen2_vl_2b", rates)
+    runs["12c"], model, params, _ = serve_modality(torch, "12c", "qwen2_vl_2b", rates,
+                                                   n_layers=VL_DEPTH)
     del model, params
     free_device(torch, "after 12c")
     seconds["12c"] = time.perf_counter() - t0
@@ -5746,7 +5801,7 @@ def phase_modality(torch, rates):
     return runs
 
 
-TRAIN_DEPTH = 16            # of 32: PERF.md section 4 has the reckoning
+TRAIN_DEPTH = 8             # of 32 (16 until phase 15 needed the time): PERF.md section 4
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 512, 4, 6
 TRAIN_BYTES_PER_PARAM = 22  # AdamW: p read + written (bf16), g read (bf16), mu, nu r+w (f32)
 TRAIN_CPU_RTOL = 1e-4       # 13d: twelve float32 steps, card against CPU
@@ -6125,7 +6180,7 @@ def phase_training(torch, rates):
 
 
 # ------------------------------------------------------ tensor parallelism
-TP_DEPTH = 32               # LLaMA-3.1-8B's layers in 14b and 14c
+TP_DEPTH = 16               # LLaMA-3.1-8B's layers in 14b and 14c (of 32)
 # 14d: the CLI at the smoke size (14b and 14c serve the full width)
 TP_CLI_FLAGS = ["--arch", "llama31_8b", "--smoke", "--trace", "--num-requests", "6",
                 "--len-range", "6:40", "--slots", "2", "--chunk", "16", "--new-tokens", "8",
@@ -6336,16 +6391,43 @@ def tp_serve_rank(n_layers: int):
     return everyone
 
 
-def tp_serve(torch, want3, want3b):
+def tp_reference(torch):
+    """14b's and 14c's tokens at tp = 1: phase 3's weights, policy and
+    stream at ``TP_DEPTH`` layers served by this process through ``Engine``
+    (graphs), then 3b's W8A8 rewrite of them and its stream."""
+    from repro_torch.serve import Engine, EngineConfig
+
+    cfg, model, params, policy = dense_model(torch, "llama31_8b", TP_DEPTH)
+    out = []
+    for quantized in (False, True):
+        if quantized:
+            w8a8_rewrite(cfg, params)
+        _, prompts, arrivals, new, scfg = serving_stream(torch, cfg.vocab_size)
+        eng = Engine.from_config(model, EngineConfig(serving=scfg), policy=policy)
+        rids = [eng.submit(p, max_new_tokens=new, arrival=a) for p, a in zip(prompts, arrivals)]
+        res = eng.run(params)
+        out.append([res["outputs"][r] for r in rids])
+        del eng
+    del model, params
+    free_device(torch, "14b/14c's tp = 1 references")
+    return out
+
+
+def tp_serve(torch):
     """14b and 14c: two ranks on this card over gloo (``launch.mesh.spawn``)
-    serve LLaMA-3.1-8B at full width, in bf16 and then in W8A8; every
-    request's tokens must equal phase 3's (14b) and 3b's (14c) on both
-    ranks, the launches and gathers of each rank exact.  Returns rank 0's
-    launch counts by run."""
+    serve LLaMA-3.1-8B at full width and ``TP_DEPTH`` layers, in bf16 and
+    then in W8A8; every request's tokens must equal the same model's at
+    tp = 1 (:func:`tp_reference`: phase 3's and 3b's stream, weights and
+    policy at that depth) on both ranks, the launches and gathers of each
+    rank exact.  Returns rank 0's launch counts by run."""
     from repro_torch.configs import get_config
     from repro_torch.core.policy import paper_policy
     from repro_torch.launch.mesh import spawn
 
+    t0 = time.perf_counter()
+    want3, want3b = tp_reference(torch)
+    print(f"phase 14b / 14c: tp = 1 references at depth {TP_DEPTH} served in "
+          f"{time.perf_counter() - t0:.1f} s")
     cfg = dataclasses.replace(get_config("llama31_8b"), n_layers=TP_DEPTH)
     policy = paper_policy(8, 16, cfg.qgate_skip_layers)
     print(f"phase 14b / 14c: LLaMA-3.1-8B at full width, depth {TP_DEPTH} of 32, "
@@ -6360,7 +6442,7 @@ def tp_serve(torch, want3, want3b):
                    for mod in ("q_proj", "gate_proj"))
     layers = cfg.n_layers
     runs = {}
-    for label, want, of in (("14b", want3, "phase 3's"), ("14c", want3b, "phase 3b's")):
+    for label, want, of in (("14b", want3, "tp = 1's"), ("14c", want3b, "tp = 1's W8A8")):
         for me in (records[label] for records in ranks):
             r = me["rank"]
             check_tokens(f"phase {label} rank {r}", me["outputs"], want, of)
@@ -6431,7 +6513,7 @@ def tp_cli(torch):
     print(f"  phase 14d: --tp 2 tokens identical to --tp 1's ({one})")
 
 
-def phase_tp(torch, want3, want3b):
+def phase_tp(torch):
     """Phase 14 (after 13 freed its models): 14a, 14b, 14c, 14d.  Returns
     14b's and 14c's rank-0 launches."""
     torch.cuda.synchronize()
@@ -6441,7 +6523,7 @@ def phase_tp(torch, want3, want3b):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
-    runs = tp_serve(torch, want3, want3b)
+    runs = tp_serve(torch)
     t2 = time.perf_counter()
     tp_cli(torch)
     print(f"phase 14 seconds: 14a {t1 - t0:.1f}, 14b and 14c {t2 - t1:.1f}, "
@@ -6449,6 +6531,445 @@ def phase_tp(torch, want3, want3b):
     return runs
 
 
+
+# ------------------------------------------------------------ sharded cells
+# 15a: Qwen3-30B-A3B at full width and depth, prefill_32k cut to B x T (its
+# 32 x 32768 would hold a 24 GiB cache a rank and take minutes over gloo)
+CELL_MOE_BT = (2, 1024)
+CELL_DEPTH = 4              # 15a's parity, 15b's and 15c's depth
+# 15b: LLaMA-3.1-8B's train cell: batch, tokens, grad_accum, steps (train_4k
+# is 256 x 4096); checkpointed after CELL_CKPT_AT steps
+CELL_TRAIN = (4, 512, 2, 3)
+CELL_CKPT_AT = 2
+CELL_TRAIN_RTOL = 2e-3      # 15b: bf16 gradients summed over two ranks
+# 15c: LLaMA-3.1-8B's decode cell: batch, cache depth, greedy steps
+CELL_DECODE = (4, 4096, 2)
+
+
+def phase_cell_kernels(torch, timer, rates, records):
+    """2p: ``nm_prune`` at the slot tensors 15a's ``_moe_shard_map`` prunes:
+    ``(E·C, 2048)``, the gate input, and ``(E·C, 384)``, a rank's down input
+    (E = 128 experts, C the capacity of 2048 tokens routed 8 ways), no
+    scale, bit-exact, timed beside its bound, its plain version and
+    ``x.clone()`` (no single library call does the same)."""
+    from repro_torch.kernels import nm_prune as knp
+    from repro_torch.models.moe import capacity
+
+    bw = rates[0]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    keep = functools.partial(keep_case, records)
+    rows = 128 * capacity(CELL_MOE_BT[0] * CELL_MOE_BT[1], 8, 128)
+    print(f"phase 2p: nm_prune at 15a's slot tensors ({rows} = 128 experts x "
+          f"{rows // 128} slots), no scale")
+    for name, d in (("slot gate input", 2048), ("slot down input (a rank's)", 384)):
+        x = torch.randn(rows, d, generator=g, device="cuda").bfloat16()
+        if not torch.equal(knp.nm_prune(x, None, 8, 16), knp.nm_prune_plain(x, None, 8, 16)):
+            fail(f"nm_prune {name}: kernel and plain version differ")
+        ms = timer.ms(lambda: knp.nm_prune(x, None, 8, 16))
+        plain_ms = timer.ms(lambda: knp.nm_prune_plain(x, None, 8, 16), 5)
+        copy_ms = timer.ms(x.clone)
+        bound = 2 * x.numel() * 2 / bw * 1e3
+        print(f"  {name} {rows} x {d}: bit-exact; kernel {ms:.4f} ms, bound {bound:.4f} ms "
+              f"(bytes), plain {plain_ms:.4f} ms, x.clone() {copy_ms:.4f} ms")
+        keep("nm_prune", f"15a {name}", 0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+             bound_ms=bound, bound_by="bytes", clone_ms=copy_ms)
+
+
+def _gib(n_bytes) -> float:
+    return n_bytes / 2**30
+
+
+def _local_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _mask_spy(moe_lib, layers: int):
+    """Record the N:M keep-masks of the first ``layers`` layers' expert
+    inputs (the pruned gate input, then the down input, each layer); returns
+    (the list, a function that restores ``_maybe_prune``)."""
+    seen, orig = [], moe_lib._maybe_prune
+
+    def spy(x, module, policy, phase):
+        out = orig(x, module, policy, phase)
+        if module != "up_proj" and len(seen) < 2 * layers:
+            seen.append((out != 0).cpu())
+        return out
+
+    moe_lib._maybe_prune = spy
+    return seen, lambda: setattr(moe_lib, "_maybe_prune", orig)
+
+
+def _reset_counts(torch):
+    from repro_torch import kernels
+    from repro_torch.distributed import sharding
+    from repro_torch.models import moe
+
+    kernels.reset_launch_counts()
+    for v in sharding.collectives.values():
+        v[:] = [0, 0]
+    moe.shard_map_stats.update(calls=0, pairs=0, dropped=0, capacity=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _counts(torch):
+    from repro_torch import kernels
+    from repro_torch.distributed import sharding
+    from repro_torch.models import moe
+
+    torch.cuda.synchronize()
+    return dict(launches=kernels.counters(), moe=dict(moe.shard_map_stats),
+                collectives={k: list(v) for k, v in sharding.collectives.items()},
+                peak_gib=_gib(torch.cuda.max_memory_allocated()))
+
+
+def _moe_cell(mesh, n_layers):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.launch.cells import build_cell
+
+    cfg = dataclasses.replace(get_config("qwen3_30b_a3b"), n_layers=n_layers)
+    b, t = CELL_MOE_BT
+    return build_cell("qwen3_30b_a3b", "prefill_32k", mesh, cfg=cfg,
+                      policy=paper_policy(8, 16, (41, 46, 47), use_kernels=True),
+                      shape=ShapeCell("prefill_32k", t, b, "prefill"))
+
+
+def _train_cell(mesh):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.train import OptConfig
+
+    b, t, ga, steps = CELL_TRAIN
+    cfg = dataclasses.replace(get_config("llama31_8b"), n_layers=CELL_DEPTH)
+    return build_cell("llama31_8b", "train_4k", mesh, cfg=cfg, grad_accum=ga,
+                      shape=ShapeCell("train_4k", t, b, "train"),
+                      opt_cfg=OptConfig(lr=3e-4, warmup_steps=2, total_steps=steps))
+
+
+def _decode_cell(mesh):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.cells import build_cell
+
+    b, s, _ = CELL_DECODE
+    cfg = dataclasses.replace(get_config("llama31_8b"), n_layers=CELL_DEPTH)
+    return build_cell("llama31_8b", "decode_32k", mesh, cfg=cfg,
+                      shape=ShapeCell("decode_32k", s, b, "decode"))
+
+
+def _train_state(state):
+    return {"params": dict(state["params"].named_parameters()),
+            "opt": {k: state["opt"][k] for k in ("mu", "nu")}}
+
+
+def _digest(torch, state, mesh):
+    """Per parameter: this rank's slice of it as (spec, sum, sum of squares)."""
+    from repro_torch.train.optimizer import spec_of
+
+    return {k: (spec_of(p), float(p.detach().double().sum()),
+                float(p.detach().double().square().sum()))
+            for k, p in state["params"].named_parameters()}
+
+
+def _greedy(torch, cell, state, steps):
+    from repro_torch.distributed import sharding
+
+    tokens = []
+    for _ in range(steps):
+        logits = cell.run(state)[0]
+        nxt = logits.float().argmax(-1).to(torch.int32)
+        tokens.append(nxt.cpu().tolist())
+        state["tokens"] = sharding.local(nxt[:, None], cell._bspec(), cell.mesh).contiguous() \
+            if cell.mesh.bound else nxt[:, None]
+    return [list(row) for row in zip(*tokens)]      # a row's tokens, step by step
+
+
+def cell_rank(ckpt: str):
+    """One of phase 15's two ranks: 15a on a (1, 2) cell mesh, 15b on
+    (2, 1), 15c on (1, 2), each rank's records gathered to every rank."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.launch.mesh import make_cell_mesh
+    from repro_torch.models import moe as moe_lib
+
+    numerics(torch)
+    mp, dp = make_cell_mesh((1, 2)), make_cell_mesh((2, 1))
+    me = {"rank": dist.get_rank()}
+
+    # 15a: full depth
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    cell = _moe_cell(mp, get_config("qwen3_30b_a3b").n_layers)
+    state = cell.materialize(SEED, "cuda")
+    torch.cuda.synchronize()
+    me["a_built"] = time.perf_counter() - t0
+    me["a_held_gib"] = _gib(torch.cuda.memory_allocated())
+    _reset_counts(torch)
+    t0 = time.perf_counter()
+    logits = cell.run(state)[0]
+    torch.cuda.synchronize()
+    me["a_wall"] = time.perf_counter() - t0
+    me["a"] = _counts(torch)
+    me["a_logits"] = (tuple(logits.shape), bool(logits.float().isfinite().all()))
+    del cell, state, logits
+    torch.cuda.empty_cache()
+    # 15a at depth 4: logits and layer 0's expert-input masks
+    cell = _moe_cell(mp, CELL_DEPTH)
+    state = cell.materialize(SEED, "cuda")
+    seen, restore = _mask_spy(moe_lib, 1)
+    try:
+        me["a4_logits"] = cell.run(state)[0].float().cpu()
+    finally:
+        restore()
+    me["a4_masks"] = seen
+    del cell, state
+    torch.cuda.empty_cache()
+    if me["rank"] == 0:
+        print(f"  15a done at {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 15b
+    b, t, ga, steps = CELL_TRAIN
+    cell = _train_cell(dp)
+    state = cell.materialize(SEED, "cuda")
+    torch.cuda.synchronize()
+    me["b_held"] = {"params": _gib(_local_bytes(state["params"].parameters())),
+                    "moments": _gib(_local_bytes(list(state["opt"]["mu"].values())
+                                                 + list(state["opt"]["nu"].values())))}
+    _reset_counts(torch)
+    me["b_steps"] = []
+    for i in range(steps):
+        if i == CELL_CKPT_AT:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_checkpoint(ckpt, _train_state(state), cell.shardings())
+            me["b_ckpt_s"] = time.perf_counter() - t0
+            if me["rank"] == 0:
+                print(f"  15b: checkpoint saved in {me['b_ckpt_s']:.1f} s", flush=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = cell.run(state, step=i)
+        torch.cuda.synchronize()
+        me["b_steps"].append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                                  wall=time.perf_counter() - t0))
+        if me["rank"] == 0:
+            print(f"  15b rank 0 step {i}: {me['b_steps'][-1]}", flush=True)
+    me["b"] = _counts(torch)
+    me["b_acc_gib"] = _accumulator_gib(state, dp)
+    me["b_digest"] = _digest(torch, state, dp)
+    me["b_coords"] = dp.coords()
+    del cell, state
+    torch.cuda.empty_cache()
+
+    # 15c
+    cell = _decode_cell(mp)
+    state = cell.materialize(SEED, "cuda", filled=CELL_DECODE[1] - CELL_DECODE[2])
+    me["c_heads"] = state["cache"]["layers"][0]["k"].shape[2]
+    _reset_counts(torch)
+    t0 = time.perf_counter()
+    me["c_tokens"] = _greedy(torch, cell, state, CELL_DECODE[2])
+    torch.cuda.synchronize()
+    me["c_wall"] = time.perf_counter() - t0
+    me["c"] = _counts(torch)
+    del cell, state
+    torch.cuda.empty_cache()
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, me)
+    return everyone
+
+
+def _accumulator_gib(state, mesh) -> float:
+    """The float32 ZeRO-2 accumulator a rank holds (``shard_zero1``'s slices)."""
+    import torch
+
+    from repro_torch.distributed import sharding
+
+    n = 0
+    for p in state["params"].parameters():
+        shape = sharding.full_shape(p)
+        n += sharding.local(torch.empty(shape, device="meta"),
+                            sharding.shard_zero1(shape, mesh), mesh).numel()
+    return _gib(4 * n)
+
+
+def cells_reference(torch, ranks, ckpt):
+    """15a-15c's one-rank cells in this process, and the checks against the
+    ranks' records."""
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe as moe_lib
+
+    one = make_local_mesh()
+    # 15a: the same function at model 1 (_moe_shard_map on a 1 x 1 mesh)
+    local_path = moe_lib._moe_local
+    moe_lib._moe_local = lambda x, p, policy, phase, top_k, act_fn, impl, layer_idx: \
+        moe_lib._moe_shard_map(one, x, p, policy, phase, top_k, act_fn, layer_idx)
+    seen, restore = _mask_spy(moe_lib, 1)
+    try:
+        cell = _moe_cell(one, CELL_DEPTH)
+        want = cell.run(cell.materialize(SEED, "cuda"))[0].float().cpu()
+    finally:
+        restore()
+        moe_lib._moe_local = local_path
+    del cell
+    torch.cuda.empty_cache()
+    for me in ranks:
+        r = me["rank"]
+        check_close(f"15a depth {CELL_DEPTH} rank {r} logits vs model 1", me["a4_logits"], want,
+                    BF16_TOL)
+        gate, down = me["a4_masks"]
+        if not torch.equal(gate, seen[0]):
+            fail(f"15a rank {r}: layer 0's expert gate-input masks differ from model 1's")
+        cols = down.shape[-1]
+        if not torch.equal(down, seen[1][..., r * cols:(r + 1) * cols]):
+            fail(f"15a rank {r}: layer 0's expert down-input masks differ from model 1's")
+    print(f"  15a depth {CELL_DEPTH}: layer 0's expert-input keep-masks bit-identical to model "
+          f"1's on both ranks (gate {tuple(seen[0].shape)}, down {tuple(seen[1].shape)} "
+          "split on d_ff)")
+
+    # 15b: the one-rank cell, then a restore of the ranks' checkpoint
+    cell = _train_cell(one)
+    state = cell.materialize(SEED, "cuda")
+    held = {"params": _gib(_local_bytes(state["params"].parameters())),
+            "moments": _gib(_local_bytes(list(state["opt"]["mu"].values())
+                                         + list(state["opt"]["nu"].values())))}
+    acc = _gib(4 * sum(p.numel() for p in state["params"].parameters()))
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(CELL_TRAIN[3]):
+        m = cell.run(state, step=i)
+        steps.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"])))
+    peak = _gib(torch.cuda.max_memory_allocated())
+    digest = _digest(torch, state, one)
+    whole = {k: p.detach() for k, p in state["params"].named_parameters()}
+    for me in ranks:
+        r = me["rank"]
+        for i, (got, ref) in enumerate(zip(me["b_steps"], steps)):
+            for k in ("loss", "grad_norm"):
+                if not abs(got[k] - ref[k]) <= CELL_TRAIN_RTOL * abs(ref[k]):
+                    fail(f"15b rank {r} step {i}: {k} {got[k]} against one rank's {ref[k]}")
+        mesh = dataclasses.replace(sharding.Mesh(("data", "model"), (2, 1)), rank=r)
+        worst = 0.0
+        for k, (spec, s1, s2) in me["b_digest"].items():
+            sl = sharding.local(whole[k], spec, mesh).double()
+            worst = max(worst, abs(s2 - float(sl.square().sum())) / max(float(sl.square().sum()),
+                                                                       1e-30))
+        if not worst <= CELL_TRAIN_RTOL:
+            fail(f"15b rank {r}: parameter slices' sums of squares off by {worst:.2e}")
+        print(f"  15b rank {r}: losses {[round(s['loss'], 5) for s in me['b_steps']]} against "
+              f"one rank's {[round(s['loss'], 5) for s in steps]}; grad norms "
+              f"{[round(s['grad_norm'], 4) for s in me['b_steps']]} / "
+              f"{[round(s['grad_norm'], 4) for s in steps]}; parameter slices' sums of "
+              f"squares within {worst:.2e} (limit {CELL_TRAIN_RTOL})")
+        for what, mine, full in (("weights", me["b_held"]["params"], held["params"]),
+                                 ("moments", me["b_held"]["moments"], held["moments"]),
+                                 ("accumulator", me["b_acc_gib"], acc)):
+            if not mine <= 0.5 * full + 0.01:
+                fail(f"15b rank {r}: {what} {mine:.3f} GiB is not half of one rank's "
+                     f"{full:.3f}")
+        print(f"  15b rank {r}: holds weights {me['b_held']['params']:.3f} GiB, moments "
+              f"{me['b_held']['moments']:.3f}, accumulator {me['b_acc_gib']:.3f} against one "
+              f"rank's {held['params']:.3f} / {held['moments']:.3f} / {acc:.3f}; peak "
+              f"{me['b']['peak_gib']:.2f} GiB allocated (one rank {peak:.2f}); steps "
+              f"{[round(s['wall'], 2) for s in me['b_steps']]} s; checkpoint saved in "
+              f"{me['b_ckpt_s']:.1f} s; collectives {me['b']['collectives']}")
+    del whole
+    t0 = time.perf_counter()
+    # the ranks' state after CELL_CKPT_AT steps, into this state's tensors
+    loaded = load_checkpoint(ckpt, _train_state(state))
+    with torch.no_grad():
+        for k, p in state["params"].named_parameters():
+            p.copy_(loaded["params"][k])
+    dev = next(state["params"].parameters()).device
+    state["opt"] = {**loaded["opt"], "step": torch.tensor(CELL_CKPT_AT, dtype=torch.int32,
+                                                           device=dev)}
+    del loaded
+    restored = time.perf_counter() - t0
+    m = cell.run(state, step=CELL_CKPT_AT)
+    got, ref = float(m["loss"]), ranks[0]["b_steps"][CELL_CKPT_AT]["loss"]
+    if not abs(got - ref) <= CELL_TRAIN_RTOL * abs(ref):
+        fail(f"15b elastic: step {CELL_CKPT_AT}'s loss {got} after the restore, the ranks' {ref}")
+    print(f"  15b elastic: the two ranks' checkpoint after {CELL_CKPT_AT} steps "
+          f"({Path(ckpt).stat().st_size / 2**30:.2f} GiB, whole tensors) restored in one process "
+          f"in {restored:.1f} s; step {CELL_CKPT_AT}'s loss {got:.5f} against the ranks' "
+          f"{ref:.5f}")
+    del state, cell
+    torch.cuda.empty_cache()
+
+    # 15c
+    cell = _decode_cell(one)
+    state = cell.materialize(SEED, "cuda", filled=CELL_DECODE[1] - CELL_DECODE[2])
+    want = _greedy(torch, cell, state, CELL_DECODE[2])
+    del state, cell
+    torch.cuda.empty_cache()
+    for me in ranks:
+        check_tokens(f"15c rank {me['rank']}", me["c_tokens"], want, "one rank's")
+    return steps
+
+
+def phase_cells(torch, rates):
+    """Phase 15 (after 14): the sharded cells on two ranks of this card.
+    Returns {"15a": rank 0's launches}."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+
+    moe_cfg, dense_cfg = get_config("qwen3_30b_a3b"), get_config("llama31_8b")
+    card = nvidia_smi_line()
+    b, t = CELL_MOE_BT
+    bt, tt, ga, steps = CELL_TRAIN
+    print(f"phase 15: sharded cells, two ranks on cuda:0 over gloo ({card}); 15a "
+          f"Qwen3-30B-A3B prefill_32k cut to {b} x {t}, full width and depth 48, mesh (data 1, "
+          f"model 2), paper_policy(8, 16, (41, 46, 47)) with the kernels; 15b LLaMA-3.1-8B "
+          f"train_4k cut to {bt} x {tt}, grad_accum {ga}, {steps} steps, depth {CELL_DEPTH}, "
+          f"mesh (2, 1); 15c LLaMA-3.1-8B decode_32k cut to B = {CELL_DECODE[0]} over a "
+          f"{CELL_DECODE[1]}-deep cache, depth {CELL_DEPTH}, {CELL_DECODE[2]} greedy steps, "
+          "mesh (1, 2)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cells-") as d:
+        ckpt = str(Path(d) / "ckpt.npz")
+        ranks = spawn(cell_rank, 2, ckpt, device="cuda", store_dir=d)
+        t1 = time.perf_counter()
+        print(f"  spawned, built, ran and joined in {t1 - t0:.1f} s")
+        for me in ranks:
+            r, a = me["rank"], me["a"]
+            mo, co = a["moe"], a["collectives"]
+            shape, finite = me["a_logits"]
+            layers = moe_cfg.n_layers
+            if shape != (b, moe_cfg.vocab_size) or not finite:
+                fail(f"15a rank {r}: logits {shape}, finite {finite}")
+            # the expert gate and down inputs a layer; q column-parallel outside the skips
+            want = {"nm_prune": 2 * layers, "nm_prune_matmul": layers - 3}
+            check_launches(f"15a rank {r}", {k: a["launches"][k] for k in want}, want)
+            if mo["calls"] != layers:
+                fail(f"15a rank {r}: {mo['calls']} _moe_shard_map calls, expected {layers}")
+            print(f"  15a rank {r}: built in {me['a_built']:.1f} s, holds "
+                  f"{me['a_held_gib']:.2f} GiB (phase 7's one rank: 57.20 allocated at its "
+                  f"peak); prefill {me['a_wall']:.2f} s eager, peak {a['peak_gib']:.2f} GiB "
+                  f"allocated; all-reduces {co['all_reduce'][0]} of "
+                  f"{co['all_reduce'][1] / 2**20:.1f} MiB, all-gathers {co['all_gather'][0]} of "
+                  f"{co['all_gather'][1] / 2**20:.1f} MiB; capacity {mo['capacity']} slots an "
+                  f"expert, {mo['dropped']} of {mo['pairs']} (token, expert) pairs dropped "
+                  f"({mo['dropped'] / mo['pairs']:.4f}); launches nm_prune "
+                  f"{a['launches']['nm_prune']}, nm_prune_matmul "
+                  f"{a['launches']['nm_prune_matmul']}")
+            c = me["c"]
+            print(f"  15c rank {r}: cache holds {me['c_heads']} of {dense_cfg.n_kv_heads} KV "
+                  f"heads; {CELL_DECODE[2]} decode steps in {me['c_wall']:.2f} s eager, peak "
+                  f"{c['peak_gib']:.2f} GiB; collectives {c['collectives']}")
+            if me["c_heads"] != dense_cfg.n_kv_heads // 2:
+                fail(f"15c rank {r}: the cache holds {me['c_heads']} KV heads, not half")
+        cells_reference(torch, ranks, ckpt)
+    print(f"phase 15 seconds: ranks {t1 - t0:.1f}, one-rank references and checks "
+          f"{time.perf_counter() - t1:.1f}")
+    return {"15a": {k: v for k, v in ranks[0]["a"]["launches"].items() if "." not in k}}
 
 def numerics(torch) -> None:
     """Full-precision float32 and bf16 GEMM reductions, in this process and
@@ -6504,6 +7025,7 @@ def main() -> int:
     phase_recurrent_kernels(torch, timer, rates, records)
     phase_modality_kernels(torch, timer, rates, records)
     phase_family_int8_kernels(torch, timer, rates, records)
+    phase_cell_kernels(torch, timer, rates, records)
     del timer
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
@@ -6542,8 +7064,10 @@ def main() -> int:
     t14 = time.perf_counter()
     tr_launches = phase_training(torch, rates)
     t15 = time.perf_counter()
-    tp_launches = phase_tp(torch, outputs, outputs3b)
+    tp_launches = phase_tp(torch)
     t16 = time.perf_counter()
+    cell_launches = phase_cells(torch, rates)
+    t17 = time.perf_counter()
     print(f"phase seconds: build {t1 - t:.1f}, kernels {t2 - t1:.1f}, serve {t3 - t2:.1f}, "
           f"serve osparse {t4 - t3b:.1f}, parity {t5 - t4:.1f}, one-shot serve {t6 - t5:.1f}, "
           f"one-shot parity {t7 - t6:.1f}, serve CLI and serving lifecycle "
@@ -6552,7 +7076,8 @@ def main() -> int:
           f"MoE {t9 - t8:.1f}, dense variants {t10 - t9:.1f}, layer skipping {t11 - t10:.1f}, "
           f"Mixtral and the slab {t12 - t11:.1f}, the recurrent families {t13 - t12:.1f}, "
           f"the modality families {t14 - t13:.1f}, training {t15 - t14:.1f}, tensor "
-          f"parallelism {t16 - t15:.1f}; phases in all {t16 - t:.1f}")
+          f"parallelism {t16 - t15:.1f}, sharded cells {t17 - t16:.1f}; phases in all "
+          f"{t17 - t:.1f}")
 
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import nm_prune as knp
@@ -6570,7 +7095,7 @@ def main() -> int:
     runs = {"3": launches, "3b": q_launches, "5": o_launches, "6g": r_launches6g,
             "7a": m_launches,
             "7e": mq_launches, **s_launches, **x_launches, **r_launches, **md_launches,
-            **tr_launches, **tp_launches}
+            **tr_launches, **tp_launches, **cell_launches}
     meta = {
         "nm_prune_matmul": (knm.SOURCE, knm.REPLACES, "3"),
         "paged_kv_scatter": (kpa.SOURCE, kpa.SCATTER_REPLACES, "3"),

@@ -1,0 +1,631 @@
+"""Partition rules and their runtime: DP (pod × data) × TP (model) for the
+whole zoo (port of ``repro/distributed/sharding.py``).
+
+The rules are the reference's, with the same **divisibility-aware
+fallbacks** (a dim is sharded only when the mesh axis divides it: Whisper's
+vocab of 51865 replicates its embedding rows; Granite-34B's single KV head
+puts its cache on sequence instead of heads):
+
+  * column-parallel (out-dim on model): q/k/v/gate/up, rwkv r/k/v/g,
+    rg-lru in/gate, lm_head; biases of these follow the out-dim;
+  * row-parallel (in-dim on model): o_proj, down_proj;
+  * expert stacks split ``d_ff`` (gate/up on their last dim, down on its
+    in-dim), never the expert axis;
+  * everything else replicates.
+
+A **spec** is a tuple with one entry per dimension: an axis name, a tuple
+of names (the DP axes of a multi-pod mesh), or None.  The rules match a
+tensor by its *trailing* path components (``_spec_for``), as the
+reference's do; the port keeps one tensor per layer, so a port parameter
+gets the reference leaf's spec with its leading stack axis removed.  The
+port names the expert stacks ``moe.experts.gate_proj`` (no ``w``): the
+path gains the reference's ``w`` before the rules read it.
+
+A **mesh** (:class:`Mesh`) is a description: axis names and sizes, the
+counterpart of ``jax.sharding.AbstractMesh``, so the specs of the full
+configs are computed here on ``meta`` tensors.  Bound to an initialised
+``torch.distributed`` group (``launch.mesh.make_cell_mesh``), it also knows
+this process's rank, hence its coordinates (row-major over the axes), and
+one subgroup per set of axes.  :func:`mesh_scope` is ``with mesh:``;
+:func:`_context_mesh` reads it.
+
+The runtime, for the cells (``launch/cells.py``):
+
+* a rank holds only its shard of each tensor (:func:`local`); the shard is
+  tagged with its spec and mesh (:func:`tag`), so whatever meets it can
+  find the rest;
+* :func:`gathered` swaps a module's shards for the whole tensors for the
+  extent of a block (one layer at a time), through :func:`gather_param`,
+  whose backward reduces the gradient over the DP axes and keeps this
+  rank's slice of it;
+* collectives run over gloo, split across a subgroup's lanes (parallel
+  groups of the same ranks, ``launch.mesh.LANES``); a gather is a sum of
+  zero-padded wholes and a reduce-scatter an all-reduce and a slice, which
+  gloo runs faster than its own (PERF.md, section 6);
+* :func:`head_local` runs attention on this rank's KV heads of a
+  head-sharded cache and gathers the output.
+
+``maybe_shard`` (``transformer.py:247-250, 452-524, 592-602`` of the
+reference) is a GSPMD layout hint that changes no value; the port has no
+partitioner to hint, so it has no counterpart.  ``shard_zero1`` gives the
+slice spec of the reference's constraint (the caller slices).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import threading
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+__all__ = [
+    "Mesh", "NamedSharding", "data_axes", "param_specs", "batch_spec", "cache_specs",
+    "opt_state_specs", "shard_zero1", "named", "mesh_scope", "local", "gather",
+    "gather_param", "gather_to_root", "all_reduce", "reduce_slice", "tag", "full_shape",
+    "model_dim", "gathered", "head_local", "whole_sequence", "is_sharded", "sharded",
+    "effective", "collectives",
+]
+
+Spec = Tuple[Any, ...]
+
+# module names whose weight is column-parallel (shard trailing dim)
+_COL = {
+    "q_proj", "k_proj", "v_proj", "gate_proj", "up_proj", "lm_head",
+    "r_proj", "k_proj_tm", "v_proj_tm", "g_proj", "gate_a", "gate_x",
+}
+# row-parallel (shard the d_in dim, i.e. dim -2)
+_ROW = {"o_proj", "down_proj"}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """Axis names and sizes; bound (``groups`` set) it is this process's
+    place in an initialised group: ``rank`` and, per tuple of axes (in mesh
+    order), the lanes of the subgroup over them that holds this rank: groups
+    of the same ranks that a large collective is split across (None for a
+    subgroup of one rank)."""
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    rank: Optional[int] = None
+    groups: Optional[Dict[Tuple[str, ...], Any]] = None
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+    @property
+    def bound(self) -> bool:
+        return self.groups is not None
+
+    def coords(self) -> Dict[str, int]:
+        """This rank's coordinate on each axis (row-major over the axes)."""
+        out, r = {}, self.rank
+        for name, n in reversed(tuple(zip(self.axis_names, self.sizes))):
+            out[name] = r % n
+            r //= n
+        return {a: out[a] for a in self.axis_names}
+
+    def lanes(self, axes: Tuple[str, ...]):
+        """The lanes of the subgroup over ``axes`` that holds this rank
+        (None: one rank)."""
+        if not self.bound:
+            raise ValueError(f"mesh {self.shape} is a description: bind it to a group "
+                             "(repro_torch.launch.mesh.make_cell_mesh) before it runs")
+        return self.groups[tuple(a for a in self.axis_names if a in axes)]
+
+    def group(self, axes: Tuple[str, ...]):
+        """The subgroup over ``axes`` that holds this rank (None: one rank)."""
+        lanes = self.lanes(axes)
+        return None if lanes is None else lanes[0]
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}{'' if self.rank is None else f', rank {self.rank}'})"
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """A spec on a mesh (the counterpart of ``jax.sharding.NamedSharding``)."""
+    mesh: Mesh
+    spec: Spec
+
+
+def data_axes(mesh: Mesh) -> Tuple[str, ...]:
+    """The DP axes: ("pod", "data") on a multi-pod mesh, else ("data",)."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def _dp(mesh: Mesh):
+    dp = data_axes(mesh)
+    return dp, math.prod(mesh.shape[a] for a in dp), (dp if len(dp) > 1 else
+                                                      (dp[0] if dp else None))
+
+
+def _div(n: int, mesh: Mesh, axis: str) -> bool:
+    return n % mesh.shape[axis] == 0
+
+
+def _spec_for(path: Tuple[str, ...], shape: Tuple[int, ...], mesh: Mesh) -> Spec:
+    names = list(path)
+    leaf = names[-1]
+    parent = names[-2] if len(names) >= 2 else ""
+    gparent = names[-3] if len(names) >= 3 else ""
+    nd = len(shape)
+    none = (None,) * nd
+
+    def shard_dim(i: int) -> Spec:
+        if not _div(shape[i], mesh, "model"):
+            return none
+        out = list(none)
+        out[i] = "model"
+        return tuple(out)
+
+    if parent == "embed" and leaf == "w":
+        # (V, d): prefer vocab sharding, fall back to d_model
+        return shard_dim(0) if _div(shape[0], mesh, "model") else shard_dim(1)
+    if gparent == "experts" or (len(names) >= 4 and names[-4] == "experts"):
+        if parent in _COL:
+            return shard_dim(nd - 1)
+        if parent in _ROW:
+            return shard_dim(nd - 2)
+        return none
+    if leaf == "w" and parent in _COL and nd >= 2:
+        return shard_dim(nd - 1)
+    if leaf == "w" and parent in _ROW and nd >= 2:
+        return shard_dim(nd - 2)
+    if leaf == "b" and parent in _COL:
+        return shard_dim(nd - 1)
+    if leaf == "amber_scale" and parent in _ROW:
+        return shard_dim(nd - 1)
+    return none
+
+
+def _path(name: str) -> Tuple[str, ...]:
+    parts = name.split(".")
+    if len(parts) >= 2 and parts[-2] == "experts":
+        parts.append("w")
+    return tuple(parts)
+
+
+def _named_tensors(params) -> Dict[str, torch.Tensor]:
+    if isinstance(params, torch.nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def _first_free(spec: Spec, shape, n: int) -> Optional[int]:
+    """The largest dim still unsharded that ``n`` divides (ties: the first)."""
+    for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
+        if spec[i] is None and shape[i] % n == 0 and shape[i] >= n:
+            return i
+    return None
+
+
+def param_specs(params, mesh: Mesh, n_experts: int = 0, fsdp: bool = False
+                ) -> Dict[str, Spec]:
+    """``{name: spec}`` of every parameter of ``params`` (a module, or a
+    ``{name: tensor}`` dict; ``meta`` tensors will do).  ``fsdp=True``
+    also shards each tensor's largest still-free dim over the DP axes
+    (ZeRO-3: a train cell's weights live fully sharded and are gathered a
+    layer at a time on use).  ``n_experts`` is the reference's argument,
+    which its rules do not read either."""
+    dp, dp_size, dp_entry = _dp(mesh)
+    out = {}
+    for name, t in _named_tensors(params).items():
+        spec = _spec_for(_path(name), tuple(t.shape), mesh)
+        if fsdp and dp_entry is not None:
+            i = _first_free(spec, t.shape, dp_size)
+            if i is not None:
+                spec = spec[:i] + (dp_entry,) + spec[i + 1:]
+        out[name] = spec
+    return out
+
+
+def batch_spec(mesh: Mesh) -> Spec:
+    """Token batches: batch dim over all DP axes."""
+    return (_dp(mesh)[2],)
+
+
+def _map_tree(fn: Callable, tree: Any, path: Tuple[str, ...] = ()) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v, path + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(fn, v, path + (str(i),)) for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def cache_specs(cache: Any, cfg, mesh: Mesh) -> Any:
+    """The cache's tree with a spec at every tensor: batch on DP; K/V heads
+    on model when divisible, else the sequence (context parallelism); an
+    RWKV6 state's heads on model when divisible.  Layouts (the dense cache
+    of ``models/transformer.py``, per layer): k/v ``(B, S, Hkv, hd)``,
+    ``S`` ``(B, H, hd, hd)``, states ``(B, d)``, conv ``(B, cw-1, d)``."""
+    _, dp_size, dp_entry = _dp(mesh)
+    model = mesh.shape["model"]
+
+    def visit(path, leaf):
+        name = path[-1]
+        nd = leaf.dim()
+        if name == "pos":
+            return ()
+        spec = [None] * nd
+
+        def set_batch(i):
+            if leaf.shape[i] % dp_size == 0 and leaf.shape[i] >= dp_size:
+                spec[i] = dp_entry
+
+        if name in ("k", "v", "self_k", "self_v", "cross_k", "cross_v"):
+            set_batch(nd - 4)
+            s_dim, h_dim = nd - 3, nd - 2
+            if cfg.n_kv_heads and leaf.shape[h_dim] % model == 0 \
+                    and leaf.shape[h_dim] >= model:
+                spec[h_dim] = "model"
+            elif leaf.shape[s_dim] % model == 0 and leaf.shape[s_dim] >= model:
+                spec[s_dim] = "model"
+        elif name == "S":
+            set_batch(nd - 4)
+            if leaf.shape[nd - 3] % model == 0:
+                spec[nd - 3] = "model"
+        elif name in ("tm_shift", "cm_shift", "h"):
+            set_batch(nd - 2)
+        elif name == "conv":
+            set_batch(nd - 3)
+        return tuple(spec)
+
+    return _map_tree(visit, cache)
+
+
+def _widen(spec: Spec, shape, mesh: Mesh) -> Spec:
+    dp, dp_size, dp_entry = _dp(mesh)
+    flat = [a for s in spec for a in (s if isinstance(s, tuple) else (s,))]
+    if any(a in flat for a in dp):
+        return spec
+    i = _first_free(spec, shape, dp_size)
+    return spec if i is None else spec[:i] + (dp_entry,) + spec[i + 1:]
+
+
+def opt_state_specs(pspecs: Dict[str, Spec], params=None, mesh: Optional[Mesh] = None
+                    ) -> Dict[str, Any]:
+    """AdamW's state specs: ZeRO-1 given shapes and a mesh.  ``mu``/``nu``
+    start from each parameter's spec, then shard the largest still-free
+    dim over the DP axes where it divides (unless the parameter is already
+    DP-sharded: FSDP)."""
+    if params is None or mesh is None:
+        return {"mu": dict(pspecs), "nu": dict(pspecs), "step": ()}
+    shapes = {k: tuple(t.shape) for k, t in _named_tensors(params).items()}
+    moments = {k: _widen(s, shapes[k], mesh) for k, s in pspecs.items()}
+    return {"mu": moments, "nu": dict(moments), "step": ()}
+
+
+def shard_zero1(shape, mesh: Optional[Mesh] = None) -> Optional[Spec]:
+    """The spec of the reference's ZeRO constraint on a tensor of ``shape``
+    (the float32 gradient accumulator, the update's float32 copy): its
+    largest dim that the DP degree divides, over the DP axes; every other
+    dim, ``model`` included, whole.  None off-mesh or with no DP axis;
+    all None where no dim divides."""
+    mesh = mesh or _context_mesh()
+    if mesh is None:
+        return None
+    dp, dp_size, dp_entry = _dp(mesh)
+    if not dp:
+        return None
+    spec = (None,) * len(shape)
+    i = _first_free(spec, shape, dp_size) if len(shape) else None
+    return spec if i is None else spec[:i] + (dp_entry,) + spec[i + 1:]
+
+
+def named(mesh: Mesh, spec_tree: Any) -> Any:
+    """Each spec of ``spec_tree`` on ``mesh`` (:class:`NamedSharding`)."""
+    if isinstance(spec_tree, dict):
+        return {k: named(mesh, v) for k, v in spec_tree.items()}
+    if isinstance(spec_tree, list):
+        return [named(mesh, v) for v in spec_tree]
+    return NamedSharding(mesh, spec_tree)
+
+
+# ------------------------------------------------------------------ the scope
+
+_local = threading.local()
+
+
+@dataclasses.dataclass(frozen=True)
+class _Scope:
+    mesh: Mesh
+    batch_shards: int
+
+
+@contextlib.contextmanager
+def mesh_scope(mesh: Mesh, batch_shards: int = 1):
+    """``with mesh:`` of the reference for the dynamic extent, on this
+    thread.  ``batch_shards``: how many pieces the caller cut the batch
+    into over the DP axes before the model saw it (1: every DP rank holds
+    the whole batch), so a layer can tell the global batch."""
+    prev = getattr(_local, "scope", None)
+    _local.scope = _Scope(mesh, batch_shards)
+    try:
+        yield mesh
+    finally:
+        _local.scope = prev
+
+
+def _context_mesh() -> Optional[Mesh]:
+    """The mesh of an enclosing :func:`mesh_scope`, or None."""
+    s = getattr(_local, "scope", None)
+    return None if s is None else s.mesh
+
+
+def _batch_shards() -> int:
+    s = getattr(_local, "scope", None)
+    return 1 if s is None else s.batch_shards
+
+
+# -------------------------------------------------------------- collectives
+
+# calls and bytes of each collective this module issued (every rank counts
+# its own), read by the cells' reports
+collectives = {"all_gather": [0, 0], "all_reduce": [0, 0]}
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    return () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+
+
+def _pieces(entry, mesh: Mesh) -> int:
+    return math.prod(mesh.shape[a] for a in _axes(entry))
+
+
+def _index(entry, mesh: Mesh) -> int:
+    """This rank's shard index along an entry's axes (row-major)."""
+    c, i = mesh.coords(), 0
+    for a in _axes(entry):
+        i = i * mesh.shape[a] + c[a]
+    return i
+
+
+def local(t: torch.Tensor, spec: Optional[Spec], mesh: Mesh) -> torch.Tensor:
+    """This rank's slice of the whole tensor ``t`` under ``spec`` (a view)."""
+    for i, e in enumerate(spec or ()):
+        n = _pieces(e, mesh)
+        if n > 1:
+            size = t.shape[i] // n
+            t = t.narrow(i, _index(e, mesh) * size, size)
+    return t
+
+
+@torch.no_grad()
+def _sum_in_lanes(t: torch.Tensor, lanes) -> torch.Tensor:
+    """``t`` (contiguous) summed over a subgroup's ranks in place, split into
+    one piece per lane (at least 1 MiB each), the pieces reduced at once."""
+    flat = t.view(-1)
+    pieces = max(1, min(len(lanes), flat.numel() * flat.element_size() // 2**20))
+    works = [dist.all_reduce(c, group=g, async_op=True)
+             for c, g in zip(flat.chunk(pieces), lanes)]
+    for w in works:
+        w.wait()
+    return t
+
+
+def _all_gather(t: torch.Tensor, lanes, n: int, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order.  Gloo
+    all-gathers at a third of its all-reduce's rate (PERF.md), so
+    each rank writes its part into a zeroed whole and the wholes are summed:
+    adding zeros is exact."""
+    whole = t.new_zeros((n,) + tuple(t.shape))
+    whole[dist.get_rank(lanes[0])] = t.detach()
+    _sum_in_lanes(whole, lanes)
+    collectives["all_gather"][0] += 1
+    collectives["all_gather"][1] += whole.numel() * whole.element_size()
+    return torch.cat(whole.unbind(0), dim=dim)
+
+
+def gather(t: torch.Tensor, spec: Optional[Spec], mesh: Mesh) -> torch.Tensor:
+    """The whole tensor from every rank's :func:`local` slice of it."""
+    for i, e in enumerate(spec or ()):
+        n = _pieces(e, mesh)
+        if n > 1:
+            t = _all_gather(t, mesh.lanes(_axes(e)), n, i)
+    return t
+
+
+def _p2p(t: torch.Tensor, lanes, peer: int, send: bool) -> None:
+    """Send ``t`` (contiguous) to global rank ``peer``, or receive it from
+    there, in one piece per lane (at least 1 MiB each), the pieces at once."""
+    flat = t.view(-1)
+    pieces = max(1, min(len(lanes), flat.numel() * flat.element_size() // 2**20))
+    op = dist.isend if send else dist.irecv
+    for w in [op(c, peer, group=g) for c, g in zip(flat.chunk(pieces), lanes)]:
+        w.wait()
+
+
+@torch.no_grad()
+def gather_to_root(t: torch.Tensor, spec: Optional[Spec], mesh: Mesh) -> Optional[torch.Tensor]:
+    """The whole tensor in host memory on the mesh's rank 0 (None on the
+    others), for a checkpoint: every other rank sends its slice to rank 0
+    once, point to point, where a gather would send it to every rank.
+    Gloo sends host memory only, so the slices go through it.  The mesh
+    spans the whole group (``launch.mesh.make_cell_mesh``), so its ranks are
+    the group's."""
+    t = t.detach().cpu().contiguous()
+    if not sharded(spec, mesh):
+        return t if mesh.rank == 0 else None
+    lanes = mesh.lanes(mesh.axis_names)
+    if mesh.rank != 0:
+        _p2p(t, lanes, 0, send=True)
+        return None
+    whole = t.new_empty(tuple(n * _pieces(e, mesh) for n, e in zip(t.shape, spec)))
+    buf = torch.empty_like(t)
+    for r in range(mesh.size):
+        if r:
+            _p2p(buf, lanes, r, send=False)
+        local(whole, spec, dataclasses.replace(mesh, rank=r)).copy_(buf if r else t)
+    collectives["all_gather"][0] += 1
+    collectives["all_gather"][1] += whole.numel() * whole.element_size()
+    return whole
+
+
+def reduce_slice(t: torch.Tensor, axes: Tuple[str, ...], spec: Optional[Spec], mesh: Mesh
+                 ) -> torch.Tensor:
+    """``t`` summed over the ranks of ``axes``, then this rank's slice under
+    ``spec`` (whose entries name only ``axes``): the reduce-scatter of a
+    gradient.  Gloo's all-reduce, split across lanes, outruns its
+    reduce-scatter, so this is an all-reduce and the slice."""
+    return local(all_reduce(t.contiguous(), axes, mesh), spec, mesh)
+
+
+def all_reduce(t: torch.Tensor, axes: Tuple[str, ...], mesh: Mesh) -> torch.Tensor:
+    """Sum ``t`` (contiguous) over the ranks of ``axes`` in place (the
+    ``psum``)."""
+    if math.prod(mesh.shape[a] for a in axes) > 1:
+        _sum_in_lanes(t, mesh.lanes(axes))
+        collectives["all_reduce"][0] += 1
+        collectives["all_reduce"][1] += t.numel() * t.element_size()
+    return t
+
+
+# ------------------------------------------------------------- held shards
+
+def effective(spec: Optional[Spec], mesh: Mesh) -> Spec:
+    """``spec`` with every entry that cuts nothing on ``mesh`` (an axis of
+    size 1) made None: two specs that slice alike compare equal."""
+    return tuple(e if _pieces(e, mesh) > 1 else None for e in spec or ())
+
+
+def sharded(spec: Optional[Spec], mesh: Mesh) -> bool:
+    """Whether ``spec`` cuts anything on ``mesh`` (an axis of size 1 does not)."""
+    return any(_pieces(e, mesh) > 1 for e in spec or ())
+
+
+def tag(t: torch.Tensor, spec: Spec, mesh: Mesh, shape) -> torch.Tensor:
+    """Mark ``t`` as this rank's slice of a tensor of ``shape`` under
+    ``spec``; a slice of the last dim over ``model`` alone is also a
+    column shard that ``distributed.tp.column_parallel`` takes as it is
+    (``held_cols``: the whole tensor's columns).  Returns ``t``."""
+    t._shard = (tuple(spec), mesh, tuple(shape))
+    col = tuple(None for _ in spec[:-1]) + ("model",)
+    if len(spec) and tuple(spec) == col:
+        t.held_cols = shape[-1]
+    return t
+
+
+def model_dim(t: torch.Tensor) -> Optional[int]:
+    """The dim of a tagged shard that ``model`` cuts (None: none does)."""
+    tg = getattr(t, "_shard", None)
+    if tg is None:
+        return None
+    spec, mesh, _ = tg
+    return next((i for i, e in enumerate(spec)
+                 if "model" in _axes(e) and _pieces(e, mesh) > 1), None)
+
+
+def full_shape(t: torch.Tensor) -> Tuple[int, ...]:
+    tg = getattr(t, "_shard", None)
+    return tuple(t.shape) if tg is None else tg[2]
+
+
+def is_sharded(module: torch.nn.Module) -> bool:
+    """Whether ``module`` holds shards (a cell's materialized weights)."""
+    return getattr(module, "_holds_shards", False)
+
+
+class _Gather(torch.autograd.Function):
+    """The whole tensor from this rank's shard.  Backward: the gradient of
+    the whole tensor summed over the DP axes (each DP rank saw its own
+    batch) and cut to this rank's slice: the shard's own, or, where the
+    train step hung an accumulator on the shard (``_zero2``: ``(acc, key,
+    divisor)``), ``shard_zero1``'s slice divided by ``divisor`` and added to
+    ``acc[key]`` (ZeRO-2; the shard then gets no gradient)."""
+
+    @staticmethod
+    def forward(ctx, shard, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        ctx.sink = getattr(shard, "_zero2", None)
+        return gather(shard, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        dp, mesh = data_axes(ctx.mesh), ctx.mesh
+        if ctx.sink is not None:
+            acc, key, n = ctx.sink
+            z = reduce_slice(g, dp, shard_zero1(g.shape, mesh), mesh).float() / n
+            acc[key] = z if key not in acc else acc[key].add_(z)
+            return None, None, None
+        return reduce_slice(g, dp, ctx.spec, mesh).contiguous(), None, None
+
+
+def gather_param(t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of a tagged shard (autograd-aware); ``t`` itself if
+    it is not tagged."""
+    tg = getattr(t, "_shard", None)
+    if tg is None:
+        return t
+    spec, mesh, _ = tg
+    if t.requires_grad and torch.is_grad_enabled():
+        return _Gather.apply(t, spec, mesh)
+    return gather(t.detach(), spec, mesh)
+
+
+
+def _owner(module: torch.nn.Module, name: str):
+    *path, leaf = name.split(".")
+    for p in path:
+        module = getattr(module, p)
+    return module, leaf
+
+
+@contextlib.contextmanager
+def gathered(module: torch.nn.Module, keep: Tuple[str, ...] = ()):
+    """Swap every tagged shard of ``module`` for the whole tensor for the
+    extent (a layer at a time: the whole tensors are freed when it ends,
+    unless autograd saved them), except the tensors under the names in
+    ``keep`` (prefixes), which are used as shards."""
+    swaps = []
+    for name, t in module.named_parameters():
+        if getattr(t, "_shard", None) is None or any(
+                name == k or name.startswith(k + ".") for k in keep):
+            continue
+        owner, leaf = _owner(module, name)
+        swaps.append((owner, leaf, t))
+    try:
+        for owner, leaf, t in swaps:
+            owner._parameters[leaf] = gather_param(t)
+        yield
+    finally:
+        for owner, leaf, t in swaps:
+            owner._parameters[leaf] = t
+
+
+def head_local(fn: Callable, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               buf: torch.Tensor) -> torch.Tensor:
+    """``fn(q, k, v)`` on this rank's KV heads of the head-sharded cache
+    ``buf`` (tagged, heads on ``model``): q/k/v ``(B, T, H, hd)`` keep this
+    rank's heads, ``fn`` writes and reads the cache's, and the outputs
+    gather back along the head axis.  Per-head attention is exact."""
+    spec, mesh, _ = buf._shard
+    e = spec[2]
+    n, i = _pieces(e, mesh), _index(e, mesh)
+    hq, hk = q.shape[2] // n, k.shape[2] // n
+    o = fn(q[:, :, i * hq:(i + 1) * hq], k[:, :, i * hk:(i + 1) * hk],
+           v[:, :, i * hk:(i + 1) * hk])
+    return _all_gather(o.contiguous(), mesh.lanes(_axes(e)), n, 2)
+
+
+@contextlib.contextmanager
+def whole_sequence(layer: Dict[str, torch.Tensor]):
+    """A sequence-sharded cache layer's ``k``/``v`` gathered whole for the
+    extent (the caller writes and reads them), then this rank's rows
+    written back: Granite-34B's cache, whose one KV head cannot split."""
+    shards = {n: layer[n] for n in ("k", "v")}
+    spec, mesh, _ = shards["k"]._shard
+    model = tuple(None if "model" not in _axes(e) else e for e in spec)
+    whole = {n: gather(t, model, mesh) for n, t in shards.items()}
+    try:
+        yield whole
+    finally:
+        for n, t in shards.items():
+            t.copy_(local(whole[n], model, mesh))

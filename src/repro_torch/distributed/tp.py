@@ -31,6 +31,12 @@ consult :func:`current` and shard themselves:
 Row-parallel layers stay unsharded, as in the reference: their reduction
 would reorder float adds.
 
+A cell (``launch/cells.py``) holds its column-parallel weights as shards
+already (``distributed/sharding.tag`` sets ``held_cols``, the whole
+tensor's columns): :func:`shard_columns` takes such a shard as it is, and
+the wrappers plan for :func:`full_cols` columns, so the shard computes its
+columns as the unsharded call would.
+
 Backend and steps: the group is gloo on the CPU, and gloo where ranks share
 one card (NCCL refuses two ranks of one communicator on one device).  Gloo
 collectives cannot be captured in a CUDA graph, so an executor under a gloo
@@ -51,7 +57,7 @@ import torch.distributed as dist
 
 __all__ = ["TPScope", "scope", "current", "degree", "column_parallel",
            "head_sharded_attention", "head_sharded_scatter", "replica_groups",
-           "gather", "shard_columns", "shards_kv", "captures", "size_of"]
+           "gather", "shard_columns", "full_cols", "shards_kv", "captures", "size_of"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,12 +137,21 @@ gather.bytes = 0
 _shards: dict = {}
 
 
+def full_cols(c: torch.Tensor) -> int:
+    """The columns of the whole tensor ``c`` is a held shard of (its own
+    last dim otherwise)."""
+    return getattr(c, "held_cols", c.shape[-1])
+
+
 def shard_columns(c: torch.Tensor, rank: int, size: int) -> torch.Tensor:
-    """Rank ``rank``'s slice of the last axis of ``c``.  A slice that is
+    """Rank ``rank``'s slice of the last axis of ``c`` (``c`` itself if it
+    is a held shard of ``size`` ranks).  A slice that is
     contiguous (a vector) or the contiguous transpose of a K-major int8
     weight (``core.quant.k_major``: its column block is a block of rows) is
     a view; a column slice of a row-major weight is strided, so it is copied
     once and kept while ``c`` lives and is not written in place."""
+    if full_cols(c) == c.shape[-1] * size and size > 1:
+        return c.detach()
     n = c.shape[-1] // size
     s = c.detach()[..., rank * n:(rank + 1) * n]
     if s.is_contiguous() or (s.dim() == 2 and s.t().is_contiguous()):
@@ -163,15 +178,19 @@ def column_parallel(fn: Callable, cols: Sequence[Optional[torch.Tensor]], out_ax
     whether the shard can take the unsharded call's plan.
 
     Returns None when no scope is active, a column axis does not divide, or
-    the shard does not fit: callers fall through to the unsharded call."""
+    the shard does not fit: callers fall through to the unsharded call.  A
+    held shard has no unsharded call to fall through to: where it does not
+    fit, this raises."""
     ctx = current()
     if ctx is None:
         return None
     real = [c for c in cols if c is not None]
-    if not real or any(c.shape[-1] % ctx.size for c in real):
+    if not real or any(full_cols(c) % ctx.size for c in real):
         return None
     local = [None if c is None else shard_columns(c, ctx.rank, ctx.size) for c in cols]
     if fits is not None and not fits(*local):
+        if any(full_cols(c) != c.shape[-1] for c in real):
+            raise ValueError("a held column shard cannot take the unsharded call's plan")
         return None
     with _suspended():
         y = fn(*local)

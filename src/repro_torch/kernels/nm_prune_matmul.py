@@ -69,9 +69,10 @@ def _fn(dtype: torch.dtype):
     return fn
 
 
-def gemm_plan(w: torch.Tensor, t: int) -> int:
-    """The bf16 GEMM's route for ``w`` at ``t`` tokens, as the kernel takes
-    it: 0 = the WMMA kernel (``w`` not 16-byte aligned, or D or N_out not a
+def gemm_plan(w: torch.Tensor, t: int, n_out: int | None = None) -> int:
+    """The bf16 GEMM's route for ``w`` at ``t`` tokens (for ``n_out``
+    columns: a held column shard plans for the whole weight's), as the
+    kernel takes it: 0 = the WMMA kernel (``w`` not 16-byte aligned, or D or N_out not a
     multiple of 8), else the wgmma kernel in that many k slices (> 1: a
     float32 workspace of slices * T * N_out and the ordered reduce).  Any
     plan is valid for a ``w`` that :func:`takes_wgmma`; 0 for every ``w``."""
@@ -79,7 +80,7 @@ def gemm_plan(w: torch.Tensor, t: int) -> int:
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3
     fn.restype = ctypes.c_int
     with torch.cuda.device(w.device):
-        return fn(w.data_ptr(), t, w.shape[0], w.shape[1])
+        return fn(w.data_ptr(), t, w.shape[0], w.shape[1] if n_out is None else n_out)
 
 
 def takes_wgmma(w: torch.Tensor) -> bool:

@@ -44,14 +44,14 @@ def nm_prune_matmul(x: torch.Tensor, w: torch.Tensor,
     y = None
     if _tp.current() is not None:
         # the bf16 GEMM has a plan; float32 and the CPU have none
-        plan = (_npm.gemm_plan(w, xf.shape[0])
+        plan = (_npm.gemm_plan(w, xf.shape[0], _tp.full_cols(w))
                 if xf.is_cuda and xf.dtype == torch.bfloat16 else None)
         y = _tp.column_parallel(
             lambda w_, b_: _npm.nm_prune_matmul(xf, w_, scale, n, m, bias=b_, plan=plan),
             (w, bias), fits=lambda w_, b_: not plan or _npm.takes_wgmma(w_))
     if y is None:
         y = _npm.nm_prune_matmul(xf, w, scale, n, m, bias=bias)
-    return y.reshape(*x.shape[:-1], w.shape[-1])
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def nm_spmm(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None,
@@ -67,14 +67,14 @@ def nm_spmm(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None,
         # sharding N_out cannot change which channels win
         plan = None
         if xf.is_cuda:
-            plan = _nms.gemm_plan(xf.dtype, xf.shape[0], xf.shape[1], w.shape[1], n, m, tile,
-                                  w.data_ptr() % 16 == 0, _nms._sms(xf.device))
+            plan = _nms.gemm_plan(xf.dtype, xf.shape[0], xf.shape[1], _tp.full_cols(w), n, m,
+                                  tile, w.data_ptr() % 16 == 0, _nms._sms(xf.device))
         y = _tp.column_parallel(
             lambda w_: _nms.nm_spmm(xf, w_, scale, n, m, tile, plan=plan), (w,),
             fits=lambda w_: plan is None or _nms.fits_plan(plan, w_, n, m))
     if y is None:
         y = _nms.nm_spmm(xf, w, scale, n, m, tile)
-    return y.reshape(*x.shape[:-1], w.shape[-1])
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def osparse_matmul(x: torch.Tensor, wq: torch.Tensor, smooth: torch.Tensor,

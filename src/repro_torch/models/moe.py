@@ -30,11 +30,21 @@ pruning the gathered ``xs``.  The shared expert is the port's ``mlp`` with
 the static layer index, so the skip list applies to it as the JAX scan's
 flags apply it.
 
-Not ported here: ``_moe_shard_map`` (``moe.py:153-250``, the token-local
-routed experts under a multi-device mesh), which comes with scale-out.
+Under a mesh (``distributed.sharding.mesh_scope`` of more than one rank,
+with a ``model`` axis, the ragged impl, a 3-D ``x`` and a global batch the
+DP degree divides: ``moe.py:71-89``) :func:`moe` takes
+:func:`_moe_shard_map`, the reference's token-local experts: every rank
+routes its own tokens into fixed-capacity slots and holds ``d_ff / model``
+of every expert (the cell's shards), and one all-reduce over ``model`` sums
+the row-parallel down products.  The serving TP scope
+(``distributed/tp.py``) is not a mesh: the reference's serving never opens
+one, so an MoE under ``EngineConfig(tp > 1)`` keeps the local path.  A
+sharded model whose experts did not take the shard-map path gathers them
+whole for the local one.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -42,11 +52,12 @@ from torch import nn
 
 from repro_torch.core import pruner
 from repro_torch.core.policy import SparsityPolicy
+from repro_torch.distributed import sharding
 from repro_torch.layers.linear import init_linear
 from repro_torch.models.mlp import _act, init_mlp, mlp
 
 __all__ = ["Experts", "MoE", "init_moe", "moe", "route", "grouped_matmul",
-           "grouped_matmul_plain"]
+           "grouped_matmul_plain", "capacity", "shard_map_stats"]
 
 
 class Experts(nn.Module):
@@ -149,12 +160,26 @@ def moe(x: torch.Tensor, p: MoE, policy: SparsityPolicy, phase: str, top_k: int,
         layer_idx: Optional[int] = None) -> torch.Tensor:
     """The MoE feed-forward of ``x (..., D)``; ``layer_idx`` is the block's
     (it reaches the shared expert only)."""
+    mesh = sharding._context_mesh()
+    if (impl == "ragged" and mesh is not None and mesh.size > 1
+            and "model" in mesh.axis_names and x.dim() == 3):
+        dp = math.prod(mesh.shape[a] for a in sharding.data_axes(mesh))
+        b = x.shape[0] * sharding._batch_shards()
+        # the reference shards the batch only where the DP degree divides it;
+        # a tiny batch (B = 1 long-context decode) takes the local path
+        if b % dp == 0 and b >= dp:
+            return _moe_shard_map(mesh, x, p, policy, phase, top_k, act_fn, layer_idx)
+    return _moe_local(x, p, policy, phase, top_k, act_fn, impl, layer_idx)
+
+
+def _moe_local(x: torch.Tensor, p: MoE, policy: SparsityPolicy, phase: str, top_k: int,
+               act_fn: str, impl: str, layer_idx: Optional[int]) -> torch.Tensor:
     shape = x.shape
     d = shape[-1]
     xt = x.reshape(-1, d)
     t = xt.shape[0]
     ex = p.experts
-    wg, wu, wd = ex.gate_proj, ex.up_proj, ex.down_proj
+    wg, wu, wd = (sharding.gather_param(w) for w in (ex.gate_proj, ex.up_proj, ex.down_proj))
     n_experts = wg.shape[0]
     gates, expert_ids = route(xt, p.router.w, top_k)
     xg = _maybe_prune(xt, "gate_proj", policy, phase)
@@ -191,3 +216,91 @@ def moe(x: torch.Tensor, p: MoE, policy: SparsityPolicy, phase: str, top_k: int,
     if p.shared is not None:
         y = y + mlp(xt, p.shared, policy, phase, act_fn, layer_idx)
     return y.reshape(shape)
+
+
+# -------------------------------------------------------- under a mesh
+
+def capacity(tokens: int, top_k: int, n_experts: int) -> int:
+    """Slots an expert takes of ``tokens`` routed ``top_k`` ways:
+    ``ceil(tokens·k / E)·1.25`` (truncated), rounded up to a multiple of 8,
+    at least 8 (``moe.py:186-187``)."""
+    cap = int(-(-(tokens * top_k) // n_experts) * 1.25)
+    return max(8, -(-cap // 8) * 8)
+
+
+# every _moe_shard_map call adds to these (this rank's): calls, (token,
+# expert) pairs routed, pairs dropped past capacity, the last capacity
+shard_map_stats = {"calls": 0, "pairs": 0, "dropped": 0, "capacity": 0}
+
+
+def _moe_shard_map(mesh, x: torch.Tensor, p: MoE, policy: SparsityPolicy, phase: str,
+                   top_k: int, act_fn: str, layer_idx: Optional[int]) -> torch.Tensor:
+    """Token-local routed experts on this rank's ``x (b, t, D)`` (its
+    batch shard) with fixed-capacity slots (``moe.py:153-250``).
+
+    Float32 router, top-k and softmax; a stable sort of the (token,
+    expert) pairs by expert; each expert's first :func:`capacity` pairs in
+    ``(E, C, D)`` slots, the rest dropped; the slots' gate and up products
+    on this rank's ``d_ff / model`` columns of every expert, the down
+    product over those rows (a partial sum over ``d_ff``), invalid slots
+    zeroed, the pairs scattered back and weighted by their gates, then one
+    all-reduce of the ``(b·t, D)`` output over ``model`` (the ``psum``).
+    The reference keeps the partial sums in the model dtype, so at model 2
+    a bf16 sum rounds three times where the unsharded one rounds once, and
+    the next layer's routing and capacity turn an ulp into dropped or kept
+    pairs.  The port sums the bf16 products in float64 (their sums over
+    ``d_ff`` are then independent of the order to far below a bf16 ulp) and
+    casts once, after the all-reduce: model 2 equals model 1 at the layer's
+    output.
+
+    Pruning: the gate and up inputs are the slot tensor (per token, so the
+    masks are the unsharded ones); the down input is each rank's ``F /
+    model`` columns, groups of ``M`` within them, which equal the whole
+    row's groups where ``M`` divides ``F / model`` (Qwen3-30B-A3B: 384 or
+    192 columns, groups of 16).  The three slot contractions are batched
+    products (``torch.bmm``), as the reference's einsums are XLA's."""
+    b, t, d = x.shape
+    xt = x.reshape(b * t, d)
+    ex = p.experts
+    wg, wu, wd = ex.gate_proj, ex.up_proj, ex.down_proj
+    n_exp = p.router.w.shape[-1]
+    if sharding.full_shape(wg)[-1] != wg.shape[-1] * mesh.shape["model"]:
+        raise ValueError(f"expert stacks of {wg.shape[-1]} columns are not a d_ff / "
+                         f"{mesh.shape['model']} shard of {sharding.full_shape(wg)[-1]}")
+    gates, expert_ids = route(xt, p.router.w, top_k)
+    pairs = b * t * top_k
+    flat_e = expert_ids.reshape(-1)
+    order = torch.sort(flat_e, stable=True).indices
+    inv = torch.empty_like(order).scatter_(0, order, torch.arange(pairs, device=x.device))
+    xs = xt.index_select(0, order // top_k)                      # (pairs, D)
+    counts = torch.zeros(n_exp, dtype=torch.long, device=x.device)
+    counts.index_add_(0, flat_e, torch.ones_like(flat_e))
+    offsets = torch.cumsum(counts, 0) - counts
+    cap = capacity(b * t, top_k, n_exp)
+    slot = torch.arange(cap, device=x.device)
+    idx = offsets[:, None] + slot[None, :]                       # (E, C)
+    valid = slot[None, :] < counts[:, None]
+    idx_c = idx.clamp(0, pairs - 1).reshape(-1)
+    xe = xs.index_select(0, idx_c).reshape(n_exp, cap, d)        # (E, C, D)
+
+    xg = _maybe_prune(xe, "gate_proj", policy, phase)
+    xu = _maybe_prune(xe, "up_proj", policy, phase)
+    h = _act(torch.bmm(xg, wg), act_fn) * torch.bmm(xu, wu)     # (E, C, F/model)
+    h = _maybe_prune(h, "down_proj", policy, phase)
+    # the down product is a partial sum over this rank's F / model rows: it
+    # is summed in float64 through the combine and the all-reduce and cast
+    # once, so the result does not depend on how d_ff is split over ranks
+    ye = torch.bmm(h.double(), wd.double()) * valid[..., None]  # (E, C, D)
+    ys = torch.zeros(pairs, d, dtype=ye.dtype, device=x.device).index_add_(
+        0, idx_c, ye.reshape(-1, d))
+    y = ys.index_select(0, inv).reshape(b * t, top_k, d)
+    y = torch.einsum("tkd,tk->td", y, gates.to(y.dtype))
+    y = sharding.all_reduce(y.contiguous(), ("model",), mesh)
+    shard_map_stats["calls"] += 1
+    shard_map_stats["pairs"] += pairs
+    shard_map_stats["dropped"] += int(torch.clamp(counts - cap, min=0).sum())
+    shard_map_stats["capacity"] = cap
+    y = y.reshape(b, t, d).to(x.dtype)
+    if p.shared is not None:
+        y = y + mlp(x, p.shared, policy, phase, act_fn, layer_idx)
+    return y

@@ -62,9 +62,22 @@ Every entry point is a sequence of device operations that a CUDA graph can
 capture: positions, lengths and the per-step index vectors of the paged
 write and read are made on the device (no host-to-device copy, no host
 read), once a step, before the first layer.
+
+Sharded (a cell under a mesh, ``launch/cells.py``): a model whose tensors
+are shards (``distributed.sharding.is_sharded``) gathers its embedding,
+final norm and LM head whole for an entry point (:func:`_top`) and each
+block's shards for the extent of that block (:func:`_run_blocks`), except
+the expert stacks, which ``models/moe.py`` uses as shards, and the
+column-parallel weights of the projections that run on a kernel, which
+``distributed.tp.column_parallel`` computes column by column on the
+rank's shard (:func:`_local_shards`).  A dense cache sharded on heads is
+read and written on the rank's heads (``sharding.head_local``), one
+sharded on sequence (Granite-34B's one KV head) is gathered whole for the
+layer and its rows written back (``sharding.whole_sequence``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -73,6 +86,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import SparsityPolicy
+from repro_torch.distributed import sharding
 from repro_torch.layers.linear import QuantLinear, dense_linear, init_linear, sparse_linear
 from repro_torch.models import common
 from repro_torch.models import moe as moe_lib
@@ -372,7 +386,8 @@ def _dense_index(cfg: ModelConfig, cache: Dict, b: int, t: int, pos: torch.Tenso
 def _attn_rows(cache: Dict) -> Optional[int]:
     """Rows of the first attention layer's dense cache (None: no attention
     layer)."""
-    return next((layer["k"].shape[1] for layer in cache["layers"] if "k" in layer), None)
+    return next((sharding.full_shape(layer["k"])[1] for layer in cache["layers"]
+                 if "k" in layer), None)
 
 
 def _slab_rows(buf: torch.Tensor, rows: Optional[torch.Tensor]) -> torch.Tensor:
@@ -390,7 +405,19 @@ def _write_rows(buf: torch.Tensor, rows: Optional[torch.Tensor], r: torch.Tensor
 
 def _dense_attention(cfg: ModelConfig, q, k, v, cache: Dict, index: Dict):
     """Write the step's K/V into the dense slab and attend (plain torch, as
-    the JAX package computes it outside any Pallas kernel)."""
+    the JAX package computes it outside any Pallas kernel).  A cell's
+    cache sharded over ``model`` is attended on this rank's heads, or
+    gathered whole along the sequence for the layer (module docstring)."""
+    split = sharding.model_dim(cache["k"])
+    if split == 2:
+        # views of the cache's shards: the same memory, no longer tagged
+        mine = dict(cache, k=cache["k"][:], v=cache["v"][:])
+        return sharding.head_local(
+            lambda q_, k_, v_: _dense_attention(cfg, q_, k_, v_, mine, index), q, k, v,
+            cache["k"])
+    if split == 1:
+        with sharding.whole_sequence(cache) as whole:
+            return _dense_attention(cfg, q, k, v, whole, index)
     ck, cv, rows, mode = cache["k"], cache["v"], index["rows"], index["mode"]
     window = _window(cfg)
     if mode == "prefill":
@@ -536,6 +563,41 @@ def _embed_inputs(cfg: ModelConfig, params: Transformer, batch: Dict) -> torch.T
     return h
 
 
+def _local_shards(blk: AttnBlock, policy: SparsityPolicy, phase: str, i: int
+                  ) -> Tuple[str, ...]:
+    """The names in a sharded block that stay shards for layer ``i``: the
+    expert stacks, and the projections that run column-parallel on a kernel
+    where the rank holds a column shard of them (what each rank computes
+    with)."""
+    keep = ["moe.experts"]
+    if policy.use_kernels and policy.active(phase):
+        names = [n for n in ("q_proj", "k_proj", "v_proj") if policy.should_prune(n, i)]
+        names += [f"{ffn}.{n}" for ffn in ("mlp", "moe.shared") for n in ("gate_proj", "up_proj")
+                  if policy.should_prune(n, i)]
+        for name in names:
+            try:
+                w = blk.get_submodule(name).w
+            except AttributeError:                  # no shared expert
+                continue
+            if getattr(w, "held_cols", None):
+                keep.append(name)
+    return tuple(keep)
+
+
+def _top(params: Transformer):
+    """A sharded model's embedding, final norm and LM head gathered whole
+    for the extent of an entry point (its blocks gather their own)."""
+    if not sharding.is_sharded(params):
+        return contextlib.nullcontext()
+    return sharding.gathered(params, ("blocks",))
+
+
+def _sharded_block(cfg, h, blk, policy, phase, i, layer, positions, index=None):
+    """A block of a sharded model, its shards gathered for the block alone."""
+    with sharding.gathered(blk, _local_shards(blk, policy, phase, i)):
+        return _attn_block_apply(cfg, h, blk, policy, phase, i, layer, positions, index)
+
+
 def _run_blocks(cfg, params: Transformer, h, policy, phase, cache, positions,
                 index=None):
     # the reference's jax.checkpoint around the layer body
@@ -543,15 +605,19 @@ def _run_blocks(cfg, params: Transformer, h, policy, phase, cache, positions,
     # autograd recording, each block keeps only its input and is run again
     # in the backward
     remat = cfg.remat and phase == "train" and cache is None and torch.is_grad_enabled()
+    sharded = sharding.is_sharded(params)
+    if sharded and set(layer_kinds(cfg)) != {"attn"}:
+        raise NotImplementedError(f"{cfg.name}: a sharded recurrent model (ROADMAP A4b)")
+    apply = _sharded_block if sharded else _attn_block_apply
     for i, (kind, blk) in enumerate(zip(layer_kinds(cfg), params.blocks)):
         layer = None if cache is None else cache["layers"][i]
         if kind != "attn":
             h = _recurrent_apply(cfg, kind, h, blk, policy, phase, i, layer, index)
         elif remat:
-            h = checkpoint(_attn_block_apply, cfg, h, blk, policy, phase, i, None, positions,
+            h = checkpoint(apply, cfg, h, blk, policy, phase, i, None, positions,
                            use_reentrant=False)
         else:
-            h = _attn_block_apply(cfg, h, blk, policy, phase, i, layer, positions, index)
+            h = apply(cfg, h, blk, policy, phase, i, layer, positions, index)
     return h
 
 
@@ -591,10 +657,11 @@ def forward(cfg: ModelConfig, params: Transformer, batch: Dict, *,
     tokens = batch["tokens"]
     b, t = tokens.shape
     positions = torch.arange(t, device=tokens.device).expand(b, t)
-    h = _embed_inputs(cfg, params, batch)
-    h = _run_blocks(cfg, params, h, policy, phase, None,
-                    _rope_positions(cfg, positions, batch.get("positions_3d")))
-    return _lm_logits(cfg, params, h)
+    with _top(params):
+        h = _embed_inputs(cfg, params, batch)
+        h = _run_blocks(cfg, params, h, policy, phase, None,
+                        _rope_positions(cfg, positions, batch.get("positions_3d")))
+        return _lm_logits(cfg, params, h)
 
 
 @torch.no_grad()
@@ -622,10 +689,11 @@ def prefill(cfg: ModelConfig, params: Transformer, batch: Dict, cache: Dict, *,
             raise ValueError(f"prefill: {t} tokens do not fit a cache of {s_c} positions")
         index = _dense_index(cfg, cache, b, t, zero, None, "prefill")
     positions = torch.arange(t, device=dev).expand(b, t)
-    h = _embed_inputs(cfg, params, batch)
-    h = _run_blocks(cfg, params, h, policy, "prefill", cache,
-                    _rope_positions(cfg, positions, batch.get("positions_3d")), index)
-    logits = _lm_logits(cfg, params, h[:, -1:])[:, 0]
+    with _top(params):
+        h = _embed_inputs(cfg, params, batch)
+        h = _run_blocks(cfg, params, h, policy, "prefill", cache,
+                        _rope_positions(cfg, positions, batch.get("positions_3d")), index)
+        logits = _lm_logits(cfg, params, h[:, -1:])[:, 0]
     return logits, {**cache, "pos": cache["pos"] + t}
 
 
@@ -658,11 +726,12 @@ def prefill_chunk(cfg: ModelConfig, params: Transformer, batch: Dict, cache: Dic
                              f"{s_c} rows")
         index = _dense_index(cfg, cache, b, t, pos, chunk_len, "chunk")
     positions = pos + torch.arange(t, device=dev).expand(b, t)
-    h = _embed_inputs(cfg, params, batch)
-    h = _run_blocks(cfg, params, h, policy, "prefill", cache,
-                    _rope_positions(cfg, positions), index)
-    h_last = h.index_select(1, (chunk_len.long() - 1).reshape(1))
-    logits = _lm_logits(cfg, params, h_last)[:, 0]
+    with _top(params):
+        h = _embed_inputs(cfg, params, batch)
+        h = _run_blocks(cfg, params, h, policy, "prefill", cache,
+                        _rope_positions(cfg, positions), index)
+        h_last = h.index_select(1, (chunk_len.long() - 1).reshape(1))
+        logits = _lm_logits(cfg, params, h_last)[:, 0]
     return logits, {**cache, "pos": pos + chunk_len}
 
 
@@ -685,8 +754,9 @@ def decode_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
     else:
         index = _dense_index(cfg, cache, b, t, pos, None, "decode")
     positions = pos.reshape(-1, 1).expand(b, t)
-    h = common.embed(tokens, params.embed)
-    h = _run_blocks(cfg, params, h, policy, "decode", cache,
-                    _rope_positions(cfg, positions), index)
-    logits = _lm_logits(cfg, params, h)[:, 0]
+    with _top(params):
+        h = common.embed(tokens, params.embed)
+        h = _run_blocks(cfg, params, h, policy, "decode", cache,
+                        _rope_positions(cfg, positions), index)
+        logits = _lm_logits(cfg, params, h)[:, 0]
     return logits, {**cache, "pos": pos + 1}

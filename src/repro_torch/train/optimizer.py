@@ -16,6 +16,15 @@ float32 temporaries of one leaf: ``mu`` and ``nu`` are updated in place and
 each parameter is overwritten with its new value.  The per-leaf arithmetic
 keeps the reference's order of operations (``b1 * mu + (1 - b1) * g``,
 ``(1 - b2) * g * g``, bias corrections as divisions).
+
+ZeRO-1 (under a bound ``distributed.sharding.mesh_scope``): each rank
+holds ``mu`` and ``nu`` only as the slice :func:`~repro_torch.distributed.
+sharding.opt_state_specs` names (the parameter's spec, widened by the
+largest still-free dim the DP degree divides); the gradients come as the
+ZeRO-2 accumulator's slices (``sharding.shard_zero1``); clipping reads the
+norm summed over the DP ranks; each rank updates its slice of every
+parameter and gathers the slices back over DP (a train cell's FSDP shards
+are already that slice and stay so).  Off a mesh nothing of this runs.
 """
 from __future__ import annotations
 
@@ -25,8 +34,10 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.distributed import sharding
+
 __all__ = ["OptConfig", "adamw_init", "adamw_update", "cosine_lr", "decays",
-           "global_norm"]
+           "global_norm", "moment_spec", "spec_of", "zero_norm"]
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -83,14 +94,60 @@ def decays(name: str, p: torch.Tensor) -> bool:
     return name.startswith("blocks.") or p.dim() >= 2
 
 
+def _zero_mesh():
+    """The bound mesh ZeRO runs on, or None (off a mesh)."""
+    mesh = sharding._context_mesh()
+    return mesh if mesh is not None and mesh.bound else None
+
+
+def spec_of(p: torch.Tensor) -> tuple:
+    """The spec a parameter is held under (a cell's shard), else whole."""
+    tg = getattr(p, "_shard", None)
+    return tg[0] if tg is not None else (None,) * p.dim()
+
+
+def moment_spec(p: torch.Tensor, mesh) -> tuple:
+    """``opt_state_specs``' spec of ``p``'s moments on ``mesh``."""
+    return sharding._widen(spec_of(p), sharding.full_shape(p), mesh)
+
+
+def _extra(outer: tuple, inner: tuple, mesh) -> tuple:
+    """The entries of ``outer`` that ``inner`` does not already cut."""
+    return tuple(None if a == b else a for a, b in zip(sharding.effective(outer, mesh),
+                                                        sharding.effective(inner, mesh)))
+
+
 def adamw_init(params: Tensors) -> Dict:
-    """Zero float32 moments beside each parameter and a 0-d int32 step."""
+    """Zero float32 moments beside each parameter (under a bound mesh:
+    this rank's ZeRO-1 slice of them) and a 0-d int32 step."""
     any_p = next(iter(params.values()))
-    return {"mu": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for k, p in params.items()},
-            "nu": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for k, p in params.items()},
+    mesh = _zero_mesh()
+
+    def zeros(p):
+        shape = p.shape
+        if mesh is not None:
+            meta = torch.empty(sharding.full_shape(p), device="meta")
+            shape = sharding.local(meta, moment_spec(p, mesh), mesh).shape
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+    return {"mu": {k: zeros(p) for k, p in params.items()},
+            "nu": {k: zeros(p) for k, p in params.items()},
             "step": torch.zeros((), dtype=torch.int32, device=any_p.device)}
+
+
+def zero_norm(grads: Tensors, mesh) -> torch.Tensor:
+    """The float32 global norm of ZeRO-2 accumulator slices: each rank's
+    sum of squares, summed over the DP ranks (a leaf no DP slice cuts is
+    counted by DP rank 0 alone)."""
+    first = all(mesh.coords()[a] == 0 for a in sharding.data_axes(mesh))
+    total = None
+    for g in grads.values():
+        if not first and not sharding.sharded(sharding.shard_zero1(g.shape, mesh), mesh):
+            sq = torch.zeros((), dtype=torch.float32, device=g.device)
+        else:
+            sq = torch.sum(torch.square(g.float()))
+        total = sq if total is None else total + sq
+    return torch.sqrt(sharding.all_reduce(total, sharding.data_axes(mesh), mesh))
 
 
 @torch.no_grad()
@@ -101,7 +158,12 @@ def adamw_update(cfg: OptConfig, grads: Tensors, opt_state: Dict, params: Tensor
     The clip scale ``min(1, clip_norm / (gnorm + 1e-9))`` multiplies the
     float32 gradients before the moments.  In place (module docstring):
     the returned dicts hold the tensors passed in, updated; ``step`` is a
-    new tensor."""
+    new tensor.  Under a bound mesh ``grads`` are the accumulator's ZeRO-2
+    slices (``sharding.shard_zero1`` of each whole gradient's shape) and
+    the update runs on ZeRO-1 slices (module docstring)."""
+    mesh = _zero_mesh()
+    if mesh is not None:
+        return _zero_update(cfg, grads, opt_state, params, mesh)
     step = opt_state["step"] + 1
     lr = cosine_lr(cfg, step)
     gnorm = global_norm(grads)
@@ -123,4 +185,36 @@ def adamw_update(cfg: OptConfig, grads: Tensors, opt_state: Dict, params: Tensor
         if decays(name, p):
             delta.add_(cfg.weight_decay * p32)
         p.copy_(p32 - lr * delta)
+    return params, {"mu": mus, "nu": nus, "step": step}
+
+
+def _zero_update(cfg: OptConfig, grads: Tensors, opt_state: Dict, params: Tensors, mesh
+                 ) -> Tuple[Tensors, Dict]:
+    step = opt_state["step"] + 1
+    lr = cosine_lr(cfg, step)
+    gnorm = zero_norm(grads, mesh)
+    scale = torch.clamp(torch.div(_f32(cfg.clip_norm, gnorm.device), gnorm + 1e-9), max=1.0)
+    stepf = step.to(torch.float32)
+    b1t = 1 - torch.pow(_f32(cfg.b1, step.device), stepf)
+    b2t = 1 - torch.pow(_f32(cfg.b2, step.device), stepf)
+    mus, nus = opt_state["mu"], opt_state["nu"]
+    for name, p in params.items():
+        ospec, pspec = moment_spec(p, mesh), spec_of(p)
+        zspec = sharding.shard_zero1(sharding.full_shape(p), mesh)
+        g = grads[name]
+        if sharding.effective(zspec, mesh) != sharding.effective(ospec, mesh):
+            # the accumulator's slice is not the moments': re-cut it
+            g = sharding.local(sharding.gather(g, zspec, mesh), ospec, mesh)
+        g = g.float() * scale
+        mu, nu = mus[name], nus[name]
+        mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        nu.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+        del g
+        delta = (mu / b1t).div_(torch.sqrt(nu / b2t).add_(cfg.eps))
+        extra = _extra(ospec, pspec, mesh)  # what ZeRO-1 cuts beyond the parameter's shard
+        p32 = sharding.local(p.detach(), extra, mesh).float()
+        if decays(name, p):
+            delta.add_(cfg.weight_decay * p32)
+        new = (p32 - lr * delta).to(p.dtype)
+        p.detach().copy_(sharding.gather(new, extra, mesh))
     return params, {"mu": mus, "nu": nus, "step": step}

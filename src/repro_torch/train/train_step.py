@@ -14,16 +14,29 @@ their gradients are summed into float32 buffers, each divided by
 parameter's dtype is never used.  Under a policy active in ``"train"``
 (``--sparse-train``) the pruned projections take ``nm_prune_matmul``'s
 ``torch.autograd.Function`` on the kernel path.
+
+Under a bound ``distributed.sharding.mesh_scope`` (a train cell, or a
+``Trainer`` run inside one) the batch is this rank's DP shard, and each
+microbatch's gradients become the ZeRO-2 accumulator's slices at once:
+reduce-scattered over the DP ranks onto ``sharding.shard_zero1``'s slice
+and divided by the DP degree and ``grad_accum`` (a cell's shards by the
+backward of their gather, ``sharding.gather_param``, which adds to the
+accumulator itself; whole parameters here).  The loss is the mean over the DP ranks;
+``optimizer.adamw_update`` takes the slices (ZeRO-1).  Off a mesh nothing
+of this runs.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
 
 from repro_torch.core.policy import DENSE, SparsityPolicy
-from repro_torch.train.optimizer import OptConfig, adamw_update, global_norm
+from repro_torch.distributed import sharding
+from repro_torch.train.optimizer import (OptConfig, _zero_mesh, adamw_update, global_norm,
+                                         zero_norm)
 
 __all__ = ["loss_fn", "make_train_step", "make_trainable", "trainable_params"]
 
@@ -76,8 +89,48 @@ def make_train_step(model, opt_cfg: OptConfig, policy: SparsityPolicy = DENSE,
         grads = torch.autograd.grad(loss, list(named.values()))
         return loss.detach(), dict(zip(named, grads))
 
+    def zero_step(params, named, opt_state, batch, mesh):
+        b = batch["tokens"].shape[0]
+        if b % grad_accum:
+            raise ValueError(f"batch {b} is not a multiple of grad_accum {grad_accum}")
+        mb = b // grad_accum
+        dp = sharding.data_axes(mesh)
+        n = math.prod(mesh.shape[a] for a in dp) * grad_accum
+        loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
+        grads: Dict[str, torch.Tensor] = {}
+        held = {k: p for k, p in named.items() if getattr(p, "_shard", None) is not None}
+        try:
+            for k, p in held.items():
+                # the gather's backward reduce-scatters into grads[k]
+                p._zero2 = (grads, k, n)
+            for i in range(grad_accum):
+                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                loss_i = loss_fn(model, params, micro, policy)
+                g_i = torch.autograd.grad(loss_i, list(named.values()), allow_unused=True)
+                for k, g in zip(named, g_i):
+                    if k in held:
+                        continue
+                    z = sharding.reduce_slice(g.float(), dp, sharding.shard_zero1(g.shape, mesh),
+                                              mesh) / n
+                    grads[k] = z if k not in grads else grads[k].add_(z)
+                del g_i
+                loss = loss + loss_i.detach() / grad_accum
+        finally:
+            for p in held.values():
+                del p._zero2
+        grads = {k: grads[k] for k in named}
+        loss = sharding.all_reduce(loss, dp, mesh) / math.prod(mesh.shape[a] for a in dp)
+        gnorm = zero_norm(grads, mesh)
+        _, new_opt = adamw_update(opt_cfg, grads, opt_state, named)
+        return params, new_opt, {"loss": loss, "grad_norm": gnorm, "step": new_opt["step"]}
+
     def step_fn(params, opt_state, batch):
         named = trainable_params(params)
+        mesh = _zero_mesh()
+        if mesh is not None:
+            if compressor is not None:
+                raise NotImplementedError("gradient compression under a mesh")
+            return zero_step(params, named, opt_state, batch, mesh)
         if grad_accum == 1:
             loss, grads = compute_grads(params, named, batch)
         else:

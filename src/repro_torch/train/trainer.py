@@ -10,6 +10,12 @@ The restart contract, as in the reference:
 * each step's wall time, taken around a device synchronise, feeds a
   running median; a step slower than ``straggler_factor`` times the median
   of the last 50 (after 5 steps) is flagged in its metrics.
+
+Under a bound ``distributed.sharding.mesh_scope`` with DP ranks, every
+rank runs :meth:`Trainer.run`: it takes its DP slice of each batch, holds
+the whole parameters and its ZeRO-1 slice of the moments
+(``train/optimizer.py``), saves whole tensors (rank 0 writes) and restores
+its slices, so a run resumes at another DP degree.
 """
 from __future__ import annotations
 
@@ -25,7 +31,8 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.policy import DENSE, SparsityPolicy
 from repro_torch.data.pipeline import DataConfig, lm_batch
-from repro_torch.train.optimizer import OptConfig, adamw_init
+from repro_torch.distributed import sharding
+from repro_torch.train.optimizer import OptConfig, _zero_mesh, adamw_init, moment_spec
 from repro_torch.train.train_step import make_train_step, make_trainable, trainable_params
 
 __all__ = ["TrainerConfig", "Trainer"]
@@ -67,10 +74,21 @@ class Trainer:
         params = trainable_params(self.module)
         return {"params": params, "opt": adamw_init(params)}
 
+    @staticmethod
+    def shardings(state: Dict) -> Optional[Dict]:
+        """The state's shardings under a bound mesh (the moments' ZeRO-1
+        slices; parameters whole), None off a mesh."""
+        mesh = _zero_mesh()
+        if mesh is None:
+            return None
+        mom = {k: sharding.NamedSharding(mesh, moment_spec(p, mesh))
+               for k, p in state["params"].items()}
+        return {"opt": {"mu": mom, "nu": dict(mom)}}
+
     def _restore(self, step: int, state: Dict) -> Dict:
         """Load checkpoint ``step`` into ``state``: the parameters in place
         in the module, the optimizer state as loaded."""
-        loaded = self.ckpt.restore(step, state)
+        loaded = self.ckpt.restore(step, state, self.shardings(state))
         with torch.no_grad():
             for k, p in state["params"].items():
                 p.copy_(loaded["params"][k])
@@ -94,7 +112,7 @@ class Trainer:
         for step in range(start, self.cfg.total_steps):
             if crash_at is not None and step == crash_at:
                 raise RuntimeError(f"simulated node failure at step {step}")
-            batch = lm_batch(self.data_cfg, step, device=dev)
+            batch = self._batch(step, dev)
             t0 = time.perf_counter()
             _, opt, metrics = self.step_fn(self.module, state["opt"], batch)
             if dev.type == "cuda":
@@ -109,8 +127,21 @@ class Trainer:
             if hooks:
                 hooks(step, metrics)
             if (step + 1) % self.cfg.ckpt_every == 0 or step + 1 == self.cfg.total_steps:
-                self.ckpt.save(step + 1, state)
+                self.ckpt.save(step + 1, state, self.shardings(state))
         return {"state": state, "metrics": metrics_hist, "resumed_from": start}
+
+    def _batch(self, step: int, dev) -> Dict[str, torch.Tensor]:
+        """The step's batch; under a mesh this rank's DP slice of it."""
+        batch = lm_batch(self.data_cfg, step, device=dev)
+        mesh = _zero_mesh()
+        if mesh is None:
+            return batch
+        spec = sharding.batch_spec(mesh)
+        n = sharding._pieces(spec[0], mesh)
+        if batch["tokens"].shape[0] % n:
+            raise ValueError(f"batch {batch['tokens'].shape[0]} does not divide over {n} "
+                             "DP ranks")
+        return {k: sharding.local(v, spec, mesh) for k, v in batch.items()}
 
     def _straggler(self, dt: float) -> bool:
         self._times.append(dt)

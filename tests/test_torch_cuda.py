@@ -1503,3 +1503,48 @@ def test_tp_paged_kv_scatter_into_head_shards(gen, tp):
     kpa.paged_kv_scatter(kn, vn, kp, vp, tab, pos, clen)
     assert torch.equal(torch.cat([k for k, _ in shards], dim=2), kp)
     assert torch.equal(torch.cat([v for _, v in shards], dim=2), vp)
+
+
+# ------------------------------------------------------------- sharded cells
+# A cell holds its column-parallel weights as shards already: the kernel
+# plans for the whole weight's columns (``tp.full_cols``), so the shard sums
+# in the unsharded call's order.  The MoE's slot tensors prune on the kernel.
+
+@pytest.mark.parametrize("parts", [2, 4])
+def test_cell_held_column_shard_takes_the_full_plan(gen, parts):
+    from repro_torch.distributed import sharding, tp
+    from repro_torch.launch.mesh import abstract_mesh
+
+    x = torch.randn(256, 4096, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(4096, 4096, generator=gen, device="cuda") * 4096**-0.5).bfloat16()
+    sc = torch.rand(4096, generator=gen, device="cuda") + 0.5
+    want = knm.nm_prune_matmul(x, w, sc, 8, 16)
+    mesh = abstract_mesh((1, parts), ("data", "model"))
+    c = 4096 // parts
+    for r in range(parts):
+        shard = sharding.tag(w[:, r * c:(r + 1) * c].contiguous(), (None, "model"), mesh,
+                             w.shape)
+        assert tp.full_cols(shard) == 4096
+        assert torch.equal(tp.shard_columns(shard, r, parts), shard)   # taken as it is
+        plan = knm.gemm_plan(shard, 256, tp.full_cols(shard))
+        assert plan == knm.gemm_plan(w, 256) != knm.gemm_plan(shard, 256)
+        got = knm.nm_prune_matmul(x, shard, sc, 8, 16, plan=plan)
+        assert torch.equal(got, want[:, r * c:(r + 1) * c])
+
+
+def test_cell_moe_slots_prune_on_the_kernel(gen):
+    from repro_torch import kernels
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe
+
+    d, f, e = 256, 128, 8
+    p = moe.init_moe(d, f, e, False, dtype=torch.bfloat16, device="cuda", generator=gen)
+    x = torch.randn(2, 64, d, generator=gen, device="cuda").bfloat16()
+    pol = paper_policy(8, 16)
+    kernels.reset_launch_counts()
+    got = moe._moe_shard_map(make_local_mesh(), x, p, pol.with_(use_kernels=True), "prefill",
+                             2, "silu", None)
+    assert kernels.launch_counts()["nm_prune"] == 2          # the gate and down inputs
+    want = moe._moe_shard_map(make_local_mesh(), x, p, pol, "prefill", 2, "silu", None)
+    assert torch.equal(got, want)

@@ -510,9 +510,9 @@ def test_w8a8_engine_tokens_match_jax(models, qserved, arch, use_kernels):
 
 def test_chip_smoke_counts_the_variants_path():
     """``chip_smoke.py``'s phase 8: each variant prunes q, gate and down in
-    every layer (96 ``nm_prune_matmul`` launches a Qwen2.5-32B chunk at the
-    depth 32 it serves, 84 ChatGLM3-6B, 96 StableLM-3B, 48 for Granite-34B
-    at depth 16), no routed expert input; the depths it serves fit one 80 GB
+    every layer (48 ``nm_prune_matmul`` launches a chunk for Qwen2.5-32B,
+    ChatGLM3-6B and StableLM-3B at the depth 16 they serve, 24 for
+    Granite-34B at depth 8), no routed expert input; the depths it serves fit one 80 GB
     card in bf16, and Granite-34B's 88 layers do not."""
     import importlib.util
     from pathlib import Path
@@ -521,7 +521,7 @@ def test_chip_smoke_counts_the_variants_path():
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    want = {"qwen2_5_32b": 96, "chatglm3_6b": 84, "stablelm_3b": 96, "granite_34b": 48}
+    want = {"qwen2_5_32b": 48, "chatglm3_6b": 48, "stablelm_3b": 48, "granite_34b": 24}
     served = {arch: depth for _, arch, depth, _ in cs.VARIANT_SERVING}
     assert set(served) == set(want)
     for arch, launches in want.items():
