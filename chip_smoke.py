@@ -415,7 +415,7 @@ Phases (any failed check exits non-zero; no phase is skipped):
              shard's plan printed beside the one it would pick alone.
              14b: two ranks on this card over gloo (``launch.mesh.spawn``;
              NCCL refuses two ranks of one communicator on one device), each
-             serving LLaMA-3.1-8B at full width and ``TP_DEPTH`` (16) layers
+             serving LLaMA-3.1-8B at full width and ``TP_DEPTH`` (8) layers
              with phase 3's weights, policy and stream through ``Engine``
              at ``EngineConfig(tp=2)``, every step eager (a CUDA graph
              cannot hold a gloo collective): every request's tokens equal
@@ -462,6 +462,36 @@ Phases (any failed check exits non-zero; no phase is skipped):
              cell's.  2p (with the kernels of phase 2): ``nm_prune`` at the
              slot tensors 15a launches it on, (128 x 160, 2048) and
              (128 x 160, 384), bit-exact and timed.
+16. launch tooling — after phase 15 (``phase_tooling``).  16a: the
+             dry-run (``repro_torch.launch.dryrun.run_cell``: one rank's
+             share of the step executed on ``meta`` tensors, every
+             collective recorded, none run) of phase 15's three cells at
+             their run shapes and meshes, both ranks: the bytes a dry rank
+             holds equal what phase 15's ranks held (their records), its
+             arguments' bytes from the specs equal that (train: and the
+             rank's batch shard), its collectives equal the ranks' counted
+             ones by kind, count and bytes (15a's whole prefill, 15b's
+             first step, 15c's steps); predicted peak over measured peak
+             printed, not gated.  16b: roofline shares on one rank (1 x 1):
+             LLaMA-3.1-8B at full width and depth, its ``prefill_32k`` cell
+             cut to ``DRY_PREFILL`` (1 x 2048) under ``paper_policy(8, 16,
+             cfg.qgate_skip_layers)`` with the kernels, its
+             ``decode_32k`` cell cut to ``DRY_DECODE`` (B = 4 over 4096),
+             and phase 13a's train step: the dry-run's bound (the largest
+             of its compute, memory and collective terms at the card's
+             rates) over the device busy time of one profiled step, the
+             bounding term and ``model_flops / (busy x peak)``; a share
+             above ``DRY_SHARE_LIMIT`` (1.05) fails (a bound above the
+             measured time is a counting fault).  16c: the CLIs and the
+             examples, each exiting 0 with its key lines checked:
+             ``dryrun --both`` for ``llama31_8b`` and ``qwen3_30b_a3b``,
+             ``report`` on their JSON, ``perf --arch qwen2_5_32b --shape
+             prefill_32k``, ``roofline_exact --arch llama31_8b --shape
+             prefill_32k`` (these four count on the host and start, niced,
+             when the run starts; phase 16 collects them), and the four
+             ``examples/torch_*.py`` on the card, started when the phase
+             starts and run beside 16a; 16b profiles once they have
+             exited.
 
 The last lines are the per-kernel JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is
@@ -491,21 +521,16 @@ from pathlib import Path
 import numpy as np
 
 SEED = 0
-# data-sheet rates (dense): bytes/s, bf16 FLOP/s, fp32 (non-tensor) FLOP/s,
-# int8 tensor-core OP/s
-RATES = {
-    "PCIe": (2.0e12, 756e12, 51e12, 1513e12),
-    "NVL": (3.9e12, 835e12, 60e12, 1670e12),
-    "SXM": (3.35e12, 989e12, 67e12, 1979e12),
-}
 QPROJS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj")
 
 
 def card_rates(name: str):
-    for key in ("PCIe", "NVL"):
-        if key in name:
-            return RATES[key]
-    return RATES["SXM"]
+    """The card's data-sheet rates (dense): bytes/s, bf16 FLOP/s, fp32
+    (non-tensor) FLOP/s, int8 tensor-core OP/s, from the one table,
+    ``repro_torch.launch.roofline.RATES``."""
+    from repro_torch.launch.roofline import card_rates as rates
+
+    return rates(name)
 
 
 def nvidia_smi_line() -> str:
@@ -5942,6 +5967,13 @@ def train_run(torch, label, rates, policy):
           f"S T, N = {sum(p.numel() for k, p in named.items() if k != 'embed.w') / 1e9:.3f}B "
           f"without the embedding), bound {bound * 1e3:.1f} ms at {rates[1] / 1e12:.0f} "
           f"TFLOP/s: {bound / med:.3f} of it; losses {[round(x, 4) for x in losses]}")
+    dry = train_dry_count(cfg, opt_cfg, policy, rates)
+    print(f"  {label}: the dry-run's count of the same step (every op executed on meta, "
+          f"remat's second forward and AdamW included): {dry.flops_per_dev / 1e12:.2f} TOP "
+          f"({', '.join(f'{c} {n / 1e12:.2f}' for c, n in dry.ops_per_dev.items() if n)}), "
+          f"compute bound {dry.compute_s * 1e3:.1f} ms, {dry.bytes_per_dev / 1e9:.2f} GB "
+          f"compulsory, memory bound {dry.memory_s * 1e3:.1f} ms, against the 6 N T + 12 L d "
+          f"S T figure's {bound * 1e3:.1f} ms")
     print(f"  {label}: peak memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB, reserved {torch.cuda.max_memory_reserved() / 2**30:.2f} GiB "
           f"({n_params / 1e9:.3f}B parameters)")
@@ -5951,6 +5983,7 @@ def train_run(torch, label, rates, policy):
     prof = profile_once(torch, f"{label} step {TRAIN_STEPS + 1}",
                         lambda: step(params, opt, batches[TRAIN_STEPS]), med * 1e3)
     out = {"step_s": med, "launches": launches, "prof": prof}
+    DRY_STEPS[label] = (dry, prof[1])
     if label == "13a":
         # the optimizer pass alone, on the last step's gradients
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -5972,6 +6005,32 @@ def train_run(torch, label, rates, policy):
     del params, opt, named, model, step, batches
     free_device(torch, label)
     return out
+
+
+# 13a / 13b: (the dry-run's report of the step, the profiled step's busy
+# ms), read by phase 16b
+DRY_STEPS = {}
+
+
+def train_dry_count(cfg, opt_cfg, policy, rates):
+    """The dry-run's roofline report (``launch/roofline``) of one train step
+    of ``cfg`` on ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens: the same step
+    function on ``meta`` tensors, counted."""
+    import torch
+
+    from repro_torch.launch import roofline
+    from repro_torch.launch.cells import meta_params
+    from repro_torch.models import build_model
+    from repro_torch.train import adamw_init, make_train_step, make_trainable
+    from repro_torch.train import trainable_params
+
+    params = make_trainable(meta_params(cfg))
+    step = make_train_step(build_model(cfg, device="meta"), opt_cfg, policy)
+    batch = {"tokens": torch.empty(TRAIN_BATCH, TRAIN_SEQ + 1, dtype=torch.int32,
+                                   device="meta")}
+    _, count = roofline.count_step(step, params, adamw_init(trainable_params(params)), batch)
+    return roofline.analyze("llama31_8b", "train", "1x1", count, cfg, "train",
+                            TRAIN_BATCH * TRAIN_SEQ, roofline.HW(*rates))
 
 
 def checkpoint_rate(torch, params, opt, named):
@@ -6180,7 +6239,7 @@ def phase_training(torch, rates):
 
 
 # ------------------------------------------------------ tensor parallelism
-TP_DEPTH = 16               # LLaMA-3.1-8B's layers in 14b and 14c (of 32)
+TP_DEPTH = 8                # LLaMA-3.1-8B's layers in 14b and 14c (of 32; 16 until phase 16)
 # 14d: the CLI at the smoke size (14b and 14c serve the full width)
 TP_CLI_FLAGS = ["--arch", "llama31_8b", "--smoke", "--trace", "--num-requests", "6",
                 "--len-range", "6:40", "--slots", "2", "--chunk", "16", "--new-tokens", "8",
@@ -6601,12 +6660,13 @@ def _mask_spy(moe_lib, layers: int):
 
 def _reset_counts(torch):
     from repro_torch import kernels
-    from repro_torch.distributed import sharding
+    from repro_torch.distributed import sharding, tp
     from repro_torch.models import moe
 
     kernels.reset_launch_counts()
     for v in sharding.collectives.values():
         v[:] = [0, 0]
+    tp.gather.calls = tp.gather.bytes = 0
     moe.shard_map_stats.update(calls=0, pairs=0, dropped=0, capacity=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -6614,13 +6674,12 @@ def _reset_counts(torch):
 
 def _counts(torch):
     from repro_torch import kernels
-    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun
     from repro_torch.models import moe
 
     torch.cuda.synchronize()
     return dict(launches=kernels.counters(), moe=dict(moe.shard_map_stats),
-                collectives={k: list(v) for k, v in sharding.collectives.items()},
-                peak_gib=_gib(torch.cuda.max_memory_allocated()))
+                collectives=dryrun._tallies(), peak_gib=_gib(torch.cuda.max_memory_allocated()))
 
 
 def _moe_cell(mesh, n_layers):
@@ -6694,6 +6753,7 @@ def cell_rank(ckpt: str):
     import torch.distributed as dist
 
     from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.launch.dryrun import state_bytes
     from repro_torch.launch.mesh import make_cell_mesh
     from repro_torch.models import moe as moe_lib
 
@@ -6710,6 +6770,7 @@ def cell_rank(ckpt: str):
     torch.cuda.synchronize()
     me["a_built"] = time.perf_counter() - t0
     me["a_held_gib"] = _gib(torch.cuda.memory_allocated())
+    me["a_bytes"] = state_bytes(state)
     _reset_counts(torch)
     t0 = time.perf_counter()
     logits = cell.run(state)[0]
@@ -6741,6 +6802,7 @@ def cell_rank(ckpt: str):
     me["b_held"] = {"params": _gib(_local_bytes(state["params"].parameters())),
                     "moments": _gib(_local_bytes(list(state["opt"]["mu"].values())
                                                  + list(state["opt"]["nu"].values())))}
+    me["b_bytes"] = state_bytes(state)
     _reset_counts(torch)
     me["b_steps"] = []
     for i in range(steps):
@@ -6757,6 +6819,8 @@ def cell_rank(ckpt: str):
         torch.cuda.synchronize()
         me["b_steps"].append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
                                   wall=time.perf_counter() - t0))
+        if i == 0:
+            me["b_first"] = _counts(torch)
         if me["rank"] == 0:
             print(f"  15b rank 0 step {i}: {me['b_steps'][-1]}", flush=True)
     me["b"] = _counts(torch)
@@ -6770,6 +6834,7 @@ def cell_rank(ckpt: str):
     cell = _decode_cell(mp)
     state = cell.materialize(SEED, "cuda", filled=CELL_DECODE[1] - CELL_DECODE[2])
     me["c_heads"] = state["cache"]["layers"][0]["k"].shape[2]
+    me["c_bytes"] = state_bytes(state)
     _reset_counts(torch)
     t0 = time.perf_counter()
     me["c_tokens"] = _greedy(torch, cell, state, CELL_DECODE[2])
@@ -6969,7 +7034,252 @@ def phase_cells(torch, rates):
         cells_reference(torch, ranks, ckpt)
     print(f"phase 15 seconds: ranks {t1 - t0:.1f}, one-rank references and checks "
           f"{time.perf_counter() - t1:.1f}")
-    return {"15a": {k: v for k, v in ranks[0]["a"]["launches"].items() if "." not in k}}
+    return {"15a": {k: v for k, v in ranks[0]["a"]["launches"].items() if "." not in k}}, ranks
+
+# ------------------------------------------------------------ launch tooling
+DRY_SHARE_LIMIT = 1.05      # 16b: a bound above the measured busy time is a counting fault
+DRY_PREFILL = (1, 2048)     # 16b: LLaMA-3.1-8B's prefill cell, B x T
+DRY_DECODE = (4, 4096)      # 16b: its decode cell, B over a cache this deep
+TOOLING_TIMEOUT = 900       # s: each 16c command
+# 16c's commands that count on the host, started niced when the run starts:
+# (label, arguments after ``python -m``, lines their output must hold)
+HOST_TOOLS = (
+    ("dryrun llama31_8b", ["repro_torch.launch.dryrun", "--both", "--arch", "llama31_8b",
+                           "--json", "{dir}/llama.json"],
+     ["[dryrun] done: 6 ok, 2 skipped, 0 unported, 0 failed"]),
+    ("dryrun qwen3_30b_a3b", ["repro_torch.launch.dryrun", "--both", "--arch",
+                              "qwen3_30b_a3b", "--json", "{dir}/qwen3.json"],
+     ["[dryrun] done: 4 ok, 2 skipped, 2 unported, 0 failed"]),
+    ("perf", ["repro_torch.launch.perf", "--arch", "qwen2_5_32b", "--shape", "prefill_32k"],
+     ["dense ", "per_token ", "tile_consensus ", "Δ vs dense"]),
+    ("roofline_exact", ["repro_torch.launch.roofline_exact", "--arch", "llama31_8b",
+                        "--shape", "prefill_32k"],
+     ["[exact] llama31_8b × prefill_32k: c=", "(= the full-depth count)"]),
+)
+# the examples, on the card: (label, script, arguments, lines); the train
+# example's resume is held to the JAX example's on the CPU
+# (tests/test_torch_examples.py), and 13d/13e resume training on the card
+EXAMPLES = (
+    ("train", "torch_train_sparse_lm.py", ["--steps", "6", "--ckpt-dir", "{dir}/train"],
+     ["resumed_from=0  loss"]),
+    ("quickstart", "torch_quickstart.py", [],
+     ["2:4 pruned activation sparsity: 0.50", "Amber 8:16 prefill — output perturbation"]),
+    ("serve", "torch_serve_sparse_prefill.py", [],
+     ["[amber816] prefill+decode 8×(96→32)", "greedy agreement (dense vs sparse prefill)"]),
+    ("deploy", "torch_deploy_outstanding_sparse.py", [],
+     ["selected q/gate skip layers", "SQ-W8A8 (α=0.5)", "Outstanding (α=0.1, ŝ=1/s)"]),
+)
+
+
+def _tool_env():
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = str(root / "src") + (os.pathsep + env["PYTHONPATH"]
+                                              if env.get("PYTHONPATH") else "")
+    return root, env
+
+
+def _start(label, argv, workdir, niced: bool):
+    """A 16c command as a process of its own, its output to a file."""
+    import os
+
+    root, env = _tool_env()
+    out = open(Path(workdir) / f"{label.replace(' ', '_')}.log", "w")
+    proc = subprocess.Popen([sys.executable, *argv], cwd=root, env=env, stdout=out,
+                            stderr=subprocess.STDOUT, text=True,
+                            preexec_fn=(lambda: os.nice(19)) if niced else None)
+    return {"label": label, "proc": proc, "out": out, "t0": time.perf_counter()}
+
+
+def start_host_tools(workdir):
+    """16c's host-side commands (the dry-run CLIs), started when the run
+    starts, niced, on one thread each: they count on the CPU, and finish
+    long before phase 16 collects them."""
+    return [dict(_start(label, ["-m"] + [a.format(dir=workdir) for a in argv], workdir, True),
+                 want=want) for label, argv, want in HOST_TOOLS]
+
+
+def _finish(job, timeout):
+    """Wait for a 16c command and check its exit code and lines; → (its
+    output, its seconds)."""
+    try:
+        rc = job["proc"].wait(timeout=max(1.0, timeout))
+    except subprocess.TimeoutExpired:
+        job["proc"].kill()
+        job["proc"].wait()
+        fail(f"16c {job['label']}: no exit within {TOOLING_TIMEOUT} s")
+    secs = time.perf_counter() - job["t0"]
+    job["out"].close()
+    text = Path(job["out"].name).read_text()
+    if rc != 0:
+        print(text[-4000:])
+        fail(f"16c {job['label']}: exit {rc}")
+    missing = [w for w in job["want"] if w not in text]
+    if missing:
+        print(text[-4000:])
+        fail(f"16c {job['label']}: its output lacks {missing}")
+    return text, secs
+
+
+def _stop_all(jobs) -> None:
+    for job in jobs:
+        if job["proc"].poll() is None:
+            job["proc"].kill()
+            job["proc"].wait()
+
+
+def dry_cells_check(torch, ranks):
+    """16a: phase 15's cells counted on dry ranks, against the ranks'
+    records."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import abstract_mesh
+
+    b, t = CELL_MOE_BT
+    bt, tt, ga, _ = CELL_TRAIN
+    db, ds, steps = CELL_DECODE
+    moe = dataclasses.replace(get_config("qwen3_30b_a3b"))
+    dense = dataclasses.replace(get_config("llama31_8b"), n_layers=CELL_DEPTH)
+    cases = (
+        ("15a", "a", 1, dict(arch="qwen3_30b_a3b", shape_name="prefill_32k", cfg=moe,
+                             policy=paper_policy(8, 16, (41, 46, 47), use_kernels=True),
+                             shape=ShapeCell("prefill_32k", t, b, "prefill")), (1, 2)),
+        ("15b", "b", 1, dict(arch="llama31_8b", shape_name="train_4k", cfg=dense, grad_accum=ga,
+                             shape=ShapeCell("train_4k", tt, bt, "train")), (2, 1)),
+        ("15c", "c", steps, dict(arch="llama31_8b", shape_name="decode_32k", cfg=dense,
+                                 shape=ShapeCell("decode_32k", ds, db, "decode")), (1, 2)),
+    )
+    for label, key, times, kw, grid in cases:
+        for me in ranks:
+            r = me["rank"]
+            mesh = abstract_mesh(grid, ("data", "model"))
+            dry = run_cell(mesh=mesh, rank=r, **kw)
+            if dry["status"] != "ok":
+                fail(f"16a {label} rank {r}: the dry-run says {dry}")
+            got = me["b_first"] if key == "b" else me[key]
+            held = me[f"{key}_bytes"]
+            args = dry["bytes_per_device"]["args"]
+            batch = 0
+            if key == "b":          # the rank's shard of the step's batch
+                batch = bt // grid[0] * (tt + 1) * 4
+            if dry["held"] != held or args != held + batch:
+                fail(f"16a {label} rank {r}: the dry rank holds {dry['held']} B (arguments "
+                     f"{args} B from the specs), the rank held {held} B (+ {batch} B of batch)")
+            want = {k: [n * times for n in v] for k, v in dry["collectives"].items()}
+            if want != got["collectives"]:
+                fail(f"16a {label} rank {r}: dry collectives x {times} {want} against the "
+                     f"rank's {got['collectives']}")
+            peak = dry["bytes_per_device"]["total"] / 2**30
+            print(f"  16a {label} rank {r}: held {held} B = the dry rank's (arguments {args} B "
+                  f"from the specs{f', {batch} B of them the batch' if batch else ''}); "
+                  f"collectives equal the rank's{f' ({times} steps)' if times > 1 else ''}: "
+                  + ", ".join(f"{k} {n} of {nb / 2**20:.1f} MiB"
+                              for k, (n, nb) in got["collectives"].items() if n)
+                  + f"; peak predicted {peak:.2f} GiB, measured {got['peak_gib']:.2f} GiB: "
+                  f"ratio {peak / got['peak_gib']:.3f}; counted in {dry['count_s']} s")
+
+
+def _share(label, rep, busy_ms, rates, card):
+    """16b: the dry-run's bound over the busy time of a profiled step."""
+    bound = rep.bound_s * 1e3
+    share = bound / busy_ms
+    mfu = rep.model_flops_total / (busy_ms * 1e-3 * rates[1])
+    print(f"  16b {label}: bound {bound:.3f} ms ({rep.dominant}: compute "
+          f"{rep.compute_s * 1e3:.3f}, memory {rep.memory_s * 1e3:.3f}, collective "
+          f"{rep.collective_s * 1e3:.3f} ms; "
+          f"{rep.flops_per_dev / 1e12:.3f} TOP "
+          f"({', '.join(f'{c} {n / 1e12:.3f}' for c, n in rep.ops_per_dev.items() if n)}), "
+          f"{rep.bytes_per_dev / 1e9:.3f} GB compulsory) against {busy_ms:.3f} ms busy: share "
+          f"{share:.3f}; model_flops / (busy x peak) {mfu:.3f} ({card})")
+    if not share <= DRY_SHARE_LIMIT:
+        fail(f"16b {label}: the bound {bound:.3f} ms exceeds the busy time {busy_ms:.3f} ms "
+             f"(share {share:.3f} > {DRY_SHARE_LIMIT}): a counting fault")
+
+
+def dry_shares(torch, rates, card):
+    """16b: the one-rank prefill and decode cells of LLaMA-3.1-8B on the card
+    (one step profiled) and counted on ``meta``; phase 13a's train step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.launch import roofline
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.dryrun import args_bytes
+    from repro_torch.launch.mesh import make_local_mesh
+
+    cfg = get_config("llama31_8b")
+    hw = roofline.HW(*rates)
+    pol = paper_policy(8, 16, cfg.qgate_skip_layers, use_kernels=True)
+    for label, shape_name, (b, t), kind in (("prefill", "prefill_32k", DRY_PREFILL, "prefill"),
+                                            ("decode", "decode_32k", DRY_DECODE, "decode")):
+        shape = ShapeCell(shape_name, t, b, kind)
+        cell = build_cell("llama31_8b", shape_name, make_local_mesh(), policy=pol, shape=shape)
+        t0 = time.perf_counter()
+        dry_state = cell.materialize(device="meta")
+        _, count = roofline.count_step(cell.run, dry_state, args_bytes=args_bytes(cell))
+        rep = roofline.analyze("llama31_8b", shape_name, "1x1", count, cfg, kind,
+                               b * (t if kind == "prefill" else 1), hw)
+        counted = time.perf_counter() - t0
+        state = cell.materialize(SEED, "cuda", filled=t - 3 if kind == "decode" else None)
+        cell.run(state)
+        torch.cuda.synchronize()
+        _, busy, _ = profile_once(torch, f"16b {label} B={b} T={t}", lambda: cell.run(state))
+        _share(f"LLaMA-3.1-8B {label} cell, B = {b}, "
+               f"{'T' if kind == 'prefill' else 'S'} = {t} (counted in {counted:.1f} s)", rep,
+               busy, rates, card)
+        del state, dry_state, cell
+        free_device(torch, f"16b {label}")
+    if "13a" not in DRY_STEPS:
+        fail("16b: phase 13a's train step was not counted")
+    for label, (rep, busy) in sorted(DRY_STEPS.items()):
+        _share(f"phase {label}'s train step (depth {TRAIN_DEPTH}, {TRAIN_BATCH} x "
+               f"{TRAIN_SEQ})", rep, busy, rates, card)
+
+
+def phase_tooling(torch, rates, ranks, host_jobs, workdir):
+    """Phase 16 (after 15): the launch tooling (module docstring).  The
+    examples start first and run beside 16a (which counts on the host);
+    16b profiles the card once every example has exited."""
+    card = nvidia_smi_line()
+    print(f"phase 16: launch tooling ({card})")
+    t0 = time.perf_counter()
+    examples = []
+    for label, script, argv, want in EXAMPLES:
+        path = str(Path(__file__).resolve().parent / "examples" / script)
+        examples.append(dict(_start(label, [path, *[a.format(dir=workdir) for a in argv]],
+                                    workdir, False), want=want))
+    try:
+        dry_cells_check(torch, ranks)
+        t1 = time.perf_counter()
+        for job in host_jobs:
+            _, secs = _finish(job, TOOLING_TIMEOUT - (time.perf_counter() - job["t0"]))
+            print(f"  16c {job['label']}: exit 0, its lines present ({secs:.1f} s since the run "
+                  "started it)")
+        merged = Path(workdir) / "dryrun.json"
+        merged.write_text(json.dumps(json.loads((Path(workdir) / "llama.json").read_text())
+                                     + json.loads((Path(workdir) / "qwen3.json").read_text())))
+        report = _start("report", ["-m", "repro_torch.launch.report", str(merged)], workdir,
+                        False)
+        jobs = examples + [dict(report, want=[
+            "| llama31_8b | train_4k | ok |", "| qwen3_30b_a3b | train_4k | UNPORTED (",
+            "cells: 10 ok / 4 skipped / 2 unported / 0 failed (of 16)"])]
+        for job in jobs:
+            text, secs = _finish(job, TOOLING_TIMEOUT)
+            print(f"  16c {job['label']}: exit 0 in {secs:.1f} s, its lines present: "
+                  + " | ".join(line.strip()[:110] for line in text.splitlines()
+                               if any(w in line for w in job["want"]))[:600])
+    finally:
+        _stop_all(host_jobs + examples)
+    t2 = time.perf_counter()
+    dry_shares(torch, rates, card)
+    t3 = time.perf_counter()
+    print(f"phase 16 seconds: 16a {t1 - t0:.1f}, 16c after it {t2 - t1:.1f} (the examples "
+          f"from the phase's start: {t2 - t0:.1f}), 16b {t3 - t2:.1f}")
+
 
 def numerics(torch) -> None:
     """Full-precision float32 and bf16 GEMM reductions, in this process and
@@ -6991,7 +7301,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
-    from repro_torch.kernels import _build
 
     numerics(torch)
     card = nvidia_smi_line()
@@ -7004,6 +7313,20 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     print(f"rates used for bounds: {rates[0] / 1e12:.2f} TB/s, {rates[1] / 1e12:.0f} "
           f"TFLOP/s bf16, {rates[2] / 1e12:.0f} TFLOP/s fp32, {rates[3] / 1e12:.0f} TOP/s int8")
+
+    import tempfile
+
+    tooling = tempfile.TemporaryDirectory(prefix="tooling-")
+    host_jobs = start_host_tools(tooling.name)
+    try:
+        return run_phases(torch, name, rates, card, host_jobs, tooling.name)
+    finally:
+        _stop_all(host_jobs)
+        tooling.cleanup()
+
+
+def run_phases(torch, name, rates, card, host_jobs, workdir) -> int:
+    from repro_torch.kernels import _build
 
     t = time.perf_counter()
     info = _build.build()
@@ -7066,8 +7389,10 @@ def main() -> int:
     t15 = time.perf_counter()
     tp_launches = phase_tp(torch)
     t16 = time.perf_counter()
-    cell_launches = phase_cells(torch, rates)
+    cell_launches, ranks = phase_cells(torch, rates)
     t17 = time.perf_counter()
+    phase_tooling(torch, rates, ranks, host_jobs, workdir)
+    t18 = time.perf_counter()
     print(f"phase seconds: build {t1 - t:.1f}, kernels {t2 - t1:.1f}, serve {t3 - t2:.1f}, "
           f"serve osparse {t4 - t3b:.1f}, parity {t5 - t4:.1f}, one-shot serve {t6 - t5:.1f}, "
           f"one-shot parity {t7 - t6:.1f}, serve CLI and serving lifecycle "
@@ -7076,8 +7401,8 @@ def main() -> int:
           f"MoE {t9 - t8:.1f}, dense variants {t10 - t9:.1f}, layer skipping {t11 - t10:.1f}, "
           f"Mixtral and the slab {t12 - t11:.1f}, the recurrent families {t13 - t12:.1f}, "
           f"the modality families {t14 - t13:.1f}, training {t15 - t14:.1f}, tensor "
-          f"parallelism {t16 - t15:.1f}, sharded cells {t17 - t16:.1f}; phases in all "
-          f"{t17 - t:.1f}")
+          f"parallelism {t16 - t15:.1f}, sharded cells {t17 - t16:.1f}, launch tooling "
+          f"{t18 - t17:.1f}; phases in all {t18 - t:.1f}")
 
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import nm_prune as knp

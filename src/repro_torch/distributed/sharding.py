@@ -26,8 +26,12 @@ counterpart of ``jax.sharding.AbstractMesh``, so the specs of the full
 configs are computed here on ``meta`` tensors.  Bound to an initialised
 ``torch.distributed`` group (``launch.mesh.make_cell_mesh``), it also knows
 this process's rank, hence its coordinates (row-major over the axes), and
-one subgroup per set of axes.  :func:`mesh_scope` is ``with mesh:``;
-:func:`_context_mesh` reads it.
+one subgroup per set of axes.  A **dry rank** (:meth:`Mesh.at`) is a
+description given one rank's coordinates and subgroups of
+:class:`DryGroup`: it runs the code of a bound rank on ``meta`` tensors,
+and each collective returns a ``meta`` result of the real one's shape and
+is recorded, never run (the dry-run, ``launch/dryrun.py``).
+:func:`mesh_scope` is ``with mesh:``; :func:`_context_mesh` reads it.
 
 The runtime, for the cells (``launch/cells.py``):
 
@@ -54,6 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import math
 import threading
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -66,7 +71,7 @@ __all__ = [
     "opt_state_specs", "shard_zero1", "named", "mesh_scope", "local", "gather",
     "gather_param", "gather_to_root", "all_reduce", "reduce_slice", "tag", "full_shape",
     "model_dim", "gathered", "head_local", "whole_sequence", "is_sharded", "sharded",
-    "effective", "collectives",
+    "effective", "collectives", "DryGroup", "recording",
 ]
 
 Spec = Tuple[Any, ...]
@@ -80,17 +85,40 @@ _COL = {
 _ROW = {"o_proj", "down_proj"}
 
 
+@dataclasses.dataclass(frozen=True)
+class DryGroup:
+    """A subgroup of a dry rank: the axes it spans, its members (global
+    ranks, in order) and this rank's place among them.  Nothing runs on it."""
+    axes: Tuple[str, ...]
+    ranks: Tuple[int, ...]
+    index: int
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+
+def _is_dry(group) -> bool:
+    return isinstance(group, DryGroup)
+
+
+def _group_rank(group) -> int:
+    return group.index if _is_dry(group) else dist.get_rank(group)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """Axis names and sizes; bound (``groups`` set) it is this process's
     place in an initialised group: ``rank`` and, per tuple of axes (in mesh
     order), the lanes of the subgroup over them that holds this rank: groups
     of the same ranks that a large collective is split across (None for a
-    subgroup of one rank)."""
+    subgroup of one rank).  ``dry``: a dry rank (:meth:`at`), whose lanes
+    are one :class:`DryGroup` each."""
     axis_names: Tuple[str, ...]
     sizes: Tuple[int, ...]
     rank: Optional[int] = None
     groups: Optional[Dict[Tuple[str, ...], Any]] = None
+    dry: bool = False
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -125,8 +153,42 @@ class Mesh:
         lanes = self.lanes(axes)
         return None if lanes is None else lanes[0]
 
+    def members(self, axes: Tuple[str, ...], rank: int) -> Tuple[int, ...]:
+        """The global ranks of the subgroup over ``axes`` that holds
+        ``rank``: those that share its coordinates on every other axis."""
+        mine = dataclasses.replace(self, rank=rank).coords()
+        spans = [range(n) if a in axes else (mine[a],)
+                 for a, n in zip(self.axis_names, self.sizes)]
+        out = []
+        for c in itertools.product(*spans):          # row-major, as ranks are
+            r = 0
+            for i, n in zip(c, self.sizes):
+                r = r * n + i
+            out.append(r)
+        return tuple(out)
+
+    def at(self, rank: int) -> "Mesh":
+        """This description as dry rank ``rank``: its coordinates, and per
+        tuple of axes a :class:`DryGroup` (None for one rank).  A bound
+        mesh cannot be made dry."""
+        if self.bound:
+            raise ValueError(f"mesh {self.shape} is bound to ranks; only a description "
+                             "takes a dry rank")
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is not on mesh {self.shape}")
+        names, groups = self.axis_names, {}
+        for bits in range(1, 2 ** len(names)):
+            sub = tuple(a for i, a in enumerate(names) if bits >> i & 1)
+            if math.prod(self.shape[a] for a in sub) == 1:
+                groups[sub] = None
+                continue
+            ranks = self.members(sub, rank)
+            groups[sub] = (DryGroup(sub, ranks, ranks.index(rank)),)
+        return dataclasses.replace(self, rank=rank, groups=groups, dry=True)
+
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}{'' if self.rank is None else f', rank {self.rank}'})"
+        tail = "" if self.rank is None else f", {'dry ' if self.dry else ''}rank {self.rank}"
+        return f"Mesh({self.shape}{tail})"
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -371,6 +433,33 @@ def _batch_shards() -> int:
 # its own), read by the cells' reports
 collectives = {"all_gather": [0, 0], "all_reduce": [0, 0]}
 
+# where :func:`recording` is open: (kind, result bytes, group size, axes) of
+# every collective run or recorded, this module's and ``distributed.tp.gather``'s;
+# module-wide, since a remat recompute runs in the autograd thread
+_log: Optional[list] = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every collective of the extent: yields the list of
+    ``(kind, result bytes, group size, axes)`` it fills."""
+    global _log
+    prev, _log = _log, []
+    try:
+        yield _log
+    finally:
+        _log = prev
+
+
+def note(kind: str, nbytes: int, size: int, axes: Tuple[str, ...]) -> None:
+    """Add one collective to the open :func:`recording`, if any."""
+    if _log is not None:
+        _log.append((kind, int(nbytes), int(size), tuple(axes)))
+
+
+def _lanes_axes(lanes) -> Tuple[str, ...]:
+    return lanes[0].axes if _is_dry(lanes[0]) else ()
+
 
 def _axes(entry) -> Tuple[str, ...]:
     return () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
@@ -402,6 +491,8 @@ def local(t: torch.Tensor, spec: Optional[Spec], mesh: Mesh) -> torch.Tensor:
 def _sum_in_lanes(t: torch.Tensor, lanes) -> torch.Tensor:
     """``t`` (contiguous) summed over a subgroup's ranks in place, split into
     one piece per lane (at least 1 MiB each), the pieces reduced at once."""
+    if _is_dry(lanes[0]):
+        return t
     flat = t.view(-1)
     pieces = max(1, min(len(lanes), flat.numel() * flat.element_size() // 2**20))
     works = [dist.all_reduce(c, group=g, async_op=True)
@@ -417,10 +508,11 @@ def _all_gather(t: torch.Tensor, lanes, n: int, dim: int) -> torch.Tensor:
     each rank writes its part into a zeroed whole and the wholes are summed:
     adding zeros is exact."""
     whole = t.new_zeros((n,) + tuple(t.shape))
-    whole[dist.get_rank(lanes[0])] = t.detach()
+    whole[_group_rank(lanes[0])] = t.detach()
     _sum_in_lanes(whole, lanes)
     collectives["all_gather"][0] += 1
     collectives["all_gather"][1] += whole.numel() * whole.element_size()
+    note("all_gather", whole.numel() * whole.element_size(), n, _lanes_axes(lanes))
     return torch.cat(whole.unbind(0), dim=dim)
 
 
@@ -436,6 +528,8 @@ def gather(t: torch.Tensor, spec: Optional[Spec], mesh: Mesh) -> torch.Tensor:
 def _p2p(t: torch.Tensor, lanes, peer: int, send: bool) -> None:
     """Send ``t`` (contiguous) to global rank ``peer``, or receive it from
     there, in one piece per lane (at least 1 MiB each), the pieces at once."""
+    if _is_dry(lanes[0]):
+        return
     flat = t.view(-1)
     pieces = max(1, min(len(lanes), flat.numel() * flat.element_size() // 2**20))
     op = dist.isend if send else dist.irecv
@@ -450,8 +544,10 @@ def gather_to_root(t: torch.Tensor, spec: Optional[Spec], mesh: Mesh) -> Optiona
     once, point to point, where a gather would send it to every rank.
     Gloo sends host memory only, so the slices go through it.  The mesh
     spans the whole group (``launch.mesh.make_cell_mesh``), so its ranks are
-    the group's."""
-    t = t.detach().cpu().contiguous()
+    the group's.  A dry rank keeps ``meta`` tensors where they are."""
+    t = t.detach().contiguous()
+    if not mesh.dry:
+        t = t.cpu()
     if not sharded(spec, mesh):
         return t if mesh.rank == 0 else None
     lanes = mesh.lanes(mesh.axis_names)
@@ -466,6 +562,7 @@ def gather_to_root(t: torch.Tensor, spec: Optional[Spec], mesh: Mesh) -> Optiona
         local(whole, spec, dataclasses.replace(mesh, rank=r)).copy_(buf if r else t)
     collectives["all_gather"][0] += 1
     collectives["all_gather"][1] += whole.numel() * whole.element_size()
+    note("gather_to_root", whole.numel() * whole.element_size(), mesh.size, mesh.axis_names)
     return whole
 
 
@@ -481,10 +578,13 @@ def reduce_slice(t: torch.Tensor, axes: Tuple[str, ...], spec: Optional[Spec], m
 def all_reduce(t: torch.Tensor, axes: Tuple[str, ...], mesh: Mesh) -> torch.Tensor:
     """Sum ``t`` (contiguous) over the ranks of ``axes`` in place (the
     ``psum``)."""
-    if math.prod(mesh.shape[a] for a in axes) > 1:
-        _sum_in_lanes(t, mesh.lanes(axes))
+    n = math.prod(mesh.shape[a] for a in axes)
+    if n > 1:
+        lanes = mesh.lanes(axes)
+        _sum_in_lanes(t, lanes)
         collectives["all_reduce"][0] += 1
         collectives["all_reduce"][1] += t.numel() * t.element_size()
+        note("all_reduce", t.numel() * t.element_size(), n, _lanes_axes(lanes))
     return t
 
 

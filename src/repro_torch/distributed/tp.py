@@ -55,6 +55,8 @@ from typing import Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch.distributed import sharding
+
 __all__ = ["TPScope", "scope", "current", "degree", "column_parallel",
            "head_sharded_attention", "head_sharded_scatter", "replica_groups",
            "gather", "shard_columns", "full_cols", "shards_kv", "captures", "size_of"]
@@ -88,7 +90,8 @@ def scope(group):
         yield None
         return
     prev = current()
-    _local.scope = TPScope(group, dist.get_rank(group), dist.get_world_size(group))
+    rank = group.index if sharding._is_dry(group) else dist.get_rank(group)
+    _local.scope = TPScope(group, rank, size_of(group))
     try:
         yield _local.scope
     finally:
@@ -109,7 +112,9 @@ def _suspended():
 
 def size_of(group) -> int:
     """The ranks of ``group`` (1 for None)."""
-    return 1 if group is None else dist.get_world_size(group)
+    if group is None:
+        return 1
+    return group.size if sharding._is_dry(group) else dist.get_world_size(group)
 
 
 def captures(group) -> bool:
@@ -121,12 +126,17 @@ def captures(group) -> bool:
 def gather(y: torch.Tensor, axis: int, ctx: TPScope) -> torch.Tensor:
     """All-gather ``y`` from every rank of ``ctx`` and concatenate the parts
     along ``axis`` in rank order.  Gloo takes CUDA tensors (it stages them
-    through host memory itself), so the parts come back on ``y``'s device."""
+    through host memory itself), so the parts come back on ``y``'s device.
+    On a dry rank's group (``sharding.DryGroup``) nothing runs: the parts
+    are ``meta`` tensors of ``y``'s shape, and the gather is recorded."""
     y = y.contiguous()
     parts = [torch.empty_like(y) for _ in range(ctx.size)]
-    dist.all_gather(parts, y, group=ctx.group)
+    if not sharding._is_dry(ctx.group):
+        dist.all_gather(parts, y, group=ctx.group)
     gather.calls += 1
     gather.bytes += y.numel() * y.element_size() * ctx.size
+    sharding.note("all_gather", y.numel() * y.element_size() * ctx.size, ctx.size,
+                  getattr(ctx.group, "axes", ()))
     return torch.cat(parts, dim=axis % y.dim())
 
 

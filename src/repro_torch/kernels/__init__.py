@@ -12,7 +12,10 @@ launch counter.
 | ``paged_attention`` | ``csrc/paged_attention.cu``   | ``repro/kernels/paged_attention.py:130``       |
 | ``flash_attention`` | ``csrc/flash_attention.cu``   | ``repro/kernels/flash_attention.py:116``       |
 
-Libraries are built with ``nvcc`` at first use (``_build.py``).  Each
+Libraries are built with ``nvcc`` at first use (``_build.py``).  On
+``meta`` tensors (the dry-run) each wrapper is one unit (``_meta.py``): a
+``meta`` result of its shape, and its reads, writes and products reported
+to the step counter; nothing launches and no plain version runs.  Each
 wrapper counts its launches; :func:`counters` reads every count (by kernel,
 ``osparse_matmul``'s pruned calls, the int8 GEMMs' and the attention
 kernels' calls by route) as one

@@ -36,7 +36,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _meta
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_plan"]
 
@@ -119,6 +119,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_lengths(q, k, causal, window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window)
+    if q.device.type == "meta":
+        return _meta.flash_attention(q, k, v, causal, window)
     what = "flash_attention"
     _build.refuse_grad(what, q, k, v)
     if q.device.type != "cuda":

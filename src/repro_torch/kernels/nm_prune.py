@@ -22,7 +22,7 @@ import ctypes
 import torch
 
 from repro_torch.core import nm, scoring
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _meta
 
 __all__ = ["nm_prune", "nm_prune_plain"]
 
@@ -51,6 +51,8 @@ def nm_prune(x: torch.Tensor, scale: torch.Tensor | None, n: int, m: int) -> tor
     ``scale`` is the ``(D,)`` float32 Amber channel scale or None."""
     if x.device.type == "cpu":
         return nm_prune_plain(x, scale, n, m)
+    if x.device.type == "meta":
+        return _meta.nm_prune(x, scale, n, m)
     _build.refuse_grad("nm_prune", x, scale)
     if x.device.type != "cuda":
         raise ValueError(f"nm_prune: unsupported device {x.device}")

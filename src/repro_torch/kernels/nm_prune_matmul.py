@@ -46,7 +46,7 @@ import ctypes
 import torch
 
 from repro_torch.core import nm, scoring
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _meta
 
 __all__ = ["PruneMatmul", "gemm_plan", "nm_prune_matmul", "nm_prune_matmul_plain", "takes_wgmma"]
 
@@ -172,6 +172,10 @@ class PruneMatmul(torch.autograd.Function):
     def forward(ctx, x, w, bias, scale, n, m):
         if x.device.type == "cpu":
             y, xp, keep = _plain(x, w, scale, n, m, bias)
+        elif x.device.type == "meta":
+            y = _meta.nm_prune_matmul(x, w, scale, n, m, bias)
+            xp, keep = torch.empty_like(x), torch.empty(x.shape, dtype=torch.uint8,
+                                                        device="meta")
         else:
             y, xp, keep = _launch(x, w, scale, n, m, bias, with_keep=True)
         ctx.save_for_backward(xp, keep, w)
@@ -210,6 +214,8 @@ def nm_prune_matmul(x: torch.Tensor, w: torch.Tensor,
         return PruneMatmul.apply(x, w, bias, scale, n, m)
     if x.device.type == "cpu":
         return nm_prune_matmul_plain(x, w, scale, n, m, bias)
+    if x.device.type == "meta":
+        return _meta.nm_prune_matmul(x, w, scale, n, m, bias)
     return _launch(x, w, scale, n, m, bias, with_keep=False, plan=plan)[0]
 
 

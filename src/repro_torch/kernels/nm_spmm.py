@@ -34,7 +34,7 @@ import ctypes
 import torch
 
 from repro_torch.core import nm, scoring
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _meta
 
 __all__ = ["gemm_plan", "fits_plan", "nm_spmm", "nm_spmm_plain", "consensus_select",
            "consensus_select_plain"]
@@ -186,6 +186,8 @@ def nm_spmm(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None, n: int
     float32 sums); the CPU has none."""
     if x.device.type == "cpu":
         return nm_spmm_plain(x, w, scale, n, m, tile)
+    if x.device.type == "meta":
+        return _meta.nm_spmm(x, w, scale, n, m)
     _build.refuse_grad("nm_spmm", x, w, scale)
     _check("nm_spmm", x, scale, n, m, tile)
     t, d = x.shape

@@ -34,7 +34,7 @@ import ctypes
 import torch
 
 from repro_torch.core import nm, quant, scoring
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _meta
 from repro_torch.kernels.w8a8_matmul import (ROUTES, GemmPlan, _sms, check_int8_gemm,
                                               gemm_plan, route_code)
 
@@ -167,6 +167,9 @@ def osparse_matmul(x: torch.Tensor, wq: torch.Tensor, smooth: torch.Tensor,
     if x.device.type == "cpu":
         return osparse_matmul_plain(x, wq, smooth, amber, w_scale, n, m, act_scale,
                                     bias, prune, per_token)
+    if x.device.type == "meta":
+        return _meta.osparse_matmul(x, wq, smooth, amber, w_scale, n, m, act_scale, bias,
+                                    prune)
     _build.refuse_grad("osparse_matmul", x, wq, smooth, amber, w_scale, act_scale, bias)
     _check(x, smooth, amber, n, m, act_scale, prune, per_token)
     check_int8_gemm("osparse_matmul", x.shape, wq, w_scale, x.device)

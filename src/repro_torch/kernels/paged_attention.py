@@ -47,7 +47,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, _capture
+from repro_torch.kernels import _build, _capture, _meta
 
 __all__ = ["AttentionPlan", "attention_plan", "call_plan", "paged_kv_scatter",
            "paged_kv_scatter_plain", "paged_attention", "paged_attention_plain"]
@@ -137,6 +137,8 @@ def paged_kv_scatter(k_new, v_new, k_pool, v_pool, block_table, pos,
     if k_new.device.type == "cpu":
         return paged_kv_scatter_plain(k_new, v_new, k_pool, v_pool,
                                       block_table, pos, chunk_len)
+    if k_new.device.type == "meta":
+        return _meta.paged_kv_scatter(k_new, v_new, block_table, pos, chunk_len)
     what = "paged_kv_scatter"
     _build.refuse_grad(what, k_new, v_new, k_pool, v_pool)
     _check_cuda(k_new.device, what, k_new=k_new, v_new=v_new, k_pool=k_pool,
@@ -310,6 +312,8 @@ def paged_attention(q, k_pool, v_pool, block_table, q_offset, kv_len,
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, block_table, q_offset,
                                      kv_len, causal, window)
+    if q.device.type == "meta":
+        return _meta.paged_attention(q, k_pool, v_pool, block_table, q_offset, kv_len)
     what = "paged_attention"
     _build.refuse_grad(what, q, k_pool, v_pool)
     _check_cuda(q.device, what, q=q, k_pool=k_pool, v_pool=v_pool,

@@ -38,7 +38,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import quant
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _meta
 
 __all__ = ["w8a8_matmul", "w8a8_matmul_plain", "gemm_plan", "GemmPlan", "ROUTES",
            "check_int8_gemm", "route_code", "call_plan"]
@@ -188,6 +188,8 @@ def w8a8_matmul(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
     column shard takes the unsharded call's); the CPU has none."""
     if xq.device.type == "cpu":
         return w8a8_matmul_plain(xq, wq, x_scale, w_scale)
+    if xq.device.type == "meta":
+        return _meta.w8a8_matmul(xq, wq, x_scale, w_scale)
     _build.refuse_grad("w8a8_matmul", xq, wq, x_scale, w_scale)
     if xq.device.type != "cuda":
         raise ValueError(f"w8a8_matmul: unsupported device {xq.device}")

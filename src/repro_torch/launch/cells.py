@@ -12,12 +12,13 @@ weights FSDP-style (``param_specs(fsdp=True)``) with ZeRO-1 moments
 policy is ``paper_policy(8, 16, cfg.qgate_skip_layers)``, which is not
 active in ``"train"``: train cells run dense.
 
-JAX only lowers a cell; the port runs one.  On a mesh bound to ranks
-(``launch.mesh.make_cell_mesh``; ``spawn(..., grid=...)`` starts them)
-:meth:`Cell.materialize` builds this rank's shards: each tensor is made
-whole from a generator of its own, seeded by ``(seed, name)``, and cut to
-the rank's slice, so a shard equals the same slice of the unsharded
-tensor and a cell at any degree holds the same model.  :meth:`Cell.run`
+JAX only lowers a cell; the port runs one, or counts one (below).  On a
+mesh bound to ranks (``launch.mesh.make_cell_mesh``; ``spawn(...,
+grid=...)`` starts them) :meth:`Cell.materialize` builds this rank's
+shards: each tensor is made whole from a generator of its own, seeded by
+``(seed, name)``, and cut to the rank's slice, so a shard equals the same
+slice of the unsharded tensor and a cell at any degree holds the same
+model.  :meth:`Cell.run`
 executes the step under ``sharding.mesh_scope`` (and, with ``model`` over
 1, the TP scope on the ``model`` subgroup, where the kernel projections
 run column-parallel): each layer's shards are gathered whole for that
@@ -26,11 +27,21 @@ layer alone (``models/transformer.py``), the experts stay shards
 A run may take a smaller :class:`ShapeCell` of the same kind than
 ``SHAPE_CELLS``' (``build_cell(..., shape=)``): a cut the caller states.
 
-Only the decoder-only attention families run (dense, MoE, VLM text); a
-recurrent layer or the encoder-decoder raises ``NotImplementedError`` when
-its cell runs (their specs are computed all the same).  A mesh of more
-than one rank that is not bound raises: a cell never runs on one rank in
-place of its mesh.
+The counterpart of the reference's lowering is the **dry rank**
+(``sharding.Mesh.at(rank)``: a description given one rank's coordinates):
+``materialize(device="meta")`` makes that rank's shards as shapes only (no
+generator runs), and :meth:`Cell.run` executes the rank's share of the step
+on them, every collective recorded and none run, so ``launch/dryrun.py`` can
+count the step (``launch/roofline.count_step``) on the production meshes.
+
+Only the decoder-only attention families run sharded (dense, MoE, VLM
+text); a recurrent layer or the encoder-decoder raises
+``NotImplementedError`` when its cell of more than one rank materializes
+(ROADMAP A4b; their specs are computed all the same), and a train cell of
+an MoE, recurrent or encoder-decoder model raises it when it runs
+(``transformer.check_trainable``, ROADMAP A3b): the dry-run reports these
+cells ``unported``.  A mesh of more than one rank that is neither bound nor
+a dry rank raises: a cell never runs on one rank in place of its mesh.
 """
 from __future__ import annotations
 
@@ -145,10 +156,11 @@ class Cell:
         return {k: s.spec for k, s in self.in_shardings[0].items()}
 
     def _check_mesh(self) -> None:
-        if self.mesh.size > 1 and not self.mesh.bound:
+        if self.mesh.size > 1 and not (self.mesh.bound or self.mesh.dry):
             raise ValueError(f"{self.arch} × {self.shape.name}: mesh {self.mesh.shape} is not "
-                             "bound to ranks (repro_torch.launch.mesh.make_cell_mesh); a cell "
-                             "does not run on one rank in place of its mesh")
+                             "bound to ranks (repro_torch.launch.mesh.make_cell_mesh) nor a "
+                             "dry rank (mesh.at(rank)); a cell does not run on one rank in "
+                             "place of its mesh")
 
     def _local(self, t: torch.Tensor, spec) -> torch.Tensor:
         return shd.local(t, spec, self.mesh).contiguous() if self.mesh.bound else t
@@ -167,7 +179,9 @@ class Cell:
         name)``), and ``opt`` (train),
         ``cache`` (prefill: zeros; decode: rows ``< filled`` seeded, ``pos``
         = ``filled``, default ``seq_len - 1``) and ``tokens`` (prefill and
-        decode; train cells draw ``lm_batch`` per step in :meth:`run`)."""
+        decode; train cells draw ``lm_batch`` per step in :meth:`run`).
+        On ``device="meta"`` every tensor is a shape only: nothing is
+        seeded or filled."""
         from repro_torch.models.transformer import layer_kinds
 
         if self.mesh.size > 1 and (self.cfg.is_encdec
@@ -176,6 +190,7 @@ class Cell:
                                       "the encoder-decoder is not ported (ROADMAP A4b)")
         self._check_mesh()
         device = common.resolve_device(device)
+        dry = device.type == "meta"
         params = meta_params(self.cfg)
         train = self.shape.kind == "train"
         for name, like in list(params.named_parameters()):
@@ -184,8 +199,12 @@ class Cell:
             for p in path:
                 owner = getattr(owner, p)
             spec = self.pspecs[name]
-            whole = (_whole(name, owner, like, seed, device) if weights is None else
-                     torch.as_tensor(weights[name]).to(device=device, dtype=like.dtype))
+            if dry:
+                whole = like
+            elif weights is None:
+                whole = _whole(name, owner, like, seed, device)
+            else:
+                whole = torch.as_tensor(weights[name]).to(device=device, dtype=like.dtype)
             t = self._local(whole, spec)
             t = nn.Parameter(t, requires_grad=train and t.is_floating_point())
             owner._parameters[leaf] = self._hold(t, spec, like.shape)
@@ -195,10 +214,13 @@ class Cell:
             with shd.mesh_scope(self.mesh) if self.mesh.bound else contextlib.nullcontext():
                 state["opt"] = adamw_init(trainable_params(params))
             return state
-        gen = torch.Generator(device=device).manual_seed(_seed(seed, "tokens"))
         tok = self.args[1]["tokens"] if self.shape.kind == "prefill" else self.args[1]
-        tokens = torch.randint(0, self.cfg.vocab_size, tuple(tok.shape), generator=gen,
-                               device=device, dtype=torch.int32)
+        if dry:
+            tokens = torch.empty(tuple(tok.shape), dtype=torch.int32, device=device)
+        else:
+            gen = torch.Generator(device=device).manual_seed(_seed(seed, "tokens"))
+            tokens = torch.randint(0, self.cfg.vocab_size, tuple(tok.shape), generator=gen,
+                                   device=device, dtype=torch.int32)
         state["tokens"] = self._local(tokens, self._bspec())
         state["cache"] = self._cache(seed, device, filled)
         return state
@@ -212,7 +234,9 @@ class Cell:
             out = {}
             for name, like in layer.items():
                 spec = lspec[name].spec
-                if decode and name in ("k", "v"):
+                if device.type == "meta":
+                    w = torch.empty(tuple(like.shape), dtype=like.dtype, device=device)
+                elif decode and name in ("k", "v"):
                     gen = torch.Generator(device=device).manual_seed(
                         _seed(seed, f"cache.layers.{i}.{name}"))
                     w = torch.randn(tuple(like.shape), generator=gen, device=device)
@@ -254,9 +278,12 @@ class Cell:
         shards = self._batch_shards()
         with self._scope(shards):
             if self.shape.kind == "train":
-                batch = lm_batch(DataConfig(self.cfg.vocab_size, self.shape.seq_len,
-                                            self.shape.global_batch, data_seed), step,
-                                 device=model.device)
+                if model.device.type == "meta":     # a dry rank: shapes only
+                    batch = {"tokens": self.args[2]["tokens"]}
+                else:
+                    batch = lm_batch(DataConfig(self.cfg.vocab_size, self.shape.seq_len,
+                                                self.shape.global_batch, data_seed), step,
+                                     device=model.device)
                 batch = {k: self._local(v, self._bspec()) for k, v in batch.items()}
                 _, state["opt"], metrics = self.step(params, state["opt"], batch)
                 return metrics

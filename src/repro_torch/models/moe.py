@@ -120,10 +120,11 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor) -> t
 
     On CUDA tensors one ``torch._grouped_mm`` call (CUTLASS's grouped GEMM
     for bfloat16 on sm_90), which reads the offsets from device memory, so a
-    CUDA graph can capture it; on the CPU the plain version."""
+    CUDA graph can capture it (on ``meta`` tensors the same call gives the
+    shape); on the CPU the plain version."""
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w, offsets)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"grouped_matmul: unsupported device {x.device}")
     return torch._grouped_mm(x, w, offs=offsets)
 
@@ -298,7 +299,8 @@ def _moe_shard_map(mesh, x: torch.Tensor, p: MoE, policy: SparsityPolicy, phase:
     y = sharding.all_reduce(y.contiguous(), ("model",), mesh)
     shard_map_stats["calls"] += 1
     shard_map_stats["pairs"] += pairs
-    shard_map_stats["dropped"] += int(torch.clamp(counts - cap, min=0).sum())
+    if not counts.is_meta:      # a dry rank's routing has no values to count
+        shard_map_stats["dropped"] += int(torch.clamp(counts - cap, min=0).sum())
     shard_map_stats["capacity"] = cap
     y = y.reshape(b, t, d).to(x.dtype)
     if p.shared is not None:

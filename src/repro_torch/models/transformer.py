@@ -580,7 +580,9 @@ def _local_shards(blk: AttnBlock, policy: SparsityPolicy, phase: str, i: int
             except AttributeError:                  # no shared expert
                 continue
             if getattr(w, "held_cols", None):
-                keep.append(name)
+                # nm_spmm takes no bias: a biased projection adds its bias
+                # after the gather of the output's columns, so it is whole
+                keep.append(f"{name}.w" if policy.tile_consensus else name)
     return tuple(keep)
 
 

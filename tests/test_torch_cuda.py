@@ -1548,3 +1548,92 @@ def test_cell_moe_slots_prune_on_the_kernel(gen):
     assert kernels.launch_counts()["nm_prune"] == 2          # the gate and down inputs
     want = moe._moe_shard_map(make_local_mesh(), x, p, pol, "prefill", 2, "silu", None)
     assert torch.equal(got, want)
+
+
+# --------------------------------------------------------------- the dry-run
+# ``chip_smoke.py``'s 16a and 16b at smoke size: a dry rank (``meta``,
+# ``sharding.Mesh.at``) holds the bytes and records the collectives that two
+# ranks of the card (gloo) hold and run; the dry-run's bound of a one-rank
+# cell on the kernels does not exceed its busy time on the card.
+
+def _dryrun_cells():
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.launch.cells import build_cell
+
+    cfg = dataclasses.replace(get_smoke_config("llama31_8b"), dtype="bfloat16")
+    pol = paper_policy(8, 16, cfg.qgate_skip_layers, use_kernels=True)
+    return {
+        "prefill": lambda m: build_cell("llama31_8b", "prefill_32k", m, cfg=cfg, policy=pol,
+                                        shape=ShapeCell("cut", 64, 4, "prefill")),
+        "decode": lambda m: build_cell("llama31_8b", "decode_32k", m, cfg=cfg,
+                                       shape=ShapeCell("cut", 64, 4, "decode")),
+    }
+
+
+def _dryrun_step(cell, device):
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun
+
+    state = cell.materialize(0, device)
+    with sharding.recording() as log:
+        cell.run(state)
+    return dryrun.state_bytes(state), [r[:3] for r in log]
+
+
+def dryrun_card_rank(mesh):
+    """A rank of the (1, 2) cell mesh on the card: each smoke cell's held
+    bytes and recorded collectives, gathered to every rank."""
+    import torch.distributed as dist
+
+    mine = {name: _dryrun_step(build(mesh), "cuda") for name, build in _dryrun_cells().items()}
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, mine)
+    return everyone
+
+
+def test_dryrun_ranks_equal_two_ranks_of_the_card(gen, tmp_path):
+    from repro_torch.launch.mesh import abstract_mesh, spawn
+
+    ranks = spawn(dryrun_card_rank, 2, device="cuda", store_dir=str(tmp_path),
+                  grid=((1, 2), ("data", "model")))
+    for rank, got in enumerate(ranks):
+        for name, build in _dryrun_cells().items():
+            dry = _dryrun_step(build(abstract_mesh((1, 2), ("data", "model")).at(rank)), "meta")
+            assert dry == got[name] and got[name][1], (rank, name)
+
+
+@pytest.mark.parametrize("name", ["prefill", "decode"])
+def test_dryrun_bound_within_the_card_busy_time(gen, name):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_local_mesh
+
+    cell = _dryrun_cells()[name](make_local_mesh())
+    _, count = roofline.count_step(cell.run, cell.materialize(device="meta"),
+                                   args_bytes=dryrun.args_bytes(cell))
+    kind = cell.shape.kind
+    tokens = cell.shape.global_batch * (cell.shape.seq_len if kind == "prefill" else 1)
+    rep = roofline.analyze("llama31_8b", name, "1x1", count, cell.cfg, kind, tokens,
+                           roofline.HW.for_card(torch.cuda.get_device_name(0)))
+    state = cell.materialize(0, "cuda", filled=60 if kind == "decode" else None)
+    cell.run(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cell.run(state)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, reach = 0.0, float("-inf")
+    for start, end in spans:
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
+    assert busy > 0
+    assert rep.bound_s * 1e6 <= 1.05 * busy
+    if kind == "prefill":
+        assert count.unit_counts()["nm_prune_matmul"] > 0

@@ -170,12 +170,23 @@ def test_gather_kv_blocks_matches_reference():
     np.testing.assert_array_equal(got, want)
 
 
-def test_wrappers_reject_other_devices():
-    """A tensor on neither the CPU nor CUDA gets an error, never a silent
-    plain-path answer."""
+def test_wrappers_reject_other_devices(monkeypatch):
+    """A tensor on neither the CPU nor CUDA gets no silent plain-path
+    answer: on ``meta`` (the dry-run) the wrapper is one unit, a ``meta``
+    result of its shape with no plain version run and no launch counted,
+    and the launch path refuses any tensor off CUDA."""
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran")
+
+    monkeypatch.setattr(knm, "nm_prune_matmul_plain", boom)
+    monkeypatch.setattr(knm, "_plain", boom)
     x = torch.zeros(4, 16, device="meta")
+    w = torch.zeros(16, 8, device="meta")
+    launches = knm.nm_prune_matmul.launches
+    y = knm.nm_prune_matmul(x, w, None, 2, 4)
+    assert y.is_meta and y.shape == (4, 8) and knm.nm_prune_matmul.launches == launches
     with pytest.raises(ValueError):
-        knm.nm_prune_matmul(x, torch.zeros(16, 8, device="meta"), None, 2, 4)
+        knm._launch(x, w, None, 2, 4, None, with_keep=False)
 
 
 # ------------------------------------------------- the attention plan
