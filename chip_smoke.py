@@ -415,7 +415,7 @@ Phases (any failed check exits non-zero; no phase is skipped):
              shard's plan printed beside the one it would pick alone.
              14b: two ranks on this card over gloo (``launch.mesh.spawn``;
              NCCL refuses two ranks of one communicator on one device), each
-             serving LLaMA-3.1-8B at full width and ``TP_DEPTH`` (8) layers
+             serving LLaMA-3.1-8B at full width and ``TP_DEPTH`` (4) layers
              with phase 3's weights, policy and stream through ``Engine``
              at ``EngineConfig(tp=2)``, every step eager (a CUDA graph
              cannot hold a gloo collective): every request's tokens equal
@@ -449,23 +449,36 @@ Phases (any failed check exits non-zero; no phase is skipped):
              dropped; at depth 4 both ranks' logits within ``BF16_TOL`` of
              the one-rank cell's (``_moe_shard_map`` on a 1 x 1 mesh) and
              layer 0's expert-input keep-masks bit-identical.  15b:
-             LLaMA-3.1-8B's ``train_4k`` cell at full width, depth 4, on
-             (data 2, model 1), cut to 4 x 512 tokens, ``grad_accum`` 2, 3
+             LLaMA-3.1-8B's ``train_4k`` cell at full width, depth 2, on
+             (data 2, model 1), cut to 4 x 512 tokens, ``grad_accum`` 2, 2
              steps: weights, moments and the accumulator halved against the
              one-rank cell, the losses and grad norms within
              ``CELL_TRAIN_RTOL``, the parameters' slices' sums of squares too;
-             a checkpoint saved whole by the ranks after 2 steps, restored in
-             this process, whose step 3 loss equals the ranks'.  15c:
-             LLaMA-3.1-8B's ``decode_32k`` cell at depth 4 on (1, 2): B = 4
+             a checkpoint saved whole by the ranks after 1 step, restored in
+             this process, whose step 2 loss equals the ranks'.  15c:
+             LLaMA-3.1-8B's ``decode_32k`` cell at depth 2 on (1, 2): B = 4
              over a 4096-deep cache holding 4 of the 8 KV heads a rank,
              ``CELL_DECODE``'s greedy steps, tokens equal to the one-rank
-             cell's.  2p (with the kernels of phase 2): ``nm_prune`` at the
+             cell's.  15d / 15e (``CELL_FAMILIES``): RWKV6-7B at full width,
+             depth 8, and Whisper-medium at full width and depth, on (1, 2),
+             ``paper_policy(8, 16, ())`` with the kernels: the prefill cell
+             (RWKV6-7B 2 x 1024; Whisper-medium 2 x 256 decoder tokens over
+             2 x 1500 seeded frames), then the decode cell (B = 4, seeded
+             states, 2 greedy steps); a rank's cache holds 32 of RWKV6's 64
+             heads of ``S``, 8 of Whisper's 16 heads of self and cross K/V;
+             ``nm_prune_matmul`` launches exact (48 and 168 a prefill, 0 in
+             decode); what a rank holds against the one-rank cell; the
+             logits within ``BF16_TOL`` of the one-rank cell's (a decode step
+             fed the ranks' greedy tokens), except Whisper-medium's decode,
+             held at float32 and depth 2 (``F32_TOL``; at bf16 its float32
+             attention over half the heads takes another reduction order on
+             the card, printed).  2p (with the kernels of phase 2): ``nm_prune`` at the
              slot tensors 15a launches it on, (128 x 160, 2048) and
              (128 x 160, 384), bit-exact and timed.
 16. launch tooling — after phase 15 (``phase_tooling``).  16a: the
              dry-run (``repro_torch.launch.dryrun.run_cell``: one rank's
              share of the step executed on ``meta`` tensors, every
-             collective recorded, none run) of phase 15's three cells at
+             collective recorded, none run) of phase 15's seven cells at
              their run shapes and meshes, both ranks: the bytes a dry rank
              holds equal what phase 15's ranks held (their records), its
              arguments' bytes from the specs equal that (train: and the
@@ -484,10 +497,11 @@ Phases (any failed check exits non-zero; no phase is skipped):
              above ``DRY_SHARE_LIMIT`` (1.05) fails (a bound above the
              measured time is a counting fault).  16c: the CLIs and the
              examples, each exiting 0 with its key lines checked:
-             ``dryrun --both`` for ``llama31_8b`` and ``qwen3_30b_a3b``,
-             ``report`` on their JSON, ``perf --arch qwen2_5_32b --shape
-             prefill_32k``, ``roofline_exact --arch llama31_8b --shape
-             prefill_32k`` (these four count on the host and start, niced,
+             ``dryrun --both`` for ``llama31_8b``, ``qwen3_30b_a3b``,
+             ``rwkv6_7b`` and ``whisper_medium``, ``report`` on their JSON,
+             ``perf --arch qwen2_5_32b --shape prefill_32k``,
+             ``roofline_exact --arch llama31_8b --shape prefill_32k``
+             (these six count on the host and start, niced,
              when the run starts; phase 16 collects them), and the four
              ``examples/torch_*.py`` on the card, started when the phase
              starts and run beside 16a; 16b profiles once they have
@@ -6239,7 +6253,8 @@ def phase_training(torch, rates):
 
 
 # ------------------------------------------------------ tensor parallelism
-TP_DEPTH = 8                # LLaMA-3.1-8B's layers in 14b and 14c (of 32; 16 until phase 16)
+TP_DEPTH = 4                # LLaMA-3.1-8B's layers in 14b and 14c (of 32; 16 until phase 16,
+                            # 8 until 15d/15e)
 # 14d: the CLI at the smoke size (14b and 14c serve the full width)
 TP_CLI_FLAGS = ["--arch", "llama31_8b", "--smoke", "--trace", "--num-requests", "6",
                 "--len-range", "6:40", "--slots", "2", "--chunk", "16", "--new-tokens", "8",
@@ -6595,14 +6610,29 @@ def phase_tp(torch):
 # 15a: Qwen3-30B-A3B at full width and depth, prefill_32k cut to B x T (its
 # 32 x 32768 would hold a 24 GiB cache a rank and take minutes over gloo)
 CELL_MOE_BT = (2, 1024)
-CELL_DEPTH = 4              # 15a's parity, 15b's and 15c's depth
+CELL_DEPTH = 4              # 15a's parity depth
+CELL_DENSE_DEPTH = 2        # 15b's and 15c's (4 until the recurrent and enc-dec cells came)
 # 15b: LLaMA-3.1-8B's train cell: batch, tokens, grad_accum, steps (train_4k
-# is 256 x 4096); checkpointed after CELL_CKPT_AT steps
-CELL_TRAIN = (4, 512, 2, 3)
-CELL_CKPT_AT = 2
+# is 256 x 4096); checkpointed after CELL_CKPT_AT steps (3 steps and a
+# checkpoint after 2 until the recurrent and enc-dec cells came)
+CELL_TRAIN = (4, 512, 2, 2)
+CELL_CKPT_AT = 1
 CELL_TRAIN_RTOL = 2e-3      # 15b: bf16 gradients summed over two ranks
 # 15c: LLaMA-3.1-8B's decode cell: batch, cache depth, greedy steps
 CELL_DECODE = (4, 4096, 2)
+# 15d / 15e: the recurrent and encoder-decoder cells at full width on (data
+# 1, model 2), paper_policy(8, 16, ()) with the kernels in prefill: per
+# arch (depth, None: the config's; prefill B x T; decode B, cache depth,
+# greedy steps; whether its decode parity is held at float32, depth
+# CELL_F32_DEPTH).  RWKV6-7B at phase 11a's depth; Whisper-medium whole (24
+# + 24 layers, 0.81B parameters), prefill T decoder tokens over 1500 frames
+CELL_FAMILIES = {"rwkv6_7b": ("15d", 8, (2, 1024), (4, 4096, 2), False),
+                 "whisper_medium": ("15e", None, (2, 256), (4, 512, 2), True)}
+CELL_F32_DEPTH = 2
+# 15d / 15e: the most a rank may hold of one rank's state (the weights the
+# specs replicate: norms, token-shift mixes, Whisper's LM head of an odd
+# vocabulary; the states held on batch only)
+CELL_HELD_SHARE = 0.6
 
 
 def phase_cell_kernels(torch, timer, rates, records):
@@ -6702,7 +6732,7 @@ def _train_cell(mesh):
     from repro_torch.train import OptConfig
 
     b, t, ga, steps = CELL_TRAIN
-    cfg = dataclasses.replace(get_config("llama31_8b"), n_layers=CELL_DEPTH)
+    cfg = dataclasses.replace(get_config("llama31_8b"), n_layers=CELL_DENSE_DEPTH)
     return build_cell("llama31_8b", "train_4k", mesh, cfg=cfg, grad_accum=ga,
                       shape=ShapeCell("train_4k", t, b, "train"),
                       opt_cfg=OptConfig(lr=3e-4, warmup_steps=2, total_steps=steps))
@@ -6714,9 +6744,108 @@ def _decode_cell(mesh):
     from repro_torch.launch.cells import build_cell
 
     b, s, _ = CELL_DECODE
-    cfg = dataclasses.replace(get_config("llama31_8b"), n_layers=CELL_DEPTH)
+    cfg = dataclasses.replace(get_config("llama31_8b"), n_layers=CELL_DENSE_DEPTH)
     return build_cell("llama31_8b", "decode_32k", mesh, cfg=cfg,
                       shape=ShapeCell("decode_32k", s, b, "decode"))
+
+
+def _family_cell(mesh, arch, kind, f32=False):
+    """15d / 15e's cell of ``arch`` (``CELL_FAMILIES``): prefill or decode;
+    ``f32``: in float32 at depth ``CELL_F32_DEPTH``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.launch.cells import build_cell
+
+    _, depth, (b, t), (db, ds, _), _ = CELL_FAMILIES[arch]
+    cfg = get_config(arch)
+    if f32:
+        depth = CELL_F32_DEPTH
+        cfg = dataclasses.replace(cfg, dtype="float32", n_encoder_layers=min(
+            cfg.n_encoder_layers, depth))
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    if kind == "prefill":
+        return build_cell(arch, "prefill_32k", mesh, cfg=cfg,
+                          policy=paper_policy(8, 16, (), use_kernels=True),
+                          shape=ShapeCell("prefill_32k", t, b, "prefill"))
+    return build_cell(arch, "decode_32k", mesh, cfg=cfg,
+                      shape=ShapeCell("decode_32k", ds, db, "decode"))
+
+
+def _family_prefill_launches(cfg) -> int:
+    """``nm_prune_matmul`` launches a rank of 15d / 15e makes in a prefill:
+    RWKV6-7B's r/k/v/g (column shards), gate (a column shard) and down
+    (gathered whole) a layer; Whisper-medium's q and fc1 (column shards)
+    and fc2 (whole) of every encoder layer, q of self- and cross-attention,
+    fc1 and fc2 of every decoder layer (no layer index: no skips)."""
+    if cfg.is_encdec:
+        return 3 * cfg.n_encoder_layers + 4 * cfg.n_layers
+    return 6 * cfg.n_layers
+
+
+def _steps(torch, cell, state, steps, forced=None):
+    """``steps`` decode steps → (each row's tokens, each step's logits on
+    the host): greedy, or with ``forced`` (a list of ``(B,)`` token lists)
+    each step's next input given, so that a reference takes the ranks'
+    inputs."""
+    from repro_torch.distributed import sharding
+
+    tokens, logits = [], []
+    for j in range(steps):
+        out = cell.run(state)[0]
+        logits.append(out.float().cpu())
+        nxt = out.float().argmax(-1).to(torch.int32)
+        if forced is not None:
+            nxt = torch.tensor(forced[j], dtype=torch.int32, device=nxt.device)
+        tokens.append(nxt.cpu().tolist())
+        state["tokens"] = sharding.local(nxt[:, None], cell._bspec(), cell.mesh).contiguous() \
+            if cell.mesh.bound else nxt[:, None]
+    return [list(row) for row in zip(*tokens)], logits
+
+
+def _family_rank(torch, me, mesh):
+    """15d / 15e on one of phase 15's ranks: each arch's prefill cell, then
+    its decode cell, into ``me``."""
+    from repro_torch.launch.dryrun import state_bytes
+
+    for arch, (label, _, _, (_, ds, steps), f32) in CELL_FAMILIES.items():
+        key = label[2:]
+        t0 = time.perf_counter()
+        cell = _family_cell(mesh, arch, "prefill")
+        state = cell.materialize(SEED, "cuda")
+        torch.cuda.synchronize()
+        me[f"{key}_built"] = time.perf_counter() - t0
+        me[f"{key}_bytes"] = state_bytes(state)
+        _reset_counts(torch)
+        t0 = time.perf_counter()
+        me[f"{key}_logits"] = cell.run(state)[0].float().cpu()
+        torch.cuda.synchronize()
+        me[f"{key}_wall"] = time.perf_counter() - t0
+        me[key] = _counts(torch)
+        me[f"{key}_heads"] = {n: tuple(t.shape) for n, t in state["cache"]["layers"][0].items()}
+        del cell, state
+        torch.cuda.empty_cache()
+        cell = _family_cell(mesh, arch, "decode")
+        state = cell.materialize(SEED, "cuda", filled=ds - steps)
+        me[f"{key}d_bytes"] = state_bytes(state)
+        _reset_counts(torch)
+        t0 = time.perf_counter()
+        me[f"{key}d_tokens"], me[f"{key}d_logits"] = _steps(torch, cell, state, steps)
+        torch.cuda.synchronize()
+        me[f"{key}d_wall"] = time.perf_counter() - t0
+        me[f"{key}d"] = _counts(torch)
+        del cell, state
+        torch.cuda.empty_cache()
+        if f32:
+            cell = _family_cell(mesh, arch, "decode", f32=True)
+            state = cell.materialize(SEED, "cuda", filled=ds - steps)
+            me[f"{key}f_tokens"], me[f"{key}f_logits"] = _steps(torch, cell, state, steps)
+            del cell, state
+            torch.cuda.empty_cache()
+        if me["rank"] == 0:
+            print(f"  {label} done: prefill {me[f'{key}_wall']:.1f} s, decode "
+                  f"{me[f'{key}d_wall']:.1f} s", flush=True)
 
 
 def _train_state(state):
@@ -6733,22 +6862,9 @@ def _digest(torch, state, mesh):
             for k, p in state["params"].named_parameters()}
 
 
-def _greedy(torch, cell, state, steps):
-    from repro_torch.distributed import sharding
-
-    tokens = []
-    for _ in range(steps):
-        logits = cell.run(state)[0]
-        nxt = logits.float().argmax(-1).to(torch.int32)
-        tokens.append(nxt.cpu().tolist())
-        state["tokens"] = sharding.local(nxt[:, None], cell._bspec(), cell.mesh).contiguous() \
-            if cell.mesh.bound else nxt[:, None]
-    return [list(row) for row in zip(*tokens)]      # a row's tokens, step by step
-
-
 def cell_rank(ckpt: str):
     """One of phase 15's two ranks: 15a on a (1, 2) cell mesh, 15b on
-    (2, 1), 15c on (1, 2), each rank's records gathered to every rank."""
+    (2, 1), 15c-15e on (1, 2), each rank's records gathered to every rank."""
     import torch
     import torch.distributed as dist
 
@@ -6837,12 +6953,15 @@ def cell_rank(ckpt: str):
     me["c_bytes"] = state_bytes(state)
     _reset_counts(torch)
     t0 = time.perf_counter()
-    me["c_tokens"] = _greedy(torch, cell, state, CELL_DECODE[2])
+    me["c_tokens"] = _steps(torch, cell, state, CELL_DECODE[2])[0]
     torch.cuda.synchronize()
     me["c_wall"] = time.perf_counter() - t0
     me["c"] = _counts(torch)
     del cell, state
     torch.cuda.empty_cache()
+
+    # 15d, 15e
+    _family_rank(torch, me, mp)
     everyone = [None] * dist.get_world_size()
     dist.all_gather_object(everyone, me)
     return everyone
@@ -6970,12 +7089,131 @@ def cells_reference(torch, ranks, ckpt):
     # 15c
     cell = _decode_cell(one)
     state = cell.materialize(SEED, "cuda", filled=CELL_DECODE[1] - CELL_DECODE[2])
-    want = _greedy(torch, cell, state, CELL_DECODE[2])
+    want = _steps(torch, cell, state, CELL_DECODE[2])[0]
     del state, cell
     torch.cuda.empty_cache()
     for me in ranks:
         check_tokens(f"15c rank {me['rank']}", me["c_tokens"], want, "one rank's")
+    family_reference(torch, ranks, one)
     return steps
+
+
+def _head_split_attention(torch, cfg, b, s) -> float:
+    """The plain attention of one decode step over ``s`` rows of bf16 K/V
+    (``models/attention.attention``, float32 inside): all heads in one call,
+    as one rank computes it, against each half of them alone, as each of two
+    ranks does → the largest difference of their outputs."""
+    from repro_torch.models.attention import attention
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    q, k, v = (torch.randn(b, n, cfg.n_heads, cfg.head_dim, generator=g, device="cuda")
+               .bfloat16() for n in (1, s, s))
+    whole = attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    h = cfg.n_heads // 2
+    halves = torch.cat([attention(q[:, :, i:i + h], k[:, :, i:i + h], v[:, :, i:i + h],
+                                  causal=False, chunk=cfg.attn_chunk) for i in (0, h)], 2)
+    return float((whole.float() - halves.float()).abs().max())
+
+
+def family_reference(torch, ranks, one):
+    """15d / 15e's one-rank cells: each rank's prefill logits and decode
+    steps' logits (the one rank fed the ranks' greedy tokens) within
+    ``BF16_TOL`` of one rank's (a decode held at float32: within
+    ``F32_TOL`` there, its bf16 difference printed); what a rank holds
+    against one rank's."""
+    from repro_torch.launch.dryrun import state_bytes
+
+    for arch, (label, _, _, (db, ds, steps), f32) in CELL_FAMILIES.items():
+        key = label[2:]
+        cell = _family_cell(one, arch, "prefill")
+        state = cell.materialize(SEED, "cuda")
+        held = state_bytes(state)
+        want = cell.run(state)[0].float().cpu()
+        del cell, state
+        torch.cuda.empty_cache()
+        cell = _family_cell(one, arch, "decode")
+        state = cell.materialize(SEED, "cuda", filled=ds - steps)
+        held_d = state_bytes(state)
+        forced = [list(col) for col in zip(*ranks[0][f"{key}d_tokens"])]
+        _, want_d = _steps(torch, cell, state, steps, forced=forced)
+        del cell, state
+        torch.cuda.empty_cache()
+        if f32:
+            cell = _family_cell(one, arch, "decode", f32=True)
+            state = cell.materialize(SEED, "cuda", filled=ds - steps)
+            forced = [list(col) for col in zip(*ranks[0][f"{key}f_tokens"])]
+            _, want_f = _steps(torch, cell, state, steps, forced=forced)
+            diff = _head_split_attention(torch, cell.cfg, db, cell.cfg.encoder_seq or ds)
+            print(f"  {label}: one decode step's plain attention over "
+                  f"{cell.cfg.encoder_seq or ds} bf16 rows, all {cell.cfg.n_heads} heads at "
+                  f"once against each half alone: max difference {diff:.3e} (0: the same "
+                  "reduction order); the bf16 decode is held at float32, depth "
+                  f"{CELL_F32_DEPTH}")
+            del cell, state
+            torch.cuda.empty_cache()
+        for me in ranks:
+            r = me["rank"]
+            check_close(f"{label} rank {r} prefill logits vs model 1", me[f"{key}_logits"], want,
+                        BF16_TOL)
+            for j, (got, ref) in enumerate(zip(me[f"{key}d_logits"], want_d)):
+                if not f32:
+                    check_close(f"{label} rank {r} decode step {j} logits vs model 1", got, ref,
+                                BF16_TOL)
+                    continue
+                err = float((got - ref).abs().max())
+                same = got.argmax(-1).tolist() == ref.argmax(-1).tolist()
+                print(f"  {label} rank {r} decode step {j} bf16 logits vs model 1: max_abs_err="
+                      f"{err:.3e} (BF16_TOL would allow {BF16_TOL * float(ref.abs().max()):.3e}"
+                      f"); greedy tokens {'equal' if same else 'differ'}")
+                check_close(f"{label} rank {r} decode step {j} float32 depth {CELL_F32_DEPTH} "
+                            "logits vs model 1", me[f"{key}f_logits"][j], want_f[j], F32_TOL)
+            if me[f"{key}d_tokens"] != ranks[0][f"{key}d_tokens"]:
+                fail(f"{label} rank {r}: greedy tokens differ from rank 0's")
+            for what, mine, full in (("prefill", me[f"{key}_bytes"], held),
+                                     ("decode", me[f"{key}d_bytes"], held_d)):
+                if not mine <= CELL_HELD_SHARE * full:
+                    fail(f"{label} rank {r}: the {what} cell holds {_gib(mine):.3f} GiB, more "
+                         f"than {CELL_HELD_SHARE} of one rank's {_gib(full):.3f}")
+                print(f"  {label} rank {r}: the {what} cell holds {_gib(mine):.3f} GiB against "
+                      f"one rank's {_gib(full):.3f} ({mine / full:.3f})")
+
+
+def family_checks(me):
+    """15d / 15e on one rank's records: the kernels' launches, the heads its
+    cache holds, its walls and collectives."""
+    from repro_torch.configs import get_config
+
+    r = me["rank"]
+    for arch, (label, depth, (b, t), (db, ds, steps), _) in CELL_FAMILIES.items():
+        key = label[2:]
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        pre, dec = me[key], me[f"{key}d"]
+        check_launches(f"{label} rank {r} prefill", pre["launches"],
+                       {"nm_prune_matmul": _family_prefill_launches(cfg)})
+        check_launches(f"{label} rank {r} decode", dec["launches"], {"nm_prune_matmul": 0})
+        heads = me[f"{key}_heads"]
+        held = {n: s[1] for n, s in heads.items() if n == "S"} if not cfg.is_encdec else \
+            {n: s[2] for n, s in heads.items()}
+        if set(held.values()) != {cfg.n_heads // 2}:
+            fail(f"{label} rank {r}: its cache holds {held} heads, not {cfg.n_heads // 2} "
+                 f"of {cfg.n_heads}")
+        if tuple(me[f"{key}_logits"].shape) != (b, cfg.vocab_size) or \
+                not bool(me[f"{key}_logits"].isfinite().all()):
+            fail(f"{label} rank {r}: prefill logits {tuple(me[f'{key}_logits'].shape)} "
+                 "not finite or not (B, V)")
+        co, cd = pre["collectives"], dec["collectives"]
+        print(f"  {label} rank {r}: {cfg.name} depth {cfg.n_layers}, cache layer 0 "
+              f"{heads} (its {'S' if not cfg.is_encdec else 'K/V'} {cfg.n_heads // 2} of "
+              f"{cfg.n_heads} heads); built in {me[f'{key}_built']:.1f} s; prefill {b} x {t} in "
+              f"{me[f'{key}_wall']:.2f} s eager, peak {pre['peak_gib']:.2f} GiB, "
+              f"nm_prune_matmul {pre['launches']['nm_prune_matmul']}; all-gathers "
+              f"{co['all_gather'][0]} of {co['all_gather'][1] / 2**20:.1f} MiB, column gathers "
+              f"{co['tp_gather'][0]} of {co['tp_gather'][1] / 2**20:.1f} MiB; decode B = {db} "
+              f"over {ds} rows, {steps} steps in {me[f'{key}d_wall']:.2f} s, peak "
+              f"{dec['peak_gib']:.2f} GiB, all-gathers {cd['all_gather'][0]} of "
+              f"{cd['all_gather'][1] / 2**20:.1f} MiB")
 
 
 def phase_cells(torch, rates):
@@ -6993,10 +7231,16 @@ def phase_cells(torch, rates):
     print(f"phase 15: sharded cells, two ranks on cuda:0 over gloo ({card}); 15a "
           f"Qwen3-30B-A3B prefill_32k cut to {b} x {t}, full width and depth 48, mesh (data 1, "
           f"model 2), paper_policy(8, 16, (41, 46, 47)) with the kernels; 15b LLaMA-3.1-8B "
-          f"train_4k cut to {bt} x {tt}, grad_accum {ga}, {steps} steps, depth {CELL_DEPTH}, "
-          f"mesh (2, 1); 15c LLaMA-3.1-8B decode_32k cut to B = {CELL_DECODE[0]} over a "
-          f"{CELL_DECODE[1]}-deep cache, depth {CELL_DEPTH}, {CELL_DECODE[2]} greedy steps, "
-          "mesh (1, 2)")
+          f"train_4k cut to {bt} x {tt}, grad_accum {ga}, {steps} steps, depth "
+          f"{CELL_DENSE_DEPTH}, mesh (2, 1); 15c LLaMA-3.1-8B decode_32k cut to B = "
+          f"{CELL_DECODE[0]} over a {CELL_DECODE[1]}-deep cache, depth {CELL_DENSE_DEPTH}, "
+          f"{CELL_DECODE[2]} greedy steps, "
+          "mesh (1, 2); "
+          + "; ".join(f"{label} {arch} depth {depth or 'full'} prefill_32k cut to {b} x {t}, "
+                      f"decode_32k cut to B = {db} over {ds} rows, {steps} greedy steps, "
+                      "mesh (1, 2), paper_policy(8, 16, ()) with the kernels"
+                      for arch, (label, depth, (b, t), (db, ds, steps), _)
+                      in CELL_FAMILIES.items()))
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="cells-") as d:
         ckpt = str(Path(d) / "ckpt.npz")
@@ -7031,10 +7275,12 @@ def phase_cells(torch, rates):
                   f"{c['peak_gib']:.2f} GiB; collectives {c['collectives']}")
             if me["c_heads"] != dense_cfg.n_kv_heads // 2:
                 fail(f"15c rank {r}: the cache holds {me['c_heads']} KV heads, not half")
+            family_checks(me)
         cells_reference(torch, ranks, ckpt)
     print(f"phase 15 seconds: ranks {t1 - t0:.1f}, one-rank references and checks "
           f"{time.perf_counter() - t1:.1f}")
-    return {"15a": {k: v for k, v in ranks[0]["a"]["launches"].items() if "." not in k}}, ranks
+    return {label: {k: v for k, v in ranks[0][key]["launches"].items() if "." not in k}
+            for label, key in (("15a", "a"), ("15d", "d"), ("15e", "e"))}, ranks
 
 # ------------------------------------------------------------ launch tooling
 DRY_SHARE_LIMIT = 1.05      # 16b: a bound above the measured busy time is a counting fault
@@ -7049,6 +7295,12 @@ HOST_TOOLS = (
      ["[dryrun] done: 6 ok, 2 skipped, 0 unported, 0 failed"]),
     ("dryrun qwen3_30b_a3b", ["repro_torch.launch.dryrun", "--both", "--arch",
                               "qwen3_30b_a3b", "--json", "{dir}/qwen3.json"],
+     ["[dryrun] done: 4 ok, 2 skipped, 2 unported, 0 failed"]),
+    ("dryrun rwkv6_7b", ["repro_torch.launch.dryrun", "--both", "--arch", "rwkv6_7b",
+                         "--json", "{dir}/rwkv6.json"],
+     ["[dryrun] done: 6 ok, 0 skipped, 2 unported, 0 failed"]),
+    ("dryrun whisper_medium", ["repro_torch.launch.dryrun", "--both", "--arch",
+                               "whisper_medium", "--json", "{dir}/whisper.json"],
      ["[dryrun] done: 4 ok, 2 skipped, 2 unported, 0 failed"]),
     ("perf", ["repro_torch.launch.perf", "--arch", "qwen2_5_32b", "--shape", "prefill_32k"],
      ["dense ", "per_token ", "tile_consensus ", "Δ vs dense"]),
@@ -7132,7 +7384,7 @@ def _stop_all(jobs) -> None:
 
 def dry_cells_check(torch, ranks):
     """16a: phase 15's cells counted on dry ranks, against the ranks'
-    records."""
+    records (15d / 15e: each prefill and decode cell)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeCell
     from repro_torch.core.policy import paper_policy
@@ -7143,7 +7395,7 @@ def dry_cells_check(torch, ranks):
     bt, tt, ga, _ = CELL_TRAIN
     db, ds, steps = CELL_DECODE
     moe = dataclasses.replace(get_config("qwen3_30b_a3b"))
-    dense = dataclasses.replace(get_config("llama31_8b"), n_layers=CELL_DEPTH)
+    dense = dataclasses.replace(get_config("llama31_8b"), n_layers=CELL_DENSE_DEPTH)
     cases = (
         ("15a", "a", 1, dict(arch="qwen3_30b_a3b", shape_name="prefill_32k", cfg=moe,
                              policy=paper_policy(8, 16, (41, 46, 47), use_kernels=True),
@@ -7153,6 +7405,13 @@ def dry_cells_check(torch, ranks):
         ("15c", "c", steps, dict(arch="llama31_8b", shape_name="decode_32k", cfg=dense,
                                  shape=ShapeCell("decode_32k", ds, db, "decode")), (1, 2)),
     )
+    mesh = abstract_mesh((1, 2), ("data", "model"))
+    for arch, (label, _, _, (_, _, fsteps), _) in CELL_FAMILIES.items():
+        for kind, key, times in (("prefill", label[2:], 1), ("decode", label[2:] + "d", fsteps)):
+            cell = _family_cell(mesh, arch, kind)
+            cases += ((f"{label} {kind}", key, times,
+                       dict(arch=arch, shape_name=cell.shape.name, cfg=cell.cfg,
+                            policy=cell.policy, shape=cell.shape), (1, 2)),)
     for label, key, times, kw, grid in cases:
         for me in ranks:
             r = me["rank"]
@@ -7260,13 +7519,15 @@ def phase_tooling(torch, rates, ranks, host_jobs, workdir):
             print(f"  16c {job['label']}: exit 0, its lines present ({secs:.1f} s since the run "
                   "started it)")
         merged = Path(workdir) / "dryrun.json"
-        merged.write_text(json.dumps(json.loads((Path(workdir) / "llama.json").read_text())
-                                     + json.loads((Path(workdir) / "qwen3.json").read_text())))
+        merged.write_text(json.dumps(sum((json.loads((Path(workdir) / f"{n}.json").read_text())
+                                          for n in ("llama", "qwen3", "rwkv6", "whisper")),
+                                         [])))
         report = _start("report", ["-m", "repro_torch.launch.report", str(merged)], workdir,
                         False)
         jobs = examples + [dict(report, want=[
             "| llama31_8b | train_4k | ok |", "| qwen3_30b_a3b | train_4k | UNPORTED (",
-            "cells: 10 ok / 4 skipped / 2 unported / 0 failed (of 16)"])]
+            "| rwkv6_7b | prefill_32k | ok |", "| whisper_medium | decode_32k | ok |",
+            "cells: 20 ok / 6 skipped / 6 unported / 0 failed (of 32)"])]
         for job in jobs:
             text, secs = _finish(job, TOOLING_TIMEOUT)
             print(f"  16c {job['label']}: exit 0 in {secs:.1f} s, its lines present: "

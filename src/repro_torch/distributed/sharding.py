@@ -47,7 +47,9 @@ The runtime, for the cells (``launch/cells.py``):
   zero-padded wholes and a reduce-scatter an all-reduce and a slice, which
   gloo runs faster than its own (PERF.md, section 6);
 * :func:`head_local` runs attention on this rank's KV heads of a
-  head-sharded cache and gathers the output.
+  head-sharded cache and gathers the output; :func:`head_state_local`
+  runs a recurrence on this rank's heads of a head-sharded state (RWKV6's
+  ``S``) and gathers its output.
 
 ``maybe_shard`` (``transformer.py:247-250, 452-524, 592-602`` of the
 reference) is a GSPMD layout hint that changes no value; the port has no
@@ -70,7 +72,8 @@ __all__ = [
     "Mesh", "NamedSharding", "data_axes", "param_specs", "batch_spec", "cache_specs",
     "opt_state_specs", "shard_zero1", "named", "mesh_scope", "local", "gather",
     "gather_param", "gather_to_root", "all_reduce", "reduce_slice", "tag", "full_shape",
-    "model_dim", "gathered", "head_local", "whole_sequence", "is_sharded", "sharded",
+    "model_dim", "gathered", "head_local", "head_state_local", "whole_sequence", "is_sharded",
+    "sharded",
     "effective", "collectives", "DryGroup", "recording",
 ]
 
@@ -700,28 +703,56 @@ def gathered(module: torch.nn.Module, keep: Tuple[str, ...] = ()):
             owner._parameters[leaf] = t
 
 
-def head_local(fn: Callable, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               buf: torch.Tensor) -> torch.Tensor:
+def head_local(fn: Callable, q: torch.Tensor, k: Optional[torch.Tensor],
+               v: Optional[torch.Tensor], buf: torch.Tensor) -> torch.Tensor:
     """``fn(q, k, v)`` on this rank's KV heads of the head-sharded cache
     ``buf`` (tagged, heads on ``model``): q/k/v ``(B, T, H, hd)`` keep this
-    rank's heads, ``fn`` writes and reads the cache's, and the outputs
-    gather back along the head axis.  Per-head attention is exact."""
-    spec, mesh, _ = buf._shard
+    rank's heads (k and v may be None: ``fn`` reads only the cache's), ``fn``
+    writes and reads the cache's, and the outputs gather back along the head
+    axis.  Per-head attention is exact."""
+    spec, mesh, shape = buf._shard
     e = spec[2]
     n, i = _pieces(e, mesh), _index(e, mesh)
-    hq, hk = q.shape[2] // n, k.shape[2] // n
-    o = fn(q[:, :, i * hq:(i + 1) * hq], k[:, :, i * hk:(i + 1) * hk],
-           v[:, :, i * hk:(i + 1) * hk])
+    hq, hk = q.shape[2] // n, shape[2] // n
+
+    def mine(t):
+        return None if t is None else t[:, :, i * hk:(i + 1) * hk]
+
+    o = fn(q[:, :, i * hq:(i + 1) * hq], mine(k), mine(v))
     return _all_gather(o.contiguous(), mesh.lanes(_axes(e)), n, 2)
 
 
+def head_state_local(fn: Callable, state: torch.Tensor, *xs: torch.Tensor,
+                     per_head: Tuple[torch.Tensor, ...] = ()):
+    """``fn(state, *xs, *per_head)`` on this rank's heads of the recurrent
+    state ``state`` ``(B, H, N, N)``, held on its heads (tagged, heads on
+    ``model``; RWKV6's ``S``): each of ``xs`` ``(B, T, H·N)`` keeps this
+    rank's heads' features, each of ``per_head`` ``(H, ...)`` its rows, and
+    ``fn`` gets the shard itself (untagged).  ``fn`` returns (the rank's new
+    state, its output ``(B, T, h·N)`` for its ``h`` heads); the output
+    gathers back along the head axis → (the new state shard, the whole
+    output ``(B, T, H·N)``).  The per-head recurrence is exact.  On a dry
+    rank the gather is recorded, not run."""
+    spec, mesh, shape = state._shard
+    e = spec[1]
+    n, i = _pieces(e, mesh), _index(e, mesh)
+    h = shape[1] // n
+    w = xs[0].shape[-1] // shape[1] * h
+    new, y = fn(state[:], *(x[..., i * w:(i + 1) * w] for x in xs),
+                *(p[i * h:(i + 1) * h] for p in per_head))
+    b, t = y.shape[:2]
+    y = _all_gather(y.reshape(b, t, h, -1).contiguous(), mesh.lanes(_axes(e)), n, 2)
+    return new, y.reshape(b, t, -1)
+
+
 @contextlib.contextmanager
-def whole_sequence(layer: Dict[str, torch.Tensor]):
-    """A sequence-sharded cache layer's ``k``/``v`` gathered whole for the
+def whole_sequence(layer: Dict[str, torch.Tensor], names: Tuple[str, ...] = ("k", "v")):
+    """A sequence-sharded cache layer's ``names`` gathered whole for the
     extent (the caller writes and reads them), then this rank's rows
-    written back: Granite-34B's cache, whose one KV head cannot split."""
-    shards = {n: layer[n] for n in ("k", "v")}
-    spec, mesh, _ = shards["k"]._shard
+    written back: the cache of Granite-34B and RecurrentGemma-2B, whose one
+    KV head cannot split, or of heads a model axis does not divide."""
+    shards = {n: layer[n] for n in names}
+    spec, mesh, _ = shards[names[0]]._shard
     model = tuple(None if "model" not in _axes(e) else e for e in spec)
     whole = {n: gather(t, model, mesh) for n, t in shards.items()}
     try:

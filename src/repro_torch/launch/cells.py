@@ -34,14 +34,18 @@ generator runs), and :meth:`Cell.run` executes the rank's share of the step
 on them, every collective recorded and none run, so ``launch/dryrun.py`` can
 count the step (``launch/roofline.count_step``) on the production meshes.
 
-Only the decoder-only attention families run sharded (dense, MoE, VLM
-text); a recurrent layer or the encoder-decoder raises
-``NotImplementedError`` when its cell of more than one rank materializes
-(ROADMAP A4b; their specs are computed all the same), and a train cell of
-an MoE, recurrent or encoder-decoder model raises it when it runs
-(``transformer.check_trainable``, ROADMAP A3b): the dry-run reports these
-cells ``unported``.  A mesh of more than one rank that is neither bound nor
-a dry rank raises: a cell never runs on one rank in place of its mesh.
+Every family serves sharded: the decoder-only attention families (dense,
+MoE, VLM text), the recurrent ones (RWKV6's ``S`` held on its heads,
+``models/rwkv6.py``; every other recurrent state on its batch rows;
+RecurrentGemma-2B's one-KV-head ring on its sequence) and the
+encoder-decoder (an encoder-decoder prefill cell's ``frame_embeds`` are
+seeded from ``(seed, "frame_embeds")`` and cut to the rank's batch, as
+``tokens`` are; its self and cross K/V held on heads).  A train cell of an
+MoE, recurrent or encoder-decoder model raises ``NotImplementedError``
+when it runs (``transformer.check_trainable``, ``encdec.forward``, ROADMAP
+A3b): the dry-run reports these cells ``unported``.  A mesh of more than
+one rank that is neither bound nor a dry rank raises: a cell never runs on
+one rank in place of its mesh.
 """
 from __future__ import annotations
 
@@ -118,19 +122,38 @@ def meta_params(cfg: ModelConfig) -> nn.Module:
     return cls(cfg, device=torch.device("meta"), generator=torch.Generator())
 
 
+# the recurrent blocks' own tensors, as ``models/rwkv6.py`` and
+# ``models/rglru.py`` make them: leaf → (draw, scale, shift) with draw
+# "rand" (uniform), "randn" or None (a constant); RWKV6's bonus ``u`` is
+# zeros there and N(0, 0.1²) here, so that each head carries its own
+_RECURRENT = {"w0": (None, 0.0, -4.0), "conv_b": (None, 0.0, 0.0),
+              "lam": ("rand", 3.0, 2.0), "w_A": ("randn", 0.01, 0.0),
+              "w_B": ("randn", 0.01, 0.0), "u": ("randn", 0.1, 0.0)}
+
+
 def _whole(name: str, owner: nn.Module, like: torch.Tensor, seed: int, device) -> torch.Tensor:
     """The whole tensor ``name`` from its own generator: norms' weights 1,
-    biases 0, the embedding N(0, 0.02²), every other weight N(0, 1/d_in)
-    (``d_in`` its second-to-last dim), as ``models/*.init_*`` make them."""
+    biases 0, the embedding N(0, 0.02²), the recurrent blocks' mixes,
+    decays, gates and convolution as their modules make them
+    (``_RECURRENT``), every other weight N(0, 1/d_in) (``d_in`` its
+    second-to-last dim), as ``models/*.init_*`` make them."""
     leaf = name.rsplit(".", 1)[-1]
     shape = tuple(like.shape)
     if isinstance(owner, (common.RMSNorm, common.LayerNorm)) or leaf == "b":
         norm_w = leaf == "w" and isinstance(owner, (common.RMSNorm, common.LayerNorm))
         return torch.full(shape, 1.0 if norm_w else 0.0, dtype=like.dtype, device=device)
+    draw, scale, shift = _RECURRENT.get(leaf, ("randn", None, 0.0))
+    if leaf.startswith("mix_"):
+        draw, scale, shift = "rand", 0.1, 0.45
+    elif leaf == "conv_w":
+        scale = math.prod(shape) ** -0.25
+    if draw is None:
+        return torch.full(shape, shift, dtype=like.dtype, device=device)
     gen = torch.Generator(device=device).manual_seed(_seed(seed, name))
-    w = torch.randn(shape, generator=gen, device=device)
-    std = 0.02 if isinstance(owner, common.Embedding) else shape[-2] ** -0.5
-    return (w * std).to(like.dtype)
+    w = (torch.rand if draw == "rand" else torch.randn)(shape, generator=gen, device=device)
+    if scale is None:
+        scale = 0.02 if isinstance(owner, common.Embedding) else shape[-2] ** -0.5
+    return (w * scale + shift).to(like.dtype)
 
 
 @dataclasses.dataclass
@@ -177,17 +200,12 @@ class Cell:
         every tensor this rank's shard, tagged; cut from ``weights[name]``,
         whole tensors or arrays, where given, else made from ``(seed,
         name)``), and ``opt`` (train),
-        ``cache`` (prefill: zeros; decode: rows ``< filled`` seeded, ``pos``
-        = ``filled``, default ``seq_len - 1``) and ``tokens`` (prefill and
-        decode; train cells draw ``lm_batch`` per step in :meth:`run`).
-        On ``device="meta"`` every tensor is a shape only: nothing is
-        seeded or filled."""
-        from repro_torch.models.transformer import layer_kinds
-
-        if self.mesh.size > 1 and (self.cfg.is_encdec
-                                   or set(layer_kinds(self.cfg)) != {"attn"}):
-            raise NotImplementedError(f"{self.arch}: a sharded cell of a recurrent model or "
-                                      "the encoder-decoder is not ported (ROADMAP A4b)")
+        ``cache`` (prefill: zeros; decode: every leaf seeded from its own
+        ``(seed, name)``, K/V rows ``>= filled`` zero, ``pos`` = ``filled``,
+        default ``seq_len - 1``), ``tokens`` (prefill and decode; train
+        cells draw ``lm_batch`` per step in :meth:`run`) and an
+        encoder-decoder prefill's ``frame_embeds``.  On ``device="meta"``
+        every tensor is a shape only: nothing is seeded or filled."""
         self._check_mesh()
         device = common.resolve_device(device)
         dry = device.type == "meta"
@@ -222,6 +240,15 @@ class Cell:
             tokens = torch.randint(0, self.cfg.vocab_size, tuple(tok.shape), generator=gen,
                                    device=device, dtype=torch.int32)
         state["tokens"] = self._local(tokens, self._bspec())
+        fe = self.args[1].get("frame_embeds") if self.shape.kind == "prefill" else None
+        if fe is not None:
+            if dry:
+                frames = torch.empty(tuple(fe.shape), dtype=fe.dtype, device=device)
+            else:
+                gen = torch.Generator(device=device).manual_seed(_seed(seed, "frame_embeds"))
+                frames = torch.randn(tuple(fe.shape), generator=gen,
+                                     device=device).to(fe.dtype)
+            state["frame_embeds"] = self._local(frames, self.in_shardings[1]["frame_embeds"].spec)
         state["cache"] = self._cache(seed, device, filled)
         return state
 
@@ -236,11 +263,14 @@ class Cell:
                 spec = lspec[name].spec
                 if device.type == "meta":
                     w = torch.empty(tuple(like.shape), dtype=like.dtype, device=device)
-                elif decode and name in ("k", "v"):
+                elif decode:
+                    # K/V rows, recurrent states, cross K/V: each its own draw;
+                    # a ring no longer than pos is full
                     gen = torch.Generator(device=device).manual_seed(
                         _seed(seed, f"cache.layers.{i}.{name}"))
                     w = torch.randn(tuple(like.shape), generator=gen, device=device)
-                    w[:, pos:] = 0
+                    if name in ("k", "v"):
+                        w[:, pos:] = 0
                     w = w.to(like.dtype)
                 else:
                     w = torch.zeros(tuple(like.shape), dtype=like.dtype, device=device)
@@ -269,7 +299,8 @@ class Cell:
     def run(self, state: Dict[str, Any], step: int = 0, data_seed: int = 0):
         """Execute the cell's step on this rank's ``state`` (in place).
         Train: step ``step`` on ``lm_batch`` of that step (this rank's DP
-        slice) → metrics.  Prefill: the one-shot prefill of ``tokens`` →
+        slice) → metrics.  Prefill: the one-shot prefill of ``tokens`` (and
+        an encoder-decoder's ``frame_embeds``) →
         (last-token logits ``(B, V)``, cache).  Decode: one step of
         ``tokens`` → (logits ``(B, V)``, cache); the logits are whole over
         the batch on every rank."""
@@ -288,8 +319,8 @@ class Cell:
                 _, state["opt"], metrics = self.step(params, state["opt"], batch)
                 return metrics
             if self.shape.kind == "prefill":
-                logits, cache = model.prefill(params, {"tokens": state["tokens"]},
-                                              state["cache"], policy=self.policy)
+                batch = {k: state[k] for k in ("tokens", "frame_embeds") if k in state}
+                logits, cache = model.prefill(params, batch, state["cache"], policy=self.policy)
             else:
                 logits, cache = model.decode_step(params, state["tokens"], state["cache"],
                                                   policy=self.policy)

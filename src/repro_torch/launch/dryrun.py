@@ -31,8 +31,8 @@ cell, which a rank draws each step).
 Statuses: ``ok``; ``skipped`` (``long_500k`` on full attention, as the
 reference); ``unported``: a cell the port refuses today with
 ``NotImplementedError`` (a train cell of an MoE, recurrent or
-encoder-decoder model, ROADMAP A3b; a sharded recurrent or encoder-decoder
-cell, A4b), with the refusal's text, counted apart; ``FAIL`` (exit 1).
+encoder-decoder model, ROADMAP A3b), with the refusal's text, counted
+apart; ``FAIL`` (exit 1).
 The sweep covers ``ARCH_IDS`` and ``PAPER_ARCH_IDS`` (13 archs; the
 reference's default is the 10 of ``ARCH_IDS``).  The policy is the
 reference's (``paper_policy(8, 16, cfg.qgate_skip_layers)``) on the
@@ -78,12 +78,13 @@ def args_bytes(cell) -> int:
 
 def state_bytes(state) -> int:
     """The bytes a materialized cell state holds (``Cell.materialize``): its
-    parameters, optimizer state, cache and tokens, each tensor's own
-    elements."""
+    parameters, optimizer state, cache, tokens and frame embeddings, each
+    tensor's own elements."""
     from repro_torch.launch.roofline import _leaves
 
     return sum(t.numel() * t.element_size()
-               for t in _leaves([state.get(k) for k in ("params", "opt", "cache", "tokens")]))
+               for t in _leaves([state.get(k) for k in ("params", "opt", "cache", "tokens",
+                                                        "frame_embeds")]))
 
 
 def _tallies() -> dict:

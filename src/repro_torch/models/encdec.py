@@ -37,9 +37,20 @@ chunks and decode steps reuse them.  The self-attention's slab writes and
 reads are the decoder-only model's dense path
 (``transformer._dense_index``/``_dense_attention``), its index built once
 a step on the device, so a CUDA graph can capture every entry point.
+
+Sharded (a cell under a mesh, ``launch/cells.py``), as the decoder-only
+model: the embedding (on ``d_model``: Whisper's vocabulary of 51865 does
+not split), the norms and the LM head are gathered whole for an entry
+point (``transformer._top``), each encoder and decoder block's shards for that
+block (:func:`_block_scope`), except the column shards of the
+projections a kernel computes on (q of the encoder, the self- and the
+cross-attention, and fc1 under ``paper_policy``).  The self-attention's
+``k``/``v`` and the cross ``cross_k``/``cross_v``, held on heads, are
+written and read on the rank's heads and the outputs gathered.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -48,16 +59,19 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import SparsityPolicy
+from repro_torch.distributed import sharding
 from repro_torch.layers.linear import dense_linear, init_linear, sparse_linear
 from repro_torch.models import common
 from repro_torch.models.attention import attention
-from repro_torch.models.transformer import _dense_attention, _dense_index, _slab_rows
+from repro_torch.models.transformer import (_dense_attention, _dense_index, _local_shards,
+                                            _slab_rows, _top)
 
 __all__ = ["EncDec", "check_supported", "layer_kinds", "init_params", "init_cache",
            "paged_kv_spec", "pools_anything", "forward", "prefill", "prefill_chunk",
            "decode_step"]
 
 _LEAVES = ("k", "v", "cross_k", "cross_v")
+_STACKS = ("enc_blocks", "dec_blocks")      # what a sharded entry point leaves to its blocks
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -211,6 +225,24 @@ def _out(cfg: ModelConfig, o: torch.Tensor, p: Attn, policy: SparsityPolicy, pha
     return sparse_linear(o.reshape(b, t, cfg.q_dim), p.o_proj, "o_proj", policy, phase)
 
 
+# (path in a block, the policy name it prunes under) of each column-parallel
+# projection a kernel may compute on the rank's column shard
+_ENC_COLUMNS = tuple((f"attn.{n}", n) for n in ("q_proj", "k_proj", "v_proj")) \
+    + (("ff.gate_proj", "gate_proj"),)
+_DEC_COLUMNS = tuple((f"{a}.{n}", n) for a in ("self_attn", "cross_attn")
+                     for n in ("q_proj", "k_proj", "v_proj")) + (("ff.gate_proj", "gate_proj"),)
+
+
+def _block_scope(params: EncDec, blk: nn.Module, policy: SparsityPolicy, phase: str,
+                 columns):
+    """A sharded model's block gathered whole for its extent, except the
+    column shards a kernel computes on (``transformer._local_shards``; no
+    layer index, as every projection here is called without one)."""
+    if not sharding.is_sharded(params):
+        return contextlib.nullcontext()
+    return sharding.gathered(blk, _local_shards(blk, policy, phase, None, columns))
+
+
 def _encode(cfg: ModelConfig, params: EncDec, frame_embeds: torch.Tensor,
             policy: SparsityPolicy, phase: str) -> torch.Tensor:
     """The encoder over ``frame_embeds (B, S, d)``, cast to the model dtype,
@@ -220,33 +252,53 @@ def _encode(cfg: ModelConfig, params: EncDec, frame_embeds: torch.Tensor,
     pos = torch.arange(s, device=fe.device).expand(b, s)
     h = fe + common.sinusoidal_positions(pos, d).to(fe.dtype)
     for blk in params.enc_blocks:
-        x = common.norm_apply(h, blk.ln1, cfg.norm)
-        q, k, v = _qkv(cfg, x, blk.attn, policy, phase)
-        o = attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-        h = h + _out(cfg, o, blk.attn, policy, phase)
-        h = h + _ff(common.norm_apply(h, blk.ln2, cfg.norm), blk.ff, policy, phase)
+        with _block_scope(params, blk, policy, phase, _ENC_COLUMNS):
+            x = common.norm_apply(h, blk.ln1, cfg.norm)
+            q, k, v = _qkv(cfg, x, blk.attn, policy, phase)
+            o = attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+            h = h + _out(cfg, o, blk.attn, policy, phase)
+            h = h + _ff(common.norm_apply(h, blk.ln2, cfg.norm), blk.ff, policy, phase)
     return common.norm_apply(h, params.enc_norm, cfg.norm)
 
 
-def _cross_kv(cfg: ModelConfig, xx, p: Attn, enc_out, cc: Optional[Dict],
-              index: Optional[Dict], policy: SparsityPolicy, phase: str):
-    """Cross-attention q, k, v: k/v fresh from ``enc_out`` (and written into
-    the cache's cross K/V), or with no ``enc_out`` the cached ones."""
-    if cc is not None and enc_out is None:
-        b, t = xx.shape[:2]
+def _cross_attention(cfg: ModelConfig, xx, p: Attn, enc_out, cc: Optional[Dict],
+                     index: Optional[Dict], policy: SparsityPolicy, phase: str):
+    """Cross-attention over k/v fresh from ``enc_out`` (and written into the
+    cache's cross K/V), or with no ``enc_out`` over the cached ones.  A
+    cell's cross K/V held on heads are written and read on the rank's heads,
+    and the output gathered (``sharding.head_local``); held on the frames'
+    rows (heads the model axis does not divide), gathered whole for the
+    layer and the rank's rows written back (``sharding.whole_sequence``)."""
+    b, t = xx.shape[:2]
+    rows = None if index is None else index["rows"]
+    if enc_out is None:
         qx = sparse_linear(xx, p.q_proj, "q_proj", policy, phase)
-        rows = index["rows"]
-        return (qx.reshape(b, t, cfg.n_heads, cfg.head_dim),
-                _slab_rows(cc["cross_k"], rows), _slab_rows(cc["cross_v"], rows))
-    qx, kx, vx = _qkv(cfg, xx, p, policy, phase, kv_x=enc_out)
-    if cc is not None:
-        rows = index["rows"]
-        for leaf, new in (("cross_k", kx), ("cross_v", vx)):
-            if rows is None:
-                cc[leaf].copy_(new)
-            else:
-                cc[leaf].index_copy_(0, rows, new.to(cc[leaf].dtype))
-    return qx, kx, vx
+        qx, kx, vx = qx.reshape(b, t, cfg.n_heads, cfg.head_dim), None, None
+    else:
+        qx, kx, vx = _qkv(cfg, xx, p, policy, phase, kv_x=enc_out)
+
+    def attend(q, k, v, cache):
+        if cache is not None and k is not None:
+            for leaf, new in (("cross_k", k), ("cross_v", v)):
+                if rows is None:
+                    cache[leaf].copy_(new)
+                else:
+                    cache[leaf].index_copy_(0, rows, new.to(cache[leaf].dtype))
+        if k is None:
+            k, v = _slab_rows(cache["cross_k"], rows), _slab_rows(cache["cross_v"], rows)
+        return attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+
+    split = None if cc is None else sharding.model_dim(cc["cross_k"])
+    if split == 2:
+        # views of the cache's shards: the same memory, no longer tagged
+        mine = {leaf: cc[leaf][:] for leaf in ("cross_k", "cross_v")}
+        return sharding.head_local(lambda q, k, v: attend(q, k, v, mine), qx, kx, vx,
+                                   cc["cross_k"])
+    if split == 1:
+        # heads the model axis does not divide: the frames' rows, gathered
+        with sharding.whole_sequence(cc, ("cross_k", "cross_v")) as whole:
+            return attend(qx, kx, vx, whole)
+    return attend(qx, kx, vx, cc)
 
 
 def _decode_blocks(cfg: ModelConfig, params: EncDec, h: torch.Tensor,
@@ -255,16 +307,16 @@ def _decode_blocks(cfg: ModelConfig, params: EncDec, h: torch.Tensor,
     """The decoder stack; ``cache`` None: the whole sequence, no cache."""
     for i, blk in enumerate(params.dec_blocks):
         cc = None if cache is None else cache["layers"][i]
-        x = common.norm_apply(h, blk.ln1, cfg.norm)
-        q, k, v = _qkv(cfg, x, blk.self_attn, policy, phase)
-        o = (attention(q, k, v, causal=True, chunk=cfg.attn_chunk) if cc is None
-             else _dense_attention(cfg, q, k, v, cc, index))
-        h = h + _out(cfg, o, blk.self_attn, policy, phase)
-        xx = common.norm_apply(h, blk.ln_x, cfg.norm)
-        qx, kx, vx = _cross_kv(cfg, xx, blk.cross_attn, enc_out, cc, index, policy, phase)
-        ox = attention(qx, kx, vx, causal=False, chunk=cfg.attn_chunk)
-        h = h + _out(cfg, ox, blk.cross_attn, policy, phase)
-        h = h + _ff(common.norm_apply(h, blk.ln2, cfg.norm), blk.ff, policy, phase)
+        with _block_scope(params, blk, policy, phase, _DEC_COLUMNS):
+            x = common.norm_apply(h, blk.ln1, cfg.norm)
+            q, k, v = _qkv(cfg, x, blk.self_attn, policy, phase)
+            o = (attention(q, k, v, causal=True, chunk=cfg.attn_chunk) if cc is None
+                 else _dense_attention(cfg, q, k, v, cc, index))
+            h = h + _out(cfg, o, blk.self_attn, policy, phase)
+            xx = common.norm_apply(h, blk.ln_x, cfg.norm)
+            ox = _cross_attention(cfg, xx, blk.cross_attn, enc_out, cc, index, policy, phase)
+            h = h + _out(cfg, ox, blk.cross_attn, policy, phase)
+            h = h + _ff(common.norm_apply(h, blk.ln2, cfg.norm), blk.ff, policy, phase)
     return h
 
 
@@ -295,10 +347,11 @@ def forward(cfg: ModelConfig, params: EncDec, batch: Dict, *, policy: SparsityPo
     ``NotImplementedError`` (ROADMAP A3b)."""
     if torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters()):
         raise NotImplementedError(f"{cfg.name}: encoder-decoder training: ROADMAP A3b")
-    enc_out = _encode(cfg, params, batch["frame_embeds"], policy, phase)
-    h = _embed_dec(cfg, params, batch["tokens"], None)
-    h = _decode_blocks(cfg, params, h, enc_out, policy, phase, None, None)
-    return _logits(cfg, params, h)
+    with _top(params, _STACKS):
+        enc_out = _encode(cfg, params, batch["frame_embeds"], policy, phase)
+        h = _embed_dec(cfg, params, batch["tokens"], None)
+        h = _decode_blocks(cfg, params, h, enc_out, policy, phase, None, None)
+        return _logits(cfg, params, h)
 
 
 @torch.no_grad()
@@ -310,14 +363,15 @@ def prefill(cfg: ModelConfig, params: EncDec, batch: Dict, cache: Dict, *,
     logits (B, V), cache with ``pos + T``); the cache is updated in place."""
     tokens = batch["tokens"]
     b, t = tokens.shape
-    s_c = cache["layers"][0]["k"].shape[1]
+    s_c = sharding.full_shape(cache["layers"][0]["k"])[1]
     if t > s_c:
         raise ValueError(f"prefill: {t} tokens do not fit a cache of {s_c} positions")
-    enc_out = _encode(cfg, params, batch["frame_embeds"], policy, "prefill")
-    h = _embed_dec(cfg, params, tokens, None)
     index = _dense_index(cfg, cache, b, t, cache["pos"], None, "prefill")
-    h = _decode_blocks(cfg, params, h, enc_out, policy, "prefill", cache, index)
-    logits = _logits(cfg, params, h[:, -1:])[:, 0]
+    with _top(params, _STACKS):
+        enc_out = _encode(cfg, params, batch["frame_embeds"], policy, "prefill")
+        h = _embed_dec(cfg, params, tokens, None)
+        h = _decode_blocks(cfg, params, h, enc_out, policy, "prefill", cache, index)
+        logits = _logits(cfg, params, h[:, -1:])[:, 0]
     return logits, {**cache, "pos": cache["pos"] + t}
 
 
@@ -337,16 +391,18 @@ def prefill_chunk(cfg: ModelConfig, params: EncDec, batch: Dict, cache: Dict, *,
     chunk_len = batch.get("chunk_len")
     if chunk_len is None:
         chunk_len = torch.full((), t, dtype=torch.int32, device=tokens.device)
-    s_c = cache["layers"][0]["k"].shape[1]
+    s_c = sharding.full_shape(cache["layers"][0]["k"])[1]
     if t > s_c:
         raise ValueError(f"prefill_chunk: a {t}-token chunk exceeds the cache's {s_c} rows")
     fe = batch.get("frame_embeds")
-    enc_out = None if fe is None else _encode(cfg, params, fe, policy, "prefill")
-    h = _embed_dec(cfg, params, tokens, pos)
     index = _dense_index(cfg, cache, b, t, pos, chunk_len, "chunk")
-    h = _decode_blocks(cfg, params, h, enc_out, policy, "prefill", cache, index)
-    h_last = h.index_select(1, (chunk_len.long() - 1).reshape(1))
-    return _logits(cfg, params, h_last)[:, 0], {**cache, "pos": pos + chunk_len}
+    with _top(params, _STACKS):
+        enc_out = None if fe is None else _encode(cfg, params, fe, policy, "prefill")
+        h = _embed_dec(cfg, params, tokens, pos)
+        h = _decode_blocks(cfg, params, h, enc_out, policy, "prefill", cache, index)
+        h_last = h.index_select(1, (chunk_len.long() - 1).reshape(1))
+        logits = _logits(cfg, params, h_last)[:, 0]
+    return logits, {**cache, "pos": pos + chunk_len}
 
 
 @torch.no_grad()
@@ -357,7 +413,9 @@ def decode_step(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor, cache: D
     ((B, V) logits, cache with ``pos + 1``); the cache is updated in place."""
     b, t = tokens.shape
     pos = cache["pos"]
-    h = _embed_dec(cfg, params, tokens, pos)
     index = _dense_index(cfg, cache, b, t, pos, None, "decode")
-    h = _decode_blocks(cfg, params, h, None, policy, "decode", cache, index)
-    return _logits(cfg, params, h)[:, 0], {**cache, "pos": pos + 1}
+    with _top(params, _STACKS):
+        h = _embed_dec(cfg, params, tokens, pos)
+        h = _decode_blocks(cfg, params, h, None, policy, "decode", cache, index)
+        logits = _logits(cfg, params, h)[:, 0]
+    return logits, {**cache, "pos": pos + 1}

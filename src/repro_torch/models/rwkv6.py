@@ -34,6 +34,11 @@ which the tests hold it to) runs 769.  The recurrence is plain torch: the
 JAX package computes it outside any Pallas kernel (a chunked WKV kernel is
 future work there too).  :func:`rwkv6_block` returns the new state out of
 place; the model writes it into its cache.
+
+In a sharded cell (``launch/cells.py``) ``S`` is held on its heads: the
+recurrence runs on the rank's heads of r/k/v/lw/u and its shard of ``S``
+(``sharding.head_state_local``), and the output, cast to the model dtype,
+is gathered back whole before the group norm.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.policy import SparsityPolicy
+from repro_torch.distributed import sharding
 from repro_torch.layers.linear import init_linear, sparse_linear
 from repro_torch.models.common import LayerNorm
 
@@ -232,13 +238,21 @@ def rwkv6_block(x: torch.Tensor, p: RWKV6Block, policy: SparsityPolicy, phase: s
     g = F.silu(proj(xg, tm.g_proj, "q_proj"))
     # the decay w = exp(lw) with lw = -exp(w0 + tanh(x_w A) B), float32
     lw = -torch.exp(tm.w0 + torch.tanh(xw.float() @ tm.w_A.float()) @ tm.w_B.float())
-    if t == 1:
-        S_new, y = _time_mix_step(state["S"], r[:, 0], k[:, 0], v[:, 0],
-                                  torch.exp(lw[:, 0]), tm.u, n_heads)
-        y = y[:, None]
+
+    def wkv(S, r, k, v, lw, u):
+        heads = u.shape[0]
+        if t == 1:
+            S, y = _time_mix_step(S, r[:, 0], k[:, 0], v[:, 0], torch.exp(lw[:, 0]), u, heads)
+            return S, y[:, None].to(x.dtype)
+        S, y = wkv_chunked(S, r, k, v, lw, u, heads)
+        return S, y.to(x.dtype)
+
+    if sharding.model_dim(state["S"]) == 1:
+        # a cell's state held on its heads: the rank's heads, the output gathered
+        S_new, y = sharding.head_state_local(wkv, state["S"], r, k, v, lw, per_head=(tm.u,))
     else:
-        S_new, y = wkv_chunked(state["S"], r, k, v, lw, tm.u, n_heads)
-    y = _group_norm(y.to(x.dtype), tm.ln_x, n_heads) * g
+        S_new, y = wkv(state["S"], r, k, v, lw, tm.u)
+    y = _group_norm(y, tm.ln_x, n_heads) * g
     h = x + proj(y, tm.o_proj, "o_proj")
 
     # ---- channel mix ----

@@ -70,10 +70,14 @@ block's shards for the extent of that block (:func:`_run_blocks`), except
 the expert stacks, which ``models/moe.py`` uses as shards, and the
 column-parallel weights of the projections that run on a kernel, which
 ``distributed.tp.column_parallel`` computes column by column on the
-rank's shard (:func:`_local_shards`).  A dense cache sharded on heads is
-read and written on the rank's heads (``sharding.head_local``), one
-sharded on sequence (Granite-34B's one KV head) is gathered whole for the
-layer and its rows written back (``sharding.whole_sequence``).
+rank's shard (:func:`_local_shards`, ``KERNEL_COLUMNS``).  A dense cache
+sharded on heads is read and written on the rank's heads
+(``sharding.head_local``), one sharded on sequence (Granite-34B's and
+RecurrentGemma-2B's one KV head; a ring keeps its ring rows) is gathered
+whole for the layer and its rows written back
+(``sharding.whole_sequence``).  A recurrent layer's state is held as the
+cell shards it: RWKV6's ``S`` on its heads, which the recurrence runs on
+(``models/rwkv6.py``), every other state on its batch rows only.
 """
 from __future__ import annotations
 
@@ -499,10 +503,22 @@ def _attn_block_apply(cfg: ModelConfig, h: torch.Tensor, p: AttnBlock,
 
 def _read_state(cache: Optional[Dict], index: Optional[Dict]) -> Optional[Dict]:
     """A recurrent layer's state for this step: None (zeros) without a cache
-    and in the one-shot prefill; else the batch's rows of the cache."""
-    if cache is None or index is None or index["mode"] == "prefill":
+    and in the one-shot prefill; else the batch's rows of the cache.  A
+    cell's state held on its heads (RWKV6's ``S`` over ``model``) starts
+    the prefill from zeros of its shard's shape, and what is read of it
+    keeps the shard's tag (``sharding.head_state_local`` reads it)."""
+    if cache is None or index is None:
         return None
-    return {k: _slab_rows(buf, index["rows"]) for k, buf in cache.items()}
+    held = {k: buf for k, buf in cache.items() if sharding.model_dim(buf) is not None}
+    if index["mode"] == "prefill":
+        if not held:
+            return None
+        state = {k: torch.zeros_like(buf) for k, buf in cache.items()}
+    else:
+        state = {k: _slab_rows(buf, index["rows"]) for k, buf in cache.items()}
+    for k, buf in held.items():
+        sharding.tag(state[k], *buf._shard)
+    return state
 
 
 def _write_state(cache: Optional[Dict], index: Optional[Dict], new: Dict) -> None:
@@ -563,21 +579,36 @@ def _embed_inputs(cfg: ModelConfig, params: Transformer, batch: Dict) -> torch.T
     return h
 
 
-def _local_shards(blk: AttnBlock, policy: SparsityPolicy, phase: str, i: int
-                  ) -> Tuple[str, ...]:
+# per block kind: (path in the block, the policy name it prunes under) of
+# each column-parallel projection that a kernel may compute on the rank's
+# column shard
+KERNEL_COLUMNS = {
+    "attn": (("q_proj", "q_proj"), ("k_proj", "k_proj"), ("v_proj", "v_proj"),
+             ("mlp.gate_proj", "gate_proj"), ("mlp.up_proj", "up_proj"),
+             ("moe.shared.gate_proj", "gate_proj"), ("moe.shared.up_proj", "up_proj")),
+    "rwkv6": tuple((f"rwkv.tm.{n}", "q_proj") for n in ("r_proj", "k_proj_tm", "v_proj_tm",
+                                                        "g_proj"))
+    + (("rwkv.cm.gate_proj", "gate_proj"), ("rwkv.cm.up_proj", "up_proj")),
+    "rglru": (("rglru.q_proj", "q_proj"), ("rglru.gate_proj", "gate_proj"),
+              ("mlp.gate_proj", "gate_proj"), ("mlp.up_proj", "up_proj")),
+}
+
+
+def _local_shards(blk: nn.Module, policy: SparsityPolicy, phase: str, i: Optional[int],
+                  columns) -> Tuple[str, ...]:
     """The names in a sharded block that stay shards for layer ``i``: the
-    expert stacks, and the projections that run column-parallel on a kernel
-    where the rank holds a column shard of them (what each rank computes
-    with)."""
+    expert stacks, and the projections of ``columns`` (``KERNEL_COLUMNS``)
+    that run column-parallel on a kernel where the rank holds a column
+    shard of them (what each rank computes with).  Row-parallel
+    projections (``o_proj``, ``down_proj``) are gathered whole."""
     keep = ["moe.experts"]
     if policy.use_kernels and policy.active(phase):
-        names = [n for n in ("q_proj", "k_proj", "v_proj") if policy.should_prune(n, i)]
-        names += [f"{ffn}.{n}" for ffn in ("mlp", "moe.shared") for n in ("gate_proj", "up_proj")
-                  if policy.should_prune(n, i)]
-        for name in names:
+        for name, as_ in columns:
+            if not policy.should_prune(as_, i):
+                continue
             try:
                 w = blk.get_submodule(name).w
-            except AttributeError:                  # no shared expert
+            except AttributeError:                  # no shared expert, no MLP
                 continue
             if getattr(w, "held_cols", None):
                 # nm_spmm takes no bias: a biased projection adds its bias
@@ -586,18 +617,26 @@ def _local_shards(blk: AttnBlock, policy: SparsityPolicy, phase: str, i: int
     return tuple(keep)
 
 
-def _top(params: Transformer):
-    """A sharded model's embedding, final norm and LM head gathered whole
-    for the extent of an entry point (its blocks gather their own)."""
+def _top(params: nn.Module, blocks: Tuple[str, ...] = ("blocks",)):
+    """A sharded model's embedding, norms and LM head gathered whole for
+    the extent of an entry point (its ``blocks`` gather their own)."""
     if not sharding.is_sharded(params):
         return contextlib.nullcontext()
-    return sharding.gathered(params, ("blocks",))
+    return sharding.gathered(params, blocks)
 
 
 def _sharded_block(cfg, h, blk, policy, phase, i, layer, positions, index=None):
     """A block of a sharded model, its shards gathered for the block alone."""
-    with sharding.gathered(blk, _local_shards(blk, policy, phase, i)):
+    with sharding.gathered(blk, _local_shards(blk, policy, phase, i, KERNEL_COLUMNS["attn"])):
         return _attn_block_apply(cfg, h, blk, policy, phase, i, layer, positions, index)
+
+
+def _sharded_recurrent(cfg, kind, h, blk, policy, phase, i, layer, index):
+    """A recurrent layer of a sharded model, its shards gathered for the
+    layer alone; its state is read and written as the cell holds it
+    (RWKV6's ``S`` on the rank's heads, the rest on its batch rows)."""
+    with sharding.gathered(blk, _local_shards(blk, policy, phase, i, KERNEL_COLUMNS[kind])):
+        return _recurrent_apply(cfg, kind, h, blk, policy, phase, i, layer, index)
 
 
 def _run_blocks(cfg, params: Transformer, h, policy, phase, cache, positions,
@@ -608,13 +647,12 @@ def _run_blocks(cfg, params: Transformer, h, policy, phase, cache, positions,
     # in the backward
     remat = cfg.remat and phase == "train" and cache is None and torch.is_grad_enabled()
     sharded = sharding.is_sharded(params)
-    if sharded and set(layer_kinds(cfg)) != {"attn"}:
-        raise NotImplementedError(f"{cfg.name}: a sharded recurrent model (ROADMAP A4b)")
     apply = _sharded_block if sharded else _attn_block_apply
+    recurrent = _sharded_recurrent if sharded else _recurrent_apply
     for i, (kind, blk) in enumerate(zip(layer_kinds(cfg), params.blocks)):
         layer = None if cache is None else cache["layers"][i]
         if kind != "attn":
-            h = _recurrent_apply(cfg, kind, h, blk, policy, phase, i, layer, index)
+            h = recurrent(cfg, kind, h, blk, policy, phase, i, layer, index)
         elif remat:
             h = checkpoint(apply, cfg, h, blk, policy, phase, i, None, positions,
                            use_reentrant=False)

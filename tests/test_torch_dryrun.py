@@ -5,20 +5,33 @@ counted (``launch/roofline.count_step``), and ``roofline_exact``.
 Held to the JAX package where it computes the same thing: each rank's
 argument bytes equal XLA's compiled ``argument_size_in_bytes`` on a 2 × 2
 mesh of 4 host devices (the smoke LLaMA-3.1 and Qwen3-30B-A3B train,
-prefill and decode cells); the forward products' FLOPs of unsharded smoke
-prefill and decode cells under ``DENSE`` equal the sum over the reference's
-jaxpr of its ``dot_general`` and ``ragged_dot_general`` operations (scan
-bodies times their length): every product, the attention's included, is
-counted exactly alike.  JAX runs in a subprocess, one start for both.
+prefill and decode cells, and the prefill and decode cells of RWKV6-7B,
+RecurrentGemma-2B and Whisper-medium); the forward products' FLOPs of
+unsharded smoke prefill and decode cells under ``DENSE`` equal the sum over
+the reference's jaxpr of its ``dot_general`` and ``ragged_dot_general``
+operations (scan bodies times their length): every product, the
+attention's included, is counted exactly alike (LLaMA-3.1, Qwen3-30B-A3B,
+Whisper-medium, and RecurrentGemma-2B's decode).  Where the products are
+other operations they are not asserted: RWKV6-7B's WKV is another
+algorithm here (``wkv_chunked``, sub-chunks of 16 tokens, against the
+reference's token scan), and RecurrentGemma-2B's banded prefill attention
+takes each query chunk's ``window + chunk`` keys from the sequence's start
+where the reference pads every slab to that width.  The compiled argument
+size leaves out what the step never reads (jit prunes it: an
+encoder-decoder decode step's encoder and cross k/v projections), which
+the port's count keeps.  JAX
+runs in a subprocess, one start for both.
 
 Held to the port's own bound ranks: four gloo ranks on a (data 2, model 2)
 cell mesh run the smoke cells (the kernels' column-parallel path in their
 plain versions, the MoE's ``_moe_shard_map``, ZeRO-1/2 training), and each
 dry rank records the same collectives, in the same order, and holds the
-same bytes.  The tile-consensus prefill of a model with q/k/v biases at
-model 2 equals one rank's (it added a column shard of the bias to the
-gathered output until the dry-run found it).  The ``--both`` sweep covers all
-13 archs × 4 shapes × 2 meshes with no ``FAIL``, here on the smoke configs at
+same bytes (RWKV6-7B's prefill on its heads of ``S`` and Whisper-medium's
+on its heads of the self and cross K/V among them).  The tile-consensus
+prefill of a model with q/k/v biases at model 2 equals one rank's (it added
+a column shard of the bias to the gathered output until the dry-run found
+it).  The ``--both`` sweep covers all 13 archs × 4 shapes × 2 meshes with no
+``FAIL``, only A3b's train cells ``unported``, here on the smoke configs at
 ``SMOKE_SHAPES`` (the full sweep takes ~40 min of one core).
 
 No JAX at the top of the module: the ranks import it to find their function.
@@ -46,8 +59,11 @@ ROOT = Path(__file__).resolve().parents[1]
 _SRC = str(ROOT / "src")
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 CELLS = [(a, s) for a in ("llama31_8b", "qwen3_30b_a3b")
-         for s in ("train_4k", "prefill_32k", "decode_32k")]
-FLOP_CELLS = [(a, k) for a in ("llama31_8b", "qwen3_30b_a3b") for k in ("prefill", "decode")]
+         for s in ("train_4k", "prefill_32k", "decode_32k")] \
+    + [(a, s) for a in ("rwkv6_7b", "recurrentgemma_2b", "whisper_medium")
+       for s in ("prefill_32k", "decode_32k")]
+FLOP_CELLS = [(a, k) for a in ("llama31_8b", "qwen3_30b_a3b", "whisper_medium")
+              for k in ("prefill", "decode")] + [("recurrentgemma_2b", "decode")]
 B, T, S = 2, 64, 64          # the FLOP cells: B x T prompts, an S-deep cache
 # the smoke sweep: (seq, batch) a shape, a multiple of both production meshes'
 # DP degrees (16 and 32) where the reference's is
@@ -112,8 +128,11 @@ for arch, kind in flop_cells:
     p = jax.eval_shape(m.init, jax.random.PRNGKey(0))
     cache = jax.eval_shape(lambda: m.init_cache(B, S))
     if kind == "prefill":
-        fn = lambda p, t, c: m.prefill(p, {"tokens": t}, c, policy=DENSE)
-        toks = jax.ShapeDtypeStruct((B, T), jnp.int32)
+        fn = lambda p, t, c: m.prefill(p, t, c, policy=DENSE)
+        toks = {"tokens": jax.ShapeDtypeStruct((B, T), jnp.int32)}
+        if m.cfg.is_encdec:
+            toks["frame_embeds"] = jax.ShapeDtypeStruct((B, m.cfg.encoder_seq, m.cfg.d_model),
+                                                        jnp.bfloat16)
     else:
         fn = lambda p, t, c: m.decode_step(p, t, c, policy=DENSE)
         toks = jax.ShapeDtypeStruct((B, 1), jnp.int32)
@@ -140,11 +159,26 @@ def _dry_cell(arch, shape, rank=0, grid=(2, 2), **kw):
                       cfg=kw.pop("cfg", tget(arch)), **kw)
 
 
+def _unread_bytes(cell):
+    """The rank's bytes of the arguments its step never reads, which jit
+    prunes from the compiled executable: an encoder-decoder decode step's
+    encoder and cross-attention k/v projections (it reads the cached cross
+    K/V instead)."""
+    if not (cell.cfg.is_encdec and cell.shape.kind == "decode"):
+        return 0
+    return sum(dryrun._leaf_bytes(p, cell.in_shardings[0][k], cell.mesh)
+               for k, p in cell.args[0].named_parameters()
+               if k.startswith("enc_") or ".cross_attn.k_proj." in k
+               or ".cross_attn.v_proj." in k)
+
+
 @pytest.mark.parametrize("arch,shape", CELLS)
 def test_args_match_jax_compiled_argument_size(jax_side, arch, shape):
     for rank in range(4):        # every rank's shard has the same size here
-        assert dryrun.args_bytes(_dry_cell(arch, shape, rank)) == \
+        cell = _dry_cell(arch, shape, rank)
+        assert dryrun.args_bytes(cell) - _unread_bytes(cell) == \
             jax_side["args"][f"{arch}/{shape}"]
+    assert _unread_bytes(cell) > 0 or arch != "whisper_medium" or shape != "decode_32k"
 
 
 @pytest.mark.parametrize("arch,shape", CELLS)
@@ -208,6 +242,10 @@ def _cases():
         "qwen2 tile-consensus prefill": lambda m: build_cell(
             "qwen2_7b", "prefill_32k", m, cfg=_f32("qwen2_7b"),
             policy=kern("qwen2_7b", tile_consensus=True, tile_size=8), shape=PREFILL),
+        "rwkv6 prefill": lambda m: build_cell("rwkv6_7b", "prefill_32k", m, cfg=_f32(
+            "rwkv6_7b"), policy=kern("rwkv6_7b"), shape=PREFILL),
+        "whisper prefill": lambda m: build_cell("whisper_medium", "prefill_32k", m, cfg=_f32(
+            "whisper_medium"), policy=kern("whisper_medium"), shape=PREFILL),
     }
 
 
@@ -320,7 +358,8 @@ def test_roofline_exact_equals_the_full_depth_count(monkeypatch, arch, shape):
 def test_both_sweep_has_no_fail(monkeypatch, tmp_path, capsys):
     """All 13 archs × 4 shapes × 2 meshes (smoke configs at ``SMOKE_SHAPES``):
     every cell ok, skipped as in the reference, or unported with the
-    refusal's text."""
+    refusal's text: only the train cells of the MoE, recurrent and
+    encoder-decoder families (ROADMAP A3b)."""
     from repro_torch.launch.cells import cell_by_name
 
     real = dryrun.run_cell
@@ -338,17 +377,19 @@ def test_both_sweep_has_no_fail(monkeypatch, tmp_path, capsys):
     by = {}
     for r in rows:
         by.setdefault(r["status"], []).append(r)
-    assert set(by) == {"ok", "skipped", "unported"}
-    assert all("ROADMAP A3b" in r["why"] or "ROADMAP A4b" in r["why"] for r in by["unported"])
+    assert {k: len(v) for k, v in by.items()} == {"ok": 72, "skipped": 20, "unported": 12}
+    assert all("ROADMAP A3b" in r["why"] and "A4b" not in r["why"] for r in by["unported"])
+    assert all(r["shape"] == "train_4k" for r in by["unported"])
     assert all(r["shape"] == "long_500k" for r in by["skipped"])
-    assert "0 failed" in capsys.readouterr().out.splitlines()[-1]
+    assert capsys.readouterr().out.splitlines()[-1] == \
+        "[dryrun] done: 72 ok, 20 skipped, 12 unported, 0 failed"
 
 
 def test_unported_cells_carry_the_refusal():
     r = dryrun.run_cell("qwen3_30b_a3b", "train_4k")
     assert r["status"] == "unported" and "ROADMAP A3b" in r["why"]
-    r = dryrun.run_cell("whisper_medium", "decode_32k", multi_pod=True)
-    assert r["status"] == "unported" and "ROADMAP A4b" in r["why"]
+    r = dryrun.run_cell("rwkv6_7b", "train_4k", multi_pod=True)
+    assert r["status"] == "unported" and "ROADMAP A3b" in r["why"]
     r = dryrun.run_cell("llama31_8b", "long_500k")
     assert r == {"arch": "llama31_8b", "shape": "long_500k", "mesh": "16x16",
                  "status": "skipped",
