@@ -35,10 +35,15 @@ Phases (any failed check exits non-zero; no phase is skipped):
              per 64-key tile from three key lengths.  2f: ``nm_prune``
              bit-exact, also at the MoE path's expert inputs (T = 256 x
              D = 2048, T = 2048 x D = 768, and T = 2048 x D = 2048, no
-             scale).  2i: the grouped product of the MoE layers (one
+             scale), and its ``torch.autograd.Function``'s backward at the
+             first two with a zero group kept: output and ``dX``
+             bit-exact against ``where(mask, dY, 0)``, the forward with the
+             keep-mask timed beside the one without.  2i: the grouped product of the MoE layers (one
              ``torch._grouped_mm`` call, a library call) against its
              per-expert loop at Qwen3-30B-A3B's widths, with empty groups,
-             timed beside its bound; its profiler kernels must fall in the
+             timed beside its bound, and its backward at 13f's 4 x 512 x 8
+             routed rows (``dX`` and ``dW`` within ``BF16_TOL`` of the loop's,
+             an empty group's ``dW`` 0); its profiler kernels must fall in the
              profiles' "grouped product" family.  2g/2h: ``flash_attention`` and
              ``nm_spmm`` at the one-shot Qwen2-7B prefill's shapes (4 x 512
              tokens), with ragged, windowed, non-causal and float32 cases;
@@ -371,10 +376,10 @@ Phases (any failed check exits non-zero; no phase is skipped):
              per encoder layer and the cross k/v per decoder layer, every
              int8 launch on its route, profiled and token-checked as 12a.
 13. training — after phase 12 freed its models (``phase_training``).
-             13a: LLaMA-3.1-8B at full width, depth 8 of 32 (2.80B
-             parameters; 32 layers' weights, gradients and float32 AdamW
-             moments, ~100 GiB, do not fit the card; 16 until phase 15
-             needed the time), bf16, remat, dense:
+             13a: LLaMA-3.1-8B at full width, depth 4 of 32 (32 layers'
+             weights, gradients and float32 AdamW moments, ~100 GiB, do
+             not fit the card; 16 until phase 15, 8 until 13f-13h needed
+             the time), bf16, remat, dense:
              six ``make_train_step`` steps at ``DataConfig(seq_len=512,
              global_batch=4)``, ``OptConfig(lr=3e-4, warmup_steps=2,
              total_steps=6)``: a finite loss and ``grad_norm`` every step,
@@ -384,8 +389,8 @@ Phases (any failed check exits non-zero; no phase is skipped):
              bf16 peak, the optimizer pass alone against its byte bound (22
              B a parameter), peak memory, a checkpoint's write rate and one
              step profiled.  13b: the same with ``--sparse-train``'s policy
-             on the kernels: ``nm_prune_matmul`` exactly 48 times a step
-             (q, gate and down in 8 layers, run again by remat), nothing
+             on the kernels: ``nm_prune_matmul`` exactly 24 times a step
+             (q, gate and down in 4 layers, run again by remat), nothing
              else.  13c: full width, depth 2, float32, one batch of 1 x 256
              with a 16-channel group of layer 0's RMSNorm weight zeroed (a
              zero group in every row of its q input, whose first 8 are
@@ -397,7 +402,23 @@ Phases (any failed check exits non-zero; no phase is skipped):
              the uninterrupted run; bit-identity printed.  13e: ``python -m
              repro_torch.launch.train --arch llama31_8b --smoke --steps 20
              --sparsity 8:16 --sparse-train`` rc 0, then ``--steps 30``
-             resumes from 20.
+             resumes from 20.  13f: Qwen3-30B-A3B at full width, depth 4 of
+             48 (``MOE_TRAIN_DEPTH``; 3.11B parameters, ~40-45 GiB with
+             remat; depth 8 would need ~70 GiB), bf16, remat, dense, four
+             steps of 4 x 512 ``lm_batch`` tokens at ``OptConfig(3e-4,
+             warmup 2)``: finite losses, every leaf's AdamW moment (the
+             expert stacks and float32 routers too) nonzero after step 1,
+             step wall (median of steps 2-4), tokens/s, peak memory and
+             the grouped product's share of a profiled step.  13g: the same
+             under ``paper_policy(8, 16, ())`` active in ``"train"`` on the
+             kernels: per step exactly 8 ``nm_prune_matmul`` (q through
+             ``PruneMatmul``) and 16 ``nm_prune`` (the expert gate and down
+             inputs through ``nm_prune``'s Function), 1 and 2 a layer a
+             forward and remat's second forward as many.  13h: depth 2,
+             float32, 1 x 256 tokens: the kernel path's loss and every
+             gradient (expert stacks and routers included) within
+             ``F32_TOL`` of the plain path's on the kernel path's N:M
+             selections, the experts' included.
 14. tensor parallelism — after phase 13 freed its models
              (``phase_tp``).  14a: each sharded entry point at
              LLaMA-3.1-8B's shapes at tp = 2 and 4, every rank's shard
@@ -415,21 +436,22 @@ Phases (any failed check exits non-zero; no phase is skipped):
              shard's plan printed beside the one it would pick alone.
              14b: two ranks on this card over gloo (``launch.mesh.spawn``;
              NCCL refuses two ranks of one communicator on one device), each
-             serving LLaMA-3.1-8B at full width and ``TP_DEPTH`` (4) layers
+             serving LLaMA-3.1-8B at full width and ``TP_DEPTH`` (2) layers
              with phase 3's weights, policy and stream through ``Engine``
              at ``EngineConfig(tp=2)``, every step eager (a CUDA graph
              cannot hold a gloo collective): every request's tokens equal
              the same model's at tp = 1 (served in this process first) on
              both ranks; each rank's pools hold 4 of the 8 KV heads; per
-             rank the launches exact (48 ``nm_prune_matmul`` a sparse
-             chunk, 16 ``paged_kv_scatter`` and ``paged_attention`` a step
-             half, each a shard) and the gathers exact (64 a chunk alone:
-             q, gate, down and attention; 16 a decode step), with the
+             rank the launches exact, counted from the layers
+             (``nm_prune_matmul`` on q, gate and down a sparse chunk,
+             ``paged_kv_scatter`` and ``paged_attention`` once a layer a
+             step half, each a shard) and the gathers exact (a chunk alone:
+             q, gate, down and attention; a decode step's), with the
              gathered bytes, eager wall time per chunk and per decode step
              and peak memory printed.  14c: the same with 3b's W8A8 rewrite
-             on 3b's stream (tokens equal to tp = 1's; 96 ``osparse_matmul``
-             a step half, 32 pruned a sparse chunk, 16 ``nm_prune_matmul``;
-             128 gathers a chunk alone, 112 a decode step).  14d: ``python
+             on 3b's stream (tokens equal to tp = 1's; ``osparse_matmul``
+             on q/k/v/o/gate/up a step half, the pruned ones a sparse
+             chunk, ``nm_prune_matmul`` on down).  14d: ``python
              -m repro_torch.launch.serve --tp 2`` on the card (the smoke
              LLaMA-3.1 config, 6 requests) exits 0 with the ``--tp 1`` run's
              token digest.
@@ -472,19 +494,27 @@ Phases (any failed check exits non-zero; no phase is skipped):
              fed the ranks' greedy tokens), except Whisper-medium's decode,
              held at float32 and depth 2 (``F32_TOL``; at bf16 its float32
              attention over half the heads takes another reduction order on
-             the card, printed).  2p (with the kernels of phase 2): ``nm_prune`` at the
+             the card, printed).  15f: Qwen3-30B-A3B's ``train_4k`` cell at
+             full width, depth 2, on (1, 2), cut to 2 x 512 tokens, 2 steps:
+             each rank holds half of every expert's d_ff (the stacks on
+             (D over data, d_ff over model), gathered over data alone), the
+             losses, grad norms and parameter slices within
+             ``CELL_TRAIN_RTOL`` of the one-rank cell's (``_moe_shard_map``
+             on a 1 x 1 mesh); held and peak GiB, collectives, capacity and
+             the dropped share printed.  2p (with the kernels of phase 2): ``nm_prune`` at the
              slot tensors 15a launches it on, (128 x 160, 2048) and
              (128 x 160, 384), bit-exact and timed.
 16. launch tooling — after phase 15 (``phase_tooling``).  16a: the
              dry-run (``repro_torch.launch.dryrun.run_cell``: one rank's
              share of the step executed on ``meta`` tensors, every
-             collective recorded, none run) of phase 15's seven cells at
+             collective recorded, none run) of phase 15's eight cells at
              their run shapes and meshes, both ranks: the bytes a dry rank
              holds equal what phase 15's ranks held (their records), its
              arguments' bytes from the specs equal that (train: and the
              rank's batch shard), its collectives equal the ranks' counted
-             ones by kind, count and bytes (15a's whole prefill, 15b's
-             first step, 15c's steps); predicted peak over measured peak
+             ones by kind, count and bytes (15a's whole prefill, 15b's and
+             15f's first step, the backward's collectives included, 15c's
+             steps); predicted peak over measured peak
              printed, not gated.  16b: roofline shares on one rank (1 x 1):
              LLaMA-3.1-8B at full width and depth, its ``prefill_32k`` cell
              cut to ``DRY_PREFILL`` (1 x 2048) under ``paper_policy(8, 16,
@@ -512,7 +542,7 @@ limit, and ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is
 its count in the run of the path that first served it (phase 3, 3b, 5 or
 7a); ``launches_by_run`` holds its count in each main-path run that
 launched it (3, 3b, 5, 6g over both replicas, 7a, 7e, 9a, 9b, 9c's Naive run,
-10a, 10b, 11a, 11e, 11b, 11c, 12a, 12b, 12e, 12c, 13b, and 14b, 14c and 15a on
+10a, 10b, 11a, 11e, 11b, 11c, 12a, 12b, 12e, 12c, 13b, 13g, and 14b, 14c and 15a on
 rank 0), each counted from 0.  Exits non-zero without a
 CUDA device, and when run outside the repository (it needs ``src/``).
 """
@@ -1218,7 +1248,51 @@ def phase_int8_kernels(torch, timer, rates):
                                        bound_ms=bound, bound_by="bytes", max_abs_err=0.0)
         elif name == "expert gate input":
             records["nm_prune"].update(gate_ms=ms, gate_bound_ms=bound)
+    nm_prune_backward(torch, timer, rates, records, g)
     return records
+
+
+def nm_prune_backward(torch, timer, rates, records, g):
+    """2f, training: ``nm_prune``'s ``torch.autograd.Function`` at the MoE
+    expert inputs (T = 256 x D = 2048, the gate input; T = 2048 x D = 768,
+    the down input), no scale, with a whole 16-group of exact zeros in row
+    0: the output and ``dX`` bit-exact against the plain version's
+    ``where(mask, dY, 0)`` (the kept zeros pass their gradient); the forward
+    that writes the keep-mask timed beside the one that does not, and the
+    backward beside its bound."""
+    from repro_torch.kernels import nm_prune as knp
+
+    bw, n, m = rates[0], 8, 16
+    for name, t, d in (("expert gate input", 256, 2048), ("expert down input", 2048, 768)):
+        x = torch.randn(t, d, generator=g, device="cuda").bfloat16()
+        x[0, :16] = 0.0
+        dy = torch.randn(t, d, generator=g, device="cuda").bfloat16()
+        xa = x.clone().requires_grad_()
+        y = knp.nm_prune(xa, None, n, m)
+        if "Prune" not in type(y.grad_fn).__name__:
+            fail(f"2f {name}: nm_prune under autograd took {type(y.grad_fn).__name__}")
+        dx, = torch.autograd.grad(y, [xa], dy)
+        want, keep = knp._plain(x, None, n, m)
+        zero = torch.zeros((), dtype=dy.dtype, device="cuda")
+        if not (torch.equal(y.detach(), want) and torch.equal(dx, torch.where(keep, dy, zero))):
+            fail(f"2f {name}: nm_prune's backward differs from where(mask, dY, 0)")
+        if not torch.equal(dx[0, :8], dy[0, :8]):
+            fail(f"2f {name}: the kept zeros of row 0 did not pass their gradient")
+        kmask = knp._launch(x, None, n, m, with_keep=True)[1]
+        fwd_ms = timer.ms(lambda: knp._launch(x, None, n, m, with_keep=False))
+        keep_ms = timer.ms(lambda: knp._launch(x, None, n, m, with_keep=True))
+        bwd_ms = timer.ms(lambda: torch.where(kmask.view(torch.bool), dy, zero))
+        fwd_bound = 2 * x.numel() * 2 / bw * 1e3
+        keep_bound = 5 * x.numel() / bw * 1e3          # + one mask byte an element
+        bwd_bound = 5 * x.numel() / bw * 1e3           # mask and dY read, dX written
+        print(f"  2f backward, {name} T={t} D={d} (no scale, a zero group in row 0): output "
+              f"and dX bit-exact against where(mask, dY, 0), the kept zeros pass; forward "
+              f"{fwd_ms:.4f} ms (bound {fwd_bound:.4f}), with the keep-mask {keep_ms:.4f} ms "
+              f"(bound {keep_bound:.4f}), backward where(keep, dY, 0) {bwd_ms:.4f} ms (bound "
+              f"{bwd_bound:.4f})")
+        if name == "expert down input":
+            records["nm_prune"].update(keep_ms=keep_ms, keep_bound_ms=keep_bound,
+                                       bwd_ms=bwd_ms, bwd_bound_ms=bwd_bound)
 
 
 def sdpa_ms(torch, timer, q, k, v, causal: bool):
@@ -2862,6 +2936,7 @@ def phase_grouped_product(torch, timer, rates):
             print(f"  {label} {name} ({r} rows, {n_hit} of {e} experts hit): "
                   f"torch._grouped_mm {ms:.4f} ms, bound {bound:.4f} ms ({by}), per-expert "
                   f"loop {plain_ms:.4f} ms")
+    grouped_backward(torch, timer, rates, g, wg, wd)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         moe_lib.grouped_matmul(x, wg, offs)
         torch.cuda.synchronize()
@@ -2871,6 +2946,54 @@ def phase_grouped_product(torch, timer, rates):
     if not any(kernel_family(k) == GROUPED_GEMM[0] for k in keys):
         fail(f"phase 2i: no profiler kernel of torch._grouped_mm falls in the "
              f"{GROUPED_GEMM[0]!r} family: {keys}")
+
+
+def grouped_backward(torch, timer, rates, g, wg, wd):
+    """2i, training: the grouped product's backward (``torch._grouped_mm``'s
+    own: ``dX`` one grouped call on the transposed weights, ``dW`` one of
+    ``Xᵀ · dY`` with the offsets along K) at 13f's routed rows (4 x 512
+    tokens routed 8 ways over Qwen3-30B-A3B's 128 experts, experts 5-8
+    never hit, most groups' lengths not multiples of 8): ``dX`` and ``dW``
+    against the per-expert loop's autograd within ``BF16_TOL``, timed beside
+    the bound of the two products."""
+    from repro_torch.models import moe as moe_lib
+
+    e = wg.shape[0]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    logits = torch.randn(tokens, e, generator=g, device="cuda")
+    logits[:, 5:9] = -1e9
+    flat = torch.sort(logits, dim=-1, descending=True, stable=True).indices[:, :8].reshape(-1)
+    counts = torch.zeros(e, dtype=torch.int32, device="cuda").index_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.int32))
+    offs = torch.cumsum(counts, 0, dtype=torch.int32)
+    r = flat.numel()
+    odd = int((counts % 8 != 0).sum())
+    for name, w in (("gate", wg), ("down", wd)):
+        k, n_out = w.shape[1], w.shape[2]
+        x = torch.randn(r, k, generator=g, device="cuda").bfloat16()
+        dy = torch.randn(r, n_out, generator=g, device="cuda").bfloat16()
+        outs = []
+        for fn in (moe_lib.grouped_matmul, moe_lib.grouped_matmul_plain):
+            xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+            outs.append(torch.autograd.grad(fn(xa, wa, offs), [xa, wa], dy))
+        (dx, dw), (dx_p, dw_p) = outs
+        check_close(f"2i backward {name} dX R={r}", dx, dx_p, BF16_TOL)
+        check_close(f"2i backward {name} dW R={r}", dw, dw_p, BF16_TOL)
+        if bool(dw[5:9].any()):
+            fail(f"2i backward {name}: an empty group's dW is not 0")
+        xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = moe_lib.grouped_matmul(xa, wa, offs)
+        ms = timer.ms(lambda: torch.autograd.grad(y, [xa, wa], dy, retain_graph=True))
+        n_hit = int(flat.unique().numel())
+        # dY, X and the hit experts' weights read once; dX and all of dW written
+        nbytes = (r * n_out + r * k + n_hit * k * n_out + r * k + e * k * n_out) * 2
+        ops = 2 * 2 * r * k * n_out
+        bound = max(nbytes / rates[0], ops / rates[1]) * 1e3
+        by = "bytes" if nbytes / rates[0] >= ops / rates[1] else "operations"
+        print(f"  2i backward {name} ({r} rows, {n_hit} of {e} experts hit, {odd} group "
+              f"lengths not a multiple of 8, experts 5-8 empty): dX and dW within BF16_TOL of "
+              f"the per-expert loop's, the empty groups' dW 0; dX + dW {ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by})")
 
 
 def free_device(torch, label: str):
@@ -5712,7 +5835,8 @@ def first_parting(torch, run):
 def forced_selection_logits(torch, logits_fn, policy, codes=None):
     """``logits_fn(policy)`` on the kernel path, recording every pruned float
     projection's per-token keep mask (``core.nm.nm_topk_mask`` of |x|·scale:
-    the kernel's own selection, bit-exact on equal inputs) and every W8A8
+    the kernel's own selection, bit-exact on equal inputs), every routed
+    expert input's (``models.moe._maybe_prune``, plain |x|) and every W8A8
     projection's int8 codes and activation scale (``osparse_quantize``,
     bit-exact with the kernel's own quantize pass, its N:M selection of
     ``x / smooth`` included), then on the plain path with
@@ -5746,8 +5870,24 @@ def forced_selection_logits(torch, logits_fn, policy, codes=None):
             masks.append(nm.nm_topk_mask(scoring.score_activations(x, p.amber_scale),
                                          pol.n, pol.m))
 
-    with spy_projections(record):
-        got = logits_fn(policy)
+    from repro_torch.models import moe as moe_lib
+
+    real_mp = moe_lib._maybe_prune
+
+    def record_expert(x, module, pol, phase):
+        # the routed experts' prunes (plain |X| scores, layer None) meet
+        # pruner.prune_input on the plain path in the same call order
+        if pol.active(phase) and pol.should_prune(module, None):
+            masks.append(nm.nm_topk_mask(scoring.score_activations(x.detach(), None),
+                                         pol.n, pol.m))
+        return real_mp(x, module, pol, phase)
+
+    moe_lib._maybe_prune = record_expert
+    try:
+        with spy_projections(record):
+            got = logits_fn(policy)
+    finally:
+        moe_lib._maybe_prune = real_mp
     order, qorder = iter(masks), iter(kcodes)
     real, real_q = pruner.prune_input, kos.osparse_quantize_plain
 
@@ -5840,7 +5980,7 @@ def phase_modality(torch, rates):
     return runs
 
 
-TRAIN_DEPTH = 8             # of 32 (16 until phase 15 needed the time): PERF.md section 4
+TRAIN_DEPTH = 4             # of 32 (16 until phase 15, 8 until 13f-13h needed the time): PERF.md 4
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 512, 4, 6
 TRAIN_BYTES_PER_PARAM = 22  # AdamW: p read + written (bf16), g read (bf16), mu, nu r+w (f32)
 TRAIN_CPU_RTOL = 1e-4       # 13d: twelve float32 steps, card against CPU
@@ -5859,14 +5999,21 @@ def train_model(torch, n_layers, dtype=None):
     return cfg, model, make_trainable(model.init(SEED))
 
 
+def active_params(cfg, params) -> float:
+    """The parameters a token's products meet: every one but the
+    embedding's lookup (the LM head counts), an MoE's routed experts at
+    ``top_k / n_experts``."""
+    return sum(p.numel() * (cfg.top_k / cfg.n_experts if ".moe.experts." in k else 1.0)
+               for k, p in params.named_parameters() if k != "embed.w")
+
+
 def train_flops(cfg, params, tokens: int, seq: int) -> float:
     """Model FLOPs of one train step, the PaLM convention: 6 N a token for
-    the N parameters of the products (every one but the embedding's lookup;
-    the LM head counts) plus 12 L d S a token for attention at sequence
-    length S, counted whole (not halved for causality); remat's second
-    forward is not counted."""
-    n = sum(p.numel() for k, p in params.named_parameters() if k != "embed.w")
-    return 6.0 * n * tokens + 12.0 * cfg.n_layers * cfg.d_model * seq * tokens
+    the N parameters of the products (:func:`active_params`) plus 12 L d S
+    a token for attention at sequence length S, counted whole (not halved
+    for causality); remat's second forward is not counted."""
+    return (6.0 * active_params(cfg, params) * tokens
+            + 12.0 * cfg.n_layers * cfg.d_model * seq * tokens)
 
 
 def profile_once(torch, label, fn, wall_ms=None):
@@ -6224,8 +6371,137 @@ def train_cli(torch):
                   f"{ {k: v for k, v in launches.items() if v} }")
 
 
+# 13f-13h: Qwen3-30B-A3B at full width; depth 4 of 48 (3.11B parameters: bf16
+# weights and gradients, float32 moments, ~40-45 GiB with remat; depth 8
+# would need ~70 GiB), TRAIN_BATCH x TRAIN_SEQ tokens, MOE_TRAIN_STEPS steps
+MOE_TRAIN_DEPTH = 4
+MOE_TRAIN_STEPS = 4
+
+
+def moe_train_model(torch, n_layers, dtype=None):
+    """Qwen3-30B-A3B at full width and ``n_layers``, random weights from the
+    seed made on the card and made trainable (the routed experts' stacks and
+    the float32 router included)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import make_trainable
+
+    cfg = get_config("qwen3_30b_a3b")
+    cfg = dataclasses.replace(cfg, n_layers=n_layers, dtype=dtype or cfg.dtype)
+    model = build_model(cfg)
+    return cfg, model, make_trainable(model.init(SEED))
+
+
+def moe_train_run(torch, label, rates, policy):
+    """13f / 13g: ``MOE_TRAIN_STEPS`` steps of Qwen3-30B-A3B at depth
+    ``MOE_TRAIN_DEPTH`` on ``lm_batch``; returns (median step seconds,
+    launches)."""
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    from repro_torch.train import OptConfig, adamw_init, make_train_step, trainable_params
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params = moe_train_model(torch, MOE_TRAIN_DEPTH)
+    named = trainable_params(params)
+    n_params = sum(p.numel() for p in named.values())
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    opt_cfg = OptConfig(lr=3e-4, warmup_steps=2, total_steps=MOE_TRAIN_STEPS)
+    step = make_train_step(model, opt_cfg, policy)
+    opt = adamw_init(named)
+    batches = [lm_batch(data, i) for i in range(MOE_TRAIN_STEPS + 1)]
+    walls, losses = [], []
+    kernels.reset_launch_counts()
+    for i in range(MOE_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt, m = step(params, opt, batches[i])[1:]
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        losses.append(loss)
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            fail(f"{label}: step {i} loss {loss} grad_norm {gnorm}")
+        print(f"  {label} step {i}: loss {loss:.4f} grad_norm {gnorm:.4f} "
+              f"wall {walls[-1] * 1e3:.1f} ms")
+        if i == 0:
+            no_moment = [k for k, mu in opt["mu"].items() if not bool((mu != 0).any())]
+            if no_moment:
+                fail(f"{label}: no gradient reached {no_moment[:4]}")
+            print(f"  {label}: after step 1 every leaf's AdamW moment is nonzero ({len(named)} "
+                  "leaves, the expert stacks and the float32 routers among them)")
+    launches = kernels.launch_counts()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    med = statistics.median(walls[1:])
+    active = active_params(cfg, params)
+    flops = train_flops(cfg, params, tokens, TRAIN_SEQ)
+    bound = flops / rates[1]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {label}: step wall {med * 1e3:.1f} ms (median of steps 2-{MOE_TRAIN_STEPS}), "
+          f"{tokens / med:.0f} tokens/s; model FLOPs {flops / 1e12:.2f} TFLOP (6 N_active T + "
+          f"12 L d S T, N_active = {active / 1e9:.3f}B: the routed experts at top_k / E = "
+          f"{cfg.top_k} / {cfg.n_experts}), bound {bound * 1e3:.1f} ms at "
+          f"{rates[1] / 1e12:.0f} TFLOP/s: {bound / med:.3f} of it; losses "
+          f"{[round(x, 4) for x in losses]}")
+    print(f"  {label}: peak memory allocated {peak:.2f} GiB, reserved "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB ({n_params / 1e9:.3f}B "
+          "parameters)")
+    if label == "13f" and any(launches.values()):
+        fail(f"13f: the dense step launched {launches}")
+    wall, busy, fam = profile_once(torch, f"{label} step {MOE_TRAIN_STEPS + 1}",
+                                   lambda: step(params, opt, batches[MOE_TRAIN_STEPS]),
+                                   med * 1e3)
+    grouped = fam.get(GROUPED_GEMM[0], 0.0)
+    if grouped <= 0:
+        fail(f"{label}: the profiled step shows no grouped product")
+    print(f"  {label}: the grouped product (forward and backward, torch._grouped_mm) "
+          f"{grouped:.1f} ms of the step's {busy:.1f} ms device busy: a share of "
+          f"{grouped / busy:.3f}")
+    del params, opt, named, model, step, batches
+    free_device(torch, label)
+    return {"step_s": med, "launches": launches, "peak_gib": peak,
+            "grouped_share": grouped / busy}
+
+
+def moe_train_gate(torch):
+    """13h: Qwen3-30B-A3B at full width, depth 2, float32, 1 x 256 tokens:
+    the kernel path's loss and gradients (q through ``PruneMatmul``, the
+    routed experts' gate and down inputs through ``nm_prune``'s Function,
+    the grouped product through ``torch._grouped_mm``) against the plain
+    path's on the kernel path's N:M selections."""
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.train import loss_fn, trainable_params
+
+    cfg, model, params = moe_train_model(torch, 2, dtype="float32")
+    named = trainable_params(params)
+    gen = torch.Generator().manual_seed(SEED + 14)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 257), generator=gen).to(model.device)}
+    policy = paper_policy(8, 16, ()).with_(phases=("train", "prefill"), use_kernels=True)
+
+    def grads(pol):
+        loss = loss_fn(model, params, batch, pol)
+        return [loss.detach()] + list(torch.autograd.grad(loss, list(named.values())))
+
+    got, want = forced_selection_logits(torch, grads, policy)
+    check_close("13h loss (kernel path vs plain on its selections)", got[0], want[0], F32_TOL)
+    worst, where = 0.0, ""
+    for (k, _), g, w in zip(named.items(), got[1:], want[1:]):
+        if not bool(g.isfinite().all()):
+            fail(f"13h: gradient of {k} is not finite")
+        err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        if err > worst:
+            worst, where = err, k
+        if err > F32_TOL:
+            fail(f"13h: gradient of {k}: max|diff| / max|g| = {err:.3e} > {F32_TOL}")
+    stacks = sum(".moe.experts." in k for k in named)
+    print(f"  13h: loss and {len(named)} gradients ({stacks} expert stacks, "
+          f"{sum('.moe.router.' in k for k in named)} float32 routers) within {F32_TOL} of "
+          f"the largest entry (worst {worst:.3e}, {where})")
+    del params, model, named, got, want
+    free_device(torch, "13h")
+
+
 def phase_training(torch, rates):
-    """Phase 13 (module docstring).  Returns {"13b": launches}."""
+    """Phase 13 (module docstring).  Returns {"13b": launches, "13g": launches}."""
     from repro_torch.core.policy import DENSE, paper_policy
 
     print(f"phase 13: training, LLaMA-3.1-8B at full width and depth {TRAIN_DEPTH}, bf16")
@@ -6249,12 +6525,36 @@ def phase_training(torch, rates):
     free_device(torch, "13c")
     train_crash_resume(torch)
     train_cli(torch)
-    return {"13b": sparse["launches"]}
+    t0 = time.perf_counter()
+    print(f"phase 13f-13h: training Qwen3-30B-A3B at full width and depth {MOE_TRAIN_DEPTH}, "
+          f"bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, {MOE_TRAIN_STEPS} steps, remat")
+    # DENSE on the card's routes: no prune is active, the grouped product is
+    # torch._grouped_mm (use_kernels=False would take the per-expert loop)
+    moe_dense = moe_train_run(torch, "13f", rates, DENSE.with_(use_kernels=True))
+    moe_sparse = moe_train_run(torch, "13g", rates, paper_policy(8, 16, ()).with_(
+        phases=("train", "prefill"), use_kernels=True))
+    # q (PruneMatmul) and the expert gate and down inputs (Prune) a layer;
+    # remat runs each forward twice
+    per_step = 2 * MOE_TRAIN_DEPTH
+    check_launches("13g", moe_sparse["launches"], {
+        "nm_prune_matmul": per_step * MOE_TRAIN_STEPS,
+        "nm_prune": 2 * per_step * MOE_TRAIN_STEPS, "paged_kv_scatter": 0,
+        "paged_attention": 0, "nm_spmm": 0, "flash_attention": 0, "osparse_matmul": 0,
+        "w8a8_matmul": 0})
+    print(f"  13g: {per_step} nm_prune_matmul and {2 * per_step} nm_prune a step (1 and 2 a "
+          f"layer a forward, remat's second forward as many; the backwards launch none); step "
+          f"wall {moe_sparse['step_s'] * 1e3:.1f} ms against 13f's "
+          f"{moe_dense['step_s'] * 1e3:.1f} ms ({moe_sparse['step_s'] / moe_dense['step_s']:.3f}"
+          "x)")
+    t1 = time.perf_counter()
+    moe_train_gate(torch)
+    print(f"phase 13f-13h seconds: 13f and 13g {t1 - t0:.1f}, 13h {time.perf_counter() - t1:.1f}")
+    return {"13b": sparse["launches"], "13g": moe_sparse["launches"]}
 
 
 # ------------------------------------------------------ tensor parallelism
-TP_DEPTH = 4                # LLaMA-3.1-8B's layers in 14b and 14c (of 32; 16 until phase 16,
-                            # 8 until 15d/15e)
+TP_DEPTH = 2                # LLaMA-3.1-8B's layers in 14b and 14c (of 32; 16 until phase 16,
+                            # 8 until 15d/15e, 4 until 13f-13h and 15f)
 # 14d: the CLI at the smoke size (14b and 14c serve the full width)
 TP_CLI_FLAGS = ["--arch", "llama31_8b", "--smoke", "--trace", "--num-requests", "6",
                 "--len-range", "6:40", "--slots", "2", "--chunk", "16", "--new-tokens", "8",
@@ -6617,7 +6917,10 @@ CELL_DENSE_DEPTH = 2        # 15b's and 15c's (4 until the recurrent and enc-dec
 # checkpoint after 2 until the recurrent and enc-dec cells came)
 CELL_TRAIN = (4, 512, 2, 2)
 CELL_CKPT_AT = 1
-CELL_TRAIN_RTOL = 2e-3      # 15b: bf16 gradients summed over two ranks
+CELL_TRAIN_RTOL = 2e-3      # 15b, 15f: bf16 gradients summed over two ranks
+# 15f: Qwen3-30B-A3B's train cell at depth CELL_DENSE_DEPTH on (data 1, model
+# 2): batch, tokens, steps (train_4k is 256 x 4096), grad_accum 1
+CELL_MOE_TRAIN = (2, 512, 2)
 # 15c: LLaMA-3.1-8B's decode cell: batch, cache depth, greedy steps
 CELL_DECODE = (4, 4096, 2)
 # 15d / 15e: the recurrent and encoder-decoder cells at full width on (data
@@ -6784,6 +7087,53 @@ def _family_prefill_launches(cfg) -> int:
     return 6 * cfg.n_layers
 
 
+def _moe_train_cell(mesh):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.train import OptConfig
+
+    b, t, steps = CELL_MOE_TRAIN
+    cfg = dataclasses.replace(get_config("qwen3_30b_a3b"), n_layers=CELL_DENSE_DEPTH)
+    return build_cell("qwen3_30b_a3b", "train_4k", mesh, cfg=cfg, grad_accum=1,
+                      shape=ShapeCell("train_4k", t, b, "train"),
+                      opt_cfg=OptConfig(lr=3e-4, warmup_steps=2, total_steps=steps))
+
+
+def _moe_train_rank(torch, me, mesh):
+    """15f on one of phase 15's ranks: Qwen3-30B-A3B's train cell, its
+    expert stacks held on (D over data, d_ff over model), ``CELL_MOE_TRAIN``
+    steps."""
+    from repro_torch.launch.dryrun import state_bytes
+
+    t0 = time.perf_counter()
+    cell = _moe_train_cell(mesh)
+    state = cell.materialize(SEED, "cuda")
+    torch.cuda.synchronize()
+    me["f_built"] = time.perf_counter() - t0
+    me["f_held"] = {"params": _gib(_local_bytes(state["params"].parameters())),
+                    "moments": _gib(_local_bytes(list(state["opt"]["mu"].values())
+                                                 + list(state["opt"]["nu"].values())))}
+    me["f_bytes"] = state_bytes(state)
+    _reset_counts(torch)
+    me["f_steps"] = []
+    for i in range(CELL_MOE_TRAIN[2]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = cell.run(state, step=i)
+        torch.cuda.synchronize()
+        me["f_steps"].append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                                  wall=time.perf_counter() - t0))
+        if i == 0:
+            me["f_first"] = _counts(torch)
+        if me["rank"] == 0:
+            print(f"  15f rank 0 step {i}: {me['f_steps'][-1]}", flush=True)
+    me["f"] = _counts(torch)
+    me["f_digest"] = _digest(torch, state, mesh)
+    del cell, state
+    torch.cuda.empty_cache()
+
+
 def _steps(torch, cell, state, steps, forced=None):
     """``steps`` decode steps → (each row's tokens, each step's logits on
     the host): greedy, or with ``forced`` (a list of ``(B,)`` token lists)
@@ -6864,7 +7214,8 @@ def _digest(torch, state, mesh):
 
 def cell_rank(ckpt: str):
     """One of phase 15's two ranks: 15a on a (1, 2) cell mesh, 15b on
-    (2, 1), 15c-15e on (1, 2), each rank's records gathered to every rank."""
+    (2, 1), 15f and 15c-15e on (1, 2), each rank's records gathered to every
+    rank."""
     import torch
     import torch.distributed as dist
 
@@ -6946,6 +7297,9 @@ def cell_rank(ckpt: str):
     del cell, state
     torch.cuda.empty_cache()
 
+    # 15f
+    _moe_train_rank(torch, me, mp)
+
     # 15c
     cell = _decode_cell(mp)
     state = cell.materialize(SEED, "cuda", filled=CELL_DECODE[1] - CELL_DECODE[2])
@@ -6981,11 +7335,37 @@ def _accumulator_gib(state, mesh) -> float:
     return _gib(4 * n)
 
 
+def check_train_rank(label, me, key, steps, whole, grid):
+    """A train cell's rank ``me`` against the one-rank cell: its losses and
+    grad norms (``me[key + "_steps"]``) within ``CELL_TRAIN_RTOL`` of
+    ``steps``, and the sums of squares of its parameter slices
+    (``me[key + "_digest"]``) within it of ``whole``'s same slices on the
+    ``grid``; prints both."""
+    from repro_torch.distributed import sharding
+
+    r = me["rank"]
+    for i, (got, ref) in enumerate(zip(me[f"{key}_steps"], steps)):
+        for k in ("loss", "grad_norm"):
+            if not abs(got[k] - ref[k]) <= CELL_TRAIN_RTOL * abs(ref[k]):
+                fail(f"{label} rank {r} step {i}: {k} {got[k]} against one rank's {ref[k]}")
+    mesh = dataclasses.replace(sharding.Mesh(("data", "model"), grid), rank=r)
+    worst = 0.0
+    for k, (spec, s1, s2) in me[f"{key}_digest"].items():
+        sq = float(sharding.local(whole[k], spec, mesh).double().square().sum())
+        worst = max(worst, abs(s2 - sq) / max(sq, 1e-30))
+    if not worst <= CELL_TRAIN_RTOL:
+        fail(f"{label} rank {r}: parameter slices' sums of squares off by {worst:.2e}")
+    print(f"  {label} rank {r}: losses {[round(s['loss'], 5) for s in me[f'{key}_steps']]} "
+          f"against one rank's {[round(s['loss'], 5) for s in steps]}; grad norms "
+          f"{[round(s['grad_norm'], 4) for s in me[f'{key}_steps']]} / "
+          f"{[round(s['grad_norm'], 4) for s in steps]}; parameter slices' sums of "
+          f"squares within {worst:.2e} (limit {CELL_TRAIN_RTOL})")
+
+
 def cells_reference(torch, ranks, ckpt):
     """15a-15c's one-rank cells in this process, and the checks against the
     ranks' records."""
     from repro_torch.checkpoint import load_checkpoint
-    from repro_torch.distributed import sharding
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import moe as moe_lib
 
@@ -7034,23 +7414,7 @@ def cells_reference(torch, ranks, ckpt):
     whole = {k: p.detach() for k, p in state["params"].named_parameters()}
     for me in ranks:
         r = me["rank"]
-        for i, (got, ref) in enumerate(zip(me["b_steps"], steps)):
-            for k in ("loss", "grad_norm"):
-                if not abs(got[k] - ref[k]) <= CELL_TRAIN_RTOL * abs(ref[k]):
-                    fail(f"15b rank {r} step {i}: {k} {got[k]} against one rank's {ref[k]}")
-        mesh = dataclasses.replace(sharding.Mesh(("data", "model"), (2, 1)), rank=r)
-        worst = 0.0
-        for k, (spec, s1, s2) in me["b_digest"].items():
-            sl = sharding.local(whole[k], spec, mesh).double()
-            worst = max(worst, abs(s2 - float(sl.square().sum())) / max(float(sl.square().sum()),
-                                                                       1e-30))
-        if not worst <= CELL_TRAIN_RTOL:
-            fail(f"15b rank {r}: parameter slices' sums of squares off by {worst:.2e}")
-        print(f"  15b rank {r}: losses {[round(s['loss'], 5) for s in me['b_steps']]} against "
-              f"one rank's {[round(s['loss'], 5) for s in steps]}; grad norms "
-              f"{[round(s['grad_norm'], 4) for s in me['b_steps']]} / "
-              f"{[round(s['grad_norm'], 4) for s in steps]}; parameter slices' sums of "
-              f"squares within {worst:.2e} (limit {CELL_TRAIN_RTOL})")
+        check_train_rank("15b", me, "b", steps, whole, (2, 1))
         for what, mine, full in (("weights", me["b_held"]["params"], held["params"]),
                                  ("moments", me["b_held"]["moments"], held["moments"]),
                                  ("accumulator", me["b_acc_gib"], acc)):
@@ -7086,6 +7450,8 @@ def cells_reference(torch, ranks, ckpt):
     del state, cell
     torch.cuda.empty_cache()
 
+    moe_train_reference(torch, ranks, one)
+
     # 15c
     cell = _decode_cell(one)
     state = cell.materialize(SEED, "cuda", filled=CELL_DECODE[1] - CELL_DECODE[2])
@@ -7096,6 +7462,48 @@ def cells_reference(torch, ranks, ckpt):
         check_tokens(f"15c rank {me['rank']}", me["c_tokens"], want, "one rank's")
     family_reference(torch, ranks, one)
     return steps
+
+
+def moe_train_reference(torch, ranks, one):
+    """15f's one-rank cell (``_moe_shard_map`` on the 1 x 1 mesh, the same
+    capacity and drops as the ranks': data 1 routes the same tokens) and the
+    checks: each rank's losses, grad norms and parameter slices within
+    ``CELL_TRAIN_RTOL`` of one rank's."""
+    from repro_torch.models import moe as moe_lib
+
+    local_path = moe_lib._moe_local
+    moe_lib._moe_local = lambda x, p, policy, phase, top_k, act_fn, impl, layer_idx: \
+        moe_lib._moe_shard_map(one, x, p, policy, phase, top_k, act_fn, layer_idx)
+    try:
+        cell = _moe_train_cell(one)
+        state = cell.materialize(SEED, "cuda")
+        held = {"params": _gib(_local_bytes(state["params"].parameters())),
+                "moments": _gib(_local_bytes(list(state["opt"]["mu"].values())
+                                             + list(state["opt"]["nu"].values())))}
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for i in range(CELL_MOE_TRAIN[2]):
+            m = cell.run(state, step=i)
+            steps.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"])))
+        peak = _gib(torch.cuda.max_memory_allocated())
+    finally:
+        moe_lib._moe_local = local_path
+    whole = {k: p.detach() for k, p in state["params"].named_parameters()}
+    for me in ranks:
+        r = me["rank"]
+        check_train_rank("15f", me, "f", steps, whole, (1, 2))
+        f, mo = me["f"], me["f"]["moe"]
+        print(f"  15f rank {r}: built in {me['f_built']:.1f} s; holds weights "
+              f"{me['f_held']['params']:.3f} GiB, moments {me['f_held']['moments']:.3f} against "
+              f"one rank's {held['params']:.3f} / {held['moments']:.3f}; peak "
+              f"{f['peak_gib']:.2f} GiB allocated (one rank {peak:.2f}); steps "
+              f"{[round(s['wall'], 2) for s in me['f_steps']]} s; capacity {mo['capacity']} "
+              f"slots an expert, {mo['dropped']} of {mo['pairs']} (token, expert) pairs dropped "
+              f"({mo['dropped'] / max(mo['pairs'], 1):.4f}; the pairs and calls count each "
+              f"forward once: remat's recompute stops before the count); collectives "
+              f"{f['collectives']}")
+    del state, cell, whole
+    torch.cuda.empty_cache()
 
 
 def _head_split_attention(torch, cfg, b, s) -> float:
@@ -7232,7 +7640,10 @@ def phase_cells(torch, rates):
           f"Qwen3-30B-A3B prefill_32k cut to {b} x {t}, full width and depth 48, mesh (data 1, "
           f"model 2), paper_policy(8, 16, (41, 46, 47)) with the kernels; 15b LLaMA-3.1-8B "
           f"train_4k cut to {bt} x {tt}, grad_accum {ga}, {steps} steps, depth "
-          f"{CELL_DENSE_DEPTH}, mesh (2, 1); 15c LLaMA-3.1-8B decode_32k cut to B = "
+          f"{CELL_DENSE_DEPTH}, mesh (2, 1); 15f Qwen3-30B-A3B train_4k cut to "
+          f"{CELL_MOE_TRAIN[0]} x {CELL_MOE_TRAIN[1]}, {CELL_MOE_TRAIN[2]} steps, depth "
+          f"{CELL_DENSE_DEPTH}, mesh (1, 2), full width (each rank half of every expert's "
+          f"d_ff); 15c LLaMA-3.1-8B decode_32k cut to B = "
           f"{CELL_DECODE[0]} over a {CELL_DECODE[1]}-deep cache, depth {CELL_DENSE_DEPTH}, "
           f"{CELL_DECODE[2]} greedy steps, "
           "mesh (1, 2); "
@@ -7295,7 +7706,7 @@ HOST_TOOLS = (
      ["[dryrun] done: 6 ok, 2 skipped, 0 unported, 0 failed"]),
     ("dryrun qwen3_30b_a3b", ["repro_torch.launch.dryrun", "--both", "--arch",
                               "qwen3_30b_a3b", "--json", "{dir}/qwen3.json"],
-     ["[dryrun] done: 4 ok, 2 skipped, 2 unported, 0 failed"]),
+     ["[dryrun] done: 6 ok, 2 skipped, 0 unported, 0 failed"]),
     ("dryrun rwkv6_7b", ["repro_torch.launch.dryrun", "--both", "--arch", "rwkv6_7b",
                          "--json", "{dir}/rwkv6.json"],
      ["[dryrun] done: 6 ok, 0 skipped, 2 unported, 0 failed"]),
@@ -7402,6 +7813,10 @@ def dry_cells_check(torch, ranks):
                              shape=ShapeCell("prefill_32k", t, b, "prefill")), (1, 2)),
         ("15b", "b", 1, dict(arch="llama31_8b", shape_name="train_4k", cfg=dense, grad_accum=ga,
                              shape=ShapeCell("train_4k", tt, bt, "train")), (2, 1)),
+        ("15f", "f", 1, dict(arch="qwen3_30b_a3b", shape_name="train_4k", grad_accum=1,
+                             cfg=dataclasses.replace(moe, n_layers=CELL_DENSE_DEPTH),
+                             shape=ShapeCell("train_4k", CELL_MOE_TRAIN[1], CELL_MOE_TRAIN[0],
+                                             "train")), (1, 2)),
         ("15c", "c", steps, dict(arch="llama31_8b", shape_name="decode_32k", cfg=dense,
                                  shape=ShapeCell("decode_32k", ds, db, "decode")), (1, 2)),
     )
@@ -7419,12 +7834,13 @@ def dry_cells_check(torch, ranks):
             dry = run_cell(mesh=mesh, rank=r, **kw)
             if dry["status"] != "ok":
                 fail(f"16a {label} rank {r}: the dry-run says {dry}")
-            got = me["b_first"] if key == "b" else me[key]
+            got = me[f"{key}_first"] if key in ("b", "f") else me[key]
             held = me[f"{key}_bytes"]
             args = dry["bytes_per_device"]["args"]
             batch = 0
-            if key == "b":          # the rank's shard of the step's batch
-                batch = bt // grid[0] * (tt + 1) * 4
+            if key in ("b", "f"):   # the rank's shard of the step's batch
+                b_, t_ = (bt, tt) if key == "b" else CELL_MOE_TRAIN[:2]
+                batch = b_ // grid[0] * (t_ + 1) * 4
             if dry["held"] != held or args != held + batch:
                 fail(f"16a {label} rank {r}: the dry rank holds {dry['held']} B (arguments "
                      f"{args} B from the specs), the rank held {held} B (+ {batch} B of batch)")
@@ -7525,9 +7941,9 @@ def phase_tooling(torch, rates, ranks, host_jobs, workdir):
         report = _start("report", ["-m", "repro_torch.launch.report", str(merged)], workdir,
                         False)
         jobs = examples + [dict(report, want=[
-            "| llama31_8b | train_4k | ok |", "| qwen3_30b_a3b | train_4k | UNPORTED (",
-            "| rwkv6_7b | prefill_32k | ok |", "| whisper_medium | decode_32k | ok |",
-            "cells: 20 ok / 6 skipped / 6 unported / 0 failed (of 32)"])]
+            "| llama31_8b | train_4k | ok |", "| qwen3_30b_a3b | train_4k | ok |",
+            "| rwkv6_7b | train_4k | UNPORTED (", "| whisper_medium | decode_32k | ok |",
+            "cells: 22 ok / 6 skipped / 4 unported / 0 failed (of 32)"])]
         for job in jobs:
             text, secs = _finish(job, TOOLING_TIMEOUT)
             print(f"  16c {job['label']}: exit 0 in {secs:.1f} s, its lines present: "

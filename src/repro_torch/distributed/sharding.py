@@ -71,7 +71,8 @@ import torch.distributed as dist
 __all__ = [
     "Mesh", "NamedSharding", "data_axes", "param_specs", "batch_spec", "cache_specs",
     "opt_state_specs", "shard_zero1", "named", "mesh_scope", "local", "gather",
-    "gather_param", "gather_to_root", "all_reduce", "reduce_slice", "tag", "full_shape",
+    "gather_param", "gather_data", "gather_to_root", "all_reduce", "reduce_slice", "copy_to",
+    "reduce_from", "tag", "full_shape", "grad_spec",
     "model_dim", "gathered", "head_local", "head_state_local", "whole_sequence", "is_sharded",
     "sharded",
     "effective", "collectives", "DryGroup", "recording",
@@ -637,28 +638,37 @@ def is_sharded(module: torch.nn.Module) -> bool:
 
 
 class _Gather(torch.autograd.Function):
-    """The whole tensor from this rank's shard.  Backward: the gradient of
-    the whole tensor summed over the DP axes (each DP rank saw its own
-    batch) and cut to this rank's slice: the shard's own, or, where the
-    train step hung an accumulator on the shard (``_zero2``: ``(acc, key,
-    divisor)``), ``shard_zero1``'s slice divided by ``divisor`` and added to
-    ``acc[key]`` (ZeRO-2; the shard then gets no gradient)."""
+    """The whole tensor from this rank's shard, or (``data_only``) the
+    tensor gathered over the DP axes alone, this rank's ``model`` shard of
+    it kept.  Backward: the gradient summed over the DP axes (each DP rank
+    saw its own batch) and cut to this rank's slice: the shard's own, or,
+    where the train step hung an accumulator on the shard (``_zero2``:
+    ``(acc, key, divisor)``), divided by ``divisor`` and added to
+    ``acc[key]`` (ZeRO-2; the shard then gets no gradient).  A whole
+    gradient pays ``shard_zero1``'s slice in; a ``data_only`` one, whose
+    ``model`` slices differ from rank to rank, pays the shard's own slice,
+    tagged with the shard's spec (:func:`grad_spec` reads it)."""
 
     @staticmethod
-    def forward(ctx, shard, spec, mesh):
-        ctx.spec, ctx.mesh = spec, mesh
+    def forward(ctx, shard, spec, mesh, data_only=False):
+        ctx.spec, ctx.mesh, ctx.data_only = spec, mesh, data_only
         ctx.sink = getattr(shard, "_zero2", None)
+        ctx.tag = shard._shard
         return gather(shard, spec, mesh)
 
     @staticmethod
     def backward(ctx, g):
         dp, mesh = data_axes(ctx.mesh), ctx.mesh
-        if ctx.sink is not None:
-            acc, key, n = ctx.sink
+        if ctx.sink is None:
+            return reduce_slice(g, dp, ctx.spec, mesh).contiguous(), None, None, None
+        acc, key, n = ctx.sink
+        if ctx.data_only:
+            z = reduce_slice(g.float(), dp, ctx.spec, mesh).contiguous() / n
+            tag(z, *ctx.tag)
+        else:
             z = reduce_slice(g, dp, shard_zero1(g.shape, mesh), mesh).float() / n
-            acc[key] = z if key not in acc else acc[key].add_(z)
-            return None, None, None
-        return reduce_slice(g, dp, ctx.spec, mesh).contiguous(), None, None
+        acc[key] = z if key not in acc else acc[key].add_(z)
+        return None, None, None, None
 
 
 def gather_param(t: torch.Tensor) -> torch.Tensor:
@@ -672,6 +682,81 @@ def gather_param(t: torch.Tensor) -> torch.Tensor:
         return _Gather.apply(t, spec, mesh)
     return gather(t.detach(), spec, mesh)
 
+
+def gather_data(t: torch.Tensor) -> torch.Tensor:
+    """A tagged shard gathered over the DP axes alone (autograd-aware): the
+    ``model`` cut stays, as ``models/moe._moe_shard_map`` reads an expert
+    stack that a train cell holds FSDP-style (``param_specs(fsdp=True)``:
+    ``D`` on the DP axes, ``d_ff`` on ``model``).  Its backward sums the
+    gradient over the DP axes onto this rank's shard or pays it into the
+    ZeRO-2 accumulator (:class:`_Gather`), also where no DP axis cuts the
+    shard.  ``t`` itself if it is not tagged."""
+    tg = getattr(t, "_shard", None)
+    if tg is None:
+        return t
+    spec, mesh, _ = tg
+    dp = set(data_axes(mesh))
+    dspec = tuple(e if _axes(e) and set(_axes(e)) <= dp else None for e in spec)
+    if t.requires_grad and torch.is_grad_enabled():
+        return _Gather.apply(t, dspec, mesh, True)
+    return gather(t.detach(), dspec, mesh)
+
+
+def grad_spec(g: torch.Tensor, shape, mesh: Mesh) -> Spec:
+    """The spec of the ZeRO-2 accumulator's slice ``g`` of a gradient of
+    ``shape``: the one a ``data_only`` gather tagged it with, else
+    ``shard_zero1``'s."""
+    tg = getattr(g, "_shard", None)
+    return tg[0] if tg is not None else shard_zero1(shape, mesh)
+
+
+class _CopyTo(torch.autograd.Function):
+    """Megatron's f: identity forward; backward all-reduces each cotangent
+    over ``axes`` (in float64, cast back once)."""
+
+    @staticmethod
+    def forward(ctx, axes, mesh, *ts):
+        ctx.axes, ctx.mesh = axes, mesh
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None) + tuple(
+            None if g is None else
+            all_reduce(g.double().contiguous(), ctx.axes, ctx.mesh).to(g.dtype) for g in gs)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Megatron's g: all-reduce forward; backward passes the cotangent on
+    unchanged (every rank already holds the whole of it)."""
+
+    @staticmethod
+    def forward(ctx, t, axes, mesh):
+        return all_reduce(t.contiguous().clone(), axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to(axes: Tuple[str, ...], mesh: Mesh, *ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The inputs ``ts`` of a region whose ranks over ``axes`` each compute
+    a partial sum from them (the row-parallel half of a layer): the same
+    tensors, whose cotangents, partial on each rank, are summed over
+    ``axes`` in the backward (one all-reduce each).  Off autograd, ``ts``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return _CopyTo.apply(axes, mesh, *ts)
+    return ts
+
+
+def reduce_from(t: torch.Tensor, axes: Tuple[str, ...], mesh: Mesh) -> torch.Tensor:
+    """The output of such a region: ``t`` summed over ``axes``; its
+    backward passes the cotangent through unchanged (an all-reduce there
+    would multiply every gradient by the axes' size).  Off autograd, the
+    in-place :func:`all_reduce`."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _ReduceFrom.apply(t, axes, mesh)
+    return all_reduce(t.contiguous(), axes, mesh)
 
 
 def _owner(module: torch.nn.Module, name: str):

@@ -40,10 +40,15 @@ MoE, VLM text), the recurrent ones (RWKV6's ``S`` held on its heads,
 RecurrentGemma-2B's one-KV-head ring on its sequence) and the
 encoder-decoder (an encoder-decoder prefill cell's ``frame_embeds`` are
 seeded from ``(seed, "frame_embeds")`` and cut to the rank's batch, as
-``tokens`` are; its self and cross K/V held on heads).  A train cell of an
-MoE, recurrent or encoder-decoder model raises ``NotImplementedError``
-when it runs (``transformer.check_trainable``, ``encdec.forward``, ROADMAP
-A3b): the dry-run reports these cells ``unported``.  A mesh of more than
+``tokens`` are; its self and cross K/V held on heads).  The dense and MoE
+families train sharded: an MoE train cell holds each expert stack
+FSDP-style (``D`` on the DP axes, ``d_ff`` on ``model``), which
+``_moe_shard_map`` gathers over the DP axes alone
+(``sharding.gather_data``), its backward paying the rank's slice into the
+ZeRO-2 accumulator.  A train cell of a recurrent or encoder-decoder model
+raises ``NotImplementedError`` when it runs (``transformer.
+check_trainable``, ``encdec.forward``, ROADMAP A3b): the dry-run reports
+these cells ``unported``.  A mesh of more than
 one rank that is neither bound nor a dry rank raises: a cell never runs on
 one rank in place of its mesh.
 """

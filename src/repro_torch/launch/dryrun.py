@@ -30,8 +30,8 @@ cell, which a rank draws each step).
 
 Statuses: ``ok``; ``skipped`` (``long_500k`` on full attention, as the
 reference); ``unported``: a cell the port refuses today with
-``NotImplementedError`` (a train cell of an MoE, recurrent or
-encoder-decoder model, ROADMAP A3b), with the refusal's text, counted
+``NotImplementedError`` (a train cell of a recurrent or encoder-decoder
+model, ROADMAP A3b), with the refusal's text, counted
 apart; ``FAIL`` (exit 1).
 The sweep covers ``ARCH_IDS`` and ``PAPER_ARCH_IDS`` (13 archs; the
 reference's default is the 10 of ``ARCH_IDS``).  The policy is the

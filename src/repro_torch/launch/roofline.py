@@ -100,7 +100,9 @@ class HW:
 
 def _grouped_mm_flop(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
     """``torch._grouped_mm(x (R, K), w (G, K, N), offs)``: each row meets one
-    group's weight."""
+    group's weight.  Its backward's two forms count the same ``2·R·K·N``:
+    ``dX`` is ``(dY (R, N), wᵀ (G, N, K))``, ``dW`` the 2-D × 2-D
+    ``(Xᵀ (K, R), dY (R, N))`` with the offsets along R."""
     return 2 * x_shape[0] * x_shape[-1] * w_shape[-1]
 
 

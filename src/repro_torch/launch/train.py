@@ -12,8 +12,12 @@ on the GPU the pruned projections of ``--sparse-train`` run the
 the CLI raises.  Training runs dense by default (the paper confines
 sparsity to prefill); ``--sparse-train`` makes the ``--sparsity`` policy
 active in the training forward too.  ``--smoke`` takes the reduced config.
-The weights are random from seed 0; the dense family trains (other
-families raise ``NotImplementedError``, ROADMAP A3b).
+The weights are random from seed 0; the dense and MoE families train
+(``--arch qwen3_30b_a3b``, ``mixtral_8x7b``, ``llama4_scout_17b_a16e``; under
+``--sparse-train`` the routed experts' gate and down inputs run the
+``nm_prune`` kernel under its ``torch.autograd.Function``); the recurrent
+and encoder-decoder families and W8A8 projections raise
+``NotImplementedError``, ROADMAP A3b.
 """
 from __future__ import annotations
 
@@ -52,7 +56,9 @@ def main(argv=None) -> int:
     model = build_model(cfg, device=args.device)
     kernels = model.device.type == "cuda"
 
-    policy = DENSE
+    # on the card the kernels' routes (the MoE grouped product among them)
+    # even where no prune is active
+    policy = DENSE.with_(use_kernels=kernels)
     if args.sparsity:
         n, m = (int(x) for x in args.sparsity.split(":"))
         phases = ("train", "prefill") if args.sparse_train else ("prefill",)

@@ -41,6 +41,42 @@ the row-parallel down products.  The serving TP scope
 one, so an MoE under ``EngineConfig(tp > 1)`` keeps the local path.  A
 sharded model whose experts did not take the shard-map path gathers them
 whole for the local one.
+
+Training (``train/``, the reference's ``jax.grad`` of the same functions):
+
+* local path: the experts are parameters that ``train.make_trainable``
+  turns on, the float32 router keeps a float32 gradient, which reaches it
+  through the kept sorted values (Llama-4-Scout's top-1 softmax is the
+  constant 1, so its router gradient is exactly 0, as the reference's);
+  :func:`grouped_matmul` differentiates through ``torch._grouped_mm``'s own
+  backward on the card (``dX`` one grouped product on the transposed
+  weights, ``dW`` one of ``Xᵀ · dY`` with the offsets along K; the card's
+  torch runs it with empty groups and groups of any length) and through the
+  plain loop's per-group products on the CPU; the grouped product is
+  chosen by ``policy.use_kernels``, so a dense run on the card passes
+  ``DENSE.with_(use_kernels=True)`` (no prune is active; only the product's
+  route changes); each prune under
+  ``policy.use_kernels`` is ``nm_prune``'s ``torch.autograd.Function``
+  (``dX = where(keep, dY, 0)``);
+* shard-map path: the ranks of ``model`` each compute a partial sum over
+  their ``d_ff`` columns from inputs replicated over ``model`` (the tokens
+  and the router's gates), so the region takes Megatron's pair of
+  operators: ``sharding.reduce_from`` on its output (all-reduce forward,
+  the cotangent passed on unchanged) and ``sharding.copy_to`` on its inputs
+  (identity forward, the partial cotangents all-reduced over ``model``,
+  once each).  A train cell holds each expert stack FSDP-style (``D`` or
+  the down stack's ``D`` on the DP axes as well); ``sharding.gather_data``
+  gathers it over the DP axes alone, and its backward pays the rank's
+  slice into the ZeRO-2 accumulator.  A slot past capacity is zeroed, so
+  its pairs get no gradient, as in the reference.  Under remat each block
+  runs again in the backward, under the forward's mesh and TP scopes
+  (``transformer._remat_context``: on the card autograd recomputes in a
+  thread of its own), with the same collectives in the same order on every
+  rank and the same routing.  Torch's non-reentrant checkpoint stops that
+  recompute at the block's last saved tensor (the gated combine), so the
+  prunes run again (the launch counters count them twice a forward) but
+  not the output's all-reduce, and ``shard_map_stats`` counts each forward
+  once.
 """
 from __future__ import annotations
 
@@ -65,7 +101,8 @@ class Experts(nn.Module):
     ``gate_proj``/``up_proj`` ``(E, D, F)`` and ``down_proj`` ``(E, F, D)``
     (``torch._grouped_mm`` takes them so; on the H100 it is no slower than
     on K-major copies).  They are parameters, not ``Linear``s: no Amber
-    scale is ever attached to them."""
+    scale is ever attached to them.  Made with ``requires_grad=False``, as
+    every parameter of the port; ``train.make_trainable`` turns them on."""
 
     def __init__(self, n_experts: int, d_model: int, d_ff: int, *, dtype, device,
                  generator: torch.Generator):
@@ -103,14 +140,16 @@ def init_moe(d_model: int, moe_d_ff: int, n_experts: int, shared_expert: bool, *
 
 def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor,
                          offsets: torch.Tensor) -> torch.Tensor:
-    """Plain version: one ``torch.matmul`` per group.  It reads the offsets
-    on the host, so it cannot be captured in a CUDA graph."""
-    out = x.new_empty(x.shape[0], w.shape[-1])
-    start = 0
+    """Plain version: one ``torch.matmul`` per group, the groups' rows
+    concatenated (under autograd each group's backward reads its own rows of
+    the cotangent; writes into slices of one buffer would copy the whole
+    cotangent once a group).  It reads the offsets on the host, so it cannot
+    be captured in a CUDA graph."""
+    parts, start = [], 0
     for g, end in enumerate(offsets.tolist()):
-        out[start:end] = x[start:end] @ w[g]
+        parts.append(x[start:end] @ w[g])
         start = end
-    return out
+    return torch.cat(parts) if parts else x.new_empty(0, w.shape[-1])
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
@@ -234,6 +273,29 @@ def capacity(tokens: int, top_k: int, n_experts: int) -> int:
 shard_map_stats = {"calls": 0, "pairs": 0, "dropped": 0, "capacity": 0}
 
 
+def _expert_shards(mesh, ex: Experts) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The expert stacks as ``_moe_shard_map`` reads them: each gathered
+    over the DP axes (``sharding.gather_data``; a train cell's FSDP cut),
+    then checked to be the ``d_ff / model`` shard of the whole stack (gate
+    and up on their last dim, down on its in-dim)."""
+    out = []
+    for name in ("gate_proj", "up_proj", "down_proj"):
+        w = getattr(ex, name)
+        full = sharding.full_shape(w)
+        dim = 1 if name == "down_proj" else 2
+        want = full[:dim] + (full[dim] // mesh.shape["model"],) + full[dim + 1:]
+        got = sharding.gather_data(w)
+        if full[dim] % mesh.shape["model"] or tuple(got.shape) != want:
+            cut = "" if tuple(got.shape) == tuple(w.shape) else \
+                f" (gathered over the DP axes from {tuple(w.shape)})"
+            raise ValueError(
+                f"expert stack {name} {tuple(got.shape)}{cut} is not the d_ff / "
+                f"{mesh.shape['model']} shard {want} of {full}: a DP axis still cuts it, or "
+                "model does not cut d_ff")
+        out.append(got)
+    return tuple(out)
+
+
 def _moe_shard_map(mesh, x: torch.Tensor, p: MoE, policy: SparsityPolicy, phase: str,
                    top_k: int, act_fn: str, layer_idx: Optional[int]) -> torch.Tensor:
     """Token-local routed experts on this rank's ``x (b, t, D)`` (its
@@ -252,7 +314,9 @@ def _moe_shard_map(mesh, x: torch.Tensor, p: MoE, policy: SparsityPolicy, phase:
     pairs.  The port sums the bf16 products in float64 (their sums over
     ``d_ff`` are then independent of the order to far below a bf16 ulp) and
     casts once, after the all-reduce: model 2 equals model 1 at the layer's
-    output.
+    output.  Under autograd the region's inputs and output take
+    ``sharding.copy_to`` and ``reduce_from`` (module docstring); the
+    backward's partial cotangents are summed in float64 too.
 
     Pruning: the gate and up inputs are the slot tensor (per token, so the
     masks are the unsharded ones); the down input is each rank's ``F /
@@ -262,13 +326,12 @@ def _moe_shard_map(mesh, x: torch.Tensor, p: MoE, policy: SparsityPolicy, phase:
     products (``torch.bmm``), as the reference's einsums are XLA's."""
     b, t, d = x.shape
     xt = x.reshape(b * t, d)
-    ex = p.experts
-    wg, wu, wd = ex.gate_proj, ex.up_proj, ex.down_proj
+    wg, wu, wd = _expert_shards(mesh, p.experts)
     n_exp = p.router.w.shape[-1]
-    if sharding.full_shape(wg)[-1] != wg.shape[-1] * mesh.shape["model"]:
-        raise ValueError(f"expert stacks of {wg.shape[-1]} columns are not a d_ff / "
-                         f"{mesh.shape['model']} shard of {sharding.full_shape(wg)[-1]}")
     gates, expert_ids = route(xt, p.router.w, top_k)
+    # the region of partial sums over model: its inputs' cotangents are
+    # summed over model in the backward, its output's passed on unchanged
+    xt, gates = sharding.copy_to(("model",), mesh, xt, gates)
     pairs = b * t * top_k
     flat_e = expert_ids.reshape(-1)
     order = torch.sort(flat_e, stable=True).indices
@@ -296,7 +359,7 @@ def _moe_shard_map(mesh, x: torch.Tensor, p: MoE, policy: SparsityPolicy, phase:
         0, idx_c, ye.reshape(-1, d))
     y = ys.index_select(0, inv).reshape(b * t, top_k, d)
     y = torch.einsum("tkd,tk->td", y, gates.to(y.dtype))
-    y = sharding.all_reduce(y.contiguous(), ("model",), mesh)
+    y = sharding.reduce_from(y, ("model",), mesh)
     shard_map_stats["calls"] += 1
     shard_map_stats["pairs"] += pairs
     if not counts.is_meta:      # a dry rank's routing has no values to count

@@ -90,7 +90,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import SparsityPolicy
-from repro_torch.distributed import sharding
+from repro_torch.distributed import sharding, tp
 from repro_torch.layers.linear import QuantLinear, dense_linear, init_linear, sparse_linear
 from repro_torch.models import common
 from repro_torch.models import moe as moe_lib
@@ -639,6 +639,24 @@ def _sharded_recurrent(cfg, kind, h, blk, policy, phase, i, layer, index):
         return _recurrent_apply(cfg, kind, h, blk, policy, phase, i, layer, index)
 
 
+def _remat_context():
+    """``checkpoint``'s ``context_fn``: the block runs as it is; remat's
+    recompute, which autograd runs in a thread of its own on the card,
+    re-enters the forward's mesh and TP scopes (thread-locals), so that it
+    takes the forward's paths (``models/moe.moe`` reads the mesh and the
+    batch's DP shards to choose ``_moe_shard_map``)."""
+    mesh, shards = sharding._context_mesh(), sharding._batch_shards()
+    group = getattr(tp.current(), "group", None)
+
+    @contextlib.contextmanager
+    def again():
+        with (sharding.mesh_scope(mesh, shards) if mesh is not None
+              else contextlib.nullcontext()), tp.scope(group):
+            yield
+
+    return contextlib.nullcontext(), again()
+
+
 def _run_blocks(cfg, params: Transformer, h, policy, phase, cache, positions,
                 index=None):
     # the reference's jax.checkpoint around the layer body
@@ -655,7 +673,7 @@ def _run_blocks(cfg, params: Transformer, h, policy, phase, cache, positions,
             h = recurrent(cfg, kind, h, blk, policy, phase, i, layer, index)
         elif remat:
             h = checkpoint(apply, cfg, h, blk, policy, phase, i, None, positions,
-                           use_reentrant=False)
+                           use_reentrant=False, context_fn=_remat_context)
         else:
             h = apply(cfg, h, blk, policy, phase, i, layer, positions, index)
     return h
@@ -672,14 +690,13 @@ def _lm_logits(cfg: ModelConfig, params: Transformer, h: torch.Tensor) -> torch.
 
 def check_trainable(cfg: ModelConfig, params: Transformer) -> None:
     """Raise ``NotImplementedError`` where autograd would record a forward
-    that the port does not train: an MoE, a recurrent layer or a W8A8
-    (``QuantLinear``) projection with parameters that require grad, under
-    grad mode (ROADMAP A3b).  Without either, every family runs as it
-    serves."""
+    that the port does not train: a recurrent layer or a W8A8
+    (``QuantLinear``) projection, an MoE's included, with parameters that
+    require grad, under grad mode (ROADMAP A3b).  The dense and MoE families
+    train; without grad, every family runs as it serves."""
     if not torch.is_grad_enabled() or not any(p.requires_grad for p in params.parameters()):
         return
-    what = ("an MoE" if cfg.n_experts else
-            "a recurrent layer" if set(layer_kinds(cfg)) != {"attn"} else
+    what = ("a recurrent layer" if set(layer_kinds(cfg)) != {"attn"} else
             "a W8A8 projection" if any(isinstance(m, QuantLinear) for m in params.modules())
             else None)
     if what is not None:
@@ -691,8 +708,8 @@ def forward(cfg: ModelConfig, params: Transformer, batch: Dict, *,
     """Full-sequence causal pass without a cache → (B, T, V) logits.  The
     phase defaults to ``"train"``, as the reference's does, so a policy
     whose phases omit it leaves the pass dense.  Autograd records the pass
-    when grad is enabled and the parameters require it (the dense family;
-    :func:`check_trainable` says what raises)."""
+    when grad is enabled and the parameters require it (the dense and MoE
+    families; :func:`check_trainable` says what raises)."""
     check_trainable(cfg, params)
     tokens = batch["tokens"]
     b, t = tokens.shape

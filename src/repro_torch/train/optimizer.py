@@ -138,16 +138,32 @@ def adamw_init(params: Tensors) -> Dict:
 def zero_norm(grads: Tensors, mesh) -> torch.Tensor:
     """The float32 global norm of ZeRO-2 accumulator slices: each rank's
     sum of squares, summed over the DP ranks (a leaf no DP slice cuts is
-    counted by DP rank 0 alone)."""
-    first = all(mesh.coords()[a] == 0 for a in sharding.data_axes(mesh))
-    total = None
+    counted by DP rank 0 alone).  A slice that other axes cut as well (an
+    expert stack's ``model`` shard, ``sharding.grad_spec``) is summed over
+    those axes first."""
+    dp = sharding.data_axes(mesh)
+    first = all(mesh.coords()[a] == 0 for a in dp)
+    total, over = None, {}
     for g in grads.values():
-        if not first and not sharding.sharded(sharding.shard_zero1(g.shape, mesh), mesh):
-            sq = torch.zeros((), dtype=torch.float32, device=g.device)
+        tg = getattr(g, "_shard", None)
+        spec = tg[0] if tg is not None else sharding.shard_zero1(g.shape, mesh)
+        by_dp = sharding.sharded(tuple(e if set(sharding._axes(e)) & set(dp) else None
+                                       for e in spec), mesh)
+        if not first and not by_dp:
+            continue
+        sq = torch.sum(torch.square(g.float()))
+        axes = () if tg is None else tuple(
+            a for a in mesh.axis_names if a not in dp and mesh.shape[a] > 1
+            and any(a in sharding._axes(e) for e in spec))
+        if axes:
+            over[axes] = sq if axes not in over else over[axes] + sq
         else:
-            sq = torch.sum(torch.square(g.float()))
-        total = sq if total is None else total + sq
-    return torch.sqrt(sharding.all_reduce(total, sharding.data_axes(mesh), mesh))
+            total = sq if total is None else total + sq
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32, device=next(iter(grads.values())).device)
+    for axes, sq in over.items():
+        total = total + sharding.all_reduce(sq, axes, mesh)
+    return torch.sqrt(sharding.all_reduce(total, dp, mesh))
 
 
 @torch.no_grad()
@@ -159,8 +175,9 @@ def adamw_update(cfg: OptConfig, grads: Tensors, opt_state: Dict, params: Tensor
     float32 gradients before the moments.  In place (module docstring):
     the returned dicts hold the tensors passed in, updated; ``step`` is a
     new tensor.  Under a bound mesh ``grads`` are the accumulator's ZeRO-2
-    slices (``sharding.shard_zero1`` of each whole gradient's shape) and
-    the update runs on ZeRO-1 slices (module docstring)."""
+    slices (``sharding.grad_spec``: ``shard_zero1`` of each whole gradient's
+    shape, or an expert stack's own shard) and the update runs on ZeRO-1
+    slices (module docstring)."""
     mesh = _zero_mesh()
     if mesh is not None:
         return _zero_update(cfg, grads, opt_state, params, mesh)
@@ -200,8 +217,8 @@ def _zero_update(cfg: OptConfig, grads: Tensors, opt_state: Dict, params: Tensor
     mus, nus = opt_state["mu"], opt_state["nu"]
     for name, p in params.items():
         ospec, pspec = moment_spec(p, mesh), spec_of(p)
-        zspec = sharding.shard_zero1(sharding.full_shape(p), mesh)
         g = grads[name]
+        zspec = sharding.grad_spec(g, sharding.full_shape(p), mesh)
         if sharding.effective(zspec, mesh) != sharding.effective(ospec, mesh):
             # the accumulator's slice is not the moments': re-cut it
             g = sharding.local(sharding.gather(g, zspec, mesh), ospec, mesh)

@@ -161,12 +161,14 @@ def from_jax_params(cfg: ModelConfig, params_np: Dict, device=None
 
 def named_from_jax(cfg: ModelConfig, tree_np: Dict) -> Dict[str, np.ndarray]:
     """``{port parameter name: array}`` of a parameter-shaped JAX tree of
-    the dense family (``blocks.{i}.`` + the layer's path, ``embed.w``,
-    ``final_norm.w``, ``lm_head.w``), each array as it is: no cast.  The
+    the dense or MoE family (``blocks.{i}.`` + the layer's path, ``embed.w``,
+    ``final_norm.w``, ``lm_head.w``; an expert stack's ``w`` dropped, as
+    ``models/moe.Experts`` names it), each array as it is: no cast.  The
     Amber scales are buffers in the port, not parameters, and are left
     out."""
-    if cfg.is_encdec or cfg.n_experts or set(transformer.layer_kinds(cfg)) != {"attn"}:
-        raise NotImplementedError(f"{cfg.name}: named_from_jax maps the dense family's tree")
+    if cfg.is_encdec or set(transformer.layer_kinds(cfg)) != {"attn"}:
+        raise NotImplementedError(f"{cfg.name}: named_from_jax maps the dense and MoE "
+                                  "families' trees")
     out: Dict[str, np.ndarray] = {}
 
     def walk(prefix: str, d: Dict) -> None:
@@ -174,7 +176,10 @@ def named_from_jax(cfg: ModelConfig, tree_np: Dict) -> Dict[str, np.ndarray]:
             if isinstance(v, dict):
                 walk(f"{prefix}{k}.", v)
             elif k != SCALE_KEY:
-                out[prefix + k] = np.asarray(v)
+                name = prefix + k
+                if ".moe.experts." in name:
+                    name = name[:-len(".w")]
+                out[name] = np.asarray(v)
 
     walk("", {k: v for k, v in tree_np.items() if k not in ("periods", "tail")})
     for i in range(cfg.n_layers):

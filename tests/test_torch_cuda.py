@@ -1332,7 +1332,6 @@ _GUARDED = {
         _req(torch.randn(1, 1, 1, 64, device=d)), torch.zeros(2, 8, 1, 64, device=d),
         torch.zeros(2, 8, 1, 64, device=d), torch.zeros(1, 1, dtype=torch.int32, device=d),
         torch.zeros(1, dtype=torch.int32, device=d), torch.ones(1, dtype=torch.int32, device=d)),
-    "nm_prune": lambda d: knp.nm_prune(_req(torch.randn(4, 64, device=d)), None, 8, 16),
 }
 
 
@@ -1340,7 +1339,9 @@ _GUARDED = {
 def test_kernels_without_backward_refuse_grad(gen, kernel):
     """A kernel with no backward, called where autograd records (an input
     requires grad, grad mode on), raises naming itself, before any launch;
-    under ``no_grad`` the guard lets the same tensors through."""
+    under ``no_grad`` a kernel with a backward records nothing either
+    (``nm_prune`` and ``nm_prune_matmul`` have one: their autograd
+    Functions' tests are below)."""
     with pytest.raises(RuntimeError, match=f"{kernel}: the CUDA kernel has no backward"):
         _GUARDED[kernel]("cuda")
     x = torch.randn(4, 64, device="cuda", requires_grad=True)
@@ -1384,6 +1385,40 @@ def test_prune_matmul_function_matches_plain_autograd(gen, dtype, t, d, n_out, b
     for got, want in zip(*outs):
         _close(got, want, dtype)
     assert bool((outs[0][1][1, :8] != 0).any())          # kept zeros pass their gradient
+    assert not bool(outs[0][1][1, 8:16].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,scaled", [(37, 96, True), (256, 2048, False), (2048, 768, False)])
+def test_prune_function_matches_plain_autograd(gen, dtype, t, d, scaled):
+    """``nm_prune``'s ``Prune`` on the card (one kernel launch writing its
+    keep-mask) against the plain path's autograd, with a whole 16-group of
+    zeros and a lone zero: the mask is the plain selection bit for bit and
+    the output and ``dX`` are bit-exact (the kept zeros pass their
+    gradient); off autograd the launch writes no mask."""
+    x = torch.randn(t, d, generator=gen, device="cuda").to(dtype)
+    x[1, :16] = 0
+    x[2, 5] = 0
+    sc = torch.rand(d, generator=gen, device="cuda") + 0.5 if scaled else None
+    dy = torch.randn(t, d, generator=gen, device="cuda").to(dtype)
+    out, keep = knp._launch(x, sc, 8, 16, with_keep=True)
+    want_keep = nm.nm_topk_mask(scoring.score_activations(x, sc), 8, 16)
+    assert torch.equal(keep.view(torch.bool), want_keep)
+    assert knp._launch(x, sc, 8, 16, with_keep=False)[1] is None
+    outs = []
+    for via_kernel in (True, False):
+        xa = x.clone().requires_grad_()
+        n0 = knp.nm_prune.launches
+        if via_kernel:
+            y = knp.nm_prune(xa, sc, 8, 16)
+            assert knp.nm_prune.launches == n0 + 1
+        else:
+            y = torch.where(want_keep, xa, torch.zeros((), dtype=dtype, device="cuda"))
+        y.backward(dy)
+        outs.append((y.detach(), xa.grad))
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+    assert torch.equal(outs[0][1][1, :8], dy[1, :8])     # kept zeros pass their gradient
     assert not bool(outs[0][1][1, 8:16].any())
 
 

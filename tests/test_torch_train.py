@@ -518,13 +518,13 @@ def _w8a8(params):
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("qwen3_30b_a3b", "an MoE"), ("rwkv6_7b", "a recurrent layer"),
+    ("qwen3_30b_a3b-w8a8", "a W8A8 projection"), ("rwkv6_7b", "a recurrent layer"),
     ("recurrentgemma_2b", "a recurrent layer"), ("whisper_medium", "encoder-decoder"),
     ("llama31_8b-w8a8", "a W8A8 projection")])
 def test_untrained_families_raise(arch, what):
-    """An MoE, a recurrent model, the encoder-decoder and a W8A8 model
-    raise ``NotImplementedError`` (ROADMAP A3b) in a forward that autograd
-    would record; the same forward runs under ``no_grad`` and on
+    """A recurrent model, the encoder-decoder and a W8A8 model (an MoE's
+    too) raise ``NotImplementedError`` (ROADMAP A3b) in a forward that
+    autograd would record; the same forward runs under ``no_grad`` and on
     parameters that need no grad."""
     model = build_model(tget(arch.split("-")[0]), device="cpu")
     params = model.init(0)
