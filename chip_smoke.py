@@ -418,7 +418,27 @@ Phases (any failed check exits non-zero; no phase is skipped):
              float32, 1 x 256 tokens: the kernel path's loss and every
              gradient (expert stacks and routers included) within
              ``F32_TOL`` of the plain path's on the kernel path's N:M
-             selections, the experts' included.
+             selections, the experts' included.  13i (``FAMILY_TRAIN``):
+             RWKV6-7B at full width and depth 4, RecurrentGemma-2B at depth 5
+             (a period and two rglru layers) and Whisper-medium whole (24 +
+             24, no remat, as the reference), bf16, ``FAMILY_TRAIN_STEPS``
+             steps of ``lm_batch`` (4 x 512; Whisper-medium 2 x 256 over
+             2 x 1500 seeded frames) at ``OptConfig(3e-4, warmup 2)``,
+             dense: finite losses, every leaf's AdamW moment nonzero after
+             step 1, step wall (median of steps 2 onward), tokens/s, the
+             model-FLOP share, peak memory, one step profiled, and the
+             family's own part (RWKV6's WKV, the RG-LRU scan, Whisper's
+             encoder) run apart at the step's shapes as often as the step
+             runs it, its busy time against the step's.  13j: the same
+             (unprofiled) under
+             ``paper_policy(8, 16, ())`` active in ``"train"`` on the
+             kernels: ``nm_prune_matmul`` (``PruneMatmul``) exactly as often
+             as the pruned projections a forward, twice under remat (48, 38
+             and 168 a step), nothing else.  13k (``FAMILY_GATE_DEPTH``):
+             each at depth 2 (RecurrentGemma-2B 3, its attention layer
+             included), float32, 1 x 256 tokens: the kernel path's loss and
+             every gradient within ``F32_TOL`` of the plain path's on the
+             kernel path's N:M selections.
 14. tensor parallelism — after phase 13 freed its models
              (``phase_tp``).  14a: each sharded entry point at
              LLaMA-3.1-8B's shapes at tp = 2 and 4, every rank's shard
@@ -472,12 +492,11 @@ Phases (any failed check exits non-zero; no phase is skipped):
              the one-rank cell's (``_moe_shard_map`` on a 1 x 1 mesh) and
              layer 0's expert-input keep-masks bit-identical.  15b:
              LLaMA-3.1-8B's ``train_4k`` cell at full width, depth 2, on
-             (data 2, model 1), cut to 4 x 512 tokens, ``grad_accum`` 2, 2
-             steps: weights, moments and the accumulator halved against the
-             one-rank cell, the losses and grad norms within
-             ``CELL_TRAIN_RTOL``, the parameters' slices' sums of squares too;
-             a checkpoint saved whole by the ranks after 1 step, restored in
-             this process, whose step 2 loss equals the ranks'.  15c:
+             (data 2, model 1), cut to 4 x 512 tokens, ``grad_accum`` 2, 1
+             step: weights, moments and the accumulator halved against the
+             one-rank cell, the loss and grad norm within
+             ``CELL_TRAIN_RTOL``, the parameters' slices' sums of squares too.
+             15c:
              LLaMA-3.1-8B's ``decode_32k`` cell at depth 2 on (1, 2): B = 4
              over a 4096-deep cache holding 4 of the 8 KV heads a rank,
              ``CELL_DECODE``'s greedy steps, tokens equal to the one-rank
@@ -501,20 +520,31 @@ Phases (any failed check exits non-zero; no phase is skipped):
              losses, grad norms and parameter slices within
              ``CELL_TRAIN_RTOL`` of the one-rank cell's (``_moe_shard_map``
              on a 1 x 1 mesh); held and peak GiB, collectives, capacity and
-             the dropped share printed.  2p (with the kernels of phase 2): ``nm_prune`` at the
+             the dropped share printed.  15g (``CELL_FAMILY_TRAIN``): the
+             ``train_4k`` cells of RWKV6-7B (depth 2) and RecurrentGemma-2B
+             (depth 3) on (1, 2), cut to 2 x 512 tokens, and Whisper-medium
+             (2 + 2 layers) on (2, 1), cut to 2 x 256 tokens over 2 x 1500
+             seeded frames, full width, 2 steps each: RWKV6's WKV on the
+             rank's 32 of 64 heads, RecurrentGemma-2B's attention whole on
+             each rank; the losses, grad norms and parameter slices within
+             ``CELL_TRAIN_RTOL`` of the one-rank cell's; Whisper-medium's
+             state checkpointed whole by its ranks after 1 step, restored in
+             this process, whose step 2 loss equals the ranks'.  2p (with
+             the kernels of phase 2): ``nm_prune`` at the
              slot tensors 15a launches it on, (128 x 160, 2048) and
              (128 x 160, 384), bit-exact and timed.
 16. launch tooling — after phase 15 (``phase_tooling``).  16a: the
              dry-run (``repro_torch.launch.dryrun.run_cell``: one rank's
              share of the step executed on ``meta`` tensors, every
-             collective recorded, none run) of phase 15's eight cells at
+             collective recorded, none run) of phase 15's eleven cells at
              their run shapes and meshes, both ranks: the bytes a dry rank
              holds equal what phase 15's ranks held (their records), its
              arguments' bytes from the specs equal that (train: and the
-             rank's batch shard), its collectives equal the ranks' counted
-             ones by kind, count and bytes (15a's whole prefill, 15b's and
-             15f's first step, the backward's collectives included, 15c's
-             steps); predicted peak over measured peak
+             rank's batch shard of tokens), its collectives equal the ranks'
+             counted ones by kind, count and bytes (15a's whole prefill, the
+             first step of 15b, 15f and 15g's three, the backward's
+             collectives included, 15c's steps); predicted peak over
+             measured peak
              printed, not gated.  16b: roofline shares on one rank (1 x 1):
              LLaMA-3.1-8B at full width and depth, its ``prefill_32k`` cell
              cut to ``DRY_PREFILL`` (1 x 2048) under ``paper_policy(8, 16,
@@ -542,8 +572,8 @@ limit, and ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is
 its count in the run of the path that first served it (phase 3, 3b, 5 or
 7a); ``launches_by_run`` holds its count in each main-path run that
 launched it (3, 3b, 5, 6g over both replicas, 7a, 7e, 9a, 9b, 9c's Naive run,
-10a, 10b, 11a, 11e, 11b, 11c, 12a, 12b, 12e, 12c, 13b, 13g, and 14b, 14c and 15a on
-rank 0), each counted from 0.  Exits non-zero without a
+10a, 10b, 11a, 11e, 11b, 11c, 12a, 12b, 12e, 12c, 13b, 13g, 13j's three, and 14b, 14c
+and 15a on rank 0), each counted from 0.  Exits non-zero without a
 CUDA device, and when run outside the repository (it needs ``src/``).
 """
 from __future__ import annotations
@@ -5986,15 +6016,19 @@ TRAIN_BYTES_PER_PARAM = 22  # AdamW: p read + written (bf16), g read (bf16), mu,
 TRAIN_CPU_RTOL = 1e-4       # 13d: twelve float32 steps, card against CPU
 
 
-def train_model(torch, n_layers, dtype=None):
-    """LLaMA-3.1-8B at full width and ``n_layers``, random weights from the
-    seed made on the card and made trainable."""
+def train_model(torch, arch, n_layers, dtype=None):
+    """``arch`` at full width and ``n_layers`` (None: the config's; an
+    encoder-decoder's encoder cut to as many), random weights from the seed
+    made on the card and made trainable."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.train import make_trainable
 
-    cfg = get_config("llama31_8b")
-    cfg = dataclasses.replace(cfg, n_layers=n_layers, dtype=dtype or cfg.dtype)
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, dtype=dtype or cfg.dtype)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers,
+                                  n_encoder_layers=min(cfg.n_encoder_layers, n_layers))
     model = build_model(cfg)
     return cfg, model, make_trainable(model.init(SEED))
 
@@ -6070,7 +6104,7 @@ def train_run(torch, label, rates, policy):
     from repro_torch.train import trainable_params
 
     torch.cuda.reset_peak_memory_stats()
-    cfg, model, params = train_model(torch, TRAIN_DEPTH)
+    cfg, model, params = train_model(torch, "llama31_8b", TRAIN_DEPTH)
     named = trainable_params(params)
     n_params = sum(p.numel() for p in named.values())
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
@@ -6171,6 +6205,8 @@ def train_run(torch, label, rates, policy):
 # 13a / 13b: (the dry-run's report of the step, the profiled step's busy
 # ms), read by phase 16b
 DRY_STEPS = {}
+# the later slices' subphases' seconds, printed in the "phase seconds:" line
+SUBPHASE_SECONDS = {}
 
 
 def train_dry_count(cfg, opt_cfg, policy, rates):
@@ -6226,7 +6262,7 @@ def train_gradient_gate(torch):
     from repro_torch.core.policy import paper_policy
     from repro_torch.train import loss_fn, trainable_params
 
-    cfg, model, params = train_model(torch, 2, dtype="float32")
+    cfg, model, params = train_model(torch, "llama31_8b", 2, dtype="float32")
     with torch.no_grad():
         params.blocks[0].ln1.w[:16] = 0.0
     named = trainable_params(params)
@@ -6378,20 +6414,6 @@ MOE_TRAIN_DEPTH = 4
 MOE_TRAIN_STEPS = 4
 
 
-def moe_train_model(torch, n_layers, dtype=None):
-    """Qwen3-30B-A3B at full width and ``n_layers``, random weights from the
-    seed made on the card and made trainable (the routed experts' stacks and
-    the float32 router included)."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import build_model
-    from repro_torch.train import make_trainable
-
-    cfg = get_config("qwen3_30b_a3b")
-    cfg = dataclasses.replace(cfg, n_layers=n_layers, dtype=dtype or cfg.dtype)
-    model = build_model(cfg)
-    return cfg, model, make_trainable(model.init(SEED))
-
-
 def moe_train_run(torch, label, rates, policy):
     """13f / 13g: ``MOE_TRAIN_STEPS`` steps of Qwen3-30B-A3B at depth
     ``MOE_TRAIN_DEPTH`` on ``lm_batch``; returns (median step seconds,
@@ -6401,7 +6423,7 @@ def moe_train_run(torch, label, rates, policy):
     from repro_torch.train import OptConfig, adamw_init, make_train_step, trainable_params
 
     torch.cuda.reset_peak_memory_stats()
-    cfg, model, params = moe_train_model(torch, MOE_TRAIN_DEPTH)
+    cfg, model, params = train_model(torch, "qwen3_30b_a3b", MOE_TRAIN_DEPTH)
     named = trainable_params(params)
     n_params = sum(p.numel() for p in named.values())
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
@@ -6471,7 +6493,7 @@ def moe_train_gate(torch):
     from repro_torch.core.policy import paper_policy
     from repro_torch.train import loss_fn, trainable_params
 
-    cfg, model, params = moe_train_model(torch, 2, dtype="float32")
+    cfg, model, params = train_model(torch, "qwen3_30b_a3b", 2, dtype="float32")
     named = trainable_params(params)
     gen = torch.Generator().manual_seed(SEED + 14)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 257), generator=gen).to(model.device)}
@@ -6498,6 +6520,275 @@ def moe_train_gate(torch):
           f"the largest entry (worst {worst:.3e}, {where})")
     del params, model, named, got, want
     free_device(torch, "13h")
+
+
+# 13i-13k: the recurrent and encoder-decoder families' training at full
+# width, bf16: per arch (depth, None: the config's whole stacks; batch rows;
+# decoder tokens a row).  RWKV6-7B at depth 4 (1.41B parameters: ~2.6 GiB
+# of bf16 weights, as much in gradients, 10.5 GiB of float32 moments),
+# RecurrentGemma-2B at its smoke pattern's depth 5 (a period and two rglru
+# layers), Whisper-medium whole (24 + 24, 0.81B) over 2 x 1500 seeded
+# frames: its encoder's float32 attention probabilities saved for the
+# backward are ~7 GiB at B = 2 (24 layers x 2 x 16 heads x 1500²), and it
+# has no remat (as the reference's encoder-decoder)
+FAMILY_TRAIN = {"rwkv6_7b": (4, 4, 512), "recurrentgemma_2b": (5, 4, 512),
+                "whisper_medium": (None, 2, 256)}
+FAMILY_TRAIN_STEPS = 3
+# 13k: the gradients' depth (RecurrentGemma-2B: one period, its attention
+# layer included), float32, one row of FAMILY_GATE_T tokens
+FAMILY_GATE_DEPTH = {"rwkv6_7b": 2, "recurrentgemma_2b": 3, "whisper_medium": 2}
+FAMILY_GATE_T = 256
+# what 13i/13j time apart as the family's own part of a step, by arch
+FAMILY_PART = {"rwkv6_7b": "the WKV recurrence (wkv_chunked)",
+               "recurrentgemma_2b": "the RG-LRU scan (_rglru_scan)",
+               "whisper_medium": "the encoder (forward and backward over its frames)"}
+
+
+def family_frames(torch, cfg, b, seed=SEED + 33):
+    """``(b, encoder_seq, d_model)`` seeded frame embeddings on the card in
+    the model dtype (an encoder-decoder's), else None."""
+    if not cfg.is_encdec:
+        return None
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(b, cfg.encoder_seq, cfg.d_model, generator=g,
+                       device="cuda").to(getattr(torch, cfg.dtype))
+
+
+def family_train_flops(cfg, params, b: int, t: int) -> float:
+    """Model FLOPs of one train step (the PaLM convention of
+    :func:`train_flops`): 6 N a token for the parameters each token's
+    products meet (the embedding's lookup not counted), and 12 d S a token
+    for each attention layer at the keys S it reads (RecurrentGemma-2B's
+    window; Whisper-medium's encoder over its 1500 frames, its decoder's
+    self-attention over T and cross-attention over the frames); a tied LM
+    head counts as the embedding's size.  The recurrences' own products
+    (WKV state updates, the RG-LRU's gates' elementwise terms) are not
+    counted."""
+    from repro_torch.models.transformer import layer_kinds
+
+    if cfg.is_encdec:
+        enc = sum(p.numel() for k, p in params.named_parameters() if k.startswith("enc_"))
+        dec = sum(p.numel() for k, p in params.named_parameters()
+                  if not k.startswith("enc_") and k != "embed.w")
+        s = cfg.encoder_seq
+        return (6.0 * enc * b * s + 6.0 * dec * b * t
+                + 12.0 * cfg.n_encoder_layers * cfg.d_model * s * b * s
+                + 12.0 * cfg.n_layers * cfg.d_model * (t + s) * b * t)
+    attn = sum(kind == "attn" for kind in layer_kinds(cfg))
+    keys = min(t, cfg.window) if cfg.window else t
+    head = params.embed.w.numel() if cfg.tie_embeddings else 0   # a tied LM head's product
+    return (6.0 * (active_params(cfg, params) + head) * b * t
+            + 12.0 * attn * cfg.d_model * keys * b * t)
+
+
+def family_train_launches(cfg, policy) -> int:
+    """``nm_prune_matmul`` launches of one train forward under ``policy``:
+    every pruned projection of every layer (:func:`prune_launches`; the
+    encoder-decoder's q of its encoder, self- and cross-attention, fc1 and
+    fc2 in every layer, :func:`_family_prefill_launches`)."""
+    return _family_prefill_launches(cfg) if cfg.is_encdec else prune_launches(cfg, policy)[0]
+
+
+def device_busy(torch, fn) -> float:
+    """Device busy ms (the union of the kernels' intervals) of one call of
+    ``fn`` under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return busy_time([(e.time_range.start, e.time_range.end) for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]) / 1e3
+
+
+def family_part_busy(torch, cfg, model, params, batch, policy) -> float:
+    """Device busy ms of the family's own part of one train step
+    (``FAMILY_PART``), run apart on the step's shapes and counted as the
+    step runs it: RWKV6's WKV and the RG-LRU scan a forward without grad
+    (remat's first), a forward with grad and its backward, in every such
+    layer, on inputs drawn like the step's (RWKV6's decays at its init's
+    -exp(-4)); Whisper's encoder a forward and its backward (no remat)."""
+    from repro_torch.models import encdec, rglru, rwkv6
+    from repro_torch.models.transformer import layer_kinds
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 34)
+    b, t = batch["tokens"].shape[0], batch["tokens"].shape[1] - 1
+    dt = getattr(torch, cfg.dtype)
+    if cfg.is_encdec:
+        enc = [p for k, p in params.named_parameters() if k.startswith("enc_")]
+
+        def part():
+            out = encdec._encode(cfg, params, batch["frame_embeds"], policy, "train")
+            torch.autograd.grad(out, enc, torch.ones_like(out))
+        return device_busy(torch, part)
+    kinds = layer_kinds(cfg)
+    if cfg.block_pattern[0] == "rwkv6":
+        hd, d = cfg.d_model // cfg.n_heads, cfg.d_model
+        r, k, v = (torch.randn(b, t, d, generator=g, device="cuda").to(dt).requires_grad_()
+                   for _ in range(3))
+        lw = torch.full((b, t, d), -math.exp(-4.0), device="cuda").requires_grad_()
+        u = torch.zeros(cfg.n_heads, hd, device="cuda").requires_grad_()
+        s0 = torch.zeros(b, cfg.n_heads, hd, hd, device="cuda")
+        fn, args, n = (lambda *a: rwkv6.wkv_chunked(*a, cfg.n_heads)[1]), (s0, r, k, v, lw, u), \
+            kinds.count("rwkv6")
+    else:
+        w = cfg.rnn_width or cfg.d_model
+        a = torch.rand(b, t, w, generator=g, device="cuda").requires_grad_()
+        bx = torch.randn(b, t, w, generator=g, device="cuda").requires_grad_()
+        h0 = torch.zeros(b, w, device="cuda")
+        fn, args, n = rglru._rglru_scan, (a, bx, h0), kinds.count("rglru")
+
+    wrt = [x for x in args if x.requires_grad]
+
+    def part():
+        for _ in range(n):
+            with torch.no_grad():
+                fn(*args)
+            out = fn(*args)
+            torch.autograd.grad(out, wrt, torch.ones_like(out))
+    return device_busy(torch, part)
+
+
+def family_train_run(torch, label, arch, rates, policy, profile=True):
+    """13i / 13j for ``arch`` (``FAMILY_TRAIN``): ``FAMILY_TRAIN_STEPS`` steps
+    on ``lm_batch`` (Whisper-medium: with seeded frames); ``profile``: one
+    more step profiled, and the family's part apart (13i's: the profiler's
+    event lists take seconds a step here, so 13j, whose work differs by its
+    prunes, is timed alone); returns {step_s, launches, peak_gib, tokens_s,
+    cfg}."""
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    from repro_torch.train import OptConfig, adamw_init, make_train_step, trainable_params
+
+    depth, b, t = FAMILY_TRAIN[arch]
+    steps = FAMILY_TRAIN_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params = train_model(torch, arch, depth)
+    named = trainable_params(params)
+    n_params = sum(p.numel() for p in named.values())
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=t, global_batch=b)
+    opt_cfg = OptConfig(lr=3e-4, warmup_steps=2, total_steps=steps)
+    step = make_train_step(model, opt_cfg, policy)
+    opt = adamw_init(named)
+    frames = family_frames(torch, cfg, b)
+    batches = [dict(lm_batch(data, i), **({} if frames is None else {"frame_embeds": frames}))
+               for i in range(steps + 1)]
+    walls, losses = [], []
+    kernels.reset_launch_counts()
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt, m = step(params, opt, batches[i])[1:]
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        losses.append(loss)
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            fail(f"{label} {arch}: step {i} loss {loss} grad_norm {gnorm}")
+        if i == 0:
+            no_moment = [k for k, mu in opt["mu"].items() if not bool((mu != 0).any())]
+            if no_moment:
+                fail(f"{label} {arch}: no gradient reached {no_moment[:4]}")
+    launches = kernels.launch_counts()
+    tokens = b * t
+    med = statistics.median(walls[1:])
+    flops = family_train_flops(cfg, params, b, t)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    enc = f" + {cfg.n_encoder_layers}" if cfg.is_encdec else ""
+    print(f"  {label} {cfg.name} depth {cfg.n_layers}{enc} "
+          f"({n_params / 1e9:.3f}B parameters), {b} x {t} tokens"
+          f"{f' over {b} x {cfg.encoder_seq} frames' if cfg.is_encdec else ''}: step wall "
+          f"{med * 1e3:.1f} ms (median of steps 2-{steps}), {tokens / med:.0f} tokens/s; model "
+          f"FLOPs {flops / 1e12:.3f} TFLOP, a share of {flops / (med * rates[1]):.3f} of the "
+          f"wall at {rates[1] / 1e12:.0f} TFLOP/s; peak {peak:.2f} GiB allocated, "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.2f} reserved; losses "
+          f"{[round(x, 4) for x in losses]}; every leaf's AdamW moment nonzero after step 1")
+    if profile:
+        busy = device_busy(torch, lambda: step(params, opt, batches[steps]))
+        part = family_part_busy(torch, cfg, model, params, batches[steps], policy)
+        print(f"  {label} {cfg.name}: one step profiled, device busy {busy:.1f} ms (idle share "
+              f"{max(0.0, 1 - busy / (med * 1e3)):.3f} of the median wall); "
+              f"{FAMILY_PART[arch]} run apart at the step's shapes, as often as the step runs "
+              f"it: {part:.1f} ms busy, {part / busy:.3f} of the step's")
+    del params, opt, named, model, step, batches, frames
+    free_device(torch, f"{label} {arch}")
+    return {"step_s": med, "launches": launches, "peak_gib": peak, "tokens_s": tokens / med,
+            "cfg": cfg}
+
+
+def family_gradient_gate(torch, arch):
+    """13k for ``arch``: full width, depth ``FAMILY_GATE_DEPTH``, float32,
+    1 x ``FAMILY_GATE_T`` tokens (Whisper-medium over 1 x 1500 seeded
+    frames): the kernel path's loss and every gradient (``PruneMatmul``)
+    within ``F32_TOL`` of the plain path's on the kernel path's N:M
+    selections, remat's recompute included."""
+    from repro_torch.core.policy import paper_policy
+    from repro_torch.train import loss_fn, trainable_params
+
+    cfg, model, params = train_model(torch, arch, FAMILY_GATE_DEPTH[arch], dtype="float32")
+    named = trainable_params(params)
+    gen = torch.Generator().manual_seed(SEED + 15)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, FAMILY_GATE_T + 1),
+                                     generator=gen).to(model.device)}
+    frames = family_frames(torch, cfg, 1)
+    if frames is not None:
+        batch["frame_embeds"] = frames
+    policy = paper_policy(8, 16, cfg.qgate_skip_layers).with_(phases=("train", "prefill"),
+                                                              use_kernels=True)
+
+    def grads(pol):
+        loss = loss_fn(model, params, batch, pol)
+        return [loss.detach()] + list(torch.autograd.grad(loss, list(named.values())))
+
+    got, want = forced_selection_logits(torch, grads, policy)
+    check_close(f"13k {arch} loss (kernel path vs plain on its selections)", got[0], want[0],
+                F32_TOL)
+    worst, where = 0.0, ""
+    for (k, _), g, w in zip(named.items(), got[1:], want[1:]):
+        if not bool(g.isfinite().all()):
+            fail(f"13k {arch}: gradient of {k} is not finite")
+        err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        if err > worst:
+            worst, where = err, k
+        if err > F32_TOL:
+            fail(f"13k {arch}: gradient of {k}: max|diff| / max|g| = {err:.3e} > {F32_TOL}")
+    print(f"  13k {cfg.name} depth {cfg.n_layers}: loss and {len(named)} gradients within "
+          f"{F32_TOL} of the largest entry (worst {worst:.3e}, {where})")
+    del params, model, named, got, want
+    free_device(torch, f"13k {arch}")
+
+
+def phase_family_training(torch, rates):
+    """13i-13k (after 13h): the recurrent and encoder-decoder families'
+    training.  Returns the launches of each 13j run by label."""
+    from repro_torch.core.policy import DENSE, paper_policy
+
+    out = {}
+    for arch in FAMILY_TRAIN:
+        dense = family_train_run(torch, "13i", arch, rates, DENSE)
+        if any(dense["launches"].values()):
+            fail(f"13i {arch}: the dense step launched {dense['launches']}")
+        cfg = dense["cfg"]
+        policy = paper_policy(8, 16, cfg.qgate_skip_layers).with_(
+            phases=("train", "prefill"), use_kernels=True)
+        sparse = family_train_run(torch, "13j", arch, rates, policy, profile=False)
+        twice = cfg.remat and not cfg.is_encdec     # the encoder-decoder has no remat
+        per_step = family_train_launches(cfg, policy) * (2 if twice else 1)
+        check_launches(f"13j {arch}", sparse["launches"], {
+            "nm_prune_matmul": per_step * FAMILY_TRAIN_STEPS, "nm_prune": 0,
+            "paged_kv_scatter": 0, "paged_attention": 0, "nm_spmm": 0, "flash_attention": 0,
+            "osparse_matmul": 0, "w8a8_matmul": 0})
+        print(f"  13j {cfg.name}: {per_step} nm_prune_matmul a step"
+              f"{' (remat runs each forward twice)' if twice else ' (no remat)'}, exact; step "
+              f"wall {sparse['step_s'] * 1e3:.1f} ms against 13i's "
+              f"{dense['step_s'] * 1e3:.1f} ms ({sparse['step_s'] / dense['step_s']:.3f}x)")
+        out[f"13j {arch}"] = sparse["launches"]
+    t0 = time.perf_counter()
+    for arch in FAMILY_TRAIN:
+        family_gradient_gate(torch, arch)
+    SUBPHASE_SECONDS["13k"] = time.perf_counter() - t0
+    return out
 
 
 def phase_training(torch, rates):
@@ -6548,8 +6839,14 @@ def phase_training(torch, rates):
           "x)")
     t1 = time.perf_counter()
     moe_train_gate(torch)
-    print(f"phase 13f-13h seconds: 13f and 13g {t1 - t0:.1f}, 13h {time.perf_counter() - t1:.1f}")
-    return {"13b": sparse["launches"], "13g": moe_sparse["launches"]}
+    t2 = time.perf_counter()
+    print(f"phase 13f-13h seconds: 13f and 13g {t1 - t0:.1f}, 13h {t2 - t1:.1f}")
+    print(f"phase 13i-13k: training RWKV6-7B, RecurrentGemma-2B and Whisper-medium at full "
+          f"width, bf16, {FAMILY_TRAIN_STEPS} steps each ({FAMILY_TRAIN}: depth, batch, "
+          "tokens), DENSE (13i) and --sparse-train (13j); 13k their gradients in float32")
+    family = phase_family_training(torch, rates)
+    SUBPHASE_SECONDS["13i-13k"] = time.perf_counter() - t2     # 13k's also apart
+    return {"13b": sparse["launches"], "13g": moe_sparse["launches"], **family}
 
 
 # ------------------------------------------------------ tensor parallelism
@@ -6913,9 +7210,22 @@ CELL_MOE_BT = (2, 1024)
 CELL_DEPTH = 4              # 15a's parity depth
 CELL_DENSE_DEPTH = 2        # 15b's and 15c's (4 until the recurrent and enc-dec cells came)
 # 15b: LLaMA-3.1-8B's train cell: batch, tokens, grad_accum, steps (train_4k
-# is 256 x 4096); checkpointed after CELL_CKPT_AT steps (3 steps and a
-# checkpoint after 2 until the recurrent and enc-dec cells came)
-CELL_TRAIN = (4, 512, 2, 2)
+# is 256 x 4096; 3 steps and a checkpoint after 2 until the recurrent and
+# enc-dec cells came, 2 steps and a checkpoint after 1 until 15g took the
+# checkpoint)
+CELL_TRAIN = (4, 512, 2, 1)
+# 15g: the recurrent and encoder-decoder train cells at full width in phase
+# 15's spawn: per arch (record key, depth, batch, decoder tokens, grid),
+# CELL_FAMILY_STEPS steps each, OptConfig(3e-4, warmup 2), grad_accum 1;
+# RecurrentGemma-2B at one period (its attention layer, whose 10 / 1 heads
+# the model axis does not split, included); Whisper-medium (2 + 2 layers)
+# over 2 x 1500 seeded frames on (data 2, model 1), checkpointed whole after
+# CELL_CKPT_AT steps and restored in one process (the elastic check, 15b's
+# until 15g: 2.6 GiB against 15b's 13.9)
+CELL_FAMILY_TRAIN = {"rwkv6_7b": ("gr", 2, 2, 512, (1, 2)),
+                     "recurrentgemma_2b": ("gg", 3, 2, 512, (1, 2)),
+                     "whisper_medium": ("gw", 2, 2, 256, (2, 1))}
+CELL_FAMILY_STEPS = 2
 CELL_CKPT_AT = 1
 CELL_TRAIN_RTOL = 2e-3      # 15b, 15f: bf16 gradients summed over two ranks
 # 15f: Qwen3-30B-A3B's train cell at depth CELL_DENSE_DEPTH on (data 1, model
@@ -7100,6 +7410,64 @@ def _moe_train_cell(mesh):
                       opt_cfg=OptConfig(lr=3e-4, warmup_steps=2, total_steps=steps))
 
 
+def _family_train_cell(mesh, arch, ga=1):
+    """15g's train cell of ``arch`` (``CELL_FAMILY_TRAIN``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.train import OptConfig
+
+    _, depth, b, t, _ = CELL_FAMILY_TRAIN[arch]
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=depth,
+                              n_encoder_layers=min(cfg.n_encoder_layers, depth))
+    return build_cell(arch, "train_4k", mesh, cfg=cfg, grad_accum=ga,
+                      shape=ShapeCell("train_4k", t, b, "train"),
+                      opt_cfg=OptConfig(lr=3e-4, warmup_steps=2, total_steps=CELL_FAMILY_STEPS))
+
+
+def _family_train_rank(torch, me, meshes, ckpt):
+    """15g on one of phase 15's ranks: each arch's train cell on its grid
+    (``meshes`` by grid), ``CELL_FAMILY_STEPS`` steps; Whisper-medium's
+    state checkpointed after ``CELL_CKPT_AT`` steps."""
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.launch.dryrun import state_bytes
+
+    for arch, (key, _, _, _, grid) in CELL_FAMILY_TRAIN.items():
+        t0 = time.perf_counter()
+        cell = _family_train_cell(meshes[grid], arch)
+        state = cell.materialize(SEED, "cuda")
+        torch.cuda.synchronize()
+        me[f"{key}_built"] = time.perf_counter() - t0
+        me[f"{key}_held"] = {"params": _gib(_local_bytes(state["params"].parameters())),
+                             "moments": _gib(_local_bytes(list(state["opt"]["mu"].values())
+                                                          + list(state["opt"]["nu"].values())))}
+        me[f"{key}_bytes"] = state_bytes(state)
+        _reset_counts(torch)
+        me[f"{key}_steps"] = []
+        for i in range(CELL_FAMILY_STEPS):
+            if arch == "whisper_medium" and i == CELL_CKPT_AT:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                save_checkpoint(ckpt, _train_state(state), cell.shardings())
+                me[f"{key}_ckpt_s"] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = cell.run(state, step=i)
+            torch.cuda.synchronize()
+            me[f"{key}_steps"].append(dict(loss=float(m["loss"]),
+                                           grad_norm=float(m["grad_norm"]),
+                                           wall=time.perf_counter() - t0))
+            if i == 0:
+                me[f"{key}_first"] = _counts(torch)
+        me[key] = _counts(torch)
+        me[f"{key}_digest"] = _digest(torch, state, meshes[grid])
+        del cell, state
+        torch.cuda.empty_cache()
+        if me["rank"] == 0:
+            print(f"  15g {arch} rank 0: steps {me[f'{key}_steps']}", flush=True)
+
+
 def _moe_train_rank(torch, me, mesh):
     """15f on one of phase 15's ranks: Qwen3-30B-A3B's train cell, its
     expert stacks held on (D over data, d_ff over model), ``CELL_MOE_TRAIN``
@@ -7214,12 +7582,11 @@ def _digest(torch, state, mesh):
 
 def cell_rank(ckpt: str):
     """One of phase 15's two ranks: 15a on a (1, 2) cell mesh, 15b on
-    (2, 1), 15f and 15c-15e on (1, 2), each rank's records gathered to every
-    rank."""
+    (2, 1), 15f and 15c-15e on (1, 2), 15g on (1, 2) and (2, 1), each rank's
+    records gathered to every rank."""
     import torch
     import torch.distributed as dist
 
-    from repro_torch.checkpoint import save_checkpoint
     from repro_torch.launch.dryrun import state_bytes
     from repro_torch.launch.mesh import make_cell_mesh
     from repro_torch.models import moe as moe_lib
@@ -7273,13 +7640,6 @@ def cell_rank(ckpt: str):
     _reset_counts(torch)
     me["b_steps"] = []
     for i in range(steps):
-        if i == CELL_CKPT_AT:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            save_checkpoint(ckpt, _train_state(state), cell.shardings())
-            me["b_ckpt_s"] = time.perf_counter() - t0
-            if me["rank"] == 0:
-                print(f"  15b: checkpoint saved in {me['b_ckpt_s']:.1f} s", flush=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m = cell.run(state, step=i)
@@ -7297,8 +7657,11 @@ def cell_rank(ckpt: str):
     del cell, state
     torch.cuda.empty_cache()
 
-    # 15f
+    # 15f, 15g
     _moe_train_rank(torch, me, mp)
+    t0 = time.perf_counter()
+    _family_train_rank(torch, me, {(1, 2): mp, (2, 1): dp}, ckpt)
+    me["g_s"] = time.perf_counter() - t0
 
     # 15c
     cell = _decode_cell(mp)
@@ -7363,9 +7726,8 @@ def check_train_rank(label, me, key, steps, whole, grid):
 
 
 def cells_reference(torch, ranks, ckpt):
-    """15a-15c's one-rank cells in this process, and the checks against the
+    """15a-15g's one-rank cells in this process, and the checks against the
     ranks' records."""
-    from repro_torch.checkpoint import load_checkpoint
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import moe as moe_lib
 
@@ -7397,7 +7759,7 @@ def cells_reference(torch, ranks, ckpt):
           f"1's on both ranks (gate {tuple(seen[0].shape)}, down {tuple(seen[1].shape)} "
           "split on d_ff)")
 
-    # 15b: the one-rank cell, then a restore of the ranks' checkpoint
+    # 15b: the one-rank cell
     cell = _train_cell(one)
     state = cell.materialize(SEED, "cuda")
     held = {"params": _gib(_local_bytes(state["params"].parameters())),
@@ -7410,7 +7772,6 @@ def cells_reference(torch, ranks, ckpt):
         m = cell.run(state, step=i)
         steps.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"])))
     peak = _gib(torch.cuda.max_memory_allocated())
-    digest = _digest(torch, state, one)
     whole = {k: p.detach() for k, p in state["params"].named_parameters()}
     for me in ranks:
         r = me["rank"]
@@ -7425,32 +7786,15 @@ def cells_reference(torch, ranks, ckpt):
               f"{me['b_held']['moments']:.3f}, accumulator {me['b_acc_gib']:.3f} against one "
               f"rank's {held['params']:.3f} / {held['moments']:.3f} / {acc:.3f}; peak "
               f"{me['b']['peak_gib']:.2f} GiB allocated (one rank {peak:.2f}); steps "
-              f"{[round(s['wall'], 2) for s in me['b_steps']]} s; checkpoint saved in "
-              f"{me['b_ckpt_s']:.1f} s; collectives {me['b']['collectives']}")
-    del whole
-    t0 = time.perf_counter()
-    # the ranks' state after CELL_CKPT_AT steps, into this state's tensors
-    loaded = load_checkpoint(ckpt, _train_state(state))
-    with torch.no_grad():
-        for k, p in state["params"].named_parameters():
-            p.copy_(loaded["params"][k])
-    dev = next(state["params"].parameters()).device
-    state["opt"] = {**loaded["opt"], "step": torch.tensor(CELL_CKPT_AT, dtype=torch.int32,
-                                                           device=dev)}
-    del loaded
-    restored = time.perf_counter() - t0
-    m = cell.run(state, step=CELL_CKPT_AT)
-    got, ref = float(m["loss"]), ranks[0]["b_steps"][CELL_CKPT_AT]["loss"]
-    if not abs(got - ref) <= CELL_TRAIN_RTOL * abs(ref):
-        fail(f"15b elastic: step {CELL_CKPT_AT}'s loss {got} after the restore, the ranks' {ref}")
-    print(f"  15b elastic: the two ranks' checkpoint after {CELL_CKPT_AT} steps "
-          f"({Path(ckpt).stat().st_size / 2**30:.2f} GiB, whole tensors) restored in one process "
-          f"in {restored:.1f} s; step {CELL_CKPT_AT}'s loss {got:.5f} against the ranks' "
-          f"{ref:.5f}")
-    del state, cell
+              f"{[round(s['wall'], 2) for s in me['b_steps']]} s; collectives "
+              f"{me['b']['collectives']}")
+    del whole, state, cell
     torch.cuda.empty_cache()
 
     moe_train_reference(torch, ranks, one)
+    t0 = time.perf_counter()
+    family_train_reference(torch, ranks, one, ckpt)
+    SUBPHASE_SECONDS["15g"] = ranks[0]["g_s"] + time.perf_counter() - t0
 
     # 15c
     cell = _decode_cell(one)
@@ -7504,6 +7848,66 @@ def moe_train_reference(torch, ranks, one):
               f"{f['collectives']}")
     del state, cell, whole
     torch.cuda.empty_cache()
+
+
+def family_train_reference(torch, ranks, one, ckpt):
+    """15g's one-rank cells (a microbatch per DP rank's) and the checks: each
+    rank's losses, grad norms and parameter slices within
+    ``CELL_TRAIN_RTOL`` of one rank's, what it holds against one rank; then
+    Whisper-medium's checkpoint, saved whole by its (2, 1) ranks after
+    ``CELL_CKPT_AT`` steps, restored into the one-rank state, whose next
+    step's loss must equal the ranks'."""
+    from repro_torch.checkpoint import load_checkpoint
+
+    for arch, (key, depth, b, t, grid) in CELL_FAMILY_TRAIN.items():
+        cell = _family_train_cell(one, arch, ga=grid[0])
+        state = cell.materialize(SEED, "cuda")
+        held = {"params": _gib(_local_bytes(state["params"].parameters())),
+                "moments": _gib(_local_bytes(list(state["opt"]["mu"].values())
+                                             + list(state["opt"]["nu"].values())))}
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for i in range(CELL_FAMILY_STEPS):
+            m = cell.run(state, step=i)
+            steps.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"])))
+        peak = _gib(torch.cuda.max_memory_allocated())
+        whole = {k: p.detach() for k, p in state["params"].named_parameters()}
+        for me in ranks:
+            r = me["rank"]
+            check_train_rank(f"15g {arch}", me, key, steps, whole, grid)
+            got = me[key]
+            print(f"  15g {arch} rank {r}: depth {depth}, {b} x {t} tokens on {grid}; built in "
+                  f"{me[f'{key}_built']:.1f} s; holds weights {me[f'{key}_held']['params']:.3f} "
+                  f"GiB, moments {me[f'{key}_held']['moments']:.3f} against one rank's "
+                  f"{held['params']:.3f} / {held['moments']:.3f}; peak {got['peak_gib']:.2f} GiB "
+                  f"(one rank {peak:.2f}); steps "
+                  f"{[round(s['wall'], 2) for s in me[f'{key}_steps']]} s; collectives "
+                  f"{got['collectives']}")
+        del whole
+        if arch == "whisper_medium":
+            t0 = time.perf_counter()
+            # the ranks' state after CELL_CKPT_AT steps, into this state's tensors
+            loaded = load_checkpoint(ckpt, _train_state(state))
+            with torch.no_grad():
+                for k, p in state["params"].named_parameters():
+                    p.copy_(loaded["params"][k])
+            dev = next(state["params"].parameters()).device
+            state["opt"] = {**loaded["opt"],
+                            "step": torch.tensor(CELL_CKPT_AT, dtype=torch.int32, device=dev)}
+            del loaded
+            restored = time.perf_counter() - t0
+            m = cell.run(state, step=CELL_CKPT_AT)
+            got, ref = float(m["loss"]), ranks[0][f"{key}_steps"][CELL_CKPT_AT]["loss"]
+            if not abs(got - ref) <= CELL_TRAIN_RTOL * abs(ref):
+                fail(f"15g elastic: step {CELL_CKPT_AT}'s loss {got} after the restore, the "
+                     f"ranks' {ref}")
+            print(f"  15g elastic: Whisper-medium's (2, 1) checkpoint after {CELL_CKPT_AT} "
+                  f"step ({Path(ckpt).stat().st_size / 2**30:.2f} GiB, whole tensors) saved in "
+                  f"{ranks[0][f'{key}_ckpt_s']:.1f} s, restored in one process in "
+                  f"{restored:.1f} s; step {CELL_CKPT_AT}'s loss {got:.5f} against the ranks' "
+                  f"{ref:.5f}")
+        del state, cell
+        torch.cuda.empty_cache()
 
 
 def _head_split_attention(torch, cfg, b, s) -> float:
@@ -7651,7 +8055,10 @@ def phase_cells(torch, rates):
                       f"decode_32k cut to B = {db} over {ds} rows, {steps} greedy steps, "
                       "mesh (1, 2), paper_policy(8, 16, ()) with the kernels"
                       for arch, (label, depth, (b, t), (db, ds, steps), _)
-                      in CELL_FAMILIES.items()))
+                      in CELL_FAMILIES.items())
+          + "; 15g " + ", ".join(f"{arch} train_4k depth {depth} cut to {b} x {t}, mesh {grid}"
+                                 for arch, (_, depth, b, t, grid) in CELL_FAMILY_TRAIN.items())
+          + f", {CELL_FAMILY_STEPS} steps each (full width; the cells' default policy: dense)")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="cells-") as d:
         ckpt = str(Path(d) / "ckpt.npz")
@@ -7709,10 +8116,10 @@ HOST_TOOLS = (
      ["[dryrun] done: 6 ok, 2 skipped, 0 unported, 0 failed"]),
     ("dryrun rwkv6_7b", ["repro_torch.launch.dryrun", "--both", "--arch", "rwkv6_7b",
                          "--json", "{dir}/rwkv6.json"],
-     ["[dryrun] done: 6 ok, 0 skipped, 2 unported, 0 failed"]),
+     ["[dryrun] done: 8 ok, 0 skipped, 0 unported, 0 failed"]),
     ("dryrun whisper_medium", ["repro_torch.launch.dryrun", "--both", "--arch",
                                "whisper_medium", "--json", "{dir}/whisper.json"],
-     ["[dryrun] done: 4 ok, 2 skipped, 2 unported, 0 failed"]),
+     ["[dryrun] done: 6 ok, 2 skipped, 0 unported, 0 failed"]),
     ("perf", ["repro_torch.launch.perf", "--arch", "qwen2_5_32b", "--shape", "prefill_32k"],
      ["dense ", "per_token ", "tile_consensus ", "Δ vs dense"]),
     ("roofline_exact", ["repro_torch.launch.roofline_exact", "--arch", "llama31_8b",
@@ -7795,7 +8202,8 @@ def _stop_all(jobs) -> None:
 
 def dry_cells_check(torch, ranks):
     """16a: phase 15's cells counted on dry ranks, against the ranks'
-    records (15d / 15e: each prefill and decode cell)."""
+    records (15d / 15e: each prefill and decode cell; 15g: each train
+    cell's first step)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeCell
     from repro_torch.core.policy import paper_policy
@@ -7827,6 +8235,13 @@ def dry_cells_check(torch, ranks):
             cases += ((f"{label} {kind}", key, times,
                        dict(arch=arch, shape_name=cell.shape.name, cfg=cell.cfg,
                             policy=cell.policy, shape=cell.shape), (1, 2)),)
+    # train cells: the record key → (batch rows, tokens a row) of the step's batch
+    train = {"b": (bt, tt), "f": CELL_MOE_TRAIN[:2]}
+    for arch, (key, _, b_, t_, grid) in CELL_FAMILY_TRAIN.items():
+        cell = _family_train_cell(abstract_mesh(grid, ("data", "model")), arch)
+        cases += ((f"15g {arch}", key, 1, dict(arch=arch, shape_name="train_4k", cfg=cell.cfg,
+                                                grad_accum=1, shape=cell.shape), grid),)
+        train[key] = (b_, t_)
     for label, key, times, kw, grid in cases:
         for me in ranks:
             r = me["rank"]
@@ -7834,12 +8249,12 @@ def dry_cells_check(torch, ranks):
             dry = run_cell(mesh=mesh, rank=r, **kw)
             if dry["status"] != "ok":
                 fail(f"16a {label} rank {r}: the dry-run says {dry}")
-            got = me[f"{key}_first"] if key in ("b", "f") else me[key]
+            got = me[f"{key}_first"] if key in train else me[key]
             held = me[f"{key}_bytes"]
             args = dry["bytes_per_device"]["args"]
             batch = 0
-            if key in ("b", "f"):   # the rank's shard of the step's batch
-                b_, t_ = (bt, tt) if key == "b" else CELL_MOE_TRAIN[:2]
+            if key in train:    # the rank's shard of the step's tokens (frames are held)
+                b_, t_ = train[key]
                 batch = b_ // grid[0] * (t_ + 1) * 4
             if dry["held"] != held or args != held + batch:
                 fail(f"16a {label} rank {r}: the dry rank holds {dry['held']} B (arguments "
@@ -7942,8 +8357,9 @@ def phase_tooling(torch, rates, ranks, host_jobs, workdir):
                         False)
         jobs = examples + [dict(report, want=[
             "| llama31_8b | train_4k | ok |", "| qwen3_30b_a3b | train_4k | ok |",
-            "| rwkv6_7b | train_4k | UNPORTED (", "| whisper_medium | decode_32k | ok |",
-            "cells: 22 ok / 6 skipped / 4 unported / 0 failed (of 32)"])]
+            "| rwkv6_7b | train_4k | ok |", "| whisper_medium | train_4k | ok |",
+            "| whisper_medium | decode_32k | ok |",
+            "cells: 26 ok / 6 skipped / 0 unported / 0 failed (of 32)"])]
         for job in jobs:
             text, secs = _finish(job, TOOLING_TIMEOUT)
             print(f"  16c {job['label']}: exit 0 in {secs:.1f} s, its lines present: "
@@ -8079,7 +8495,8 @@ def run_phases(torch, name, rates, card, host_jobs, workdir) -> int:
           f"Mixtral and the slab {t12 - t11:.1f}, the recurrent families {t13 - t12:.1f}, "
           f"the modality families {t14 - t13:.1f}, training {t15 - t14:.1f}, tensor "
           f"parallelism {t16 - t15:.1f}, sharded cells {t17 - t16:.1f}, launch tooling "
-          f"{t18 - t17:.1f}; phases in all {t18 - t:.1f}")
+          f"{t18 - t17:.1f}; phases in all {t18 - t:.1f}; of them "
+          + ", ".join(f"{k} {v:.1f}" for k, v in SUBPHASE_SECONDS.items()))
 
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import nm_prune as knp

@@ -72,8 +72,9 @@ __all__ = [
     "Mesh", "NamedSharding", "data_axes", "param_specs", "batch_spec", "cache_specs",
     "opt_state_specs", "shard_zero1", "named", "mesh_scope", "local", "gather",
     "gather_param", "gather_data", "gather_to_root", "all_reduce", "reduce_slice", "copy_to",
-    "reduce_from", "tag", "full_shape", "grad_spec",
-    "model_dim", "gathered", "head_local", "head_state_local", "whole_sequence", "is_sharded",
+    "reduce_from", "tag", "full_shape", "grad_spec", "param_grad_spec",
+    "model_dim", "gathered", "head_local", "head_state_local", "fresh_head_state",
+    "whole_sequence", "is_sharded",
     "sharded",
     "effective", "collectives", "DryGroup", "recording",
 ]
@@ -361,11 +362,15 @@ def opt_state_specs(pspecs: Dict[str, Spec], params=None, mesh: Optional[Mesh] =
     """AdamW's state specs: ZeRO-1 given shapes and a mesh.  ``mu``/``nu``
     start from each parameter's spec, then shard the largest still-free
     dim over the DP axes where it divides (unless the parameter is already
-    DP-sharded: FSDP)."""
+    DP-sharded: FSDP).  A dim whose entry names only axes of size 1 is free
+    (``effective``): the optimizer slices it as it does a dim no axis
+    names (``train/optimizer.moment_spec`` reads the held spec, and a
+    parameter no axis cuts is held whole, untagged)."""
     if params is None or mesh is None:
         return {"mu": dict(pspecs), "nu": dict(pspecs), "step": ()}
     shapes = {k: tuple(t.shape) for k, t in _named_tensors(params).items()}
-    moments = {k: _widen(s, shapes[k], mesh) for k, s in pspecs.items()}
+    moments = {k: _widen(s if sharded(s, mesh) else effective(s, mesh), shapes[k], mesh)
+               for k, s in pspecs.items()}
     return {"mu": moments, "nu": dict(moments), "step": ()}
 
 
@@ -492,14 +497,15 @@ def local(t: torch.Tensor, spec: Optional[Spec], mesh: Mesh) -> torch.Tensor:
 
 
 @torch.no_grad()
-def _sum_in_lanes(t: torch.Tensor, lanes) -> torch.Tensor:
-    """``t`` (contiguous) summed over a subgroup's ranks in place, split into
-    one piece per lane (at least 1 MiB each), the pieces reduced at once."""
+def _sum_in_lanes(t: torch.Tensor, lanes, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` (contiguous) summed (or reduced by ``op``) over a subgroup's
+    ranks in place, split into one piece per lane (at least 1 MiB each), the
+    pieces reduced at once."""
     if _is_dry(lanes[0]):
         return t
     flat = t.view(-1)
     pieces = max(1, min(len(lanes), flat.numel() * flat.element_size() // 2**20))
-    works = [dist.all_reduce(c, group=g, async_op=True)
+    works = [dist.all_reduce(c, op=op, group=g, async_op=True)
              for c, g in zip(flat.chunk(pieces), lanes)]
     for w in works:
         w.wait()
@@ -579,13 +585,14 @@ def reduce_slice(t: torch.Tensor, axes: Tuple[str, ...], spec: Optional[Spec], m
     return local(all_reduce(t.contiguous(), axes, mesh), spec, mesh)
 
 
-def all_reduce(t: torch.Tensor, axes: Tuple[str, ...], mesh: Mesh) -> torch.Tensor:
+def all_reduce(t: torch.Tensor, axes: Tuple[str, ...], mesh: Mesh, op: str = "sum"
+               ) -> torch.Tensor:
     """Sum ``t`` (contiguous) over the ranks of ``axes`` in place (the
-    ``psum``)."""
+    ``psum``; ``op="max"``: the ``pmax``)."""
     n = math.prod(mesh.shape[a] for a in axes)
     if n > 1:
         lanes = mesh.lanes(axes)
-        _sum_in_lanes(t, lanes)
+        _sum_in_lanes(t, lanes, dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM)
         collectives["all_reduce"][0] += 1
         collectives["all_reduce"][1] += t.numel() * t.element_size()
         note("all_reduce", t.numel() * t.element_size(), n, _lanes_axes(lanes))
@@ -710,6 +717,17 @@ def grad_spec(g: torch.Tensor, shape, mesh: Mesh) -> Spec:
     return tg[0] if tg is not None else shard_zero1(shape, mesh)
 
 
+def param_grad_spec(name: str, p: torch.Tensor, mesh: Mesh) -> Spec:
+    """The spec of the ZeRO-2 slice the train step pays the gradient of
+    parameter ``name`` into, before any gradient exists: a held expert
+    stack's own shard (``models/moe`` gathers it with :func:`gather_data`),
+    else ``shard_zero1``'s of the whole shape."""
+    tg = getattr(p, "_shard", None)
+    if tg is not None and ".moe.experts." in name:
+        return tg[0]
+    return shard_zero1(full_shape(p), mesh)
+
+
 class _CopyTo(torch.autograd.Function):
     """Megatron's f: identity forward; backward all-reduces each cotangent
     over ``axes`` (in float64, cast back once)."""
@@ -807,6 +825,37 @@ def head_local(fn: Callable, q: torch.Tensor, k: Optional[torch.Tensor],
     return _all_gather(o.contiguous(), mesh.lanes(_axes(e)), n, 2)
 
 
+class _HeadSlice(torch.autograd.Function):
+    """This rank's ``n``-th piece ``i`` of ``t`` along ``dim`` (its heads);
+    backward: the pieces' cotangents gathered whole along ``dim`` (each
+    rank's covers its own heads), so every rank holds the whole cotangent,
+    as it holds the whole input."""
+
+    @staticmethod
+    def forward(ctx, t, dim, lanes, n, i):
+        ctx.dim, ctx.lanes, ctx.n = dim, lanes, n
+        size = t.shape[dim] // n
+        return t.narrow(dim, i * size, size).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g.contiguous(), ctx.lanes, ctx.n, ctx.dim), None, None, None, None
+
+
+class _HeadGather(torch.autograd.Function):
+    """Every rank's heads' output ``(B, T, h, ...)`` gathered along the head
+    axis; backward: the cotangent's slice of this rank's heads."""
+
+    @staticmethod
+    def forward(ctx, y, lanes, n, i):
+        ctx.i, ctx.h = i, y.shape[2]
+        return _all_gather(y.contiguous(), lanes, n, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[:, :, ctx.i * ctx.h:(ctx.i + 1) * ctx.h].contiguous(), None, None, None
+
+
 def head_state_local(fn: Callable, state: torch.Tensor, *xs: torch.Tensor,
                      per_head: Tuple[torch.Tensor, ...] = ()):
     """``fn(state, *xs, *per_head)`` on this rank's heads of the recurrent
@@ -816,18 +865,48 @@ def head_state_local(fn: Callable, state: torch.Tensor, *xs: torch.Tensor,
     ``fn`` gets the shard itself (untagged).  ``fn`` returns (the rank's new
     state, its output ``(B, T, h·N)`` for its ``h`` heads); the output
     gathers back along the head axis → (the new state shard, the whole
-    output ``(B, T, H·N)``).  The per-head recurrence is exact.  On a dry
-    rank the gather is recorded, not run."""
+    output ``(B, T, H·N)``).  The per-head recurrence is exact.  Under
+    autograd (a train cell) the output's gather passes back the cotangent
+    of this rank's heads, and each input's slice gathers its cotangent
+    whole again (every rank computed the inputs whole).  On a dry rank the
+    gathers are recorded, not run."""
     spec, mesh, shape = state._shard
     e = spec[1]
     n, i = _pieces(e, mesh), _index(e, mesh)
+    lanes = mesh.lanes(_axes(e))
     h = shape[1] // n
     w = xs[0].shape[-1] // shape[1] * h
-    new, y = fn(state[:], *(x[..., i * w:(i + 1) * w] for x in xs),
-                *(p[i * h:(i + 1) * h] for p in per_head))
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in xs + per_head)
+
+    def mine(t, dim):
+        if grad:
+            return _HeadSlice.apply(t, dim, lanes, n, i)
+        size = t.shape[dim] // n
+        return t.narrow(dim, i * size, size)
+
+    new, y = fn(state[:], *(mine(x, x.dim() - 1) for x in xs), *(mine(p, 0) for p in per_head))
     b, t = y.shape[:2]
-    y = _all_gather(y.reshape(b, t, h, -1).contiguous(), mesh.lanes(_axes(e)), n, 2)
+    y = y.reshape(b, t, h, -1)
+    y = _HeadGather.apply(y, lanes, n, i) if grad and y.requires_grad else \
+        _all_gather(y.contiguous(), lanes, n, 2)
     return new, y.reshape(b, t, -1)
+
+
+def fresh_head_state(batch: int, n_heads: int, head_dim: int, device) -> Optional[torch.Tensor]:
+    """A zero RWKV6 ``S`` ``(batch, H, N, N)`` for a pass without a cache (a
+    train cell's forward) held on its heads as a cell holds its cache's
+    (``cache_specs``): this rank's ``H / model`` heads, tagged, so that the
+    recurrence runs on them (:func:`head_state_local`).  None off a mesh or
+    where ``model`` does not divide the heads (the recurrence runs whole)."""
+    mesh = _context_mesh()
+    if mesh is None or not mesh.bound or "model" not in mesh.shape:
+        return None
+    m = mesh.shape["model"]
+    if m == 1 or n_heads % m:
+        return None
+    spec = (None, "model", None, None)
+    s = torch.zeros(batch, n_heads // m, head_dim, head_dim, dtype=torch.float32, device=device)
+    return tag(s, spec, mesh, (batch, n_heads, head_dim, head_dim))
 
 
 @contextlib.contextmanager

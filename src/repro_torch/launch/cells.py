@@ -38,19 +38,24 @@ Every family serves sharded: the decoder-only attention families (dense,
 MoE, VLM text), the recurrent ones (RWKV6's ``S`` held on its heads,
 ``models/rwkv6.py``; every other recurrent state on its batch rows;
 RecurrentGemma-2B's one-KV-head ring on its sequence) and the
-encoder-decoder (an encoder-decoder prefill cell's ``frame_embeds`` are
-seeded from ``(seed, "frame_embeds")`` and cut to the rank's batch, as
-``tokens`` are; its self and cross K/V held on heads).  The dense and MoE
-families train sharded: an MoE train cell holds each expert stack
+encoder-decoder (an encoder-decoder prefill or train cell's
+``frame_embeds`` are seeded from ``(seed, "frame_embeds")`` and cut to the
+rank's batch, as ``tokens`` are; its self and cross K/V held on heads).
+Every family trains sharded: an MoE train cell holds each expert stack
 FSDP-style (``D`` on the DP axes, ``d_ff`` on ``model``), which
 ``_moe_shard_map`` gathers over the DP axes alone
 (``sharding.gather_data``), its backward paying the rank's slice into the
-ZeRO-2 accumulator.  A train cell of a recurrent or encoder-decoder model
-raises ``NotImplementedError`` when it runs (``transformer.
-check_trainable``, ``encdec.forward``, ROADMAP A3b): the dry-run reports
-these cells ``unported``.  A mesh of more than
-one rank that is neither bound nor a dry rank raises: a cell never runs on
-one rank in place of its mesh.
+ZeRO-2 accumulator; an RWKV6 train cell runs each layer's recurrence on the
+rank's heads from a zero state held on them
+(``sharding.fresh_head_state``), its output's gather passing back the
+rank's heads' cotangent; RecurrentGemma-2B's attention, whose 10 query
+heads and one KV head ``model`` does not divide, runs whole on every rank,
+as its serving cell's does; an encoder-decoder train cell draws its tokens
+from ``lm_batch`` each step beside the frames it holds.  A W8A8 model does
+not train (``transformer.check_trainable``).  A cell the port refuses with
+``NotImplementedError`` would be reported ``unported`` by the dry-run; none
+is today.  A mesh of more than one rank that is neither bound nor a dry
+rank raises: a cell never runs on one rank in place of its mesh.
 """
 from __future__ import annotations
 
@@ -209,8 +214,9 @@ class Cell:
         ``(seed, name)``, K/V rows ``>= filled`` zero, ``pos`` = ``filled``,
         default ``seq_len - 1``), ``tokens`` (prefill and decode; train
         cells draw ``lm_batch`` per step in :meth:`run`) and an
-        encoder-decoder prefill's ``frame_embeds``.  On ``device="meta"``
-        every tensor is a shape only: nothing is seeded or filled."""
+        encoder-decoder prefill's or train cell's ``frame_embeds``.  On
+        ``device="meta"`` every tensor is a shape only: nothing is seeded or
+        filled."""
         self._check_mesh()
         device = common.resolve_device(device)
         dry = device.type == "meta"
@@ -233,6 +239,17 @@ class Cell:
             owner._parameters[leaf] = self._hold(t, spec, like.shape)
         params._holds_shards = self.mesh.size > 1
         state = {"params": params, "model": build_model(self.cfg, device=device)}
+        at = {"train": 2, "prefill": 1}.get(self.shape.kind)
+        fe = None if at is None else self.args[at].get("frame_embeds")
+        if fe is not None:
+            if dry:
+                frames = torch.empty(tuple(fe.shape), dtype=fe.dtype, device=device)
+            else:
+                gen = torch.Generator(device=device).manual_seed(_seed(seed, "frame_embeds"))
+                frames = torch.randn(tuple(fe.shape), generator=gen,
+                                     device=device).to(fe.dtype)
+            state["frame_embeds"] = self._local(frames,
+                                                self.in_shardings[at]["frame_embeds"].spec)
         if train:
             with shd.mesh_scope(self.mesh) if self.mesh.bound else contextlib.nullcontext():
                 state["opt"] = adamw_init(trainable_params(params))
@@ -245,15 +262,6 @@ class Cell:
             tokens = torch.randint(0, self.cfg.vocab_size, tuple(tok.shape), generator=gen,
                                    device=device, dtype=torch.int32)
         state["tokens"] = self._local(tokens, self._bspec())
-        fe = self.args[1].get("frame_embeds") if self.shape.kind == "prefill" else None
-        if fe is not None:
-            if dry:
-                frames = torch.empty(tuple(fe.shape), dtype=fe.dtype, device=device)
-            else:
-                gen = torch.Generator(device=device).manual_seed(_seed(seed, "frame_embeds"))
-                frames = torch.randn(tuple(fe.shape), generator=gen,
-                                     device=device).to(fe.dtype)
-            state["frame_embeds"] = self._local(frames, self.in_shardings[1]["frame_embeds"].spec)
         state["cache"] = self._cache(seed, device, filled)
         return state
 
@@ -304,8 +312,9 @@ class Cell:
     def run(self, state: Dict[str, Any], step: int = 0, data_seed: int = 0):
         """Execute the cell's step on this rank's ``state`` (in place).
         Train: step ``step`` on ``lm_batch`` of that step (this rank's DP
-        slice) → metrics.  Prefill: the one-shot prefill of ``tokens`` (and
-        an encoder-decoder's ``frame_embeds``) →
+        slice; an encoder-decoder's with the frames it holds) → metrics.
+        Prefill: the one-shot prefill of ``tokens`` (and an
+        encoder-decoder's ``frame_embeds``) →
         (last-token logits ``(B, V)``, cache).  Decode: one step of
         ``tokens`` → (logits ``(B, V)``, cache); the logits are whole over
         the batch on every rank."""
@@ -321,6 +330,8 @@ class Cell:
                                                 self.shape.global_batch, data_seed), step,
                                      device=model.device)
                 batch = {k: self._local(v, self._bspec()) for k, v in batch.items()}
+                if "frame_embeds" in state:         # an encoder-decoder's, held
+                    batch["frame_embeds"] = state["frame_embeds"]
                 _, state["opt"], metrics = self.step(params, state["opt"], batch)
                 return metrics
             if self.shape.kind == "prefill":

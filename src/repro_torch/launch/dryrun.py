@@ -29,10 +29,10 @@ hand kernel's count of units) and ``collectives`` (the runtime's tallies:
 cell, which a rank draws each step).
 
 Statuses: ``ok``; ``skipped`` (``long_500k`` on full attention, as the
-reference); ``unported``: a cell the port refuses today with
-``NotImplementedError`` (a train cell of a recurrent or encoder-decoder
-model, ROADMAP A3b), with the refusal's text, counted
-apart; ``FAIL`` (exit 1).
+reference); ``unported``: a cell the port refuses with
+``NotImplementedError``, with the refusal's text, counted apart (none
+since every family trains; the status stays for a later gap); ``FAIL``
+(exit 1).
 The sweep covers ``ARCH_IDS`` and ``PAPER_ARCH_IDS`` (13 archs; the
 reference's default is the 10 of ``ARCH_IDS``).  The policy is the
 reference's (``paper_policy(8, 16, cfg.qgate_skip_layers)``) on the

@@ -12,12 +12,14 @@ on the GPU the pruned projections of ``--sparse-train`` run the
 the CLI raises.  Training runs dense by default (the paper confines
 sparsity to prefill); ``--sparse-train`` makes the ``--sparsity`` policy
 active in the training forward too.  ``--smoke`` takes the reduced config.
-The weights are random from seed 0; the dense and MoE families train
-(``--arch qwen3_30b_a3b``, ``mixtral_8x7b``, ``llama4_scout_17b_a16e``; under
-``--sparse-train`` the routed experts' gate and down inputs run the
-``nm_prune`` kernel under its ``torch.autograd.Function``); the recurrent
-and encoder-decoder families and W8A8 projections raise
-``NotImplementedError``, ROADMAP A3b.
+The weights are random from seed 0; the dense, MoE and recurrent families
+train (``--arch qwen3_30b_a3b``, ``mixtral_8x7b``, ``llama4_scout_17b_a16e``:
+under ``--sparse-train`` the routed experts' gate and down inputs run the
+``nm_prune`` kernel under its ``torch.autograd.Function``; ``rwkv6_7b``,
+``recurrentgemma_2b``: the WKV and RG-LRU recurrences under autograd).  The
+encoder-decoder (``whisper_medium``) raises ``KeyError`` in its forward, as
+the reference's CLI does: ``lm_batch`` carries no ``frame_embeds`` (it
+trains through ``make_train_step`` and its cell, ``launch/cells.py``).
 """
 from __future__ import annotations
 

@@ -64,7 +64,7 @@ from repro_torch.layers.linear import dense_linear, init_linear, sparse_linear
 from repro_torch.models import common
 from repro_torch.models.attention import attention
 from repro_torch.models.transformer import (_dense_attention, _dense_index, _local_shards,
-                                            _slab_rows, _top)
+                                            _slab_rows, _top, check_trainable)
 
 __all__ = ["EncDec", "check_supported", "layer_kinds", "init_params", "init_cache",
            "paged_kv_spec", "pools_anything", "forward", "prefill", "prefill_chunk",
@@ -342,11 +342,17 @@ def forward(cfg: ModelConfig, params: EncDec, batch: Dict, *, policy: SparsityPo
             phase: str = "train") -> torch.Tensor:
     """Encoder over ``batch["frame_embeds"]``, then the causal decoder over
     ``batch["tokens"] (B, T)`` without a cache → ``(B, T, V)`` logits.  The
-    phase defaults to ``"train"``, as the reference's does.  Training is
-    not ported: under grad mode with parameters that require grad it raises
-    ``NotImplementedError`` (ROADMAP A3b)."""
-    if torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters()):
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder training: ROADMAP A3b")
+    phase defaults to ``"train"``, as the reference's does; autograd
+    records the pass where grad is enabled and the parameters require it,
+    without remat, as the reference's forward has none (a W8A8 model
+    raises, ``transformer.check_trainable``).  A batch without
+    ``frame_embeds`` (a tokens-only ``lm_batch``) raises ``KeyError`` where
+    the reference's forward fails on it."""
+    check_trainable(cfg, params)
+    if "frame_embeds" not in batch:
+        raise KeyError(f"{cfg.name}: the encoder-decoder's forward needs batch['frame_embeds'] "
+                       "(B, encoder_seq, d_model) beside the tokens; a tokens-only batch "
+                       "(data.pipeline.lm_batch) carries none")
     with _top(params, _STACKS):
         enc_out = _encode(cfg, params, batch["frame_embeds"], policy, phase)
         h = _embed_dec(cfg, params, batch["tokens"], None)

@@ -27,10 +27,13 @@ form (:func:`wkv_chunked`) where the reference runs a sequential
 ``lax.scan``: the same function, in sub-chunks of 16 tokens.  Within a
 sub-chunk every pairwise decay is ``exp(c_{t-1} - c_s)`` of the
 sub-chunk's own cumulative log decays (never above 1, never a division by
-a decay product), so it is as stable as the step loop; one state update
-per sub-chunk carries the state across.  It runs ~57 launches a layer for
-a 256-token chunk where the token loop (:func:`wkv_scan`, its plain twin,
-which the tests hold it to) runs 769.  The recurrence is plain torch: the
+a decay product), so it is as stable as the step loop.  The states
+leaving the sub-chunks are one linear recurrence over them, evaluated by
+doubling in log2 of their count levels: ~57 launches a layer for a
+256-token chunk (its 16 sub-chunks: 4 levels), where the token loop
+(:func:`wkv_scan`, its plain twin, which the tests hold it to) runs 769,
+and a 4096-token training row records 8 levels where a loop over its 256
+sub-chunks would record 256 steps and their backward.  The recurrence is plain torch: the
 JAX package computes it outside any Pallas kernel (a chunked WKV kernel is
 future work there too).  :func:`rwkv6_block` returns the new state out of
 place; the model writes it into its cache.
@@ -201,13 +204,24 @@ def wkv_chunked(S: torch.Tensor, r, k, v, lw, u: torch.Tensor, n_heads: int,
     att = (rh[..., :, None, :] * kh[..., None, :, :] * pair).sum(-1)       # (.., L, L)
     bonus = (rh * u[None, :, None, None, :] * kh).sum(-1, keepdim=True) * vh
     into = (kh * (c[..., -1:, :] - c).exp()).transpose(-1, -2) @ vh       # (.., N, N)
-    decay = c[..., -1, :].exp()
-    entered = []
-    for j in range(n):
-        entered.append(S)
-        S = torch.addcmul(into[:, :, j], decay[:, :, j, :, None], S)
-    y = att @ vh + (rh * c_prev.exp()) @ torch.stack(entered, 2) + bonus
-    return S, y.permute(0, 2, 3, 1, 4).reshape(b, n * size, d)[:, :t]
+    decay = c[..., -1, :, None].exp()                                    # (.., n, N, 1)
+    # the states leaving each sub-chunk, S_j = decay_j ⊙ S_{j-1} + into_j
+    # from S_{-1} = S, by Hillis-Steele doubling over the sub-chunks (log2(n)
+    # levels, as rglru._rglru_scan): a level at offset s composes each
+    # position with the one s before it
+    out = torch.cat([torch.addcmul(into[:, :, :1], decay[:, :, :1], S[:, :, None]),
+                     into[:, :, 1:]], 2)
+    step = 1
+    while step < n:
+        out = torch.cat([out[:, :, :step],
+                         torch.addcmul(out[:, :, step:], decay[:, :, step:],
+                                       out[:, :, :-step])], 2)
+        if 2 * step < n:
+            decay = torch.cat([decay[:, :, :step], decay[:, :, step:] * decay[:, :, :-step]], 2)
+        step *= 2
+    entered = torch.cat([S[:, :, None], out[:, :, :-1]], 2)
+    y = att @ vh + (rh * c_prev.exp()) @ entered + bonus
+    return out[:, :, -1], y.permute(0, 2, 3, 1, 4).reshape(b, n * size, d)[:, :t]
 
 
 def _shift(prev: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -539,9 +539,12 @@ def _write_state(cache: Optional[Dict], index: Optional[Dict], new: Dict) -> Non
 
 def _recurrent_apply(cfg: ModelConfig, kind: str, h: torch.Tensor, p, policy: SparsityPolicy,
                      phase: str, layer_idx: int, cache: Optional[Dict],
-                     index: Optional[Dict]) -> torch.Tensor:
-    """An ``rwkv6`` or ``rglru`` layer (``repro/models/transformer.py:390-405``)."""
-    state = _read_state(cache, index)
+                     index: Optional[Dict], state: Optional[Dict] = None) -> torch.Tensor:
+    """An ``rwkv6`` or ``rglru`` layer (``repro/models/transformer.py:390-405``);
+    ``state``: the state to start from where there is no cache (default
+    zeros)."""
+    if cache is not None:
+        state = _read_state(cache, index)
     if kind == "rwkv6":
         h, new = rwkv6_block(h, p.rwkv, policy, phase, cfg.n_heads, state, layer_idx)
     else:
@@ -634,9 +637,19 @@ def _sharded_block(cfg, h, blk, policy, phase, i, layer, positions, index=None):
 def _sharded_recurrent(cfg, kind, h, blk, policy, phase, i, layer, index):
     """A recurrent layer of a sharded model, its shards gathered for the
     layer alone; its state is read and written as the cell holds it
-    (RWKV6's ``S`` on the rank's heads, the rest on its batch rows)."""
+    (RWKV6's ``S`` on the rank's heads, the rest on its batch rows).
+    Without a cache (a train cell) RWKV6 starts from zeros held on the
+    rank's heads (``sharding.fresh_head_state``), as the reference's pjit
+    shards the scan's carry."""
+    state = None
+    if layer is None and kind == "rwkv6":
+        s = sharding.fresh_head_state(h.shape[0], cfg.n_heads, cfg.d_model // cfg.n_heads,
+                                      h.device)
+        if s is not None:
+            state = {"tm_shift": h.new_zeros(h.shape[0], cfg.d_model),
+                     "cm_shift": h.new_zeros(h.shape[0], cfg.d_model), "S": s}
     with sharding.gathered(blk, _local_shards(blk, policy, phase, i, KERNEL_COLUMNS[kind])):
-        return _recurrent_apply(cfg, kind, h, blk, policy, phase, i, layer, index)
+        return _recurrent_apply(cfg, kind, h, blk, policy, phase, i, layer, index, state)
 
 
 def _remat_context():
@@ -663,13 +676,17 @@ def _run_blocks(cfg, params: Transformer, h, policy, phase, cache, positions,
     # (repro/models/transformer.py:497-530): under "train" with cfg.remat and
     # autograd recording, each block keeps only its input and is run again
     # in the backward
+    # (a recurrent layer's new state is dropped there: no cache takes it)
     remat = cfg.remat and phase == "train" and cache is None and torch.is_grad_enabled()
     sharded = sharding.is_sharded(params)
     apply = _sharded_block if sharded else _attn_block_apply
     recurrent = _sharded_recurrent if sharded else _recurrent_apply
     for i, (kind, blk) in enumerate(zip(layer_kinds(cfg), params.blocks)):
         layer = None if cache is None else cache["layers"][i]
-        if kind != "attn":
+        if kind != "attn" and remat:
+            h = checkpoint(recurrent, cfg, kind, h, blk, policy, phase, i, None, None,
+                           use_reentrant=False, context_fn=_remat_context)
+        elif kind != "attn":
             h = recurrent(cfg, kind, h, blk, policy, phase, i, layer, index)
         elif remat:
             h = checkpoint(apply, cfg, h, blk, policy, phase, i, None, positions,
@@ -688,19 +705,20 @@ def _lm_logits(cfg: ModelConfig, params: Transformer, h: torch.Tensor) -> torch.
 
 # ------------------------------------------------------------------ entries
 
-def check_trainable(cfg: ModelConfig, params: Transformer) -> None:
+def check_trainable(cfg: ModelConfig, params: nn.Module) -> None:
     """Raise ``NotImplementedError`` where autograd would record a forward
-    that the port does not train: a recurrent layer or a W8A8
-    (``QuantLinear``) projection, an MoE's included, with parameters that
-    require grad, under grad mode (ROADMAP A3b).  The dense and MoE families
-    train; without grad, every family runs as it serves."""
+    through a W8A8 (``QuantLinear``) projection, an MoE's or an
+    encoder-decoder's included, with parameters that require grad, under
+    grad mode: its int8 weights have no float counterpart to train, and the
+    reference trains none either (its trainer never quantizes, and
+    ``jax.grad`` over the int8 ``wq`` leaves fails).  Every family trains in
+    the model dtype; without grad a W8A8 model runs as it serves."""
     if not torch.is_grad_enabled() or not any(p.requires_grad for p in params.parameters()):
         return
-    what = ("a recurrent layer" if set(layer_kinds(cfg)) != {"attn"} else
-            "a W8A8 projection" if any(isinstance(m, QuantLinear) for m in params.modules())
-            else None)
-    if what is not None:
-        raise NotImplementedError(f"{cfg.name}: {what} training: ROADMAP A3b")
+    if any(isinstance(m, QuantLinear) for m in params.modules()):
+        raise NotImplementedError(
+            f"{cfg.name}: a W8A8 projection does not train: its int8 weights have no "
+            "gradient, and the reference trains no quantized model either")
 
 
 def forward(cfg: ModelConfig, params: Transformer, batch: Dict, *,
@@ -708,8 +726,8 @@ def forward(cfg: ModelConfig, params: Transformer, batch: Dict, *,
     """Full-sequence causal pass without a cache → (B, T, V) logits.  The
     phase defaults to ``"train"``, as the reference's does, so a policy
     whose phases omit it leaves the pass dense.  Autograd records the pass
-    when grad is enabled and the parameters require it (the dense and MoE
-    families; :func:`check_trainable` says what raises)."""
+    when grad is enabled and the parameters require it (every family;
+    :func:`check_trainable` says what raises)."""
     check_trainable(cfg, params)
     tokens = batch["tokens"]
     b, t = tokens.shape

@@ -1,8 +1,9 @@
 """Training of the port (port of ``repro/train``): AdamW with the cosine
 schedule (``optimizer.py``), the train step (``train_step.py``) and the
-auto-resuming trainer (``trainer.py``).  The dense and MoE families train;
-the recurrent and encoder-decoder families and W8A8 projections raise
-(ROADMAP A3b)."""
+auto-resuming trainer (``trainer.py``).  Every family trains (the
+encoder-decoder through ``make_train_step``: ``lm_batch`` carries no frame
+embeddings); a W8A8 projection raises (``models.transformer.
+check_trainable``)."""
 from repro_torch.train.optimizer import OptConfig, adamw_init, adamw_update, cosine_lr
 from repro_torch.train.train_step import (loss_fn, make_train_step, make_trainable,
                                           trainable_params)

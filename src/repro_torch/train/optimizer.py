@@ -37,7 +37,7 @@ import torch
 from repro_torch.distributed import sharding
 
 __all__ = ["OptConfig", "adamw_init", "adamw_update", "cosine_lr", "decays",
-           "global_norm", "moment_spec", "spec_of", "zero_norm"]
+           "global_norm", "moment_spec", "spec_of", "tail_layers", "zero_norm"]
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -80,18 +80,36 @@ def global_norm(tree: Tensors) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def decays(name: str, p: torch.Tensor) -> bool:
+_STACKED = ("blocks", "enc_blocks", "dec_blocks")
+
+
+def decays(name: str, p: torch.Tensor, tail: Tuple[int, ...] = ()) -> bool:
     """Whether AdamW decays the parameter ``name``.
 
     The reference decays a leaf with ``p.ndim >= 2``
-    (``repro/train/optimizer.py:86``) on its scan-stacked tree, where every
-    per-layer leaf carries a leading layer axis: a layer's norm weights and
-    biases are ``(n_layers, d)`` there and are decayed, as are the
-    embedding and the LM head; only the top-level 1-D leaves
-    (``final_norm``) are not.  The port keeps one tensor a layer, so the
-    rule reads the reference's rank: every leaf under ``blocks.``, and any
-    other of rank 2 or more."""
-    return name.startswith("blocks.") or p.dim() >= 2
+    (``repro/train/optimizer.py:86``) on its stacked tree, where every
+    per-layer leaf carries a leading layer axis (the scan-stacked periods,
+    an encoder-decoder's vmap-stacked ``enc_blocks`` / ``dec_blocks``): a
+    layer's norm weights and biases are ``(n_layers, d)`` there and are
+    decayed, as are the embedding and the LM head; the top-level 1-D leaves
+    (``final_norm``) are not, nor are those of the layers in its unrolled
+    tail (the ``n_layers % len(block_pattern)`` layers past the last
+    period: ``tail``, their indices).  The port keeps one tensor a layer, so
+    the rule reads the reference's rank: every leaf of a stacked layer, and
+    any other of rank 2 or more."""
+    stack, _, rest = name.partition(".")
+    if stack in _STACKED and not (stack == "blocks" and int(rest.split(".", 1)[0]) in tail):
+        return True
+    return p.dim() >= 2
+
+
+def tail_layers(cfg) -> Tuple[int, ...]:
+    """The layers of ``cfg`` that the reference keeps out of its stacked
+    periods (its ``tail``): :func:`decays`' ``tail``."""
+    if cfg.is_encdec:
+        return ()
+    stacked = cfg.n_layers // len(cfg.block_pattern) * len(cfg.block_pattern)
+    return tuple(range(stacked, cfg.n_layers))
 
 
 def _zero_mesh():
@@ -167,8 +185,8 @@ def zero_norm(grads: Tensors, mesh) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptConfig, grads: Tensors, opt_state: Dict, params: Tensors
-                 ) -> Tuple[Tensors, Dict]:
+def adamw_update(cfg: OptConfig, grads: Tensors, opt_state: Dict, params: Tensors,
+                 tail: Tuple[int, ...] = ()) -> Tuple[Tensors, Dict]:
     """One AdamW step with global-norm clipping → ``(params, opt_state)``.
 
     The clip scale ``min(1, clip_norm / (gnorm + 1e-9))`` multiplies the
@@ -177,10 +195,11 @@ def adamw_update(cfg: OptConfig, grads: Tensors, opt_state: Dict, params: Tensor
     new tensor.  Under a bound mesh ``grads`` are the accumulator's ZeRO-2
     slices (``sharding.grad_spec``: ``shard_zero1`` of each whole gradient's
     shape, or an expert stack's own shard) and the update runs on ZeRO-1
-    slices (module docstring)."""
+    slices (module docstring).  ``tail``: the model's layers outside the
+    reference's stacked periods (:func:`tail_layers`, :func:`decays`)."""
     mesh = _zero_mesh()
     if mesh is not None:
-        return _zero_update(cfg, grads, opt_state, params, mesh)
+        return _zero_update(cfg, grads, opt_state, params, mesh, tail)
     step = opt_state["step"] + 1
     lr = cosine_lr(cfg, step)
     gnorm = global_norm(grads)
@@ -199,14 +218,14 @@ def adamw_update(cfg: OptConfig, grads: Tensors, opt_state: Dict, params: Tensor
         del g
         delta = (mu / b1t).div_(torch.sqrt(nu / b2t).add_(cfg.eps))
         p32 = p.float()
-        if decays(name, p):
+        if decays(name, p, tail):
             delta.add_(cfg.weight_decay * p32)
         p.copy_(p32 - lr * delta)
     return params, {"mu": mus, "nu": nus, "step": step}
 
 
-def _zero_update(cfg: OptConfig, grads: Tensors, opt_state: Dict, params: Tensors, mesh
-                 ) -> Tuple[Tensors, Dict]:
+def _zero_update(cfg: OptConfig, grads: Tensors, opt_state: Dict, params: Tensors, mesh,
+                 tail: Tuple[int, ...] = ()) -> Tuple[Tensors, Dict]:
     step = opt_state["step"] + 1
     lr = cosine_lr(cfg, step)
     gnorm = zero_norm(grads, mesh)
@@ -230,7 +249,7 @@ def _zero_update(cfg: OptConfig, grads: Tensors, opt_state: Dict, params: Tensor
         delta = (mu / b1t).div_(torch.sqrt(nu / b2t).add_(cfg.eps))
         extra = _extra(ospec, pspec, mesh)  # what ZeRO-1 cuts beyond the parameter's shard
         p32 = sharding.local(p.detach(), extra, mesh).float()
-        if decays(name, p):
+        if decays(name, p, tail):
             delta.add_(cfg.weight_decay * p32)
         new = (p32 - lr * delta).to(p.dtype)
         p.detach().copy_(sharding.gather(new, extra, mesh))

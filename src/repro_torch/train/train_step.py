@@ -22,8 +22,11 @@ reduce-scattered over the DP ranks onto ``sharding.shard_zero1``'s slice
 and divided by the DP degree and ``grad_accum`` (a cell's shards by the
 backward of their gather, ``sharding.gather_param``, which adds to the
 accumulator itself; whole parameters here).  The loss is the mean over the DP ranks;
-``optimizer.adamw_update`` takes the slices (ZeRO-1).  Off a mesh nothing
-of this runs.
+``optimizer.adamw_update`` takes the slices (ZeRO-1).  A ``compressor``
+takes the slices too, before the norm and the update, as the reference
+applies it before its optimizer: ``ef_int8_compress`` scales each slice by
+its whole leaf's absmax there (``distributed/compression.py``).  Off a mesh
+nothing of this runs.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ from torch import nn
 from repro_torch.core.policy import DENSE, SparsityPolicy
 from repro_torch.distributed import sharding
 from repro_torch.train.optimizer import (OptConfig, _zero_mesh, adamw_update, global_norm,
-                                         zero_norm)
+                                         tail_layers, zero_norm)
 
 __all__ = ["loss_fn", "make_train_step", "make_trainable", "trainable_params"]
 
@@ -81,8 +84,11 @@ def make_train_step(model, opt_cfg: OptConfig, policy: SparsityPolicy = DENSE,
       grad_accum:  microbatches per step (must divide the batch).
       compressor:  optional transform of the gradient dict before the
                    optimizer (e.g. a closure over
-                   ``distributed.compression.ef_int8_compress``).
+                   ``distributed.compression.ef_int8_compress``); under a
+                   bound mesh it gets the ZeRO-2 slices.
     """
+
+    tail = tail_layers(model.cfg)
 
     def compute_grads(params, named, batch):
         loss = loss_fn(model, params, batch, policy)
@@ -120,16 +126,16 @@ def make_train_step(model, opt_cfg: OptConfig, policy: SparsityPolicy = DENSE,
                 del p._zero2
         grads = {k: grads[k] for k in named}
         loss = sharding.all_reduce(loss, dp, mesh) / math.prod(mesh.shape[a] for a in dp)
+        if compressor is not None:
+            grads = compressor(grads)
         gnorm = zero_norm(grads, mesh)
-        _, new_opt = adamw_update(opt_cfg, grads, opt_state, named)
+        _, new_opt = adamw_update(opt_cfg, grads, opt_state, named, tail)
         return params, new_opt, {"loss": loss, "grad_norm": gnorm, "step": new_opt["step"]}
 
     def step_fn(params, opt_state, batch):
         named = trainable_params(params)
         mesh = _zero_mesh()
         if mesh is not None:
-            if compressor is not None:
-                raise NotImplementedError("gradient compression under a mesh")
             return zero_step(params, named, opt_state, batch, mesh)
         if grad_accum == 1:
             loss, grads = compute_grads(params, named, batch)
@@ -150,7 +156,7 @@ def make_train_step(model, opt_cfg: OptConfig, policy: SparsityPolicy = DENSE,
                 loss = loss + loss_i / grad_accum
         if compressor is not None:
             grads = compressor(grads)
-        _, new_opt = adamw_update(opt_cfg, grads, opt_state, named)
+        _, new_opt = adamw_update(opt_cfg, grads, opt_state, named, tail)
         metrics = {"loss": loss, "grad_norm": global_norm(grads), "step": new_opt["step"]}
         return params, new_opt, metrics
 

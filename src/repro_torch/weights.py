@@ -40,8 +40,8 @@ the shared expert's), RWKV6 and RG-LRU layers, and the encoder-decoder's
 two stacks.  ``absmax`` is keyed by each projection's place
 (:func:`projection_sites`).
 
-``named_from_jax(cfg, tree_np)`` maps any parameter-shaped tree of the
-dense family (parameters, gradients, AdamW's ``mu`` and ``nu``) onto the
+``named_from_jax(cfg, tree_np)`` maps any parameter-shaped tree of any
+family (parameters, gradients, AdamW's ``mu`` and ``nu``) onto the
 port's parameter names (``model.named_parameters()``), unstacked but not
 cast: ``from_jax_params`` casts to ``cfg.dtype``, which would round float32
 moments of a bf16 model.
@@ -62,7 +62,8 @@ from repro_torch.core.pruner import SCALE_KEY
 from repro_torch.layers.linear import Linear, QuantLinear
 from repro_torch.models import common, encdec, transformer
 
-__all__ = ["from_jax_params", "named_from_jax", "projection_sites", "quantize_linears"]
+__all__ = ["from_jax_params", "named_from_jax", "projection_sites", "quantize_linears",
+           "reference_leaves"]
 
 
 def _t(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -161,14 +162,13 @@ def from_jax_params(cfg: ModelConfig, params_np: Dict, device=None
 
 def named_from_jax(cfg: ModelConfig, tree_np: Dict) -> Dict[str, np.ndarray]:
     """``{port parameter name: array}`` of a parameter-shaped JAX tree of
-    the dense or MoE family (``blocks.{i}.`` + the layer's path, ``embed.w``,
-    ``final_norm.w``, ``lm_head.w``; an expert stack's ``w`` dropped, as
-    ``models/moe.Experts`` names it), each array as it is: no cast.  The
-    Amber scales are buffers in the port, not parameters, and are left
-    out."""
-    if cfg.is_encdec or set(transformer.layer_kinds(cfg)) != {"attn"}:
-        raise NotImplementedError(f"{cfg.name}: named_from_jax maps the dense and MoE "
-                                  "families' trees")
+    any family (``blocks.{i}.`` + the layer's path, RWKV6's and RG-LRU's
+    included, ``embed.w``, ``final_norm.w``, ``lm_head.w``; an expert
+    stack's ``w`` dropped, as ``models/moe.Experts`` names it; an
+    encoder-decoder's ``enc_blocks.{i}.`` and ``dec_blocks.{i}.`` +
+    the layer's path, ``enc_norm``, ``dec_norm``), each array as it is: no
+    cast.  The Amber scales are buffers in the port, not parameters, and
+    are left out."""
     out: Dict[str, np.ndarray] = {}
 
     def walk(prefix: str, d: Dict) -> None:
@@ -181,9 +181,39 @@ def named_from_jax(cfg: ModelConfig, tree_np: Dict) -> Dict[str, np.ndarray]:
                     name = name[:-len(".w")]
                 out[name] = np.asarray(v)
 
+    if cfg.is_encdec:
+        walk("", {k: v for k, v in tree_np.items() if k not in encdec._STACKS})
+        for stack, n in zip(encdec._STACKS, (cfg.n_encoder_layers, cfg.n_layers)):
+            for i in range(n):
+                walk(f"{stack}.{i}.", _take(tree_np[stack], i))
+        return out
     walk("", {k: v for k, v in tree_np.items() if k not in ("periods", "tail")})
     for i in range(cfg.n_layers):
         walk(f"blocks.{i}.", _layer_params(cfg, tree_np, i))
+    return out
+
+
+def reference_leaves(cfg: ModelConfig, names) -> Dict[str, str]:
+    """``{port parameter name: the JAX tree's leaf that holds it}``: a
+    layer's parameter is a row of its stacked leaf there (``periods`` block
+    ``b{i % len(pattern)}``, the unrolled ``tail``'s ``t{j}``, an
+    encoder-decoder's ``enc_blocks`` / ``dec_blocks``), every other the leaf
+    of its own name.  What the reference's per-tensor operations
+    (``distributed/compression.py``'s scale) take as one tensor."""
+    n_per, _ = transformer._n_periods(cfg)
+    plen = len(cfg.block_pattern)
+    out = {}
+    for name in names:
+        stack, _, rest = name.partition(".")
+        layer, _, path = rest.partition(".")
+        if stack in encdec._STACKS:
+            out[name] = f"{stack}.{path}"
+        elif stack == "blocks" and int(layer) >= n_per * plen:
+            out[name] = f"tail.t{int(layer) - n_per * plen}.{path}"
+        elif stack == "blocks":
+            out[name] = f"periods.b{int(layer) % plen}.{path}"
+        else:
+            out[name] = name
     return out
 
 

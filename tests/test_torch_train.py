@@ -522,10 +522,13 @@ def _w8a8(params):
     ("recurrentgemma_2b", "a recurrent layer"), ("whisper_medium", "encoder-decoder"),
     ("llama31_8b-w8a8", "a W8A8 projection")])
 def test_untrained_families_raise(arch, what):
-    """A recurrent model, the encoder-decoder and a W8A8 model (an MoE's
-    too) raise ``NotImplementedError`` (ROADMAP A3b) in a forward that
-    autograd would record; the same forward runs under ``no_grad`` and on
-    parameters that need no grad."""
+    """A W8A8 model (an MoE's too) raises ``NotImplementedError`` in a
+    forward that autograd would record, saying why (its int8 weights have
+    no gradient, and the reference trains no quantized model); the same
+    forward runs under ``no_grad`` and on parameters that need no grad.
+    The recurrent models and the encoder-decoder, which raised here until
+    they trained, take one train step on the same batch: a finite loss and
+    a finite, nonzero gradient on every trainable leaf."""
     model = build_model(tget(arch.split("-")[0]), device="cpu")
     params = model.init(0)
     if arch.endswith("w8a8"):
@@ -535,8 +538,25 @@ def test_untrained_families_raise(arch, what):
     make_trainable(params)
     with torch.no_grad():
         assert model.forward(params, batch).isfinite().all()
-    with pytest.raises(NotImplementedError, match=f"{what} training: ROADMAP A3b"):
-        model.forward(params, batch)
+    if what == "a W8A8 projection":
+        with pytest.raises(NotImplementedError, match=f"{what} does not train: its int8 "
+                                                      "weights have no gradient"):
+            model.forward(params, batch)
+        return
+    seen = {}
+
+    def record(grads):
+        seen.update(grads)
+        return grads
+
+    named = trainable_params(params)
+    step = make_train_step(model, OptConfig(lr=1e-3, warmup_steps=1), compressor=record)
+    tokens = torch.cat([batch["tokens"], batch["tokens"][:, :1]], 1)      # (1, 9): 8 targets
+    _, _, m = step(params, adamw_init(named), {**batch, "tokens": tokens})
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
+    assert set(seen) == set(named)
+    for k, g in seen.items():
+        assert g.isfinite().all() and (g != 0).any(), k
 
 
 DENSE_ARCHS = ["qwen2_7b", "qwen2_5_32b", "chatglm3_6b", "stablelm_3b", "granite_34b",
